@@ -5,11 +5,12 @@ kernel of that path to its plain torch version.
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card and nvcc.
-Phases, one JSON line each:
+Phases, one JSON line each (or one per shape):
 
 1. device  — the card's name and power limit (nvidia-smi); builds the
-             paged-attention kernel from csrc/ with nvcc and reports the
-             build seconds and ptxas' register/spill report.
+             kernels from csrc/ (paged_attention.cu, flash_attention.cu;
+             one nvcc each, started together) and reports the build
+             seconds and ptxas' register/spill report.
 2. kernel  — ``ops.paged_window_attention`` (the CUDA kernel) against
              ``ops.plain_window_attention`` on the card at the decode
              shapes (B in {1, 16}, T in {1, 4}, H=8, D=64, block 16,
@@ -26,6 +27,37 @@ Phases, one JSON line each:
              32 new tokens each). Checks every request completes, the
              kernel launched at least 6 times per decode step, and two
              streams equal greedy decoding by the full unpaged forward.
+4. flash   — the three flash-attention kernels (``flash_fwd``,
+             ``flash_bwd_dq``, ``flash_bwd_dkv``) against
+             ``plain_flash_forward`` / ``plain_flash_backward`` on the
+             card: the training path's shape (B=32, T=256, H=8, D=64)
+             unmasked, causal and key-masked (ragged tails), a ragged
+             cross shape (Tq=200, Tk=333), the long-context shape (B=4,
+             T=2048) plain and causal, in f32 and bf16, and D=128 once.
+             o within 1e-4 (f32) / 3e-2 (bf16), dq/dk/dv within 1e-3 /
+             3e-2 of their max magnitude (sums run in another order),
+             all finite. CUDA-event times of each kernel, its bound, the
+             plain versions and ``F.scaled_dot_product_attention``
+             (forward, and its backward alone).
+5. routes  — ``attn_impl="fused"`` (plain torch attention) against
+             ``"pallas"`` (the kernels), forward and forward+backward, at
+             T=256 and T=2048, key-masked and causal: the measurements a
+             card rule for ``attn_impl=None`` needs.
+6. training — ``transformer_base`` (vocab 32000, 6 layers, 8 heads,
+             d_model 512, FFN 2048, f32, dropout 0) + ``Adam`` +
+             ``Executor`` on ``CUDAPlace(0)``, B=32, T=256 with ragged
+             masks, from numpy-seeded weights, built twice: with
+             ``attn_impl="pallas"`` and ``"fused"``. Step 0's loss
+             (rel 1e-5) and the gradients of the source embedding, the
+             first encoder Q weight and the last decoder FFN weight
+             agree between the two, within 1e-3 of their max or twice
+             the distance between the fused step on the card and on the
+             host CPU (the f32 noise floor of that gradient); each flash
+             kernel launches exactly 18 times a step (one forward
+             pass); 10 Adam steps give finite losses ending below step
+             0's. Step
+             ms, tokens/s, peak memory, and one profiled step split by
+             kernel family with the device's idle share.
 
 Then the card's name and power limit, the kernels JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -58,6 +90,30 @@ MODEL = dict(vocab_size=32000, n_layer=6, n_head=8, d_model=512,
 N_REQUESTS = 16
 MAX_NEW = 32
 SEED = 0
+
+# Transformer-base training (bench.py's flagship step, f32, dense
+# embeddings, dropout 0): B=32 sentences of T=256 target tokens
+TRAIN_MODEL = dict(src_vocab_size=32000, trg_vocab_size=32000,
+                   max_length=256, n_layer=6, n_head=8, d_model=512,
+                   d_inner_hid=2048, dropout_rate=0.0)
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 32, 256, 10, 1e-4
+# 6 encoder self-attentions, 6 decoder self- and 6 cross-attentions
+ATTN_PER_STEP = 3 * TRAIN_MODEL["n_layer"]
+
+# flash-attention cases: (label, B, Tq, Tk, H, D, causal, key mask,
+# dtypes); the training path's shape, a ragged cross shape, the
+# long-context shape (bench.py BENCH_SEQ=2048, B=4), and D=128
+BOTH = (torch.float32, torch.bfloat16)
+FLASH_CASES = [
+    ("path", 32, 256, 256, 8, 64, False, False, BOTH),
+    ("path_causal", 32, 256, 256, 8, 64, True, False, BOTH),
+    ("path_masked", 32, 256, 256, 8, 64, False, True, BOTH),
+    ("cross", 32, 200, 333, 8, 64, False, True, BOTH),
+    ("long", 4, 2048, 2048, 8, 64, False, False, BOTH),
+    ("long_causal", 4, 2048, 2048, 8, 64, True, False, BOTH),
+    ("d128", 4, 512, 512, 4, 128, True, True, (torch.float32,)),
+]
+GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}  # of max |grad|
 
 
 def emit(obj) -> None:
@@ -96,16 +152,23 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
 # ---------------------------------------------------------------- phase 1
 
 
+KERNEL_SOURCES = ("paged_attention", "flash_attention")
+
+
 def phase_device():
-    from paddle_tpu_torch.ops import _cuda, paged_attention
+    from paddle_tpu_torch.ops import _cuda, flash_attention, paged_attention
 
     card = card_line()
     t0 = time.perf_counter()
-    paged_attention.build()
+    _cuda.build_all(KERNEL_SOURCES)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             _cuda.build_logs.get("paged_attention", "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    paged_attention.build()
+    flash_attention.build()
+    ptxas = {name: [ln.strip() for ln in
+                    _cuda.build_logs.get(name, "").splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "entry function" in ln]
+             for name in KERNEL_SOURCES}
     emit({"phase": "device", "card": card,
           "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -260,19 +323,27 @@ def build_model():
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         _, logits = causal_lm(**MODEL)
-    rng = np.random.RandomState(SEED)
+    scope = fluid.Scope()
+    fluid.params_from_numpy(seeded_weights(main), scope, fluid.CUDAPlace(0),
+                            program=main)
+    return main, logits, scope
+
+
+def seeded_weights(program, seed=SEED):
+    """Random weights for every parameter of ``program`` from a numpy
+    seed: layer-norm scales near 1, matrices N(0, 1/fan_in), embedding
+    tables and biases N(0, 0.02^2)."""
+    rng = np.random.RandomState(seed)
     arrays = {}
-    for p in main.all_parameters():
+    for p in program.all_parameters():
         if p.name.startswith("layer_norm") and ".w_" in p.name:
             a = 1.0 + 0.02 * rng.standard_normal(p.shape)
-        elif len(p.shape) == 2 and p.name != "lm_word_emb_table":
+        elif len(p.shape) == 2 and "emb_table" not in p.name:
             a = rng.standard_normal(p.shape) / math.sqrt(p.shape[0])
         else:
             a = 0.02 * rng.standard_normal(p.shape)
         arrays[p.name] = a.astype(np.float32)
-    scope = fluid.Scope()
-    fluid.params_from_numpy(arrays, scope, fluid.CUDAPlace(0), program=main)
-    return main, logits, scope
+    return arrays
 
 
 def phase_serving(card):
@@ -375,6 +446,379 @@ def check_oracle(main, logits, scope, prompts, streams):
                   "tokens_checked": len(streams[i]), "agree": True})
 
 
+# ---------------------------------------------------------------- phase 4
+
+
+def flash_inputs(B, Tq, Tk, H, D, masked, dtype, seed):
+    """q, k, v, dO on the card in ``dtype`` and a ``[B, Tk]`` f32 key
+    mask with ragged tails (every row keeps at least half its keys), or
+    None."""
+    rng = np.random.RandomState(seed)
+    dev = torch.device("cuda", 0)
+    t = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+    q, k, v, do = t(B, Tq, H, D), t(B, Tk, H, D), t(B, Tk, H, D), \
+        t(B, Tq, H, D)
+    mask = None
+    if masked:
+        lens = rng.randint(Tk // 2, Tk + 1, size=B)
+        mask = torch.from_numpy((np.arange(Tk)[None, :] < lens[:, None])
+                                .astype(np.float32)).to(dev)
+    return q, k, v, do, mask
+
+
+def flash_work(B, Tq, Tk, H, D, causal, mask, dtype):
+    """{kernel: (bound ms, bound_by)} for this run's inputs. Operations
+    count the valid (query, key) pairs — 4, 6 and 8 flops per pair and
+    head-dim element for the forward, dQ and dK/dV — at the card's peak
+    for the type; bytes count each input read once and each output
+    written once, over 3.35 TB/s."""
+    ok = (torch.ones(B, Tk, device="cuda") if mask is None
+          else (mask > 0).float())
+    per_key = (torch.clamp(Tq - torch.arange(Tk, device="cuda"), min=0)
+               .float() if causal else torch.full((Tk,), float(Tq),
+                                                 device="cuda"))
+    pairs = H * float((ok * per_key).sum())
+    item = torch.finfo(dtype).bits // 8
+    qb, kb = B * Tq * H * D * item, B * Tk * H * D * item
+    rows, mb = B * H * Tq * 4, (0 if mask is None else B * Tk * 4)
+    work = {"flash_fwd": (4 * D * pairs, qb + 2 * kb + mb + qb + rows),
+            "flash_bwd_dq": (6 * D * pairs,
+                             3 * qb + 2 * kb + rows + mb + qb + rows),
+            "flash_bwd_dkv": (8 * D * pairs,
+                              2 * qb + 2 * kb + 2 * rows + mb + 2 * kb)}
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops = ops / PEAK_OPS[dtype] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def sdpa_args(q, k, v, causal, mask):
+    """SDPA's [B, H, T, D] copies and its mask arguments (the copies are
+    made once, outside the timed calls)."""
+    hm = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+    kw = {}
+    if mask is not None:
+        m = (mask > 0)[:, None, None, :]
+        if causal:
+            Tq, Tk = q.shape[1], k.shape[1]
+            m = m & torch.ones(Tq, Tk, dtype=torch.bool,
+                               device=q.device).tril()[None, None]
+        kw["attn_mask"] = m
+    elif causal:
+        kw["is_causal"] = True
+    return hm, kw
+
+
+def check_flash(label, dtype, q, k, v, do, causal, mask):
+    """Run the three kernels once and hold them to the plain versions;
+    returns the errors, or fails."""
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv, flash_bwd_dq, flash_fwd, plain_flash_backward,
+        plain_flash_forward)
+
+    o, lse = flash_fwd(q, k, v, causal, None, mask)
+    dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal, None, mask)
+    dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, causal, None, mask)
+    torch.cuda.synchronize()
+    ro, rlse = plain_flash_forward(q, k, v, causal, None, mask)
+    rdq, rdk, rdv = plain_flash_backward(q, k, v, o, lse, do, causal, None,
+                                         mask)
+    errs = {"o": float((o.float() - ro.float()).abs().max()),
+            "lse": float((lse - rlse).abs().max())}
+    for name, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
+                            ("dv", dv, rdv)):
+        err = float((got.float() - want.float()).abs().max())
+        errs[name] = err
+        errs[name + "_rel"] = err / max(float(want.float().abs().max()),
+                                        1e-30)
+    for name, t in (("o", o), ("lse", lse), ("delta", delta), ("dq", dq),
+                    ("dk", dk), ("dv", dv)):
+        if not bool(torch.isfinite(t).all()):
+            fail("flash %s %s: %s is not finite" % (label, dtype, name))
+    if not (errs["o"] <= TOL[dtype] and errs["lse"] <= TOL[dtype]):
+        fail("flash %s %s: forward disagrees with the plain version: %s"
+             % (label, dtype, errs))
+    if not all(errs[n + "_rel"] <= GRAD_TOL[dtype] for n in ("dq", "dk",
+                                                              "dv")):
+        fail("flash %s %s: backward disagrees with the plain version: %s"
+             % (label, dtype, errs))
+    return errs, (o, lse, delta)
+
+
+def phase_flash():
+    from paddle_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv, flash_bwd_dq, flash_fwd, plain_flash_backward,
+        plain_flash_forward)
+
+    rows = []
+    for i, (label, B, Tq, Tk, H, D, causal, masked, dtypes) in \
+            enumerate(FLASH_CASES):
+        for dtype in dtypes:
+            q, k, v, do, mask = flash_inputs(B, Tq, Tk, H, D, masked, dtype,
+                                             seed=100 + i)
+            errs, (o, lse, delta) = check_flash(label, dtype, q, k, v, do,
+                                                causal, mask)
+            long = Tq * Tk > 10 ** 6
+            iters = 10 if long else 30
+            ms = {
+                "flash_fwd": cuda_ms(lambda: flash_fwd(
+                    q, k, v, causal, None, mask), iters),
+                "flash_bwd_dq": cuda_ms(lambda: flash_bwd_dq(
+                    q, k, v, o, lse, do, causal, None, mask), iters),
+                "flash_bwd_dkv": cuda_ms(lambda: flash_bwd_dkv(
+                    q, k, v, lse, delta, do, causal, None, mask), iters),
+            }
+            plain_fwd_ms = cuda_ms(lambda: plain_flash_forward(
+                q, k, v, causal, None, mask), 3, warmup=1)
+            plain_bwd_ms = cuda_ms(lambda: plain_flash_backward(
+                q, k, v, o, lse, do, causal, None, mask), 3, warmup=1)
+            (sq, sk, sv), kw = sdpa_args(q, k, v, causal, mask)
+            lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, **kw), iters)
+            gq, gk, gv = (x.detach().requires_grad_() for x in (sq, sk, sv))
+            out = F.scaled_dot_product_attention(gq, gk, gv, **kw)
+            g_out = do.transpose(1, 2).contiguous()
+            lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, (gq, gk, gv), g_out, retain_graph=True), iters)
+            del out
+            bounds = flash_work(B, Tq, Tk, H, D, causal, mask, dtype)
+            row = {"phase": "flash", "case": label,
+                   "dtype": str(dtype)[6:], "B": B, "Tq": Tq, "Tk": Tk,
+                   "H": H, "D": D, "causal": causal, "masked": masked,
+                   "errors": errs, "ms": ms,
+                   "bound_ms": {n: b[0] for n, b in bounds.items()},
+                   "bound_by": {n: b[1] for n, b in bounds.items()},
+                   "plain_fwd_ms": plain_fwd_ms,
+                   "plain_bwd_ms": plain_bwd_ms,
+                   "sdpa_fwd_ms": lib_fwd_ms, "sdpa_bwd_ms": lib_bwd_ms}
+            emit(row)
+            rows.append(row)
+            del q, k, v, do, mask, o, lse, delta, gq, gk, gv
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def phase_routes():
+    """Both attn_impl routes of the attention op on the same inputs
+    (f32): forward, and forward + backward."""
+    from paddle_tpu_torch.models.transformer import attention
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+
+    routes = {"fused": lambda q, k, v, m, c: attention(q, k, v, mask=m,
+                                                       causal=c),
+              "pallas": lambda q, k, v, m, c: flash_attention(
+                  q, k, v, causal=c, kv_mask=m)}
+    out = []
+    for B, T in ((TRAIN_B, TRAIN_T), (4, 2048)):
+        for kind in ("key_masked", "causal"):
+            causal = kind == "causal"
+            q, k, v, do, mask = flash_inputs(B, T, T, 8, 64, not causal,
+                                             torch.float32, seed=T)
+            gq, gk, gv = (x.detach().requires_grad_() for x in (q, k, v))
+            row = {"phase": "routes", "B": B, "T": T, "kind": kind}
+            for name, fn in routes.items():
+                def fwd():
+                    with torch.no_grad():
+                        fn(q, k, v, mask, causal)
+
+                row[name + "_fwd_ms"] = cuda_ms(fwd, 10)
+                row[name + "_fwd_bwd_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(
+                        fn(gq, gk, gv, mask, causal), (gq, gk, gv), do), 10)
+            emit(row)
+            out.append(row)
+            del q, k, v, do, mask, gq, gk, gv
+            torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def build_trainer(attn_impl):
+    """(main, startup, avg_cost) of Transformer-base + Adam."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import transformer_base
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, avg_cost, _ = transformer_base(**TRAIN_MODEL,
+                                          attn_impl=attn_impl)
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def train_batch(seed=SEED + 2):
+    """One batch of B sentences of T tokens, ragged source and target
+    tails (each keeps at least half its tokens)."""
+    rng = np.random.RandomState(seed)
+    V = TRAIN_MODEL["src_vocab_size"]
+    ids = lambda: rng.randint(1, V, size=(TRAIN_B, TRAIN_T))  # noqa: E731
+    mask = lambda: (np.arange(TRAIN_T)[None, :] < rng.randint(  # noqa: E731
+        TRAIN_T // 2, TRAIN_T + 1, size=TRAIN_B)[:, None]).astype(np.float32)
+    return {"src_word": ids(), "trg_word": ids(), "lbl_word": ids(),
+            "src_mask": mask(), "trg_mask": mask()}
+
+
+def _train_family(name: str) -> str:
+    low = name.lower()
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if kernel + "_kernel" in low:
+            return kernel
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if any(k in low for k in ("gemm", "gemv", "cutlass", "sm90_xmma",
+                              "matmul")):
+        return "matmul"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low:
+        return "elementwise"
+    return "other"
+
+
+def profile_step(run_step):
+    """One training step under torch.profiler: (host wall ms, device ms
+    by kernel family, kernel launches)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_family, launches = {}, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        fam = _train_family(e.name)
+        by_family[fam] = (by_family.get(fam, 0.0)
+                          + float(e.time_range.elapsed_us()) / 1e3)
+        launches += fam != "copies"
+    if not by_family:
+        fail("the profiler recorded no device activity")
+    return wall_ms, by_family, launches
+
+
+def grad_noise_floor(feed, fetch, checked, ref):
+    """{gradient: max |fused on the card - fused on the host| / its max}:
+    how far two correct f32 runs of the same step part when only the
+    order of their sums differs. Far from the loss this floor can
+    exceed 1e-3 of a gradient's max at this width (PERF.md has the
+    card's numbers), so the kernel route is held to the plain route
+    within twice the floor, and never looser than 1e-3."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, _ = build_trainer("fused")
+    scope, place = fluid.Scope(), fluid.CPUPlace()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    fluid.params_from_numpy(seeded_weights(main), scope, place,
+                            program=main)
+    host = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    return {name: float(np.abs(dev - cpu).max()
+                        / max(np.abs(cpu).max(), 1e-30))
+            for name, dev, cpu in zip(checked, ref[1:], host[1:])}
+
+
+def phase_training(card):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    launchers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    place = fluid.CUDAPlace(0)
+    feed = train_batch()
+    nets = {}
+    for impl in ("fused", "pallas"):
+        main, startup, cost = build_trainer(impl)
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        fluid.params_from_numpy(seeded_weights(main), scope, place,
+                                program=main)
+        nets[impl] = (main, cost, scope, exe)
+    fc_w = [p.name for p in nets["pallas"][0].all_parameters()
+            if p.name.startswith("fc.w_")]
+    # the source embedding, the first encoder Q weight and the last
+    # decoder FFN weight (the last fc weight is the vocab projection)
+    checked = ["src_word_emb_table", fc_w[0], fc_w[-2]]
+    fetch = [nets["pallas"][1].name] + [n + "@GRAD" for n in checked]
+
+    main, cost, scope, exe = nets["fused"]
+    ref = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    del nets["fused"], main, scope, exe
+    torch.cuda.empty_cache()
+    floor = grad_noise_floor(feed, fetch, checked, ref)
+
+    main, cost, scope, exe = nets["pallas"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in launchers:
+        fn.launches = 0
+    losses, step_s = [], []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, scope=scope,
+                      fetch_list=fetch if step == 0 else [cost])
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(out[0]))
+        if step == 0:
+            first = {fn.__name__: fn.launches for fn in launchers}
+            if any(n != ATTN_PER_STEP for n in first.values()):
+                fail("step 0 launched %s flash kernels, expected %d of "
+                     "each (one forward pass)" % (first, ATTN_PER_STEP))
+            loss_rel = abs(losses[0] - float(ref[0])) / abs(float(ref[0]))
+            grad_rel = {}
+            for name, got, want in zip(checked, out[1:], ref[1:]):
+                grad_rel[name] = float(np.abs(got - want).max()
+                                       / max(np.abs(want).max(), 1e-30))
+            if not loss_rel <= 1e-5:
+                fail("step-0 loss: pallas %r, fused %r (rel %g > 1e-5)"
+                     % (losses[0], float(ref[0]), loss_rel))
+            grad_tol = {n: max(GRAD_TOL[torch.float32], 2.0 * floor[n])
+                        for n in checked}
+            if not all(grad_rel[n] <= grad_tol[n] for n in checked):
+                fail("step-0 gradients disagree between the routes: %s "
+                     "(limits %s)" % (grad_rel, grad_tol))
+    launches = {fn.__name__: fn.launches for fn in launchers}
+    peak = torch.cuda.max_memory_allocated()
+    if any(n != ATTN_PER_STEP * TRAIN_STEPS for n in launches.values()):
+        fail("%d steps launched %s flash kernels, expected %d of each"
+             % (TRAIN_STEPS, launches, ATTN_PER_STEP * TRAIN_STEPS))
+    if not all(math.isfinite(x) for x in losses):
+        fail("non-finite training loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        fail("the loss did not fall over %d Adam steps: %s"
+             % (TRAIN_STEPS, losses))
+    steady = step_s[1:]
+    step_ms = float(np.mean(steady)) * 1e3
+    wall_ms, by_family, kernels = profile_step(
+        lambda: exe.run(main, feed=feed, fetch_list=[cost], scope=scope))
+    busy = sum(by_family.values())
+    emit({"phase": "training", "card": card, "batch": TRAIN_B,
+          "seq": TRAIN_T, "steps": TRAIN_STEPS, "losses": losses,
+          "step0_loss_rel_err": loss_rel, "step0_grad_rel_err": grad_rel,
+          "step0_grad_noise_floor": floor, "step0_grad_limit": grad_tol,
+          "step_ms_mean": step_ms,
+          "step_ms_p50": float(np.median(steady)) * 1e3,
+          "first_step_ms": step_s[0] * 1e3,
+          "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+          "max_memory_allocated": peak, "flash_launches": launches,
+          "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / wall_ms,
+          "device_idle_share_unprofiled": 1.0 - busy / step_ms,
+          "kernel_launches_per_step": kernels,
+          "device_ms_by_family": dict(sorted(by_family.items(),
+                                             key=lambda kv: -kv[1]))})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device is visible (torch.cuda.is_available() is "
@@ -391,12 +835,15 @@ def main():
 
     card = phase_device()
     rows = phase_kernel()
+    flash_rows = phase_flash()
+    phase_routes()
+    flash_launches = phase_training(card)
+    torch.cuda.empty_cache()
     launches = phase_serving(card)
 
     main_row = next(r for r in rows if r["B"] == 16 and r["T"] == 1
                     and r["dtype"] == "float32")
-    print(card_line(), flush=True)
-    emit({"kernels": [{
+    kernels = [{
         "name": "paged_window_attention",
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -408,7 +855,29 @@ def main():
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-    }]})
+    }]
+    # the training path's shape with its key mask, f32 (12 of the 18
+    # attention calls of a step are key-masked; PERF.md has the rest)
+    fr = next(r for r in flash_rows if r["case"] == "path_masked"
+              and r["dtype"] == "float32")
+    for name, line, err, plain, lib in (
+            ("flash_fwd", 184, fr["errors"]["o"], fr["plain_fwd_ms"],
+             fr["sdpa_fwd_ms"]),
+            ("flash_bwd_dq", 250, fr["errors"]["dq"], fr["plain_bwd_ms"],
+             fr["sdpa_bwd_ms"]),
+            ("flash_bwd_dkv", 298, max(fr["errors"]["dk"],
+                                       fr["errors"]["dv"]),
+             fr["plain_bwd_ms"], fr["sdpa_bwd_ms"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
+            "launches": flash_launches[name], "max_abs_err": err,
+            "ms": fr["ms"][name], "plain_ms": plain,
+            "bound_ms": fr["bound_ms"][name],
+            "bound_by": fr["bound_by"][name], "library_ms": lib})
+    print(card_line(), flush=True)
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

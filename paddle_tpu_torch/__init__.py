@@ -6,20 +6,30 @@ device, and every TPU kernel of paddle_tpu on a ported path is a kernel
 written by hand for NVIDIA Hopper (``csrc/``). Entry points run on
 ``CUDAPlace(0)`` unless the caller passes ``CPUPlace()``.
 
-The slice ported so far serves a causal LM through paged-KV decode::
+The slices ported so far serve a causal LM through paged-KV decode::
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.decoding import serve_decoding
 
+and train Transformer-base (``append_backward`` + ``Adam`` +
+``Executor``)::
+
+    from paddle_tpu_torch.models.transformer import transformer_base
+    with fluid.program_guard(main, startup):
+        feeds, avg_cost, _ = transformer_base(..., attn_impl="pallas")
+        fluid.optimizer.Adam(learning_rate=1e-4).minimize(avg_cost)
+
 This package imports neither jax nor paddle_tpu.
 """
 
-from . import layers
-from .convert import params_from_numpy
+from . import clip, layers, optimizer, regularizer
+from .backward import append_backward
+from .convert import params_from_numpy, state_from_numpy
 from .core import (CPUPlace, CUDAPlace, EnforceError, Operator, Parameter,
                    Program, Scope, Variable, default_main_program,
                    default_startup_program, global_scope, program_guard,
                    scope_guard, switch_main_program, switch_startup_program)
 from .core import unique_name
 from .executor import Executor
+from .optimizer import SGD, Adam, AdamOptimizer, SGDOptimizer
 from .param_attr import ParamAttr

@@ -1,0 +1,187 @@
+"""Reverse-mode autodiff over a Program (counterpart of
+paddle_tpu/backward.py), for dense parameters.
+
+``append_backward`` keeps the JAX package's programmatic contract: it
+appends ONE ``backward`` op with the slots ``Params`` and ``Inputs`` ->
+``Grads`` and the attr ``loss``, whose outputs are named
+``<param>@GRAD``, so gradients can be fetched by name and optimizers
+consume (param, grad) pairs.
+
+How the gradient is taken differs. In the JAX package the op's fn
+re-runs the forward slice inside ``jax.grad`` and XLA's CSE removes the
+duplicate under ``jit``; eager torch has no such pass, and the literal
+port would run every forward op twice per step. Here the Executor takes
+the gradient from the forward pass it has just run (executor.py): it
+runs the ops before ``backward`` with autograd on, over leaf aliases of
+the ``Params``, then executes ``backward`` as
+``torch.autograd.grad(loss, leaves)``. The op's fn only refuses to run
+anywhere else.
+
+Not ported yet (they raise): the row-sparse ``@GRAD@ROWS`` /
+``@GRAD@VALUES`` pair of ``embedding(is_sparse=True)`` tables,
+rematerialization, and ``calc_gradient``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from .core.enforce import EnforceError, enforce, not_ported
+from .core.program import Program, Variable
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def _grad_name(name: str) -> str:
+    return name + GRAD_SUFFIX
+
+
+class _ClipError(torch.autograd.Function):
+    """Identity whose backward clips the cotangent to [mn, mx] — the
+    ErrorClipByValue mechanism (``var.error_clip``)."""
+
+    @staticmethod
+    def forward(ctx, x, mn, mx):
+        ctx.bounds = (mn, mx)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.clamp(*ctx.bounds), None, None
+
+
+def clip_error(x, mn: float, mx: float):
+    return _ClipError.apply(x, mn, mx)
+
+
+def _error_clip_map(fwd_ops, gb):
+    """name -> (min, max) for vars carrying an error_clip attr."""
+    clips = {}
+    for op in fwd_ops:
+        for n in op.output_arg_names:
+            v = gb._find_var_recursive(n)
+            ec = getattr(v, "error_clip", None)
+            if ec is not None:
+                clips[n] = ec.bounds()
+    return clips
+
+
+def _sparse_sites(fwd_ops, param_names, gb, other_inputs):
+    """Sparse-marked tables whose every use is a local sparse lookup of
+    external ids — the tables the JAX package gives a row-sparse
+    gradient."""
+    sites = {}
+    ext = set(other_inputs)
+    for pn in param_names:
+        v = gb._find_var_recursive(pn)
+        if not getattr(v, "sparse_grad", False):
+            continue
+        uses = [op for op in fwd_ops if pn in op.input_arg_names]
+        if uses and all(op.type == "lookup_table"
+                        and op.attrs.get("is_sparse")
+                        and not op.attrs.get("is_distributed")
+                        and (op.input("Ids") or [None])[0] in ext
+                        for op in uses):
+            sites[pn] = uses
+    return sites
+
+
+def _forward_slice(program: Program, target: str):
+    """Ops needed to produce `target`, plus their external input names
+    (order-sensitive: a var read before any kept op produced it is
+    external, even if a later op writes it)."""
+    gb = program.global_block()
+    needed = {target}
+    kept = []
+    for op in reversed(gb.ops):
+        if op.type == "backward":
+            continue
+        if set(op.output_arg_names) & needed:
+            kept.append(op)
+            needed.update(op.input_arg_names)
+    kept = list(reversed(kept))
+    ext, produced = [], set()
+    for op in kept:
+        for n in op.input_arg_names:
+            if n not in produced and n not in ext:
+                ext.append(n)
+        produced.update(op.output_arg_names)
+    return kept, ext
+
+
+def _executed_by_executor(*_args):
+    raise EnforceError(
+        "the backward op is executed by Executor.run, which takes the "
+        "gradient from the forward pass it has just run; it cannot run "
+        "as a plain op")
+
+
+def append_backward(loss: Variable,
+                    parameter_list: Optional[Sequence[str]] = None,
+                    no_grad_set: Optional[set] = None,
+                    callbacks=None) -> List[Tuple[Variable, Variable]]:
+    """Append the ``backward`` op for ``loss``; returns the (param,
+    grad) pairs of the trainable parameters the loss depends on."""
+    program = loss.block.program
+    gb = program.global_block()
+    no_grad_set = set(no_grad_set or ())
+
+    fwd_ops, ext_inputs = _forward_slice(program, loss.name)
+    enforce(fwd_ops, "loss %r is not produced by any op" % loss.name)
+    if any("_remat_segment" in op.attrs for op in fwd_ops):
+        raise not_ported("rematerialization in append_backward",
+                         "Queue A 8, passes")
+
+    if parameter_list is not None:
+        param_names = [p if isinstance(p, str) else p.name
+                       for p in parameter_list]
+    else:
+        param_names = [p.name for p in gb.all_parameters()
+                       if p.trainable and p.name not in no_grad_set]
+    # only params the loss actually depends on get gradients
+    param_names = [n for n in param_names if n in ext_inputs]
+    other_inputs = [n for n in ext_inputs if n not in param_names]
+
+    sparse = _sparse_sites(fwd_ops, param_names, gb, other_inputs)
+    if sparse:
+        raise not_ported("row-sparse table gradients (@GRAD@ROWS / "
+                         "@GRAD@VALUES) of %s" % sorted(sparse),
+                         "Queue A 3, step 2: sparse embedding gradients "
+                         "with lazy Adam")
+
+    # Stateful external inputs (read, then overwritten by a forward op,
+    # e.g. dropout's RNG counter) reach the backward op as a snapshot
+    # taken at program start, as in the JAX package. The gradient here
+    # comes from the one forward pass, so the snapshot keeps the program
+    # and its symbol table the same, not the numbers.
+    written = set()
+    for op in fwd_ops:
+        written.update(op.output_arg_names)
+    snapshot_map = {}
+    for n in list(other_inputs):
+        if n in written:
+            pre = n + "@PRE_BW"
+            src = gb.var(n)
+            gb.create_var(name=pre, shape=src.shape, dtype=src.dtype)
+            gb.prepend_op(type="snapshot", inputs={"X": [n]},
+                          outputs={"Out": [pre]}, fn=lambda v: v)
+            snapshot_map[n] = pre
+    backward_input_names = [snapshot_map.get(n, n) for n in other_inputs]
+
+    grad_vars = {}
+    for pn in param_names:
+        p = gb.var(pn)
+        grad_vars[pn] = gb.create_var(name=_grad_name(pn), shape=p.shape,
+                                      dtype=p.dtype)
+    gb.append_op(
+        type="backward",
+        inputs={"Params": list(param_names),
+                "Inputs": list(backward_input_names)},
+        outputs={"Grads": [grad_vars[pn].name for pn in param_names]},
+        attrs={"loss": loss.name,
+               "_error_clips": _error_clip_map(fwd_ops, gb)},
+        fn=_executed_by_executor,
+    )
+    return [(gb.var(pn), grad_vars[pn]) for pn in param_names]

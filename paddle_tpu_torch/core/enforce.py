@@ -18,3 +18,10 @@ def enforce(cond, msg="Enforce failed", *args):
     if not cond:
         raise EnforceError(msg % args if args else str(msg))
 
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error a seam raises for a capability of the JAX package that
+    the port does not have yet; ``item`` names the ROADMAP queue item
+    that ports it."""
+    return NotImplementedError("%s is not ported yet (ROADMAP %s)"
+                               % (what, item))

@@ -71,6 +71,25 @@ class Parameter(Variable):
         self.regularizer = regularizer
         self.gradient_clip = gradient_clip
         self.optimize_attr = optimize_attr or {"learning_rate": 1.0}
+        # set by embedding(is_sparse=True): backward would emit the
+        # (rows, values) pair instead of a dense table gradient
+        self.sparse_grad = False
+
+
+class Deferred:
+    """An op output computed only when something reads it: a later op,
+    a fetch or a persistable write-back (the executor resolves it). An
+    op returns one for a costly output that is usually dead, which XLA
+    would drop by itself — the ``Softmax`` of
+    ``softmax_with_cross_entropy`` is ``[.., V]``."""
+
+    __slots__ = ("fn",)
+
+    def __init__(self, fn: Callable[[], Any]):
+        self.fn = fn
+
+    def resolve(self):
+        return self.fn()
 
 
 class Operator:
@@ -168,6 +187,13 @@ class Block:
             if v is not None and v.op is None:
                 v.op = op
         _infer_shapes(op, self)
+        self.program._bump()
+        return op
+
+    def prepend_op(self, type: str, inputs=None, outputs=None, attrs=None,
+                   fn: Optional[Callable] = None) -> Operator:
+        op = Operator(self, type, inputs or {}, outputs or {}, attrs, fn)
+        self.ops.insert(0, op)
         self.program._bump()
         return op
 
@@ -297,6 +323,9 @@ def _infer_shapes(op: "Operator", block: "Block") -> None:
     if len(outs) != len(out_vars):
         return
     for v, o in zip(out_vars, outs):
+        if isinstance(o, Deferred):
+            with torch.no_grad():
+                o = o.resolve()
         if v is None or v.shape is not None or not isinstance(o, torch.Tensor):
             continue
         v.shape = tuple(-1 if s == _DYN_SENTINEL else s for s in o.shape)

@@ -1,9 +1,13 @@
-"""Layer functions of paddle_tpu_torch: the ones the causal LM reaches."""
+"""Layer functions of paddle_tpu_torch: the ones the causal LM and
+Transformer-base training reach."""
 
 from .conv import layer_norm
 from .io import data
-from .nn import dropout, embedding, fc
-from .ops import elementwise_add, relu, scale
+from .nn import (dropout, embedding, fc, reduce_sum, softmax_with_cross_entropy,
+                 squeeze)
+from .ops import elementwise_add, elementwise_div, elementwise_mul, relu, scale
+from .tensor import cast
 
-__all__ = ["data", "dropout", "elementwise_add", "embedding", "fc",
-           "layer_norm", "relu", "scale"]
+__all__ = ["cast", "data", "dropout", "elementwise_add", "elementwise_div",
+           "elementwise_mul", "embedding", "fc", "layer_norm", "reduce_sum",
+           "relu", "scale", "softmax_with_cross_entropy", "squeeze"]

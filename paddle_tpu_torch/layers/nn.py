@@ -1,5 +1,6 @@
 """Neural-network layer functions (counterpart of
-paddle_tpu/layers/nn.py): the ones the causal LM reaches.
+paddle_tpu/layers/nn.py): the ones the causal LM and Transformer-base
+training reach.
 
 Each function appends ops carrying torch fns to the default main program
 and returns the output Variable(s).
@@ -14,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core import initializer as init
+from ..core.enforce import not_ported
+from ..core.program import Deferred
 from ..layer_helper import LayerHelper
 
 
@@ -71,14 +74,18 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
     """Lookup table. Ids whose trailing dim is 1 are squeezed first (the
     reference's ``[B, 1]`` ids convention), and the output shape follows
     the same rule — the decode rewrite swaps this op for a no-squeeze
-    lookup because of it. Sparse gradients and distributed tables belong
-    to training and are not ported yet."""
+    lookup because of it. ``is_sparse`` marks the table for a row-sparse
+    gradient, as the JAX package does; ``append_backward`` refuses such
+    a table until that path is ported. Distributed tables are not ported
+    yet."""
     if is_distributed:
-        raise NotImplementedError(
-            "embedding(is_distributed=True) is not ported yet")
+        raise not_ported("embedding(is_distributed=True)",
+                         "Queue A 9, multi-GPU")
     helper = LayerHelper("embedding")
     w = helper.create_parameter(param_attr, list(size), dtype,
                                 default_initializer=init.Uniform(-0.05, 0.05))
+    if is_sparse:
+        w.sparse_grad = True
     out = helper.create_tmp_variable(dtype)
 
     def fn(ids, table):
@@ -112,9 +119,9 @@ def dropout(x, dropout_prob: float, is_test: bool = False, seed=None,
     """Inference dropout: ``x * (1 - dropout_prob)`` (the reference's
     downgrade_in_infer). Training dropout is not ported yet."""
     if not is_test:
-        raise NotImplementedError(
-            "dropout(is_test=False) is not ported yet: this slice serves "
-            "inference programs only")
+        raise not_ported("training dropout (dropout(is_test=False))",
+                         "Queue A 3, step 5: training dropout with a "
+                         "seeded generator")
     helper = LayerHelper("dropout")
     out = helper.create_tmp_variable(x.dtype)
     counter = _dropout_counter(helper)
@@ -145,3 +152,130 @@ def _dropout_counter(helper):
     sb.append_op(type="init_counter", inputs={}, outputs={"Out": [name]},
                  fn=lambda: torch.zeros((), dtype=torch.int32))
     return v
+
+
+# ---------------------------------------------------------------------------
+# losses & reductions
+# ---------------------------------------------------------------------------
+
+
+def _hard_label_ce_forward(lg, idx, eps):
+    """(loss ``[.., 1]`` f32, lse ``[.., 1]`` f32) from the f32
+    log-sum-exp; the ``[.., V]`` log-probabilities are never formed."""
+    mx = lg.amax(-1, keepdim=True).to(torch.float32)
+    lse = torch.log(torch.exp(lg.to(torch.float32) - mx)
+                    .sum(-1, keepdim=True)) + mx
+    picked = torch.gather(lg, -1, idx[..., None]).to(torch.float32)
+    if eps:
+        mean_lg = lg.to(torch.float32).mean(-1, keepdim=True)
+        loss = -((1.0 - eps) * picked + eps * mean_lg - lse)
+    else:
+        loss = lse - picked
+    return loss, lse
+
+
+class _HardLabelCE(torch.autograd.Function):
+    """Hard-label (optionally smoothed) cross-entropy with the JAX
+    package's hand-written gradient (``_hard_label_ce``): the analytic
+    ``softmax - (1-eps)*onehot - eps/V`` in one pass over the saved
+    logits, in the logits dtype — not autograd of the log-sum-exp.
+    Residuals: the logits and the f32 lse."""
+
+    @staticmethod
+    def forward(ctx, lg, idx, eps):
+        loss, lse = _hard_label_ce_forward(lg, idx, eps)
+        ctx.save_for_backward(lg, idx, lse)
+        ctx.eps = eps
+        return loss
+
+    @staticmethod
+    def backward(ctx, dloss):
+        lg, idx, lse = ctx.saved_tensors
+        eps = ctx.eps
+        v = lg.shape[-1]
+        g = torch.exp(lg.to(torch.float32) - lse)          # softmax
+        at = idx[..., None]
+        p_at = torch.gather(g, -1, at)
+        # p - tgt with tgt = (1-eps)*onehot + eps/V, element by element
+        # as the JAX package rounds it, without forming the one-hot
+        tgt_at = torch.tensor(1.0 - eps, dtype=torch.float32,
+                              device=g.device)
+        if eps:
+            tgt_at = tgt_at + eps / v
+            g.sub_(eps / v)
+        g.scatter_(-1, at, p_at - tgt_at)
+        g.mul_(dloss)
+        return g.to(lg.dtype), None, None
+
+
+def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
+                               return_softmax: bool = False,
+                               smooth_eps: float = 0.0):
+    """Numerically stable softmax + cross-entropy in one op, with label
+    smoothing folded in by ``smooth_eps``. Returns the loss ``[.., 1]``
+    (f32), and the softmax too with ``return_softmax``. The ``Softmax``
+    output is always declared (the symbol table matches the JAX
+    package's) but computed only when something reads it: XLA drops it
+    when it is dead, and eagerly it would cost a full ``[.., V]`` pass."""
+    helper = LayerHelper("softmax_with_cross_entropy")
+    loss = helper.create_tmp_variable(logits.dtype)
+    sm = helper.create_tmp_variable(logits.dtype)
+    eps = float(smooth_eps or 0.0)
+
+    def fn(lg, y):
+        if soft_label:
+            mx = lg.amax(-1, keepdim=True).detach()
+            shifted = (lg - mx).to(torch.float32)
+            lse = torch.log(torch.exp(shifted).sum(-1, keepdim=True)) \
+                + mx.to(torch.float32)
+            l = lse * y.sum(-1, keepdim=True) - (
+                y * lg.to(torch.float32)).sum(-1, keepdim=True)
+            return l, Deferred(
+                lambda: torch.exp(lg.to(torch.float32) - lse).to(lg.dtype))
+        idx = y.to(torch.int64)
+        if idx.dim() == lg.dim():
+            idx = idx.squeeze(-1)
+        l = _HardLabelCE.apply(lg, idx, eps)
+        return l, Deferred(
+            lambda: torch.softmax(lg.to(torch.float32), -1).to(lg.dtype))
+
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": [logits.name], "Label": [label.name]},
+                     outputs={"Loss": [loss.name], "Softmax": [sm.name]},
+                     fn=fn)
+    return (loss, sm) if return_softmax else loss
+
+
+def _reduce(name, tfn, x, dim=None, keep_dim=False):
+    helper = LayerHelper(name)
+    out = helper.create_tmp_variable(x.dtype)
+    axis = tuple(dim) if isinstance(dim, (list, tuple)) else dim
+
+    def fn(v):
+        if axis is None:
+            r = tfn(v)
+            return r.reshape((1,) * v.dim()) if keep_dim else r
+        return tfn(v, dim=axis, keepdim=keep_dim)
+
+    helper.append_op(type=name, inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"dim": dim, "keep_dim": keep_dim}, fn=fn)
+    return out
+
+
+def reduce_sum(x, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", torch.sum, x, dim, keep_dim)
+
+
+# ---------------------------------------------------------------------------
+# shape ops
+# ---------------------------------------------------------------------------
+
+
+def squeeze(input, axes: Sequence[int], name=None):
+    helper = LayerHelper("squeeze")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="squeeze", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     fn=lambda v: torch.squeeze(v, tuple(axes)))
+    return out

@@ -1,5 +1,5 @@
 """Elementwise / activation ops (counterpart of paddle_tpu/layers/ops.py):
-the ones the causal LM reaches."""
+the ones the causal LM and the Transformer-base loss reach."""
 
 from __future__ import annotations
 
@@ -60,3 +60,11 @@ def _elementwise(name, tfn, x, y, axis=-1, act=None):
 
 def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _elementwise("elementwise_add", torch.add, x, y, axis, act)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_mul", torch.mul, x, y, axis, act)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return _elementwise("elementwise_div", torch.div, x, y, axis, act)

@@ -1,9 +1,15 @@
-"""Transformer building blocks (counterpart of
-paddle_tpu/models/transformer.py): the ones the causal LM reaches.
+"""Transformer-base for NMT and its building blocks (counterpart of
+paddle_tpu/models/transformer.py): the encoder-decoder that
+``transformer_base`` trains, and the blocks the causal LM reuses.
 
-Attention is one fused op (scale -> logits -> mask -> softmax ->
-context), the JAX package's ``"fused"`` einsum path. Its ``"pallas"``
-(flash attention) and ``"ring"`` (sequence parallel) implementations
+Attention is one op (scale -> logits -> mask -> softmax -> context).
+``attn_impl="fused"`` runs it as plain torch ops (the JAX package's
+einsum path); ``"pallas"`` runs the hand-written flash-attention
+kernels (``ops/flash_attention.py``), forward and backward. ``None``
+resolves to ``"fused"``: the JAX package's crossover to its kernel at
+2048 keys was measured on a TPU, and the card's own rule waits for its
+measurements (PERF.md). The sequence-parallel ``"ring"`` path, tensor
+parallelism and the pipelined encoder belong to the multi-GPU tier and
 are not ported yet.
 """
 
@@ -14,7 +20,12 @@ import math
 import torch
 
 from .. import layers
+from ..core import flags
+from ..core.enforce import not_ported
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
+
+_MULTI_GPU = "Queue A 9, multi-GPU"
 
 
 def sinusoid_table(positions, d_model: int):
@@ -65,17 +76,18 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
                          n_head=1, dropout_rate=0.0, is_test=False,
                          causal=False, kv_mask=None, tp=False, cache=None,
                          attn_impl=None):
-    """Fused multi-head attention. ``kv_mask`` is a ``[B, T_k]`` 0/1
+    """Multi-head attention as one op. ``kv_mask`` is a ``[B, T_k]`` 0/1
     float var masking padded keys; ``causal`` adds the autoregressive
-    mask. ``attn_impl`` ``None`` or ``"fused"`` selects the einsum path;
-    ``"pallas"`` and ``"ring"`` are not ported yet."""
-    if attn_impl not in (None, "fused"):
-        raise NotImplementedError(
-            "multi_head_attention(attn_impl=%r) is not ported yet; use "
-            "attn_impl=None or 'fused'" % (attn_impl,))
+    mask. ``attn_impl``: ``"fused"`` (plain torch ops), ``"pallas"``
+    (the flash-attention kernels) or ``None`` (``"fused"``)."""
+    if attn_impl == "ring":
+        raise not_ported("multi_head_attention(attn_impl='ring')",
+                         _MULTI_GPU)
+    if attn_impl not in (None, "fused", "pallas"):
+        raise ValueError("multi_head_attention: unknown attn_impl %r"
+                         % (attn_impl,))
     if tp:
-        raise NotImplementedError(
-            "multi_head_attention(tp=True) is not ported yet")
+        raise not_ported("multi_head_attention(tp=True)", _MULTI_GPU)
     helper = LayerHelper("multi_head_attention")
 
     q = layers.fc(input=queries, size=d_key * n_head, num_flatten_dims=2,
@@ -96,7 +108,12 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
         qh = torch.reshape(qv, (B, Tq, n_head, d_key))
         kh = torch.reshape(kv, (B, Tk, n_head, d_key))
         vh = torch.reshape(vv, (B, Tk, n_head, d_value))
-        ctx = attention(qh, kh, vh, mask=mask, causal=causal)
+        if attn_impl == "pallas":
+            from ..ops.flash_attention import flash_attention
+
+            ctx = flash_attention(qh, kh, vh, causal=causal, kv_mask=mask)
+        else:
+            ctx = attention(qh, kh, vh, mask=mask, causal=causal)
         return torch.reshape(ctx, (B, Tq, n_head * d_value))
 
     helper.append_op(type="fused_attention", inputs=in_names,
@@ -134,3 +151,151 @@ def pre_post_process_layer(prev_out, out, process_cmd, dropout_rate=0.0,
                 out = layers.dropout(out, dropout_prob=dropout_rate,
                                      is_test=is_test)
     return out
+
+
+def encoder_layer(enc_input, src_mask, n_head, d_key, d_value, d_model,
+                  d_inner_hid, dropout_rate=0.0, is_test=False, tp=False,
+                  attn_impl=None):
+    attn = multi_head_attention(enc_input, enc_input, enc_input, d_key,
+                                d_value, d_model, n_head, dropout_rate,
+                                is_test=is_test, kv_mask=src_mask, tp=tp,
+                                attn_impl=attn_impl)
+    attn_out = pre_post_process_layer(enc_input, attn, "dan", dropout_rate,
+                                      is_test)
+    ffd = positionwise_feed_forward(attn_out, d_inner_hid, d_model,
+                                    dropout_rate, is_test=is_test, tp=tp)
+    return pre_post_process_layer(attn_out, ffd, "dan", dropout_rate,
+                                  is_test)
+
+
+def decoder_layer(dec_input, enc_output, src_mask, n_head, d_key, d_value,
+                  d_model, d_inner_hid, dropout_rate=0.0, is_test=False,
+                  tp=False, attn_impl=None):
+    slf = multi_head_attention(dec_input, dec_input, dec_input, d_key,
+                               d_value, d_model, n_head, dropout_rate,
+                               is_test=is_test, causal=True, tp=tp,
+                               attn_impl=attn_impl)
+    slf_out = pre_post_process_layer(dec_input, slf, "dan", dropout_rate,
+                                     is_test)
+    ctx = multi_head_attention(slf_out, enc_output, enc_output, d_key,
+                               d_value, d_model, n_head, dropout_rate,
+                               is_test=is_test, kv_mask=src_mask, tp=tp,
+                               attn_impl=attn_impl)
+    ctx_out = pre_post_process_layer(slf_out, ctx, "dan", dropout_rate,
+                                     is_test)
+    ffd = positionwise_feed_forward(ctx_out, d_inner_hid, d_model,
+                                    dropout_rate, is_test=is_test, tp=tp)
+    return pre_post_process_layer(ctx_out, ffd, "dan", dropout_rate,
+                                  is_test)
+
+
+def _embed(ids, vocab_size, d_model, name):
+    if flags.get_flag("use_bfloat16") or flags.get_flag("bf16_activations"):
+        raise not_ported("the bf16 flags (use_bfloat16, bf16_activations)",
+                         "Queue A 3, step 3: the bf16 flags")
+    emb = layers.embedding(input=ids, size=[vocab_size, d_model],
+                           param_attr=ParamAttr(name=name))
+    return layers.scale(x=emb, scale=d_model ** 0.5)
+
+
+def transformer_model(src_word, trg_word, src_mask, src_vocab_size,
+                      trg_vocab_size, max_length=256, n_layer=6, n_head=8,
+                      d_key=64, d_value=64, d_model=512, d_inner_hid=2048,
+                      dropout_rate=0.1, is_test=False, tp=False,
+                      weight_sharing=False, attn_impl=None,
+                      pp_encoder=False, pp_microbatches=2,
+                      sparse_embedding=False, distributed_embedding=False,
+                      return_hidden=False):
+    """Encoder-decoder -> next-token logits ``[B, T_trg, V_trg]``.
+    Training dropout (``dropout_rate > 0`` with ``is_test=False``), the
+    pipelined encoder, sparse and distributed embeddings are not ported
+    yet and raise."""
+    if tp:
+        raise not_ported("transformer_model(tp=True)", _MULTI_GPU)
+    if dropout_rate and not is_test:
+        raise not_ported("training dropout (dropout_rate > 0, is_test=False)",
+                         "Queue A 3, step 5: training dropout with a "
+                         "seeded generator")
+    if pp_encoder:
+        raise not_ported("transformer_model(pp_encoder=True)", _MULTI_GPU)
+    if distributed_embedding:
+        raise not_ported("transformer_model(distributed_embedding=True)",
+                         _MULTI_GPU)
+    if sparse_embedding:
+        raise not_ported("transformer_model(sparse_embedding=True)",
+                         "Queue A 3, step 2: sparse embedding gradients "
+                         "with lazy Adam")
+    src_emb = _embed(src_word, src_vocab_size, d_model,
+                     "src_word_emb_table")
+    src_emb = positional_encoding(src_emb, max_length)
+    enc_input = pre_post_process_layer(None, src_emb, "nd", dropout_rate,
+                                       is_test)
+    for _ in range(n_layer):
+        enc_input = encoder_layer(enc_input, src_mask, n_head, d_key,
+                                  d_value, d_model, d_inner_hid,
+                                  dropout_rate, is_test, tp=tp,
+                                  attn_impl=attn_impl)
+    enc_output = enc_input
+
+    trg_table = ("src_word_emb_table" if weight_sharing
+                 else "trg_word_emb_table")
+    trg_emb = _embed(trg_word, trg_vocab_size, d_model, trg_table)
+    trg_emb = positional_encoding(trg_emb, max_length)
+    dec_input = pre_post_process_layer(None, trg_emb, "nd", dropout_rate,
+                                       is_test)
+    for _ in range(n_layer):
+        dec_input = decoder_layer(dec_input, enc_output, src_mask, n_head,
+                                  d_key, d_value, d_model, d_inner_hid,
+                                  dropout_rate, is_test, tp=tp,
+                                  attn_impl=attn_impl)
+    if return_hidden:
+        return dec_input
+    return layers.fc(input=dec_input, size=trg_vocab_size,
+                     num_flatten_dims=2, act=None)
+
+
+def transformer_base(src_vocab_size=10000, trg_vocab_size=10000,
+                     max_length=256, n_layer=6, n_head=8, d_model=512,
+                     d_inner_hid=2048, dropout_rate=0.1,
+                     label_smooth_eps=0.1, is_test=False, tp=False,
+                     attn_impl=None, pp_encoder=False, pp_microbatches=2,
+                     sparse_embedding=False, distributed_embedding=False,
+                     fused_ce=False):
+    """Build the full training graph: data vars, model, smoothed CE loss
+    averaged over the real target tokens (``trg_mask``).
+
+    Returns (feed_vars, avg_cost, predict). ``fused_ce`` (the chunked
+    projection + CE op) is not ported yet and raises."""
+    if fused_ce:
+        raise not_ported("transformer_base(fused_ce=True)",
+                         "Queue A 3, step 6: fused_ce")
+    src_word = layers.data(name="src_word", shape=[-1, -1], dtype="int64",
+                           append_batch_size=False)
+    trg_word = layers.data(name="trg_word", shape=[-1, -1], dtype="int64",
+                           append_batch_size=False)
+    lbl_word = layers.data(name="lbl_word", shape=[-1, -1], dtype="int64",
+                           append_batch_size=False)
+    src_mask = layers.data(name="src_mask", shape=[-1, -1],
+                           dtype="float32", append_batch_size=False)
+    trg_mask = layers.data(name="trg_mask", shape=[-1, -1],
+                           dtype="float32", append_batch_size=False)
+
+    predict = transformer_model(
+        src_word, trg_word, src_mask, src_vocab_size, trg_vocab_size,
+        max_length, n_layer, n_head, d_model // n_head, d_model // n_head,
+        d_model, d_inner_hid, dropout_rate, is_test=is_test, tp=tp,
+        attn_impl=attn_impl, pp_encoder=pp_encoder,
+        pp_microbatches=pp_microbatches, sparse_embedding=sparse_embedding,
+        distributed_embedding=distributed_embedding)
+    cost = layers.softmax_with_cross_entropy(
+        logits=predict, label=lbl_word, soft_label=False,
+        smooth_eps=label_smooth_eps)
+    cost = layers.squeeze(cost, axes=[-1])
+    # mask padded target positions, average over real tokens
+    masked = layers.elementwise_mul(x=cost, y=trg_mask)
+    sum_cost = layers.reduce_sum(masked)
+    token_count = layers.reduce_sum(trg_mask)
+    avg_cost = layers.elementwise_div(x=sum_cost, y=token_count)
+
+    feeds = [src_word, trg_word, lbl_word, src_mask, trg_mask]
+    return feeds, avg_cost, predict

@@ -55,26 +55,60 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
-    library path. Writes to a temporary name and renames, so a
-    concurrent or interrupted build never leaves a torn library."""
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` unless its library exists:
+    (library path, process or None, temporary output)."""
     out = library_path(name)
     if out.exists():
-        return out
+        return out, None, None
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, proc, tmp
+
+
+def _finish(name: str, out: Path, proc, tmp) -> Path:
+    if proc is None:
+        return out
+    try:
+        log, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        tmp.unlink(missing_ok=True)
+        raise EnforceError("nvcc timed out after 600 s on %s.cu" % name)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise EnforceError("nvcc failed for %s.cu (rc=%d):\n%s"
-                           % (name, proc.returncode,
-                              (proc.stdout + proc.stderr)[-6000:]))
+                           % (name, proc.returncode, log[-6000:]))
     os.replace(tmp, out)
-    build_logs[name] = (proc.stdout + proc.stderr).strip()
+    build_logs[name] = log.strip()
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
+    library path. Writes to a temporary name and renames, so a
+    concurrent or interrupted build never leaves a torn library."""
+    return _finish(name, *_start(name))
+
+
+def build_all(names) -> Dict[str, Path]:
+    """Build several sources at once: one nvcc per source, all started
+    together, then waited for."""
+    started = {name: _start(name) for name in names}
+    built, errors = {}, []
+    for name, job in started.items():  # wait for every process
+        try:
+            built[name] = _finish(name, *job)
+        except EnforceError as e:
+            errors.append(str(e))
+    if errors:
+        raise EnforceError("\n".join(errors))
+    return built
 
 
 def load(name: str) -> ctypes.CDLL:

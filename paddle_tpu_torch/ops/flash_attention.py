@@ -1,0 +1,358 @@
+"""Flash attention, forward and backward, as three hand-written CUDA
+kernels for Hopper (csrc/flash_attention.cu).
+
+Replaces the Pallas family of ``paddle_tpu/ops/flash_attention.py``:
+``_mha_forward`` (kernel ``_fwd_kernel``), and the two kernels of
+``_mha_backward`` (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), tied
+together by ``jax.custom_vjp``. Here one ``torch.autograd.Function``
+ties them: its forward launches the forward kernel and saves
+``(q, k, v, mask, o, lse)``; its backward launches dQ, then dK/dV.
+
+What the kernels compute, and what they keep out of device memory, is
+the TPU family's: the ``[Tq, Tk]`` scores never reach device memory;
+the forward keeps a running max, sum and accumulator per query row and
+writes ``o`` and the per-row logsumexp; the backward rebuilds the
+probabilities from that logsumexp. The TPU grid, its block caps, the
+head-major transposes and the padding of ragged lengths to block
+multiples were for the TPU's tiling and are not carried over: the
+kernels read the public ``[B, T, H, D]`` layout through strides and
+mask the ragged edge themselves. The dQ kernel also writes
+``delta = rowsum(dO * O)``, which the dK/dV kernel reads (the JAX
+package computes it with an XLA op before both kernels).
+
+Semantics (shared by the kernels and the plain versions): scores
+``q . k * scale``; a key with ``kv_mask <= 0`` and, under ``causal``, a
+key past the query's position (``k_pos > q_pos``, top-left aligned) get
+``-inf``; a row with no valid key writes ``o = 0`` and
+``lse = +inf``, so its backward probabilities are 0 — as the Pallas
+kernels do.
+
+Functions:
+
+* :func:`flash_attention` — the public op, the JAX signature and
+  layout: ``q [B, Tq, H, D]``, ``k, v [B, Tk, H, D]``, ``kv_mask
+  [B, Tk]``. Differentiable.
+* :func:`plain_flash_forward` / :func:`plain_flash_backward` — the
+  kernels' math written with plain torch ops; what CPU tensors run and
+  what the kernels are held to on the card.
+* :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv` — the
+  three launchers. A CPU tensor takes the plain version (so does a
+  meta tensor, which build-time shape inference passes); a CUDA tensor
+  launches the kernel or raises (float32 or bfloat16, head dim 64 or
+  128). Each has a ``.launches`` counter of kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..core.enforce import enforce
+from . import _cuda
+
+__all__ = ["flash_attention", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
+           "plain_flash_backward", "plain_flash_forward"]
+
+HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
+# devices whose tensors take the plain versions: the CPU, and "meta"
+# (shape inference at build time, which moves no data)
+_PLAIN_DEVICES = ("cpu", "meta")
+
+
+# ---------------------------------------------------------------- plain
+
+
+def _scores(q, k, causal, scale, kv_mask):
+    """Masked f32 scores ``[B, H, Tq, Tk]`` and the validity mask."""
+    Tq, Tk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    valid = torch.ones((1, 1, Tq, Tk), dtype=torch.bool, device=q.device)
+    if kv_mask is not None:
+        valid = valid & (kv_mask[:, None, None, :] > 0)
+    if causal:
+        valid = valid & torch.ones((Tq, Tk), dtype=torch.bool,
+                                   device=q.device).tril()
+    return torch.where(valid, s, -torch.inf), valid
+
+
+def plain_flash_forward(q, k, v, causal=False, scale=None, kv_mask=None):
+    """(o ``[B, Tq, H, D]`` in q's dtype, lse ``[B, H, Tq]`` f32): the
+    forward kernel's function with plain torch ops, sums in f32."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s, valid = _scores(q, k, causal, scale, kv_mask)
+    m = s.amax(-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(valid, torch.exp(s - m_safe), torch.zeros_like(s))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    o = o / l.clamp_min(1e-30).permute(0, 2, 1, 3)
+    lse = torch.where(l > 0, m_safe + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, torch.inf))
+    return o.to(q.dtype), lse[..., 0]
+
+
+def plain_flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
+                         kv_mask=None):
+    """(dq, dk, dv) in their inputs' dtypes: the two backward kernels'
+    function with plain torch ops. The probabilities are rebuilt from
+    ``lse`` ``[B, H, Tq]``; ``delta = rowsum(dO * O)``."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s, valid = _scores(q, k, causal, scale, kv_mask)
+    p = torch.where(valid, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1).permute(0, 2, 1)        # [B, H, Tq]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------- kernels
+
+# q, k, v, mask, o, lse; B, H, Tq, Tk, D; strides (b, t, h) of q, k, v;
+# mask batch stride; causal; scale; stream
+_FWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_void_p])
+# q, k, v, do, o, mask, lse, delta, dq; B, H, Tq, Tk, D; strides of q, k,
+# v, do, o; mask batch stride; causal; scale; stream
+_DQ_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 16 + [ctypes.c_int, ctypes.c_float,
+                                          ctypes.c_void_p])
+# q, k, v, do, mask, lse, delta, dk, dv; B, H, Tq, Tk, D; strides of q,
+# k, v, do; mask batch stride; causal; scale; stream
+_DKV_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 13 + [ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_void_p])
+_SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
+
+
+def _library():
+    lib = _cuda.load("flash_attention")
+    if not getattr(lib, "_bound", False):
+        for name, argtypes in (("flash_fwd", _FWD_ARGS),
+                               ("flash_bwd_dq", _DQ_ARGS),
+                               ("flash_bwd_dkv", _DKV_ARGS)):
+            for suffix in ("f32", "bf16"):
+                fn = getattr(lib, f"{name}_{suffix}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        lib.flash_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_smem_bytes.restype = ctypes.c_size_t
+        lib.flash_error_string.argtypes = [ctypes.c_int]
+        lib.flash_error_string.restype = ctypes.c_char_p
+        lib._bound = True
+    return lib
+
+
+def build() -> None:
+    """Build (if needed) and load the kernel library."""
+    _library()
+
+
+def _strides(t):
+    return [int(s) for s in t.stride()[:3]]
+
+
+def _check_cuda(name, q, k, v, kv_mask, *more):
+    """Refuse what the kernels do not take; returns (B, Tq, Tk, H, D)."""
+    enforce(q.device.type == "cuda",
+            "%s: unsupported device %s" % (name, q.device))
+    enforce(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
+            "%s: q, k, v must be [B, T, H, D]" % name)
+    B, Tq, H, D = (int(s) for s in q.shape)
+    Tk = int(k.shape[1])
+    enforce(tuple(k.shape) == (B, Tk, H, D) and tuple(v.shape) == (B, Tk, H, D),
+            "%s: k %s and v %s do not match q %s"
+            % (name, tuple(k.shape), tuple(v.shape), tuple(q.shape)))
+    enforce(D in HEAD_DIMS,
+            "%s: head dim %d has no kernel (the kernels are built for %s)"
+            % (name, D, HEAD_DIMS))
+    enforce(q.dtype in (torch.float32, torch.bfloat16),
+            "%s: q must be float32 or bfloat16, got %s" % (name, q.dtype))
+    for t in (k, v) + more:
+        enforce(t.dtype == q.dtype,
+                "%s: inputs must share q's dtype %s, got %s"
+                % (name, q.dtype, t.dtype))
+    for t in (k, v) + more:
+        enforce(t.device == q.device,
+                "%s: inputs on %s and %s" % (name, q.device, t.device))
+        enforce(t.stride(-1) == 1,
+                "%s: the head dim must be contiguous" % name)
+    enforce(q.stride(-1) == 1, "%s: the head dim must be contiguous" % name)
+    if kv_mask is not None:
+        enforce(tuple(kv_mask.shape) == (B, Tk)
+                and kv_mask.dtype == torch.float32
+                and kv_mask.device == q.device and kv_mask.stride(-1) == 1,
+                "%s: kv_mask must be float32 [B, Tk] = [%d, %d] on %s"
+                % (name, B, Tk, q.device))
+    enforce(B * H <= 2 ** 31 - 1 and (Tq + 63) // 64 <= 65535
+            and (Tk + 63) // 64 <= 65535,
+            "%s: shape too large for the launch grid" % name)
+    return B, Tq, Tk, H, D
+
+
+def _check_launch(name, lib, err):
+    if err != 0:
+        raise RuntimeError("%s: kernel launch failed: CUDA error %d (%s)"
+                           % (name, err,
+                              lib.flash_error_string(err).decode()))
+
+
+def _smem_ok(name, lib, kind, D):
+    smem = lib.flash_smem_bytes(kind, D)
+    enforce(smem <= _SMEM_LIMIT,
+            "%s: D=%d needs %d bytes of shared memory (limit %d)"
+            % (name, D, smem, _SMEM_LIMIT))
+
+
+def _mask_arg(kv_mask):
+    if kv_mask is None:
+        return None, 0
+    return kv_mask.data_ptr(), int(kv_mask.stride(0))
+
+
+def _fn(lib, name, dtype):
+    return getattr(lib, name + ("_f32" if dtype == torch.float32
+                                else "_bf16"))
+
+
+def flash_fwd(q, k, v, causal=False, scale=None, kv_mask=None):
+    """(o, lse): the forward kernel on a CUDA tensor, the plain version
+    on a CPU one."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if q.device.type in _PLAIN_DEVICES:
+        return plain_flash_forward(q, k, v, causal, scale, kv_mask)
+    B, Tq, Tk, H, D = _check_cuda("flash_fwd", q, k, v, kv_mask)
+    lib = _library()
+    _smem_ok("flash_fwd", lib, 0, D)
+    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    mask_ptr, mask_sb = _mask_arg(kv_mask)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn(lib, "flash_fwd", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+            o.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, D,
+            *_strides(q), *_strides(k), *_strides(v), mask_sb,
+            int(bool(causal)), scale, stream)
+    _check_launch("flash_fwd", lib, err)
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, causal=False, scale=None,
+                 kv_mask=None):
+    """(dq, delta) on a CUDA tensor: the dQ kernel, which also writes
+    ``delta = rowsum(dO * O)`` ``[B, H, Tq]`` f32 for the dK/dV kernel.
+    CUDA only: the plain version of the backward is
+    :func:`plain_flash_backward`."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    B, Tq, Tk, H, D = _check_cuda("flash_bwd_dq", q, k, v, kv_mask, o, do)
+    enforce(tuple(lse.shape) == (B, H, Tq) and lse.dtype == torch.float32
+            and lse.is_contiguous() and lse.device == q.device,
+            "flash_bwd_dq: lse must be contiguous float32 [B, H, Tq]")
+    lib = _library()
+    _smem_ok("flash_bwd_dq", lib, 1, D)
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    mask_ptr, mask_sb = _mask_arg(kv_mask)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn(lib, "flash_bwd_dq", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            o.data_ptr(), mask_ptr, lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), B, H, Tq, Tk, D,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(do),
+            *_strides(o), mask_sb, int(bool(causal)), scale, stream)
+    _check_launch("flash_bwd_dq", lib, err)
+    flash_bwd_dq.launches += 1
+    return dq, delta
+
+
+def flash_bwd_dkv(q, k, v, lse, delta, do, causal=False, scale=None,
+                  kv_mask=None):
+    """(dk, dv) on a CUDA tensor: the dK/dV kernel, reading the
+    ``delta`` that :func:`flash_bwd_dq` wrote. CUDA only."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    B, Tq, Tk, H, D = _check_cuda("flash_bwd_dkv", q, k, v, kv_mask, do)
+    for name, t in (("lse", lse), ("delta", delta)):
+        enforce(tuple(t.shape) == (B, H, Tq) and t.dtype == torch.float32
+                and t.is_contiguous() and t.device == q.device,
+                "flash_bwd_dkv: %s must be contiguous float32 [B, H, Tq]"
+                % name)
+    lib = _library()
+    _smem_ok("flash_bwd_dkv", lib, 2, D)
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
+    mask_ptr, mask_sb = _mask_arg(kv_mask)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn(lib, "flash_bwd_dkv", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            mask_ptr, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, Tq, Tk, D,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(do),
+            mask_sb, int(bool(causal)), scale, stream)
+    _check_launch("flash_bwd_dkv", lib, err)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
+                   kv_mask=None):
+    """(dq, dk, dv): the plain version on a CPU tensor; on a CUDA one
+    the dQ kernel, then the dK/dV kernel on the same stream."""
+    if q.device.type in _PLAIN_DEVICES:
+        return plain_flash_backward(q, k, v, o, lse, do, causal, scale,
+                                    kv_mask)
+    dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal, scale, kv_mask)
+    dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale, kv_mask)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale):
+        o, lse = flash_fwd(q, k, v, causal, scale, kv_mask)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.causal,
+                                    ctx.scale, kv_mask)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None, kv_mask=None):
+    """Multi-head attention, differentiable: ``q [B, Tq, H, D]``, ``k, v
+    [B, Tk, H, D]``, ``kv_mask`` an optional ``[B, Tk]`` 0/1 mask over
+    keys. CPU tensors run the plain versions; CUDA tensors the kernels
+    (or raise)."""
+    if q.device.type in _PLAIN_DEVICES:
+        for t in (k, v) + (() if kv_mask is None else (kv_mask,)):
+            enforce(t.device == q.device,
+                    "flash_attention: q is on the CPU but an input is on %s"
+                    % t.device)
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(torch.float32)
+        if kv_mask.stride(-1) != 1:
+            kv_mask = kv_mask.contiguous()
+    return _FlashAttention.apply(q, k, v, kv_mask, bool(causal), scale)
