@@ -8,9 +8,9 @@ Run from the repository root on a machine with a CUDA card and nvcc.
 Phases, one JSON line each (or one per shape):
 
 1. device  — the card's name and power limit (nvidia-smi); builds the
-             kernels from csrc/ (paged_attention.cu, flash_attention.cu;
-             one nvcc each, started together) and reports the build
-             seconds and ptxas' register/spill report.
+             kernels from csrc/ (paged_attention.cu, flash_attention.cu,
+             fused_optimizer.cu; one nvcc each, started together) and
+             reports the build seconds and ptxas' register/spill report.
 2. kernel  — ``ops.paged_window_attention`` (the CUDA kernel) against
              ``ops.plain_window_attention`` on the card at the decode
              shapes (B in {1, 16}, T in {1, 4}, H=8, D=64, block 16,
@@ -58,6 +58,29 @@ Phases, one JSON line each (or one per shape):
              0's. Step
              ms, tokens/s, peak memory, and one profiled step split by
              kernel family with the device's idle share.
+7. fused_update — ``fused_flat_update`` (the CUDA kernel) against
+             ``plain_flat_update`` on the card: SGD, Adagrad and Adam,
+             Adam with and without the beta-power advance, f32 and bf16
+             moments, at N = the recipe's flat group size and a ragged
+             N = 128*4099+37. Every output bit-equal (max abs error 0).
+             CUDA-event ms of the kernel and the plain version, the
+             bound (bytes read and written once over 3.35 TB/s), and
+             ``torch._fused_adam_`` (what ``torch.optim.Adam(fused=True)``
+             calls) over the same flat tensors with f32 moments, a time
+             yardstick only (it places eps differently).
+8. recipe  — ``bench.py``'s recipe: ``transformer_base`` at the widths
+             above with ``sparse_embedding=True``, ``attn_impl="pallas"``,
+             ``Adam(1e-4)`` and the flags ``use_bfloat16``,
+             ``bf16_activations``, ``bf16_moments`` and
+             ``fuse_optimizer_state``, B=32, T=256, ragged masks, 10
+             steps. The fused kernel launches once per group per step and
+             each flash kernel 18 times a step; the loss is finite and
+             falls; step 0's loss is within rel 1e-5 of the same program
+             built without ``fuse_optimizer_state`` (the same forward),
+             and after two steps every dense parameter is within 1e-6 of
+             its max of that route's. Step ms (mean, p50), tokens/s, peak
+             memory, launches per step, the device idle share and device
+             ms by family (``fused_update`` one of them).
 
 Then the card's name and power limit, the kernels JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -152,11 +175,12 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
 # ---------------------------------------------------------------- phase 1
 
 
-KERNEL_SOURCES = ("paged_attention", "flash_attention")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_optimizer")
 
 
 def phase_device():
-    from paddle_tpu_torch.ops import _cuda, flash_attention, paged_attention
+    from paddle_tpu_torch.ops import (_cuda, flash_attention, fused_optimizer,
+                                      paged_attention)
 
     card = card_line()
     t0 = time.perf_counter()
@@ -164,6 +188,7 @@ def phase_device():
     build_s = time.perf_counter() - t0
     paged_attention.build()
     flash_attention.build()
+    fused_optimizer.build()
     ptxas = {name: [ln.strip() for ln in
                     _cuda.build_logs.get(name, "").splitlines()
                     if "registers" in ln or "spill" in ln
@@ -672,10 +697,12 @@ def _train_family(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if kernel + "_kernel" in low:
             return kernel
+    if "fused_update_kernel" in low:
+        return "fused_update"
     if "memcpy" in low or "memset" in low:
         return "copies"
     if any(k in low for k in ("gemm", "gemv", "cutlass", "sm90_xmma",
-                              "matmul")):
+                              "matmul", "nvjet")):
         return "matmul"
     if "reduce" in low:
         return "reductions"
@@ -684,26 +711,32 @@ def _train_family(name: str) -> str:
     return "other"
 
 
-def profile_step(run_step):
+def profile_step(run_step, top=15):
     """One training step under torch.profiler: (host wall ms, device ms
-    by kernel family, kernel launches)."""
+    by kernel family, kernel launches, the ``top`` kernels by device ms
+    as [name, ms, launches] rows)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run_step()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_family, launches = {}, 0
+    by_family, by_name, launches = {}, {}, 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         fam = _train_family(e.name)
-        by_family[fam] = (by_family.get(fam, 0.0)
-                          + float(e.time_range.elapsed_us()) / 1e3)
+        ms = float(e.time_range.elapsed_us()) / 1e3
+        by_family[fam] = by_family.get(fam, 0.0) + ms
+        name = by_name.setdefault(e.name[:90], [0.0, 0])
+        name[0] += ms
+        name[1] += 1
         launches += fam != "copies"
     if not by_family:
         fail("the profiler recorded no device activity")
-    return wall_ms, by_family, launches
+    rows = sorted(([n, ms, k] for n, (ms, k) in by_name.items()),
+                  key=lambda r: -r[1])[:top]
+    return wall_ms, by_family, launches, rows
 
 
 def grad_noise_floor(feed, fetch, checked, ref):
@@ -798,7 +831,7 @@ def phase_training(card):
              % (TRAIN_STEPS, losses))
     steady = step_s[1:]
     step_ms = float(np.mean(steady)) * 1e3
-    wall_ms, by_family, kernels = profile_step(
+    wall_ms, by_family, kernels, top = profile_step(
         lambda: exe.run(main, feed=feed, fetch_list=[cost], scope=scope))
     busy = sum(by_family.values())
     emit({"phase": "training", "card": card, "batch": TRAIN_B,
@@ -815,7 +848,255 @@ def phase_training(card):
           "device_idle_share_unprofiled": 1.0 - busy / step_ms,
           "kernel_launches_per_step": kernels,
           "device_ms_by_family": dict(sorted(by_family.items(),
-                                             key=lambda kv: -kv[1]))})
+                                             key=lambda kv: -kv[1])),
+          "top_kernels": top})
+    return launches
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+# bench.py's mixed-precision recipe (bench.py:80-86, :120)
+RECIPE_FLAGS = {"use_bfloat16": True, "bf16_activations": True,
+                "bf16_moments": True, "fuse_optimizer_state": True}
+FUSED_CONSTS = {"sgd": (1.0,), "adagrad": (1.0, 1e-6),
+                "adam": (1.0, 0.9, 0.999, 1e-8)}
+# (kind, bf16 moments, owns the beta-power advance); the recipe's group
+# is the last one
+FUSED_CASES = [("sgd", False, False), ("adagrad", False, False),
+               ("adagrad", True, False), ("adam", False, False),
+               ("adam", False, True), ("adam", True, False),
+               ("adam", True, True)]
+RAGGED_N = 128 * 4099 + 37
+# flops per element of each kind's update, in the plain version's order
+FUSED_OPS = {"sgd": 2, "adagrad": 7, "adam": 12}
+
+
+def build_recipe(fuse):
+    """(main, startup, avg_cost) of the recipe, with
+    ``fuse_optimizer_state`` as ``fuse``; the flags are read while the
+    program is built."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import transformer_base
+
+    values = dict(RECIPE_FLAGS, fuse_optimizer_state=fuse)
+    saved = {n: fluid.get_flag(n) for n in values}
+    fluid.set_flags(values)
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            _, avg_cost, _ = transformer_base(
+                **TRAIN_MODEL, sparse_embedding=True, attn_impl="pallas")
+            fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(avg_cost)
+    finally:
+        fluid.set_flags(saved)
+    return main, startup, avg_cost
+
+
+def fused_inputs(kind, bf16, n, seed):
+    """(p, g, lr, moments, shared scalars) on the card, from a seeded
+    generator: normals, Adam's first moment 0.1 N(0, 1), the other
+    moments squares of normals, beta powers of step 3."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda: torch.randn(n, generator=gen, device=dev)  # noqa: E731
+    accs = []
+    for i in range({"sgd": 0, "adagrad": 1, "adam": 2}[kind]):
+        a = rand()
+        a = 0.1 * a if (kind, i) == ("adam", 0) else a * a
+        accs.append(a.to(torch.bfloat16 if bf16 else torch.float32))
+    shared = ((torch.tensor(0.9 ** 3, device=dev),
+               torch.tensor(0.999 ** 3, device=dev)) if kind == "adam"
+              else ())
+    return rand(), rand(), torch.tensor(TRAIN_LR, device=dev), accs, shared
+
+
+def fused_work(kind, bf16, owns, n):
+    """(bound ms, bound_by, bytes, ops): p and g read and p written, each
+    moment read and written, lr and the shared scalars read and the
+    advanced ones written, once; the update's flops over the f32 peak."""
+    n_acc = {"sgd": 0, "adagrad": 1, "adam": 2}[kind]
+    n_sh = 2 if kind == "adam" else 0
+    nbytes = (n * (12 + 2 * n_acc * (2 if bf16 else 4))
+              + 4 * (1 + n_sh + (n_sh if owns else 0)))
+    ops = FUSED_OPS[kind] * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def phase_fused_update(card, n_recipe):
+    """Every case bit-equal to the plain version at the recipe's group
+    size and a ragged size; times at the recipe's size."""
+    from paddle_tpu_torch.ops.fused_optimizer import (fused_flat_update,
+                                                      plain_flat_update)
+
+    rows = []
+    for n in (n_recipe, RAGGED_N):
+        for i, (kind, bf16, owns) in enumerate(FUSED_CASES):
+            consts = FUSED_CONSTS[kind]
+            p, g, lr, accs, shared = fused_inputs(kind, bf16, n, 200 + i)
+            want = plain_flat_update(kind, p, g, lr, accs, shared, owns,
+                                     consts)
+            # the kernel updates p and the moments in place: copies
+            got = fused_flat_update(kind, p.clone(), g, lr,
+                                    [a.clone() for a in accs], shared, owns,
+                                    consts)
+            torch.cuda.synchronize()
+            if len(got) != len(want) or not all(
+                    a.dtype == b.dtype and a.shape == b.shape
+                    for a, b in zip(got, want)):
+                fail("fused_update %s: kernel outputs %s, plain %s"
+                     % ((kind, bf16, owns, n),
+                        [(a.dtype, tuple(a.shape)) for a in got],
+                        [(b.dtype, tuple(b.shape)) for b in want]))
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+            if err != 0.0 or not all(torch.equal(a, b)
+                                     for a, b in zip(got, want)):
+                fail("fused_update %s: the kernel is not bit-equal to the "
+                     "plain version (max abs err %g)"
+                     % ((kind, bf16, owns, n), err))
+            row = {"phase": "fused_update", "card": card, "kind": kind,
+                   "moments": "bf16" if bf16 else "f32", "owns": owns,
+                   "n": n, "max_abs_err": err, "bit_equal": True}
+            if n == n_recipe:
+                pk, ak = p.clone(), [a.clone() for a in accs]
+                row["ms"] = cuda_ms(lambda: fused_flat_update(
+                    kind, pk, g, lr, ak, shared, owns, consts), 20)
+                row["plain_ms"] = cuda_ms(lambda: plain_flat_update(
+                    kind, p, g, lr, accs, shared, owns, consts), 5, warmup=1)
+                (row["bound_ms"], row["bound_by"], row["bytes"],
+                 row["ops"]) = fused_work(kind, bf16, owns, n)
+                row["library_ms"] = None
+                if kind == "adam":
+                    row["library_ms"], row["library_error"] = fused_adam_ms(
+                        p, g, accs)
+                del pk, ak
+            emit(row)
+            rows.append(row)
+            del p, g, lr, accs, shared, want, got
+            torch.cuda.empty_cache()
+    return rows
+
+
+def fused_adam_ms(p, g, accs):
+    """(ms, error) of ``torch._fused_adam_`` — what
+    ``torch.optim.Adam(fused=True)`` calls — over the same flat tensors
+    with f32 moments; (None, the error) where this torch lacks it."""
+    pl = p.clone()
+    m1, m2 = (a.float().clone() for a in accs)
+    step = torch.tensor(3.0, device=p.device)
+    try:
+        return cuda_ms(lambda: torch._fused_adam_(
+            [pl], [g], [m1], [m2], [], [step], lr=TRAIN_LR, beta1=0.9,
+            beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+            maximize=False), 20), None
+    except (AttributeError, RuntimeError, TypeError) as e:
+        return None, repr(e)
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def phase_recipe(card):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    place = fluid.CUDAPlace(0)
+    feed = train_batch()
+    nets = {}
+    for fuse in (False, True):
+        main, startup, cost = build_recipe(fuse)
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        fluid.params_from_numpy(seeded_weights(main), scope, place,
+                                program=main)
+        nets[fuse] = (main, cost, scope, exe)
+    fused_main = nets[True][0]
+    dense = [p.name for p in fused_main.all_parameters()
+             if p.name in fused_main._flat_state_views]
+    groups = sum(op.type.endswith("_fused")
+                 for op in fused_main.global_block().ops)
+
+    # the same program without fuse_optimizer_state: two steps
+    main, cost, scope, exe = nets.pop(False)
+    ref_losses = [float(exe.run(main, feed=feed, fetch_list=[cost],
+                                scope=scope)[0]) for _ in range(2)]
+    ref = {n: fluid.fetch_var(n, scope) for n in dense}
+    del main, cost, scope, exe
+    torch.cuda.empty_cache()
+
+    main, cost, scope, exe = nets.pop(True)
+    launchers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                 fused_flat_update)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in launchers:
+        fn.launches = 0
+    losses, step_s = [], []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(out[0]))
+        if step == 1:
+            param_rel, n_equal = {}, 0
+            for n in dense:
+                got = fluid.fetch_var(n, scope)
+                param_rel[n] = float(np.abs(got - ref[n]).max()
+                                     / max(np.abs(ref[n]).max(), 1e-30))
+                n_equal += bool(np.array_equal(got, ref[n]))
+    launches = {fn.__name__: fn.launches for fn in launchers}
+    peak = torch.cuda.max_memory_allocated()
+    want = {fn.__name__: ATTN_PER_STEP * TRAIN_STEPS for fn in launchers[:3]}
+    want["fused_flat_update"] = groups * TRAIN_STEPS
+    if launches != want:
+        fail("the recipe's %d steps launched %s, expected %s"
+             % (TRAIN_STEPS, launches, want))
+    if not all(math.isfinite(x) for x in losses):
+        fail("non-finite recipe loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        fail("the recipe's loss did not fall over %d steps: %s"
+             % (TRAIN_STEPS, losses))
+    loss_rel = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+    if not loss_rel <= 1e-5:
+        fail("recipe step-0 loss: fused %r, per-parameter %r (rel %g > "
+             "1e-5)" % (losses[0], ref_losses[0], loss_rel))
+    worst = max(param_rel.values())
+    if not worst <= 1e-6:
+        fail("after two steps the dense parameters of the two routes part "
+             "by %g of their max (> 1e-6): %s"
+             % (worst, sorted(param_rel.items(), key=lambda kv: -kv[1])[:5]))
+    steady = step_s[1:]
+    step_ms = float(np.mean(steady)) * 1e3
+    wall_ms, by_family, kernels, top = profile_step(
+        lambda: exe.run(main, feed=feed, fetch_list=[cost], scope=scope))
+    busy = sum(by_family.values())
+    emit({"phase": "recipe", "card": card, "batch": TRAIN_B,
+          "seq": TRAIN_T, "steps": TRAIN_STEPS, "flags": RECIPE_FLAGS,
+          "groups": groups, "group_params": len(dense),
+          "group_elements": int(main.global_block().var(
+              "fused_param_storage_0").shape[0]),
+          "losses": losses, "per_param_losses": ref_losses,
+          "step0_loss_rel_err": loss_rel,
+          "step1_param_max_rel_err": worst,
+          "step1_params_bit_equal": "%d of %d" % (n_equal, len(dense)),
+          "step_ms_mean": step_ms,
+          "step_ms_p50": float(np.median(steady)) * 1e3,
+          "first_step_ms": step_s[0] * 1e3,
+          "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+          "max_memory_allocated": peak, "launches": launches,
+          "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / wall_ms,
+          "device_idle_share_unprofiled": 1.0 - busy / step_ms,
+          "kernel_launches_per_step": kernels,
+          "device_ms_by_family": dict(sorted(by_family.items(),
+                                             key=lambda kv: -kv[1])),
+          "top_kernels": top})
     return launches
 
 
@@ -838,6 +1119,11 @@ def main():
     flash_rows = phase_flash()
     phase_routes()
     flash_launches = phase_training(card)
+    torch.cuda.empty_cache()
+    n_recipe = int(build_recipe(True)[0].global_block().var(
+        "fused_param_storage_0").shape[0])
+    fused_rows = phase_fused_update(card, n_recipe)
+    recipe_launches = phase_recipe(card)
     torch.cuda.empty_cache()
     launches = phase_serving(card)
 
@@ -876,6 +1162,19 @@ def main():
             "ms": fr["ms"][name], "plain_ms": plain,
             "bound_ms": fr["bound_ms"][name],
             "bound_by": fr["bound_by"][name], "library_ms": lib})
+    # the recipe's own group: Adam, bf16 moments, owning the beta powers
+    fu = next(r for r in fused_rows if r["n"] == n_recipe
+              and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",
+                                                           True))
+    kernels.append({
+        "name": "fused_flat_update", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
+        "replaces": "paddle_tpu/ops/fused_optimizer.py:71",
+        "launches": recipe_launches["fused_flat_update"],
+        "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
+        "ms": fu["ms"], "plain_ms": fu["plain_ms"],
+        "bound_ms": fu["bound_ms"], "bound_by": fu["bound_by"],
+        "library_ms": fu["library_ms"]})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

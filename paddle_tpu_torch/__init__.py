@@ -12,11 +12,16 @@ The slices ported so far serve a causal LM through paged-KV decode::
     from paddle_tpu_torch.decoding import serve_decoding
 
 and train Transformer-base (``append_backward`` + ``Adam`` +
-``Executor``)::
+``Executor``), with the mixed-precision recipe of ``bench.py`` — a bf16
+activation stream, bf16 moments, flat optimizer state and sparse
+embeddings with lazy Adam::
 
     from paddle_tpu_torch.models.transformer import transformer_base
+    fluid.set_flags({"use_bfloat16": True, "bf16_activations": True,
+                     "bf16_moments": True, "fuse_optimizer_state": True})
     with fluid.program_guard(main, startup):
-        feeds, avg_cost, _ = transformer_base(..., attn_impl="pallas")
+        feeds, avg_cost, _ = transformer_base(
+            ..., sparse_embedding=True, attn_impl="pallas")
         fluid.optimizer.Adam(learning_rate=1e-4).minimize(avg_cost)
 
 This package imports neither jax nor paddle_tpu.
@@ -30,6 +35,8 @@ from .core import (CPUPlace, CUDAPlace, EnforceError, Operator, Parameter,
                    default_startup_program, global_scope, program_guard,
                    scope_guard, switch_main_program, switch_startup_program)
 from .core import unique_name
-from .executor import Executor
-from .optimizer import SGD, Adam, AdamOptimizer, SGDOptimizer
+from .core.flags import get_flag, set_flags
+from .executor import Executor, fetch_var
+from .optimizer import (SGD, Adagrad, AdagradOptimizer, Adam, AdamOptimizer,
+                        SGDOptimizer)
 from .param_attr import ParamAttr

@@ -1,5 +1,5 @@
 """Reverse-mode autodiff over a Program (counterpart of
-paddle_tpu/backward.py), for dense parameters.
+paddle_tpu/backward.py).
 
 ``append_backward`` keeps the JAX package's programmatic contract: it
 appends ONE ``backward`` op with the slots ``Params`` and ``Inputs`` ->
@@ -17,9 +17,16 @@ the ``Params``, then executes ``backward`` as
 ``torch.autograd.grad(loss, leaves)``. The op's fn only refuses to run
 anywhere else.
 
-Not ported yet (they raise): the row-sparse ``@GRAD@ROWS`` /
-``@GRAD@VALUES`` pair of ``embedding(is_sparse=True)`` tables,
-rematerialization, and ``calc_gradient``.
+Row-sparse tables (``embedding(is_sparse=True)`` read only by local
+lookups of fed ids) get the pair ``<table>@GRAD@ROWS`` (the looked-up
+ids, int32, flattened) and ``<table>@GRAD@VALUES`` (the gradient at
+each lookup's output, ``[n, D]``, zero at ``padding_idx``) instead of a
+dense ``[V, D]`` gradient. The JAX package adds a zero probe to each
+lookup output and differentiates with respect to it; here the
+executor makes each lookup output an autograd leaf, which is the same
+derivative, and the table itself is never differentiated.
+
+Not ported yet (they raise): rematerialization and ``calc_gradient``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from .core.enforce import EnforceError, enforce, not_ported
 from .core.program import Program, Variable
 
 GRAD_SUFFIX = "@GRAD"
+ROWS_SUFFIX = "@GRAD@ROWS"
+VALUES_SUFFIX = "@GRAD@VALUES"
 
 
 def _grad_name(name: str) -> str:
@@ -144,13 +153,6 @@ def append_backward(loss: Variable,
     param_names = [n for n in param_names if n in ext_inputs]
     other_inputs = [n for n in ext_inputs if n not in param_names]
 
-    sparse = _sparse_sites(fwd_ops, param_names, gb, other_inputs)
-    if sparse:
-        raise not_ported("row-sparse table gradients (@GRAD@ROWS / "
-                         "@GRAD@VALUES) of %s" % sorted(sparse),
-                         "Queue A 3, step 2: sparse embedding gradients "
-                         "with lazy Adam")
-
     # Stateful external inputs (read, then overwritten by a forward op,
     # e.g. dropout's RNG counter) reach the backward op as a snapshot
     # taken at program start, as in the JAX package. The gradient here
@@ -170,18 +172,40 @@ def append_backward(loss: Variable,
             snapshot_map[n] = pre
     backward_input_names = [snapshot_map.get(n, n) for n in other_inputs]
 
-    grad_vars = {}
-    for pn in param_names:
+    sparse_sites = _sparse_sites(fwd_ops, param_names, gb, other_inputs)
+    sparse_names = [pn for pn in param_names if pn in sparse_sites]
+    dense_names = [pn for pn in param_names if pn not in sparse_sites]
+    grad_vars, out_names = {}, []
+    for pn in dense_names:
         p = gb.var(pn)
         grad_vars[pn] = gb.create_var(name=_grad_name(pn), shape=p.shape,
                                       dtype=p.dtype)
+        out_names.append(grad_vars[pn].name)
+    for pn in sparse_names:
+        p = gb.var(pn)
+        rows = gb.create_var(name=pn + ROWS_SUFFIX, shape=(-1,),
+                             dtype="int32")
+        vals = gb.create_var(name=pn + VALUES_SUFFIX,
+                             shape=(-1, p.shape[-1]), dtype=p.dtype)
+        # the VALUES var stands in as the gradient downstream; the rows
+        # ride along for the optimizers' sparse updates
+        vals.is_sparse_rows = True
+        vals.rows_var = rows
+        grad_vars[pn] = vals
+        out_names += [rows.name, vals.name]
+    # (table, ids, lookup output, padding_idx) of every sparse lookup,
+    # by name, so a clone of the program keeps them
+    sites = [(pn, op.input("Ids")[0], op.output("Out")[0],
+              op.attrs.get("padding_idx"))
+             for pn in sparse_names for op in sparse_sites[pn]]
     gb.append_op(
         type="backward",
         inputs={"Params": list(param_names),
                 "Inputs": list(backward_input_names)},
-        outputs={"Grads": [grad_vars[pn].name for pn in param_names]},
+        outputs={"Grads": out_names},
         attrs={"loss": loss.name,
-               "_error_clips": _error_clip_map(fwd_ops, gb)},
+               "_error_clips": _error_clip_map(fwd_ops, gb),
+               "_sparse_sites": sites},
         fn=_executed_by_executor,
     )
     return [(gb.var(pn), grad_vars[pn]) for pn in param_names]

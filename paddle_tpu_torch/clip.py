@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from .core.program import Parameter, default_main_program
@@ -62,7 +64,10 @@ def set_gradient_clip(clip, param_list=None, program=None):
 
 
 def append_gradient_clip_ops(params_grads):
-    """Apply per-parameter clip attrs; global-norm clips act jointly."""
+    """Apply per-parameter clip attrs; global-norm clips act jointly. A
+    row-sparse gradient passes through unclipped, with a warning:
+    duplicate rows make its value-space norm differ from the dense
+    gradient's, and the reference does not clip it either."""
     if not params_grads:
         return params_grads
     block = params_grads[0][0].block.program.global_block()
@@ -73,6 +78,10 @@ def append_gradient_clip_ops(params_grads):
         clip = p.gradient_clip if isinstance(p, Parameter) else None
         if g is None or clip is None or isinstance(clip,
                                                    NullGradientClipAttr):
+            out.append((p, g))
+        elif getattr(g, "is_sparse_rows", False):
+            warnings.warn(
+                f"gradient clip skipped for sparse gradient of {p.name!r}")
             out.append((p, g))
         elif isinstance(clip, GradientClipByGlobalNorm):
             global_norm_groups.setdefault(clip, []).append(i)

@@ -1,12 +1,20 @@
 """Global flag registry (counterpart of paddle_tpu/core/flags.py).
 
-Only the flags the ported slices read are defined. The bf16 training
-flags and ``fuse_optimizer_state`` exist so that a program setting them
-is refused where they are read (``NotImplementedError``), never
-silently ignored. ``pallas_paged_attention``
-has no counterpart: the port's decode op always runs the hand-written
-paged-attention kernel (ops/paged_attention.py), which is what the JAX
-package does with that flag on.
+Only the flags the ported slices read are defined. The mixed-precision
+training recipe reads three of them: ``use_bfloat16`` (bf16 matmul
+operands), ``bf16_activations`` (with it, the activation stream stays
+bf16: :func:`bf16_stream`) and ``bf16_moments`` (bf16 optimizer
+moments); ``fuse_optimizer_state`` stores each parameter group and its
+moments as one flat buffer. Set them before the program is built (the
+bf16 flags) or before ``optimizer.minimize`` (the other two).
+
+Two flags of the JAX package have no counterpart, because the port has
+no plain route to choose against. ``pallas_paged_attention``: the
+decode op always runs the hand-written paged-attention kernel
+(ops/paged_attention.py). ``pallas_fused_update``: on a CUDA tensor the
+flat group update op always runs the hand-written fused-update kernel
+(ops/fused_optimizer.py). That is what the JAX package does with those
+flags on.
 """
 
 from __future__ import annotations
@@ -29,16 +37,27 @@ def set_flags(flags: Dict[str, Any]) -> None:
     _REGISTRY.update(flags)
 
 
+def bf16_stream() -> bool:
+    """The one predicate for the bf16 activation stream: both
+    ``use_bfloat16`` and ``bf16_activations`` on."""
+    return bool(_REGISTRY.get("use_bfloat16")
+                and _REGISTRY.get("bf16_activations"))
+
+
 define_flag("debug_fallback", False,
             "raise instead of warn when build-time shape inference "
             "fails for a reason other than data-dependent control flow")
 define_flag("use_bfloat16", False,
-            "bf16 matmuls (not ported yet: the embedding refuses it)")
+            "matmuls take bf16 operands; their results are f32 unless "
+            "bf16_activations is on too")
 define_flag("bf16_activations", False,
-            "bf16 activation stream (not ported yet)")
+            "with use_bfloat16: matmul results and the activation stream "
+            "stay bf16 (parameters, optimizer state and reductions f32)")
 define_flag("bf16_moments", False,
-            "bf16 optimizer moments (not ported yet: accumulators refuse "
-            "it)")
+            "store the optimizers' moment accumulators in bf16; the "
+            "update arithmetic stays f32 (set before optimizer.minimize)")
 define_flag("fuse_optimizer_state", False,
-            "flat per-group optimizer state (not ported yet: minimize "
-            "refuses it)")
+            "store parameters and optimizer moments as one flat buffer "
+            "per (dtype, grad dtype, lr scale) group, updated by one op "
+            "per group; per-name access goes through scope views (set "
+            "before optimizer.minimize)")

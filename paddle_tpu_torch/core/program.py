@@ -253,6 +253,10 @@ class Program:
                     v = nb._find_var_recursive(name)
                     if v is not None and v.op is None:
                         v.op = nop
+        if hasattr(self, "_flat_state_views"):
+            # fuse_optimizer_state's view map: a clone reads its
+            # parameters from the same flat buffers
+            p._flat_state_views = self._flat_state_views
         return p
 
     def list_vars(self):

@@ -17,9 +17,19 @@ A training program (one with the ``backward`` op of
 ``append_backward``) runs one forward pass per step: the ops before
 ``backward`` run with autograd on, over leaf aliases of the parameters
 in its ``Params`` slot; ``backward`` is executed as
-``torch.autograd.grad(loss, leaves)`` and binds ``<param>@GRAD``; the
-update ops after it run with autograd off. Fetched tensors are
-detached.
+``torch.autograd.grad(loss, leaves)`` and binds ``<param>@GRAD`` (and,
+for a row-sparse table, ``@GRAD@ROWS`` / ``@GRAD@VALUES`` from leaf
+aliases of its lookup outputs); the update ops after it run with
+autograd off. Fetched tensors are detached copies.
+
+Flat optimizer state (``fuse_optimizer_state``): the parameters of a
+group are sliced out of its flat buffer by an ``unpack_flat_params`` op
+at the top of the block. Those views are not read from the scope, not
+fed (a feed would be overwritten, so it raises) and not written back:
+the flat buffer is the state. A parameter's leaf alias is taken where
+the forward reads it — at the unpack op's output — so its gradient is
+the one the forward pass produced. After a run the scope adopts the
+program's views (``Scope.adopt_flat_views``).
 
 Not ported yet: the compile cache, ``run_steps``, sharding, AMP stamps,
 passes, loaders and host offload.
@@ -37,6 +47,8 @@ from .core.enforce import EnforceError, enforce
 from .core.place import Place, default_place
 from .core.program import Deferred, Program, Variable, default_main_program
 from .core.scope import Scope, global_scope
+
+_UNPACK = "unpack_flat_params"
 
 
 def _as_names(fetch_list) -> List[str]:
@@ -98,52 +110,162 @@ def _error_clip_post_op(clips):
     return post if clips else None
 
 
+def _leaf(v: torch.Tensor) -> torch.Tensor:
+    return v.detach().requires_grad_(True)
+
+
+def _lookup_rows(ids: torch.Tensor) -> torch.Tensor:
+    """A lookup's ids as the rows of its sparse gradient: int32, a
+    trailing 1 squeezed, flattened (the lookup's own normalization)."""
+    idx = ids.to(torch.int32)
+    if idx.dim() and idx.shape[-1] == 1:
+        idx = idx.squeeze(-1)
+    return idx.reshape(-1)
+
+
 def run_training_ops(ops, env: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
     """Run a block holding a ``backward`` op with one forward pass: the
-    ops before it under autograd over leaf aliases of its ``Params``,
-    the op itself as ``torch.autograd.grad``, the ops after it with
-    autograd off."""
+    ops before it under autograd over leaf aliases of its dense
+    ``Params`` and of its sparse tables' lookup outputs, the op itself
+    as ``torch.autograd.grad``, the ops after it with autograd off."""
     at = [i for i, op in enumerate(ops) if op.type == "backward"]
     enforce(len(at) == 1, "a program runs at most one backward op, found %d"
             % len(at))
     i = at[0]
     bw = ops[i]
-    params = bw.input("Params")
-    leaves = []
-    for n in params:
-        enforce(n in env, "backward: parameter %r is not in scope" % n)
-        env[n] = env[n].detach().requires_grad_(True)
-        leaves.append(env[n])
+    sites = bw.attrs.get("_sparse_sites", ())
+    tables = list(dict.fromkeys(s[0] for s in sites))
+    dense = [n for n in bw.input("Params") if n not in tables]
+    leaves: Dict[str, torch.Tensor] = {}
+    probes: Dict[str, Optional[torch.Tensor]] = {s[2]: None for s in sites}
+    for n in dense:
+        if n in env:
+            env[n] = leaves[n] = _leaf(env[n])
+    want = set(dense)
+    clips = _error_clip_post_op(bw.attrs.get("_error_clips", {}))
+
+    def post(op, out):
+        # the leaf alias of a parameter the step itself produces (a view
+        # of a flat buffer) and of each sparse lookup output
+        names = op.output_arg_names
+        if any(n in want or n in probes for n in names):
+            one = len(names) == 1 and not isinstance(out, (tuple, list))
+            vals = [out] if one else list(out)
+            for k, n in enumerate(names):
+                if n in want and n not in leaves:
+                    vals[k] = leaves[n] = _leaf(vals[k])
+                elif n in probes:
+                    vals[k] = probes[n] = _leaf(vals[k])
+            out = vals[0] if one else tuple(vals)
+        return clips(op, out) if clips is not None else out
+
     with torch.enable_grad():
-        run_program_ops(ops[:i], env,
-                        post_op=_error_clip_post_op(
-                            bw.attrs.get("_error_clips", {})))
+        run_program_ops(ops[:i], env, post_op=post)
+    missing = [n for n in dense if n not in leaves]
+    enforce(not missing, "backward: parameter(s) %s are neither in scope "
+            "nor produced before the backward op" % missing)
     loss = _value(env, bw.attrs["loss"])
     enforce(loss.numel() == 1,
             "loss must be a scalar for append_backward; got shape %s"
             % (tuple(loss.shape),))
-    grads = (torch.autograd.grad(loss.reshape(()), leaves,
-                                 allow_unused=True) if leaves else ())
-    for name, leaf, g in zip(bw.output("Grads"), leaves, grads):
-        env[name] = torch.zeros_like(leaf) if g is None else g
+    inputs = [leaves[n] for n in dense] + list(probes.values())
+    grads = (torch.autograd.grad(loss.reshape(()), inputs,
+                                 allow_unused=True) if inputs else ())
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(inputs, grads)]
+    out_names = bw.output("Grads")
+    for name, g in zip(out_names, grads[:len(dense)]):
+        env[name] = g
+    cot = dict(zip(probes, grads[len(dense):]))
+    k = len(dense)
+    for table in tables:
+        rows, vals = [], []
+        for pn, ids_name, out_name, pad in sites:
+            if pn != table:
+                continue
+            r = _lookup_rows(_value(env, ids_name))
+            v = cot[out_name].reshape(-1, cot[out_name].shape[-1])
+            if pad is not None:
+                vocab = env[table].shape[0]
+                pad = pad if pad >= 0 else vocab + pad
+                # a padded id contributes no table gradient (the lookup
+                # zeroes its output after the gather)
+                v = torch.where((r == pad)[:, None],
+                                torch.zeros((), dtype=v.dtype,
+                                            device=v.device), v)
+            rows.append(r)
+            vals.append(v)
+        env[out_names[k]] = torch.cat(rows)
+        env[out_names[k + 1]] = torch.cat(vals)
+        k += 2
     with torch.no_grad():
         run_program_ops(ops[i + 1:], env)
     return env
 
 
+def _analyze_program_io(program: Program):
+    """(produced, needed, view_produced) name sets of the global block;
+    ``view_produced`` are the outputs of ``unpack_flat_params``: views
+    sliced from flat buffers in the step, neither external inputs nor
+    state to write back."""
+    produced, needed, view_produced = set(), set(), set()
+    for op in program.global_block().ops:
+        produced.update(op.output_arg_names)
+        needed.update(op.input_arg_names)
+        if op.type == _UNPACK:
+            view_produced.update(op.output_arg_names)
+    return produced, needed, view_produced
+
+
+def _reject_view_feeds(feed, view_produced) -> None:
+    """A feed of a fused parameter would be overwritten by the unpack op
+    at the top of the block: refuse it."""
+    bad = sorted(n for n in (feed or ()) if n in view_produced)
+    enforce(not bad,
+            "Cannot feed fused parameter(s) %s: with fuse_optimizer_state "
+            "their values are sliced from the flat storage each step, so "
+            "a feed would be ignored. Write them through the scope "
+            "(scope.set_var) or disable fuse_optimizer_state." % bad)
+
+
 def _written_persistables(program: Program) -> Tuple[str, ...]:
     """Names of persistable variables any op writes — everything that
     must flow back to the scope after a run (startup initializations,
-    KV pools)."""
+    optimizer state, KV pools). The outputs of ``unpack_flat_params``
+    are not: the flat buffer carries their state."""
     gb = program.global_block()
     written = []
     for op in gb.ops:
+        if op.type == _UNPACK:
+            continue
         for n in op.output_arg_names:
             v = gb._find_var_recursive(n)
             if v is not None and v.persistable and n not in written:
                 written.append(n)
     return tuple(written)
+
+
+def fetch_var(name: str, scope: Optional[Scope] = None,
+              return_numpy: bool = True):
+    """The value of a (persistable) variable straight from a scope — a
+    fused parameter's through its flat view: a host numpy copy (bfloat16
+    widened to float32), or the tensor itself without ``return_numpy``."""
+    enforce(isinstance(name, str), "name must be str")
+    scope = scope if scope is not None else global_scope()
+    enforce(scope.has_var(name),
+            f"Cannot find variable {name!r} in the scope. Typically only "
+            "persistable variables live in the scope used by Executor.run")
+    val = scope.get(name)
+    return _to_numpy(val) if return_numpy else val
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy that shares no memory with ``t`` (state tensors may
+    be updated in place later)."""
+    t = t.detach()
+    t = t.float() if t.dtype == torch.bfloat16 else t
+    return t.to("cpu", copy=True).numpy()
 
 
 class Executor:
@@ -158,15 +280,14 @@ class Executor:
                              fetch_names: Tuple[str, ...],
                              scope: Scope) -> Tuple[str, ...]:
         """External inputs that come from the scope: vars not fed that
-        an op reads (or that are fetched without being produced)."""
-        produced, needed = set(), set()
-        for op in program.global_block().ops:
-            produced.update(op.output_arg_names)
-            needed.update(op.input_arg_names)
+        an op reads (or that are fetched without being produced), less
+        the views an unpack op slices in the step."""
+        produced, needed, view_produced = _analyze_program_io(program)
+        _reject_view_feeds(feed, view_produced)
         needed |= {n for n in fetch_names if n not in produced}
         state_names = []
         for name in needed:
-            if name in feed:
+            if name in feed or name in view_produced:
                 continue
             if scope.has_var(name):
                 state_names.append(name)
@@ -215,8 +336,14 @@ class Executor:
             with torch.no_grad():
                 run_program_ops(gb.ops, env)
 
+        views = getattr(program, "_flat_state_views", None) or {}
         with torch.no_grad():
-            for n in _written_persistables(program):
+            written = _written_persistables(program)
+            for n in written:
+                if n in views and views[n][0] in written:
+                    # a startup run: the pack op wrote the whole flat
+                    # buffer, so the per-name init values are in it
+                    continue
                 v = _value(env, n)
                 if isinstance(v, torch.Tensor):
                     if v.requires_grad:
@@ -224,6 +351,8 @@ class Executor:
                     v = v.to(self.device)  # the same object when there
                 if scope.find_var(n) is not v:
                     scope.set_var(n, v)
+            if views:
+                scope.adopt_flat_views(views)
             fetches = []
             for n in fetch_names:
                 enforce(n in env, "fetch target %r was not computed" % n)
@@ -234,5 +363,4 @@ class Executor:
             return fetches
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return [(f.float() if f.dtype == torch.bfloat16 else f)
-                .detach().cpu().numpy() for f in fetches]
+        return [_to_numpy(f) for f in fetches]

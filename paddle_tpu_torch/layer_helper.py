@@ -1,11 +1,11 @@
 """LayerHelper: shared plumbing for layer functions (counterpart of
-paddle_tpu/layer_helper.py, without weight normalization and the bf16
-master-weight rule, which belong to training)."""
+paddle_tpu/layer_helper.py, without weight normalization)."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from .core import dtype_utils, flags
 from .core import initializer as init
 from .core import unique_name
 from .core.program import (Parameter, Variable, default_main_program,
@@ -37,6 +37,11 @@ class LayerHelper:
                          is_bias: bool = False,
                          default_initializer=None) -> Parameter:
         attr = ParamAttr._to_attr(attr)
+        if (dtype_utils.name(dtype) in ("bfloat16", "float16")
+                and flags.bf16_stream()):
+            # master weights stay f32 under the bf16 activation stream:
+            # the layer's input dtype does not leak into parameter storage
+            dtype = "float32"
         if attr.name is None:
             suffix = "b" if is_bias else "w"
             attr.name = unique_name.generate(f"{self.layer_type}.{suffix}")

@@ -3,7 +3,10 @@ paddle_tpu/layers/nn.py): the ones the causal LM and Transformer-base
 training reach.
 
 Each function appends ops carrying torch fns to the default main program
-and returns the output Variable(s).
+and returns the output Variable(s). Under ``use_bfloat16`` the matrix
+products take bf16 operands (:func:`_mm`); under the bf16 activation
+stream (``flags.bf16_stream()``) their results stay bf16 too, while the
+reductions (softmax, cross-entropy, layer-norm statistics) run in f32.
 """
 
 from __future__ import annotations
@@ -14,10 +17,64 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import flags
 from ..core import initializer as init
 from ..core.enforce import not_ported
 from ..core.program import Deferred
 from ..layer_helper import LayerHelper
+
+
+def _mm_f32(a, b):
+    """f32 product of two bf16 matrices. On the card cuBLAS takes the
+    bf16 operands and writes f32 (``torch.mm(..., out_dtype=)``); that
+    op has no CPU kernel, so there the operands are widened first — a
+    product of two bf16 values is exact in f32, and the sums run in
+    f32 either way."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.to(torch.float32), b.to(torch.float32))
+
+
+class _Bf16MatmulF32(torch.autograd.Function):
+    """``a @ b`` of bf16 matrices with an f32 result. The gradients are
+    f32 products of the f32 cotangent, cast to the operands' dtype, as
+    the JAX package's transpose of its mixed-precision dot casts them."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.mm(g, b.to(g.dtype).t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.mm(a.to(g.dtype).t(), g).to(b.dtype)
+        return ga, gb
+
+
+def _mm_rule():
+    """The bf16 rule of the JAX package's ``_mm``, read when a layer is
+    built (a built program does not change with later flag flips):
+    None (a plain product), ``"f32"`` (``use_bfloat16``: bf16 operands,
+    f32 result) or ``"bf16"`` (the bf16 activation stream: bf16
+    result)."""
+    if not flags.get_flag("use_bfloat16"):
+        return None
+    return "bf16" if flags.bf16_stream() else "f32"
+
+
+def _mm(a, b, rule):
+    """2-D matrix product under ``rule`` (:func:`_mm_rule`)."""
+    if rule is None:
+        return torch.matmul(a, b)
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if rule == "bf16":
+        return torch.matmul(a, b)
+    return _Bf16MatmulF32.apply(a, b)
 
 
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
@@ -31,6 +88,7 @@ def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
     dtype = inputs[0].dtype
 
     proj_names = []
+    rule = _mm_rule()
     for x in inputs:
         in_features = int(np.prod(x.shape[num_flatten_dims:]))
         w = helper.create_parameter(param_attr, [in_features, size], dtype)
@@ -39,7 +97,7 @@ def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
         def mul_fn(xv, wv, _nfd=num_flatten_dims):
             lead = xv.shape[:_nfd]
             xv2 = torch.reshape(xv, (int(np.prod(lead)) if lead else 1, -1))
-            y = torch.matmul(xv2, wv)
+            y = _mm(xv2, wv, rule)
             return torch.reshape(y, (*lead, y.shape[-1]))
 
         helper.append_op(type="mul",
@@ -75,9 +133,10 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
     reference's ``[B, 1]`` ids convention), and the output shape follows
     the same rule — the decode rewrite swaps this op for a no-squeeze
     lookup because of it. ``is_sparse`` marks the table for a row-sparse
-    gradient, as the JAX package does; ``append_backward`` refuses such
-    a table until that path is ported. Distributed tables are not ported
-    yet."""
+    gradient: ``append_backward`` gives it the ``(rows, values)`` pair
+    ``<table>@GRAD@ROWS`` / ``<table>@GRAD@VALUES`` instead of a dense
+    ``[V, D]`` gradient, and the optimizers update only those rows.
+    Distributed tables are not ported yet."""
     if is_distributed:
         raise not_ported("embedding(is_distributed=True)",
                          "Queue A 9, multi-GPU")
@@ -244,6 +303,47 @@ def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
                      outputs={"Loss": [loss.name], "Softmax": [sm.name]},
                      fn=fn)
     return (loss, sm) if return_softmax else loss
+
+
+def softmax(input, use_cudnn=False, name=None):
+    """Softmax over the last axis, reduced in f32 even on a bf16
+    activation stream; the output keeps the input dtype."""
+    helper = LayerHelper("softmax")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     fn=lambda x: torch.softmax(x.to(torch.float32),
+                                                -1).to(x.dtype))
+    return out
+
+
+def cross_entropy(input, label, soft_label: bool = False,
+                  ignore_index: int = -100):
+    """Cross-entropy of probabilities ``input`` (post-softmax) against
+    hard or soft labels. The log is taken in f32: a bf16 stream loses
+    too much resolution near p = 1."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_tmp_variable(input.dtype)
+
+    def fn(p, y):
+        logp = torch.log(torch.clamp(p.to(torch.float32), 1e-8, 1.0))
+        if soft_label:
+            return -(y * logp).sum(-1, keepdim=True)
+        idx = y.to(torch.int64)
+        if idx.dim() == logp.dim():
+            idx = idx.squeeze(-1)
+        loss = -torch.gather(logp, -1, idx[..., None])
+        if ignore_index >= 0:
+            loss = torch.where(idx[..., None] == ignore_index,
+                               torch.zeros((), dtype=loss.dtype,
+                                           device=loss.device), loss)
+        return loss
+
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input.name], "Label": [label.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"soft_label": soft_label}, fn=fn)
+    return out
 
 
 def _reduce(name, tfn, x, dim=None, keep_dim=False):

@@ -189,13 +189,16 @@ def decoder_layer(dec_input, enc_output, src_mask, n_head, d_key, d_value,
                                   is_test)
 
 
-def _embed(ids, vocab_size, d_model, name):
-    if flags.get_flag("use_bfloat16") or flags.get_flag("bf16_activations"):
-        raise not_ported("the bf16 flags (use_bfloat16, bf16_activations)",
-                         "Queue A 3, step 3: the bf16 flags")
+def _embed(ids, vocab_size, d_model, name, is_sparse=False):
     emb = layers.embedding(input=ids, size=[vocab_size, d_model],
+                           is_sparse=is_sparse,
                            param_attr=ParamAttr(name=name))
-    return layers.scale(x=emb, scale=d_model ** 0.5)
+    emb = layers.scale(x=emb, scale=d_model ** 0.5)
+    if flags.bf16_stream():
+        # enter the bf16 activation stream at the embedding output; the
+        # table and every parameter stay f32
+        emb = layers.cast(emb, "bfloat16")
+    return emb
 
 
 def transformer_model(src_word, trg_word, src_mask, src_vocab_size,
@@ -207,9 +210,10 @@ def transformer_model(src_word, trg_word, src_mask, src_vocab_size,
                       sparse_embedding=False, distributed_embedding=False,
                       return_hidden=False):
     """Encoder-decoder -> next-token logits ``[B, T_trg, V_trg]``.
+    ``sparse_embedding`` gives both word tables row-sparse gradients.
     Training dropout (``dropout_rate > 0`` with ``is_test=False``), the
-    pipelined encoder, sparse and distributed embeddings are not ported
-    yet and raise."""
+    pipelined encoder and distributed embeddings are not ported yet and
+    raise."""
     if tp:
         raise not_ported("transformer_model(tp=True)", _MULTI_GPU)
     if dropout_rate and not is_test:
@@ -221,12 +225,8 @@ def transformer_model(src_word, trg_word, src_mask, src_vocab_size,
     if distributed_embedding:
         raise not_ported("transformer_model(distributed_embedding=True)",
                          _MULTI_GPU)
-    if sparse_embedding:
-        raise not_ported("transformer_model(sparse_embedding=True)",
-                         "Queue A 3, step 2: sparse embedding gradients "
-                         "with lazy Adam")
     src_emb = _embed(src_word, src_vocab_size, d_model,
-                     "src_word_emb_table")
+                     "src_word_emb_table", is_sparse=sparse_embedding)
     src_emb = positional_encoding(src_emb, max_length)
     enc_input = pre_post_process_layer(None, src_emb, "nd", dropout_rate,
                                        is_test)
@@ -239,7 +239,8 @@ def transformer_model(src_word, trg_word, src_mask, src_vocab_size,
 
     trg_table = ("src_word_emb_table" if weight_sharing
                  else "trg_word_emb_table")
-    trg_emb = _embed(trg_word, trg_vocab_size, d_model, trg_table)
+    trg_emb = _embed(trg_word, trg_vocab_size, d_model, trg_table,
+                     is_sparse=sparse_embedding)
     trg_emb = positional_encoding(trg_emb, max_length)
     dec_input = pre_post_process_layer(None, trg_emb, "nd", dropout_rate,
                                        is_test)

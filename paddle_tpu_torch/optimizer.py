@@ -1,44 +1,91 @@
 """Optimizers (counterpart of paddle_tpu/optimizer.py): the base class
-with the per-parameter update path, SGD and Adam.
+with the per-parameter and the flat-group update paths, SGD, Adagrad
+and Adam.
 
 ``minimize(loss)`` = ``append_backward`` + gradient clipping +
-regularization + one update op per parameter. Accumulators are named
-persistable variables initialized by ``fill_constant`` ops in the
-startup program, with the JAX package's names, so a state saved by
-either package loads into the other (``convert.state_from_numpy``).
-An update op's fn is ``(param, grad, lr, *accumulators) ->
-(new_param, *new_accumulators)``; the Executor runs it with autograd
-off and writes the persistable outputs back to the scope.
+regularization + the update ops. Accumulators are named persistable
+variables initialized by ``fill_constant`` ops in the startup program,
+with the JAX package's names, so a state saved by either package loads
+into the other (``convert.state_from_numpy``).
+
+Update ops, per parameter: ``(param, grad, lr, *accumulators) ->
+(new_param, *new_accumulators)``, run by the Executor with autograd off,
+the persistable outputs written back to the scope. The dense math of
+each optimizer is ``ops.fused_optimizer.plain_flat_update`` for its
+kind: the per-parameter ops apply it to one parameter, and the group op
+of ``fuse_optimizer_state`` to a whole flat group, through the
+hand-written kernel on the card (``fused_flat_update``) — so the two
+layouts give the same bits.
+
+``fuse_optimizer_state``: the parameters of each (dtype, grad dtype, lr
+scale) group and each of their moments are one flat persistable buffer
+(``fused_param_storage_N``, ``fused_<key>_storage_N``). One
+``unpack_flat_params`` op at the top of the block slices per-name views
+for the forward pass, one ``<op>_fused`` op updates the group, and a
+second ``unpack_flat_params`` after it re-slices the updated values.
+Per-name access (fetch, save, load) goes through the scope's flat views
+(``program._flat_state_views``).
+
+Row-sparse gradients (``embedding(is_sparse=True)``): SGD scatter-adds
+the rows, Adagrad and Adam ("lazy" Adam) update only the rows present,
+after summing duplicate rows. These ops update the table and its
+moments in place, so a step never copies a ``[V, D]`` table.
+
+``bf16_moments`` stores the moment accumulators in bf16; the update
+arithmetic stays f32 and scalars (beta powers) stay f32.
 
 Adam's two beta-power scalars are shared by every parameter: exactly
-one update op (the owner's, the last parameter's) advances them, and
-every other op reads the step-start value, because ops run in program
-order.
+one update op (the owner's: the last parameter's, or the last group's)
+advances them, and every other op reads the step-start value, because
+ops run in program order.
 
-Not ported yet (they raise): the flat ``fuse_optimizer_state`` layout
-and its fused update kernel, row-sparse updates (lazy Adam), bf16
-moments, and the rest of the optimizer family.
+Not ported yet: the rest of the optimizer family (Momentum, Adamax,
+RMSProp, ...).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .backward import append_backward
 from .core import dtype_utils, flags, unique_name
-from .core.enforce import enforce, not_ported
+from .core.enforce import enforce
 from .core.program import (Parameter, Program, Variable,
                            default_main_program, default_startup_program)
+from .ops.fused_optimizer import fused_flat_update, plain_flat_update
 from .regularizer import append_regularization_ops
+
+# accumulator names eligible for bf16 storage under bf16_moments:
+# EMA-style bounded accumulators only (an unbounded running sum would
+# drop small increments once it grows)
+_BF16_MOMENT_KEYS = ("moment", "moment1", "moment2", "velocity",
+                     "inf_norm", "avg_squared_grad", "avg_squared_update",
+                     "mean_square", "mean_grad", "momentum", "squared",
+                     "linear")
+
+
+def _moment_storage_dtype(key: str, dtype):
+    """Storage dtype of one accumulator: the one home of the
+    ``bf16_moments`` rule, shared by the per-parameter and flat
+    layouts."""
+    if (flags.get_flag("bf16_moments") and key in _BF16_MOMENT_KEYS
+            and dtype_utils.name(dtype) in ("float32", "float64")):
+        return "bfloat16"
+    return dtype
 
 
 class Optimizer:
-    """Base class. An optimizer declares its dense update once through
-    ``_make_update_fn(scale, owns)`` and its accumulators through
-    ``_FUSE_ACCS`` (per parameter) and ``_FUSE_SHARED`` (scalars shared
-    by every parameter), as in the JAX package."""
+    """Base class. An optimizer declares its dense update once, through
+    ``_update_consts(scale)`` (the hyperparameters of its kind of
+    ``plain_flat_update``) or by overriding ``_make_update_fn(scale,
+    owns)``, and its accumulators through ``_FUSE_ACCS`` (per parameter)
+    and ``_FUSE_SHARED`` (scalars shared by every parameter), as in the
+    JAX package. Only an optimizer with ``_update_consts`` (a kind of
+    ``ops.fused_optimizer.KINDS``) forms flat groups."""
 
     # (input_slot, output_slot, accumulator_key) — per-param accumulators,
     # in the order the update fn consumes them after (param, grad, lr)
@@ -108,13 +155,13 @@ class Optimizer:
         accs = self._accumulators.setdefault(name, {})
         enforce(param.name not in accs,
                 "accumulator %s already exists for %s" % (name, param.name))
-        if flags.get_flag("bf16_moments"):
-            raise not_ported("bf16 optimizer moments (bf16_moments)",
-                             "Queue A 3, step 3: the bf16 flags")
         shape = tuple(shape if shape is not None else param.shape)
+        dtype = dtype or param.dtype
+        if shape:  # scalars (beta powers) stay f32
+            dtype = _moment_storage_dtype(name, dtype)
         var = self._create_persistable_state(
-            unique_name.generate(f"{param.name}_{name}"), shape,
-            dtype or param.dtype, float(fill_value))
+            unique_name.generate(f"{param.name}_{name}"), shape, dtype,
+            float(fill_value))
         var.is_accumulator = True
         accs[param.name] = var
         return var
@@ -156,11 +203,30 @@ class Optimizer:
                              in self._FUSE_SHARED])
 
     # -- per-optimizer hooks ------------------------------------------------
+    def _update_consts(self, scale) -> Optional[tuple]:
+        """The Python-float hyperparameters of this optimizer's kind of
+        ``plain_flat_update`` (``_OP_TYPE``), at lr scale ``scale``;
+        None: no such kind."""
+        return None
+
     def _make_update_fn(self, scale, owns):
         """The dense elementwise update ``fn(param, grad, lr,
         *accumulators, *shared_scalars) -> (new_param,
         *new_accumulators[, *advanced_scalars if owns])``."""
-        return None
+        consts = self._update_consts(scale)
+        if consts is None:
+            return None
+        kind, n_acc = self._OP_TYPE, len(self._FUSE_ACCS)
+
+        def fn(pv, gv, lr, *rest):
+            return plain_flat_update(kind, pv, gv, lr, rest[:n_acc],
+                                     rest[n_acc:], owns, consts)
+
+        return fn
+
+    # optimizers with a row-sparse update (lazy rows) override this;
+    # None densifies the (rows, values) gradient
+    _append_sparse_optimize_op = None
 
     def _append_optimize_op(self, block, param_and_grad):
         p, g = param_and_grad
@@ -180,22 +246,198 @@ class Optimizer:
         return self._append_update(block, self._OP_TYPE, p, g,
                                    accs + shared, fn, outs)
 
+    # -- fused flat-state path (fuse_optimizer_state) -----------------------
+    def _fusable(self, p, g) -> bool:
+        return (g is not None
+                and not getattr(g, "is_sparse_rows", False)
+                and p.shape is not None
+                and all(int(s) >= 0 for s in p.shape)
+                and (g.shape is None
+                     or tuple(g.shape) == tuple(p.shape)))
+
+    def _group_key(self, p, g):
+        return (dtype_utils.name(p.dtype), dtype_utils.name(g.dtype),
+                self._param_lr_scale(p))
+
+    def _append_one_group(self, gb, pg, owns):
+        """One flat group: the flat buffers and their startup pack, the
+        unpack before the forward, the ``<op>_fused`` update op and the
+        unpack after it, and the per-name views — with the JAX package's
+        names, offsets and op types."""
+        main, startup = self._target_programs()
+        params = [p for p, _ in pg]
+        grads = [g for _, g in pg]
+        sizes = [int(np.prod(p.shape)) if p.shape else 1 for p in params]
+        offs = [int(o) for o in np.cumsum([0] + sizes[:-1])]
+        total = int(sum(sizes))
+        pdtype = params[0].dtype
+        scale = self._param_lr_scale(params[0])
+        shapes = [tuple(p.shape) for p in params]
+        names = [p.name for p in params]
+
+        gname = unique_name.generate("fused_param_storage")
+        flat_p = gb.create_var(name=gname, shape=(total,), dtype=pdtype,
+                               persistable=True)
+        # the startup program initializes the parameters per name; the
+        # pack at its end makes the flat buffer the source of truth
+        sb = startup.global_block()
+        sb.create_var(name=gname, shape=(total,), dtype=pdtype,
+                      persistable=True)
+        sb.append_op(type="pack_flat_params", inputs={"Params": names},
+                     outputs={"Flat": [gname]},
+                     fn=lambda *ps: torch.cat([p.reshape(-1) for p in ps]))
+
+        def unpack(flat):
+            return tuple(flat[o:o + n].view(s)
+                         for o, n, s in zip(offs, sizes, shapes))
+
+        # the views precede every use; the executor does not write them
+        # back (the flat buffer carries the state)
+        gb.prepend_op(type="unpack_flat_params", inputs={"Flat": [gname]},
+                      outputs={"Out": names}, fn=unpack)
+
+        acc_vars, acc_views = [], {}
+        for _in, _out, key in self._FUSE_ACCS:
+            adtype = _moment_storage_dtype(key, pdtype)
+            acc = self._create_persistable_state(
+                unique_name.generate(f"fused_{key}_storage"), (total,),
+                adtype, 0.0)
+            acc.is_accumulator = True
+            acc_vars.append(acc)
+            # the per-parameter accumulator names, as views over the
+            # flat buffer: symbol-table entries no op reads or writes,
+            # so checkpoints interchange between the two layouts
+            for p, o, n in zip(params, offs, sizes):
+                vname = unique_name.generate(f"{p.name}_{key}")
+                gb.create_var(name=vname, shape=tuple(p.shape),
+                              dtype=adtype, persistable=True)
+                acc_views[vname] = (acc.name, o, n, tuple(p.shape),
+                                    dtype_utils.name(adtype))
+        shared_vars = [self._shared_scalars[key]
+                       for _in, _out, key, _f in self._FUSE_SHARED]
+
+        kind, consts = self._OP_TYPE, self._update_consts(scale)
+        n_g, n_a = len(grads), len(acc_vars)
+
+        def group_fn(p_flat, *rest):
+            gs, lr = rest[:n_g], rest[n_g]
+            accs, sh = rest[n_g + 1:n_g + 1 + n_a], rest[n_g + 1 + n_a:]
+            g_flat = torch.cat([g.reshape(-1) for g in gs])
+            return fused_flat_update(kind, p_flat, g_flat, lr, accs, sh,
+                                     owns, consts)
+
+        inputs = {"FlatParam": [gname], "Grad": [g.name for g in grads],
+                  "LearningRate": [self._learning_rate_var.name]}
+        for (slot, _o, _k), v in zip(self._FUSE_ACCS, acc_vars):
+            inputs[slot] = [v.name]
+        for (slot, _o, _k, _f), v in zip(self._FUSE_SHARED, shared_vars):
+            inputs[slot] = [v.name]
+        outputs = {"FlatParamOut": [gname]}
+        for (_s, slot, _k), v in zip(self._FUSE_ACCS, acc_vars):
+            outputs[slot] = [v.name]
+        if owns:
+            for (_s, slot, _k, _f), v in zip(self._FUSE_SHARED,
+                                             shared_vars):
+                outputs[slot] = [v.name]
+        op = gb.append_op(type=self._OP_TYPE + "_fused", inputs=inputs,
+                          outputs=outputs, fn=group_fn)
+        # re-slice the per-name views from the updated buffer, so a
+        # later reader (a fetch of a parameter) sees the new values, as
+        # the per-parameter layout's ParamOut does
+        gb.append_op(type="unpack_flat_params", inputs={"Flat": [gname]},
+                     outputs={"Out": names}, fn=unpack)
+
+        reg = dict(getattr(main, "_flat_state_views", None) or {})
+        for p, o, n in zip(params, offs, sizes):
+            reg[p.name] = (flat_p.name, o, n, tuple(p.shape),
+                           dtype_utils.name(pdtype))
+        reg.update(acc_views)
+        main._flat_state_views = reg
+        startup._flat_state_views = reg
+        return op
+
+    # -- sparse-gradient helpers ----------------------------------------------
+    @staticmethod
+    def _merge_rows(rows, vals):
+        """(sorted unique rows, their summed values): duplicate rows of a
+        sparse gradient added together, as the JAX package's
+        ``_merge_rows`` (the reference's MergeAdd)."""
+        u, inv = torch.unique(rows.to(torch.int64), sorted=True,
+                              return_inverse=True)
+        summed = torch.zeros((u.shape[0],) + tuple(vals.shape[1:]),
+                             dtype=vals.dtype, device=vals.device)
+        return u, summed.index_add_(0, inv.reshape(-1), vals)
+
+    def _densify_grad(self, block, param, grad):
+        """For an optimizer without a row-sparse update: scatter the
+        (rows, values) pair into a dense gradient (the ``[V, D]`` cost
+        returns)."""
+        warnings.warn(
+            f"{type(self).__name__} has no sparse update path; densifying "
+            f"the sparse gradient of {param.name!r}")
+        dg = block.create_var(name=param.name + "@GRAD@DENSE",
+                              shape=param.shape, dtype=param.dtype)
+
+        def fn(pv, rv, vv):
+            return torch.zeros_like(pv).index_add_(
+                0, rv.to(torch.int64), vv.to(pv.dtype))
+
+        block.append_op(type="sparse_to_dense",
+                        inputs={"Param": [param.name],
+                                "Rows": [grad.rows_var.name],
+                                "Values": [grad.name]},
+                        outputs={"Out": [dg.name]}, fn=fn)
+        return dg
+
     def _create_optimization_pass(self, params_grads, loss,
                                   startup_program=None):
-        if flags.get_flag("fuse_optimizer_state"):
-            raise not_ported("the flat optimizer-state layout "
-                             "(fuse_optimizer_state)",
-                             "Queue A 3, step 1, with Queue B 4")
         self._program = loss.block.program
         if startup_program is not None:
             self._startup = startup_program
         gb = self._program.global_block()
         self._create_global_learning_rate()
         live = [(p, g) for p, g in params_grads if g is not None]
+
+        per_param, groups = [], {}
+        if (flags.get_flag("fuse_optimizer_state")
+                and self._update_consts(1.0) is not None):
+            for p, g in live:
+                if self._fusable(p, g):
+                    groups.setdefault(self._group_key(p, g),
+                                      []).append((p, g))
+                else:
+                    per_param.append((p, g))
+        else:
+            per_param = live
+
         # only params that receive an update op get accumulators, so the
-        # shared beta-pow owner's op exists
-        self._create_accumulators(gb, [p for p, _ in live])
-        ops = [self._append_optimize_op(gb, pg) for pg in live]
+        # shared beta-pow owner's op exists; fused params get flat
+        # accumulators in _append_one_group instead
+        if groups and self._FUSE_SHARED:
+            # the shared scalars first, keyed to the first live param:
+            # the names the per-parameter layout gives them
+            self._create_shared_scalar_accumulators(
+                [live[0][0]], [(key, getattr(self, fill_attr))
+                               for _i, _o, key, fill_attr
+                               in self._FUSE_SHARED])
+        self._create_accumulators(gb, [p for p, _ in per_param])
+        if groups:
+            # group ops run after every per-parameter op; the last group
+            # owns the shared-scalar advance
+            self._beta_pow_owner = None
+
+        ops = []
+        for p, g in per_param:
+            if getattr(g, "is_sparse_rows", False):
+                if self._append_sparse_optimize_op is not None:
+                    ops.append(self._append_sparse_optimize_op(gb, (p, g)))
+                    continue
+                g = self._densify_grad(gb, p, g)
+            ops.append(self._append_optimize_op(gb, (p, g)))
+        glist = list(groups.values())
+        for i, pg in enumerate(glist):
+            ops.append(self._append_one_group(
+                gb, pg, owns=bool(self._FUSE_SHARED) and i == len(glist) - 1))
         # a shared scalar no op advances would freeze bias correction
         if self._shared_scalars and ops:
             produced = set()
@@ -254,11 +496,53 @@ class SGD(Optimizer):
 
     _OP_TYPE = "sgd"
 
-    def _make_update_fn(self, scale, owns):
-        def fn(pv, gv, lr):
-            return pv - (lr * scale) * gv
+    def _update_consts(self, scale):
+        return (scale,)
 
-        return fn
+    def _append_sparse_optimize_op(self, block, param_and_grad):
+        """Row-sparse apply: the rows scatter-add into the table in
+        place (duplicates add one by one), so the result equals the
+        dense update restricted to the touched rows."""
+        p, g = param_and_grad
+        scale = self._param_lr_scale(p)
+
+        def fn(pv, gv, lr, rv):
+            return pv.index_add_(0, rv.to(torch.int64),
+                                 -(lr * scale) * gv.to(pv.dtype))
+
+        return self._append_update(block, "sgd_sparse", p, g,
+                                   [("Rows", g.rows_var)], fn)
+
+
+class Adagrad(Optimizer):
+    """m + g*g; param - lr * g / (sqrt(m) + eps)."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon = epsilon
+
+    _OP_TYPE = "adagrad"
+    _FUSE_ACCS = (("Moment", "MomentOut", "moment"),)
+
+    def _update_consts(self, scale):
+        return (scale, self._epsilon)
+
+    def _append_sparse_optimize_op(self, block, param_and_grad):
+        """Lazy row update after the duplicate-row merge, in place."""
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        eps, scale = self._epsilon, self._param_lr_scale(p)
+
+        def fn(pv, gv, lr, rv, mv):
+            u, gm = self._merge_rows(rv, gv.to(pv.dtype))
+            m_rows = mv[u].to(gm.dtype) + gm * gm
+            p_rows = pv[u] - (lr * scale) * gm / (torch.sqrt(m_rows) + eps)
+            return (pv.index_copy_(0, u, p_rows),
+                    mv.index_copy_(0, u, m_rows.to(mv.dtype)))
+
+        return self._append_update(block, "adagrad_sparse", p, g,
+                                   [("Rows", g.rows_var), ("Moment", m)],
+                                   fn, [("MomentOut", m)])
 
 
 class Adam(Optimizer):
@@ -275,21 +559,42 @@ class Adam(Optimizer):
     _FUSE_SHARED = (("Beta1Pow", "Beta1PowOut", "beta1_pow_acc", "_beta1"),
                     ("Beta2Pow", "Beta2PowOut", "beta2_pow_acc", "_beta2"))
 
-    def _make_update_fn(self, scale, owns):
+    def _update_consts(self, scale):
+        return (scale, self._beta1, self._beta2, self._epsilon)
+
+    def _append_sparse_optimize_op(self, block, param_and_grad):
+        """Lazy Adam: only the rows present in the gradient (after the
+        duplicate-row merge) advance their moments and parameters, in
+        place; the beta powers advance as in the dense update."""
+        p, g = param_and_grad
+        m1 = self._get_accumulator("moment1", p)
+        m2 = self._get_accumulator("moment2", p)
+        b1p = self._get_accumulator("beta1_pow_acc", p)
+        b2p = self._get_accumulator("beta2_pow_acc", p)
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        scale = self._param_lr_scale(p)
+        owns = p.name == self._beta_pow_owner
 
-        def fn(pv, gv, lr, m1v, m2v, b1pv, b2pv):
-            lr = lr * scale
-            m1n = b1 * m1v + (1 - b1) * gv
-            m2n = b2 * m2v + (1 - b2) * gv * gv
-            lr_t = lr * torch.sqrt(1 - b2pv) / (1 - b1pv)
-            p_new = pv - lr_t * m1n / (torch.sqrt(m2n) + eps)
-            if owns:
-                return p_new, m1n, m2n, b1pv * b1, b2pv * b2
-            return p_new, m1n, m2n
+        def fn(pv, gv, lr, rv, m1v, m2v, b1pv, b2pv):
+            u, gm = self._merge_rows(rv, gv.to(pv.dtype))
+            m1r = b1 * m1v[u].to(gm.dtype) + (1 - b1) * gm
+            m2r = b2 * m2v[u].to(gm.dtype) + (1 - b2) * gm * gm
+            lr_t = (lr * scale) * torch.sqrt(1 - b2pv) / (1 - b1pv)
+            p_rows = pv[u] - lr_t * m1r / (torch.sqrt(m2r) + eps)
+            out = (pv.index_copy_(0, u, p_rows),
+                   m1v.index_copy_(0, u, m1r.to(m1v.dtype)),
+                   m2v.index_copy_(0, u, m2r.to(m2v.dtype)))
+            return (out + (b1pv * b1, b2pv * b2)) if owns else out
 
-        return fn
+        outs = [("Moment1Out", m1), ("Moment2Out", m2)]
+        if owns:
+            outs += [("Beta1PowOut", b1p), ("Beta2PowOut", b2p)]
+        return self._append_update(
+            block, "adam_sparse", p, g,
+            [("Rows", g.rows_var), ("Moment1", m1), ("Moment2", m2),
+             ("Beta1Pow", b1p), ("Beta2Pow", b2p)], fn, outs)
 
 
 SGDOptimizer = SGD
+AdagradOptimizer = Adagrad
 AdamOptimizer = Adam

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from .core.program import Parameter
@@ -40,12 +42,21 @@ L2DecayRegularizer = L2Decay
 
 def append_regularization_ops(params_grads, regularization=None):
     """Add decay terms to gradients. A parameter's own regularizer (set
-    on its ParamAttr) overrides the global one."""
+    on its ParamAttr) overrides the global one. A row-sparse gradient
+    passes through undecayed, with a warning, as in the reference:
+    decaying only the touched rows would be wrong, and densifying would
+    defeat the sparse path."""
     out = []
     for p, g in params_grads:
         reg = p.regularizer if isinstance(p, Parameter) and p.regularizer \
             else regularization
         if g is None or reg is None:
+            out.append((p, g))
+            continue
+        if getattr(g, "is_sparse_rows", False):
+            warnings.warn(
+                f"regularization skipped for sparse gradient of {p.name!r} "
+                "(reference behavior for SelectedRows grads)")
             out.append((p, g))
             continue
         block = p.block.program.global_block()

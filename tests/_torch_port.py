@@ -1,16 +1,23 @@
 """Shared builders for the tests that hold paddle_tpu_torch to paddle_tpu:
-the same small causal LM built with the same calls in both packages,
-and the JAX package's (perturbed) weights carried into the port's scope
-as numpy arrays."""
+the same small causal LM and the same tiny Transformer-base (``TB``)
+built with the same calls in both packages, the JAX package's
+(perturbed) weights carried into the port's scope as numpy arrays, and
+a guard that sets one package's flags."""
+
+import contextlib
 
 import numpy as np
 import torch
 
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
+from paddle_tpu.core import flags as j_flags
 from paddle_tpu.core import unique_name as j_unique_name
 from paddle_tpu.models.causal_lm import causal_lm as j_causal_lm
+from paddle_tpu.models.transformer import transformer_base as j_transformer
 from paddle_tpu_torch.models.causal_lm import causal_lm as t_causal_lm
+from paddle_tpu_torch.models.transformer import \
+    transformer_base as t_transformer
 
 VOCAB = 37
 LM = dict(vocab_size=VOCAB, n_layer=2, n_head=2, d_model=32, d_inner_hid=64)
@@ -62,3 +69,55 @@ def symbol_table(program):
 
     return sorted((v.name, v.shape, dt(v.dtype), bool(v.persistable))
                   for v in program.list_vars())
+
+
+# ------------------------------------------- the tiny Transformer-base
+
+TB = dict(src_vocab_size=50, trg_vocab_size=50, max_length=16, n_layer=2,
+          n_head=2, d_model=32, d_inner_hid=64, dropout_rate=0.0)
+B, T_SRC, T_TRG = 3, 9, 7
+LR = 1e-3
+STEPS = 3
+GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
+UPDATE_TOL = 0.02  # |update_port - update_jax| / lr, element by element
+
+
+def _feed(seed=0):
+    rng = np.random.RandomState(seed)
+    ids = lambda t: rng.randint(1, 50, (B, t)).astype(np.int64)  # noqa: E731
+    src_len, trg_len = np.array([9, 5, 3]), np.array([7, 4, 6])
+    return {"src_word": ids(T_SRC), "trg_word": ids(T_TRG),
+            "lbl_word": ids(T_TRG),
+            "src_mask": (np.arange(T_SRC)[None] < src_len[:, None]
+                         ).astype(np.float32),
+            "trg_mask": (np.arange(T_TRG)[None] < trg_len[:, None]
+                         ).astype(np.float32)}
+
+
+def _build(pkg, attn_impl, opt=None, **kw):
+    """(main, startup, avg_cost, params_grads) of one package; ``opt``
+    makes the optimizer from the package (default ``Adam(LR)``)."""
+    fluid, build, guard = ((jfluid, j_transformer, j_unique_name.guard)
+                           if pkg == "jax" else
+                           (tfluid, t_transformer, tfluid.unique_name.guard))
+    opt = opt or (lambda f: f.optimizer.Adam(learning_rate=LR))
+    main, startup = fluid.Program(), fluid.Program()
+    with guard(), fluid.program_guard(main, startup):
+        _, avg_cost, _ = build(**{**TB, **kw}, attn_impl=attn_impl)
+        _, params_grads = opt(fluid).minimize(avg_cost)
+    return main, startup, avg_cost, params_grads
+
+
+@contextlib.contextmanager
+def _flags(pkg, values):
+    """The flags ``values`` set in one package's registry, then
+    restored. The JAX package reads the bf16 rule when it traces (the
+    first run), so its runs stay inside; the port reads every flag when
+    the program is built."""
+    reg = j_flags if pkg == "jax" else tfluid
+    saved = {n: reg.get_flag(n) for n in values}
+    reg.set_flags(dict(values))
+    try:
+        yield
+    finally:
+        reg.set_flags(saved)

@@ -76,13 +76,15 @@ def test_import_scan_catches_what_it_should():
 
 
 def test_the_training_slice_modules_are_in_the_scan():
-    """The modules the training slice added are among those the two
-    checks above import and scan."""
+    """The modules the training slices added (the fused optimizer update
+    among them) are among those the two checks above import and scan."""
     names = {"paddle_tpu_torch." + ".".join(
         p.relative_to(PACKAGE).with_suffix("").parts)
         for p in PACKAGE.rglob("*.py")}
     assert {"paddle_tpu_torch.backward", "paddle_tpu_torch.optimizer",
             "paddle_tpu_torch.regularizer", "paddle_tpu_torch.clip",
             "paddle_tpu_torch.layers.tensor",
-            "paddle_tpu_torch.ops.flash_attention"} <= names
-    assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
+            "paddle_tpu_torch.ops.flash_attention",
+            "paddle_tpu_torch.ops.fused_optimizer"} <= names
+    for source in ("flash_attention.cu", "fused_optimizer.cu"):
+        assert (PACKAGE / "csrc" / source).exists()

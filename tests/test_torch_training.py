@@ -22,6 +22,8 @@ package's ``"pallas"`` route runs its plain reference
 A state carried from the JAX package after 2 steps
 (``state_from_numpy``) resumes for a 3rd that matches, and the options
 the port does not have yet raise ``NotImplementedError``.
+tests/test_torch_recipe.py holds ``bench.py``'s full recipe (bf16
+flags, flat optimizer state, sparse embeddings) to the JAX package.
 """
 
 import warnings
@@ -33,47 +35,12 @@ import torch
 import paddle_tpu as jfluid
 import paddle_tpu_torch as tfluid
 from paddle_tpu.core import unique_name as j_unique_name
-from paddle_tpu.models.transformer import transformer_base as j_transformer
 from paddle_tpu_torch.core.enforce import EnforceError
-from paddle_tpu_torch.models.transformer import \
-    transformer_base as t_transformer
 
-from _torch_port import symbol_table
+from _torch_port import (B, GRAD_TOL, LR, STEPS, T_TRG, UPDATE_TOL, _build,
+                         _feed, symbol_table)
 
 torch.set_num_threads(1)
-
-TB = dict(src_vocab_size=50, trg_vocab_size=50, max_length=16, n_layer=2,
-          n_head=2, d_model=32, d_inner_hid=64, dropout_rate=0.0)
-B, T_SRC, T_TRG = 3, 9, 7
-LR = 1e-3
-STEPS = 3
-GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
-UPDATE_TOL = 0.02  # |update_port - update_jax| / lr, element by element
-
-
-def _feed(seed=0):
-    rng = np.random.RandomState(seed)
-    ids = lambda t: rng.randint(1, 50, (B, t)).astype(np.int64)  # noqa: E731
-    src_len, trg_len = np.array([9, 5, 3]), np.array([7, 4, 6])
-    return {"src_word": ids(T_SRC), "trg_word": ids(T_TRG),
-            "lbl_word": ids(T_TRG),
-            "src_mask": (np.arange(T_SRC)[None] < src_len[:, None]
-                         ).astype(np.float32),
-            "trg_mask": (np.arange(T_TRG)[None] < trg_len[:, None]
-                         ).astype(np.float32)}
-
-
-def _build(pkg, attn_impl, **kw):
-    """(main, startup, avg_cost, params_grads) of one package."""
-    fluid, build, guard = ((jfluid, j_transformer, j_unique_name.guard)
-                           if pkg == "jax" else
-                           (tfluid, t_transformer, tfluid.unique_name.guard))
-    main, startup = fluid.Program(), fluid.Program()
-    with guard(), fluid.program_guard(main, startup):
-        _, avg_cost, _ = build(**{**TB, **kw}, attn_impl=attn_impl)
-        _, params_grads = fluid.optimizer.Adam(
-            learning_rate=LR).minimize(avg_cost)
-    return main, startup, avg_cost, params_grads
 
 
 def _quiet():
@@ -429,38 +396,11 @@ def test_the_backward_op_refuses_to_run_outside_the_executor():
 
 
 @pytest.mark.parametrize("option", [
-    "sparse_embedding", "fuse_optimizer_state", "training_dropout",
-    "fused_ce", "ring", "tp", "pp_encoder", "bf16_moments", "bf16_stream",
-    "sparse_table_backward"])
+    "training_dropout", "fused_ce", "ring", "tp", "pp_encoder"])
 def test_options_not_ported_yet_raise(option):
     """Each names the ROADMAP item that ports it."""
-    from paddle_tpu_torch.core import flags
-
-    kw = {"sparse_embedding": {"sparse_embedding": True},
-          "training_dropout": {"dropout_rate": 0.1},
-          "fused_ce": {"fused_ce": True}, "ring": {"attn_impl": "ring"},
-          "tp": {"tp": True}, "pp_encoder": {"pp_encoder": True}}
-    flag = {"fuse_optimizer_state": {"fuse_optimizer_state": True},
-            "bf16_moments": {"bf16_moments": True},
-            "bf16_stream": {"use_bfloat16": True,
-                            "bf16_activations": True}}.get(option, {})
-    saved = {n: flags.get_flag(n) for n in flag}
-    flags.set_flags(flag)
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            if option == "sparse_table_backward":
-                main = tfluid.Program()
-                with tfluid.unique_name.guard(), \
-                        tfluid.program_guard(main, tfluid.Program()):
-                    ids = tfluid.layers.data("ids", [4], dtype="int64",
-                                             append_batch_size=False)
-                    emb = tfluid.layers.embedding(ids, [10, 3],
-                                                  is_sparse=True)
-                    tfluid.append_backward(tfluid.layers.reduce_sum(emb))
-            else:
-                extra = {k: v for k, v in kw.get(option, {}).items()
-                         if k != "attn_impl"}
-                _build("torch", "ring" if option == "ring" else "fused",
-                       **extra)
-    finally:
-        flags.set_flags(saved)
+    kw = {"training_dropout": {"dropout_rate": 0.1},
+          "fused_ce": {"fused_ce": True}, "ring": {},
+          "tp": {"tp": True}, "pp_encoder": {"pp_encoder": True}}[option]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _build("torch", "ring" if option == "ring" else "fused", **kw)
