@@ -15,11 +15,15 @@ Phases, one JSON line each (or one per shape):
              ``ops.plain_window_attention`` on the card at the decode
              shapes (B in {1, 16}, T in {1, 4}, H=8, D=64, block 16,
              32 pages per sequence; random cached lengths, -1 padding
-             pages, one inactive row), f32 and bf16: max abs error over
-             rows with a valid key, finiteness everywhere, and CUDA-event
+             pages, one inactive row), f32 and bf16 pools, plus f32 at
+             the suffix windows T in {64, 512}; and int8 pools (the same
+             K/V quantized per slot, f32 scales) with f32 and bf16
+             queries at T in {1, 4, 64, 512}. Max abs error over rows
+             with a valid key, finiteness everywhere, and CUDA-event
              times of the kernel, the plain version and
              ``F.scaled_dot_product_attention`` over the pre-gathered
-             window (gather excluded), beside the byte/flop bound.
+             (for int8: and dequantized) window (gather excluded),
+             beside the byte/flop bound.
 3. serving — ``serve_decoding`` of a Transformer-base-width causal LM
              (vocab 32000, 6 layers, 8 heads, d_model 512, FFN 2048;
              random weights from a numpy seed) on ``CUDAPlace(0)``
@@ -82,6 +86,22 @@ Phases, one JSON line each (or one per shape):
              memory, launches per step, the device idle share and device
              ms by family (``fused_update`` one of them).
 
+9. prefix_int8 — shared-prompt serving: ``serve_decoding`` of the
+             causal LM of phase 3 with ``CacheConfig(num_blocks=512,
+             block_size=16, max_blocks_per_seq=32, kv_dtype="int8",
+             prefix_cache=True)``, decode buckets 1-16 and the default
+             suffix buckets 1-512, answering 16 concurrent requests that
+             share a 128-token system prompt plus a private suffix of
+             8-64 tokens, 32 new tokens each. Checks every request
+             completes, 15 prefix hits, 1 miss and 15*128 prompt tokens
+             avoided, and the int8 kernel launched at least 6 times per
+             decode step and per suffix prefill; the same traffic with
+             f32 pools and prefix caching gives the streams of f32 pools
+             without it (a difference only where the full forward's
+             top-2 logit gap is below 1e-3). Reports tokens/s, TTFT,
+             step, prefill and extend ms, the pools' bytes, and the int8
+             streams' token agreement with the f32 ones.
+
 Then the card's name and power limit, the kernels JSON line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a visible CUDA device — or outside a checkout that
@@ -106,6 +126,13 @@ L2_BYTES = 50 * 2 ** 20
 
 # paged-attention decode shapes
 H, D, BS, MB, NB = 8, 64, 16, 32, 512
+# kernel-phase rows: (pool kind, query dtype, B, T)
+KERNEL_ROWS = (
+    [(None, dt, B, T) for dt in (torch.float32, torch.bfloat16)
+     for B in (1, 16) for T in (1, 4)]
+    + [(None, torch.float32, B, T) for B in (1, 16) for T in (64, 512)]
+    + [("int8", dt, B, T) for dt in (torch.float32, torch.bfloat16)
+       for B in (1, 16) for T in (1, 4, 64, 512)])
 
 # Transformer-base widths (the repo's flagship config, bench.py)
 MODEL = dict(vocab_size=32000, n_layer=6, n_head=8, d_model=512,
@@ -113,6 +140,10 @@ MODEL = dict(vocab_size=32000, n_layer=6, n_head=8, d_model=512,
 N_REQUESTS = 16
 MAX_NEW = 32
 SEED = 0
+# shared-prompt serving: a system prompt every request carries, then a
+# private suffix of 8-64 tokens
+SYSTEM_PROMPT = 128
+SUFFIX_TOKENS = (8, 64)
 
 # Transformer-base training (bench.py's flagship step, f32, dense
 # embeddings, dropout 0): B=32 sentences of T=256 target tokens
@@ -204,12 +235,23 @@ def phase_device():
 # ---------------------------------------------------------------- phase 2
 
 
-def make_problem(B, T, dtype, seed, inactive_row):
+def quantize_pool(x):
+    """An f32 ``[nb, bs, H, D]`` pool as the int8 rewrite stores it:
+    codes and ``[nb, bs]`` f32 scales, absmax/127 per slot."""
+    scale = x.abs().amax(dim=(2, 3)) * (1.0 / 127.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    codes = torch.clamp(torch.round(x / safe[..., None, None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def make_problem(B, T, dtype, seed, inactive_row, kv=None):
     """A paged-window problem at the decode shapes: each sequence owns
     its own random pages (as the allocator hands them out), a random
-    number of them valid and the rest -1, and a cached length inside
-    its valid span. The inactive row has an all -1 table and position
-    -1, as the engine pads a decode batch."""
+    number of them valid (at least enough for T) and the rest -1, and a
+    cached length inside its valid span. The inactive row has an all -1
+    table and position -1, as the engine pads a decode batch. With
+    ``kv="int8"`` the same K/V are quantized per slot. Returns (the five
+    positional arguments, the scale keywords)."""
     rng = np.random.RandomState(seed)
     dev = torch.device("cuda", 0)
     q = rng.standard_normal((B, T, H, D)).astype(np.float32)
@@ -219,15 +261,21 @@ def make_problem(B, T, dtype, seed, inactive_row):
     tables = np.full((B, MB), -1, np.int32)
     cached = np.zeros(B, np.int32)
     for b in range(B):
-        n_valid = rng.randint(1, MB + 1)
+        n_valid = rng.randint(-(-T // BS), MB + 1)
         tables[b, :n_valid] = pages[b * MB:b * MB + n_valid]
         cached[b] = rng.randint(0, n_valid * BS - T + 1)
     if inactive_row:
         tables[-1] = -1
         cached[-1] = -1
     as_t = lambda a, dt: torch.from_numpy(a).to(device=dev, dtype=dt)
-    return (as_t(q, dtype), as_t(kp, dtype), as_t(vp, dtype),
-            as_t(tables, torch.int32), as_t(cached, torch.int32))
+    if kv == "int8":
+        kc, ks = quantize_pool(as_t(kp, torch.float32))
+        vc, vs = quantize_pool(as_t(vp, torch.float32))
+        pools, scales = (kc, vc), {"k_scale": ks, "v_scale": vs}
+    else:
+        pools, scales = (as_t(kp, dtype), as_t(vp, dtype)), {}
+    return ((as_t(q, dtype),) + pools + (as_t(tables, torch.int32),
+                                         as_t(cached, torch.int32)), scales)
 
 
 def window_masks(tables, cached, T):
@@ -241,10 +289,11 @@ def window_masks(tables, cached, T):
     return m, m.any(-1)
 
 
-def work(tables, cached, T, dtype):
+def work(tables, cached, T, dtype, kv=None):
     """Bytes the function must move and operations it must do for these
-    inputs: each valid K/V row read once (all heads), q and out once,
-    the tables and lengths; two flops per multiply-add of QK and PV."""
+    inputs: each valid K/V row read once (all heads; one byte an element
+    and 8 bytes of scales a row for int8 pools), q and out once, the
+    tables and lengths; two flops per multiply-add of QK and PV."""
     m, _ = window_masks(tables, cached, T)
     B = tables.shape[0]
     item = torch.finfo(dtype).bits // 8
@@ -252,7 +301,8 @@ def work(tables, cached, T, dtype):
     page_ok = (tables.long() >= 0).repeat_interleave(BS, dim=1)
     rows_read = int(((torch.arange(MB * BS, device=tables.device)[None, :]
                       <= last) & page_ok).sum())
-    nbytes = (rows_read * H * 2 * D * item + 2 * B * T * H * D * item
+    row_bytes = H * 2 * D + 8 if kv == "int8" else H * 2 * D * item
+    nbytes = (rows_read * row_bytes + 2 * B * T * H * D * item
               + tables.numel() * 4 + cached.numel() * 4)
     ops = int(m.sum()) * H * 2 * (2 * D)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -266,76 +316,90 @@ def phase_kernel():
                                       plain_window_attention)
 
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for B in (1, 16):
-            for T in (1, 4):
-                prob = make_problem(B, T, dtype, seed=B * 10 + T,
-                                    inactive_row=B > 1)
-                out = paged_window_attention(*prob)
-                ref = plain_window_attention(*prob)
-                torch.cuda.synchronize()
-                _, valid = window_masks(prob[3], prob[4], T)
-                err = float((out.float() - ref.float()).abs()[valid].max())
-                finite = bool(torch.isfinite(out).all())
-                if not finite:
-                    fail("kernel output not finite (B=%d T=%d %s)"
-                         % (B, T, dtype))
-                if not err <= TOL[dtype]:
-                    fail("kernel disagrees with the plain version: max abs "
-                         "err %g > %g (B=%d T=%d %s)"
-                         % (err, TOL[dtype], B, T, dtype))
-                rows.append(dict(B=B, T=T, dtype=str(dtype)[6:],
-                                 max_abs_err=err, prob=prob))
+    for kv, dtype, B, T in KERNEL_ROWS:
+        args, scales = make_problem(B, T, dtype, seed=B * 10 + T,
+                                    inactive_row=B > 1, kv=kv)
+        out = paged_window_attention(*args, **scales)
+        ref = plain_window_attention(*args, **scales)
+        torch.cuda.synchronize()
+        _, valid = window_masks(args[3], args[4], T)
+        err = float((out.float() - ref.float()).abs()[valid].max())
+        label = "B=%d T=%d %s %s pools" % (B, T, dtype, kv or "float")
+        if not bool(torch.isfinite(out).all()):
+            fail("kernel output not finite (%s)" % label)
+        if not err <= TOL[dtype]:
+            fail("kernel disagrees with the plain version: max abs err "
+                 "%g > %g (%s)" % (err, TOL[dtype], label))
+        rows.append(dict(B=B, T=T, dtype=str(dtype)[6:],
+                         pools=kv or str(dtype)[6:], max_abs_err=err,
+                         prob=(args, scales)))
     for r in rows:
-        r.update(time_problem(r.pop("prob")))
+        r.update(time_problem(*r.pop("prob")))
         emit({"phase": "kernel", **r})
     return rows
 
 
-def time_problem(prob):
+def time_problem(args, scales):
     """Kernel, plain and SDPA times on rotating copies of the problem
     whose pools together exceed the L2 cache, so each launch reads its
-    K/V from device memory as a decode step over many layers would."""
+    K/V from device memory as a decode step over many layers would.
+    SDPA runs over the window gathered (and, for int8 pools,
+    dequantized to q's type) beforehand, outside the timed calls."""
     from paddle_tpu_torch.ops import (paged_window_attention,
                                       plain_window_attention)
 
-    q, kp, vp, tables, cached = prob
+    q, kp, vp, tables, cached = args
     B, T = q.shape[:2]
+    kv = "int8" if scales else None
     pool_bytes = 2 * kp.numel() * kp.element_size()
-    copies = [prob] + [(q, kp.clone(), vp.clone(), tables, cached)
-                       for _ in range(max(1, math.ceil(4 * L2_BYTES
-                                                       / pool_bytes)) - 1)]
+    n_copies = max(1, math.ceil(4 * L2_BYTES / pool_bytes))
+    copies = [(args, scales)] + [
+        ((q, kp.clone(), vp.clone(), tables, cached),
+         {n: t.clone() for n, t in scales.items()})
+        for _ in range(n_copies - 1)]
     state = {"i": 0}
 
-    def rotating(fn, args):
+    def rotating(fn, items):
         def call():
-            state["i"] = (state["i"] + 1) % len(args)
-            return fn(*args[state["i"]])
+            state["i"] = (state["i"] + 1) % len(items)
+            a, kw = items[state["i"]]
+            return fn(*a, **kw)
         return call
 
     mask, _ = window_masks(tables, cached, T)
-    sdpa_args = []
-    for cq, ck, cv, ct, _ in copies:
+    sdpa_items = []
+    for (cq, ck, cv, ct, _), kw in copies:
         gidx = (ct.long()[:, :, None] * BS
                 + torch.arange(BS, device=ct.device)).reshape(B, -1)
         gidx = gidx.clamp(min=0)
-        keys = ck.reshape(NB * BS, H, D)[gidx].permute(0, 2, 1, 3).contiguous()
-        vals = cv.reshape(NB * BS, H, D)[gidx].permute(0, 2, 1, 3).contiguous()
-        sdpa_args.append((cq.permute(0, 2, 1, 3).contiguous(), keys, vals,
-                          mask[:, None, :, :]))
-    iters = 200
+        keys = ck.reshape(NB * BS, H, D)[gidx]
+        vals = cv.reshape(NB * BS, H, D)[gidx]
+        if kw:
+            keys = (keys.float() * kw["k_scale"].reshape(-1)[gidx][
+                ..., None, None]).to(q.dtype)
+            vals = (vals.float() * kw["v_scale"].reshape(-1)[gidx][
+                ..., None, None]).to(q.dtype)
+        sdpa_items.append(((cq.permute(0, 2, 1, 3).contiguous(),
+                            keys.permute(0, 2, 1, 3).contiguous(),
+                            vals.permute(0, 2, 1, 3).contiguous(),
+                            mask[:, None, :, :]), {}))
+    iters = 200 if T <= 64 else 50
     kernel_ms = cuda_ms(rotating(paged_window_attention, copies), iters)
     plain_ms = cuda_ms(rotating(plain_window_attention, copies), 20)
     library_ms = cuda_ms(rotating(
         lambda a, b, c, m: F.scaled_dot_product_attention(
-            a, b, c, attn_mask=m), sdpa_args), iters)
-    bound_ms, bound_by, nbytes, ops = work(tables, cached, T, q.dtype)
+            a, b, c, attn_mask=m), sdpa_items), iters)
+    bound_ms, bound_by, nbytes, ops = work(tables, cached, T, q.dtype, kv)
+    del copies, sdpa_items
+    torch.cuda.empty_cache()
     return {"ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library": "F.scaled_dot_product_attention over the "
-                       "pre-gathered window (gather excluded)",
+                       "pre-gathered window (gather excluded)"
+                       + (", dequantized beforehand" if kv else ""),
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
-            "bound_by": bound_by, "bytes": nbytes, "ops": ops, "copies": len(copies)}
+            "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+            "copies": n_copies}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -371,26 +435,24 @@ def seeded_weights(program, seed=SEED):
     return arrays
 
 
-def phase_serving(card):
+def serve_burst(model, cache, prompts, counters=()):
+    """Serve ``prompts`` as one burst of concurrent requests (32 new
+    tokens each) through ``serve_decoding`` on the card with ``cache``.
+    Each launcher in ``counters`` has its counts set to 0 after the
+    session's warm-up, just before the burst. Returns a dict: streams,
+    wall seconds, TTFTs, the metrics report, the pools' bytes, the
+    warm-up seconds and peak memory."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.decoding import (CacheConfig, DecodingConfig,
-                                           serve_decoding)
-    from paddle_tpu_torch.ops import paged_window_attention
+    from paddle_tpu_torch.decoding import DecodingConfig, serve_decoding
 
-    main, logits, scope = build_model()
-    config = DecodingConfig(
-        cache=CacheConfig(num_blocks=512, block_size=16,
-                          max_blocks_per_seq=32),
-        decode_buckets=(1, 2, 4, 8, 16), max_new_tokens=MAX_NEW)
+    main, logits, scope = model
+    config = DecodingConfig(cache=cache, decode_buckets=(1, 2, 4, 8, 16),
+                            max_new_tokens=MAX_NEW)
     t0 = time.perf_counter()
     session = serve_decoding(main, "tokens", logits.name, scope=scope,
                              config=config, place=fluid.CUDAPlace(0))
     warm_s = time.perf_counter() - t0
-    rng = np.random.RandomState(SEED + 1)
-    prompts = [rng.randint(0, MODEL["vocab_size"],
-                           size=rng.randint(16, 201)).tolist()
-               for _ in range(N_REQUESTS)]
-    first_t = {}
+    first_t, submit_t = {}, {}
 
     def on_token(i):
         def cb(tok):
@@ -398,10 +460,12 @@ def phase_serving(card):
         return cb
 
     torch.cuda.reset_peak_memory_stats()
-    paged_window_attention.launches = 0
+    for fn in counters:
+        fn.launches = 0
+        if hasattr(fn, "int8_launches"):
+            fn.int8_launches = 0
     try:
         t0 = time.perf_counter()
-        submit_t = {}
         futs = []
         for i, p in enumerate(prompts):
             submit_t[i] = time.perf_counter()
@@ -411,32 +475,143 @@ def phase_serving(card):
         wall_s = time.perf_counter() - t0
     finally:
         session.shutdown(drain=True, timeout=120)
+    if len(streams) != len(prompts) or any(len(s) != MAX_NEW
+                                           for s in streams):
+        fail("not every request completed with %d tokens (%s)"
+             % (MAX_NEW, cache))
+    ttft = np.asarray([(first_t[i] - submit_t[i]) * 1e3
+                       for i in range(len(prompts))])
+    return {"streams": streams, "wall_s": wall_s, "ttft": ttft,
+            "report": session.metrics.report(), "warm_up_s": warm_s,
+            "pool_bytes": session.engine.pair.pool_bytes,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def burst_row(run):
+    """The end-to-end numbers of one burst."""
+    rep, ttft = run["report"], run["ttft"]
+    n_tokens = sum(len(s) for s in run["streams"])
+    row = {"requests": len(run["streams"]), "tokens": n_tokens,
+           "wall_s": run["wall_s"], "tokens_per_s": n_tokens / run["wall_s"],
+           "decode_steps": rep["decode_step_ms"]["count"],
+           "mean_decode_step_ms": rep["decode_step_ms"]["mean"],
+           "p50_decode_step_ms": rep["decode_step_ms"]["p50"],
+           "ttft_ms_mean": float(ttft.mean()),
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_max": float(ttft.max()),
+           "warm_up_s": run["warm_up_s"], "pool_bytes": run["pool_bytes"],
+           "max_memory_allocated": run["max_memory_allocated"]}
+    for name in ("prefill_ms", "extend_ms"):
+        if name in rep:
+            row["mean_" + name] = rep[name]["mean"]
+            row[name.replace("_ms", "s")] = rep[name]["count"]
+    return row
+
+
+def phase_serving(card):
+    from paddle_tpu_torch.decoding import CacheConfig
+    from paddle_tpu_torch.ops import paged_window_attention
+
+    model = build_model()
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(0, MODEL["vocab_size"],
+                           size=rng.randint(16, 201)).tolist()
+               for _ in range(N_REQUESTS)]
+    run = serve_burst(model, CacheConfig(num_blocks=512, block_size=16,
+                                         max_blocks_per_seq=32),
+                      prompts, counters=(paged_window_attention,))
     launches = paged_window_attention.launches
-    rep = session.metrics.report()
-    steps = rep["decode_step_ms"]["count"]
-    if len(streams) != N_REQUESTS or any(len(s) != MAX_NEW
-                                         for s in streams):
-        fail("not every request completed with %d tokens" % MAX_NEW)
+    steps = run["report"]["decode_step_ms"]["count"]
     if launches < MODEL["n_layer"] * steps or launches == 0:
         fail("kernel launched %d times over %d decode steps of %d layers"
              % (launches, steps, MODEL["n_layer"]))
-    n_tokens = sum(len(s) for s in streams)
-    ttft = np.asarray([(first_t[i] - submit_t[i]) * 1e3
-                       for i in range(N_REQUESTS)])
-    emit({"phase": "serving", "card": card, "requests": N_REQUESTS,
-          "tokens": n_tokens, "wall_s": wall_s,
-          "tokens_per_s": n_tokens / wall_s,
-          "decode_steps": steps,
-          "mean_decode_step_ms": rep["decode_step_ms"]["mean"],
-          "p50_decode_step_ms": rep["decode_step_ms"]["p50"],
-          "mean_prefill_ms": rep["prefill_ms"]["mean"],
-          "ttft_ms_mean": float(ttft.mean()),
-          "ttft_ms_p50": float(np.percentile(ttft, 50)),
-          "ttft_ms_max": float(ttft.max()),
-          "kernel_launches": launches, "warm_up_s": warm_s,
-          "max_memory_allocated": torch.cuda.max_memory_allocated()})
-    check_oracle(main, logits, scope, prompts, streams)
-    return launches
+    emit({"phase": "serving", "card": card, **burst_row(run),
+          "kernel_launches": launches})
+    check_oracle(*model, prompts, run["streams"])
+    return launches, model
+
+
+def first_divergence(a, b):
+    """Index of the first token where two streams differ, or None."""
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def phase_prefix_int8(card, model):
+    """Shared-prompt serving with prefix caching on int8 pools, and the
+    same traffic on f32 pools with and without prefix caching."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.decoding import CacheConfig
+    from paddle_tpu_torch.ops import paged_window_attention
+
+    rng = np.random.RandomState(SEED + 3)
+    system = rng.randint(0, MODEL["vocab_size"], size=SYSTEM_PROMPT).tolist()
+    prompts = [system + rng.randint(0, MODEL["vocab_size"], size=rng.randint(
+        SUFFIX_TOKENS[0], SUFFIX_TOKENS[1] + 1)).tolist()
+        for _ in range(N_REQUESTS)]
+    geo = dict(num_blocks=512, block_size=16, max_blocks_per_seq=32)
+    runs = {}
+    for name, kw in (("int8", dict(kv_dtype="int8", prefix_cache=True)),
+                     ("f32", dict(prefix_cache=True)), ("f32_nocache", {})):
+        runs[name] = serve_burst(model, CacheConfig(**geo, **kw), prompts,
+                                 counters=(paged_window_attention,))
+        if name == "int8":
+            launches = paged_window_attention.launches
+            int8_launches = paged_window_attention.int8_launches
+    rep = runs["int8"]["report"]
+    calls = (rep["decode_step_ms"]["count"] + rep["extend_ms"]["count"])
+    want = (N_REQUESTS - 1, 1, (N_REQUESTS - 1) * SYSTEM_PROMPT)
+    for name in ("int8", "f32"):
+        r = runs[name]["report"]
+        got = (r["prefix_cache_hits_total"], r["prefix_cache_misses_total"],
+               r["prefill_tokens_avoided_total"])
+        if got != want:
+            fail("%s prefix caching: (hits, misses, tokens avoided) = %s, "
+                 "expected %s" % (name, got, want))
+    if int8_launches < MODEL["n_layer"] * calls or \
+            int8_launches != launches:
+        fail("the int8 kernel launched %d times (of %d launches) over %d "
+             "decode steps and suffix prefills of %d layers"
+             % (int8_launches, launches, calls, MODEL["n_layer"]))
+    # f32 pools: prefix caching must not change the streams, except
+    # where the full forward's top-2 logit gap says the two are a tie
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    main, logits, scope = model
+    near_ties = []
+    for i, (a, b) in enumerate(zip(runs["f32"]["streams"],
+                                   runs["f32_nocache"]["streams"])):
+        j = first_divergence(a, b)
+        if j is None:
+            continue
+        out, = exe.run(main, feed={"tokens": np.asarray(
+            [prompts[i] + b[:j]], np.int64)}, fetch_list=[logits],
+            scope=scope)
+        top2 = np.sort(out[0, -1])[-2:]
+        gap = float(top2[1] - top2[0])
+        if gap >= 1e-3:
+            fail("request %d token %d: prefix caching served %d, without "
+                 "it %d (top-2 gap %g)" % (i, j, a[j], b[j], gap))
+        near_ties.append({"request": i, "token": j, "top2_gap": gap})
+    # report only: how far the int8 streams follow the f32 ones
+    agree = [first_divergence(a, b) for a, b in zip(
+        runs["int8"]["streams"], runs["f32"]["streams"])]
+    same = sum(x == y for a, b in zip(runs["int8"]["streams"],
+                                      runs["f32"]["streams"])
+               for x, y in zip(a, b))
+    row = {"phase": "prefix_int8", "card": card,
+           "system_prompt": SYSTEM_PROMPT, "suffix_tokens": SUFFIX_TOKENS,
+           "prefix_cache_hits": rep["prefix_cache_hits_total"],
+           "prefix_cache_misses": rep["prefix_cache_misses_total"],
+           "prefill_tokens_avoided": rep["prefill_tokens_avoided_total"],
+           "prefill_tokens_computed": rep["prefill_tokens_computed_total"],
+           "kernel_launches": launches, "int8_launches": int8_launches,
+           "f32_near_ties": near_ties,
+           "int8_vs_f32_streams_identical": sum(a is None for a in agree),
+           "int8_vs_f32_tokens_equal": same,
+           "int8_vs_f32_first_divergence": agree}
+    for name, run in runs.items():
+        row[name] = burst_row(run)
+    emit(row)
+    return int8_launches
 
 
 def check_oracle(main, logits, scope, prompts, streams):
@@ -1125,10 +1300,13 @@ def main():
     fused_rows = phase_fused_update(card, n_recipe)
     recipe_launches = phase_recipe(card)
     torch.cuda.empty_cache()
-    launches = phase_serving(card)
+    launches, model = phase_serving(card)
+    int8_launches = phase_prefix_int8(card, model)
+    del model
+    torch.cuda.empty_cache()
 
     main_row = next(r for r in rows if r["B"] == 16 and r["T"] == 1
-                    and r["dtype"] == "float32")
+                    and r["dtype"] == r["pools"] == "float32")
     kernels = [{
         "name": "paged_window_attention",
         "route": "cuda",
@@ -1142,6 +1320,17 @@ def main():
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
     }]
+    # the int8 variant at the decode shape, f32 queries
+    q8 = next(r for r in rows if r["B"] == 16 and r["T"] == 1
+              and r["dtype"] == "float32" and r["pools"] == "int8")
+    kernels.append({
+        "name": "paged_window_attention_int8", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "paddle_tpu/ops/paged_attention.py:218",
+        "launches": int8_launches, "max_abs_err": q8["max_abs_err"],
+        "ms": q8["ms"], "plain_ms": q8["plain_ms"],
+        "bound_ms": q8["bound_ms"], "bound_by": q8["bound_by"],
+        "library_ms": q8["library_ms"]})
     # the training path's shape with its key mask, f32 (12 of the 18
     # attention calls of a step are key-masked; PERF.md has the rest)
     fr = next(r for r in flash_rows if r["case"] == "path_masked"

@@ -12,18 +12,30 @@ causal forward Program (attention ops gain persistable
 ``KVCacheManager`` admits sequences against fixed pools, a
 ``ContinuousBatcher`` admits and retires per decode step, and
 ``DecodeSession`` serves it with streaming callbacks, deadlines and
-graceful drain. Every decode step's window attention runs the
-hand-written paged-attention kernel (ops/paged_attention.py).
+graceful drain. With ``CacheConfig(prefix_cache=True)`` requests that
+share committed prompt blocks are admitted net of them and prefill only
+their suffix through the EXTEND program; ``CacheConfig(kv_dtype="int8")``
+keeps the pools as int8 codes with per-slot scales. Every decode and
+extend window attention runs the hand-written paged-attention kernel
+(ops/paged_attention.py), which dequantizes int8 pools as it gathers.
 """
 
 from .batcher import ContinuousBatcher
 from .cache import CacheConfig, KVCacheManager
 from .engine import DecodeEngine, DecodingConfig
-from .rewrite import (BLOCK_TABLES, NEXT_LOGITS, NEXT_TOKENS, POSITIONS,
-                      SEQ_LENS, DecodePair, derive_decode_programs)
+from .rewrite import (BLOCK_TABLES, CACHED_LENS, NEXT_LOGITS, NEXT_TOKENS,
+                      POSITIONS, SEQ_LENS, STEP_TOKENS, DecodePair,
+                      derive_decode_programs)
 from .session import DecodeSession, GenerationRequest, serve_decoding
 
 __all__ = [
+    "BLOCK_TABLES",
+    "CACHED_LENS",
+    "NEXT_LOGITS",
+    "NEXT_TOKENS",
+    "POSITIONS",
+    "SEQ_LENS",
+    "STEP_TOKENS",
     "CacheConfig",
     "ContinuousBatcher",
     "DecodeEngine",

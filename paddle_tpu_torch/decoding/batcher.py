@@ -6,13 +6,19 @@ available, every step runs ONE bucketed decode over whatever is
 currently active, and finished sequences retire (and free their blocks)
 immediately — a long generation never holds short ones hostage.
 
+**Prefix caching**: admission reserves only the un-cached suffix of a
+prompt (cache.py's content-hash index); hits prefill through the EXTEND
+program over the shared blocks, misses prefill fully, and both COMMIT
+their fresh prefix blocks only after the prefill succeeded, so the next
+same-prefix admission hits.
+
 Single consumer: exactly one worker thread (the DecodeSession's) calls
 ``admit_from`` and ``step``.
 
-Not ported yet: speculative decoding, prefix-cache admission,
-preemption and the degradation ladder, sampling, and the per-sequence
-re-step after a failed decode step (here a failed step fails every
-sequence in it with its partial stream).
+Not ported yet: speculative decoding, preemption and the degradation
+ladder, sampling, KV-block migration, and the per-sequence re-step
+after a failed decode step (here a failed step fails every sequence in
+it with its partial stream).
 """
 
 from __future__ import annotations
@@ -34,9 +40,10 @@ class _Sequence:
     cursor (``next_token``/``position`` feed the next decode step)."""
 
     __slots__ = ("req", "sid", "table_row", "prompt_len", "generated",
-                 "next_token", "position")
+                 "next_token", "position", "cached_tokens")
 
-    def __init__(self, req, sid: int, table_row: np.ndarray):
+    def __init__(self, req, sid: int, table_row: np.ndarray,
+                 cached_tokens: int = 0):
         self.req = req
         self.sid = sid
         self.table_row = table_row
@@ -44,6 +51,8 @@ class _Sequence:
         self.generated: List[int] = []
         self.next_token: Optional[int] = None
         self.position: Optional[int] = None
+        # leading prompt positions whose K/V a shared prefix holds
+        self.cached_tokens = int(cached_tokens)
 
     def note_token(self, tok: int) -> bool:
         """Record one generated token, arm the next decode step, stream
@@ -71,7 +80,8 @@ class ContinuousBatcher:
                  kv: Optional[KVCacheManager] = None, metrics=None):
         self.engine = engine
         self.metrics = metrics or engine.metrics
-        self.kv = kv or KVCacheManager(engine.cache_config)
+        self.kv = kv or KVCacheManager(engine.cache_config,
+                                       metrics=self.metrics)
         self.max_active = engine.config.max_active
         self.active: List[_Sequence] = []
 
@@ -79,51 +89,102 @@ class ContinuousBatcher:
     def slots_free(self) -> int:
         return self.max_active - len(self.active)
 
+    def _request_keys(self, req):
+        """The request's prefix chain keys, computed once and replayed
+        on every admission retry (a blocked head is retried per worker
+        poll; re-hashing its prompt there would cost O(prompt_len) on
+        the decode loop)."""
+        if not self.engine.cache_config.prefix_cache:
+            return None
+        keys = getattr(req, "prefix_keys", None)
+        if keys is None:
+            keys = self.kv.prefix_keys(req.prompt)
+            req.prefix_keys = keys
+        return keys
+
+    def _admit_one(self, req):
+        """Reserve blocks for one request net of its committed shared
+        prefix: ``(sid, cached_tokens)``, or None (blocked). Counts the
+        prefix-cache hit or miss and the prompt tokens avoided."""
+        adm = self.kv.admit_tokens(req.prompt, req.max_new_tokens,
+                                   keys=self._request_keys(req))
+        if adm is None:
+            return None
+        if self.engine.cache_config.prefix_cache:
+            cached = adm[1]
+            self.metrics.inc("prefix_cache_hits_total" if cached
+                             else "prefix_cache_misses_total")
+            if cached:
+                self.metrics.inc("prefill_tokens_avoided_total", cached)
+        return adm
+
+    def _bucket(self, req, cached: int) -> Optional[int]:
+        """The bucket a request's prefill runs at: its suffix bucket on
+        the extend path (a prefix hit), its prompt bucket otherwise."""
+        if cached > 0:
+            return self.engine.suffix_bucket_for(len(req.prompt) - cached)
+        return self.engine.prompt_bucket_for(len(req.prompt))
+
     def admit_from(self, waiting: List) -> int:
         """Admit request(s) from the FIFO ``waiting`` list (in place):
-        reserve cache blocks, prefill (grouped by prompt bucket up to
-        the largest prefill batch bucket), emit first tokens.
-        Head-of-line order is kept — a request that does not fit YET
-        blocks the ones behind it rather than starving. Returns the
-        number admitted."""
+        reserve cache blocks, prefill, emit first tokens. A group widens
+        up to the largest prefill batch bucket with followers on the
+        same path (a prefix hit and a miss never share a prefill) and in
+        the same suffix or prompt bucket. Head-of-line order is kept — a
+        request that does not fit YET blocks the ones behind it rather
+        than starving. Returns the number admitted."""
         admitted = 0
         while waiting and self.slots_free > 0:
             head = waiting[0]
-            sid = self.kv.admit(len(head.prompt), head.max_new_tokens)
-            if sid is None:
+            adm = self._admit_one(head)
+            if adm is None:
                 break
-            group = [(waiting.pop(0), sid)]
-            tb = self.engine.prompt_bucket_for(len(head.prompt))
-            # widen the prefill with same-bucket followers when the
-            # engine runs batched prefills
+            sid, cached = adm
+            group = [(waiting.pop(0), sid, cached)]
+            is_extend = cached > 0
+            tb = self._bucket(head, cached)
             while (waiting and self.slots_free > len(group)
-                   and len(group) < self.engine.config.max_prefill_batch
-                   and self.engine.prompt_bucket_for(
-                       len(waiting[0].prompt)) == tb):
-                nsid = self.kv.admit(len(waiting[0].prompt),
-                                     waiting[0].max_new_tokens)
-                if nsid is None:
+                   and len(group) < self.engine.config.max_prefill_batch):
+                nxt = waiting[0]
+                ncached = self.kv.match_prefix(
+                    nxt.prompt, keys=self._request_keys(nxt))
+                if (ncached > 0) != is_extend \
+                        or self._bucket(nxt, ncached) != tb:
                     break
-                group.append((waiting.pop(0), nsid))
+                nadm = self._admit_one(nxt)
+                if nadm is None:
+                    break
+                group.append((waiting.pop(0),) + nadm)
             admitted += len(group)
             self._prefill_group(group)
         return admitted
 
     def _prefill_group(self, group) -> None:
-        seqs = [_Sequence(req, sid, self.kv.table_row(sid))
-                for req, sid in group]
+        seqs = [_Sequence(req, sid, self.kv.table_row(sid), cached)
+                for req, sid, cached in group]
         try:
-            firsts = self.engine.prefill(
-                [np.asarray(s.req.prompt) for s in seqs],
-                np.stack([s.table_row for s in seqs]),
-                np.asarray([s.prompt_len for s in seqs], np.int32))
+            if seqs[0].cached_tokens > 0:
+                firsts = self.engine.extend_prefill(
+                    [np.asarray(s.req.prompt[s.cached_tokens:])
+                     for s in seqs],
+                    np.stack([s.table_row for s in seqs]),
+                    np.asarray([s.cached_tokens for s in seqs], np.int32))
+            else:
+                firsts = self.engine.prefill(
+                    [np.asarray(s.req.prompt) for s in seqs],
+                    np.stack([s.table_row for s in seqs]),
+                    np.asarray([s.prompt_len for s in seqs], np.int32))
         except Exception as e:
             if len(seqs) == 1:
+                # release drops the pending publish: nothing half-written
+                # is ever shared
                 self._retire(seqs[0], error=e)
                 return
             for s in seqs:  # poison isolation: re-prefill one by one
-                self._prefill_group([(s.req, s.sid)])
+                self._prefill_group([(s.req, s.sid, s.cached_tokens)])
             return
+        for s in seqs:
+            self.kv.commit_prefix(s.sid)  # prefix blocks now shareable
         now = time.monotonic()
         for s, tok in zip(seqs, firsts):
             self.metrics.observe("ttft_ms", (now - s.req.enqueue_t) * 1e3)

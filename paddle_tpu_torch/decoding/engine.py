@@ -1,18 +1,27 @@
 """DecodeEngine: the execution layer of the decode subsystem
 (counterpart of paddle_tpu/decoding/engine.py).
 
-Owns the derived prefill/decode Program pair (rewrite.py), the executor
-that runs them, and the bucket discipline that keeps every call on a
-fixed set of shapes:
+Owns the derived prefill/decode Program pair (rewrite.py) — plus the
+EXTEND program when prefix caching needs it — the executor that runs
+them, and the bucket discipline that keeps every call on a fixed set of
+shapes:
 
 * prefill executes at ``(prefill_batch_bucket, prompt_bucket)`` shapes —
   prompts pad up to the next prompt bucket, rows pad with block-table
   ``-1`` rows whose cache writes are dropped;
 * decode executes at ``decode_bucket`` batch shapes with ``T = 1`` —
-  inactive rows carry ``positions = -1``.
+  inactive rows carry ``positions = -1``;
+* extend executes at ``(prefill_batch_bucket, suffix_bucket)`` shapes
+  for prefix-cache suffix prefills — window slots past a row's suffix
+  are masked by ``seq_lens``.
 
 ``warm_up()`` runs every bucket once with inert feeds, which builds the
 kernel and allocates on the card before traffic arrives.
+
+Not ported yet: speculative verify (``speculate_k``), the sampling
+heads, the breaker, the degradation ladder and decode-shape autotune
+(each raises in ``DecodingConfig``), and the engine's trace spans and
+fault hooks.
 
 Threading contract: single-threaded execution — the DecodeSession's
 worker is the only caller after ``warm_up``.
@@ -20,7 +29,7 @@ worker is the only caller after ``warm_up``.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -29,8 +38,8 @@ from ..core.scope import global_scope
 from ..executor import Executor
 from ..serving.metrics import DecodeMetrics
 from .cache import CacheConfig
-from .rewrite import (BLOCK_TABLES, NEXT_TOKENS, POSITIONS, SEQ_LENS,
-                      derive_decode_programs)
+from .rewrite import (BLOCK_TABLES, CACHED_LENS, NEXT_TOKENS, POSITIONS,
+                      SEQ_LENS, derive_decode_programs)
 
 
 def _pow2_buckets(lo: int, hi: int) -> List[int]:
@@ -47,19 +56,25 @@ class DecodingConfig:
     """Knobs for the decode stack (engine + batcher + session), with the
     JAX package's defaults.
 
-    cache: the paged-pool geometry (CacheConfig).
+    cache: the paged-pool geometry (CacheConfig — prefix caching and
+        int8 KV pools live there).
     prompt_buckets: prompt lengths prefill runs at; prompts pad up to
         the next bucket. Default: powers of two from ``block_size`` to
         ``max_context``.
     decode_buckets: decode-step batch sizes; the largest is the
         continuous batcher's ``max_active`` slot count.
-    prefill_batch_buckets: how many admissions one prefill executes.
+    prefill_batch_buckets: how many admissions one prefill (or suffix
+        prefill) executes.
+    suffix_buckets: window lengths the EXTEND program runs prefix-cache
+        suffix prefills at (default: powers of two from 1 to
+        ``max_context``; used only when ``cache.prefix_cache``).
     max_new_tokens: default generation budget per request.
     queue_capacity / default_deadline_ms / warm_up: the session's
         backpressure bound, default deadline and start-up warm-up.
 
-    Not ported yet (raise when set): ``sampling``, ``speculate_k``,
-    ``suffix_buckets``, ``breaker``, ``degrade``, ``autotune``.
+    Not ported yet (raise when set, naming their ROADMAP item):
+    ``sampling``, ``speculate_k``, ``breaker``, ``degrade``,
+    ``autotune``.
     """
 
     def __init__(self, cache: Optional[CacheConfig] = None,
@@ -76,14 +91,16 @@ class DecodingConfig:
                  breaker=None,
                  degrade=None,
                  autotune: bool = False):
-        not_ported = {"sampling": sampling, "speculate_k": speculate_k,
-                      "suffix_buckets": suffix_buckets,
-                      "breaker": breaker, "degrade": degrade,
-                      "autotune": autotune}
-        for name, value in not_ported.items():
+        not_ported = {"sampling": (sampling, "Queue A item 1 step 3"),
+                      "speculate_k": (speculate_k, "Queue A item 1 step 2"),
+                      "breaker": (breaker, "Queue A item 1 step 5"),
+                      "degrade": (degrade, "Queue A item 1 step 5"),
+                      "autotune": (autotune, "Queue A item 1 step 5")}
+        for name, (value, item) in not_ported.items():
             if value:
                 raise NotImplementedError(
-                    "DecodingConfig(%s=%r) is not ported yet" % (name, value))
+                    "DecodingConfig(%s=%r) is not ported yet (ROADMAP %s)"
+                    % (name, value, item))
         self.cache = cache or CacheConfig()
         mc = self.cache.max_context
         if prompt_buckets:
@@ -102,6 +119,15 @@ class DecodingConfig:
             set(int(b) for b in prefill_batch_buckets))
         enforce(self.prefill_batch_buckets[0] >= 1,
                 "prefill batch buckets >= 1")
+        if suffix_buckets:
+            self.suffix_buckets = sorted(set(int(b)
+                                             for b in suffix_buckets))
+            enforce(self.suffix_buckets[0] >= 1, "suffix buckets >= 1")
+            enforce(self.suffix_buckets[-1] <= mc,
+                    "suffix bucket %d exceeds max_context %d"
+                    % (self.suffix_buckets[-1], mc))
+        else:
+            self.suffix_buckets = _pow2_buckets(1, mc)
         self.max_new_tokens = int(max_new_tokens)
         self.queue_capacity = int(queue_capacity)
         self.default_deadline_ms = default_deadline_ms
@@ -116,6 +142,12 @@ class DecodingConfig:
     def max_prefill_batch(self) -> int:
         return self.prefill_batch_buckets[-1]
 
+    @property
+    def needs_extend(self) -> bool:
+        """Whether the EXTEND program is derived and warmed: prefix
+        caching runs its suffix prefills through it."""
+        return self.cache.prefix_cache
+
 
 def _bucket_for(buckets: Sequence[int], n: int) -> Optional[int]:
     for b in buckets:
@@ -125,8 +157,8 @@ def _bucket_for(buckets: Sequence[int], n: int) -> Optional[int]:
 
 
 class DecodeEngine:
-    """Executes the prefill/decode programs at bucketed shapes on one
-    place (default ``CUDAPlace(0)``)."""
+    """Executes the prefill/decode(/extend) programs at bucketed shapes
+    on one place (default ``CUDAPlace(0)``)."""
 
     def __init__(self, program, token_name: str, logits_name: str,
                  scope=None, config: Optional[DecodingConfig] = None,
@@ -136,7 +168,8 @@ class DecodeEngine:
         self._exe = Executor(place)
         self.device = self._exe.device
         self.pair = derive_decode_programs(
-            program, token_name, logits_name, self.config.cache)
+            program, token_name, logits_name, self.config.cache,
+            with_extend=self.config.needs_extend)
         self.scope = scope if scope is not None else global_scope()
         self.pair.init_scope(self.scope, self.device)
         self._token_dtype = self.pair.prefill.global_block().var(
@@ -146,18 +179,32 @@ class DecodeEngine:
     def cache_config(self) -> CacheConfig:
         return self.config.cache
 
+    def _extend_warm_shapes(self) -> List[Tuple[int, int]]:
+        """The (batch, window) extend shapes warm_up runs: prefill batch
+        buckets x suffix buckets, under prefix caching."""
+        cfg = self.config
+        if not cfg.cache.prefix_cache:
+            return []
+        return [(pb, wb) for pb in cfg.prefill_batch_buckets
+                for wb in cfg.suffix_buckets]
+
     def warm_bucket_count(self) -> int:
         return (len(self.config.prefill_batch_buckets)
                 * len(self.config.prompt_buckets)
-                + len(self.config.decode_buckets))
+                + len(self.config.decode_buckets)
+                + len(self._extend_warm_shapes()))
 
     def prompt_bucket_for(self, length: int) -> Optional[int]:
         return _bucket_for(self.config.prompt_buckets, length)
 
+    def suffix_bucket_for(self, length: int) -> Optional[int]:
+        return _bucket_for(self.config.suffix_buckets, length)
+
     def warm_up(self) -> int:
-        """Run every (prefill batch x prompt) and decode bucket once with
-        inert feeds (block tables all -1, so every cache write drops and
-        warm-up cannot disturb live pools). Returns the bucket count."""
+        """Run every (prefill batch x prompt), decode and extend bucket
+        once with inert feeds (block tables all -1, so every cache write
+        drops and warm-up cannot disturb live pools; extend rows carry
+        ``cached`` 0 and length 0). Returns the bucket count."""
         cfg = self.config
         for pb in cfg.prefill_batch_buckets:
             for tb in cfg.prompt_buckets:
@@ -167,6 +214,11 @@ class DecodeEngine:
         for db in cfg.decode_buckets:
             self.decode(np.zeros(db, np.int64), np.full(db, -1, np.int32),
                         np.stack([self._empty_row()] * db), _warm=True)
+        for bb, wb in self._extend_warm_shapes():
+            self._run_extend(np.zeros((bb, wb), self._token_dtype),
+                             np.stack([self._empty_row()] * bb),
+                             np.zeros(bb, np.int32), np.zeros(bb, np.int32),
+                             timer=None)
         return self.warm_bucket_count()
 
     def _empty_row(self) -> np.ndarray:
@@ -198,12 +250,62 @@ class DecodeEngine:
         tab[:n] = np.asarray(tables, np.int32)
         lens = np.zeros(pb, np.int32)
         lens[:n] = np.asarray(seq_lens, np.int32)
+        if not _warm:
+            self.metrics.inc("prefills_total")
+            self.metrics.inc("prefill_tokens_computed_total",
+                             int(np.sum(lens[:n])))
         feed = {self.pair.token_name: tokens, BLOCK_TABLES: tab,
                 SEQ_LENS: lens}
         with self.metrics.timer(None if _warm else "prefill_ms"):
             out, = self._exe.run(self.pair.prefill, feed=feed,
                                  fetch_list=[NEXT_TOKENS], scope=self.scope)
         return out[:n]
+
+    def extend_prefill(self, suffix_rows: Sequence[np.ndarray],
+                       tables: np.ndarray,
+                       cached_lens: np.ndarray) -> np.ndarray:
+        """Prefix-cache suffix prefill: run ONLY the un-cached suffix of
+        each prompt against the already-populated shared prefix blocks
+        (``cached_lens[b]`` positions). Pads the batch to the next
+        prefill batch bucket and the window to the next suffix bucket;
+        returns the first generated token per row."""
+        enforce(self.pair.extend is not None,
+                "extend_prefill needs CacheConfig(prefix_cache=True)")
+        n = len(suffix_rows)
+        enforce(n >= 1, "extend_prefill needs at least one row")
+        bb = _bucket_for(self.config.prefill_batch_buckets, n)
+        enforce(bb is not None,
+                "extend batch %d exceeds the largest prefill batch "
+                "bucket %d" % (n, self.config.max_prefill_batch))
+        longest = max(len(r) for r in suffix_rows)
+        wb = self.suffix_bucket_for(longest)
+        enforce(wb is not None,
+                "suffix length %d exceeds the largest suffix bucket %d"
+                % (longest, self.config.suffix_buckets[-1]))
+        tokens = np.zeros((bb, wb), dtype=self._token_dtype)
+        lens = np.zeros(bb, np.int32)
+        for i, r in enumerate(suffix_rows):
+            tokens[i, :len(r)] = np.asarray(r)
+            lens[i] = len(r)
+        mb = self.cache_config.max_blocks_per_seq
+        tab = np.full((bb, mb), -1, np.int32)
+        tab[:n] = np.asarray(tables, np.int32)
+        cached = np.zeros(bb, np.int32)
+        cached[:n] = np.asarray(cached_lens, np.int32)
+        self.metrics.inc("prefills_total")
+        self.metrics.inc("prefill_tokens_computed_total",
+                         int(np.sum(lens[:n])))
+        return self._run_extend(tokens, tab, cached, lens,
+                                timer="extend_ms")[:n]
+
+    def _run_extend(self, tokens, tab, cached, lens,
+                    timer: Optional[str]) -> np.ndarray:
+        feed = {self.pair.token_name: tokens, BLOCK_TABLES: tab,
+                CACHED_LENS: cached, SEQ_LENS: lens}
+        with self.metrics.timer(timer):
+            out, = self._exe.run(self.pair.extend, feed=feed,
+                                 fetch_list=[NEXT_TOKENS], scope=self.scope)
+        return out
 
     def decode(self, tokens: np.ndarray, positions: np.ndarray,
                tables: np.ndarray, _warm: bool = False) -> np.ndarray:

@@ -35,7 +35,7 @@ class GenerationRequest:
     and produced, is included as the last token)."""
 
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "on_token",
-                 "future", "enqueue_t", "deadline_t")
+                 "future", "enqueue_t", "deadline_t", "prefix_keys")
 
     def __init__(self, prompt, max_new_tokens: int,
                  eos_id: Optional[int] = None,
@@ -51,6 +51,9 @@ class GenerationRequest:
         self.enqueue_t = time.monotonic()
         self.deadline_t = (self.enqueue_t + deadline_ms / 1e3
                            if deadline_ms is not None else None)
+        # the prompt's prefix-cache chain keys, computed once by the
+        # batcher at its first admission attempt
+        self.prefix_keys = None
 
     def expired(self, now: Optional[float] = None) -> bool:
         return (self.deadline_t is not None

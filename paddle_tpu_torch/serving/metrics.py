@@ -20,9 +20,21 @@ import numpy as np
 
 class DecodeMetrics:
     """Counters (``inc``) and millisecond samples (``observe``/``timer``)
-    recorded by the engine and batcher: ``prefill_ms``,
-    ``decode_step_ms`` and ``ttft_ms`` samples, ``tokens_generated`` and
-    ``sequences_completed`` counters."""
+    recorded by the engine and batcher: ``prefill_ms`` (full prefills),
+    ``extend_ms`` (prefix-cache suffix prefills), ``decode_step_ms`` and
+    ``ttft_ms`` samples, and the counters of ``COUNTERS``."""
+
+    COUNTERS = (
+        "tokens_generated", "sequences_completed", "request_errors",
+        # one per prefill or suffix-prefill execution, and the prompt
+        # tokens those executions computed
+        "prefills_total", "prefill_tokens_computed_total",
+        # prefix caching (the JAX package's names): admissions that
+        # reused >= 1 cached prefix block / that found none, prompt
+        # tokens whose prefill was skipped, cached blocks reclaimed
+        # under memory pressure
+        "prefix_cache_hits_total", "prefix_cache_misses_total",
+        "prefill_tokens_avoided_total", "prefix_blocks_evicted_total")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -50,9 +62,17 @@ class DecodeMetrics:
             self.observe(name, (time.perf_counter() - t0) * 1e3)
 
     def report(self) -> dict:
-        """Counters, plus count/mean/p50/p99 of every sample series."""
+        """Every counter (0 when never incremented), ``prefix_hit_rate``
+        (hits / (hits + misses), 0.0 before any lookup), and
+        count/mean/p50/p99 of every sample series."""
         with self._lock:
-            out: dict = dict(self._counters)
+            out: dict = {n: 0 for n in self.COUNTERS}
+            out.update(self._counters)
+            lookups = (out["prefix_cache_hits_total"]
+                       + out["prefix_cache_misses_total"])
+            out["prefix_hit_rate"] = (
+                round(out["prefix_cache_hits_total"] / lookups, 4)
+                if lookups else 0.0)
             for name, xs in self._samples.items():
                 a = np.asarray(xs)
                 out[name] = {"count": int(a.size),

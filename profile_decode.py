@@ -2,12 +2,14 @@
 """Where a decode step of paddle_tpu_torch's serving path spends its time
 on one NVIDIA card.
 
-    python3 profile_decode.py [--steps 20] [--out TABLE.json]
+    python3 profile_decode.py [--steps 20] [--kv-dtype f32|int8]
+                              [--out TABLE.json]
 
 Builds the causal LM of chip_smoke.py (Transformer-base widths, random
 weights from a seed) on ``CUDAPlace(0)``, prefills 16 prompts of 16-200
-tokens into the paged pools, then times decode steps of the full
-16-row batch through ``DecodeEngine.decode``:
+tokens into the paged pools (f32, or int8 codes with per-slot scales
+under ``--kv-dtype int8``), then times decode steps of the full 16-row
+batch through ``DecodeEngine.decode``:
 
 1. host wall time per step, without a profiler;
 2. the same steps under ``torch.profiler`` (CPU + CUDA activity): the
@@ -59,6 +61,8 @@ def _family(name: str) -> str:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--kv-dtype", choices=("f32", "int8"), default="f32",
+                    help="the KV pools' storage type")
     ap.add_argument("--out", help="write the per-kernel table here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -73,7 +77,9 @@ def main():
     main_prog, logits, scope = cs.build_model()
     config = DecodingConfig(
         cache=CacheConfig(num_blocks=512, block_size=16,
-                          max_blocks_per_seq=32),
+                          max_blocks_per_seq=32,
+                          kv_dtype=None if args.kv_dtype == "f32"
+                          else args.kv_dtype),
         decode_buckets=(1, 2, 4, 8, 16), max_new_tokens=cs.MAX_NEW)
     engine = DecodeEngine(main_prog, "tokens", logits.name, scope=scope,
                           config=config, place=fluid.CUDAPlace(0))
@@ -127,6 +133,7 @@ def main():
     device_ms = sum(by_family.values()) / 1e3 / args.steps
     launches = sum(1 for name, _ in events if _family(name) != "copies")
     cs.emit({"phase": "decode_step", "card": card, "batch": n,
+             "kv_dtype": args.kv_dtype,
              "steps": args.steps, "host_wall_ms": wall_ms,
              "profiled_wall_ms": prof_wall_ms,
              "device_busy_ms": device_ms,
@@ -146,7 +153,7 @@ def main():
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": table}, fh, indent=1)
     for row in table[:8]:
-        cs.emit({"phase": "kernel_share", **row})
+        cs.emit({"phase": "kernel_share", "kv_dtype": args.kv_dtype, **row})
     return 0
 
 

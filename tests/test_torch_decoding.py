@@ -119,13 +119,17 @@ def test_derive_refusals(lm):
                                  dtype="int32")
     with pytest.raises(tfluid.EnforceError, match="already defines"):
         tdec.derive_decode_programs(p2, "tokens", t_logits.name, cfg)
-    for kw in ({"with_extend": True}, {"sampling": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tdec.derive_decode_programs(t_main, "tokens", t_logits.name,
-                                        cfg, **kw)
-    for kw in ({"prefix_cache": True}, {"kv_dtype": "int8"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tdec.CacheConfig(**CACHE, **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tdec.derive_decode_programs(t_main, "tokens", t_logits.name, cfg,
+                                    sampling=True)
+    # the extend program, prefix caching and int8 pools are ported
+    pair = tdec.derive_decode_programs(
+        t_main, "tokens", t_logits.name,
+        tdec.CacheConfig(**CACHE, kv_dtype="int8", prefix_cache=True),
+        with_extend=True)
+    assert pair.extend is not None
+    with pytest.raises(tfluid.EnforceError, match="kv_dtype"):
+        tdec.CacheConfig(**CACHE, kv_dtype="int4")
 
 
 # ------------------------------------------------- prefill / decode ops

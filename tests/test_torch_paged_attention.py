@@ -8,8 +8,10 @@ since the plain version reproduces ``jnp.take(mode="fill")``'s wrap of
 negative indices — at f32 rtol/atol 1e-5 (the two frameworks sum in
 different orders).
 
-The CUDA kernel itself is compared with the plain version by the test
-marked ``cuda``, which skips on a host without a card. JAX is imported
+The CUDA kernel itself — f32/bf16 pools, int8 pools with scales, and
+windows up to T=512 across its query-tile grid — is compared with the
+plain version by the tests marked ``cuda``, which skip on a host
+without a card. JAX is imported
 inside the tests that use it, so the card test also runs on a machine
 that has no JAX:
 
@@ -189,4 +191,90 @@ def test_cuda_kernel_matches_plain(dtype):
                  & page_ok[:, None, :]).any(-1)            # [B, T]
         assert not valid[0].any() and valid[1:].all()
         err = (out.float() - ref.float()).abs()[valid].max().item()
+        assert err <= tol, (geom, err)
+
+
+def _quantized_pools(rng, nb, bs, H, Dk, Dv):
+    """int8 code pools and their f32 ``[nb, bs]`` scale pools quantized
+    from standard-normal K/V rows as the decode rewrite writes them
+    (absmax/127 per slot)."""
+    out = []
+    for d in (Dk, Dv):
+        x = rng.standard_normal((nb, bs, H, d)).astype(np.float32)
+        scale = np.abs(x).max(axis=(2, 3)) / np.float32(127)
+        codes = np.clip(np.round(x / scale[..., None, None]), -127, 127)
+        out += [codes.astype(np.int8), scale.astype(np.float32)]
+    return out  # k codes, k scales, v codes, v scales
+
+
+# (B, T, H, Dk, Dv, mb, bs, nb) on the card for the query-tile grid:
+# one full tile, one row past it, and the largest suffix window of the
+# serving configuration (T=512, 8 tiles)
+TILE_GEOMS = [(3, 64, 8, 64, 64, 8, 16, 64),
+              (2, 65, 4, 64, 64, 8, 16, 40),
+              (2, 512, 8, 64, 64, 40, 16, 100)]
+
+
+def _cuda_check(geom, seed, dtype, quant):
+    """Run the kernel once on a problem with an inactive first row and
+    hold it to the plain version; returns the max abs error over rows
+    with a valid key."""
+    B, T, H, Dk, Dv, mb, bs, nb = geom
+    prob = list(_mk(*geom, seed=seed, inactive_row=True))
+    if quant:
+        rng = np.random.RandomState(seed + 100)
+        prob[1], prob[5], prob[2], prob[6] = _quantized_pools(
+            rng, nb, bs, H, Dk, Dv)
+    args = _torch_run(tuple(prob), "cuda", dtype)
+    q, kp, vp, tables, cached, ks, vs = args
+    before = (paged_window_attention.launches,
+              paged_window_attention.int8_launches)
+    out = paged_window_attention(q, kp, vp, tables, cached,
+                                 k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (paged_window_attention.launches,
+            paged_window_attention.int8_launches) == \
+        (before[0] + 1, before[1] + int(quant))
+    ref = plain_window_attention(q, kp, vp, tables, cached, k_scale=ks,
+                                 v_scale=vs)
+    assert out.shape == ref.shape == (B, T, H, Dv) and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    pos = cached.long()[:, None] + torch.arange(T, device="cuda")
+    page_ok = (tables.long() >= 0).repeat_interleave(bs, dim=1)
+    keys = torch.arange(page_ok.shape[1], device="cuda")
+    valid = ((keys[None, None, :] <= pos[:, :, None])
+             & page_ok[:, None, :]).any(-1)                # [B, T]
+    assert not valid[0].any() and valid[1:].all()
+    assert (out[0] == 0).all()  # the inactive row writes zeros
+    return (out.float() - ref.float()).abs()[valid].max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_int8_kernel_matches_plain(dtype):
+    """The int8 dequantize-on-gather kernel against the plain version on
+    the card, f32 and bf16 queries, at the decode and verify shapes and
+    across the query-tile grid up to T=512: within atol 1e-4 (f32) /
+    3e-2 (bf16) on rows with a valid key; the inactive row zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}[dtype]
+    for i, geom in enumerate(CUDA_GEOMS + TILE_GEOMS):
+        err = _cuda_check(geom, i, dtype, quant=True)
+        assert err <= tol, (geom, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_kernel_query_tiles_match_plain(dtype):
+    """f32/bf16 pools across the query-tile grid (T = 64, 65, 512): each
+    block holds only its tile's rows and stops its key walk at the
+    tile's last visible position."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}[dtype]
+    for i, geom in enumerate(TILE_GEOMS):
+        err = _cuda_check(geom, 50 + i, dtype, quant=False)
         assert err <= tol, (geom, err)
