@@ -11,25 +11,33 @@ Phases, one JSON line each (or one per shape):
              kernels from csrc/ (paged_attention.cu, flash_attention.cu,
              fused_optimizer.cu; one nvcc each, started together) and
              reports the build seconds and ptxas' register/spill report.
-2. kernel  — ``ops.paged_window_attention`` (the CUDA kernel) against
+2. kernel  — ``ops.paged_window_attention`` (the CUDA kernels) against
              ``ops.plain_window_attention`` on the card at the decode
              shapes (B in {1, 16}, T in {1, 4}, H=8, D=64, block 16,
              32 pages per sequence; random cached lengths, -1 padding
-             pages, one inactive row), f32 and bf16 pools, plus f32 at
+             pages, one inactive row), f32 and bf16 pools, also at
              the suffix windows T in {64, 512}; and int8 pools (the same
              K/V quantized per slot, f32 scales) with f32 and bf16
-             queries at T in {1, 4, 64, 512}. Max abs error over rows
-             with a valid key, finiteness everywhere, and CUDA-event
-             times of the kernel, the plain version and
+             queries at T in {1, 4, 64, 512}. Each row checks the route
+             the planner gives (split at T <= 8, query tile past it,
+             never generic) and runs the generic route's kernel (called
+             directly) beside it. Max abs error over rows with a
+             valid key for both, finiteness everywhere, and two clocks
+             for the kernel, the generic kernel, the plain version and
              ``F.scaled_dot_product_attention`` over the pre-gathered
-             (for int8: and dequantized) window (gather excluded),
-             beside the byte/flop bound.
+             (for int8: and dequantized) window (gather excluded): wall
+             ms per call from CUDA events around back-to-back calls
+             (the host's launch rate at small shapes) and device ms per
+             call from the kernel durations ``torch.profiler`` records,
+             the four in turns on the same inputs; beside the byte/flop
+             bound.
 3. serving — ``serve_decoding`` of a Transformer-base-width causal LM
              (vocab 32000, 6 layers, 8 heads, d_model 512, FFN 2048;
              random weights from a numpy seed) on ``CUDAPlace(0)``
              answering 16 concurrent requests (prompts of 16-200 tokens,
              32 new tokens each). Checks every request completes, the
-             kernel launched at least 6 times per decode step, and two
+             kernel launched at least 6 times per decode step, all on
+             the split route (none on the generic one), and two
              streams equal greedy decoding by the full unpaged forward.
 4. flash   — the three flash-attention kernels (``flash_fwd``,
              ``flash_bwd_dq``, ``flash_bwd_dkv``) against
@@ -42,7 +50,8 @@ Phases, one JSON line each (or one per shape):
              3e-2 of their max magnitude (sums run in another order),
              all finite. CUDA-event times of each kernel, its bound, the
              plain versions and ``F.scaled_dot_product_attention``
-             (forward, and its backward alone).
+             (forward, and its backward alone); at the key-masked
+             training shape also device times (``device_ms``).
 5. routes  — ``attn_impl="fused"`` (plain torch attention) against
              ``"pallas"`` (the kernels), forward and forward+backward, at
              T=256 and T=2048, key-masked and causal: the measurements a
@@ -95,14 +104,17 @@ Phases, one JSON line each (or one per shape):
              8-64 tokens, 32 new tokens each. Checks every request
              completes, 15 prefix hits, 1 miss and 15*128 prompt tokens
              avoided, and the int8 kernel launched at least 6 times per
-             decode step and per suffix prefill; the same traffic with
+             decode step and per suffix prefill, decode on the split
+             route and suffix prefills on the split (buckets up to 8)
+             or query-tile route, none generic; the same traffic with
              f32 pools and prefix caching gives the streams of f32 pools
              without it (a difference only where the full forward's
              top-2 logit gap is below 1e-3). Reports tokens/s, TTFT,
              step, prefill and extend ms, the pools' bytes, and the int8
              streams' token agreement with the f32 ones.
 
-Then the card's name and power limit, the kernels JSON line, and as the
+Then the card's name and power limit, the kernels JSON line (wall and
+device ms of each kernel and its library call), and as the
 last line ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero. Without a visible CUDA device — or outside a checkout that
 holds ``paddle_tpu_torch`` — it exits non-zero and prints no result.
@@ -130,7 +142,8 @@ H, D, BS, MB, NB = 8, 64, 16, 32, 512
 KERNEL_ROWS = (
     [(None, dt, B, T) for dt in (torch.float32, torch.bfloat16)
      for B in (1, 16) for T in (1, 4)]
-    + [(None, torch.float32, B, T) for B in (1, 16) for T in (64, 512)]
+    + [(None, dt, B, T) for dt in (torch.float32, torch.bfloat16)
+       for B in (1, 16) for T in (64, 512)]
     + [("int8", dt, B, T) for dt in (torch.float32, torch.bfloat16)
        for B in (1, 16) for T in (1, 4, 64, 512)])
 
@@ -201,6 +214,39 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: the durations of every
+    kernel and copy ``torch.profiler`` records on the card over
+    ``iters`` calls (after ``warmup``), summed, over ``iters``. Unlike
+    ``cuda_ms`` it leaves out the host's time between launches, which
+    is what ``cuda_ms`` measures for a small kernel."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(e.time_range.elapsed_us()) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        fail("the profiler recorded no device activity")
+    return us / 1e3 / iters
+
+
+def reset_counts(fn) -> None:
+    """Set every launch count a launcher keeps to 0."""
+    for name in getattr(fn, "counts", ("launches",)):
+        setattr(fn, name, 0)
+
+
+def route_counts(fn) -> dict:
+    return {name: getattr(fn, name) for name in getattr(
+        fn, "counts", ("launches",))}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -313,25 +359,43 @@ def work(tables, cached, T, dtype, kv=None):
 
 def phase_kernel():
     from paddle_tpu_torch.ops import (paged_window_attention,
-                                      plain_window_attention)
+                                      plain_window_attention, plan_route)
 
     rows = []
     for kv, dtype, B, T in KERNEL_ROWS:
         args, scales = make_problem(B, T, dtype, seed=B * 10 + T,
                                     inactive_row=B > 1, kv=kv)
+        label = "B=%d T=%d %s %s pools" % (B, T, dtype, kv or "float")
+        route = plan_route(B, T, H, D, D, MB, BS, dtype, kv == "int8").route
+        if route == "generic":
+            fail("the serving shapes took the generic route (%s)" % label)
+        before = route_counts(paged_window_attention)
         out = paged_window_attention(*args, **scales)
+        after = route_counts(paged_window_attention)
+        counter = "split_launches" if route == "split" else "tile_launches"
+        if after[counter] != before[counter] + 1 or \
+                after["generic_launches"] != before["generic_launches"]:
+            fail("the launch did not take the %s route (%s)"
+                 % (route, label))
+        # the generic route's kernel, the A/B yardstick, on the same inputs
+        generic = paged_window_attention(*args, **scales, route="generic")
         ref = plain_window_attention(*args, **scales)
         torch.cuda.synchronize()
         _, valid = window_masks(args[3], args[4], T)
         err = float((out.float() - ref.float()).abs()[valid].max())
-        label = "B=%d T=%d %s %s pools" % (B, T, dtype, kv or "float")
+        generic_err = float((generic.float() - ref.float()).abs()[
+            valid].max())
         if not bool(torch.isfinite(out).all()):
             fail("kernel output not finite (%s)" % label)
         if not err <= TOL[dtype]:
             fail("kernel disagrees with the plain version: max abs err "
-                 "%g > %g (%s)" % (err, TOL[dtype], label))
+                 "%g > %g (%s, %s route)" % (err, TOL[dtype], label, route))
+        if not generic_err <= TOL[dtype]:
+            fail("the generic route disagrees with the plain version: max "
+                 "abs err %g > %g (%s)" % (generic_err, TOL[dtype], label))
         rows.append(dict(B=B, T=T, dtype=str(dtype)[6:],
-                         pools=kv or str(dtype)[6:], max_abs_err=err,
+                         pools=kv or str(dtype)[6:], route=route,
+                         max_abs_err=err, generic_max_abs_err=generic_err,
                          prob=(args, scales)))
     for r in rows:
         r.update(time_problem(*r.pop("prob")))
@@ -340,11 +404,17 @@ def phase_kernel():
 
 
 def time_problem(args, scales):
-    """Kernel, plain and SDPA times on rotating copies of the problem
-    whose pools together exceed the L2 cache, so each launch reads its
-    K/V from device memory as a decode step over many layers would.
-    SDPA runs over the window gathered (and, for int8 pools,
-    dequantized to q's type) beforehand, outside the timed calls."""
+    """Times of the kernel (the planner's route), the generic route's
+    kernel (called directly), the plain version and SDPA, on
+    rotating copies of the problem whose pools together exceed the L2
+    cache, so each launch reads its K/V from device memory as a decode
+    step over many layers would. SDPA runs over the window gathered
+    (and, for int8 pools, dequantized to q's type) beforehand, outside
+    the timed calls. Two clocks: wall ms per call (CUDA events around
+    back-to-back calls: at small shapes that is the host's launch
+    rate), and device ms per call (``device_ms``: the kernel durations
+    ``torch.profiler`` records), taken in turns — kernel, generic,
+    SDPA, plain — on the same copies."""
     from paddle_tpu_torch.ops import (paged_window_attention,
                                       plain_window_attention)
 
@@ -384,16 +454,28 @@ def time_problem(args, scales):
                             vals.permute(0, 2, 1, 3).contiguous(),
                             mask[:, None, :, :]), {}))
     iters = 200 if T <= 64 else 50
-    kernel_ms = cuda_ms(rotating(paged_window_attention, copies), iters)
-    plain_ms = cuda_ms(rotating(plain_window_attention, copies), 20)
-    library_ms = cuda_ms(rotating(
-        lambda a, b, c, m: F.scaled_dot_product_attention(
-            a, b, c, attn_mask=m), sdpa_items), iters)
+    kernel = rotating(paged_window_attention, copies)
+    generic = rotating(lambda *a, **kw: paged_window_attention(
+        *a, **kw, route="generic"), copies)
+    plain = rotating(plain_window_attention, copies)
+    sdpa = rotating(lambda a, b, c, m: F.scaled_dot_product_attention(
+        a, b, c, attn_mask=m), sdpa_items)
+    kernel_ms = cuda_ms(kernel, iters)
+    generic_ms = cuda_ms(generic, iters if T <= 64 else 10)
+    plain_ms = cuda_ms(plain, 20)
+    library_ms = cuda_ms(sdpa, iters)
+    # device time, the four in turns on the same rotating copies
+    dev_iters = 50 if T <= 64 else 20
+    dev = {"device_ms": device_ms(kernel, dev_iters),
+           "generic_device_ms": device_ms(generic,
+                                          dev_iters if T <= 64 else 5),
+           "library_device_ms": device_ms(sdpa, dev_iters),
+           "plain_device_ms": device_ms(plain, 5, warmup=1)}
     bound_ms, bound_by, nbytes, ops = work(tables, cached, T, q.dtype, kv)
     del copies, sdpa_items
     torch.cuda.empty_cache()
     return {"ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "generic_ms": generic_ms, "library_ms": library_ms, **dev,
             "library": "F.scaled_dot_product_attention over the "
                        "pre-gathered window (gather excluded)"
                        + (", dequantized beforehand" if kv else ""),
@@ -461,9 +543,7 @@ def serve_burst(model, cache, prompts, counters=()):
 
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
-        fn.launches = 0
-        if hasattr(fn, "int8_launches"):
-            fn.int8_launches = 0
+        reset_counts(fn)
     try:
         t0 = time.perf_counter()
         futs = []
@@ -520,15 +600,22 @@ def phase_serving(card):
     run = serve_burst(model, CacheConfig(num_blocks=512, block_size=16,
                                          max_blocks_per_seq=32),
                       prompts, counters=(paged_window_attention,))
-    launches = paged_window_attention.launches
+    counts = route_counts(paged_window_attention)
+    launches = counts["launches"]
     steps = run["report"]["decode_step_ms"]["count"]
     if launches < MODEL["n_layer"] * steps or launches == 0:
         fail("kernel launched %d times over %d decode steps of %d layers"
              % (launches, steps, MODEL["n_layer"]))
+    # every decode launch (T=1) takes the split route
+    if counts["generic_launches"] or counts["split_launches"] < \
+            MODEL["n_layer"] * steps or counts["split_launches"] + \
+            counts["tile_launches"] != launches:
+        fail("serving: the paged launches did not take the split route "
+             "(decode) and the query-tile route only: %s" % counts)
     emit({"phase": "serving", "card": card, **burst_row(run),
-          "kernel_launches": launches})
+          "kernel_launches": launches, "route_launches": counts})
     check_oracle(*model, prompts, run["streams"])
-    return launches, model
+    return counts, model
 
 
 def first_divergence(a, b):
@@ -555,8 +642,9 @@ def phase_prefix_int8(card, model):
         runs[name] = serve_burst(model, CacheConfig(**geo, **kw), prompts,
                                  counters=(paged_window_attention,))
         if name == "int8":
-            launches = paged_window_attention.launches
-            int8_launches = paged_window_attention.int8_launches
+            counts = route_counts(paged_window_attention)
+            launches = counts["launches"]
+            int8_launches = counts["int8_launches"]
     rep = runs["int8"]["report"]
     calls = (rep["decode_step_ms"]["count"] + rep["extend_ms"]["count"])
     want = (N_REQUESTS - 1, 1, (N_REQUESTS - 1) * SYSTEM_PROMPT)
@@ -572,6 +660,14 @@ def phase_prefix_int8(card, model):
         fail("the int8 kernel launched %d times (of %d launches) over %d "
              "decode steps and suffix prefills of %d layers"
              % (int8_launches, launches, calls, MODEL["n_layer"]))
+    # decode steps take the split route, suffix prefills the query-tile
+    # route (or the split route at buckets up to its threshold)
+    if counts["generic_launches"] or counts["split_launches"] < \
+            MODEL["n_layer"] * rep["decode_step_ms"]["count"] or \
+            counts["tile_launches"] < MODEL["n_layer"] or \
+            counts["split_launches"] + counts["tile_launches"] != launches:
+        fail("prefix_int8: the paged launches did not take the split and "
+             "query-tile routes: %s" % counts)
     # f32 pools: prefix caching must not change the streams, except
     # where the full forward's top-2 logit gap says the two are a tie
     exe = fluid.Executor(fluid.CUDAPlace(0))
@@ -604,6 +700,7 @@ def phase_prefix_int8(card, model):
            "prefill_tokens_avoided": rep["prefill_tokens_avoided_total"],
            "prefill_tokens_computed": rep["prefill_tokens_computed_total"],
            "kernel_launches": launches, "int8_launches": int8_launches,
+           "route_launches": counts,
            "f32_near_ties": near_ties,
            "int8_vs_f32_streams_identical": sum(a is None for a in agree),
            "int8_vs_f32_tokens_equal": same,
@@ -611,7 +708,7 @@ def phase_prefix_int8(card, model):
     for name, run in runs.items():
         row[name] = burst_row(run)
     emit(row)
-    return int8_launches
+    return counts
 
 
 def check_oracle(main, logits, scope, prompts, streams):
@@ -784,6 +881,22 @@ def phase_flash():
             g_out = do.transpose(1, 2).contiguous()
             lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
                 out, (gq, gk, gv), g_out, retain_graph=True), iters)
+            dev = {}
+            if label == "path_masked":
+                dev["device_ms"] = {
+                    "flash_fwd": device_ms(lambda: flash_fwd(
+                        q, k, v, causal, None, mask), iters),
+                    "flash_bwd_dq": device_ms(lambda: flash_bwd_dq(
+                        q, k, v, o, lse, do, causal, None, mask), iters),
+                    "flash_bwd_dkv": device_ms(lambda: flash_bwd_dkv(
+                        q, k, v, lse, delta, do, causal, None, mask),
+                        iters)}
+                dev["sdpa_device_ms"] = {
+                    "fwd": device_ms(lambda: F.scaled_dot_product_attention(
+                        sq, sk, sv, **kw), iters),
+                    "bwd": device_ms(lambda: torch.autograd.grad(
+                        out, (gq, gk, gv), g_out, retain_graph=True),
+                        iters)}
             del out
             bounds = flash_work(B, Tq, Tk, H, D, causal, mask, dtype)
             row = {"phase": "flash", "case": label,
@@ -794,7 +907,8 @@ def phase_flash():
                    "bound_by": {n: b[1] for n, b in bounds.items()},
                    "plain_fwd_ms": plain_fwd_ms,
                    "plain_bwd_ms": plain_bwd_ms,
-                   "sdpa_fwd_ms": lib_fwd_ms, "sdpa_bwd_ms": lib_bwd_ms}
+                   "sdpa_fwd_ms": lib_fwd_ms, "sdpa_bwd_ms": lib_bwd_ms,
+                   **dev}
             emit(row)
             rows.append(row)
             del q, k, v, do, mask, o, lse, delta, gq, gk, gv
@@ -1144,10 +1258,12 @@ def phase_fused_update(card, n_recipe):
                     kind, p, g, lr, accs, shared, owns, consts), 5, warmup=1)
                 (row["bound_ms"], row["bound_by"], row["bytes"],
                  row["ops"]) = fused_work(kind, bf16, owns, n)
-                row["library_ms"] = None
+                row["device_ms"] = device_ms(lambda: fused_flat_update(
+                    kind, pk, g, lr, ak, shared, owns, consts), 10)
+                row["library_ms"] = row["library_device_ms"] = None
                 if kind == "adam":
-                    row["library_ms"], row["library_error"] = fused_adam_ms(
-                        p, g, accs)
+                    (row["library_ms"], row["library_device_ms"],
+                     row["library_error"]) = fused_adam_ms(p, g, accs)
                 del pk, ak
             emit(row)
             rows.append(row)
@@ -1157,19 +1273,23 @@ def phase_fused_update(card, n_recipe):
 
 
 def fused_adam_ms(p, g, accs):
-    """(ms, error) of ``torch._fused_adam_`` — what
+    """(wall ms, device ms, error) of ``torch._fused_adam_`` — what
     ``torch.optim.Adam(fused=True)`` calls — over the same flat tensors
-    with f32 moments; (None, the error) where this torch lacks it."""
+    with f32 moments; (None, None, the error) where this torch lacks
+    it."""
     pl = p.clone()
     m1, m2 = (a.float().clone() for a in accs)
     step = torch.tensor(3.0, device=p.device)
-    try:
-        return cuda_ms(lambda: torch._fused_adam_(
+    def call():
+        torch._fused_adam_(
             [pl], [g], [m1], [m2], [], [step], lr=TRAIN_LR, beta1=0.9,
             beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
-            maximize=False), 20), None
+            maximize=False)
+
+    try:
+        return cuda_ms(call, 20), device_ms(call, 10), None
     except (AttributeError, RuntimeError, TypeError) as e:
-        return None, repr(e)
+        return None, None, repr(e)
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1300,37 +1420,43 @@ def main():
     fused_rows = phase_fused_update(card, n_recipe)
     recipe_launches = phase_recipe(card)
     torch.cuda.empty_cache()
-    launches, model = phase_serving(card)
-    int8_launches = phase_prefix_int8(card, model)
+    serving_counts, model = phase_serving(card)
+    prefix_counts = phase_prefix_int8(card, model)
     del model
     torch.cuda.empty_cache()
 
-    main_row = next(r for r in rows if r["B"] == 16 and r["T"] == 1
-                    and r["dtype"] == r["pools"] == "float32")
-    kernels = [{
-        "name": "paged_window_attention",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "paddle_tpu/ops/paged_attention.py:137",
-        "launches": launches,
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]
-    # the int8 variant at the decode shape, f32 queries
-    q8 = next(r for r in rows if r["B"] == 16 and r["T"] == 1
-              and r["dtype"] == "float32" and r["pools"] == "int8")
-    kernels.append({
-        "name": "paged_window_attention_int8", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "paddle_tpu/ops/paged_attention.py:218",
-        "launches": int8_launches, "max_abs_err": q8["max_abs_err"],
-        "ms": q8["ms"], "plain_ms": q8["plain_ms"],
-        "bound_ms": q8["bound_ms"], "bound_by": q8["bound_by"],
-        "library_ms": q8["library_ms"]})
+    def paged_entry(name, replaces, launches, row):
+        return {"name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+                "replaces": "paddle_tpu/ops/paged_attention.py:%d"
+                            % replaces,
+                "launches": launches, "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "device_ms": row["device_ms"],
+                "library_device_ms": row["library_device_ms"],
+                "generic_device_ms": row["generic_device_ms"],
+                "kernel_route": row["route"]}
+
+    def kernel_row(T, dtype, pools):
+        return next(r for r in rows if r["B"] == 16 and r["T"] == T
+                    and r["dtype"] == dtype and r["pools"] == pools)
+
+    # the decode shape, f32 pools (split route; the serving phase's
+    # launches, all on that route)
+    kernels = [paged_entry("paged_window_attention", 137,
+                           serving_counts["split_launches"],
+                           kernel_row(1, "float32", "float32"))]
+    # the int8 variant at the decode shape, f32 queries (every launch of
+    # the shared-prompt burst), and its query-tile route at the T=64
+    # suffix bucket (the burst's suffix prefills past the threshold)
+    kernels.append(paged_entry("paged_window_attention_int8", 218,
+                               prefix_counts["int8_launches"],
+                               kernel_row(1, "float32", "int8")))
+    kernels.append(paged_entry("paged_window_attention_tile", 200,
+                               prefix_counts["tile_launches"],
+                               kernel_row(64, "float32", "int8")))
     # the training path's shape with its key mask, f32 (12 of the 18
     # attention calls of a step are key-masked; PERF.md has the rest)
     fr = next(r for r in flash_rows if r["case"] == "path_masked"
@@ -1343,6 +1469,8 @@ def main():
             ("flash_bwd_dkv", 298, max(fr["errors"]["dk"],
                                        fr["errors"]["dv"]),
              fr["plain_bwd_ms"], fr["sdpa_bwd_ms"])):
+        lib_dev = fr["sdpa_device_ms"]["fwd" if name == "flash_fwd"
+                                       else "bwd"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention.cu",
@@ -1350,7 +1478,8 @@ def main():
             "launches": flash_launches[name], "max_abs_err": err,
             "ms": fr["ms"][name], "plain_ms": plain,
             "bound_ms": fr["bound_ms"][name],
-            "bound_by": fr["bound_by"][name], "library_ms": lib})
+            "bound_by": fr["bound_by"][name], "library_ms": lib,
+            "device_ms": fr["device_ms"][name], "library_device_ms": lib_dev})
     # the recipe's own group: Adam, bf16 moments, owning the beta powers
     fu = next(r for r in fused_rows if r["n"] == n_recipe
               and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",
@@ -1363,7 +1492,8 @@ def main():
         "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
         "ms": fu["ms"], "plain_ms": fu["plain_ms"],
         "bound_ms": fu["bound_ms"], "bound_by": fu["bound_by"],
-        "library_ms": fu["library_ms"]})
+        "library_ms": fu["library_ms"], "device_ms": fu["device_ms"],
+        "library_device_ms": fu["library_device_ms"]})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,10 +8,11 @@ since the plain version reproduces ``jnp.take(mode="fill")``'s wrap of
 negative indices — at f32 rtol/atol 1e-5 (the two frameworks sum in
 different orders).
 
-The CUDA kernel itself — f32/bf16 pools, int8 pools with scales, and
-windows up to T=512 across its query-tile grid — is compared with the
-plain version by the tests marked ``cuda``, which skip on a host
-without a card. JAX is imported
+The CUDA kernel itself — its split, query-tile (f32 and tensor-core)
+and generic routes, f32/bf16 pools and int8 pools with scales, windows
+up to T=512 — is compared with the plain version by the tests marked
+``cuda``, which skip on a host without a card; each asserts the route
+counters, so a geometry is known to take the route it tests. JAX is imported
 inside the tests that use it, so the card test also runs on a machine
 that has no JAX:
 
@@ -26,7 +27,8 @@ import torch
 
 from paddle_tpu_torch.core.enforce import EnforceError
 from paddle_tpu_torch.ops import (_cuda, paged_window_attention,
-                                  plain_window_attention)
+                                  plain_window_attention, plan_route)
+from paddle_tpu_torch.ops.paged_attention import LAUNCH_COUNTS, SPLIT_MAX_T
 
 torch.set_num_threads(1)
 
@@ -175,10 +177,10 @@ def test_cuda_kernel_matches_plain(dtype):
     for i, geom in enumerate(CUDA_GEOMS):
         prob = _mk(*geom, seed=i, inactive_row=True)
         args = _torch_run(prob, "cuda", dtype)[:5]
-        before = paged_window_attention.launches
+        before = _counts()
         out = paged_window_attention(*args)
         torch.cuda.synchronize()
-        assert paged_window_attention.launches == before + 1
+        _assert_one_launch(before, _route_of(geom, dtype, False), False)
         ref = plain_window_attention(*args)
         assert torch.isfinite(out).all()
         q, _, _, tables, cached = args
@@ -209,32 +211,58 @@ def _quantized_pools(rng, nb, bs, H, Dk, Dv):
 
 # (B, T, H, Dk, Dv, mb, bs, nb) on the card for the query-tile grid:
 # one full tile, one row past it, and the largest suffix window of the
-# serving configuration (T=512, 8 tiles)
+# serving configuration (T=512, 8 tiles) — grids small enough that the
+# route splits their keys — and a grid of 384 blocks that it does not
+# split (T=130, a ragged third tile)
 TILE_GEOMS = [(3, 64, 8, 64, 64, 8, 16, 64),
               (2, 65, 4, 64, 64, 8, 16, 40),
-              (2, 512, 8, 64, 64, 40, 16, 100)]
+              (2, 512, 8, 64, 64, 40, 16, 100),
+              (16, 130, 8, 64, 64, 12, 16, 200)]
 
 
-def _cuda_check(geom, seed, dtype, quant):
+def _counts():
+    return {n: getattr(paged_window_attention, n) for n in LAUNCH_COUNTS}
+
+
+def _route_of(geom, dtype, quant):
+    B, T, H, Dk, Dv, mb, bs, _ = geom
+    return plan_route(B, T, H, Dk, Dv, mb, bs, dtype, quant).route
+
+
+def _assert_one_launch(before, route, quant):
+    """Exactly one launch since ``before``, on ``route``."""
+    want = dict(before)
+    want["launches"] += 1
+    want["int8_launches"] += int(quant)
+    if route == "tile_mma":
+        want["tile_launches"] += 1
+        want["mma_launches"] += 1
+    else:
+        want[route + "_launches"] += 1
+    assert _counts() == want, route
+
+
+def _cuda_check(geom, seed, dtype, quant, route=None, prob=None):
     """Run the kernel once on a problem with an inactive first row and
     hold it to the plain version; returns the max abs error over rows
-    with a valid key."""
+    with a valid key. Asserts the launch took ``route`` (default: the
+    planner's route for these shapes)."""
     B, T, H, Dk, Dv, mb, bs, nb = geom
-    prob = list(_mk(*geom, seed=seed, inactive_row=True))
+    want_route = route or _route_of(geom, dtype, quant)
+    if prob is None:
+        prob = _mk(*geom, seed=seed, inactive_row=True)
+    prob = list(prob)
     if quant:
         rng = np.random.RandomState(seed + 100)
         prob[1], prob[5], prob[2], prob[6] = _quantized_pools(
             rng, nb, bs, H, Dk, Dv)
     args = _torch_run(tuple(prob), "cuda", dtype)
     q, kp, vp, tables, cached, ks, vs = args
-    before = (paged_window_attention.launches,
-              paged_window_attention.int8_launches)
+    before = _counts()
     out = paged_window_attention(q, kp, vp, tables, cached,
-                                 k_scale=ks, v_scale=vs)
+                                 k_scale=ks, v_scale=vs, route=route)
     torch.cuda.synchronize()
-    assert (paged_window_attention.launches,
-            paged_window_attention.int8_launches) == \
-        (before[0] + 1, before[1] + int(quant))
+    _assert_one_launch(before, want_route, quant)
     ref = plain_window_attention(q, kp, vp, tables, cached, k_scale=ks,
                                  v_scale=vs)
     assert out.shape == ref.shape == (B, T, H, Dv) and out.dtype == dtype
@@ -278,3 +306,67 @@ def test_cuda_kernel_query_tiles_match_plain(dtype):
     for i, geom in enumerate(TILE_GEOMS):
         err = _cuda_check(geom, 50 + i, dtype, quant=False)
         assert err <= tol, (geom, err)
+
+
+# (B, T, H, Dk, Dv, mb, bs, nb) at the edges of the routes: decode at
+# full context (every split busy or masked), the route threshold and one
+# row past it
+EDGE_GEOMS = [(16, 1, 8, 64, 64, 32, 16, 600),
+              (4, SPLIT_MAX_T, 8, 64, 64, 32, 16, 200),
+              (4, SPLIT_MAX_T + 1, 8, 64, 64, 32, 16, 200)]
+
+
+def _full_context(geom, seed):
+    """A problem whose second row sees its whole window (cached = mb*bs
+    - T) and whose third has -1 pages in the middle (splits lying wholly
+    on masked pages); the first row is inactive."""
+    B, T, H, Dk, Dv, mb, bs, nb = geom
+    prob = list(_mk(*geom, seed=seed, inactive_row=True))
+    rng = np.random.RandomState(seed + 7)
+    tables = rng.permutation(nb)[:B * mb].reshape(B, mb).astype(np.int32)
+    tables[0] = -1
+    tables[2, 8:20] = -1
+    cached = rng.randint(0, mb * bs - T + 1, B).astype(np.int32)
+    cached[0] = -1 if T == 1 else 0
+    cached[1] = cached[2] = mb * bs - T
+    prob[3], prob[4] = tables, cached
+    return tuple(prob)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_routes_at_their_edges(dtype, quant):
+    """The split route at full context with masked splits, T at the
+    route threshold (split) and one past it (query tile; tensor cores
+    with bf16 queries), every pool type: each launch takes the route it
+    is meant to test and matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}[dtype]
+    want = ["split", "split",
+            "tile_mma" if dtype == torch.bfloat16 else "tile"]
+    for i, (geom, route) in enumerate(zip(EDGE_GEOMS, want)):
+        assert _route_of(geom, dtype, quant) == route
+        prob = _full_context(geom, 80 + i)
+        err = _cuda_check(geom, 80 + i, dtype, quant, prob=prob)
+        assert err <= tol, (geom, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_generic_route_on_demand(dtype):
+    """``route="generic"`` runs the generic kernel on shapes the fast routes
+    take (the A/B yardstick of chip_smoke.py), still within tolerance;
+    any other route name raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}[dtype]
+    for i, geom in enumerate([CUDA_GEOMS[0], TILE_GEOMS[1]]):
+        err = _cuda_check(geom, 90 + i, dtype, False, route="generic")
+        assert err <= tol, (geom, err)
+    args = _torch_run(_mk(*CUDA_GEOMS[0]), "cuda", dtype)[:5]
+    with pytest.raises(EnforceError, match="route must be None or"):
+        paged_window_attention(*args, route="split")
