@@ -28,9 +28,9 @@ Phases, one JSON line each (or one per shape):
              (for int8: and dequantized) window (gather excluded): wall
              ms per call from CUDA events around back-to-back calls
              (the host's launch rate at small shapes) and device ms per
-             call from the kernel durations ``torch.profiler`` records,
-             the four in turns on the same inputs; beside the byte/flop
-             bound.
+             call (``device_ms``: the same calls queued behind a spin
+             kernel, so the card runs them back to back), the four in
+             turns on the same inputs; beside the byte/flop bound.
 3. serving — ``serve_decoding`` of a Transformer-base-width causal LM
              (vocab 32000, 6 layers, 8 heads, d_model 512, FFN 2048;
              random weights from a numpy seed) on ``CUDAPlace(0)``
@@ -45,13 +45,19 @@ Phases, one JSON line each (or one per shape):
              card: the training path's shape (B=32, T=256, H=8, D=64)
              unmasked, causal and key-masked (ragged tails), a ragged
              cross shape (Tq=200, Tk=333), the long-context shape (B=4,
-             T=2048) plain and causal, in f32 and bf16, and D=128 once.
+             T=2048) plain and causal, and D=128 (B=4, T=512, H=4,
+             causal, key-masked), each in f32 and bf16.
              o within 1e-4 (f32) / 3e-2 (bf16), dq/dk/dv within 1e-3 /
              3e-2 of their max magnitude (sums run in another order),
-             all finite. CUDA-event times of each kernel, its bound, the
-             plain versions and ``F.scaled_dot_product_attention``
-             (forward, and its backward alone); at the key-masked
-             training shape also device times (``device_ms``).
+             all finite; bf16 dq/dk/dv also within one bf16 ulp per
+             element (plus 1e-3 of max |grad|) of
+             ``plain_flash_backward_bf16``, the model of the bf16
+             kernels' rounding of p and ds. CUDA-event times of each
+             kernel, its bound, the plain versions and
+             ``F.scaled_dot_product_attention`` (forward, and its
+             backward alone); at the key-masked training shape, the
+             long-context shapes and D=128 also device times
+             (``device_ms``, ``plain_device_ms``, ``sdpa_device_ms``).
 5. routes  — ``attn_impl="fused"`` (plain torch attention) against
              ``"pallas"`` (the kernels), forward and forward+backward, at
              T=256 and T=2048, key-masked and causal: the measurements a
@@ -178,9 +184,12 @@ FLASH_CASES = [
     ("cross", 32, 200, 333, 8, 64, False, True, BOTH),
     ("long", 4, 2048, 2048, 8, 64, False, False, BOTH),
     ("long_causal", 4, 2048, 2048, 8, 64, True, False, BOTH),
-    ("d128", 4, 512, 512, 4, 128, True, True, (torch.float32,)),
+    ("d128", 4, 512, 512, 4, 128, True, True, BOTH),
 ]
 GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}  # of max |grad|
+# flash cases whose rows also carry device times (device_ms): the
+# training shape with its key mask, the long-context shapes, and D=128
+DEVICE_CASES = ("path_masked", "long", "long_causal", "d128")
 
 
 def emit(obj) -> None:
@@ -216,26 +225,41 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+DEVICE_TRIES = 4
+SPIN_CYCLES = 10 ** 7  # a few ms of the card's clock
+
+
 def device_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Device milliseconds per call of ``fn``: the durations of every
-    kernel and copy ``torch.profiler`` records on the card over
-    ``iters`` calls (after ``warmup``), summed, over ``iters``. Unlike
-    ``cuda_ms`` it leaves out the host's time between launches, which
-    is what ``cuda_ms`` measures for a small kernel."""
+    """Device milliseconds per call of ``fn``: CUDA events around
+    ``iters`` calls that the card runs back to back (after ``warmup``).
+    A spin kernel (``torch.cuda._sleep``) holds the stream while the host
+    queues the calls, so the card never waits for the host between them;
+    a run counts only if every call was queued before the spin ended
+    (the event after it had not completed when the host was done).
+    Otherwise the spin is made 4 times longer and the run made again, at
+    most ``DEVICE_TRIES`` runs, then the smoke fails. Unlike ``cuda_ms``
+    it leaves out the host's time between launches, which is what
+    ``cuda_ms`` measures for a small kernel; it keeps the card's own gaps
+    between back-to-back kernels."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = SPIN_CYCLES
+    for _ in range(DEVICE_TRIES):
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        ahead = not start.query()
         torch.cuda.synchronize()
-    us = sum(float(e.time_range.elapsed_us()) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        fail("the profiler recorded no device activity")
-    return us / 1e3 / iters
+        if ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    fail("device_ms: the host did not queue %d calls within a spin of "
+         "%d cycles" % (iters, cycles // 4))
 
 
 def reset_counts(fn) -> None:
@@ -271,10 +295,16 @@ def phase_device():
                     if "registers" in ln or "spill" in ln
                     or "entry function" in ln]
              for name in KERNEL_SOURCES}
+    # dynamic shared memory of one block of each flash kernel
+    lib = flash_attention._library()
+    smem = {"%s_d%d_%s" % (kind, d, dt): lib.flash_smem_bytes(i, d, bf)
+            for i, kind in enumerate(("fwd", "dq", "dkv"))
+            for d in (64, 128) for bf, dt in ((0, "f32"), (1, "bf16"))}
     emit({"phase": "device", "card": card,
           "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": build_s, "ptxas": ptxas})
+          "kernel_build_s": build_s, "ptxas": ptxas,
+          "flash_smem_bytes": smem})
     return card
 
 
@@ -412,9 +442,9 @@ def time_problem(args, scales):
     (and, for int8 pools, dequantized to q's type) beforehand, outside
     the timed calls. Two clocks: wall ms per call (CUDA events around
     back-to-back calls: at small shapes that is the host's launch
-    rate), and device ms per call (``device_ms``: the kernel durations
-    ``torch.profiler`` records), taken in turns — kernel, generic,
-    SDPA, plain — on the same copies."""
+    rate), and device ms per call (``device_ms``: the calls queued
+    behind a spin kernel, run back to back), taken in turns — kernel,
+    generic, SDPA, plain — on the same copies."""
     from paddle_tpu_torch.ops import (paged_window_attention,
                                       plain_window_attention)
 
@@ -814,8 +844,8 @@ def check_flash(label, dtype, q, k, v, do, causal, mask):
     """Run the three kernels once and hold them to the plain versions;
     returns the errors, or fails."""
     from paddle_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv, flash_bwd_dq, flash_fwd, plain_flash_backward,
-        plain_flash_forward)
+        bf16_ulps, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
+        plain_flash_backward, plain_flash_backward_bf16, plain_flash_forward)
 
     o, lse = flash_fwd(q, k, v, causal, None, mask)
     dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal, None, mask)
@@ -826,6 +856,20 @@ def check_flash(label, dtype, q, k, v, do, causal, mask):
                                          mask)
     errs = {"o": float((o.float() - ro.float()).abs().max()),
             "lse": float((lse - rlse).abs().max())}
+    if dtype == torch.bfloat16:
+        # the bf16 kernels against the model of their rounding; beside
+        # them the unrounded plain version's reading of the same check
+        # (above 1 for one of the three: the check sees the rounding)
+        mdq, mdk, mdv = plain_flash_backward_bf16(q, k, v, o, lse, do,
+                                                  causal, None, mask)
+        for name, got, want, plain in (("dq", dq, mdq, rdq),
+                                       ("dk", dk, mdk, rdk),
+                                       ("dv", dv, mdv, rdv)):
+            errs[name + "_model_rel"] = float(
+                (got.float() - want.float()).abs().max()) / max(
+                float(want.float().abs().max()), 1e-30)
+            errs[name + "_model_ulps"] = bf16_ulps(got, want)
+            errs[name + "_control_ulps"] = bf16_ulps(plain, want)
     for name, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
                             ("dv", dv, rdv)):
         err = float((got.float() - want.float()).abs().max())
@@ -843,6 +887,10 @@ def check_flash(label, dtype, q, k, v, do, causal, mask):
                                                               "dv")):
         fail("flash %s %s: backward disagrees with the plain version: %s"
              % (label, dtype, errs))
+    if dtype == torch.bfloat16 and not all(
+            errs[n + "_model_ulps"] <= 1.0 for n in ("dq", "dk", "dv")):
+        fail("flash %s: the bf16 backward disagrees with its rounding "
+             "model: %s" % (label, errs))
     return errs, (o, lse, delta)
 
 
@@ -882,7 +930,7 @@ def phase_flash():
             lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
                 out, (gq, gk, gv), g_out, retain_graph=True), iters)
             dev = {}
-            if label == "path_masked":
+            if label in DEVICE_CASES:
                 dev["device_ms"] = {
                     "flash_fwd": device_ms(lambda: flash_fwd(
                         q, k, v, causal, None, mask), iters),
@@ -897,6 +945,12 @@ def phase_flash():
                     "bwd": device_ms(lambda: torch.autograd.grad(
                         out, (gq, gk, gv), g_out, retain_graph=True),
                         iters)}
+                dev["plain_device_ms"] = {
+                    "fwd": device_ms(lambda: plain_flash_forward(
+                        q, k, v, causal, None, mask), 3, warmup=1),
+                    "bwd": device_ms(lambda: plain_flash_backward(
+                        q, k, v, o, lse, do, causal, None, mask), 3,
+                        warmup=1)}
             del out
             bounds = flash_work(B, Tq, Tk, H, D, causal, mask, dtype)
             row = {"phase": "flash", "case": label,
@@ -984,7 +1038,7 @@ def train_batch(seed=SEED + 2):
 def _train_family(name: str) -> str:
     low = name.lower()
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        if kernel + "_kernel" in low:
+        if kernel + "_" in low:  # flash_fwd_kernel, flash_bwd_dq_mma_kernel
             return kernel
     if "fused_update_kernel" in low:
         return "fused_update"
@@ -1457,29 +1511,33 @@ def main():
     kernels.append(paged_entry("paged_window_attention_tile", 200,
                                prefix_counts["tile_launches"],
                                kernel_row(64, "float32", "int8")))
-    # the training path's shape with its key mask, f32 (12 of the 18
-    # attention calls of a step are key-masked; PERF.md has the rest)
-    fr = next(r for r in flash_rows if r["case"] == "path_masked"
-              and r["dtype"] == "float32")
-    for name, line, err, plain, lib in (
-            ("flash_fwd", 184, fr["errors"]["o"], fr["plain_fwd_ms"],
-             fr["sdpa_fwd_ms"]),
-            ("flash_bwd_dq", 250, fr["errors"]["dq"], fr["plain_bwd_ms"],
-             fr["sdpa_bwd_ms"]),
-            ("flash_bwd_dkv", 298, max(fr["errors"]["dk"],
-                                       fr["errors"]["dv"]),
-             fr["plain_bwd_ms"], fr["sdpa_bwd_ms"])):
-        lib_dev = fr["sdpa_device_ms"]["fwd" if name == "flash_fwd"
-                                       else "bwd"]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
-            "launches": flash_launches[name], "max_abs_err": err,
-            "ms": fr["ms"][name], "plain_ms": plain,
-            "bound_ms": fr["bound_ms"][name],
-            "bound_by": fr["bound_by"][name], "library_ms": lib,
-            "device_ms": fr["device_ms"][name], "library_device_ms": lib_dev})
+    # the training path's shape with its key mask (12 of the 18
+    # attention calls of a step are key-masked; PERF.md has the rest):
+    # f32 with the f32 training phase's launches, bf16 with the recipe's
+    for dtype, launches, suffix in (("float32", flash_launches, ""),
+                                    ("bfloat16", recipe_launches, "_bf16")):
+        fr = next(r for r in flash_rows if r["case"] == "path_masked"
+                  and r["dtype"] == dtype)
+        for name, line, err, plain, lib in (
+                ("flash_fwd", 184, fr["errors"]["o"], fr["plain_fwd_ms"],
+                 fr["sdpa_fwd_ms"]),
+                ("flash_bwd_dq", 250, fr["errors"]["dq"],
+                 fr["plain_bwd_ms"], fr["sdpa_bwd_ms"]),
+                ("flash_bwd_dkv", 298, max(fr["errors"]["dk"],
+                                           fr["errors"]["dv"]),
+                 fr["plain_bwd_ms"], fr["sdpa_bwd_ms"])):
+            which = "fwd" if name == "flash_fwd" else "bwd"
+            kernels.append({
+                "name": name + suffix, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
+                "launches": launches[name], "max_abs_err": err,
+                "ms": fr["ms"][name], "plain_ms": plain,
+                "bound_ms": fr["bound_ms"][name],
+                "bound_by": fr["bound_by"][name], "library_ms": lib,
+                "device_ms": fr["device_ms"][name],
+                "plain_device_ms": fr["plain_device_ms"][which],
+                "library_device_ms": fr["sdpa_device_ms"][which]})
     # the recipe's own group: Adam, bf16 moments, owning the beta powers
     fu = next(r for r in fused_rows if r["n"] == n_recipe
               and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",

@@ -51,3 +51,11 @@ def name(dtype) -> str:
     """Canonical dtype name ("float32", "bfloat16", ...)."""
     dtype = normalize_dtype(dtype)
     return "bfloat16" if dtype is torch.bfloat16 else dtype.name
+
+
+def rounded_sqrt(n: int, dtype) -> float:
+    """sqrt(n) rounded to ``dtype``, as a Python float: the divisor of
+    the JAX package's attention scores, ``jnp.sqrt(jnp.asarray(n,
+    dtype))``. In bfloat16 sqrt(128) is 11.3125 (f32: 11.3137); a
+    perfect square such as 64 is exact in both."""
+    return float(torch.tensor(float(n)).sqrt().to(dtype))

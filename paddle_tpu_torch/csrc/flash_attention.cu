@@ -20,29 +20,68 @@
 // Sums, max and exponentials run in f32 whatever the storage type
 // (float or bfloat16); head dims 64 and 128 are instantiated.
 //
-// Bound: operations. Per (batch, head) the forward does 4*Tq*Tk*D flops,
-// dQ 6*Tq*Tk*D and dK/dV 8*Tq*Tk*D (half of each under causal) on inputs
-// of O(T*D) bytes, so at T=256, D=64 the forward does ~64 flops per byte
-// moved, far above the ~20 flops per byte at which an H100's 67 TFLOP/s
-// of f32 outside the tensor cores overtakes its 3.35 TB/s. What the
-// design does about it: the [Tq, Tk] scores never go to device memory;
-// each block stages 64-row tiles of its operands in shared memory and
-// every thread computes a register tile of scores (8 or 4 rows x 4 keys)
-// and of outputs from them, so each shared-memory load feeds several
-// FMAs; the causal loop stops at the diagonal. There is no cross-block
-// reduction and no atomics: the forward and dQ run one block per
-// (64-row query tile, batch*head) looping over key tiles, dK/dV one block
-// per (64-row key tile, batch*head) looping over query tiles from the
-// causal start, so blocks may run in any order. f32 has no exact tensor
-// core route (TF32 would change the numbers), so this first design uses
-// scalar FMAs, single-buffered tiles and no TMA; mma/wgmma in bf16 and
-// pipelined loads are later work (see PERF.md for its times beside the
-// bound).
+// Bounds on an H100 (3.35 TB/s; 67 TFLOP/s f32 outside the tensor cores,
+// 989 TFLOP/s bf16 on them). Per (batch, head) the forward does
+// 4*Tq*Tk*D flops, dQ 6*Tq*Tk*D and dK/dV 8*Tq*Tk*D (fewer under causal
+// and key masks) on inputs of O(T*D) bytes. At the training shape (B=32,
+// T=256, H=8, D=64, ragged key masks) that makes f32 bound by operations
+// (dQ 0.069 ms, dK/dV 0.091 ms of FMAs against ~0.03 ms of bytes each)
+// and bf16 bound by bytes (each kernel reads q, k, v, dO (and o) once
+// and writes its outputs: ~0.015 ms each, against 0.005-0.006 ms of
+// tensor-core operations).
+//
+// The forward (first design): each block stages 64-row f32 tiles in
+// shared memory and each thread computes a register tile of scores (8 or
+// 4 rows x 4 keys) with scalar FMAs, single-buffered; the causal loop
+// stops at the diagonal. Its redesign is later work (PERF.md).
+//
+// The backward pair, redesigned for Hopper:
+// - two kernels, no atomics, so every run gives the same bits: dQ (also
+//   writing delta) one block per (64-row query tile, batch*head), longest
+//   causal tiles first, walking key tiles up to the causal end and to the
+//   last key the mask lets through; dK/dV one block per (64-row key tile,
+//   batch*head) walking query tiles from the causal start (a key tile the
+//   mask wholly excludes writes zeros without walking);
+// - operands staged in their storage type (bf16 as bf16) through a ring
+//   of 16-byte cp.async copies, so the next tiles land while one is
+//   computed; the dQ kernel stages O for delta in the ring's last stage;
+//   rows padded (or swizzled) so copies, ldmatrix and float4 loads hit no
+//   bank conflicts;
+// - bf16, D=64 (the training shape): both products of each kernel on the
+//   tensor cores as wgmma m64n64k16 (f32 accumulate): the block is one
+//   warpgroup of 64 rows, its fixed operand enters as A fragments from
+//   registers, and the streamed tiles, staged in the 128-byte swizzle
+//   layout, are read by the tensor cores from shared memory once per
+//   block, K-major for S = Q K^T (S^T = K Q^T) and MN-major for the second
+//   products; P and dS are computed in the accumulator registers, rounded
+//   to bf16 and re-packed as the A fragments of the second products, never
+//   written to shared memory (ops/flash_attention.py:
+//   plain_flash_backward_bf16 models that rounding); 72 KB (dQ, three
+//   blocks an SM) and 70 KB (dK/dV, two: its four accumulators) a block;
+// - bf16, D=128: the same walks on mma.sync m16n8k16 fed by ldmatrix
+//   (the wgmma accumulators of a 128-wide head do not fit beside the
+//   rest), two blocks an SM;
+// - f32: no TF32 (the f32 tolerances rule it out); scalar FMAs in 4x4
+//   register micro-tiles fed by float4 loads (8 loads for 64 FMAs in the
+//   score products, 8 for 128 in the second ones), P and dS through one
+//   shared tile each for the second products, 128 threads a block, two
+//   blocks an SM at D=64.
+// What still holds them back (PERF.md, profile_flash.py): at T=256 the
+// dQ block's prologue (its q, dO and O tiles arrive while every block of
+// the wave loads at once: ~45 % of its cycles); the f32 route reaches
+// about a third of the f32 FMA peak. Occupancy at D=64 falls short of
+// three blocks an SM in three of the four kernels: only the bf16 dQ
+// kernel has three; the bf16 dK/dV kernel is held to two by its
+// registers (four accumulator sets), the f32 kernels by their shared
+// memory (97 KB dQ, 106 KB dK/dV). Each wgmma batch is waited for before
+// the softmax that follows it, so no tensor-core work overlaps it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -276,204 +315,1348 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads)
   }
 }
 
-// ------------------------------------------------------------------ dQ
-// grid (B*H, query tiles). Also writes delta = rowsum(dO * O) for the
-// dK/dV kernel. Shared memory: q, dO, k, v tiles [64][D+1], dS [64][65],
-// key mask, lse and delta of the tile's rows [64] each.
+// ------------------------------------------------------------ backward
+// Two kernels, two passes, no atomics: dQ runs one block per (64-row
+// query tile, batch*head) over key tiles up to the causal end and the
+// last key the mask lets through (longest causal tiles first); dK/dV one
+// block per (64-row key tile, batch*head) over query tiles from the
+// causal start. Each block stages its fixed tiles once and streams the
+// other operand's tiles through a ring of 16-byte cp.async copies, so the
+// next tiles are in flight while one is computed; the dQ kernel stages O
+// for delta in the ring's last stage before the walk needs it. Apart
+// from the key mask, no thread waits on a device-memory load of its own.
+// Rows are padded so copies, ldmatrix and float4 loads hit no bank
+// conflicts.
+
+// Phase clocks for profile_flash.py, compiled in only with -DFLASH_PROBE:
+// thread 0 of each block adds the cycles since its last probe to a
+// per-kernel, per-phase sum (kernel k: slots 4k .. 4k + 3 = prologue,
+// waits for the ring and the barrier, compute, epilogue).
+#ifdef FLASH_PROBE
+__device__ unsigned long long flash_probe_cycles[16];
+#define PROBE_T0 long long probe_t = clock64();
+#define PROBE(k)                                                  \
+  do {                                                            \
+    if (threadIdx.x == 0) {                                       \
+      const long long now = clock64();                            \
+      atomicAdd(&flash_probe_cycles[k],                           \
+                (unsigned long long)(now - probe_t));             \
+      probe_t = now;                                              \
+    }                                                             \
+  } while (0)
+#else
+#define PROBE_T0
+#define PROBE(k)
+#endif
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+// Tensor-core routes (bf16): 4 warps (one warpgroup), each owns 16 rows
+// of the block's fixed 64-row tile, padded rows of kLd bytes; k-steps
+// and n-tiles over the head dim.
+constexpr int kMmaThreads = 128;
 template <int D>
-constexpr size_t dq_smem_words() {
-  return 4 * kTile * Cfg<D>::kLd + kTile * kLdP + 3 * kTile;
+struct Mma {
+  static constexpr int kLd = D * 2 + 16;
+  static constexpr int kTile = 64 * kLd;
+  static constexpr int kKSteps = D / 16;
+  static constexpr int kDTiles = D / 8;
+};
+// The mma.sync kernels take D = 128 only (D = 64 takes wgmma). They
+// stream 64 keys (dQ) or 32 queries (dK/dV: with the dK and dV
+// accumulators, 64 would spill) through two stages, two blocks an SM.
+constexpr int kSyncD = 128;
+using MmaSync = Mma<kSyncD>;
+constexpr int kSyncK = 64;
+constexpr int kSyncQ = 32;
+constexpr int kSyncStages = 2;
+
+// f32 route: 128 threads, thread (tx, ty) = (tid % 8, tid / 8) owns rows
+// 4 ty .. 4 ty + 3 of each product, columns tx + 8 j of a score tile (a
+// 4x4 micro-tile) and 4 tx .. 4 tx + 3 (+ 32, 64, 96) of the head dim.
+// Rows are D + 4 words apart (float4-aligned, four banks apart), score
+// tiles (P, dS) 32 + 4. Streamed tiles of 32 keys (dQ) or queries
+// (dK/dV) keep two blocks on an SM at D=64.
+constexpr int kTX = 8;  // lanes along the columns
+constexpr int kF32Threads = 16 * kTX;
+template <int D>
+struct F32 {
+  static constexpr int kLdW = D + 4;
+  static constexpr int kLd = kLdW * 4;
+  static constexpr int kTile = 64 * kLd;
+  static constexpr int kK = 32;
+  static constexpr int kQ = 32;
+  static constexpr int kLdS = 32 + 4;
+  static constexpr int kCols = D / (4 * kTX);  // float4 column groups
+  static constexpr int kStages = 3;
+  static constexpr int kMinBlocks = D == 64 ? 2 : 1;
+};
+
+// rows [row0, row0 + rows) of (b, h) of a [B, T, H, D] tensor (base has
+// b and h applied, st is the time stride) into shared memory, `ld`
+// bytes a row, by 16-byte cp.async; rows past n_rows are zero-filled
+template <typename T, int D, int kN>
+__device__ __forceinline__ void issue_rows(unsigned char* dst, int ld,
+                                           const T* base, long long st,
+                                           int row0, int rows, int n_rows) {
+  constexpr int kVec = D * (int)sizeof(T) / 16;
+  for (int c = threadIdx.x; c < rows * kVec; c += kN) {
+    const int r = c / kVec, v = c - r * kVec;
+    const bool ok = row0 + r < n_rows;
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(
+        base + (ok ? (long long)(row0 + r) * st : 0));
+    cp_async16(dst + r * ld + v * 16, src + v * 16, ok);
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads)
-    flash_bwd_dq_kernel(const Params p) {
-  using C = Cfg<D>;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + kTile * C::kLd;
-  float* k_s = do_s + kTile * C::kLd;
-  float* v_s = k_s + kTile * C::kLd;
-  float* ds_s = v_s + kTile * C::kLd;
-  float* ok_s = ds_s + kTile * kLdP;
-  float* lse_s = ok_s + kTile;
-  float* delta_s = lse_s + kTile;
+// floats [i0, i0 + count) of src into dst by 4-byte cp.async; past n
+// zero-filled
+template <int kN>
+__device__ __forceinline__ void issue_floats(float* dst, const float* src,
+                                             int i0, int n, int count) {
+  for (int c = threadIdx.x; c < count; c += kN) {
+    const bool ok = i0 + c < n;
+    cp_async4(dst + c, src + (ok ? i0 + c : 0), ok);
+  }
+}
 
-  const int bh = blockIdx.x;
-  const int b = bh / p.heads, h = bh % p.heads;
-  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * kTile;
-  const int tx = threadIdx.x % kLanesX, ty = threadIdx.x / kLanesX;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-
-  load_tile<T, D>(q_s, p.q, p.sq, b, h, q0, p.tq);
-  load_tile<T, D>(do_s, p.d_o, p.sdo, b, h, q0, p.tq);
+// 1 + the last key the mask lets through (tk without a mask): keys past
+// it are masked for every row, so their tiles are skipped
+template <int kN>
+__device__ int key_end(const float* mrow, int tk) {
+  __shared__ int red[kN / 32];
+  if (mrow == nullptr) return tk;
+  int last = -1;
+  for (int j = threadIdx.x; j < tk; j += kN)
+    if (mrow[j] > 0.f) last = j;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = last;
   __syncthreads();
-  // delta of each row: one warp per row, lanes over the head dim
-  const T* obase = static_cast<const T*>(p.o) + b * p.so.b + h * p.so.h;
-  for (int r = warp; r < kTile; r += C::kThreads / 32) {
-    const int row = q0 + r;
-    float dsum = 0.f;
-    if (row < p.tq)
-      for (int d = lane; d < D; d += 32)
-        dsum += do_s[r * C::kLd + d] * to_f32(obase[(long long)row * p.so.t + d]);
-    for (int o = 16; o > 0; o >>= 1)
-      dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
-    if (lane == 0) {
-      delta_s[r] = dsum;
-      // rows past Tq: p = exp(s - inf) = 0
-      lse_s[r] = row < p.tq ? p.lse[(long long)bh * p.tq + row] : INFINITY;
-      if (row < p.tq) p.delta[(long long)bh * p.tq + row] = dsum;
-    }
+  int m = red[0];
+#pragma unroll
+  for (int w = 1; w < kN / 32; ++w) m = max(m, red[w]);
+  return m + 1;
+}
+
+// 16 bytes of shared memory as f32: 8 bf16 or 4 f32 values
+__device__ __forceinline__ void vec_f32(const unsigned char* src, float* out,
+                                        const bf16*) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
   }
+}
+__device__ __forceinline__ void vec_f32(const unsigned char* src, float* out,
+                                        const float*) {
+  const float4 f = *reinterpret_cast<const float4*>(src);
+  out[0] = f.x;
+  out[1] = f.y;
+  out[2] = f.z;
+  out[3] = f.w;
+}
 
-  float dq[C::kRows][C::kCols];
+// delta = rowsum(dO * O) in f32 for a tile's 64 rows, both staged: 16
+// lanes a row in a fixed order, so every run gives the same bits;
+// written to delta_s and, for rows < tq, out
+template <typename T, int D, int kN>
+__device__ void tile_delta(const unsigned char* do_s,
+                           const unsigned char* o_s, int ld, int q0, int tq,
+                           float* delta_s, float* out) {
+  constexpr int kPer = 16 / (int)sizeof(T);
+  constexpr int kVec = D / kPer;
+  const int l = threadIdx.x & 15;
+  for (int r = threadIdx.x >> 4; r < 64; r += kN / 16) {
+    float sum = 0.f;
+    for (int v = l; v < kVec; v += 16) {
+      float a[8], c[8];
+      vec_f32(do_s + r * ld + v * 16, a, static_cast<const T*>(nullptr));
+      vec_f32(o_s + r * ld + v * 16, c, static_cast<const T*>(nullptr));
 #pragma unroll
-  for (int i = 0; i < C::kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < C::kCols; ++j) dq[i][j] = 0.f;
-
-  const int k_end = p.causal ? min(p.tk, q0 + kTile) : p.tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile<T, D>(k_s, p.k, p.sk, b, h, k0, p.tk);
-    load_tile<T, D>(v_s, p.v, p.sv, b, h, k0, p.tk);
-    load_key_ok(ok_s, p, b, k0, C::kThreads);
-    __syncthreads();
-
-    float s[C::kRows][kKeys], dp[C::kRows][kKeys];
-#pragma unroll
-    for (int i = 0; i < C::kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot<D>(s, q_s, k_s, ty, tx);
-    tile_dot<D>(dp, do_s, v_s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < C::kRows; ++i) {
-      const int r = ty + i * C::kRowLanes;
-      const float lse = lse_s[r], delta = delta_s[r];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int c = tx + j * kLanesX;
-        const bool ok = ok_s[c] != 0.f && (!p.causal || k0 + c <= q0 + r);
-        const float pr = ok ? expf(s[i][j] * p.scale - lse) : 0.f;
-        ds_s[r * kLdP + c] = pr * (dp[i][j] - delta) * p.scale;
-      }
+      for (int e = 0; e < kPer; ++e) sum = fmaf(a[e], c[e], sum);
     }
-    __syncthreads();
-    tile_mix<D>(dq, ds_s, k_s, ty, tx);
-  }
-
-  T* out = static_cast<T*>(p.out0);
 #pragma unroll
-  for (int i = 0; i < C::kRows; ++i) {
-    const int row = q0 + ty + i * C::kRowLanes;
-    if (row >= p.tq) continue;
-    T* orow = out + (((long long)b * p.tq + row) * p.heads + h) * D;
-#pragma unroll
-    for (int j = 0; j < C::kCols; ++j) store(orow + tx + j * kLanesX, dq[i][j]);
+    for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (l == 0) {
+      delta_s[r] = sum;
+      if (q0 + r < tq) out[q0 + r] = sum;
+    }
   }
 }
 
-// --------------------------------------------------------------- dK/dV
-// grid (B*H, key tiles). Scores are computed transposed (key rows,
-// query columns). Shared memory: k, v, q, dO tiles [64][D+1], P^T and
-// dS^T [64][65], key mask, lse and delta of the query tile [64] each.
-template <int D>
-constexpr size_t dkv_smem_words() {
-  return 4 * kTile * Cfg<D>::kLd + 2 * kTile * kLdP + 3 * kTile;
+// The prologue the dQ kernels share: stage q, dO, O (in the ring's last
+// stage, free until the walk reaches it) and lse of the query tile, find
+// the walk's end (n_tiles key tiles), start the first key tiles, compute
+// delta.
+template <typename T, int D, int kN, int kLd, int kK, int kS, typename Issue>
+__device__ void dq_prologue(const Params& p, int b, int h, int bh, int q0,
+                            unsigned char* q_s, unsigned char* do_s,
+                            unsigned char* o_s, float* lse_s, float* delta_s,
+                            const float* mrow, Issue& issue, int& n_tiles) {
+  const T* qb = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const T* dob = static_cast<const T*>(p.d_o) + b * p.sdo.b + h * p.sdo.h;
+  const T* ob = static_cast<const T*>(p.o) + b * p.so.b + h * p.so.h;
+  issue_rows<T, D, kN>(q_s, kLd, qb, p.sq.t, q0, 64, p.tq);
+  issue_rows<T, D, kN>(do_s, kLd, dob, p.sdo.t, q0, 64, p.tq);
+  issue_rows<T, D, kN>(o_s, kLd, ob, p.so.t, q0, 64, p.tq);
+  issue_floats<kN>(lse_s, p.lse + (long long)bh * p.tq, q0, p.tq, 64);
+  cp_async_commit();
+  const int k_end = min(p.causal ? min(p.tk, q0 + 64) : p.tk,
+                        key_end<kN>(mrow, p.tk));
+  n_tiles = (max(k_end, 0) + kK - 1) / kK;
+#pragma unroll
+  for (int it = 0; it < kS - 1; ++it) issue(it);
+  cp_async_wait<kS - 1>();  // q, dO, O and lse landed
+  __syncthreads();
+  tile_delta<T, D, kN>(do_s, o_s, kLd, q0, p.tq, delta_s,
+                       p.delta + (long long)bh * p.tq);
+  __syncthreads();  // delta_s is read below; the ring's last stage is free
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads)
-    flash_bwd_dkv_kernel(const Params p) {
-  using C = Cfg<D>;
-  extern __shared__ float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + kTile * C::kLd;
-  float* q_s = v_s + kTile * C::kLd;
-  float* do_s = q_s + kTile * C::kLd;
-  float* pt_s = do_s + kTile * C::kLd;
-  float* dst_s = pt_s + kTile * kLdP;
-  float* ok_s = dst_s + kTile * kLdP;
-  float* lse_s = ok_s + kTile;
-  float* delta_s = lse_s + kTile;
+// ---------------------------------------- dQ, bf16 mma.sync (D = 128)
+// Shared memory: q and dO tiles, lse and delta of the tile's rows, and
+// the ring of K and V tiles with their key mask.
+constexpr size_t dq_mma_smem() {
+  return 2 * MmaSync::kTile + 2 * 64 * 4 +
+         kSyncStages * (2 * kSyncK * MmaSync::kLd + kSyncK * 4);
+}
+
+// Per key tile each warp computes S = Q K^T and dP = dO V^T for its 16
+// query rows (mma.sync m16n8k16, bf16 in, f32 accumulate; Q and dO by
+// ldmatrix, K and V by ldmatrix as the col-major operand), turns them
+// into dS = P (dP - delta) scale in registers, rounds dS to bf16 into the
+// A fragment of the next product and adds dS K into dQ (K by
+// ldmatrix.trans). dS never leaves the registers.
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_bwd_dq_mma_kernel(const Params p) {
+  PROBE_T0
+  constexpr int D = kSyncD;
+  using M = MmaSync;
+  constexpr int kS = kSyncStages;
+  constexpr int kK = kSyncK;
+  constexpr int kKTile = kK * M::kLd;
+  constexpr int kStage = 2 * kKTile + kK * 4;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  unsigned char* q_s = dsmem;
+  unsigned char* do_s = q_s + M::kTile;
+  float* lse_s = reinterpret_cast<float*>(do_s + M::kTile);
+  float* delta_s = lse_s + 64;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(delta_s + 64);
 
   const int bh = blockIdx.x;
   const int b = bh / p.heads, h = bh % p.heads;
-  const int k0 = blockIdx.y * kTile;
-  const int tx = threadIdx.x % kLanesX, ty = threadIdx.x / kLanesX;
+  // under causal the last query tiles have the most keys: start them first
+  const int q0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 64;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const float* mrow = p.mask == nullptr ? nullptr : p.mask + b * p.mask_sb;
 
-  load_tile<T, D>(k_s, p.k, p.sk, b, h, k0, p.tk);
-  load_tile<T, D>(v_s, p.v, p.sv, b, h, k0, p.tk);
-  load_key_ok(ok_s, p, b, k0, C::kThreads);
-
-  float dk[C::kRows][C::kCols], dv[C::kRows][C::kCols];
-#pragma unroll
-  for (int i = 0; i < C::kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < C::kCols; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  // the first query tile holding a row >= k0 (causal start)
-  const int q_start = p.causal ? (k0 / kTile) * kTile : 0;
-  for (int q0 = q_start; q0 < p.tq; q0 += kTile) {
-    __syncthreads();
-    load_tile<T, D>(q_s, p.q, p.sq, b, h, q0, p.tq);
-    load_tile<T, D>(do_s, p.d_o, p.sdo, b, h, q0, p.tq);
-    for (int r = threadIdx.x; r < kTile; r += C::kThreads) {
-      const int row = q0 + r;
-      lse_s[r] = row < p.tq ? p.lse[(long long)bh * p.tq + row] : INFINITY;
-      delta_s[r] = row < p.tq ? p.delta[(long long)bh * p.tq + row] : 0.f;
+  int n_tiles = 0;
+  auto issue = [&](int it) {  // key tile `it` into its stage, if any
+    if (it < n_tiles) {
+      unsigned char* st = ring + (it % kS) * kStage;
+      issue_rows<bf16, D, kMmaThreads>(st, M::kLd, kb, p.sk.t, it * kK, kK,
+                                       p.tk);
+      issue_rows<bf16, D, kMmaThreads>(st + kKTile, M::kLd, vb, p.sv.t,
+                                       it * kK, kK, p.tk);
+      if (mrow != nullptr)
+        issue_floats<kMmaThreads>(reinterpret_cast<float*>(st + 2 * kKTile),
+                                  mrow, it * kK, p.tk, kK);
     }
-    __syncthreads();
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  dq_prologue<bf16, D, kMmaThreads, M::kLd, kK, kS>(
+      p, b, h, bh, q0, q_s, do_s, ring + (kS - 1) * kStage, lse_s,
+      delta_s, mrow, issue, n_tiles);
 
-    // s^T[c][r] = k[c] . q[r], dp^T[c][r] = v[c] . dO[r]
-    float st[C::kRows][kKeys], dpt[C::kRows][kKeys];
+  // this lane's rows: warp * 16 + g and + 8 (rows past Tq: p = 0)
+  float lse2[2], dlt[2];
+  int qrow[2];
 #pragma unroll
-    for (int i = 0; i < C::kRows; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    qrow[i] = q0 + r;
+    lse2[i] = qrow[i] < p.tq ? lse_s[r] * kLog2e : INFINITY;
+    dlt[i] = delta_s[r];
+  }
+  const float sc2 = p.scale * kLog2e;
+  const int arow = warp * 16 + (lane & 15);
+
+  float dq[M::kDTiles][4];
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) st[i][j] = dpt[i][j] = 0.f;
-    tile_dot<D>(st, k_s, q_s, ty, tx);
-    tile_dot<D>(dpt, v_s, do_s, ty, tx);
+  for (int n = 0; n < M::kDTiles; ++n)
 #pragma unroll
-    for (int i = 0; i < C::kRows; ++i) {
-      const int c = ty + i * C::kRowLanes;
-      const bool key_ok = ok_s[c] != 0.f;
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  PROBE(0);
+  for (int it = 0; it < n_tiles; ++it) {
+    PROBE(2);
+    cp_async_wait<kS - 2>();
+    __syncthreads();  // tile `it` landed; tile it-1's stage is free
+    issue(it + kS - 1);
+    PROBE(1);
+    const unsigned char* kt = ring + (it % kS) * kStage;
+    const unsigned char* vt = kt + kKTile;
+    const float* mk = reinterpret_cast<const float*>(vt + kKTile);
+    const int k0 = it * kK;
+
+    float s[kK / 8][4], dp[kK / 8][4];
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int r = tx + j * kLanesX;
-        const bool ok = key_ok && (!p.causal || k0 + c <= q0 + r);
-        const float pr = ok ? expf(st[i][j] * p.scale - lse_s[r]) : 0.f;
-        pt_s[c * kLdP + r] = pr;
-        dst_s[c * kLdP + r] = pr * (dpt[i][j] - delta_s[r]) * p.scale;
+    for (int n = 0; n < kK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < M::kKSteps; ++kk) {
+      unsigned qa[4], da[4];
+      const int acol = kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(smem_u32(q_s + arow * M::kLd + acol * 2), qa);
+      ldsm_x4(smem_u32(do_s + arow * M::kLd + acol * 2), da);
+#pragma unroll
+      for (int np = 0; np < kK / 16; ++np) {
+        const int key = 16 * np + (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
+        unsigned kf[4], vf[4];
+        ldsm_x4(smem_u32(kt + key * M::kLd + col * 2), kf);
+        ldsm_x4(smem_u32(vt + key * M::kLd + col * 2), vf);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+        mma_bf16(dp[2 * np], da, vf[0], vf[1]);
+        mma_bf16(dp[2 * np + 1], da, vf[2], vf[3]);
+      }
+    }
+    // dS = P (dP - delta) scale, P = exp(S scale - lse), 0 where masked
+#pragma unroll
+    for (int n = 0; n < kK / 8; ++n) {
+      const int c = 8 * n + 2 * qd, key = k0 + c;
+      const float2 m = mrow == nullptr
+                           ? make_float2(1.f, 1.f)
+                           : *reinterpret_cast<const float2*>(mk + c);
+      const bool ok0 = key < p.tk && m.x > 0.f;
+      const bool ok1 = key + 1 < p.tk && m.y > 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, kj = key + (e & 1);
+        const bool ok = ((e & 1) ? ok1 : ok0) && (!p.causal || kj <= qrow[i]);
+        const float pr = ok ? exp2f(fmaf(s[n][e], sc2, -lse2[i])) : 0.f;
+        s[n][e] = pr * (dp[n][e] - dlt[i]) * p.scale;
+      }
+    }
+    // dQ += dS K over k-steps of 16 keys
+#pragma unroll
+    for (int ks = 0; ks < kK / 16; ++ks) {
+      unsigned a[4];
+      a[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
+      a[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
+      a[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
+      a[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+#pragma unroll
+      for (int np = 0; np < M::kDTiles / 2; ++np) {
+        const int key = 16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = 16 * np + (lane >> 4) * 8;
+        unsigned kf[4];
+        ldsm_x4_trans(smem_u32(kt + key * M::kLd + col * 2), kf);
+        mma_bf16(dq[2 * np], a, kf[0], kf[1]);
+        mma_bf16(dq[2 * np + 1], a, kf[2], kf[3]);
+      }
+    }
+  }
+  PROBE(2);
+  cp_async_wait<0>();
+
+  bf16* out = static_cast<bf16*>(p.out0);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qrow[i] >= p.tq) continue;
+    bf16* orow = out + (((long long)b * p.tq + qrow[i]) * p.heads + h) * D;
+#pragma unroll
+    for (int n = 0; n < M::kDTiles; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * qd) =
+          __floats2bfloat162_rn(dq[n][2 * i], dq[n][2 * i + 1]);
+  }
+  PROBE(3);
+}
+
+// ------------------------------------- dK/dV, bf16 mma.sync (D = 128)
+// Shared memory: k and v tiles, and the ring of q and dO tiles (kQ rows)
+// with the lse and delta of their rows.
+constexpr size_t dkv_mma_smem() {
+  return 2 * MmaSync::kTile +
+         kSyncStages * (2 * kSyncQ * MmaSync::kLd + 2 * kSyncQ * 4);
+}
+
+// The key tile's validity, shared by the dK/dV kernels: kok[i] for keys
+// k0 + row(i) (the mask's batch row, keys past Tk invalid); true in
+// every thread when any key of the tile is valid.
+template <int kRows>
+__device__ __forceinline__ bool key_tile_ok(const Params& p, int b, int k0,
+                                            const int* rows, bool* kok) {
+  bool mine = false;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int key = k0 + rows[i];
+    kok[i] = key < p.tk &&
+             (p.mask == nullptr || p.mask[b * p.mask_sb + key] > 0.f);
+    mine |= kok[i];
+  }
+  return __syncthreads_or(mine);
+}
+
+// Per query tile each warp computes S^T = K Q^T and dP^T = V dO^T for its
+// 16 keys, P^T and dS^T in registers, then dV += P^T dO and dK += dS^T Q
+// with P^T and dS^T rounded to bf16 into A fragments (dO and Q by
+// ldmatrix.trans). A key tile the mask wholly excludes skips the walk.
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_bwd_dkv_mma_kernel(const Params p) {
+  PROBE_T0
+  constexpr int D = kSyncD;
+  using M = MmaSync;
+  constexpr int kS = kSyncStages;
+  constexpr int kQ = kSyncQ;
+  constexpr int kQTile = kQ * M::kLd;
+  constexpr int kStage = 2 * kQTile + 2 * kQ * 4;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  unsigned char* k_s = dsmem;
+  unsigned char* v_s = k_s + M::kTile;
+  unsigned char* ring = v_s + M::kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int k0 = blockIdx.y * 64;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const bf16* dob =
+      static_cast<const bf16*>(p.d_o) + b * p.sdo.b + h * p.sdo.h;
+  const float* lse_g = p.lse + (long long)bh * p.tq;
+  const float* delta_g = p.delta + (long long)bh * p.tq;
+
+  issue_rows<bf16, D, kMmaThreads>(k_s, M::kLd, kb, p.sk.t, k0, 64, p.tk);
+  issue_rows<bf16, D, kMmaThreads>(v_s, M::kLd, vb, p.sv.t, k0, 64, p.tk);
+  cp_async_commit();
+  // this lane's keys: rows warp * 16 + g and + 8 of the tile
+  const int rows[2] = {warp * 16 + g, warp * 16 + g + 8};
+  int key[2];
+  bool kok[2];
+  const bool any = key_tile_ok<2>(p, b, k0, rows, kok);
+  key[0] = k0 + rows[0];
+  key[1] = k0 + rows[1];
+  // under causal no query before k0 sees a key of this tile
+  const int q_start = p.causal ? k0 : 0;
+  const int n_tiles = any ? (max(p.tq - q_start, 0) + kQ - 1) / kQ : 0;
+
+  auto issue = [&](int it) {  // query tile `it` into its stage, if any
+    if (it < n_tiles) {
+      unsigned char* st = ring + (it % kS) * kStage;
+      const int r0 = q_start + it * kQ;
+      issue_rows<bf16, D, kMmaThreads>(st, M::kLd, qb, p.sq.t, r0, kQ, p.tq);
+      issue_rows<bf16, D, kMmaThreads>(st + kQTile, M::kLd, dob, p.sdo.t, r0,
+                                       kQ, p.tq);
+      float* stats = reinterpret_cast<float*>(st + 2 * kQTile);
+      issue_floats<kMmaThreads>(stats, lse_g, r0, p.tq, kQ);
+      issue_floats<kMmaThreads>(stats + kQ, delta_g, r0, p.tq, kQ);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int it = 0; it < kS - 1; ++it) issue(it);
+
+  const float sc2 = p.scale * kLog2e;
+  const int arow = warp * 16 + (lane & 15);
+  float dk[M::kDTiles][4], dv[M::kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < M::kDTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  PROBE(4);
+  for (int it = 0; it < n_tiles; ++it) {
+    PROBE(6);
+    cp_async_wait<kS - 2>();
+    __syncthreads();  // tile `it` (and k, v) landed; tile it-1's stage free
+    issue(it + kS - 1);
+    PROBE(5);
+    const unsigned char* qt = ring + (it % kS) * kStage;
+    const unsigned char* dot = qt + kQTile;
+    const float* lse_s = reinterpret_cast<const float*>(dot + kQTile);
+    const float* dl_s = lse_s + kQ;
+    const int r0 = q_start + it * kQ;
+
+    float st[kQ / 8][4], dpt[kQ / 8][4];
+#pragma unroll
+    for (int n = 0; n < kQ / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < M::kKSteps; ++kk) {
+      unsigned ka[4], va[4];
+      const int acol = kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(smem_u32(k_s + arow * M::kLd + acol * 2), ka);
+      ldsm_x4(smem_u32(v_s + arow * M::kLd + acol * 2), va);
+#pragma unroll
+      for (int np = 0; np < kQ / 16; ++np) {
+        const int row = 16 * np + (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
+        unsigned qf[4], df[4];
+        ldsm_x4(smem_u32(qt + row * M::kLd + col * 2), qf);
+        ldsm_x4(smem_u32(dot + row * M::kLd + col * 2), df);
+        mma_bf16(st[2 * np], ka, qf[0], qf[1]);
+        mma_bf16(st[2 * np + 1], ka, qf[2], qf[3]);
+        mma_bf16(dpt[2 * np], va, df[0], df[1]);
+        mma_bf16(dpt[2 * np + 1], va, df[2], df[3]);
+      }
+    }
+    // P^T and dS^T = P^T (dP^T - delta) scale, 0 where masked
+#pragma unroll
+    for (int n = 0; n < kQ / 8; ++n) {
+      const int c = 8 * n + 2 * qd;
+      const float2 lse = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 dl = *reinterpret_cast<const float2*>(dl_s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, query = r0 + c + (e & 1);
+        const bool ok = kok[i] && query < p.tq &&
+                        (!p.causal || key[i] <= query);
+        const float l = (e & 1) ? lse.y : lse.x;
+        const float d = (e & 1) ? dl.y : dl.x;
+        const float pr = ok ? exp2f(fmaf(st[n][e], sc2, -l * kLog2e)) : 0.f;
+        st[n][e] = pr;
+        dpt[n][e] = pr * (dpt[n][e] - d) * p.scale;
+      }
+    }
+    // dV += P^T dO, dK += dS^T Q over k-steps of 16 queries
+#pragma unroll
+    for (int ks = 0; ks < kQ / 16; ++ks) {
+      unsigned pa[4], sa[4];
+      pa[0] = pack_bf16(st[2 * ks][0], st[2 * ks][1]);
+      pa[1] = pack_bf16(st[2 * ks][2], st[2 * ks][3]);
+      pa[2] = pack_bf16(st[2 * ks + 1][0], st[2 * ks + 1][1]);
+      pa[3] = pack_bf16(st[2 * ks + 1][2], st[2 * ks + 1][3]);
+      sa[0] = pack_bf16(dpt[2 * ks][0], dpt[2 * ks][1]);
+      sa[1] = pack_bf16(dpt[2 * ks][2], dpt[2 * ks][3]);
+      sa[2] = pack_bf16(dpt[2 * ks + 1][0], dpt[2 * ks + 1][1]);
+      sa[3] = pack_bf16(dpt[2 * ks + 1][2], dpt[2 * ks + 1][3]);
+#pragma unroll
+      for (int np = 0; np < M::kDTiles / 2; ++np) {
+        const int row = 16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = 16 * np + (lane >> 4) * 8;
+        unsigned df[4], qf[4];
+        ldsm_x4_trans(smem_u32(dot + row * M::kLd + col * 2), df);
+        ldsm_x4_trans(smem_u32(qt + row * M::kLd + col * 2), qf);
+        mma_bf16(dv[2 * np], pa, df[0], df[1]);
+        mma_bf16(dv[2 * np + 1], pa, df[2], df[3]);
+        mma_bf16(dk[2 * np], sa, qf[0], qf[1]);
+        mma_bf16(dk[2 * np + 1], sa, qf[2], qf[3]);
+      }
+    }
+  }
+  PROBE(6);
+  cp_async_wait<0>();
+
+  // dK and dV through the k and v tiles (free once every warp is past
+  // its last product), then out in 16-byte stores of whole rows
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int n = 0; n < M::kDTiles; ++n) {
+      const int at = rows[i] * M::kLd + (8 * n + 2 * qd) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(k_s + at) =
+          __floats2bfloat162_rn(dk[n][2 * i], dk[n][2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(v_s + at) =
+          __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+  __syncthreads();
+  bf16* dk_out = static_cast<bf16*>(p.out0);
+  bf16* dv_out = static_cast<bf16*>(p.out1);
+  constexpr int kVec = D / 8;
+  for (int c = tid; c < 64 * kVec; c += kMmaThreads) {
+    const int r = c / kVec, v = c - r * kVec;
+    if (k0 + r >= p.tk) continue;
+    const long long off =
+        (((long long)b * p.tk + k0 + r) * p.heads + h) * D + v * 8;
+    *reinterpret_cast<uint4*>(dk_out + off) =
+        *reinterpret_cast<const uint4*>(k_s + r * M::kLd + v * 16);
+    *reinterpret_cast<uint4*>(dv_out + off) =
+        *reinterpret_cast<const uint4*>(v_s + r * M::kLd + v * 16);
+  }
+  PROBE(7);
+}
+
+// ----------------------------------------- dK/dV, bf16 wgmma (D = 64)
+// The walk of flash_bwd_dkv_mma_kernel with warpgroup products: one
+// warpgroup owns the 64 keys, K and V enter as A fragments from
+// registers; each query tile (64 rows of q and dO, staged in the 128-byte
+// swizzle layout) is read by the tensor cores straight from shared
+// memory, once for the block (no per-warp ldmatrix): S^T = K Q^T and
+// dP^T = V dO^T with q and dO K-major, then dV += P^T dO and dK +=
+// dS^T Q with the same tiles read transposed (MN-major).
+// Stages are whole KB so the next stage's tiles stay 1024-byte aligned.
+constexpr int kb_round(int bytes) { return (bytes + 1023) / 1024 * 1024; }
+constexpr int kWgQ = 64;                            // queries a step
+constexpr int kWgStages = 3;
+constexpr int kWgStage = kb_round(2 * kWgQ * 128 + 2 * kWgQ * 4);
+constexpr size_t dkv_wgmma_smem() {
+  return 1024 + kWgStages * kWgStage + 2 * Mma<64>::kTile;
+}
+
+// rows [row0, row0 + rows) of a [B, T, H, 64] bf16 tensor into a
+// 128-byte-row swizzled tile (rows past n_rows zero)
+template <int kN>
+__device__ __forceinline__ void issue_rows_sw128(unsigned char* dst,
+                                                 const bf16* base,
+                                                 long long st, int row0,
+                                                 int rows, int n_rows) {
+  for (int c = threadIdx.x; c < rows * 8; c += kN) {
+    const int r = c >> 3, v = c & 7;
+    const bool ok = row0 + r < n_rows;
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(
+        base + (ok ? (long long)(row0 + r) * st : 0));
+    cp_async16(dst + sw128(r, v), src + v * 16, ok);
+  }
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_bwd_dkv_wgmma_kernel(const Params p) {
+  PROBE_T0
+  using M = Mma<64>;
+  constexpr int kS = kWgStages, kQ = kWgQ;
+  constexpr int kQTile = kQ * 128;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  // the tensor cores need the swizzled tiles 1024-byte aligned
+  unsigned char* ring = dsmem + ((1024 - (smem_u32(dsmem) & 1023)) & 1023);
+  unsigned char* k_s = ring + kS * kWgStage;
+  unsigned char* v_s = k_s + M::kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int k0 = blockIdx.y * 64;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const bf16* dob =
+      static_cast<const bf16*>(p.d_o) + b * p.sdo.b + h * p.sdo.h;
+  const float* lse_g = p.lse + (long long)bh * p.tq;
+  const float* delta_g = p.delta + (long long)bh * p.tq;
+
+  issue_rows<bf16, 64, kMmaThreads>(k_s, M::kLd, kb, p.sk.t, k0, 64, p.tk);
+  issue_rows<bf16, 64, kMmaThreads>(v_s, M::kLd, vb, p.sv.t, k0, 64, p.tk);
+  cp_async_commit();
+  const int rows[2] = {warp * 16 + g, warp * 16 + g + 8};
+  int key[2];
+  bool kok[2];
+  const bool any = key_tile_ok<2>(p, b, k0, rows, kok);
+  key[0] = k0 + rows[0];
+  key[1] = k0 + rows[1];
+  const int q_start = p.causal ? k0 : 0;
+  const int n_tiles = any ? (max(p.tq - q_start, 0) + kQ - 1) / kQ : 0;
+
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      unsigned char* st = ring + (it % kS) * kWgStage;
+      const int r0 = q_start + it * kQ;
+      issue_rows_sw128<kMmaThreads>(st, qb, p.sq.t, r0, kQ, p.tq);
+      issue_rows_sw128<kMmaThreads>(st + kQTile, dob, p.sdo.t, r0, kQ, p.tq);
+      float* stats = reinterpret_cast<float*>(st + 2 * kQTile);
+      issue_floats<kMmaThreads>(stats, lse_g, r0, p.tq, kQ);
+      issue_floats<kMmaThreads>(stats + kQ, delta_g, r0, p.tq, kQ);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int it = 0; it < kS - 1; ++it) issue(it);
+
+  const int arow = warp * 16 + (lane & 15);
+  const float sc2 = p.scale * kLog2e;
+  float dk[32], dv[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dk[e] = dv[e] = 0.f;
+
+  PROBE(4);
+  for (int it = 0; it < n_tiles; ++it) {
+    PROBE(6);
+    cp_async_wait<kS - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile `it` landed; tile it-1's stage is free
+    issue(it + kS - 1);
+    PROBE(5);
+    const unsigned char* qt = ring + (it % kS) * kWgStage;
+    const unsigned char* dot = qt + kQTile;
+    const float* lse_s = reinterpret_cast<const float*>(dot + kQTile);
+    const float* dl_s = lse_s + kQ;
+    const int r0 = q_start + it * kQ;
+    const unsigned long long dq_desc = desc_sw128(qt);
+    const unsigned long long do_desc = desc_sw128(dot);
+
+    // K and V as A fragments, loaded anew each step (as in the dQ kernel)
+    unsigned ka[M::kKSteps][4], va[M::kKSteps][4];
+#pragma unroll
+    for (int kk = 0; kk < M::kKSteps; ++kk) {
+      const int acol = kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(smem_u32(k_s + arow * M::kLd + acol * 2), ka[kk]);
+      ldsm_x4(smem_u32(v_s + arow * M::kLd + acol * 2), va[kk]);
+    }
+    float st[kQ / 2], dpt[kQ / 2];
+#pragma unroll
+    for (int e = 0; e < kQ / 2; ++e) st[e] = dpt[e] = 0.f;
+    wgmma_pin<kQ / 2>(st);
+    wgmma_pin<kQ / 2>(dpt);
+    wgmma_pin<4 * M::kKSteps>(&ka[0][0]);
+    wgmma_pin<4 * M::kKSteps>(&va[0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < M::kKSteps; ++kk)
+      wgmma_m64n64k16<0>(st, ka[kk], dq_desc + 2 * kk);
+#pragma unroll
+    for (int kk = 0; kk < M::kKSteps; ++kk)
+      wgmma_m64n64k16<0>(dpt, va[kk], do_desc + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin<kQ / 2>(st);
+    wgmma_pin<kQ / 2>(dpt);
+    wgmma_pin<4 * M::kKSteps>(&ka[0][0]);
+    wgmma_pin<4 * M::kKSteps>(&va[0][0]);
+    // P^T and dS^T = P^T (dP^T - delta) scale, 0 where masked
+#pragma unroll
+    for (int n = 0; n < kQ / 8; ++n) {
+      const int c = 8 * n + 2 * qd;
+      const float2 lse = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 dl = *reinterpret_cast<const float2*>(dl_s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, query = r0 + c + (e & 1);
+        const bool ok = kok[i] && query < p.tq &&
+                        (!p.causal || key[i] <= query);
+        const float l = (e & 1) ? lse.y : lse.x;
+        const float d = (e & 1) ? dl.y : dl.x;
+        const float x = st[4 * n + e];
+        const float pr = ok ? exp2f(fmaf(x, sc2, -l * kLog2e)) : 0.f;
+        st[4 * n + e] = pr;
+        dpt[4 * n + e] = pr * (dpt[4 * n + e] - d) * p.scale;
+      }
+    }
+    // dV += P^T dO, dK += dS^T Q over kQ / 16 k-steps of 16 queries
+    unsigned pa[kQ / 16][4], sa[kQ / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kQ / 16; ++ks)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pa[ks][j] = pack_bf16(st[8 * ks + 2 * j], st[8 * ks + 2 * j + 1]);
+        sa[ks][j] = pack_bf16(dpt[8 * ks + 2 * j], dpt[8 * ks + 2 * j + 1]);
+      }
+    wgmma_pin<32>(dv);
+    wgmma_pin<32>(dk);
+    wgmma_pin<4 * (kQ / 16)>(&pa[0][0]);
+    wgmma_pin<4 * (kQ / 16)>(&sa[0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kQ / 16; ++ks) {
+      wgmma_m64n64k16<1>(dv, pa[ks], do_desc + 128 * ks);
+      wgmma_m64n64k16<1>(dk, sa[ks], dq_desc + 128 * ks);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin<32>(dv);
+    wgmma_pin<32>(dk);
+    wgmma_pin<4 * (kQ / 16)>(&pa[0][0]);
+    wgmma_pin<4 * (kQ / 16)>(&sa[0][0]);
+  }
+  PROBE(6);
+  cp_async_wait<0>();
+
+  // dK and dV through the k and v tiles, then out in 16-byte stores
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int at = rows[i] * M::kLd + (8 * n + 2 * qd) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(k_s + at) =
+          __floats2bfloat162_rn(dk[4 * n + 2 * i], dk[4 * n + 2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(v_s + at) =
+          __floats2bfloat162_rn(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
+    }
+  }
+  __syncthreads();
+  bf16* dk_out = static_cast<bf16*>(p.out0);
+  bf16* dv_out = static_cast<bf16*>(p.out1);
+  for (int c = tid; c < 64 * 8; c += kMmaThreads) {
+    const int r = c >> 3, v = c & 7;
+    if (k0 + r >= p.tk) continue;
+    const long long off =
+        (((long long)b * p.tk + k0 + r) * p.heads + h) * 64 + v * 8;
+    *reinterpret_cast<uint4*>(dk_out + off) =
+        *reinterpret_cast<const uint4*>(k_s + r * M::kLd + v * 16);
+    *reinterpret_cast<uint4*>(dv_out + off) =
+        *reinterpret_cast<const uint4*>(v_s + r * M::kLd + v * 16);
+  }
+  PROBE(7);
+}
+
+// -------------------------------------------- dQ, bf16 wgmma (D = 64)
+// The walk of flash_bwd_dq_mma_kernel with warpgroup products: one
+// warpgroup owns the 64 query rows, Q and dO enter as A fragments from
+// registers; each key tile (64 rows of K and V, staged in the 128-byte
+// swizzle layout) is read by the tensor cores straight from shared
+// memory: S = Q K^T and dP = dO V^T with K and V K-major, then dQ +=
+// dS K with the same K tile read transposed.
+constexpr int kWgK = 64;                            // keys a step
+constexpr int kWgDqStages = 3;
+constexpr int kWgKStage = kb_round(2 * kWgK * 128 + kWgK * 4);  // K, V, mask
+static_assert(kWgKStage >= 64 * Mma<64>::kLd, "a stage holds the O tile");
+constexpr size_t dq_wgmma_smem() {
+  return 1024 + kWgDqStages * kWgKStage + 2 * Mma<64>::kTile + 2 * 64 * 4;
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 3)
+    flash_bwd_dq_wgmma_kernel(const Params p) {
+  PROBE_T0
+  using M = Mma<64>;
+  constexpr int kS = kWgDqStages, kK = kWgK;
+  constexpr int kKTile = kK * 128;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  unsigned char* ring = dsmem + ((1024 - (smem_u32(dsmem) & 1023)) & 1023);
+  unsigned char* q_s = ring + kS * kWgKStage;
+  unsigned char* do_s = q_s + M::kTile;
+  float* lse_s = reinterpret_cast<float*>(do_s + M::kTile);
+  float* delta_s = lse_s + 64;
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int q0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 64;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const float* mrow = p.mask == nullptr ? nullptr : p.mask + b * p.mask_sb;
+
+  int n_tiles = 0;
+  auto issue = [&](int it) {  // key tile `it` into its stage, if any
+    if (it < n_tiles) {
+      unsigned char* st = ring + (it % kS) * kWgKStage;
+      issue_rows_sw128<kMmaThreads>(st, kb, p.sk.t, it * kK, kK, p.tk);
+      issue_rows_sw128<kMmaThreads>(st + kKTile, vb, p.sv.t, it * kK, kK,
+                                    p.tk);
+      if (mrow != nullptr)
+        issue_floats<kMmaThreads>(reinterpret_cast<float*>(st + 2 * kKTile),
+                                  mrow, it * kK, p.tk, kK);
+    }
+    cp_async_commit();
+  };
+  dq_prologue<bf16, 64, kMmaThreads, M::kLd, kK, kS>(
+      p, b, h, bh, q0, q_s, do_s, ring + (kS - 1) * kWgKStage, lse_s,
+      delta_s, mrow, issue, n_tiles);
+
+  float lse2[2], dlt[2];
+  int qrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    qrow[i] = q0 + r;
+    lse2[i] = qrow[i] < p.tq ? lse_s[r] * kLog2e : INFINITY;
+    dlt[i] = delta_s[r];
+  }
+  const float sc2 = p.scale * kLog2e;
+  const int arow = warp * 16 + (lane & 15);
+  float dq[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dq[e] = 0.f;
+
+  PROBE(0);
+  for (int it = 0; it < n_tiles; ++it) {
+    PROBE(2);
+    cp_async_wait<kS - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile `it` landed; tile it-1's stage is free
+    issue(it + kS - 1);
+    PROBE(1);
+    const unsigned char* kt = ring + (it % kS) * kWgKStage;
+    const unsigned char* vt = kt + kKTile;
+    const float* mk = reinterpret_cast<const float*>(vt + kKTile);
+    const int k0 = it * kK;
+    const unsigned long long k_desc = desc_sw128(kt);
+    const unsigned long long v_desc = desc_sw128(vt);
+
+    // Q and dO as A fragments (loaded anew each step: held across the
+    // walk, the registers did not survive the asynchronous products)
+    unsigned qa[M::kKSteps][4], da[M::kKSteps][4];
+#pragma unroll
+    for (int kk = 0; kk < M::kKSteps; ++kk) {
+      const int acol = kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(smem_u32(q_s + arow * M::kLd + acol * 2), qa[kk]);
+      ldsm_x4(smem_u32(do_s + arow * M::kLd + acol * 2), da[kk]);
+    }
+    float s[kK / 2], dp[kK / 2];
+#pragma unroll
+    for (int e = 0; e < kK / 2; ++e) s[e] = dp[e] = 0.f;
+    wgmma_pin<kK / 2>(s);
+    wgmma_pin<kK / 2>(dp);
+    wgmma_pin<4 * M::kKSteps>(&qa[0][0]);
+    wgmma_pin<4 * M::kKSteps>(&da[0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < M::kKSteps; ++kk)
+      wgmma_m64n64k16<0>(s, qa[kk], k_desc + 2 * kk);
+#pragma unroll
+    for (int kk = 0; kk < M::kKSteps; ++kk)
+      wgmma_m64n64k16<0>(dp, da[kk], v_desc + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin<kK / 2>(s);
+    wgmma_pin<kK / 2>(dp);
+    wgmma_pin<4 * M::kKSteps>(&qa[0][0]);
+    wgmma_pin<4 * M::kKSteps>(&da[0][0]);
+    // dS = P (dP - delta) scale, P = exp(S scale - lse), 0 where masked
+#pragma unroll
+    for (int n = 0; n < kK / 8; ++n) {
+      const int c = 8 * n + 2 * qd, key = k0 + c;
+      const float2 m = mrow == nullptr
+                           ? make_float2(1.f, 1.f)
+                           : *reinterpret_cast<const float2*>(mk + c);
+      const bool ok0 = key < p.tk && m.x > 0.f;
+      const bool ok1 = key + 1 < p.tk && m.y > 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, kj = key + (e & 1);
+        const bool ok = ((e & 1) ? ok1 : ok0) && (!p.causal || kj <= qrow[i]);
+        const float pr =
+            ok ? exp2f(fmaf(s[4 * n + e], sc2, -lse2[i])) : 0.f;
+        s[4 * n + e] = pr * (dp[4 * n + e] - dlt[i]) * p.scale;
+      }
+    }
+    // dQ += dS K over 4 k-steps of 16 keys
+    unsigned a[kK / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kK / 16; ++ks)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        a[ks][j] = pack_bf16(s[8 * ks + 2 * j], s[8 * ks + 2 * j + 1]);
+    wgmma_pin<32>(dq);
+    wgmma_pin<4 * (kK / 16)>(&a[0][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kK / 16; ++ks)
+      wgmma_m64n64k16<1>(dq, a[ks], k_desc + 128 * ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin<32>(dq);
+    wgmma_pin<4 * (kK / 16)>(&a[0][0]);
+  }
+  PROBE(2);
+  cp_async_wait<0>();
+
+  bf16* out = static_cast<bf16*>(p.out0);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qrow[i] >= p.tq) continue;
+    bf16* orow = out + (((long long)b * p.tq + qrow[i]) * p.heads + h) * 64;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * qd) =
+          __floats2bfloat162_rn(dq[4 * n + 2 * i], dq[4 * n + 2 * i + 1]);
+  }
+  PROBE(3);
+}
+
+// ------------------------------------------------------------ dQ, f32
+// Shared memory: q and dO tiles, lse and delta of the tile's rows, the
+// dS tile (64 x kK), and the ring of K and V tiles with their key mask.
+template <int D>
+constexpr size_t dq_f32_smem() {
+  return 2 * F32<D>::kTile + 2 * 64 * 4 + 64 * F32<D>::kLdS * 4 +
+         F32<D>::kStages * (2 * F32<D>::kK * F32<D>::kLd + F32<D>::kK * 4);
+}
+
+// Per key tile: S = Q K^T and dP = dO V^T as 4x4 register micro-tiles per
+// thread (float4 loads along the head dim: 8 loads feed 64 FMAs), dS to
+// shared memory, then dQ += dS K as 4 x (8 or 16) micro-tiles (float4
+// loads along the key and head dims: 8 loads feed 128 FMAs).
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, F32<D>::kMinBlocks)
+    flash_bwd_dq_f32_kernel(const Params p) {
+  PROBE_T0
+  using C = F32<D>;
+  constexpr int kS = C::kStages;
+  constexpr int kK = C::kK, kJ = kK / kTX;
+  constexpr int kLdW = C::kLdW, kLdS = C::kLdS;
+  constexpr int kKTile = kK * C::kLd;
+  constexpr int kStage = 2 * kKTile + kK * 4;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  unsigned char* q_s = dsmem;
+  unsigned char* do_s = q_s + C::kTile;
+  float* lse_s = reinterpret_cast<float*>(do_s + C::kTile);
+  float* delta_s = lse_s + 64;
+  float* ds_s = delta_s + 64;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(ds_s + 64 * kLdS);
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int q0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 64;
+  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
+  const float* kb = static_cast<const float*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const float* vb = static_cast<const float*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const float* mrow = p.mask == nullptr ? nullptr : p.mask + b * p.mask_sb;
+
+  int n_tiles = 0;
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      unsigned char* st = ring + (it % kS) * kStage;
+      issue_rows<float, D, kF32Threads>(st, C::kLd, kb, p.sk.t, it * kK, kK,
+                                        p.tk);
+      issue_rows<float, D, kF32Threads>(st + kKTile, C::kLd, vb, p.sv.t,
+                                        it * kK, kK, p.tk);
+      if (mrow != nullptr)
+        issue_floats<kF32Threads>(reinterpret_cast<float*>(st + 2 * kKTile),
+                                  mrow, it * kK, p.tk, kK);
+    }
+    cp_async_commit();
+  };
+  dq_prologue<float, D, kF32Threads, C::kLd, kK, kS>(
+      p, b, h, bh, q0, q_s, do_s, ring + (kS - 1) * kStage, lse_s,
+      delta_s, mrow, issue, n_tiles);
+
+  const float* qf = reinterpret_cast<const float*>(q_s);
+  const float* dof = reinterpret_cast<const float*>(do_s);
+  float lse[4], dlt[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    lse[i] = q0 + r < p.tq ? lse_s[r] : INFINITY;
+    dlt[i] = delta_s[r];
+  }
+  float dq[4][4 * C::kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * C::kCols; ++j) dq[i][j] = 0.f;
+
+  PROBE(8);
+  for (int it = 0; it < n_tiles; ++it) {
+    PROBE(10);
+    cp_async_wait<kS - 2>();
+    __syncthreads();  // also: every thread is done with the last dS tile
+    issue(it + kS - 1);
+    PROBE(9);
+    const float* kt =
+        reinterpret_cast<const float*>(ring + (it % kS) * kStage);
+    const float* vt = kt + kK * kLdW;
+    const float* mk = vt + kK * kLdW;
+    const int k0 = it * kK;
+
+    float s[4][kJ], dp[4][kJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 a[4], c[kJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qf + (4 * ty + i) * kLdW + d);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        c[j] = *reinterpret_cast<const float4*>(kt + (tx + kTX * j) * kLdW + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(dof + (4 * ty + i) * kLdW + d);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        c[j] = *reinterpret_cast<const float4*>(vt + (tx + kTX * j) * kLdW + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          dp[i][j] = fmaf(a[i].x, c[j].x, dp[i][j]);
+          dp[i][j] = fmaf(a[i].y, c[j].y, dp[i][j]);
+          dp[i][j] = fmaf(a[i].z, c[j].z, dp[i][j]);
+          dp[i][j] = fmaf(a[i].w, c[j].w, dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const int c = tx + kTX * j, key = k0 + c;
+      const bool key_ok = key < p.tk && (mrow == nullptr || mk[c] > 0.f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = key_ok && (!p.causal || key <= q0 + 4 * ty + i);
+        const float pr = ok ? expf(s[i][j] * p.scale - lse[i]) : 0.f;
+        ds_s[(4 * ty + i) * kLdS + c] = pr * (dp[i][j] - dlt[i]) * p.scale;
       }
     }
     __syncthreads();
-    tile_mix<D>(dv, pt_s, do_s, ty, tx);
-    tile_mix<D>(dk, dst_s, q_s, ty, tx);
-  }
-
-  T* dk_out = static_cast<T*>(p.out0);
-  T* dv_out = static_cast<T*>(p.out1);
+    // dQ += dS K
+#pragma unroll 2
+    for (int r = 0; r < kK; r += 4) {
+      float4 w[4];
 #pragma unroll
-  for (int i = 0; i < C::kRows; ++i) {
-    const int key = k0 + ty + i * C::kRowLanes;
+      for (int i = 0; i < 4; ++i)
+        w[i] = *reinterpret_cast<const float4*>(ds_s + (4 * ty + i) * kLdS + r);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int cg = 0; cg < C::kCols; ++cg) {
+          const float4 m = *reinterpret_cast<const float4*>(
+              kt + (r + u) * kLdW + 4 * tx + 4 * kTX * cg);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float wv = u == 0 ? w[i].x : u == 1 ? w[i].y
+                                     : u == 2 ? w[i].z : w[i].w;
+            dq[i][4 * cg + 0] = fmaf(wv, m.x, dq[i][4 * cg + 0]);
+            dq[i][4 * cg + 1] = fmaf(wv, m.y, dq[i][4 * cg + 1]);
+            dq[i][4 * cg + 2] = fmaf(wv, m.z, dq[i][4 * cg + 2]);
+            dq[i][4 * cg + 3] = fmaf(wv, m.w, dq[i][4 * cg + 3]);
+          }
+        }
+      }
+    }
+  }
+  PROBE(10);
+  cp_async_wait<0>();
+
+  float* out = static_cast<float*>(p.out0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= p.tq) continue;
+    float* orow = out + (((long long)b * p.tq + row) * p.heads + h) * D;
+#pragma unroll
+    for (int cg = 0; cg < C::kCols; ++cg)
+      *reinterpret_cast<float4*>(orow + 4 * tx + 4 * kTX * cg) =
+          make_float4(dq[i][4 * cg], dq[i][4 * cg + 1], dq[i][4 * cg + 2],
+                      dq[i][4 * cg + 3]);
+  }
+  PROBE(11);
+}
+
+// --------------------------------------------------------- dK/dV, f32
+// Shared memory: k and v tiles, the P^T and dS^T tiles (64 x kQ), and
+// the ring of q and dO tiles (kQ rows) with their lse and delta.
+template <int D>
+constexpr size_t dkv_f32_smem() {
+  return 2 * F32<D>::kTile + 2 * 64 * F32<D>::kLdS * 4 +
+         F32<D>::kStages * (2 * F32<D>::kQ * F32<D>::kLd + 2 * F32<D>::kQ * 4);
+}
+
+// Per query tile: S^T = K Q^T and dP^T = V dO^T as 4x4 micro-tiles per
+// thread, P^T and dS^T to shared memory, then dV += P^T dO and dK +=
+// dS^T Q as 4 x (8 or 16) micro-tiles.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, F32<D>::kMinBlocks)
+    flash_bwd_dkv_f32_kernel(const Params p) {
+  PROBE_T0
+  using C = F32<D>;
+  constexpr int kS = C::kStages;
+  constexpr int kQ = C::kQ, kJ = kQ / kTX;
+  constexpr int kLdW = C::kLdW, kLdS = C::kLdS;
+  constexpr int kQTile = kQ * C::kLd;
+  constexpr int kStage = 2 * kQTile + 2 * kQ * 4;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  const float* k_s = reinterpret_cast<const float*>(dsmem);
+  const float* v_s = k_s + 64 * kLdW;
+  float* pt_s = const_cast<float*>(v_s) + 64 * kLdW;
+  float* dst_s = pt_s + 64 * kLdS;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(dst_s + 64 * kLdS);
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int k0 = blockIdx.y * 64;
+  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
+  const float* qb = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const float* kb = static_cast<const float*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const float* vb = static_cast<const float*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const float* dob =
+      static_cast<const float*>(p.d_o) + b * p.sdo.b + h * p.sdo.h;
+  const float* lse_g = p.lse + (long long)bh * p.tq;
+  const float* delta_g = p.delta + (long long)bh * p.tq;
+
+  issue_rows<float, D, kF32Threads>(dsmem, C::kLd, kb, p.sk.t, k0, 64, p.tk);
+  issue_rows<float, D, kF32Threads>(dsmem + C::kTile, C::kLd, vb, p.sv.t, k0,
+                                    64, p.tk);
+  cp_async_commit();
+  const int rows[4] = {4 * ty, 4 * ty + 1, 4 * ty + 2, 4 * ty + 3};
+  bool kok[4];
+  const bool any = key_tile_ok<4>(p, b, k0, rows, kok);
+  const int q_start = p.causal ? k0 : 0;
+  const int n_tiles = any ? (max(p.tq - q_start, 0) + kQ - 1) / kQ : 0;
+
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      unsigned char* st = ring + (it % kS) * kStage;
+      const int r0 = q_start + it * kQ;
+      issue_rows<float, D, kF32Threads>(st, C::kLd, qb, p.sq.t, r0, kQ, p.tq);
+      issue_rows<float, D, kF32Threads>(st + kQTile, C::kLd, dob, p.sdo.t,
+                                        r0, kQ, p.tq);
+      float* stats = reinterpret_cast<float*>(st + 2 * kQTile);
+      issue_floats<kF32Threads>(stats, lse_g, r0, p.tq, kQ);
+      issue_floats<kF32Threads>(stats + kQ, delta_g, r0, p.tq, kQ);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int it = 0; it < kS - 1; ++it) issue(it);
+
+  float dk[4][4 * C::kCols], dv[4][4 * C::kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * C::kCols; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  PROBE(12);
+  for (int it = 0; it < n_tiles; ++it) {
+    PROBE(14);
+    cp_async_wait<kS - 2>();
+    __syncthreads();
+    issue(it + kS - 1);
+    PROBE(13);
+    const float* qt =
+        reinterpret_cast<const float*>(ring + (it % kS) * kStage);
+    const float* dot = qt + kQ * kLdW;
+    const float* lse_s = dot + kQ * kLdW;
+    const float* dl_s = lse_s + kQ;
+    const int r0 = q_start + it * kQ;
+
+    float st[4][kJ], dpt[4][kJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 a[4], c[kJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(k_s + (4 * ty + i) * kLdW + d);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        c[j] = *reinterpret_cast<const float4*>(qt + (tx + kTX * j) * kLdW + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          st[i][j] = fmaf(a[i].x, c[j].x, st[i][j]);
+          st[i][j] = fmaf(a[i].y, c[j].y, st[i][j]);
+          st[i][j] = fmaf(a[i].z, c[j].z, st[i][j]);
+          st[i][j] = fmaf(a[i].w, c[j].w, st[i][j]);
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(v_s + (4 * ty + i) * kLdW + d);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        c[j] = *reinterpret_cast<const float4*>(dot + (tx + kTX * j) * kLdW +
+                                                d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          dpt[i][j] = fmaf(a[i].x, c[j].x, dpt[i][j]);
+          dpt[i][j] = fmaf(a[i].y, c[j].y, dpt[i][j]);
+          dpt[i][j] = fmaf(a[i].z, c[j].z, dpt[i][j]);
+          dpt[i][j] = fmaf(a[i].w, c[j].w, dpt[i][j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const int c = tx + kTX * j, query = r0 + c;
+      const float lse = lse_s[c], dl = dl_s[c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + 4 * ty + i;
+        const bool ok = kok[i] && query < p.tq && (!p.causal || key <= query);
+        const float pr = ok ? expf(st[i][j] * p.scale - lse) : 0.f;
+        pt_s[(4 * ty + i) * kLdS + c] = pr;
+        dst_s[(4 * ty + i) * kLdS + c] = pr * (dpt[i][j] - dl) * p.scale;
+      }
+    }
+    __syncthreads();
+    // dV += P^T dO, dK += dS^T Q
+#pragma unroll 2
+    for (int r = 0; r < kQ; r += 4) {
+      float4 wp[4], ws[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int at = (4 * ty + i) * kLdS + r;
+        wp[i] = *reinterpret_cast<const float4*>(pt_s + at);
+        ws[i] = *reinterpret_cast<const float4*>(dst_s + at);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int cg = 0; cg < C::kCols; ++cg) {
+          const float4 md = *reinterpret_cast<const float4*>(
+              dot + (r + u) * kLdW + 4 * tx + 4 * kTX * cg);
+          const float4 mq = *reinterpret_cast<const float4*>(
+              qt + (r + u) * kLdW + 4 * tx + 4 * kTX * cg);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pv = u == 0 ? wp[i].x : u == 1 ? wp[i].y
+                                     : u == 2 ? wp[i].z : wp[i].w;
+            const float sv = u == 0 ? ws[i].x : u == 1 ? ws[i].y
+                                     : u == 2 ? ws[i].z : ws[i].w;
+            dv[i][4 * cg + 0] = fmaf(pv, md.x, dv[i][4 * cg + 0]);
+            dv[i][4 * cg + 1] = fmaf(pv, md.y, dv[i][4 * cg + 1]);
+            dv[i][4 * cg + 2] = fmaf(pv, md.z, dv[i][4 * cg + 2]);
+            dv[i][4 * cg + 3] = fmaf(pv, md.w, dv[i][4 * cg + 3]);
+            dk[i][4 * cg + 0] = fmaf(sv, mq.x, dk[i][4 * cg + 0]);
+            dk[i][4 * cg + 1] = fmaf(sv, mq.y, dk[i][4 * cg + 1]);
+            dk[i][4 * cg + 2] = fmaf(sv, mq.z, dk[i][4 * cg + 2]);
+            dk[i][4 * cg + 3] = fmaf(sv, mq.w, dk[i][4 * cg + 3]);
+          }
+        }
+      }
+    }
+  }
+  PROBE(14);
+  cp_async_wait<0>();
+
+  float* dk_out = static_cast<float*>(p.out0);
+  float* dv_out = static_cast<float*>(p.out1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * ty + i;
     if (key >= p.tk) continue;
     const long long off = (((long long)b * p.tk + key) * p.heads + h) * D;
 #pragma unroll
-    for (int j = 0; j < C::kCols; ++j) {
-      store(dk_out + off + tx + j * kLanesX, dk[i][j]);
-      store(dv_out + off + tx + j * kLanesX, dv[i][j]);
+    for (int cg = 0; cg < C::kCols; ++cg) {
+      const int col = 4 * tx + 4 * kTX * cg;
+      *reinterpret_cast<float4*>(dk_out + off + col) =
+          make_float4(dk[i][4 * cg], dk[i][4 * cg + 1], dk[i][4 * cg + 2],
+                      dk[i][4 * cg + 3]);
+      *reinterpret_cast<float4*>(dv_out + off + col) =
+          make_float4(dv[i][4 * cg], dv[i][4 * cg + 1], dv[i][4 * cg + 2],
+                      dv[i][4 * cg + 3]);
     }
   }
+  PROBE(15);
 }
 
 // ---------------------------------------------------------------- host
 
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem_words, int threads, dim3 grid,
+int launch(Kernel kernel, size_t smem, int threads, dim3 grid,
            const Params& p, void* stream) {
-  const size_t smem = smem_words * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -489,35 +1672,57 @@ template <typename T>
 int fwd(const Params& p, int batch, int d, void* stream) {
   const dim3 grid(batch * p.heads, tiles(p.tq));
   if (d == 64)
-    return launch(flash_fwd_kernel<T, 64>, fwd_smem_words<64>(),
+    return launch(flash_fwd_kernel<T, 64>, fwd_smem_words<64>() * 4,
                   Cfg<64>::kThreads, grid, p, stream);
   if (d == 128)
-    return launch(flash_fwd_kernel<T, 128>, fwd_smem_words<128>(),
+    return launch(flash_fwd_kernel<T, 128>, fwd_smem_words<128>() * 4,
                   Cfg<128>::kThreads, grid, p, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 at D=64: the wgmma kernels; bf16 at D=128: the mma.sync kernels
+// (the wgmma accumulators of a 128-wide head would not fit); f32: FMAs.
+template <int D>
+int bwd_dq_d(const Params& p, bool bf16_route, dim3 grid, void* stream) {
+  if (!bf16_route)
+    return launch(flash_bwd_dq_f32_kernel<D>, dq_f32_smem<D>(), kF32Threads,
+                  grid, p, stream);
+  if constexpr (D == 64)
+    return launch(flash_bwd_dq_wgmma_kernel, dq_wgmma_smem(), kMmaThreads,
+                  grid, p, stream);
+  else
+    return launch(flash_bwd_dq_mma_kernel, dq_mma_smem(), kMmaThreads,
+                  grid, p, stream);
+}
+
+template <int D>
+int bwd_dkv_d(const Params& p, bool bf16_route, dim3 grid, void* stream) {
+  if (!bf16_route)
+    return launch(flash_bwd_dkv_f32_kernel<D>, dkv_f32_smem<D>(),
+                  kF32Threads, grid, p, stream);
+  if constexpr (D == 64)
+    return launch(flash_bwd_dkv_wgmma_kernel, dkv_wgmma_smem(), kMmaThreads,
+                  grid, p, stream);
+  else
+    return launch(flash_bwd_dkv_mma_kernel, dkv_mma_smem(),
+                  kMmaThreads, grid, p, stream);
 }
 
 template <typename T>
 int bwd_dq(const Params& p, int batch, int d, void* stream) {
   const dim3 grid(batch * p.heads, tiles(p.tq));
-  if (d == 64)
-    return launch(flash_bwd_dq_kernel<T, 64>, dq_smem_words<64>(),
-                  Cfg<64>::kThreads, grid, p, stream);
-  if (d == 128)
-    return launch(flash_bwd_dq_kernel<T, 128>, dq_smem_words<128>(),
-                  Cfg<128>::kThreads, grid, p, stream);
+  const bool mma = sizeof(T) == 2;
+  if (d == 64) return bwd_dq_d<64>(p, mma, grid, stream);
+  if (d == 128) return bwd_dq_d<128>(p, mma, grid, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int bwd_dkv(const Params& p, int batch, int d, void* stream) {
   const dim3 grid(batch * p.heads, tiles(p.tk));
-  if (d == 64)
-    return launch(flash_bwd_dkv_kernel<T, 64>, dkv_smem_words<64>(),
-                  Cfg<64>::kThreads, grid, p, stream);
-  if (d == 128)
-    return launch(flash_bwd_dkv_kernel<T, 128>, dkv_smem_words<128>(),
-                  Cfg<128>::kThreads, grid, p, stream);
+  const bool mma = sizeof(T) == 2;
+  if (d == 64) return bwd_dkv_d<64>(p, mma, grid, stream);
+  if (d == 128) return bwd_dkv_d<128>(p, mma, grid, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -533,20 +1738,26 @@ Params make_params(int heads, int tq, int tk, long long mask_sb, int causal,
   return p;
 }
 
+template <int D>
+size_t smem_bytes(int kind, bool bf16_route) {
+  if (kind == 0) return fwd_smem_words<D>() * sizeof(float);
+  if (!bf16_route) return kind == 1 ? dq_f32_smem<D>() : dkv_f32_smem<D>();
+  if constexpr (D == 64)
+    return kind == 1 ? dq_wgmma_smem() : dkv_wgmma_smem();
+  else
+    return kind == 1 ? dq_mma_smem() : dkv_mma_smem();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes of one block: kind 0 forward, 1 dQ, 2 dK/dV.
-size_t flash_smem_bytes(int kind, int d) {
-  size_t w = 0;
-  if (d == 64)
-    w = kind == 0 ? fwd_smem_words<64>()
-                  : kind == 1 ? dq_smem_words<64>() : dkv_smem_words<64>();
-  else if (d == 128)
-    w = kind == 0 ? fwd_smem_words<128>()
-                  : kind == 1 ? dq_smem_words<128>() : dkv_smem_words<128>();
-  return w * sizeof(float);
+// Dynamic shared-memory bytes of one block: kind 0 forward, 1 dQ, 2
+// dK/dV; is_bf16 != 0 for the bfloat16 kernels.
+size_t flash_smem_bytes(int kind, int d, int is_bf16) {
+  if (d == 64) return smem_bytes<64>(kind, is_bf16 != 0);
+  if (d == 128) return smem_bytes<128>(kind, is_bf16 != 0);
+  return 0;
 }
 
 // Each launches on `stream` of the calling thread's current device (the
@@ -637,6 +1848,17 @@ int flash_bwd_dq_bf16(FLASH_DQ_ARGS) { FLASH_DQ_BODY(__nv_bfloat16) }
 
 int flash_bwd_dkv_f32(FLASH_DKV_ARGS) { FLASH_DKV_BODY(float) }
 int flash_bwd_dkv_bf16(FLASH_DKV_ARGS) { FLASH_DKV_BODY(__nv_bfloat16) }
+
+#ifdef FLASH_PROBE
+// The phase sums (16 counters) into `out`, then zero them.
+int flash_probe_take(unsigned long long* out) {
+  const unsigned long long zero[16] = {};
+  const cudaError_t err = cudaMemcpyFromSymbol(out, flash_probe_cycles,
+                                               sizeof(zero));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyToSymbol(flash_probe_cycles, zero, sizeof(zero));
+}
+#endif
 
 const char* flash_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

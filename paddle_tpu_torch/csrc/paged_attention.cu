@@ -68,6 +68,8 @@
 #include <stddef.h>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -267,7 +269,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* k_scale, const void* v_scale, const void* tables,
            const void* cached_lens, void* out, int batch, int n_q,
            int n_heads, int dk, int dv, int n_blocks, int block_size,
-           int max_blocks, void* stream) {
+           int max_blocks, float sqrt_dk, void* stream) {
   const size_t smem = smem_words(n_q, dk, dv) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -282,8 +284,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
           static_cast<const P*>(v_pool), static_cast<const float*>(k_scale),
           static_cast<const float*>(v_scale), static_cast<const int*>(tables),
           static_cast<const int*>(cached_lens), static_cast<T*>(out), n_q,
-          n_heads, dk, dv, n_blocks, block_size, max_blocks,
-          sqrtf((float)dk));
+          n_heads, dk, dv, n_blocks, block_size, max_blocks, sqrt_dk);
   return (int)cudaGetLastError();
 }
 
@@ -302,37 +303,12 @@ constexpr int kKeyTile = 64;      // keys per tile of the query-tile routes
 constexpr int kTileStages = 2;    // cp.async ring depth, f32 query tiles
 constexpr int kMmaStages = 3;     // cp.async ring depth, tensor-core tiles
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !ok (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-// 4 bytes global -> shared, zero-filled when !ok
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// q's type for a dequantized value: f32 keeps it, bf16 rounds it
+// q's type for a dequantized value or for sqrt(Dk): f32 keeps it, bf16
+// rounds it
 template <typename T>
-__device__ __forceinline__ float rq(float v) { return v; }
+__host__ __device__ __forceinline__ float rq(float v) { return v; }
 template <>
-__device__ __forceinline__ float rq<__nv_bfloat16>(float v) {
+__host__ __device__ __forceinline__ float rq<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
@@ -1007,32 +983,6 @@ __global__ void __launch_bounds__(kTileThreads)
 
 // ---------------------------------- query-tile route, bf16 tensor cores
 
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
 // Shared memory of a tensor-core block, in bytes: the q tile and a
 // two-stage ring of K/V tiles, rows padded by 16 bytes (ldmatrix's
 // eight 16-byte rows then fall in eight different bank groups), plus
@@ -1362,7 +1312,10 @@ int launch_route(int route, const void* q, const void* k_pool,
                  int dv, int n_blocks, int block_size, int max_blocks,
                  int n_splits, int split_len, void* stream_ptr) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const float scale = 1.f / sqrtf((float)dk);  // fast routes multiply
+  // sqrt(Dk) rounded to the query type, the divisor of the plain
+  // version (and of the JAX package): 11.3125 for Dk=128 in bf16
+  const float sqrt_dk = rq<T>(sqrtf((float)dk));
+  const float scale = 1.f / sqrt_dk;  // fast routes multiply
   const T* qt = static_cast<const T*>(q);
   const P* kp = static_cast<const P*>(k_pool);
   const P* vp = static_cast<const P*>(v_pool);
@@ -1380,7 +1333,8 @@ int launch_route(int route, const void* q, const void* k_pool,
     case 0:
       return launch<T, P>(q, k_pool, v_pool, k_scale, v_scale, tables,
                           cached_lens, out, batch, n_q, n_heads, dk, dv,
-                          n_blocks, block_size, max_blocks, stream_ptr);
+                          n_blocks, block_size, max_blocks, sqrt_dk,
+                          stream_ptr);
     case 1: {
       if (n_q > kMaxT) return (int)cudaErrorInvalidValue;
       const size_t smem = split_smem_bytes(n_q, dk, dv, (int)sizeof(P),

@@ -21,6 +21,7 @@ import torch
 
 from .. import layers
 from ..core import flags
+from ..core.dtype_utils import rounded_sqrt
 from ..core.enforce import not_ported
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
@@ -57,10 +58,12 @@ def positional_encoding(x, max_length=2048):
 
 def attention(qh, kh, vh, mask=None, causal=False):
     """Multi-head attention on head-split ``[B, T, H, D]`` tensors: the
-    JAX package's fused math in the same order — logits scaled by
-    ``1/sqrt(D)``, ``-1e9`` masking, softmax in f32, cast back."""
+    JAX package's fused math in the same order — logits divided by
+    ``sqrt(D)`` rounded to q's dtype, ``-1e9`` masking, softmax in f32,
+    cast back."""
     Tq, Tk = qh.shape[1], kh.shape[1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(qh.shape[-1])
+    logits = (torch.einsum("bqhd,bkhd->bhqk", qh, kh)
+              / rounded_sqrt(qh.shape[-1], qh.dtype))
     neg = torch.full((), -1e9, dtype=logits.dtype, device=logits.device)
     if mask is not None:
         logits = torch.where(mask[:, None, None, :] > 0, logits, neg)

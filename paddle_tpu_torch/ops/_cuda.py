@@ -3,8 +3,10 @@
 Each ``paddle_tpu_torch/csrc/<name>.cu`` exports a plain C interface. At
 first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library under ``build/paddle_tpu_torch/`` at the repository root,
-named by a hash of the source and flags (an edited source never loads a
-stale library), and loaded with ``ctypes``. Nothing is built on import.
+named by a hash of the source, of every header in ``csrc/`` (``*.cuh``,
+which the sources include) and of the flags, so an edited source or
+header never loads a stale library, and loaded with ``ctypes``. Nothing
+is built on import.
 """
 
 from __future__ import annotations
@@ -49,10 +51,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the built library for ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the built library for ``csrc/<name>.cu`` lives: named by a
+    hash of the source, the headers of ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -64,7 +69,8 @@ def _start(name: str):
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, proc, tmp

@@ -35,11 +35,17 @@ Functions:
 * :func:`plain_flash_forward` / :func:`plain_flash_backward` — the
   kernels' math written with plain torch ops; what CPU tensors run and
   what the kernels are held to on the card.
+  :func:`plain_flash_backward_bf16` adds the bf16 backward kernels' one
+  extra rounding (p and ds to bf16 before the second products); the
+  card tests hold those kernels to it element by element
+  (:func:`bf16_ulps` at most 1).
 * :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv` — the
   three launchers. A CPU tensor takes the plain version (so does a
   meta tensor, which build-time shape inference passes); a CUDA tensor
   launches the kernel or raises (float32 or bfloat16, head dim 64 or
-  128). Each has a ``.launches`` counter of kernel launches.
+  128; the backward launchers also refuse inputs whose pointer or
+  (batch, time, head) strides are not 16-byte aligned). Each has a
+  ``.launches`` counter of kernel launches.
 """
 
 from __future__ import annotations
@@ -52,8 +58,10 @@ import torch
 from ..core.enforce import enforce
 from . import _cuda
 
-__all__ = ["flash_attention", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
-           "plain_flash_backward", "plain_flash_forward"]
+__all__ = ["BF16_MODEL_FLOOR", "bf16_ulps", "flash_attention",
+           "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
+           "plain_flash_backward", "plain_flash_backward_bf16",
+           "plain_flash_forward"]
 
 HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
 # devices whose tensors take the plain versions: the CPU, and "meta"
@@ -93,11 +101,9 @@ def plain_flash_forward(q, k, v, causal=False, scale=None, kv_mask=None):
     return o.to(q.dtype), lse[..., 0]
 
 
-def plain_flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
-                         kv_mask=None):
-    """(dq, dk, dv) in their inputs' dtypes: the two backward kernels'
-    function with plain torch ops. The probabilities are rebuilt from
-    ``lse`` ``[B, H, Tq]``; ``delta = rowsum(dO * O)``."""
+def _backward(q, k, v, o, lse, do, causal, scale, kv_mask, operand):
+    """(dq, dk, dv); ``operand`` is the dtype p and ds are rounded to
+    before the second products (None: kept in f32)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     s, valid = _scores(q, k, causal, scale, kv_mask)
     p = torch.where(valid, torch.exp(s - lse[..., None]),
@@ -106,10 +112,51 @@ def plain_flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
     delta = (dof * o.float()).sum(-1).permute(0, 2, 1)        # [B, H, Tq]
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
     ds = p * (dp - delta[..., None]) * scale
+    if operand is not None:
+        p, ds = p.to(operand).float(), ds.to(operand).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def plain_flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
+                         kv_mask=None):
+    """(dq, dk, dv) in their inputs' dtypes: the two backward kernels'
+    function with plain torch ops. The probabilities are rebuilt from
+    ``lse`` ``[B, H, Tq]``; ``delta = rowsum(dO * O)``."""
+    return _backward(q, k, v, o, lse, do, causal, scale, kv_mask, None)
+
+
+def plain_flash_backward_bf16(q, k, v, o, lse, do, causal=False,
+                              scale=None, kv_mask=None):
+    """:func:`plain_flash_backward` with the bf16 kernels' one extra
+    rounding: p and ds, computed in f32, are rounded to bfloat16 (to
+    nearest even) before they enter the second products (dq = ds k,
+    dk = ds^T q, dv = p^T dO), since the kernels feed them to the
+    tensor cores as bf16 operands. Sums stay in f32."""
+    return _backward(q, k, v, o, lse, do, causal, scale, kv_mask,
+                     torch.bfloat16)
+
+
+# How far the bf16 backward kernels may sit from
+# plain_flash_backward_bf16, element by element: one bf16 ulp of the
+# element (both round f32 sums taken in another order) plus this share
+# of max |grad| (f32 order and exp2 against exp flip the bf16 rounding of
+# a few p and ds, which can move a near-cancelling element by more than
+# its own ulp).
+BF16_MODEL_FLOOR = 1e-3
+
+
+def bf16_ulps(got, want) -> float:
+    """max over elements of |got - want| / (one bf16 ulp of want +
+    BF16_MODEL_FLOOR * max |want|): at most 1 when every element is that
+    close."""
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)  # 8 significant bits
+    slack = BF16_MODEL_FLOOR * float(w.abs().max())
+    return float(((got.float() - w).abs() / (ulp + slack)).max())
 
 
 # ---------------------------------------------------------------- kernels
@@ -132,21 +179,27 @@ _DKV_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
 _SMEM_LIMIT = 227 * 1024  # shared memory one block may use on Hopper
 
 
+def _bind(lib):
+    """Set the ctypes signatures of a built kernel library's entry
+    points (profile_flash.py binds its probe build the same way)."""
+    for name, argtypes in (("flash_fwd", _FWD_ARGS),
+                           ("flash_bwd_dq", _DQ_ARGS),
+                           ("flash_bwd_dkv", _DKV_ARGS)):
+        for suffix in ("f32", "bf16"):
+            fn = getattr(lib, f"{name}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.flash_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_smem_bytes.restype = ctypes.c_size_t
+    lib.flash_error_string.argtypes = [ctypes.c_int]
+    lib.flash_error_string.restype = ctypes.c_char_p
+    lib._bound = True
+
+
 def _library():
     lib = _cuda.load("flash_attention")
     if not getattr(lib, "_bound", False):
-        for name, argtypes in (("flash_fwd", _FWD_ARGS),
-                               ("flash_bwd_dq", _DQ_ARGS),
-                               ("flash_bwd_dkv", _DKV_ARGS)):
-            for suffix in ("f32", "bf16"):
-                fn = getattr(lib, f"{name}_{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-        lib.flash_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.flash_smem_bytes.restype = ctypes.c_size_t
-        lib.flash_error_string.argtypes = [ctypes.c_int]
-        lib.flash_error_string.restype = ctypes.c_char_p
-        lib._bound = True
+        _bind(lib)
     return lib
 
 
@@ -204,11 +257,28 @@ def _check_launch(name, lib, err):
                               lib.flash_error_string(err).decode()))
 
 
-def _smem_ok(name, lib, kind, D):
-    smem = lib.flash_smem_bytes(kind, D)
+def _smem_ok(name, lib, kind, D, dtype):
+    smem = lib.flash_smem_bytes(kind, D, int(dtype == torch.bfloat16))
     enforce(smem <= _SMEM_LIMIT,
             "%s: D=%d needs %d bytes of shared memory (limit %d)"
             % (name, D, smem, _SMEM_LIMIT))
+
+
+def _check_aligned(name, *tensors):
+    """The backward kernels copy rows with 16-byte cp.async: every
+    pointer and every (batch, time, head) stride must be a multiple of
+    16 bytes (a stride of a size-1 dim is never used). Refused, never
+    copied: the models pass reshapes of contiguous ``fc`` outputs,
+    which are aligned."""
+    for t in tensors:
+        item = t.element_size()
+        enforce(t.data_ptr() % 16 == 0
+                and all(s * item % 16 == 0 for s, n in
+                        zip(t.stride()[:3], t.shape[:3]) if n > 1),
+                "%s: inputs must be 16-byte aligned (pointer and the "
+                "batch, time and head strides); got a %s tensor at "
+                "pointer %% 16 = %d with strides %s"
+                % (name, t.dtype, t.data_ptr() % 16, tuple(t.stride())))
 
 
 def _mask_arg(kv_mask):
@@ -230,7 +300,7 @@ def flash_fwd(q, k, v, causal=False, scale=None, kv_mask=None):
         return plain_flash_forward(q, k, v, causal, scale, kv_mask)
     B, Tq, Tk, H, D = _check_cuda("flash_fwd", q, k, v, kv_mask)
     lib = _library()
-    _smem_ok("flash_fwd", lib, 0, D)
+    _smem_ok("flash_fwd", lib, 0, D, q.dtype)
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     mask_ptr, mask_sb = _mask_arg(kv_mask)
@@ -257,8 +327,9 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal=False, scale=None,
     enforce(tuple(lse.shape) == (B, H, Tq) and lse.dtype == torch.float32
             and lse.is_contiguous() and lse.device == q.device,
             "flash_bwd_dq: lse must be contiguous float32 [B, H, Tq]")
+    _check_aligned("flash_bwd_dq", q, k, v, o, do)
     lib = _library()
-    _smem_ok("flash_bwd_dq", lib, 1, D)
+    _smem_ok("flash_bwd_dq", lib, 1, D, q.dtype)
     dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     mask_ptr, mask_sb = _mask_arg(kv_mask)
@@ -286,8 +357,9 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, causal=False, scale=None,
                 and t.is_contiguous() and t.device == q.device,
                 "flash_bwd_dkv: %s must be contiguous float32 [B, H, Tq]"
                 % name)
+    _check_aligned("flash_bwd_dkv", q, k, v, do)
     lib = _library()
-    _smem_ok("flash_bwd_dkv", lib, 2, D)
+    _smem_ok("flash_bwd_dkv", lib, 2, D, q.dtype)
     dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
     mask_ptr, mask_sb = _mask_arg(kv_mask)

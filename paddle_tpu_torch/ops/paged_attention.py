@@ -46,6 +46,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.dtype_utils import rounded_sqrt
 from ..core.enforce import enforce
 from . import _cuda
 
@@ -96,7 +97,8 @@ def plain_window_attention(q, k_pool, v_pool, tables, cached_lens, *,
         vs = _take_fill(v_scale.reshape(nb * bs), gidx)
         keys = (keys.to(torch.float32) * ks[..., None, None]).to(q.dtype)
         vals = (vals.to(torch.float32) * vs[..., None, None]).to(q.dtype)
-    att = torch.einsum("bqhd,bkhd->bhqk", q, keys) / math.sqrt(Dk)
+    att = (torch.einsum("bqhd,bkhd->bhqk", q, keys)
+           / rounded_sqrt(Dk, q.dtype))
     m = ((torch.arange(S, device=dev)[None, None, :] <= pos[:, :, None])
          & (gidx >= 0)[:, None, :])
     att = torch.where(m[:, None, :, :], att,
@@ -225,7 +227,7 @@ def plain_split_window_attention(q, k_pool, v_pool, tables, cached_lens,
     visible = ((w[None, None, :] <= pos[:, :, None])
                & ok_page[:, None, :])                           # [B, T, S]
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                          keys) / math.sqrt(Dk)
+                          keys) / rounded_sqrt(Dk, q.dtype)
     ms, ls, accs = [], [], []
     for s in range(n_splits):
         lo, hi = s * split_len, min((s + 1) * split_len, S)

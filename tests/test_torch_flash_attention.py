@@ -26,10 +26,11 @@ import torch
 
 from paddle_tpu_torch.core.enforce import EnforceError
 from paddle_tpu_torch.ops import _cuda
-from paddle_tpu_torch.ops.flash_attention import (flash_attention,
+from paddle_tpu_torch.ops.flash_attention import (bf16_ulps, flash_attention,
                                                   flash_bwd_dkv, flash_bwd_dq,
                                                   flash_fwd,
                                                   plain_flash_backward,
+                                                  plain_flash_backward_bf16,
                                                   plain_flash_forward)
 
 torch.set_num_threads(1)
@@ -239,6 +240,48 @@ def test_kernel_build_is_keyed_by_source_and_needs_nvcc():
         _cuda.build_all(["flash_attention", "paged_attention"])
 
 
+def test_kernel_build_key_sees_the_headers(tmp_path, monkeypatch):
+    """Both kernel sources include ``csrc/hopper.cuh``: editing a header
+    changes every library's path, so a stale library never loads."""
+    names = ("flash_attention", "paged_attention", "fused_optimizer")
+    real = {n: _cuda.library_path(n) for n in names}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
+    assert {n: _cuda.library_path(n) for n in names} == real
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {n: _cuda.library_path(n) for n in names}
+    assert all(edited[n] != real[n] for n in names)
+    assert all(p.parent == _cuda.BUILD_DIR for p in edited.values())
+
+
+def test_bf16_rounding_model_stays_within_the_bf16_gradient_tolerance():
+    """``plain_flash_backward_bf16`` (p and ds rounded to bf16 before the
+    second products, as the bf16 kernels do) against
+    ``plain_flash_backward`` on bf16 inputs: within 3e-2 of max |grad|,
+    the bf16 tolerance the kernels are held to, and not equal to it (the
+    rounding happens)."""
+    for i, case in enumerate(list(CASES.values()) + [CROSS]):
+        B, Tq, Tk, H, D, causal, mk = case
+        q, k, v, do, mask = (None if a is None else
+                             _t(a, dtype=torch.bfloat16 if a.ndim == 4
+                                else torch.float32)
+                             for a in _inputs(*case, seed=10 + i))
+        o, lse = plain_flash_forward(q, k, v, causal, None, mask)
+        want = plain_flash_backward(q, k, v, o, lse, do, causal, None, mask)
+        got = plain_flash_backward_bf16(q, k, v, o, lse, do, causal, None,
+                                        mask)
+        differs = False
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == torch.bfloat16
+            scale = w.float().abs().max().item()
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= 3e-2 * scale, (case, err, scale)
+            differs |= not torch.equal(g, w)
+        assert differs, case
+
+
 # ------------------------------------------------ the kernels, on the card
 
 # (B, Tq, Tk, H, D, causal, mask kind): the training path's shape
@@ -304,3 +347,94 @@ def test_cuda_refuses_what_the_kernels_do_not_take():
     q = torch.zeros((1, 8, 2, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(EnforceError, match="float32 or bfloat16"):
         flash_attention(q, q, q)
+
+
+def _bf16_card_case(i, device):
+    """The inputs of card case i for the bf16 model checks."""
+    case = CUDA_CASES[i]
+    return tuple(_t(a, device, torch.bfloat16) if a is not None
+                 and a.ndim == 4 else _t(a, device)
+                 for a in _inputs(*case, seed=20 + i))
+
+
+def test_bf16_model_check_rejects_the_unrounded_backward():
+    """The element check that holds the bf16 kernels to their rounding
+    model (``bf16_ulps`` at most 1) sees the rounding: on each card
+    case's shape and inputs the unrounded ``plain_flash_backward`` fails
+    it for at least one of dq, dk, dv."""
+    for i, case in enumerate(CUDA_CASES):
+        q, k, v, do, mask = _bf16_card_case(i, "cpu")
+        causal = case[5]
+        o, lse = plain_flash_forward(q, k, v, causal, None, mask)
+        model = plain_flash_backward_bf16(q, k, v, o, lse, do, causal, None,
+                                          mask)
+        plain = plain_flash_backward(q, k, v, o, lse, do, causal, None,
+                                     mask)
+        assert max(bf16_ulps(p, m) for p, m in zip(plain, model)) > 1.0, \
+            case
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernels_match_their_rounding_model():
+    """dq, dk, dv of the bf16 kernels against
+    ``plain_flash_backward_bf16``: every element within one bf16 ulp
+    plus ``BF16_MODEL_FLOOR`` of max |grad| (``bf16_ulps`` at most 1),
+    every card case. The unrounded plain version is held at 3e-2 of max
+    |grad|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    for i, case in enumerate(CUDA_CASES):
+        q, k, v, do, mask = _bf16_card_case(i, "cuda")
+        causal = case[5]
+        o, lse = flash_fwd(q, k, v, causal, None, mask)
+        dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal, None, mask)
+        dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, causal, None, mask)
+        want = plain_flash_backward_bf16(q, k, v, o, lse, do, causal, None,
+                                         mask)
+        for got, w in zip((dq, dk, dv), want):
+            assert bf16_ulps(got, w) <= 1.0, case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_backward_is_deterministic(dtype):
+    """No atomics: two runs of the backward pair give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, do, mask = (_t(a, "cuda", dtype) if a is not None
+                         and a.ndim == 4 else _t(a, "cuda")
+                         for a in _inputs(*CUDA_CASES[2], seed=30))
+    o, lse = flash_fwd(q, k, v, False, None, mask)
+    runs = []
+    for _ in range(2):
+        dq, delta = flash_bwd_dq(q, k, v, o, lse, do, False, None, mask)
+        runs.append((dq, delta) + flash_bwd_dkv(q, k, v, lse, delta, do,
+                                                False, None, mask))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_refuses_misaligned_inputs():
+    """The backward kernels copy rows 16 bytes at a time: a pointer or a
+    (batch, time, head) stride off 16 bytes raises; nothing is copied."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    B, T, H, D = 2, 64, 2, 64
+    q, k, v, do, _ = (_t(a, "cuda") for a in _inputs(B, T, T, H, D, False,
+                                                     None, seed=40))
+    o, lse = flash_fwd(q, k, v)
+    shifted = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    shifted.copy_(q)
+    before = flash_bwd_dq.launches, flash_bwd_dkv.launches
+    with pytest.raises(EnforceError, match="16-byte aligned"):
+        flash_bwd_dq(shifted, k, v, o, lse, do)
+    with pytest.raises(EnforceError, match="16-byte aligned"):
+        flash_bwd_dkv(k, shifted, v, lse, torch.zeros_like(lse), do)
+    # a time stride of H * D + 1 elements (4 bytes past a 16-byte step)
+    wide = torch.zeros((B, T, H * D + 1), device="cuda")
+    odd = wide.as_strided((B, T, H, D), (T * (H * D + 1), H * D + 1, D, 1))
+    with pytest.raises(EnforceError, match="16-byte aligned"):
+        flash_bwd_dq(q, k, v, o, lse, odd)
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == before

@@ -370,3 +370,25 @@ def test_cuda_generic_route_on_demand(dtype):
     args = _torch_run(_mk(*CUDA_GEOMS[0]), "cuda", dtype)[:5]
     with pytest.raises(EnforceError, match="route must be None or"):
         paged_window_attention(*args, route="split")
+
+
+# (B, T, H, Dk, Dv, mb, bs, nb) at Dk = Dv = 128, where sqrt(Dk) rounds
+# in bf16 (11.3125 against 11.3137): a decode window (split route) and
+# one row past a query tile (tensor-core route)
+DK128_GEOMS = [(4, 1, 4, 128, 128, 16, 16, 80),
+               (2, 65, 4, 128, 128, 8, 16, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_cuda_dk128_bf16_matches_plain(quant):
+    """bf16 queries at Dk=128: the kernel scales by the reciprocal of
+    sqrt(Dk) rounded to bf16, as the plain version (and the JAX package)
+    divide by it; within atol 3e-2 of the plain version on both routes,
+    bf16 and int8 pools."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    for i, geom in enumerate(DK128_GEOMS):
+        err = _cuda_check(geom, 110 + i, torch.bfloat16, quant)
+        assert err <= 3e-2, (geom, err)
+
