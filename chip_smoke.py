@@ -10,7 +10,8 @@ Phases, one JSON line each (or one per shape):
 1. device  — the card's name and power limit (nvidia-smi); builds the
              kernels from csrc/ (paged_attention.cu, flash_attention.cu,
              fused_optimizer.cu; one nvcc each, started together) and
-             reports the build seconds and ptxas' register/spill report.
+             reports the build seconds, ptxas' register/spill report, and
+             each flash kernel's shared bytes and blocks an SM.
 2. kernel  — ``ops.paged_window_attention`` (the CUDA kernels) against
              ``ops.plain_window_attention`` on the card at the decode
              shapes (B in {1, 16}, T in {1, 4}, H=8, D=64, block 16,
@@ -47,12 +48,15 @@ Phases, one JSON line each (or one per shape):
              cross shape (Tq=200, Tk=333), the long-context shape (B=4,
              T=2048) plain and causal, and D=128 (B=4, T=512, H=4,
              causal, key-masked), each in f32 and bf16.
-             o within 1e-4 (f32) / 3e-2 (bf16), dq/dk/dv within 1e-3 /
-             3e-2 of their max magnitude (sums run in another order),
-             all finite; bf16 dq/dk/dv also within one bf16 ulp per
-             element (plus 1e-3 of max |grad|) of
+             o within 1e-4 (f32) / 3e-2 (bf16), lse within 1e-4,
+             dq/dk/dv within 1e-3 / 3e-2 of their max magnitude (sums
+             run in another order), all finite; the bf16 o also within
+             one bf16 ulp per element (plus 1e-3 of max |o|) of both
+             ``plain_flash_forward`` and ``plain_flash_forward_bf16``
+             (the model of its rounding: p as two bf16 parts), and bf16
+             dq/dk/dv within one bf16 ulp (plus 1e-3 of max |grad|) of
              ``plain_flash_backward_bf16``, the model of the bf16
-             kernels' rounding of p and ds. CUDA-event times of each
+             backward kernels' rounding of p and ds. CUDA-event times of each
              kernel, its bound, the plain versions and
              ``F.scaled_dot_product_attention`` (forward, and its
              backward alone); at the key-masked training shape, the
@@ -140,6 +144,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12,  # f32 outside the tensor cores
             torch.bfloat16: 989e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # sums run in another order
+LSE_TOL = 1e-4  # the flash forward's lse, f32 in both types
 L2_BYTES = 50 * 2 ** 20
 
 # paged-attention decode shapes
@@ -295,16 +300,21 @@ def phase_device():
                     if "registers" in ln or "spill" in ln
                     or "entry function" in ln]
              for name in KERNEL_SOURCES}
-    # dynamic shared memory of one block of each flash kernel
+    # dynamic shared memory of one block of each flash kernel, and the
+    # blocks one SM holds (the card's occupancy calculator)
     lib = flash_attention._library()
-    smem = {"%s_d%d_%s" % (kind, d, dt): lib.flash_smem_bytes(i, d, bf)
-            for i, kind in enumerate(("fwd", "dq", "dkv"))
-            for d in (64, 128) for bf, dt in ((0, "f32"), (1, "bf16"))}
+    names = [("%s_d%d_%s" % (kind, d, dt), i, d, bf)
+             for i, kind in enumerate(("fwd", "dq", "dkv"))
+             for d in (64, 128) for bf, dt in ((0, "f32"), (1, "bf16"))]
+    smem = {n: lib.flash_smem_bytes(i, d, bf) for n, i, d, bf in names}
+    per_sm = {n: lib.flash_blocks_per_sm(i, d, bf) for n, i, d, bf in names}
+    if min(per_sm.values()) < 1:
+        fail("a flash kernel fits no block on an SM: %s" % per_sm)
     emit({"phase": "device", "card": card,
           "kind": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernel_build_s": build_s, "ptxas": ptxas,
-          "flash_smem_bytes": smem})
+          "flash_smem_bytes": smem, "flash_blocks_per_sm": per_sm})
     return card
 
 
@@ -845,7 +855,8 @@ def check_flash(label, dtype, q, k, v, do, causal, mask):
     returns the errors, or fails."""
     from paddle_tpu_torch.ops.flash_attention import (
         bf16_ulps, flash_bwd_dkv, flash_bwd_dq, flash_fwd,
-        plain_flash_backward, plain_flash_backward_bf16, plain_flash_forward)
+        plain_flash_backward, plain_flash_backward_bf16, plain_flash_forward,
+        plain_flash_forward_bf16)
 
     o, lse = flash_fwd(q, k, v, causal, None, mask)
     dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal, None, mask)
@@ -857,6 +868,12 @@ def check_flash(label, dtype, q, k, v, do, causal, mask):
     errs = {"o": float((o.float() - ro.float()).abs().max()),
             "lse": float((lse - rlse).abs().max())}
     if dtype == torch.bfloat16:
+        # the bf16 forward within one bf16 ulp of the unrounded plain
+        # version and of the model of its rounding (p as two bf16 parts)
+        mo, _ = plain_flash_forward_bf16(q, k, v, causal, None, mask)
+        errs["o_ulps"] = bf16_ulps(o, ro)
+        errs["o_model_ulps"] = bf16_ulps(o, mo)
+        del mo
         # the bf16 kernels against the model of their rounding; beside
         # them the unrounded plain version's reading of the same check
         # (above 1 for one of the three: the check sees the rounding)
@@ -880,9 +897,13 @@ def check_flash(label, dtype, q, k, v, do, causal, mask):
                     ("dk", dk), ("dv", dv)):
         if not bool(torch.isfinite(t).all()):
             fail("flash %s %s: %s is not finite" % (label, dtype, name))
-    if not (errs["o"] <= TOL[dtype] and errs["lse"] <= TOL[dtype]):
+    if not (errs["o"] <= TOL[dtype] and errs["lse"] <= LSE_TOL):
         fail("flash %s %s: forward disagrees with the plain version: %s"
              % (label, dtype, errs))
+    if dtype == torch.bfloat16 and not (errs["o_ulps"] <= 1.0
+                                        and errs["o_model_ulps"] <= 1.0):
+        fail("flash %s: the bf16 forward is more than one bf16 ulp from "
+             "the plain version or its rounding model: %s" % (label, errs))
     if not all(errs[n + "_rel"] <= GRAD_TOL[dtype] for n in ("dq", "dk",
                                                               "dv")):
         fail("flash %s %s: backward disagrees with the plain version: %s"

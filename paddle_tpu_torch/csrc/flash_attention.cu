@@ -25,15 +25,34 @@
 // 4*Tq*Tk*D flops, dQ 6*Tq*Tk*D and dK/dV 8*Tq*Tk*D (fewer under causal
 // and key masks) on inputs of O(T*D) bytes. At the training shape (B=32,
 // T=256, H=8, D=64, ragged key masks) that makes f32 bound by operations
-// (dQ 0.069 ms, dK/dV 0.091 ms of FMAs against ~0.03 ms of bytes each)
-// and bf16 bound by bytes (each kernel reads q, k, v, dO (and o) once
-// and writes its outputs: ~0.015 ms each, against 0.005-0.006 ms of
-// tensor-core operations).
+// (forward 0.046 ms, dQ 0.069 ms, dK/dV 0.091 ms of FMAs against ~0.02-
+// 0.03 ms of bytes each) and bf16 bound by bytes (each kernel reads q, k,
+// v (dO, o) once and writes its outputs: forward ~0.010 ms, dQ and dK/dV
+// ~0.015 ms each, against 0.003-0.006 ms of tensor-core operations).
 //
-// The forward (first design): each block stages 64-row f32 tiles in
-// shared memory and each thread computes a register tile of scores (8 or
-// 4 rows x 4 keys) with scalar FMAs, single-buffered; the causal loop
-// stops at the diagonal. Its redesign is later work (PERF.md).
+// The forward, redesigned for Hopper:
+// - one block per (64-row query tile, batch*head), longest causal tiles
+//   first, walking 64-key (bf16) or 32-key (f32) tiles only up to the
+//   causal end and the last key the mask lets through (key_end, shared
+//   with dQ); a query tile with nothing to walk writes o = 0, lse = +inf;
+// - bf16, D=64 and 128: one warpgroup; Q staged once and K, V streamed
+//   through two-stage cp.async rings, all in the 128-byte swizzle
+//   layout; S = Q K^T on wgmma m64n64k16 with both operands read from
+//   shared memory; the softmax in the accumulator registers with one
+//   exp2 a score; P packed as the A fragments of O += P V (V MN-major),
+//   never stored; in FA3's order, S_i and tile i-1's O += P V are issued
+//   back to back and tile i's softmax runs while O += P V does, so the
+//   tensor cores work across the softmax. Rounding: the tensor cores
+//   take p as two bf16 parts, hi = bf16(p) and lo = bf16(p - hi) (16
+//   significant bits: one bf16 rounding, as other bf16 flash kernels
+//   do, would put o past one bf16 ulp of the unrounded forward at long
+//   context), while the row sum l takes the unrounded p in f32
+//   (ops/flash_attention.py: plain_flash_forward_bf16 models this);
+//   42,496 B a block at D=64, 83,456 B at D=128;
+// - f32, D=64 and 128: no TF32; 4x4 register micro-tiles of scalar FMAs
+//   fed by float4 loads, K and V through a two-stage cp.async ring, P
+//   through one padded shared tile; 61,696 B a block at D=64 (three
+//   blocks an SM), 110,848 B at D=128 (two).
 //
 // The backward pair, redesigned for Hopper:
 // - two kernels, no atomics, so every run gives the same bits: dQ (also
@@ -85,19 +104,7 @@
 
 namespace {
 
-constexpr int kTile = 64;   // query rows and key rows per tile
-constexpr int kLanesX = 16; // threads sharing one row group
-constexpr int kKeys = kTile / kLanesX;  // score columns per thread: 4
-constexpr int kLdP = kTile + 1;         // padded row of a score tile
-
-template <int D>
-struct Cfg {
-  static constexpr int kRowLanes = D / 8;                // 8 or 16
-  static constexpr int kThreads = kLanesX * kRowLanes;   // 128 or 256
-  static constexpr int kRows = kTile / kRowLanes;        // rows per thread
-  static constexpr int kCols = D / kLanesX;              // head-dim columns
-  static constexpr int kLd = D + 1;  // padded row: no bank conflicts
-};
+constexpr int kTile = 64;  // query rows and key rows per tile
 
 struct Strides {
   long long b, t, h;  // elements; the head dim is contiguous
@@ -121,200 +128,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// max / sum over the 16 lanes that share one row group (a half warp)
-__device__ __forceinline__ float group_max(float v) {
-  for (int o = kLanesX / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float group_sum(float v) {
-  for (int o = kLanesX / 2; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows [row0, row0 + kTile) of (b, h) of a [B, T, H, D] tensor into a
-// padded f32 tile; rows past n_rows read as 0
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const void* src,
-                                          const Strides& s, int b, int h,
-                                          int row0, int n_rows) {
-  const T* base = static_cast<const T*>(src) + b * s.b + h * s.h;
-  for (int i = threadIdx.x; i < kTile * D; i += Cfg<D>::kThreads) {
-    const int r = i / D, d = i % D;
-    const int row = row0 + r;
-    dst[r * Cfg<D>::kLd + d] =
-        row < n_rows ? to_f32(base[(long long)row * s.t + d]) : 0.f;
-  }
-}
-
-// 1 where key k0 + c exists and the key mask lets it through
-__device__ __forceinline__ void load_key_ok(float* ok, const Params& p,
-                                            int b, int k0, int n_threads) {
-  for (int c = threadIdx.x; c < kTile; c += n_threads) {
-    const int key = k0 + c;
-    ok[c] = (key < p.tk &&
-             (p.mask == nullptr || p.mask[b * p.mask_sb + key] > 0.f))
-                ? 1.f
-                : 0.f;
-  }
-}
-
-// acc[i][j] += a[row(i)] . b[col(j)] over D, rows ty + i * kRowLanes of
-// tile a, columns tx + j * kLanesX of tile b (both padded [64][D+1])
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[Cfg<D>::kRows][kKeys],
-                                         const float* a, const float* b,
-                                         int ty, int tx) {
-  using C = Cfg<D>;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[C::kRows], bv[kKeys];
-#pragma unroll
-    for (int i = 0; i < C::kRows; ++i)
-      av[i] = a[(ty + i * C::kRowLanes) * C::kLd + d];
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) bv[j] = b[(tx + j * kLanesX) * C::kLd + d];
-#pragma unroll
-    for (int i = 0; i < C::kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// out[i][j] += sum_r w[row(i)][r] * m[r][col(j)]: w a padded [64][65]
-// weight tile, m a padded [64][D+1] tile, columns tx + j * kLanesX of D
-template <int D>
-__device__ __forceinline__ void tile_mix(float (&out)[Cfg<D>::kRows][Cfg<D>::kCols],
-                                         const float* w, const float* m,
-                                         int ty, int tx) {
-  using C = Cfg<D>;
-#pragma unroll 4
-  for (int r = 0; r < kTile; ++r) {
-    float wv[C::kRows], mv[C::kCols];
-#pragma unroll
-    for (int i = 0; i < C::kRows; ++i)
-      wv[i] = w[(ty + i * C::kRowLanes) * kLdP + r];
-#pragma unroll
-    for (int j = 0; j < C::kCols; ++j) mv[j] = m[r * C::kLd + tx + j * kLanesX];
-#pragma unroll
-    for (int i = 0; i < C::kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < C::kCols; ++j) out[i][j] = fmaf(wv[i], mv[j], out[i][j]);
-  }
-}
-
-// ------------------------------------------------------------- forward
-// grid (B*H, query tiles), block Cfg<D>::kThreads. Shared memory:
-// q, k, v tiles [64][D+1], probabilities [64][65], key mask [64].
-template <int D>
-constexpr size_t fwd_smem_words() {
-  return 3 * kTile * Cfg<D>::kLd + kTile * kLdP + kTile;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads)
-    flash_fwd_kernel(const Params p) {
-  using C = Cfg<D>;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + kTile * C::kLd;
-  float* v_s = k_s + kTile * C::kLd;
-  float* p_s = v_s + kTile * C::kLd;
-  float* ok_s = p_s + kTile * kLdP;
-
-  const int bh = blockIdx.x;
-  const int b = bh / p.heads, h = bh % p.heads;
-  // under causal the last query tiles have the most keys: start them first
-  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * kTile;
-  const int tx = threadIdx.x % kLanesX, ty = threadIdx.x / kLanesX;
-
-  load_tile<T, D>(q_s, p.q, p.sq, b, h, q0, p.tq);
-
-  float m[C::kRows], l[C::kRows], acc[C::kRows][C::kCols];
-#pragma unroll
-  for (int i = 0; i < C::kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < C::kCols; ++j) acc[i][j] = 0.f;
-  }
-
-  // keys past the tile's last row are masked for all its rows
-  const int k_end = p.causal ? min(p.tk, q0 + kTile) : p.tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(k_s, p.k, p.sk, b, h, k0, p.tk);
-    load_tile<T, D>(v_s, p.v, p.sv, b, h, k0, p.tk);
-    load_key_ok(ok_s, p, b, k0, C::kThreads);
-    __syncthreads();
-
-    float s[C::kRows][kKeys];
-#pragma unroll
-    for (int i = 0; i < C::kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
-    tile_dot<D>(s, q_s, k_s, ty, tx);
-
-    // online softmax; the m_safe / corr rules keep -inf from making NaN
-#pragma unroll
-    for (int i = 0; i < C::kRows; ++i) {
-      const int r = ty + i * C::kRowLanes;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int c = tx + j * kLanesX;
-        const bool ok = ok_s[c] != 0.f && (!p.causal || k0 + c <= q0 + r);
-        s[i][j] = ok ? s[i][j] * p.scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = group_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = m[i] == -INFINITY ? 0.f : expf(m[i] - m_safe);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float e = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_safe);
-        p_s[r * kLdP + tx + j * kLanesX] = e;
-        sum += e;
-      }
-      sum = group_sum(sum);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < C::kCols; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-    tile_mix<D>(acc, p_s, v_s, ty, tx);
-  }
-
-  T* o = static_cast<T*>(p.out0);
-#pragma unroll
-  for (int i = 0; i < C::kRows; ++i) {
-    const int row = q0 + ty + i * C::kRowLanes;
-    if (row >= p.tq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((long long)b * p.tq + row) * p.heads + h) * D;
-#pragma unroll
-    for (int j = 0; j < C::kCols; ++j)
-      store(orow + tx + j * kLanesX, acc[i][j] / den);
-    if (tx == 0)
-      p.lse[(long long)bh * p.tq + row] =
-          l[i] > 0.f ? m[i] + logf(den) : INFINITY;
-  }
-}
-
 // ------------------------------------------------------------ backward
 // Two kernels, two passes, no atomics: dQ runs one block per (64-row
 // query tile, batch*head) over key tiles up to the causal end and the
@@ -331,9 +144,11 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads)
 // Phase clocks for profile_flash.py, compiled in only with -DFLASH_PROBE:
 // thread 0 of each block adds the cycles since its last probe to a
 // per-kernel, per-phase sum (kernel k: slots 4k .. 4k + 3 = prologue,
-// waits for the ring and the barrier, compute, epilogue).
+// waits for the ring and the barrier, compute, epilogue; k = 0 .. 3 the
+// bf16 and f32 dQ and dK/dV kernels, 4 the bf16 forward, 5 the f32 one).
 #ifdef FLASH_PROBE
-__device__ unsigned long long flash_probe_cycles[16];
+constexpr int kProbeSlots = 24;
+__device__ unsigned long long flash_probe_cycles[kProbeSlots];
 #define PROBE_T0 long long probe_t = clock64();
 #define PROBE(k)                                                  \
   do {                                                            \
@@ -423,20 +238,39 @@ __device__ __forceinline__ void issue_floats(float* dst, const float* src,
 }
 
 // 1 + the last key the mask lets through (tk without a mask): keys past
-// it are masked for every row, so their tiles are skipped
-template <int kN>
-__device__ int key_end(const float* mrow, int tk) {
-  __shared__ int red[kN / 32];
-  if (mrow == nullptr) return tk;
-  int last = -1;
-  for (int j = threadIdx.x; j < tk; j += kN)
-    if (mrow[j] > 0.f) last = j;
+// it are masked for every row, so their tiles are skipped. With kFull,
+// *full gets the first key the mask stops (tk if none): every key before
+// it passes, so a tile below it needs no mask.
+template <int kN, bool kFull = false>
+__device__ int key_end(const float* mrow, int tk, int* full = nullptr) {
+  __shared__ int red[kFull ? 2 : 1][kN / 32];
+  if (mrow == nullptr) {
+    if constexpr (kFull) *full = tk;
+    return tk;
+  }
+  int last = -1, hole = tk;
+  for (int j = threadIdx.x; j < tk; j += kN) {
+    if (mrow[j] > 0.f)
+      last = j;
+    else if (kFull)
+      hole = min(hole, j);
+  }
   last = __reduce_max_sync(0xffffffffu, last);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = last;
+  if ((threadIdx.x & 31) == 0) red[0][threadIdx.x >> 5] = last;
+  if constexpr (kFull) {
+    hole = __reduce_min_sync(0xffffffffu, hole);
+    if ((threadIdx.x & 31) == 0) red[1][threadIdx.x >> 5] = hole;
+  }
   __syncthreads();
-  int m = red[0];
+  int m = red[0][0];
 #pragma unroll
-  for (int w = 1; w < kN / 32; ++w) m = max(m, red[w]);
+  for (int w = 1; w < kN / 32; ++w) m = max(m, red[0][w]);
+  if constexpr (kFull) {
+    int f = red[1][0];
+#pragma unroll
+    for (int w = 1; w < kN / 32; ++w) f = min(f, red[1][w]);
+    *full = f;
+  }
   return m + 1;
 }
 
@@ -910,19 +744,22 @@ constexpr size_t dkv_wgmma_smem() {
   return 1024 + kWgStages * kWgStage + 2 * Mma<64>::kTile;
 }
 
-// rows [row0, row0 + rows) of a [B, T, H, 64] bf16 tensor into a
-// 128-byte-row swizzled tile (rows past n_rows zero)
-template <int kN>
+// rows [row0, row0 + rows) of a [B, T, H, D] bf16 tensor into 128-byte-
+// row swizzled panels of `rows` rows, one a 64 columns (panel j at
+// j * rows * 128 bytes; D = 64 is one panel); rows past n_rows zero
+template <int kN, int D = 64>
 __device__ __forceinline__ void issue_rows_sw128(unsigned char* dst,
                                                  const bf16* base,
                                                  long long st, int row0,
                                                  int rows, int n_rows) {
-  for (int c = threadIdx.x; c < rows * 8; c += kN) {
-    const int r = c >> 3, v = c & 7;
+  constexpr unsigned kVec = D / 8;  // unsigned: shifts and masks
+  for (unsigned c = threadIdx.x; c < rows * kVec; c += kN) {
+    const int r = c / kVec, v = c % kVec;
     const bool ok = row0 + r < n_rows;
     const unsigned char* src = reinterpret_cast<const unsigned char*>(
         base + (ok ? (long long)(row0 + r) * st : 0));
-    cp_async16(dst + sw128(r, v), src + v * 16, ok);
+    cp_async16(dst + (v >> 3) * rows * 128 + sw128(r, v & 7), src + v * 16,
+               ok);
   }
 }
 
@@ -1652,78 +1489,602 @@ __global__ void __launch_bounds__(kF32Threads, F32<D>::kMinBlocks)
   PROBE(15);
 }
 
+// ------------------------------------------------------------- forward
+// One block per (64-row query tile, batch*head), longest causal tiles
+// first. The walk over key tiles stops at the causal end and at the last
+// key the mask lets through (key_end, shared with the dQ kernels), so a
+// query tile whose every key is masked walks nothing and writes o = 0,
+// lse = +inf. The online softmax runs in f32 with one exp2 a score
+// (scale * log2(e) folded into an FMA) and keeps the reference's
+// m_safe / corr rules (no NaN from -inf). Only a tile that holds a key
+// past the mask's first hole, or the causal diagonal, checks each score;
+// the others skip the mask.
+
+// 2^x by the special function unit alone (relative error ~2^-22; -inf
+// gives 0): p and the rescales of the online softmax
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// --------------------------------- forward, bf16 wgmma (D = 64 and 128)
+// One warpgroup owns the 64 query rows. Q is staged once; K and V tiles
+// of 64 keys stream through cp.async rings of two stages; all in the
+// 128-byte swizzle layout (a 128-wide head as two 64-column panels). S =
+// Q K^T runs on wgmma with both operands read from shared memory
+// (K-major). P is computed in the accumulator registers and split into
+// two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), packed as the A
+// fragments of O += P_hi V + P_lo V (V read MN-major), so it never
+// touches shared memory and keeps 16 significant bits: one bf16 rounding
+// of p puts o past one bf16 ulp of the unrounded forward at T=2048
+// (tests/test_torch_flash_forward.py). The row sums take the unrounded
+// p. The tensor cores work across the softmax (FA3's order): step i
+// issues S_i and then tile i-1's O += P V, waits for S_i alone (depth 1)
+// and computes tile i's softmax while O += P V runs; only the rescale of
+// O and the packing of P_i wait for it. Step i reads K_i and V_{i-1}
+// while K_{i+1}, tile i+1's key mask and V_i land. Registers: S (32),
+// O (32 or 64), P's two parts (32).
+template <int D>
+struct FwdWg {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTileB = 64 * 2 * D;  // bytes of a 64-row tile
+  static constexpr int kStages = 2;          // of K (with the mask) and V
+  static constexpr int kMinBlocks = D == 64 ? 4 : 2;
+  static_assert(kStages >= 2, "step i reads K_i and V_{i-1} together");
+  static constexpr size_t smem() {  // 1 KB of it aligns the tiles
+    return 1024 + (1 + 2 * kStages) * kTileB + kStages * 64 * 4;
+  }
+};
+
+// s += Q K^T (64 x 64 f32) over D / 16 k-steps, both operands from
+// shared memory
+template <int D>
+__device__ __forceinline__ void fwd_scores(float* s, const unsigned char* q_s,
+                                           const unsigned char* k_s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int panel = (kk >> 2) * 64 * 128;
+    wgmma_m64n64k16_ss<0>(s, desc_sw128(q_s + panel) + 2 * (kk & 3),
+                          desc_sw128(k_s + panel) + 2 * (kk & 3));
+  }
+}
+
+// x0, x1 as two bf16 parts each, hi = bf16(x) and lo = bf16(x - hi)
+// (x - hi is exact in f32), packed in pairs
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// o += (P_hi + P_lo) V for one 64-key tile: P's parts as the A fragments
+// of 4 k-steps of 16 keys, V read MN-major, one 64-column panel of o a
+// wgmma
+template <int D>
+__device__ __forceinline__ void fwd_mix(float* o, unsigned (&ph)[4][4],
+                                        unsigned (&pl)[4][4],
+                                        const unsigned char* v_s) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int j = 0; j < D / 64; ++j) {
+      const unsigned long long desc =
+          desc_sw128(v_s + j * 64 * 128) + 128 * ks;
+      wgmma_m64n64k16<1>(o + 32 * j, ph[ks], desc);
+      wgmma_m64n64k16<1>(o + 32 * j, pl[ks], desc);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, FwdWg<D>::kMinBlocks)
+    flash_fwd_wgmma_kernel(const Params p) {
+  PROBE_T0
+  using W = FwdWg<D>;
+  constexpr int kP = W::kPanels, kS = W::kStages, kN = kMmaThreads;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  // the tensor cores need the swizzled tiles 1024-byte aligned
+  unsigned char* q_s = dsmem + ((1024 - (smem_u32(dsmem) & 1023)) & 1023);
+  unsigned char* k_ring = q_s + W::kTileB;
+  unsigned char* v_ring = k_ring + kS * W::kTileB;
+  float* mask_ring = reinterpret_cast<float*>(v_ring + kS * W::kTileB);
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads, h = bh % p.heads;
+  // under causal the last query tiles have the most keys: start them first
+  const int q0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 64;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const float* mrow = p.mask == nullptr ? nullptr : p.mask + b * p.mask_sb;
+
+  auto copy_k = [&](int t) {  // K and the key mask of tile t
+    issue_rows_sw128<kN, D>(k_ring + (t % kS) * W::kTileB, kb, p.sk.t,
+                            t * 64, 64, p.tk);
+    if (mrow != nullptr)
+      issue_floats<kN>(mask_ring + (t % kS) * 64, mrow, t * 64, p.tk, 64);
+  };
+  // Q and tile 0 land while the mask is scanned for the walk's end
+  issue_rows_sw128<kN, D>(q_s, qb, p.sq.t, q0, 64, p.tq);
+  copy_k(0);
+  cp_async_commit();
+  int full_end;
+  const int k_end = min(p.causal ? min(p.tk, q0 + 64) : p.tk,
+                        key_end<kN, true>(mrow, p.tk, &full_end));
+  const int n_tiles = (max(k_end, 0) + 63) / 64;
+  auto issue_k = [&](int t) {
+    if (t < n_tiles) copy_k(t);
+  };
+  auto issue_v = [&](int t) {
+    if (t < n_tiles)
+      issue_rows_sw128<kN, D>(v_ring + (t % kS) * W::kTileB, vb, p.sv.t,
+                              t * 64, 64, p.tk);
+  };
+  // group j >= 1 holds what step j reads: K_j, its mask, and V_{j-1}
+  auto issue_group = [&](int j) {
+    issue_k(j);
+    issue_v(j - 1);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 1; j < kS; ++j) issue_group(j);
+
+  // this lane's rows: warp * 16 + g and + 8 of the tile
+  const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const float sc2 = p.scale * kLog2e;
+  float m2[2] = {-INFINITY, -INFINITY};  // running max of s * scale * log2e
+  float l[2] = {0.f, 0.f};               // this lane's share of the row sums
+  float o[32 * kP], s[32];
+  unsigned ph[4][4], pl[4][4];  // P's parts, read by O += P V
+#pragma unroll
+  for (int e = 0; e < 32 * kP; ++e) o[e] = 0.f;
+
+  // S_i into s (from K_i's slot), committed as one group; the fence also
+  // covers registers of other products written (and pinned) before it
+  auto issue_scores = [&](int i) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    wgmma_pin<32>(s);
+    wgmma_fence();
+    fwd_scores<D>(s, q_s, k_ring + (i % kS) * W::kTileB);
+    wgmma_commit();
+  };
+  // tile i's softmax in s: masked scores -inf, p = exp2(s sc2 - m); the
+  // running max and this lane's sums move on; returns each row's
+  // rescale of o in corr
+  auto softmax = [&](int i, float* corr) {
+    const int k0 = i * 64;
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (k0 + 64 <= full_end && (!p.causal || k0 + 63 <= q0)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+    } else {
+      const float* mk = mask_ring + (i % kS) * 64;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = 8 * n + 2 * qd, key = k0 + c;
+        const float2 mm = mrow == nullptr
+                              ? make_float2(1.f, 1.f)
+                              : *reinterpret_cast<const float2*>(mk + c);
+        const bool ok0 = key < p.tk && mm.x > 0.f;
+        const bool ok1 = key + 1 < p.tk && mm.y > 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, kj = key + (e & 1);
+          const bool ok =
+              ((e & 1) ? ok1 : ok0) && (!p.causal || kj <= qrow[r]);
+          s[4 * n + e] = ok ? s[4 * n + e] : -INFINITY;
+          mx[r] = fmaxf(mx[r], s[4 * n + e]);
+        }
+      }
+    }
+    float ms[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m2[r], mx[r] * sc2);
+      ms[r] = m_new == -INFINITY ? 0.f : m_new;
+      corr[r] = m2[r] == -INFINITY ? 0.f : ex2(m2[r] - ms[r]);
+      m2[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float pr = ex2(fmaf(s[e], sc2, -ms[(e >> 1) & 1]));
+      s[e] = pr;
+      l[(e >> 1) & 1] += pr;
+    }
+  };
+  // P_i's parts from s
+  auto pack = [&]() {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split_bf16(s[8 * ks + 2 * j], s[8 * ks + 2 * j + 1], ph[ks][j],
+                   pl[ks][j]);
+  };
+  // the oldest group in flight has landed, for every thread and for the
+  // tensor cores
+  auto landed = [&]() {
+    cp_async_wait<kS - 2>();
+    fence_proxy_async();
+    __syncthreads();
+  };
+
+  float corr[2];
+  if (n_tiles > 0) {
+    cp_async_wait<kS - 1>();  // group 0: Q, K_0 and tile 0's mask
+    fence_proxy_async();
+    __syncthreads();
+    issue_scores(0);
+    wgmma_wait<0>();
+    wgmma_pin<32>(s);
+    softmax(0, corr);
+    pack();
+  }
+  PROBE(16);
+  for (int i = 1; i < n_tiles; ++i) {
+    PROBE(18);
+    landed();  // group i; K_{i-1}'s and V_{i-2}'s slots are free
+    issue_group(i + kS - 1);
+    PROBE(17);
+    wgmma_pin<32 * kP>(o);  // written before issue_scores' fence
+    wgmma_pin<16>(&ph[0][0]);
+    wgmma_pin<16>(&pl[0][0]);
+    issue_scores(i);
+    fwd_mix<D>(o, ph, pl, v_ring + ((i - 1) % kS) * W::kTileB);
+    wgmma_commit();
+    wgmma_wait<1>();  // S_i; tile i-1's O += P V runs on
+    wgmma_pin<32>(s);
+    softmax(i, corr);
+    wgmma_wait<0>();
+    wgmma_pin<32 * kP>(o);
+    wgmma_pin<16>(&ph[0][0]);
+    wgmma_pin<16>(&pl[0][0]);
+#pragma unroll
+    for (int e = 0; e < 32 * kP; ++e) o[e] *= corr[(e >> 1) & 1];
+    pack();
+  }
+  if (n_tiles > 0) {  // the last tile's O += P V
+    PROBE(18);
+    landed();
+    PROBE(17);
+    wgmma_pin<32 * kP>(o);
+    wgmma_pin<16>(&ph[0][0]);
+    wgmma_pin<16>(&pl[0][0]);
+    wgmma_fence();
+    fwd_mix<D>(o, ph, pl, v_ring + ((n_tiles - 1) % kS) * W::kTileB);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_pin<32 * kP>(o);
+    wgmma_pin<16>(&ph[0][0]);
+    wgmma_pin<16>(&pl[0][0]);
+  }
+  PROBE(18);
+  cp_async_wait<0>();
+
+  bf16* out = static_cast<bf16*>(p.out0);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (qrow[r] >= p.tq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    bf16* orow = out + (((long long)b * p.tq + qrow[r]) * p.heads + h) * D;
+#pragma unroll
+    for (int j = 0; j < kP; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * j + 8 * n + 2 * qd) =
+            __floats2bfloat162_rn(o[32 * j + 4 * n + 2 * r] * inv,
+                                  o[32 * j + 4 * n + 2 * r + 1] * inv);
+    if (qd == 0)
+      p.lse[(long long)bh * p.tq + qrow[r]] =
+          l[r] > 0.f ? m2[r] * (1.f / kLog2e) + logf(l[r]) : INFINITY;
+  }
+  PROBE(19);
+}
+
+// --------------------------------------------------------- forward, f32
+// No tensor cores (TF32 would break the f32 tolerance of 1e-4): scalar
+// FMAs in 4x4 register micro-tiles fed by float4 loads, as in the f32
+// backward kernels. 128 threads; thread (tx, ty) owns rows 4 ty .. 4 ty
+// + 3, score columns tx + 8 j of each 32-key tile and head-dim columns
+// 4 tx .. 4 tx + 3 (+ 32, 64, 96). K and V tiles stream through a
+// cp.async ring of two stages (tile i+1 lands while tile i is computed);
+// P goes through one padded shared tile. 61,696 bytes a block at D = 64
+// (three blocks an SM), 110,848 at D = 128 (two).
+constexpr int kFwdF32Stages = 2;
+template <int D>
+constexpr size_t fwd_f32_smem() {
+  return F32<D>::kTile + 64 * F32<D>::kLdS * 4 +
+         kFwdF32Stages * (2 * F32<D>::kK * F32<D>::kLd + F32<D>::kK * 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, D == 64 ? 3 : 2)
+    flash_fwd_f32_kernel(const Params p) {
+  PROBE_T0
+  using C = F32<D>;
+  constexpr int kS = kFwdF32Stages;
+  constexpr int kK = C::kK, kJ = kK / kTX;
+  constexpr int kLdW = C::kLdW, kLdS = C::kLdS;
+  constexpr int kKTile = kK * C::kLd;
+  constexpr int kStage = 2 * kKTile + kK * 4;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  const float* q_s = reinterpret_cast<const float*>(dsmem);
+  float* p_s = reinterpret_cast<float*>(dsmem + C::kTile);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(p_s + 64 * kLdS);
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int q0 = (p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 64;
+  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
+  const float* qb = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const float* kb = static_cast<const float*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const float* vb = static_cast<const float*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const float* mrow = p.mask == nullptr ? nullptr : p.mask + b * p.mask_sb;
+
+  auto copy = [&](int it) {  // key tile `it` into its stage
+    unsigned char* st = ring + (it % kS) * kStage;
+    issue_rows<float, D, kF32Threads>(st, C::kLd, kb, p.sk.t, it * kK, kK,
+                                      p.tk);
+    issue_rows<float, D, kF32Threads>(st + kKTile, C::kLd, vb, p.sv.t,
+                                      it * kK, kK, p.tk);
+    if (mrow != nullptr)
+      issue_floats<kF32Threads>(reinterpret_cast<float*>(st + 2 * kKTile),
+                                mrow, it * kK, p.tk, kK);
+  };
+  // Q and tile 0 land while the mask is scanned for the walk's end
+  issue_rows<float, D, kF32Threads>(dsmem, C::kLd, qb, p.sq.t, q0, 64,
+                                    p.tq);
+  copy(0);
+  cp_async_commit();
+  int full_end;
+  const int k_end = min(p.causal ? min(p.tk, q0 + 64) : p.tk,
+                        key_end<kF32Threads, true>(mrow, p.tk, &full_end));
+  const int n_tiles = (max(k_end, 0) + kK - 1) / kK;
+  auto issue = [&](int it) {  // key tile `it`, if any
+    if (it < n_tiles) copy(it);
+    cp_async_commit();
+  };
+
+  const float sc2 = p.scale * kLog2e;
+  float m2[4], l[4], o[4][4 * C::kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m2[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * C::kCols; ++j) o[i][j] = 0.f;
+  }
+
+  PROBE(20);
+  for (int it = 0; it < n_tiles; ++it) {
+    PROBE(22);
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` landed; every thread is done with the
+                      // other stage and with the P tile
+    issue(it + 1);
+    PROBE(21);
+    const float* kt =
+        reinterpret_cast<const float*>(ring + (it % kS) * kStage);
+    const float* vt = kt + kK * kLdW;
+    const float* mk = vt + kK * kLdW;
+    const int k0 = it * kK;
+
+    float s[4][kJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 a[4], c[kJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(q_s + (4 * ty + i) * kLdW + d);
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        c[j] = *reinterpret_cast<const float4*>(kt + (tx + kTX * j) * kLdW + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
+        }
+    }
+    // softmax: masked scores are -inf; p = exp2(s sc2 - m) to the P tile
+    if (k0 + kK > full_end || (p.causal && k0 + kK - 1 > q0)) {
+      bool key_ok[kJ];
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const int c = tx + kTX * j, key = k0 + c;
+        key_ok[j] = key < p.tk && (mrow == nullptr || mk[c] > 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const bool ok = key_ok[j] &&
+                          (!p.causal || k0 + tx + kTX * j <= q0 + 4 * ty + i);
+          s[i][j] = ok ? s[i][j] : -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int w = 1; w < kTX; w <<= 1)  // the 8 lanes of a row group
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float m_new = fmaxf(m2[i], mx * sc2);
+      const float ms = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = m2[i] == -INFINITY ? 0.f : ex2(m2[i] - ms);
+      m2[i] = m_new;
+      l[i] *= corr;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const float pr = ex2(fmaf(s[i][j], sc2, -ms));
+        l[i] += pr;
+        p_s[(4 * ty + i) * kLdS + tx + kTX * j] = pr;
+      }
+#pragma unroll
+      for (int j = 0; j < 4 * C::kCols; ++j) o[i][j] *= corr;
+    }
+    __syncthreads();
+    // O += P V
+#pragma unroll 2
+    for (int r = 0; r < kK; r += 4) {
+      float4 w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = *reinterpret_cast<const float4*>(p_s + (4 * ty + i) * kLdS + r);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int cg = 0; cg < C::kCols; ++cg) {
+          const float4 m = *reinterpret_cast<const float4*>(
+              vt + (r + u) * kLdW + 4 * tx + 4 * kTX * cg);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float wv = u == 0 ? w[i].x : u == 1 ? w[i].y
+                                     : u == 2 ? w[i].z : w[i].w;
+            o[i][4 * cg + 0] = fmaf(wv, m.x, o[i][4 * cg + 0]);
+            o[i][4 * cg + 1] = fmaf(wv, m.y, o[i][4 * cg + 1]);
+            o[i][4 * cg + 2] = fmaf(wv, m.z, o[i][4 * cg + 2]);
+            o[i][4 * cg + 3] = fmaf(wv, m.w, o[i][4 * cg + 3]);
+          }
+        }
+      }
+    }
+  }
+  PROBE(22);
+  cp_async_wait<0>();
+
+  float* out = static_cast<float*>(p.out0);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int w = 1; w < kTX; w <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], w);
+    const int row = q0 + 4 * ty + i;
+    if (row >= p.tq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    float* orow = out + (((long long)b * p.tq + row) * p.heads + h) * D;
+#pragma unroll
+    for (int cg = 0; cg < C::kCols; ++cg)
+      *reinterpret_cast<float4*>(orow + 4 * tx + 4 * kTX * cg) =
+          make_float4(o[i][4 * cg] * inv, o[i][4 * cg + 1] * inv,
+                      o[i][4 * cg + 2] * inv, o[i][4 * cg + 3] * inv);
+    if (tx == 0)
+      p.lse[(long long)bh * p.tq + row] =
+          l[i] > 0.f ? m2[i] * (1.f / kLog2e) + logf(l[i]) : INFINITY;
+  }
+  PROBE(23);
+}
+
 // ---------------------------------------------------------------- host
 
+// Lets a kernel use `smem` bytes of dynamic shared memory a block.
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem, int threads, dim3 grid,
-           const Params& p, void* stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// What the host does with a kernel, its shared bytes and threads a
+// block: launch it on `grid` (returns cudaGetLastError(), 0 = launched)
+// ...
+struct Launch {
+  dim3 grid;
+  const Params& p;
+  void* stream;
+  template <typename Kernel>
+  int operator()(Kernel kernel, size_t smem, int threads) const {
+    const cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    return (int)cudaGetLastError();
   }
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+};
+
+// ... or count the blocks an SM holds at once (-1 on an error)
+struct BlocksPerSm {
+  template <typename Kernel>
+  int operator()(Kernel kernel, size_t smem, int threads) const {
+    int n = 0;
+    if (allow_smem(kernel, smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                      smem) != cudaSuccess)
+      return -1;
+    return n;
+  }
+};
+
+// forward: the wgmma kernel for bf16 (both head dims), FMAs for f32
+template <int D, typename Op>
+int fwd_d(bool bf16_route, const Op& op) {
+  if (bf16_route)
+    return op(flash_fwd_wgmma_kernel<D>, FwdWg<D>::smem(), kMmaThreads);
+  return op(flash_fwd_f32_kernel<D>, fwd_f32_smem<D>(), kF32Threads);
 }
 
-int tiles(int n) { return (n + kTile - 1) / kTile; }
-
-template <typename T>
-int fwd(const Params& p, int batch, int d, void* stream) {
-  const dim3 grid(batch * p.heads, tiles(p.tq));
-  if (d == 64)
-    return launch(flash_fwd_kernel<T, 64>, fwd_smem_words<64>() * 4,
-                  Cfg<64>::kThreads, grid, p, stream);
-  if (d == 128)
-    return launch(flash_fwd_kernel<T, 128>, fwd_smem_words<128>() * 4,
-                  Cfg<128>::kThreads, grid, p, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-// bf16 at D=64: the wgmma kernels; bf16 at D=128: the mma.sync kernels
-// (the wgmma accumulators of a 128-wide head would not fit); f32: FMAs.
-template <int D>
-int bwd_dq_d(const Params& p, bool bf16_route, dim3 grid, void* stream) {
+// backward: bf16 at D=64 the wgmma kernels, at D=128 the mma.sync
+// kernels (the wgmma accumulators of a 128-wide head would not fit);
+// f32: FMAs
+template <int D, typename Op>
+int bwd_dq_d(bool bf16_route, const Op& op) {
   if (!bf16_route)
-    return launch(flash_bwd_dq_f32_kernel<D>, dq_f32_smem<D>(), kF32Threads,
-                  grid, p, stream);
+    return op(flash_bwd_dq_f32_kernel<D>, dq_f32_smem<D>(), kF32Threads);
   if constexpr (D == 64)
-    return launch(flash_bwd_dq_wgmma_kernel, dq_wgmma_smem(), kMmaThreads,
-                  grid, p, stream);
+    return op(flash_bwd_dq_wgmma_kernel, dq_wgmma_smem(), kMmaThreads);
   else
-    return launch(flash_bwd_dq_mma_kernel, dq_mma_smem(), kMmaThreads,
-                  grid, p, stream);
+    return op(flash_bwd_dq_mma_kernel, dq_mma_smem(), kMmaThreads);
 }
 
-template <int D>
-int bwd_dkv_d(const Params& p, bool bf16_route, dim3 grid, void* stream) {
+template <int D, typename Op>
+int bwd_dkv_d(bool bf16_route, const Op& op) {
   if (!bf16_route)
-    return launch(flash_bwd_dkv_f32_kernel<D>, dkv_f32_smem<D>(),
-                  kF32Threads, grid, p, stream);
+    return op(flash_bwd_dkv_f32_kernel<D>, dkv_f32_smem<D>(), kF32Threads);
   if constexpr (D == 64)
-    return launch(flash_bwd_dkv_wgmma_kernel, dkv_wgmma_smem(), kMmaThreads,
-                  grid, p, stream);
+    return op(flash_bwd_dkv_wgmma_kernel, dkv_wgmma_smem(), kMmaThreads);
   else
-    return launch(flash_bwd_dkv_mma_kernel, dkv_mma_smem(),
-                  kMmaThreads, grid, p, stream);
+    return op(flash_bwd_dkv_mma_kernel, dkv_mma_smem(), kMmaThreads);
 }
 
-template <typename T>
-int bwd_dq(const Params& p, int batch, int d, void* stream) {
-  const dim3 grid(batch * p.heads, tiles(p.tq));
-  const bool mma = sizeof(T) == 2;
-  if (d == 64) return bwd_dq_d<64>(p, mma, grid, stream);
-  if (d == 128) return bwd_dq_d<128>(p, mma, grid, stream);
+// kind 0 forward, 1 dQ, 2 dK/dV
+template <int D, typename Op>
+int by_kind(int kind, bool bf16_route, const Op& op) {
+  if (kind == 0) return fwd_d<D>(bf16_route, op);
+  if (kind == 1) return bwd_dq_d<D>(bf16_route, op);
+  return bwd_dkv_d<D>(bf16_route, op);
+}
+
+template <typename Op>
+int dispatch(int kind, int d, bool bf16_route, const Op& op) {
+  if (d == 64) return by_kind<64>(kind, bf16_route, op);
+  if (d == 128) return by_kind<128>(kind, bf16_route, op);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int bwd_dkv(const Params& p, int batch, int d, void* stream) {
-  const dim3 grid(batch * p.heads, tiles(p.tk));
-  const bool mma = sizeof(T) == 2;
-  if (d == 64) return bwd_dkv_d<64>(p, mma, grid, stream);
-  if (d == 128) return bwd_dkv_d<128>(p, mma, grid, stream);
-  return (int)cudaErrorInvalidValue;
+int run(int kind, const Params& p, int batch, int d, void* stream) {
+  const int t = kind == 2 ? p.tk : p.tq;  // the length the blocks tile
+  const dim3 grid(batch * p.heads, (t + kTile - 1) / kTile);
+  return dispatch(kind, d, sizeof(T) == 2, Launch{grid, p, stream});
 }
 
 Params make_params(int heads, int tq, int tk, long long mask_sb, int causal,
@@ -1740,7 +2101,7 @@ Params make_params(int heads, int tq, int tk, long long mask_sb, int causal,
 
 template <int D>
 size_t smem_bytes(int kind, bool bf16_route) {
-  if (kind == 0) return fwd_smem_words<D>() * sizeof(float);
+  if (kind == 0) return bf16_route ? FwdWg<D>::smem() : fwd_f32_smem<D>();
   if (!bf16_route) return kind == 1 ? dq_f32_smem<D>() : dkv_f32_smem<D>();
   if constexpr (D == 64)
     return kind == 1 ? dq_wgmma_smem() : dkv_wgmma_smem();
@@ -1758,6 +2119,13 @@ size_t flash_smem_bytes(int kind, int d, int is_bf16) {
   if (d == 64) return smem_bytes<64>(kind, is_bf16 != 0);
   if (d == 128) return smem_bytes<128>(kind, is_bf16 != 0);
   return 0;
+}
+
+// Blocks of that kernel one SM holds at once (the card's occupancy
+// calculator: registers, shared memory, threads); -1 on an error.
+int flash_blocks_per_sm(int kind, int d, int is_bf16) {
+  if (d != 64 && d != 128) return -1;
+  return dispatch(kind, d, is_bf16 != 0, BlocksPerSm{});
 }
 
 // Each launches on `stream` of the calling thread's current device (the
@@ -1784,7 +2152,7 @@ size_t flash_smem_bytes(int kind, int d, int is_bf16) {
   p.sq = {q_sb, q_st, q_sh};                                       \
   p.sk = {k_sb, k_st, k_sh};                                       \
   p.sv = {v_sb, v_st, v_sh};                                       \
-  return fwd<T>(p, batch, d, stream);
+  return run<T>(0, p, batch, d, stream);
 
 int flash_fwd_f32(FLASH_FWD_ARGS) { FLASH_FWD_BODY(float) }
 int flash_fwd_bf16(FLASH_FWD_ARGS) { FLASH_FWD_BODY(__nv_bfloat16) }
@@ -1815,7 +2183,7 @@ int flash_fwd_bf16(FLASH_FWD_ARGS) { FLASH_FWD_BODY(__nv_bfloat16) }
   p.sv = {v_sb, v_st, v_sh};                                       \
   p.sdo = {do_sb, do_st, do_sh};                                   \
   p.so = {o_sb, o_st, o_sh};                                       \
-  return bwd_dq<T>(p, batch, d, stream);
+  return run<T>(1, p, batch, d, stream);
 
 int flash_bwd_dq_f32(FLASH_DQ_ARGS) { FLASH_DQ_BODY(float) }
 int flash_bwd_dq_bf16(FLASH_DQ_ARGS) { FLASH_DQ_BODY(__nv_bfloat16) }
@@ -1844,15 +2212,15 @@ int flash_bwd_dq_bf16(FLASH_DQ_ARGS) { FLASH_DQ_BODY(__nv_bfloat16) }
   p.sk = {k_sb, k_st, k_sh};                                       \
   p.sv = {v_sb, v_st, v_sh};                                       \
   p.sdo = {do_sb, do_st, do_sh};                                   \
-  return bwd_dkv<T>(p, batch, d, stream);
+  return run<T>(2, p, batch, d, stream);
 
 int flash_bwd_dkv_f32(FLASH_DKV_ARGS) { FLASH_DKV_BODY(float) }
 int flash_bwd_dkv_bf16(FLASH_DKV_ARGS) { FLASH_DKV_BODY(__nv_bfloat16) }
 
 #ifdef FLASH_PROBE
-// The phase sums (16 counters) into `out`, then zero them.
+// The phase sums (kProbeSlots = 24 counters) into `out`, then zero them.
 int flash_probe_take(unsigned long long* out) {
-  const unsigned long long zero[16] = {};
+  const unsigned long long zero[kProbeSlots] = {};
   const cudaError_t err = cudaMemcpyFromSymbol(out, flash_probe_cycles,
                                                sizeof(zero));
   if (err != cudaSuccess) return (int)err;

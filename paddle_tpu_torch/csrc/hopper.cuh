@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this
 // directory (paged_attention.cu, flash_attention.cu): cp.async copies
 // from global to shared memory, ldmatrix loads, the bf16 mma.sync and
-// wgmma.
+// wgmma (A from registers, or both operands from shared memory).
 // ops/_cuda.py hashes every *.cuh here into each library's build key,
 // so an edited header rebuilds both libraries.
 
@@ -137,6 +137,36 @@ __device__ __forceinline__ void wgmma_m64n64k16(float* d, const unsigned* a,
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
         "n"(kTransB));
+}
+
+// d (64x64 f32) += A (64x16 bf16) * B (16x64) with both operands read by
+// the tensor cores from shared memory through descriptors (A K-major, in
+// the layout of desc_sw128): no A fragments in registers, so nothing but
+// the accumulators needs pinning around the batch
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d,
+                                                   unsigned long long a_desc,
+                                                   unsigned long long b_desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a_desc), "l"(b_desc), "r"(1), "n"(kTransB));
 }
 
 }  // namespace

@@ -35,17 +35,18 @@ Functions:
 * :func:`plain_flash_forward` / :func:`plain_flash_backward` — the
   kernels' math written with plain torch ops; what CPU tensors run and
   what the kernels are held to on the card.
-  :func:`plain_flash_backward_bf16` adds the bf16 backward kernels' one
-  extra rounding (p and ds to bf16 before the second products); the
-  card tests hold those kernels to it element by element
-  (:func:`bf16_ulps` at most 1).
+  :func:`plain_flash_forward_bf16` and :func:`plain_flash_backward_bf16`
+  add the bf16 kernels' rounding (the forward's p as two bf16 parts
+  before P V, tile by tile; the backward's p and ds to bf16 before the
+  second products); the card tests hold those kernels to them element
+  by element (:func:`bf16_ulps` at most 1).
 * :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv` — the
   three launchers. A CPU tensor takes the plain version (so does a
   meta tensor, which build-time shape inference passes); a CUDA tensor
   launches the kernel or raises (float32 or bfloat16, head dim 64 or
-  128; the backward launchers also refuse inputs whose pointer or
-  (batch, time, head) strides are not 16-byte aligned). Each has a
-  ``.launches`` counter of kernel launches.
+  128; inputs whose pointer or (batch, time, head) strides are not
+  16-byte aligned are refused too). Each has a ``.launches`` counter of
+  kernel launches.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ from . import _cuda
 __all__ = ["BF16_MODEL_FLOOR", "bf16_ulps", "flash_attention",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
            "plain_flash_backward", "plain_flash_backward_bf16",
-           "plain_flash_forward"]
+           "plain_flash_forward", "plain_flash_forward_bf16"]
 
 HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
 # devices whose tensors take the plain versions: the CPU, and "meta"
@@ -96,6 +97,49 @@ def plain_flash_forward(q, k, v, causal=False, scale=None, kv_mask=None):
     l = p.sum(-1, keepdim=True)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     o = o / l.clamp_min(1e-30).permute(0, 2, 1, 3)
+    lse = torch.where(l > 0, m_safe + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, torch.inf))
+    return o.to(q.dtype), lse[..., 0]
+
+
+def plain_flash_forward_bf16(q, k, v, causal=False, scale=None,
+                             kv_mask=None, key_tile=64, p_parts=2):
+    """:func:`plain_flash_forward` with the bf16 forward kernel's
+    rounding: it walks key tiles of ``key_tile`` keys with a running
+    max, as the kernel does, and rounds each tile's ``p = exp(s -
+    m_run)`` to bfloat16 parts (to nearest even) before P V, since the
+    kernel feeds p to the tensor cores as bf16 operands: with
+    ``p_parts=2`` (the kernel) as hi = bf16(p) and lo = bf16(p - hi),
+    P V = hi V + lo V, so p keeps 16 significant bits; with
+    ``p_parts=1`` as one bf16 value, what a kernel with a single bf16 P
+    would do. The row sum l takes the unrounded p; sums, the running
+    max and the rescaling stay in f32."""
+    enforce(p_parts in (1, 2), "p_parts must be 1 or 2, got %r" % p_parts)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s, valid = _scores(q, k, causal, scale, kv_mask)
+    B, H, Tq, Tk = s.shape
+    vf = v.float()
+    m = torch.full((B, H, Tq, 1), -torch.inf, device=q.device)
+    l = torch.zeros((B, H, Tq, 1), device=q.device)
+    acc = torch.zeros((B, H, Tq, vf.shape[-1]), device=q.device)
+    for k0 in range(0, Tk, key_tile):
+        st = s[..., k0:k0 + key_tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                           torch.zeros_like(m))
+        p = torch.where(valid[..., k0:k0 + key_tile], torch.exp(st - m_safe),
+                        torch.zeros_like(st))
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        if p_parts == 2:  # hi + lo is exact in f32
+            hi = hi + (p - hi).to(torch.bfloat16).float()
+        acc = acc * corr + torch.einsum("bhqk,bkhd->bhqd", hi,
+                                        vf[:, k0:k0 + key_tile])
+        m = m_new
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    o = (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
     lse = torch.where(l > 0, m_safe + torch.log(l.clamp_min(1e-30)),
                       torch.full_like(l, torch.inf))
     return o.to(q.dtype), lse[..., 0]
@@ -191,6 +235,9 @@ def _bind(lib):
             fn.restype = ctypes.c_int
     lib.flash_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.flash_smem_bytes.restype = ctypes.c_size_t
+    if hasattr(lib, "flash_blocks_per_sm"):  # another version may lack it
+        lib.flash_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.flash_blocks_per_sm.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
     lib._bound = True
@@ -265,7 +312,7 @@ def _smem_ok(name, lib, kind, D, dtype):
 
 
 def _check_aligned(name, *tensors):
-    """The backward kernels copy rows with 16-byte cp.async: every
+    """The kernels copy rows with 16-byte cp.async: every
     pointer and every (batch, time, head) stride must be a multiple of
     16 bytes (a stride of a size-1 dim is never used). Refused, never
     copied: the models pass reshapes of contiguous ``fc`` outputs,
@@ -299,6 +346,7 @@ def flash_fwd(q, k, v, causal=False, scale=None, kv_mask=None):
     if q.device.type in _PLAIN_DEVICES:
         return plain_flash_forward(q, k, v, causal, scale, kv_mask)
     B, Tq, Tk, H, D = _check_cuda("flash_fwd", q, k, v, kv_mask)
+    _check_aligned("flash_fwd", q, k, v)
     lib = _library()
     _smem_ok("flash_fwd", lib, 0, D, q.dtype)
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)

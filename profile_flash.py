@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where a block of the flash-attention backward kernels spends its
-cycles on one NVIDIA card, or how they compare with another version.
+"""Where a block of the flash-attention kernels spends its cycles on
+one NVIDIA card, or how they compare with another version.
 
     python3 profile_flash.py [--cases path_masked,long]
     python3 profile_flash.py --compare-src OLD/flash_attention.cu [--cases ...]
@@ -8,16 +8,19 @@ cycles on one NVIDIA card, or how they compare with another version.
 Builds ``paddle_tpu_torch/csrc/flash_attention.cu`` once more with
 ``-DFLASH_PROBE`` (the kernels then add clock64 phase sums for thread 0
 of each block; the default build carries no probe) into
-``build/paddle_tpu_torch/``, runs the dQ and dK/dV kernels once per case
-of chip_smoke.py's flash phase, in bf16 and f32, and prints one JSON
-line per (case, dtype): for each kernel the mean cycles per block in
+``build/paddle_tpu_torch/``, runs the forward, dQ and dK/dV kernels once
+per case of chip_smoke.py's flash phase, in bf16 and f32, and prints one
+JSON line per (case, dtype): for each kernel the mean cycles per block in
 
-- ``prologue``: staging the block's fixed tiles (dQ: q, dO, O, lse, then
-  delta; dK/dV: k, v and the key mask) and starting the ring;
+- ``prologue``: staging the block's fixed tiles (forward: q and the
+  first key tile, scanning the key mask for the walk's end, and for
+  bf16 tile 0's scores and softmax; dQ: q, dO, O, lse, then delta;
+  dK/dV: k, v and the key mask) and starting the ring;
 - ``wait``: each walk step's wait for its tile, the barrier, and issuing
   the next tile's copies (a warp that computes faster waits here for
   the slowest one);
-- ``compute``: the products and the softmax gradient of each step;
+- ``compute``: the products and the softmax (or its gradient) of each
+  step (for the bf16 forward also the last tile's O += P V);
 - ``epilogue``: the output stores;
 
 and each phase's share. The probes cost a few percent of the kernels'
@@ -26,10 +29,12 @@ time; chip_smoke.py times the default build.
 With ``--compare-src`` it builds that source as well (another version of
 ``flash_attention.cu`` with the same C entry points, e.g. the parent
 commit's) and prints, per (case, dtype), the device ms (chip_smoke.py's
-``device_ms``) of both versions' dQ and dK/dV kernels, timed in turns
-(this, other, other, this) on the same inputs, their error against
-``plain_flash_backward`` (of max |grad|), and SDPA's backward on the same
-inputs. Exits non-zero without a card.
+``device_ms``) of both versions' forward, dQ and dK/dV kernels, timed in
+turns (this, other, other, this) on the same inputs, their errors (the
+forward's o against ``plain_flash_forward``, absolute and for bf16 in
+bf16 ulps; the backward's against ``plain_flash_backward``, of max
+|grad|), and SDPA's forward and backward on the same inputs. Exits
+non-zero without a card.
 """
 
 import argparse
@@ -46,6 +51,12 @@ import chip_smoke as cs
 
 PHASES = ("prologue", "wait", "compute", "epilogue")
 CASES = {c[0]: c for c in cs.FLASH_CASES}
+N_SLOTS = 24  # flash_attention.cu: kProbeSlots
+# first probe slot of each kernel (4 phases each), by dtype
+SLOTS = {torch.bfloat16: {"flash_fwd": 16, "flash_bwd_dq": 0,
+                          "flash_bwd_dkv": 4},
+         torch.float32: {"flash_fwd": 20, "flash_bwd_dq": 8,
+                         "flash_bwd_dkv": 12}}
 
 
 def probe_library():
@@ -102,6 +113,7 @@ def compare(src, labels):
             q, k, v, do, mask = cs.flash_inputs(B, Tq, Tk, H, D, masked,
                                                 dtype, seed=1)
             o, lse = fa.flash_fwd(q, k, v, causal, None, mask)
+            ro, _ = fa.plain_flash_forward(q, k, v, causal, None, mask)
             ref = fa.plain_flash_backward(q, k, v, o, lse, do, causal, None,
                                           mask)
             iters = 10 if Tq * Tk > 10 ** 6 else 30
@@ -109,6 +121,7 @@ def compare(src, labels):
                    "Tk": Tk, "H": H, "D": D}
             for name in ("this", "other", "other", "this"):
                 with mock.patch.object(fa, "_library", lambda: libs[name]):
+                    o_n, _ = fa.flash_fwd(q, k, v, causal, None, mask)
                     dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal,
                                                 None, mask)
                     dk, dv = fa.flash_bwd_dkv(q, k, v, lse, delta, do,
@@ -116,24 +129,34 @@ def compare(src, labels):
                     err = max(float((g.float() - r.float()).abs().max()
                                     / r.float().abs().max())
                               for g, r in zip((dq, dk, dv), ref))
-                    t = [cs.device_ms(lambda: fa.flash_bwd_dq(
+                    errs = {"o_abs_err": float((o_n.float() - ro.float())
+                                               .abs().max()),
+                            "max_rel_err": err}
+                    if dtype == torch.bfloat16:
+                        errs["o_ulps"] = fa.bf16_ulps(o_n, ro)
+                    t = [cs.device_ms(lambda: fa.flash_fwd(
+                             q, k, v, causal, None, mask), iters),
+                         cs.device_ms(lambda: fa.flash_bwd_dq(
                              q, k, v, o, lse, do, causal, None, mask), iters),
                          cs.device_ms(lambda: fa.flash_bwd_dkv(
                              q, k, v, lse, delta, do, causal, None, mask),
                              iters)]
-                r = row.setdefault(name, {"flash_bwd_dq": [],
-                                          "flash_bwd_dkv": [],
-                                          "max_rel_err": err})
-                r["flash_bwd_dq"].append(t[0])
-                r["flash_bwd_dkv"].append(t[1])
+                r = row.setdefault(name, {"flash_fwd": [], "flash_bwd_dq": [],
+                                          "flash_bwd_dkv": [], **errs})
+                r["flash_fwd"].append(t[0])
+                r["flash_bwd_dq"].append(t[1])
+                r["flash_bwd_dkv"].append(t[2])
             (sq, sk, sv), kw = cs.sdpa_args(q, k, v, causal, mask)
+            row["sdpa_fwd"] = cs.device_ms(
+                lambda: F.scaled_dot_product_attention(sq, sk, sv, **kw),
+                iters)
             gq, gk, gv = (x.detach().requires_grad_() for x in (sq, sk, sv))
             out = F.scaled_dot_product_attention(gq, gk, gv, **kw)
             g_out = do.transpose(1, 2).contiguous()
             row["sdpa_bwd"] = cs.device_ms(lambda: torch.autograd.grad(
                 out, (gq, gk, gv), g_out, retain_graph=True), iters)
             print(json.dumps(row), flush=True)
-            del q, k, v, do, mask, o, lse, ref, out, gq, gk, gv
+            del q, k, v, do, mask, o, lse, ro, ref, out, gq, gk, gv, o_n
             torch.cuda.empty_cache()
 
 
@@ -151,7 +174,7 @@ def main():
     from paddle_tpu_torch.ops import flash_attention as fa
 
     lib = probe_library()
-    sums = (ctypes.c_ulonglong * 16)()
+    sums = (ctypes.c_ulonglong * N_SLOTS)()
     print(cs.card_line(), flush=True)
     with mock.patch.object(fa, "_library", lambda: lib):
         for label in args.cases.split(","):
@@ -159,10 +182,10 @@ def main():
             for dtype in dtypes:
                 q, k, v, do, mask = cs.flash_inputs(B, Tq, Tk, H, D, masked,
                                                     dtype, seed=1)
-                o, lse = fa.flash_fwd(q, k, v, causal, None, mask)
                 for _ in range(2):  # the second run is the one read
                     torch.cuda.synchronize()
                     lib.flash_probe_take(sums)
+                    o, lse = fa.flash_fwd(q, k, v, causal, None, mask)
                     dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal,
                                                 None, mask)
                     fa.flash_bwd_dkv(q, k, v, lse, delta, do, causal, None,
@@ -171,14 +194,13 @@ def main():
                     err = lib.flash_probe_take(sums)
                     if err:
                         cs.fail("reading the probes: CUDA error %d" % err)
-                # slots: bf16 dQ 0-3, dK/dV 4-7; f32 dQ 8-11, dK/dV 12-15
-                base = 0 if dtype == torch.bfloat16 else 8
                 row = {"case": label, "dtype": str(dtype)[6:], "B": B,
                        "Tq": Tq, "Tk": Tk, "H": H, "D": D}
-                for i, (name, n_tiles) in enumerate(
-                        (("flash_bwd_dq", Tq), ("flash_bwd_dkv", Tk))):
+                for name, n_tiles in (("flash_fwd", Tq), ("flash_bwd_dq", Tq),
+                                      ("flash_bwd_dkv", Tk)):
                     blocks = B * H * ((n_tiles + 63) // 64)
-                    cyc = [sums[base + 4 * i + j] / blocks for j in range(4)]
+                    base = SLOTS[dtype][name]
+                    cyc = [sums[base + j] / blocks for j in range(4)]
                     total = sum(cyc)
                     row[name] = {"blocks": blocks,
                                  "cycles_per_block": dict(zip(PHASES, cyc)),

@@ -347,6 +347,20 @@ def test_cuda_refuses_what_the_kernels_do_not_take():
     q = torch.zeros((1, 8, 2, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(EnforceError, match="float32 or bfloat16"):
         flash_attention(q, q, q)
+    # the forward copies rows 16 bytes at a time too: a pointer or a
+    # time stride off 16 bytes raises, and nothing is launched
+    before = flash_fwd.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 8, 2, 64), device="cuda", dtype=dtype)
+        shifted = torch.empty(q.numel() + 1, device="cuda",
+                              dtype=dtype)[1:].view(q.shape)
+        with pytest.raises(EnforceError, match="16-byte aligned"):
+            flash_fwd(shifted, q, q)
+        wide = torch.zeros((1, 8, 2 * 64 + 1), device="cuda", dtype=dtype)
+        odd = wide.as_strided((1, 8, 2, 64), (8 * 129, 129, 64, 1))
+        with pytest.raises(EnforceError, match="16-byte aligned"):
+            flash_fwd(q, odd, q)
+    assert flash_fwd.launches == before
 
 
 def _bf16_card_case(i, device):
