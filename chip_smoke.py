@@ -104,8 +104,29 @@ Phases, one JSON line each (or one per shape):
              its max of that route's. Step ms (mean, p50), tokens/s, peak
              memory, launches per step, the device idle share and device
              ms by family (``fused_update`` one of them).
-
-9. prefix_int8 — shared-prompt serving: ``serve_decoding`` of the
+9. run_steps — ``bench.py``'s training loop on the recipe:
+             ``memory_optimize(main)``, then ``Executor.run_steps`` (a
+             captured CUDA graph) and ``Executor.run(feed=DataLoader)``,
+             from the recipe phase's start state and batch. Checks: 10
+             steps in one call give losses of shape (10,), each within
+             rel 1e-5 of the recipe phase's eager step, every dense
+             parameter within 1e-6 of its max of the eager run's after
+             them (the bit-equal count is printed), and the flash kernels
+             18 and the fused update ``groups`` launches a step by their
+             counters; a second call replays (one graph) and its losses
+             keep falling; one replayed step under ``torch.profiler``
+             shows 18 launches of each flash kernel and ``groups`` of
+             the fused update by kernel name, as the counters do;
+             ``unroll=True`` gives the losses of ``unroll=False`` (rel
+             1e-5). Reports, in ``bench.py``'s protocol (chunks of 10
+             steps, a warm chunk, 20 timed steps): step ms and tokens/s
+             with the feed on the card, the same with ``unroll=True``,
+             the host-fed leg through ``DataLoader(chunk=10,
+             buffer_size=4)`` (tokens/s, ``host_fed_ratio``, the
+             loader's ``stall_fraction``), each graph's capture
+             seconds, the profiled step's device idle share, peak
+             memory.
+10. prefix_int8 — shared-prompt serving: ``serve_decoding`` of the
              causal LM of phase 3 with ``CacheConfig(num_blocks=512,
              block_size=16, max_blocks_per_seq=32, kv_dtype="int8",
              prefix_cache=True)``, decode buckets 1-16 and the default
@@ -1075,10 +1096,11 @@ def _train_family(name: str) -> str:
     return "other"
 
 
-def profile_step(run_step, top=15):
+def profile_step(run_step, top=15, family_launches=None):
     """One training step under torch.profiler: (host wall ms, device ms
     by kernel family, kernel launches, the ``top`` kernels by device ms
-    as [name, ms, launches] rows)."""
+    as [name, ms, launches] rows). A dict passed as ``family_launches``
+    receives the kernels launched by family."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1087,7 +1109,10 @@ def profile_step(run_step, top=15):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_family, by_name, launches = {}, {}, 0
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a host span (paddle_tpu_torch.profiler's record_function
+        # ranges) also shows on the device's timeline: not a kernel
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
             continue
         fam = _train_family(e.name)
         ms = float(e.time_range.elapsed_us()) / 1e3
@@ -1096,6 +1121,8 @@ def profile_step(run_step, top=15):
         name[0] += ms
         name[1] += 1
         launches += fam != "copies"
+        if family_launches is not None:
+            family_launches[fam] = family_launches.get(fam, 0) + 1
     if not by_family:
         fail("the profiler recorded no device activity")
     rows = sorted(([n, ms, k] for n, (ms, k) in by_name.items()),
@@ -1420,6 +1447,9 @@ def phase_recipe(card):
                 param_rel[n] = float(np.abs(got - ref[n]).max()
                                      / max(np.abs(ref[n]).max(), 1e-30))
                 n_equal += bool(np.array_equal(got, ref[n]))
+    # the dense parameters after the last step (the run_steps phase's
+    # reference)
+    final = {n: fluid.fetch_var(n, scope) for n in dense}
     launches = {fn.__name__: fn.launches for fn in launchers}
     peak = torch.cuda.max_memory_allocated()
     want = {fn.__name__: ATTN_PER_STEP * TRAIN_STEPS for fn in launchers[:3]}
@@ -1467,7 +1497,218 @@ def phase_recipe(card):
           "device_ms_by_family": dict(sorted(by_family.items(),
                                              key=lambda kv: -kv[1])),
           "top_kernels": top})
-    return launches
+    return launches, losses, final
+
+
+# bench.py's loop: chunks of 10 steps a run_steps call on the card
+# (bench.py:154), 20 timed steps (:100), a DataLoader of buffer 4 (:186)
+CHUNK, BENCH_STEPS, LOADER_BUFFER = 10, 20, 4
+
+
+def phase_run_steps(card, eager_losses, eager_params):
+    """bench.py's training loop on the recipe: ``memory_optimize``, then
+    ``Executor.run_steps`` (captured CUDA graphs) and
+    ``Executor.run(feed=DataLoader)``, from the recipe phase's start
+    state (``eager_losses``, ``eager_params``: its 10 eager steps)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    place = fluid.CUDAPlace(0)
+    feed = train_batch()
+    main, startup, cost = build_recipe(True)
+    fluid.memory_optimize(main)
+    groups = sum(op.type.endswith("_fused")
+                 for op in main.global_block().ops)
+    launchers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                 fused_flat_update)
+    per_step = {fn.__name__: ATTN_PER_STEP for fn in launchers[:3]}
+    per_step["fused_flat_update"] = groups
+
+    def fresh():
+        scope = fluid.Scope()
+        exe = fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        fluid.params_from_numpy(seeded_weights(main), scope, place,
+                                program=main)
+        return exe, scope
+
+    def launched():
+        return {fn.__name__: fn.launches for fn in launchers}
+
+    def timed_chunks(exe, scope, unroll=False):
+        """bench.py's timed leg: BENCH_STEPS steps in chunks, the feed on
+        the card; seconds."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BENCH_STEPS // CHUNK):
+            out, = exe.run_steps(main, feed=dev_feed, steps=CHUNK,
+                                 fetch_list=[cost], scope=scope,
+                                 return_numpy=False, unroll=unroll)
+        out.cpu()
+        return time.perf_counter() - t0
+
+    # 1. ten steps in one call (the eager step, the capture, nine
+    # replays) from the recipe phase's start state
+    exe, scope = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in launchers:
+        reset_counts(fn)
+    t0 = time.perf_counter()
+    losses, = exe.run_steps(main, feed=feed, steps=TRAIN_STEPS,
+                            fetch_list=[cost], scope=scope)
+    first_call_s = time.perf_counter() - t0
+    launches = launched()
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    if launches != want:
+        fail("run_steps' %d steps launched %s, expected %s"
+             % (TRAIN_STEPS, launches, want))
+    if losses.shape != (TRAIN_STEPS,):
+        fail("run_steps returned losses of shape %s" % (losses.shape,))
+    loss_rel = [abs(float(a) - b) / abs(b)
+                for a, b in zip(losses, eager_losses)]
+    if not max(loss_rel) <= 1e-5:
+        fail("run_steps' losses part from the eager steps' by rel %g "
+             "(> 1e-5): %s against %s" % (max(loss_rel), losses.tolist(),
+                                          eager_losses))
+    param_rel, n_equal = {}, 0
+    for n, ref in eager_params.items():
+        got = fluid.fetch_var(n, scope)
+        param_rel[n] = float(np.abs(got - ref).max()
+                             / max(np.abs(ref).max(), 1e-30))
+        n_equal += bool(np.array_equal(got, ref))
+    worst = max(param_rel.values())
+    if not worst <= 1e-6:
+        fail("after %d steps the dense parameters of run_steps and the "
+             "eager steps part by %g of their max (> 1e-6): %s"
+             % (TRAIN_STEPS, worst, sorted(param_rel.items(),
+                                           key=lambda kv: -kv[1])[:5]))
+
+    # 2. a second call replays the graph: no new capture
+    second, = exe.run_steps(main, feed=feed, steps=TRAIN_STEPS,
+                            fetch_list=[cost], scope=scope)
+    if exe.num_compiled != 1:
+        fail("the second run_steps call captured again (%d graphs)"
+             % exe.num_compiled)
+    if not (np.isfinite(second).all() and second[-1] < second[0]
+            and second[-1] < losses[-1]):
+        fail("the second call's losses did not keep falling: %s after %s"
+             % (second.tolist(), losses.tolist()))
+
+    # bench.py's protocol, the feed on the card: a warm chunk, then two
+    # timed chunks
+    dev_feed = {n: torch.as_tensor(v).to(place.torch_device())
+                for n, v in feed.items()}
+    exe.run_steps(main, feed=dev_feed, steps=CHUNK, fetch_list=[cost],
+                  scope=scope, return_numpy=False)
+    dev_s = timed_chunks(exe, scope)
+
+    # 3. one replayed step under torch.profiler (its graph captured by
+    # the call before)
+    exe.run_steps(main, feed=dev_feed, steps=1, fetch_list=[cost],
+                  scope=scope)
+    for fn in launchers:
+        reset_counts(fn)
+    fam_launches = {}
+    wall_ms, by_family, kernels, top = profile_step(
+        lambda: exe.run_steps(main, feed=dev_feed, steps=1,
+                              fetch_list=[cost], scope=scope),
+        family_launches=fam_launches)
+    counted = launched()
+    seen = {"flash_fwd": fam_launches.get("flash_fwd", 0),
+            "flash_bwd_dq": fam_launches.get("flash_bwd_dq", 0),
+            "flash_bwd_dkv": fam_launches.get("flash_bwd_dkv", 0),
+            "fused_flat_update": fam_launches.get("fused_update", 0)}
+    if seen != per_step or counted != per_step:
+        fail("one replayed step: the profiler saw %s, the wrappers counted "
+             "%s, expected %s" % (seen, counted, per_step))
+    busy = sum(by_family.values())
+
+    # 4. unroll=True: ten straight-line steps in one graph
+    exe_u, scope_u = fresh()
+    unrolled, = exe_u.run_steps(main, feed=feed, steps=TRAIN_STEPS,
+                                fetch_list=[cost], scope=scope_u,
+                                unroll=True)
+    unroll_rel = max(abs(float(a) - float(b)) / abs(float(b))
+                     for a, b in zip(unrolled, losses))
+    if not unroll_rel <= 1e-5:
+        fail("unroll=True's losses part from unroll=False's by rel %g "
+             "(> 1e-5): %s against %s" % (unroll_rel, unrolled.tolist(),
+                                          losses.tolist()))
+    exe_u.run_steps(main, feed=dev_feed, steps=CHUNK, fetch_list=[cost],
+                    scope=scope_u, return_numpy=False, unroll=True)
+    unroll_s = timed_chunks(exe_u, scope_u, unroll=True)
+    unroll_capture_s = exe_u.capture_seconds
+    exe_u.close()
+    del exe_u, scope_u
+    torch.cuda.empty_cache()
+
+    # the host-fed leg: every batch starts in host memory and reaches
+    # the card through the loader, CHUNK batches a run_steps call; two
+    # warm chunks, two timed
+    n_batches = BENCH_STEPS + 2 * CHUNK
+
+    def host_reader():
+        for _ in range(n_batches):
+            yield dict(feed)
+
+    # the feeds' time axis is dynamic (-1); every batch here has T=256
+    loader = fluid.reader.DataLoader(
+        host_reader, place=place, program=main, chunk=CHUNK,
+        buffer_size=LOADER_BUFFER, name="bench", check_recompile=False)
+    for _ in range(2):
+        out, = exe.run(main, feed=loader, fetch_list=[cost], scope=scope,
+                       return_numpy="async")
+        out.numpy()
+    t0 = time.perf_counter()
+    for _ in range(BENCH_STEPS // CHUNK):
+        out, = exe.run(main, feed=loader, fetch_list=[cost], scope=scope,
+                       return_numpy="async")
+    host_losses = out.numpy()
+    host_s = time.perf_counter() - t0
+    stall = loader.metrics.stall_fraction()
+    loader_report = loader.metrics.report()
+    loader.close()
+    if not np.isfinite(host_losses).all():
+        fail("non-finite host-fed losses: %s" % host_losses.tolist())
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_B * TRAIN_T
+    dev_tps = tokens * BENCH_STEPS / dev_s
+    host_tps = tokens * BENCH_STEPS / host_s
+    emit({"phase": "run_steps", "card": card, "batch": TRAIN_B,
+          "seq": TRAIN_T, "chunk": CHUNK, "timed_steps": BENCH_STEPS,
+          "groups": groups, "losses": losses.tolist(),
+          "second_call_losses": second.tolist(),
+          "eager_losses": list(eager_losses),
+          "loss_max_rel_err": max(loss_rel),
+          "param_max_rel_err": worst,
+          "params_bit_equal": "%d of %d" % (n_equal, len(eager_params)),
+          "unroll_loss_max_rel_err": unroll_rel,
+          "launches": launches, "graphs": exe.num_compiled,
+          "first_call_s": first_call_s,
+          "capture_s": exe.capture_seconds,
+          "unroll_capture_s": unroll_capture_s,
+          "step_ms": dev_s / BENCH_STEPS * 1e3, "tokens_per_s": dev_tps,
+          "unroll_step_ms": unroll_s / BENCH_STEPS * 1e3,
+          "unroll_tokens_per_s": tokens * BENCH_STEPS / unroll_s,
+          "host_fed_step_ms": host_s / BENCH_STEPS * 1e3,
+          "host_fed_tokens_per_s": host_tps,
+          "host_fed_ratio": host_tps / dev_tps,
+          "stall_fraction": stall, "loader": loader_report,
+          "max_memory_allocated": peak,
+          "replayed_step_launches": seen,
+          "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / wall_ms,
+          # the replayed step's busy time against a step of the timed
+          # chunks (one call's host work spread over 10 steps)
+          "device_idle_share_chunked": 1.0 - busy / (dev_s / BENCH_STEPS
+                                                     * 1e3),
+          "kernel_launches_per_step": kernels,
+          "device_ms_by_family": dict(sorted(by_family.items(),
+                                             key=lambda kv: -kv[1])),
+          "top_kernels": top})
+    exe.close()
 
 
 def main():
@@ -1493,7 +1734,10 @@ def main():
     n_recipe = int(build_recipe(True)[0].global_block().var(
         "fused_param_storage_0").shape[0])
     fused_rows = phase_fused_update(card, n_recipe)
-    recipe_launches = phase_recipe(card)
+    recipe_launches, recipe_losses, recipe_params = phase_recipe(card)
+    torch.cuda.empty_cache()
+    phase_run_steps(card, recipe_losses, recipe_params)
+    del recipe_params
     torch.cuda.empty_cache()
     serving_counts, model = phase_serving(card)
     prefix_counts = phase_prefix_int8(card, model)

@@ -24,19 +24,34 @@ embeddings with lazy Adam::
             ..., sparse_embedding=True, attn_impl="pallas")
         fluid.optimizer.Adam(learning_rate=1e-4).minimize(avg_cost)
 
+Its training loop is ``bench.py``'s: ``memory_optimize`` keeps the
+state updated in place, ``Executor.run_steps`` runs N steps as one
+captured CUDA graph, and ``Executor.run(feed=loader)`` drives it from a
+``reader.DataLoader`` that copies batches to the card on its own stream::
+
+    fluid.memory_optimize(main)
+    losses, = exe.run_steps(main, feed_list=batches, fetch_list=[avg_cost])
+    loader = fluid.reader.DataLoader(reader, place=fluid.CUDAPlace(0),
+                                     program=main, chunk=10)
+    losses, = exe.run(main, feed=loader, fetch_list=[avg_cost])
+
 This package imports neither jax nor paddle_tpu.
 """
 
-from . import clip, layers, optimizer, regularizer
+from . import clip, layers, optimizer, profiler, reader, regularizer
 from .backward import append_backward
 from .convert import params_from_numpy, state_from_numpy
-from .core import (CPUPlace, CUDAPlace, EnforceError, Operator, Parameter,
+from .core import (CPUPlace, CUDAPlace, EnforceError, EOFException,
+                   Operator, Parameter,
                    Program, Scope, Variable, default_main_program,
                    default_startup_program, global_scope, program_guard,
                    scope_guard, switch_main_program, switch_startup_program)
 from .core import unique_name
 from .core.flags import get_flag, set_flags
-from .executor import Executor, fetch_var
+from .data_feeder import DataFeeder
+from .executor import Executor, FetchHandle, fetch_var
+from .memory_optimization_transpiler import memory_optimize, release_memory
 from .optimizer import (SGD, Adagrad, AdagradOptimizer, Adam, AdamOptimizer,
                         SGDOptimizer)
 from .param_attr import ParamAttr
+from .reader.prefetch import batch

@@ -2,9 +2,11 @@
 (reference: paddle/fluid/platform/enforce.h:105,241).
 
 The reference throws ``EnforceNotMet`` with a captured call stack; we raise
-:class:`EnforceError` (a RuntimeError) with the same role. The reader-EOF
-signal and the enforce_eq/enforce_not_none helpers of the JAX package are
-not ported yet: nothing on the serving path uses them.
+:class:`EnforceError` (a RuntimeError) with the same role.
+:class:`EOFException` is the reader-EOF signal (enforce.h:66) that ends a
+data-driven loop (``Executor.run(feed=loader)`` past a loader's pass).
+The enforce_eq/enforce_not_none helpers of the JAX package are not
+ported: nothing in the port uses them.
 """
 
 from __future__ import annotations
@@ -12,6 +14,11 @@ from __future__ import annotations
 
 class EnforceError(RuntimeError):
     """Raised when an enforce() check fails (reference: EnforceNotMet)."""
+
+
+class EOFException(Exception):
+    """Raised when a data stream is exhausted (reference: EOFException,
+    enforce.h:66)."""
 
 
 def enforce(cond, msg="Enforce failed", *args):

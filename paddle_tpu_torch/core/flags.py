@@ -15,6 +15,10 @@ decode op always runs the hand-written paged-attention kernel
 flat group update op always runs the hand-written fused-update kernel
 (ops/fused_optimizer.py). That is what the JAX package does with those
 flags on.
+
+The executor reads ``donate_state_buffers`` and ``scan_unroll`` at each
+run, ``reader.DataLoader`` reads ``dataloader_buffer_size`` when it is
+made.
 """
 
 from __future__ import annotations
@@ -61,3 +65,20 @@ define_flag("fuse_optimizer_state", False,
             "per (dtype, grad dtype, lr scale) group, updated by one op "
             "per group; per-name access goes through scope views (set "
             "before optimizer.minimize)")
+define_flag("donate_state_buffers", True,
+            "ops update persistable state (parameters, moments, beta "
+            "powers) in place, and Executor.run_steps' captured graph "
+            "reads and writes the scope's own tensors. "
+            "fluid.memory_optimize(program) forces it on per program; "
+            "set False to keep a state tensor obtained before a run "
+            "unchanged after it (the run works on copies)")
+define_flag("scan_unroll", False,
+            "Executor.run_steps(unroll=None) captures its N steps as one "
+            "straight-line CUDA graph, replayed once, instead of one "
+            "step replayed N times")
+define_flag("dataloader_buffer_size", 2,
+            "default number of batches a reader.DataLoader keeps in "
+            "flight (reader thread, DataFeeder conversion and the copy to "
+            "the card run this far ahead of the consuming step); raise it "
+            "when the loader's stall fraction shows the card waiting on "
+            "input")

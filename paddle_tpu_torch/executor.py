@@ -31,24 +31,59 @@ the forward reads it — at the unpack op's output — so its gradient is
 the one the forward pass produced. After a run the scope adopts the
 program's views (``Scope.adopt_flat_views``).
 
-Not ported yet: the compile cache, ``run_steps``, sharding, AMP stamps,
-passes, loaders and host offload.
+``run_steps`` (counterpart of the JAX package's ``run_steps`` and its
+``_CompiledScan``): N steps of one program in one call, exactly N
+``run`` calls' worth of state updates, with fetches stacked on a leading
+``steps`` axis. On the CPU it is a loop of ``run``. On a card the
+JAX package's one scanned XLA dispatch becomes a captured CUDA graph
+(:class:`_CapturedSteps`): one step replayed N times, or, with
+``unroll``, N steps captured as one graph and replayed once. The graph
+reads and writes fixed addresses: the scope's state tensors (or, with
+donation off, private copies), a stacked feed buffer, and a stacked
+fetch buffer, with a step counter on the card selecting each step's
+feed row and fetch row. ``run(feed=loader)`` drives a
+``reader.DataLoader``, ``chunk`` batches a ``run_steps`` call.
+
+Donation (``_resolve_donation``: ``memory_optimize`` or the
+``donate_state_buffers`` flag): on, ops update state in place and the
+graph works on the scope's own tensors; off, every run works on copies
+of the state it writes, so a tensor obtained from the scope before a
+run keeps its values.
+
+Not ported yet: the compile cache, sharding, AMP stamps, passes other
+than ``memory_optimize``, program readers and host offload.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .core import dtype_utils
-from .core.enforce import EnforceError, enforce
+from .core import dtype_utils, flags
+from .core.enforce import EnforceError, EOFException, enforce
 from .core.place import Place, default_place
 from .core.program import Deferred, Program, Variable, default_main_program
 from .core.scope import Scope, global_scope
+from .ops import _cuda
+from .profiler import RecordEvent
 
 _UNPACK = "unpack_flat_params"
+
+# set while this thread captures a CUDA graph: an op that fails then is
+# named in the error (a host sync or another call capture refuses)
+_CAPTURE = threading.local()
+
+
+def _capture_error(what: str, e: Exception) -> Exception:
+    if getattr(_CAPTURE, "active", False):
+        return EnforceError("%s failed while run_steps captured a CUDA "
+                            "graph (a host sync, or a call capture "
+                            "refuses, breaks capture): %s: %s"
+                            % (what, type(e).__name__, e))
+    return e
 
 
 def _as_names(fetch_list) -> List[str]:
@@ -79,7 +114,14 @@ def run_program_ops(ops, env: Dict[str, torch.Tensor],
                 f"Op {op.type!r} needs variable {e.args[0]!r} which is "
                 "neither fed, in scope, nor produced by a prior op") from e
         kwargs = {a: op.attrs[a] for a in op.attrs.get("_fn_attrs", ())}
-        out = op.fn(*args, **kwargs)
+        try:
+            out = op.fn(*args, **kwargs)
+        except Exception as e:
+            err = _capture_error("op %r (outputs %s)"
+                                 % (op.type, op.output_arg_names), e)
+            if err is e:
+                raise
+            raise err from e
         if post_op is not None:
             out = post_op(op, out)
         out_names = op.output_arg_names
@@ -170,8 +212,14 @@ def run_training_ops(ops, env: Dict[str, torch.Tensor]
             "loss must be a scalar for append_backward; got shape %s"
             % (tuple(loss.shape),))
     inputs = [leaves[n] for n in dense] + list(probes.values())
-    grads = (torch.autograd.grad(loss.reshape(()), inputs,
-                                 allow_unused=True) if inputs else ())
+    try:
+        grads = (torch.autograd.grad(loss.reshape(()), inputs,
+                                     allow_unused=True) if inputs else ())
+    except Exception as e:
+        err = _capture_error("the backward op", e)
+        if err is e:
+            raise
+        raise err from e
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(inputs, grads)]
     out_names = bw.output("Grads")
@@ -268,6 +316,340 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.to("cpu", copy=True).numpy()
 
 
+
+
+def classify_scan_feeds(gb, feed, feed_list, steps):
+    """Normalize ``run_steps``' feeds: ``(feed, steps, stacked_names)``.
+
+    ``feed_list`` — a list of per-step dicts — stacks per name (numpy
+    arrays on the host, tensors where they lie). ``feed`` + ``steps``
+    classifies PER NAME: an array whose rank is one above the variable's
+    declared shape carries a leading ``steps`` axis and is sliced per
+    step; rank-matching arrays are step-invariant. Undeclared or
+    shapeless variables default to step-invariant — pass per-step values
+    for those through ``feed_list``."""
+    if feed_list is not None:
+        enforce(len(feed_list) > 0, "feed_list must be non-empty")
+        enforce(steps is None or steps == len(feed_list),
+                "steps disagrees with len(feed_list)")
+        steps = len(feed_list)
+        names = sorted(feed_list[0])
+        for f in feed_list:
+            enforce(sorted(f) == names,
+                    "every feed dict must bind the same variables")
+        feed = {}
+        for n in names:
+            vals = [f[n] for f in feed_list]
+            tensors = [v for v in vals if isinstance(v, torch.Tensor)]
+            if tensors:
+                feed[n] = torch.stack([
+                    v if isinstance(v, torch.Tensor) else torch.as_tensor(
+                        np.asarray(v), device=tensors[0].device)
+                    for v in vals])
+            else:
+                feed[n] = np.stack([np.asarray(v) for v in vals])
+        return feed, steps, tuple(names)
+
+    feed = dict(feed or {})
+    enforce(steps is not None and steps >= 1,
+            "steps is required when feed_list is not given")
+    stacked = []
+    for n, v in feed.items():
+        var = gb._find_var_recursive(n)
+        shape = tuple(v.shape) if isinstance(v, torch.Tensor) \
+            else np.shape(v)
+        if var is not None and var.shape is not None and \
+                len(shape) == len(var.shape) + 1:
+            enforce(shape[0] == steps,
+                    f"feed {n!r} looks stacked (rank {len(shape)} = "
+                    f"declared rank {len(var.shape)} + 1) but its "
+                    f"leading axis {shape[0]} != steps {steps}")
+            stacked.append(n)
+    return feed, steps, tuple(sorted(stacked))
+
+
+def _resolve_donation(program: Program) -> bool:
+    """In-place state updates: on unless the program or the
+    ``donate_state_buffers`` flag turns them off; ``memory_optimize``
+    forces them on for its program. The one home of the rule."""
+    explicit = getattr(program, "_memory_optimize", None)
+    if explicit is not None:
+        return bool(explicit)
+    return bool(flags.get_flag("donate_state_buffers"))
+
+
+def _same_memory(a, b) -> bool:
+    """Whether two tensors are the same elements of the same memory."""
+    return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+            and a.data_ptr() == b.data_ptr() and a.shape == b.shape
+            and a.stride() == b.stride() and a.dtype == b.dtype
+            and a.device == b.device)
+
+
+class FetchHandle:
+    """A fetch of ``Executor.run(..., return_numpy="async")``: the
+    tensor, without waiting for the card. A loop that holds handles
+    queues step N+1 while step N runs, and waits only where it reads a
+    value: ``numpy()``, ``np.asarray(handle)`` or ``float(handle)``
+    (a ``fetch_sync`` span), which caches the host copy."""
+
+    def __init__(self, name: str, value, event=None):
+        self.name = name
+        self._value = value
+        self._event = event  # recorded after the run on a card
+        self._np: Optional[np.ndarray] = None
+
+    @property
+    def value(self):
+        """The fetched tensor; no wait."""
+        return self._value
+
+    def is_ready(self) -> bool:
+        """Whether the card finished the work behind this fetch; never
+        blocks."""
+        return self._np is not None or self._event is None \
+            or self._event.query()
+
+    def block_until_ready(self) -> "FetchHandle":
+        """Wait for the card (no host copy); returns self."""
+        if self._event is not None:
+            with RecordEvent("fetch_sync"):
+                self._event.synchronize()
+        return self
+
+    def numpy(self) -> np.ndarray:
+        """The host copy (bfloat16 widened to float32), made once."""
+        if self._np is None:
+            with RecordEvent("fetch_sync"):
+                self._np = _to_numpy(self._value)
+        return self._np
+
+    def __array__(self, dtype=None, copy=None):
+        arr = self.numpy()
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def __float__(self):
+        return float(self.numpy())
+
+    def __repr__(self):
+        state = "ready" if self.is_ready() else "pending"
+        return f"FetchHandle({self.name!r}, {state})"
+
+
+class _CapturedSteps:
+    """``steps`` steps of one program over one scope on a card, as a
+    captured CUDA graph (the counterpart of the JAX package's
+    ``_CompiledScan``, whose one XLA program scans the steps in one
+    dispatch).
+
+    The graph reads and writes fixed addresses:
+      * ``state``: a buffer per persistable the step reads or writes —
+        the scope's own tensor with donation on (the graph updates it in
+        place), a private copy with donation off. An op that writes its
+        result elsewhere (the beta powers, the fused update's advanced
+        scalars) has it copied into the buffer inside the graph.
+      * ``feeds``: the call's feeds, stacked ones with their leading
+        ``steps`` axis; each step reads its row at ``idx``, a step
+        counter on the card that the graph advances.
+      * ``out``: each fetch stacked on a leading ``steps`` axis, the
+        step's row written at ``idx``.
+    Each call copies its feeds in, and the scope's state where the scope
+    holds another tensor than the buffer (after a ``run`` that wrote it
+    out of place, ``scope.set_var`` or ``params_from_numpy``), so a
+    replay never reads stale memory; with donation off it always copies
+    the state in and hands the scope copies after the call.
+
+    ``unroll=False`` captures one step and replays it ``steps`` times;
+    ``unroll=True`` captures ``steps`` straight-line steps as one graph
+    and replays it once. Capture runs nothing and wants an eager step
+    before it (lazy initialisations: cuBLAS workspaces, the autograd
+    engine's threads), so the first call runs one step eagerly on the
+    capture stream: with ``unroll=False`` it is the call's first step,
+    and ``steps - 1`` replays follow; with ``unroll=True`` it runs on
+    copies of the written state, which it leaves as they were. Either
+    way the state advances by exactly ``steps`` steps a call.
+
+    The kernel wrappers' launch counts rise during capture, when nothing
+    runs: they are put back, and each replay adds what one replay
+    launches (``_cuda.add_launches``).
+    """
+
+    def __init__(self, program: Program, scope: Scope,
+                 fetch_names: Tuple[str, ...], state_names: Tuple[str, ...],
+                 feed_vals: Dict, stacked_names: Tuple[str, ...],
+                 steps: int, unroll: bool, donate: bool,
+                 device: torch.device):
+        self.program, self.scope = program, scope
+        self.ops = program.global_block().ops
+        self.training = any(op.type == "backward" for op in self.ops)
+        self.fetch_names = fetch_names
+        self.steps, self.unroll, self.donate = steps, unroll, donate
+        self.device = device
+        self.views = getattr(program, "_flat_state_views", None) or {}
+        written = _written_persistables(program)
+        # a startup program's per-name writes of a flat buffer's
+        # parameters land in the packed buffer (as in Executor.run)
+        written = tuple(n for n in written if not (
+            n in self.views and self.views[n][0] in written))
+        self.rw = tuple(n for n in state_names if n in written)
+        self.ro = tuple(n for n in state_names if n not in written)
+        self.wo = tuple(n for n in written if n not in state_names)
+        self.stacked = frozenset(stacked_names)
+        self.feeds = {n: torch.empty_like(v) for n, v in feed_vals.items()}
+        self.state: Dict[str, torch.Tensor] = {}
+        self.out: Optional[Dict[str, torch.Tensor]] = None
+        self.idx = torch.zeros(1, dtype=torch.int64, device=device)
+        self.graph = None
+        self.per_replay: Dict[tuple, int] = {}
+        self.capture_s: Optional[float] = None
+
+    def _step(self, bufs: Dict[str, torch.Tensor], out) -> List:
+        """One step over ``bufs`` (name -> state tensor): the feeds (a
+        stacked feed's row at ``idx``), the program's ops, each written
+        state copied into its buffer where an op wrote it elsewhere (a
+        write-only state's first value becomes its entry), the fetches
+        written to row ``idx`` of ``out`` (when given); then ``idx``
+        advances. Returns the fetch values."""
+        env = dict(bufs)
+        for n, buf in self.feeds.items():
+            env[n] = buf.index_select(0, self.idx)[0] \
+                if n in self.stacked else buf
+        if self.training:
+            run_training_ops(self.ops, env)
+        else:
+            with torch.no_grad():
+                run_program_ops(self.ops, env)
+        with torch.no_grad():
+            for n in self.rw + self.wo:
+                v = _value(env, n).detach()
+                b = bufs.get(n)
+                if b is None:
+                    bufs[n] = v
+                elif not _same_memory(v, b):
+                    b.copy_(v)
+            fetches = [_value(env, n).detach() for n in self.fetch_names]
+            if out is not None:
+                for n, v in zip(self.fetch_names, fetches):
+                    out[n].index_copy_(0, self.idx, v.unsqueeze(0))
+            self.idx.add_(1)
+        return fetches
+
+    def _state_in(self, scope: Scope) -> None:
+        for n in self.rw + self.ro:
+            cur = scope.find_var(n)
+            buf = self.state.get(n)
+            if buf is None:
+                enforce(isinstance(cur, torch.Tensor),
+                        "run_steps: state %r is not a tensor" % n)
+                buf = cur.detach()
+                if buf.device != self.device:
+                    buf = buf.to(self.device)
+                elif n in self.rw and not self.donate:
+                    buf = buf.clone()
+                self.state[n] = buf
+            elif not (self.donate and _same_memory(cur, buf)):
+                enforce(isinstance(cur, torch.Tensor)
+                        and tuple(cur.shape) == tuple(buf.shape)
+                        and cur.dtype == buf.dtype,
+                        "run_steps: state %r is %s in the scope; its "
+                        "captured graph holds %s %s" % (
+                            n, (tuple(cur.shape), cur.dtype)
+                            if isinstance(cur, torch.Tensor) else cur,
+                            tuple(buf.shape), buf.dtype))
+                buf.copy_(cur)
+
+    def _state_out(self, scope: Scope) -> None:
+        for n in self.rw + self.wo:
+            buf = self.state[n]
+            val = buf if self.donate else buf.clone()
+            if not _same_memory(scope.find_var(n), val):
+                scope.set_var(n, val)
+        if self.views:
+            scope.adopt_flat_views(self.views)
+
+    def _capture(self) -> int:
+        """The first call's eager step and capture; returns the replays
+        the call still owes."""
+        import time
+
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            bufs = dict(self.state)
+            if self.unroll:
+                bufs.update({n: bufs[n].clone() for n in self.rw})
+            fetches = self._step(bufs, None)
+        main.wait_stream(side)
+        # allocated on the side stream, read on the main one below
+        for t in fetches + [bufs[n] for n in self.wo]:
+            t.record_stream(main)
+        self.out = {n: torch.empty((self.steps,) + tuple(v.shape),
+                                   dtype=v.dtype, device=self.device)
+                    for n, v in zip(self.fetch_names, fetches)}
+        for n in self.wo:
+            self.state[n] = bufs[n].clone()
+        if self.unroll:
+            self.idx.zero_()
+        else:
+            for n, v in zip(self.fetch_names, fetches):
+                self.out[n][0].copy_(v)
+        del bufs, fetches
+
+        before = _cuda.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(main)
+        _CAPTURE.active = True
+        try:
+            with torch.cuda.stream(side):
+                # thread_local: the loader's worker may pin and copy
+                # the next batches while this thread captures
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    for _ in range(self.steps if self.unroll else 1):
+                        self._step(self.state, self.out)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture was already invalidated
+                    raise
+                graph.capture_end()
+        except Exception as e:
+            raise EnforceError(
+                "run_steps: the CUDA graph capture failed%s: %s" % (
+                    "" if self.unroll else " (the eager first step had "
+                    "already updated the state)", e)) from e
+        finally:
+            _CAPTURE.active = False
+            delta = {k: v - before.get(k, 0)
+                     for k, v in _cuda.launch_counts().items()}
+            _cuda.add_launches(delta, -1)
+        main.wait_stream(side)
+        self.per_replay = delta
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        return 1 if self.unroll else self.steps - 1
+
+    def __call__(self, feed_vals: Dict) -> List:
+        """Copy the feeds and the scope's state in, run the steps
+        (capturing on the first call), write the state back; the stacked
+        fetches (new tensors, queued on the current stream)."""
+        self.idx.zero_()
+        for n, v in feed_vals.items():
+            self.feeds[n].copy_(v)
+        self._state_in(self.scope)
+        replays = self._capture() if self.graph is None else (
+            1 if self.unroll else self.steps)
+        for _ in range(replays):
+            self.graph.replay()
+        _cuda.add_launches(self.per_replay, replays)
+        fetches = [self.out[n].clone() for n in self.fetch_names]
+        self._state_out(self.scope)
+        return fetches
+
+
 class Executor:
     """Runs programs on ``place`` (default ``CUDAPlace(0)``, which raises
     on a host without a card)."""
@@ -275,6 +657,9 @@ class Executor:
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else default_place()
         self.device = self.place.torch_device()
+        # run_steps' captured graphs, by program, version, donation,
+        # feed/fetch/state names, feed shapes, steps and unroll
+        self._cache: Dict[tuple, _CapturedSteps] = {}
 
     def _resolve_state_names(self, program: Program, feed: Dict,
                              fetch_names: Tuple[str, ...],
@@ -309,16 +694,43 @@ class Executor:
                  if var is not None and var.dtype is not None else t.dtype)
         return t.to(device=self.device, dtype=dtype)
 
+    def _fetch_result(self, fetch_names, fetches, return_numpy):
+        """Fetches as the caller asked: host arrays after the card
+        finished (True), tensors (False), or :class:`FetchHandle`s
+        ("async")."""
+        if return_numpy == "async":
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+            return [FetchHandle(n, f, event)
+                    for n, f in zip(fetch_names, fetches)]
+        if not return_numpy:
+            return fetches
+        with RecordEvent("fetch_sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return [_to_numpy(f) for f in fetches]
+
     def run(self,
             program: Optional[Program] = None,
-            feed: Optional[Dict[str, np.ndarray]] = None,
+            feed=None,
             fetch_list: Optional[Sequence] = None,
             scope: Optional[Scope] = None,
-            return_numpy: bool = True):
+            return_numpy=True):
         """One run: ``feed`` maps names to arrays, ``fetch_list`` names
-        (or Variables) to return. With ``return_numpy`` the fetches come
-        back as host numpy arrays (bfloat16 widened to float32) after the
-        device finished; otherwise as device tensors."""
+        (or Variables) to return. ``feed`` may also be a
+        :class:`paddle_tpu_torch.reader.DataLoader`: then one batch of it
+        is consumed per call (``chunk`` batches as one :meth:`run_steps`
+        call when the loader was made with ``chunk > 1``), and the end of
+        its pass raises :class:`EOFException`. With ``return_numpy`` the
+        fetches come back as host numpy arrays (bfloat16 widened to
+        float32) after the device finished; ``False`` gives the
+        tensors, ``"async"`` :class:`FetchHandle`s that wait only when
+        read."""
+        if getattr(feed, "_pdtpu_dataloader", False):
+            return self._run_from_loader(program, feed, fetch_list, scope,
+                                         return_numpy)
         program = program or default_main_program()
         feed = dict(feed or {})
         scope = scope if scope is not None else global_scope()
@@ -327,40 +739,178 @@ class Executor:
 
         state_names = self._resolve_state_names(program, feed, fetch_names,
                                                 scope)
-        env = {n: scope.get(n) for n in state_names}
+        written = _written_persistables(program)
+        copy = not _resolve_donation(program)
+        env = {}
+        for n in state_names:
+            v = scope.get(n)
+            # without donation the run works on copies of what it writes
+            env[n] = v.clone() if copy and n in written \
+                and isinstance(v, torch.Tensor) else v
         for name, val in feed.items():
             env[name] = self._feed_tensor(gb._find_var_recursive(name), val)
-        if any(op.type == "backward" for op in gb.ops):
-            run_training_ops(gb.ops, env)
-        else:
-            with torch.no_grad():
-                run_program_ops(gb.ops, env)
+        with RecordEvent("dispatch"):
+            if any(op.type == "backward" for op in gb.ops):
+                run_training_ops(gb.ops, env)
+            else:
+                with torch.no_grad():
+                    run_program_ops(gb.ops, env)
 
-        views = getattr(program, "_flat_state_views", None) or {}
-        with torch.no_grad():
-            written = _written_persistables(program)
-            for n in written:
-                if n in views and views[n][0] in written:
-                    # a startup run: the pack op wrote the whole flat
-                    # buffer, so the per-name init values are in it
-                    continue
-                v = _value(env, n)
-                if isinstance(v, torch.Tensor):
-                    if v.requires_grad:
-                        v = v.detach()
-                    v = v.to(self.device)  # the same object when there
-                if scope.find_var(n) is not v:
-                    scope.set_var(n, v)
-            if views:
-                scope.adopt_flat_views(views)
-            fetches = []
-            for n in fetch_names:
-                enforce(n in env, "fetch target %r was not computed" % n)
-                v = _value(env, n)
-                fetches.append(v.detach() if isinstance(v, torch.Tensor)
-                               else v)
-        if not return_numpy:
-            return fetches
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return [_to_numpy(f) for f in fetches]
+            views = getattr(program, "_flat_state_views", None) or {}
+            with torch.no_grad():
+                for n in written:
+                    if n in views and views[n][0] in written:
+                        # a startup run: the pack op wrote the whole flat
+                        # buffer, so the per-name init values are in it
+                        continue
+                    v = _value(env, n)
+                    if isinstance(v, torch.Tensor):
+                        if v.requires_grad:
+                            v = v.detach()
+                        v = v.to(self.device)  # the same object when there
+                    if scope.find_var(n) is not v:
+                        scope.set_var(n, v)
+                if views:
+                    scope.adopt_flat_views(views)
+                fetches = []
+                for n in fetch_names:
+                    enforce(n in env, "fetch target %r was not computed" % n)
+                    v = _value(env, n)
+                    fetches.append(v.detach() if isinstance(v, torch.Tensor)
+                                   else v)
+        return self._fetch_result(fetch_names, fetches, return_numpy)
+
+    def _run_from_loader(self, program, loader, fetch_list, scope,
+                         return_numpy):
+        """Consume batches from a reader.DataLoader: one batch a
+        :meth:`run` when ``chunk == 1``; ``chunk`` batches as one
+        :meth:`run_steps` call, fetches stacked on a leading chunk axis.
+        A ragged tail (fewer than ``chunk`` batches left) runs step by
+        step, stacked the same way: a graph per tail length would
+        capture the whole step again. The end of the loader's pass
+        raises EOFException."""
+        chunk = max(1, int(loader.chunk))
+        batches: List[Dict] = []
+        try:
+            while len(batches) < chunk:
+                batches.append(next(loader))
+        except StopIteration:
+            if batches:
+                # collecting this tail swallowed the pass's end: the
+                # loader re-delivers it on the next pull
+                loader._defer_eof()
+        if not batches:
+            raise EOFException(f"data loader {loader.name!r} exhausted")
+        if chunk == 1:
+            return self.run(program, feed=batches[0],
+                            fetch_list=fetch_list, scope=scope,
+                            return_numpy=return_numpy)
+        if len(batches) == chunk:
+            return self.run_steps(program, feed_list=batches,
+                                  fetch_list=fetch_list, scope=scope,
+                                  return_numpy=return_numpy)
+        outs = [self.run(program, feed=b, fetch_list=fetch_list,
+                         scope=scope, return_numpy=False) for b in batches]
+        stacked = [torch.stack([o[i] for o in outs])
+                   for i in range(len(outs[0]))]
+        return self._fetch_result(_as_names(fetch_list), stacked,
+                                  return_numpy)
+
+    def run_steps(self,
+                  program: Optional[Program] = None,
+                  feed: Optional[Dict] = None,
+                  feed_list: Optional[Sequence[Dict]] = None,
+                  steps: Optional[int] = None,
+                  fetch_list: Optional[Sequence] = None,
+                  scope: Optional[Scope] = None,
+                  return_numpy=True,
+                  unroll: Optional[bool] = None):
+        """Run ``steps`` steps of ``program`` in one call: exactly
+        ``steps`` calls of :meth:`run` (state written by step i is read
+        by step i+1), with each fetch target stacked on a leading
+        ``steps`` axis.
+
+        Feeds, one of:
+          * ``feed_list`` — a list of per-step feed dicts (stacked on a
+            leading axis; all steps share shapes and dtypes);
+          * ``feed`` + ``steps`` — classified per name: an array whose
+            rank is one above the variable's declared shape carries a
+            leading ``steps`` axis and is sliced per step; rank-matching
+            arrays are step-invariant. The two kinds may be mixed.
+
+        On the CPU the steps are :meth:`run` calls. On a card they are a
+        captured CUDA graph (:class:`_CapturedSteps`), one per cache key
+        (:attr:`num_compiled` counts them): one step replayed ``steps``
+        times, or with ``unroll`` (default: the ``scan_unroll`` flag)
+        ``steps`` straight-line steps replayed once. An op the capture
+        cannot take raises EnforceError naming it; nothing falls back to
+        eager steps. Programs with readers must be driven through
+        :meth:`run`."""
+        program = program or default_main_program()
+        scope = scope if scope is not None else global_scope()
+        fetch_names = tuple(_as_names(fetch_list))
+        enforce(not getattr(program, "_readers", ()),
+                "run_steps does not drive program readers; feed explicitly "
+                "or use Executor.run per step")
+        gb = program.global_block()
+        feed, steps, stacked_names = classify_scan_feeds(
+            gb, feed, feed_list, steps)
+        if unroll is None:
+            unroll = bool(flags.get_flag("scan_unroll"))
+
+        if self.device.type != "cuda":
+            outs = [self.run(program, feed={
+                n: v[i] if n in stacked_names else v
+                for n, v in feed.items()}, fetch_list=fetch_names,
+                scope=scope, return_numpy=False) for i in range(steps)]
+            stacked = [torch.stack([o[k] for o in outs])
+                       for k in range(len(fetch_names))]
+            return self._fetch_result(fetch_names, stacked, return_numpy)
+
+        state_names = self._resolve_state_names(program, feed, fetch_names,
+                                                scope)
+        feed_vals = {n: self._feed_tensor(gb._find_var_recursive(n), v)
+                     for n, v in sorted(feed.items())}
+        donate = _resolve_donation(program)
+        # one graph per scope too: with donation on a graph's buffers are
+        # its scope's tensors, which another scope must not share
+        key = (id(program), program._version, id(scope), donate,
+               tuple(feed_vals), fetch_names, state_names,
+               tuple((n, tuple(v.shape), str(v.dtype))
+                     for n, v in feed_vals.items()),
+               steps, stacked_names, bool(unroll))
+        captured = self._cache.get(key)
+        if captured is None:
+            # a long-lived executor over a mutating program keeps only
+            # the current version's graphs (the entry holds the program
+            # and the scope, so their ids are not reused while it lives)
+            for k in [k for k in self._cache if k[0] == id(program)
+                      and k[1] != program._version]:
+                del self._cache[k]
+            captured = _CapturedSteps(program, scope, fetch_names,
+                                      state_names, feed_vals, stacked_names,
+                                      steps, bool(unroll), donate,
+                                      self.device)
+        with RecordEvent("dispatch"):
+            fetches = captured(feed_vals)
+        self._cache[key] = captured
+        return self._fetch_result(fetch_names, fetches, return_numpy)
+
+    @property
+    def num_compiled(self) -> int:
+        """Captured CUDA graphs held (one per run_steps cache key: the
+        program and its version, the scope, donation, the feed, fetch and
+        state names, the feed shapes, steps and unroll); 0 on the CPU,
+        where nothing is captured."""
+        return sum(c.graph is not None for c in self._cache.values())
+
+    @property
+    def capture_seconds(self) -> List[float]:
+        """Host seconds each held graph's first call spent on its eager
+        step and its capture."""
+        return [c.capture_s for c in self._cache.values()
+                if c.capture_s is not None]
+
+    def close(self) -> None:
+        """Drop the captured graphs and their memory."""
+        self._cache.clear()

@@ -257,8 +257,10 @@ class _HardLabelCE(torch.autograd.Function):
         p_at = torch.gather(g, -1, at)
         # p - tgt with tgt = (1-eps)*onehot + eps/V, element by element
         # as the JAX package rounds it, without forming the one-hot
-        tgt_at = torch.tensor(1.0 - eps, dtype=torch.float32,
-                              device=g.device)
+        # (made on the device: a host scalar copied over would sync the
+        # host, which a captured CUDA graph cannot hold)
+        tgt_at = torch.full((), 1.0 - eps, dtype=torch.float32,
+                            device=g.device)
         if eps:
             tgt_at = tgt_at + eps / v
             g.sub_(eps / v)

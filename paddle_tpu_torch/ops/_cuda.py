@@ -7,6 +7,11 @@ named by a hash of the source, of every header in ``csrc/`` (``*.cuh``,
 which the sources include) and of the flags, so an edited source or
 header never loads a stale library, and loaded with ``ctypes``. Nothing
 is built on import.
+
+Every kernel wrapper counts its launches in integer attributes (named
+in its ``.counts``) and is registered here, so that a caller that
+replays captured launches (``Executor.run_steps``' CUDA graphs) can
+count what ran: :func:`launch_counts` and :func:`add_launches`.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 from ..core.enforce import EnforceError
 
@@ -125,3 +130,31 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+# every registered kernel wrapper
+LAUNCHERS: List = []
+
+
+def register_launcher(fn, counts=("launches",)):
+    """Register a kernel wrapper whose launch counts are the integer
+    attributes ``counts`` (set to 0 here) and named in ``fn.counts``."""
+    fn.counts = tuple(counts)
+    for name in fn.counts:
+        setattr(fn, name, 0)
+    LAUNCHERS.append(fn)
+    return fn
+
+
+def launch_counts() -> Dict[tuple, int]:
+    """{(wrapper, count name): value} of every registered wrapper."""
+    return {(fn, name): getattr(fn, name)
+            for fn in LAUNCHERS for name in fn.counts}
+
+
+def add_launches(delta: Dict[tuple, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a difference of two
+    :func:`launch_counts`) to the wrappers' counts."""
+    for (fn, name), d in delta.items():
+        if d:
+            setattr(fn, name, getattr(fn, name) + d * times)

@@ -424,9 +424,8 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, causal=False, scale=None,
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+for _launcher in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+    _cuda.register_launcher(_launcher)
 
 
 def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,

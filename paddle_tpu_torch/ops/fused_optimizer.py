@@ -182,4 +182,4 @@ def fused_flat_update(kind: str, p, g, lr, accs: Sequence = (),
     return (p,) + accs + adv
 
 
-fused_flat_update.launches = 0
+_cuda.register_launcher(fused_flat_update)

@@ -425,6 +425,4 @@ def paged_window_attention(q, k_pool, v_pool, tables, cached_lens, *,
 # tensor cores) and .generic_launches those of each route
 LAUNCH_COUNTS = ("launches", "int8_launches", "split_launches",
                  "tile_launches", "mma_launches", "generic_launches")
-paged_window_attention.counts = LAUNCH_COUNTS
-for _name in LAUNCH_COUNTS:
-    setattr(paged_window_attention, _name, 0)
+_cuda.register_launcher(paged_window_attention, LAUNCH_COUNTS)

@@ -358,15 +358,24 @@ class Optimizer:
 
     # -- sparse-gradient helpers ----------------------------------------------
     @staticmethod
-    def _merge_rows(rows, vals):
-        """(sorted unique rows, their summed values): duplicate rows of a
-        sparse gradient added together, as the JAX package's
-        ``_merge_rows`` (the reference's MergeAdd)."""
-        u, inv = torch.unique(rows.to(torch.int64), sorted=True,
-                              return_inverse=True)
-        summed = torch.zeros((u.shape[0],) + tuple(vals.shape[1:]),
+    def _merge_rows(rows, vals, vocab):
+        """Duplicate rows of a sparse gradient added together (the
+        reference's MergeAdd), in the JAX package's static shapes:
+        ``(u, summed)`` of n = len(rows) entries, the sorted unique rows
+        first, then fill rows ``vocab`` (out of range) with zero sums.
+        Nothing depends on the data's size, so there is no host sync and
+        a CUDA graph captures it; :func:`_set_rows` drops the fill rows'
+        writes."""
+        r = rows.reshape(-1).to(torch.int64)
+        s, order = torch.sort(r, stable=True)
+        first = torch.ones_like(s, dtype=torch.bool)
+        first[1:] = s[1:] != s[:-1]
+        group = torch.cumsum(first, 0) - 1  # each sorted id's unique row
+        u = torch.full_like(s, vocab).scatter_(0, group, s)
+        inv = torch.empty_like(group).scatter_(0, order, group)
+        summed = torch.zeros((r.shape[0],) + tuple(vals.shape[1:]),
                              dtype=vals.dtype, device=vals.device)
-        return u, summed.index_add_(0, inv.reshape(-1), vals)
+        return u, summed.index_add_(0, inv, vals)
 
     def _densify_grad(self, block, param, grad):
         """For an optimizer without a row-sparse update: scatter the
@@ -491,6 +500,20 @@ class Optimizer:
                                outputs=outputs, fn=pinned)
 
 
+def _set_rows(table, rows, vals, vocab):
+    """``table[rows] = vals`` in place, with the writes of fill rows
+    (``rows == vocab``, from :meth:`Optimizer._merge_rows`) dropped, as
+    the JAX package's ``.at[rows].set(vals, mode="drop")``: a fill row
+    writes row ``rows[0]``'s new value to row ``rows[0]`` again (the
+    fill rows sort last, so ``rows[0]`` is a real row whenever there is
+    one), which changes nothing and needs no host sync."""
+    real = rows < vocab
+    idx = torch.where(real, rows, rows[:1])
+    vals = torch.where(real.view((-1,) + (1,) * (vals.dim() - 1)), vals,
+                       vals[:1])
+    return table.index_copy_(0, idx, vals)
+
+
 class SGD(Optimizer):
     """param - lr * grad."""
 
@@ -534,11 +557,13 @@ class Adagrad(Optimizer):
         eps, scale = self._epsilon, self._param_lr_scale(p)
 
         def fn(pv, gv, lr, rv, mv):
-            u, gm = self._merge_rows(rv, gv.to(pv.dtype))
-            m_rows = mv[u].to(gm.dtype) + gm * gm
-            p_rows = pv[u] - (lr * scale) * gm / (torch.sqrt(m_rows) + eps)
-            return (pv.index_copy_(0, u, p_rows),
-                    mv.index_copy_(0, u, m_rows.to(mv.dtype)))
+            vocab = pv.shape[0]
+            u, gm = self._merge_rows(rv, gv.to(pv.dtype), vocab)
+            uc = u.clamp(max=vocab - 1)  # safe reads; fill writes dropped
+            m_rows = mv[uc].to(gm.dtype) + gm * gm
+            p_rows = pv[uc] - (lr * scale) * gm / (torch.sqrt(m_rows) + eps)
+            return (_set_rows(pv, u, p_rows, vocab),
+                    _set_rows(mv, u, m_rows.to(mv.dtype), vocab))
 
         return self._append_update(block, "adagrad_sparse", p, g,
                                    [("Rows", g.rows_var), ("Moment", m)],
@@ -576,14 +601,16 @@ class Adam(Optimizer):
         owns = p.name == self._beta_pow_owner
 
         def fn(pv, gv, lr, rv, m1v, m2v, b1pv, b2pv):
-            u, gm = self._merge_rows(rv, gv.to(pv.dtype))
-            m1r = b1 * m1v[u].to(gm.dtype) + (1 - b1) * gm
-            m2r = b2 * m2v[u].to(gm.dtype) + (1 - b2) * gm * gm
+            vocab = pv.shape[0]
+            u, gm = self._merge_rows(rv, gv.to(pv.dtype), vocab)
+            uc = u.clamp(max=vocab - 1)  # safe reads; fill writes dropped
+            m1r = b1 * m1v[uc].to(gm.dtype) + (1 - b1) * gm
+            m2r = b2 * m2v[uc].to(gm.dtype) + (1 - b2) * gm * gm
             lr_t = (lr * scale) * torch.sqrt(1 - b2pv) / (1 - b1pv)
-            p_rows = pv[u] - lr_t * m1r / (torch.sqrt(m2r) + eps)
-            out = (pv.index_copy_(0, u, p_rows),
-                   m1v.index_copy_(0, u, m1r.to(m1v.dtype)),
-                   m2v.index_copy_(0, u, m2r.to(m2v.dtype)))
+            p_rows = pv[uc] - lr_t * m1r / (torch.sqrt(m2r) + eps)
+            out = (_set_rows(pv, u, p_rows, vocab),
+                   _set_rows(m1v, u, m1r.to(m1v.dtype), vocab),
+                   _set_rows(m2v, u, m2r.to(m2v.dtype), vocab))
             return (out + (b1pv * b1, b2pv * b2)) if owns else out
 
         outs = [("Moment1Out", m1), ("Moment2Out", m2)]

@@ -40,10 +40,12 @@ import chip_smoke as cs
 
 def _device_events(prof):
     """(name, device microseconds) of every kernel and copy the trace
-    recorded on the card."""
+    recorded on the card (not the host spans' ranges, which show on the
+    card's timeline too)."""
     return [(e.name, float(e.time_range.elapsed_us()))
             for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def _family(name: str) -> str:
