@@ -19,7 +19,8 @@ Phases, one JSON line each (or one per shape):
              pages, one inactive row), f32 and bf16 pools, also at
              the suffix windows T in {64, 512}; and int8 pools (the same
              K/V quantized per slot, f32 scales) with f32 and bf16
-             queries at T in {1, 4, 64, 512}. Each row checks the route
+             queries at T in {1, 4, 64, 512}; and the speculative verify
+             window T=9 (B=16, f32). Each row checks the route
              the planner gives (split at T <= 8, query tile past it,
              never generic) and runs the generic route's kernel (called
              directly) beside it. Max abs error over rows with a
@@ -36,10 +37,22 @@ Phases, one JSON line each (or one per shape):
              (vocab 32000, 6 layers, 8 heads, d_model 512, FFN 2048;
              random weights from a numpy seed) on ``CUDAPlace(0)``
              answering 16 concurrent requests (prompts of 16-200 tokens,
-             32 new tokens each). Checks every request completes, the
-             kernel launched at least 6 times per decode step, all on
-             the split route (none on the generic one), and two
-             streams equal greedy decoding by the full unpaged forward.
+             32 new tokens each; all queued, then the session started,
+             so every run batches them alike), every bucket a captured
+             CUDA graph (the warm-up captures them, timed alone), and
+             the same burst on the eager engine
+             (``DecodeEngine(_capture=False)``). Checks every request
+             completes, graphs = ``warm_bucket_count()`` after warm-up
+             and after the burst (0 eager), the kernel launched at least
+             6 times per decode step (replays counted), all on the split
+             route (none on the generic one), the captured streams equal
+             the eager ones, and two streams equal greedy decoding by
+             the full unpaged forward. Reports both runs' tokens/s,
+             decode-step ms, TTFT, warm-up s and memory, the memory the
+             warm-up reserves with one graph pool shared by the buckets
+             against a pool per graph, and one decode step of 16 rows of
+             each engine profiled (host wall, device busy, launches,
+             idle share).
 4. flash   — the three flash-attention kernels (``flash_fwd``,
              ``flash_bwd_dq``, ``flash_bwd_dkv``) against
              ``plain_flash_forward`` / ``plain_flash_backward`` on the
@@ -142,11 +155,33 @@ Phases, one JSON line each (or one per shape):
              without it (a difference only where the full forward's
              top-2 logit gap is below 1e-3). Reports tokens/s, TTFT,
              step, prefill and extend ms, the pools' bytes, and the int8
-             streams' token agreement with the f32 ones.
+             streams' token agreement with the f32 ones. All captured;
+             the int8 and f32 prefix-cached bursts run again on the
+             eager engine and must stream the same tokens.
+11. sampling — the serving burst with ``DecodingConfig(sampling=True)``:
+             even requests greedy, odd ones temperature 0.8 / top-k 40 /
+             top-p 0.95 with a seed each, one at top-k 1. Greedy and
+             top-k 1 requests equal the serving phase's streams; the
+             burst submitted in reverse order gives every stream again
+             (keys are positional in the stream). Reports tokens/s,
+             decode-step ms, and the sampling head's device ms at
+             [16, 32000] beside the greedy argmax's.
+12. speculative — the serving burst with a draft: a one-layer
+             causal LM of the same vocab and widths (own scope, own
+             seed) at ``speculate_k`` 3 (verify windows of 4 on the
+             split route) and 8 (windows of 9 on the query-tile route),
+             and a parameter-copied self-draft at 3. Checks graphs for
+             target and draft, the route launches (the draft's decode
+             steps and the verify windows, by counter), streams equal
+             the serving phase's greedy streams except at a near tie
+             (top-2 gap < 1e-3), and the self-draft's acceptance rate
+             1.0. Reports acceptance, tokens per verified row, tokens/s and
+             verify-step ms.
 
 Then the card's name and power limit, the kernels JSON line (wall and
 device ms of each kernel and its library call), and as the
-last line ``{"ok": true, "device": {...}}``. Any failed phase exits
+last line ``{"ok": true, "device": {...}}``. Every phase row carries the
+card's name and power limit. Any failed phase exits
 non-zero. Without a visible CUDA device — or outside a checkout that
 holds ``paddle_tpu_torch`` — it exits non-zero and prints no result.
 """
@@ -177,7 +212,9 @@ KERNEL_ROWS = (
     + [(None, dt, B, T) for dt in (torch.float32, torch.bfloat16)
        for B in (1, 16) for T in (64, 512)]
     + [("int8", dt, B, T) for dt in (torch.float32, torch.bfloat16)
-       for B in (1, 16) for T in (1, 4, 64, 512)])
+       for B in (1, 16) for T in (1, 4, 64, 512)]
+    # the speculative verify window of speculate_k = 8 (query-tile route)
+    + [(None, torch.float32, 16, 9)])
 
 # Transformer-base widths (the repo's flagship config, bench.py)
 MODEL = dict(vocab_size=32000, n_layer=6, n_head=8, d_model=512,
@@ -218,7 +255,14 @@ GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}  # of max |grad|
 DEVICE_CASES = ("path_masked", "long", "long_causal", "d128")
 
 
+# the card's name and power limit (nvidia-smi), printed beside every
+# phase's numbers once the device phase has read it
+CARD = None
+
+
 def emit(obj) -> None:
+    if "phase" in obj and "card" not in obj and CARD is not None:
+        obj = {"phase": obj["phase"], "card": CARD, **obj}
     print(json.dumps(obj), flush=True)
 
 
@@ -309,7 +353,8 @@ def phase_device():
     from paddle_tpu_torch.ops import (_cuda, flash_attention, fused_optimizer,
                                       paged_attention)
 
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     t0 = time.perf_counter()
     _cuda.build_all(KERNEL_SOURCES)
     build_s = time.perf_counter() - t0
@@ -548,16 +593,16 @@ def time_problem(args, scales):
 # ---------------------------------------------------------------- phase 3
 
 
-def build_model():
+def build_model(n_layer=MODEL["n_layer"], seed=SEED):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models.causal_lm import causal_lm
 
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        _, logits = causal_lm(**MODEL)
+        _, logits = causal_lm(**dict(MODEL, n_layer=n_layer))
     scope = fluid.Scope()
-    fluid.params_from_numpy(seeded_weights(main), scope, fluid.CUDAPlace(0),
-                            program=main)
+    fluid.params_from_numpy(seeded_weights(main, seed), scope,
+                            fluid.CUDAPlace(0), program=main)
     return main, logits, scope
 
 
@@ -578,24 +623,72 @@ def seeded_weights(program, seed=SEED):
     return arrays
 
 
-def serve_burst(model, cache, prompts, counters=()):
-    """Serve ``prompts`` as one burst of concurrent requests (32 new
-    tokens each) through ``serve_decoding`` on the card with ``cache``.
-    Each launcher in ``counters`` has its counts set to 0 after the
-    session's warm-up, just before the burst. Returns a dict: streams,
-    wall seconds, TTFTs, the metrics report, the pools' bytes, the
-    warm-up seconds and peak memory."""
+def serving_prompts():
+    rng = np.random.RandomState(SEED + 1)
+    return [rng.randint(0, MODEL["vocab_size"],
+                        size=rng.randint(16, 201)).tolist()
+            for _ in range(N_REQUESTS)]
+
+
+SERVING_CACHE = dict(num_blocks=512, block_size=16, max_blocks_per_seq=32)
+
+
+def serve_burst(model, cache, prompts, counters=(), capture=True,
+                share_pool=True, params=None, draft=None, **config_kw):
+    """Serve ``prompts`` as one burst (32 new tokens each) on the card
+    with ``cache``: through ``serve_decoding`` (every bucket a captured
+    CUDA graph), or with ``capture=False`` through the eager engine
+    (``DecodeEngine(_capture=False)``), or with ``share_pool=False``
+    with a graph memory pool per graph. ``params`` gives each request
+    its SamplingParams, ``config_kw`` go to ``DecodingConfig``, and
+    ``draft`` = (program, logits, scope) makes the session
+    speculative. The warm-up (on the card: the captures) runs
+    first and is timed alone; then every request is queued and the
+    session started, so the batcher admits them in one order and batches
+    them the same way in every run. Each launcher in ``counters`` has its
+    counts set to 0 just before the burst. Returns a dict: streams, wall
+    seconds and TTFTs from the start, the metrics reports, pool bytes,
+    warm-up seconds, graphs against the warm bucket count before and
+    after the burst, the memory the warm-up reserved, peak memory, and
+    the session's engines (for a profile)."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.decoding import DecodingConfig, serve_decoding
+    from paddle_tpu_torch.decoding import (DecodeEngine, DecodeSession,
+                                           DecodingConfig, serve_decoding)
 
     main, logits, scope = model
     config = DecodingConfig(cache=cache, decode_buckets=(1, 2, 4, 8, 16),
-                            max_new_tokens=MAX_NEW)
+                            max_new_tokens=MAX_NEW, warm_up=False,
+                            **config_kw)
+    place = fluid.CUDAPlace(0)
+    if capture and share_pool:
+        kw = {}
+        if draft is not None:
+            kw = dict(draft_program=draft[0], draft_logits_name=draft[1].name,
+                      draft_scope=draft[2])
+        session = serve_decoding(main, "tokens", logits.name, scope=scope,
+                                 config=config, place=place,
+                                 auto_start=False, **kw)
+    else:
+        engine = DecodeEngine(main, "tokens", logits.name, scope=scope,
+                              config=config, place=place, _capture=capture,
+                              _share_pool=share_pool)
+        session = DecodeSession(engine, auto_start=False)
+    engines = [e for e in (session.engine, session.draft_engine)
+               if e is not None]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
-    session = serve_decoding(main, "tokens", logits.name, scope=scope,
-                             config=config, place=fluid.CUDAPlace(0))
+    for e in reversed(engines):  # the draft first, as a session starts
+        e.warm_up()
+    torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    first_t, submit_t = {}, {}
+    # what the warm-up keeps: the graphs' pools (the eager runs' cached
+    # blocks are released first)
+    torch.cuda.empty_cache()
+    warm_reserved = torch.cuda.memory_reserved() - reserved0
+    graphs = [e.num_compiled for e in engines]
+    first_t = {}
 
     def on_token(i):
         def cb(tok):
@@ -606,12 +699,12 @@ def serve_burst(model, cache, prompts, counters=()):
     for fn in counters:
         reset_counts(fn)
     try:
+        futs = [session.submit(p, max_new_tokens=MAX_NEW,
+                               on_token=on_token(i),
+                               sampling=params[i] if params else None)
+                for i, p in enumerate(prompts)]
         t0 = time.perf_counter()
-        futs = []
-        for i, p in enumerate(prompts):
-            submit_t[i] = time.perf_counter()
-            futs.append(session.submit(p, max_new_tokens=MAX_NEW,
-                                       on_token=on_token(i)))
+        session.start()
         streams = [f.result(timeout=600) for f in futs]
         wall_s = time.perf_counter() - t0
     finally:
@@ -620,48 +713,107 @@ def serve_burst(model, cache, prompts, counters=()):
                                            for s in streams):
         fail("not every request completed with %d tokens (%s)"
              % (MAX_NEW, cache))
-    ttft = np.asarray([(first_t[i] - submit_t[i]) * 1e3
+    ttft = np.asarray([(first_t[i] - t0) * 1e3
                        for i in range(len(prompts))])
     return {"streams": streams, "wall_s": wall_s, "ttft": ttft,
-            "report": session.metrics.report(), "warm_up_s": warm_s,
+            "report": session.metrics.report(),
+            "draft_report": (session.draft_engine.metrics.report()
+                             if session.draft_engine is not None else None),
+            "warm_up_s": warm_s, "graph_reserved_bytes": warm_reserved,
+            "graphs": graphs,
+            "graphs_after": [e.num_compiled for e in engines],
+            "warm_bucket_count": [e.warm_bucket_count() for e in engines],
+            "captured": session.engine.captured,
             "pool_bytes": session.engine.pair.pool_bytes,
-            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "engines": engines}
+
+
+def check_graphs(run, label):
+    """A captured run's engines captured every warm bucket at warm-up and
+    the burst added no graph; an eager run's captured nothing."""
+    want = run["warm_bucket_count"] if run["captured"] else \
+        [0] * len(run["graphs"])
+    if run["graphs"] != want or run["graphs_after"] != run["graphs"]:
+        fail("%s: graphs %s at warm-up and %s after the burst, expected %s"
+             % (label, run["graphs"], run["graphs_after"], want))
 
 
 def burst_row(run):
     """The end-to-end numbers of one burst."""
     rep, ttft = run["report"], run["ttft"]
     n_tokens = sum(len(s) for s in run["streams"])
-    row = {"requests": len(run["streams"]), "tokens": n_tokens,
+    row = {"captured": run["captured"], "requests": len(run["streams"]),
+           "tokens": n_tokens,
            "wall_s": run["wall_s"], "tokens_per_s": n_tokens / run["wall_s"],
-           "decode_steps": rep["decode_step_ms"]["count"],
-           "mean_decode_step_ms": rep["decode_step_ms"]["mean"],
-           "p50_decode_step_ms": rep["decode_step_ms"]["p50"],
            "ttft_ms_mean": float(ttft.mean()),
            "ttft_ms_p50": float(np.percentile(ttft, 50)),
            "ttft_ms_max": float(ttft.max()),
-           "warm_up_s": run["warm_up_s"], "pool_bytes": run["pool_bytes"],
+           "warm_up_s": run["warm_up_s"],
+           "graph_reserved_bytes": run["graph_reserved_bytes"],
+           "graphs": run["graphs"],
+           "warm_bucket_count": run["warm_bucket_count"],
+           "pool_bytes": run["pool_bytes"],
            "max_memory_allocated": run["max_memory_allocated"]}
-    for name in ("prefill_ms", "extend_ms"):
+    for name in ("decode_step_ms", "prefill_ms", "extend_ms", "verify_ms"):
         if name in rep:
             row["mean_" + name] = rep[name]["mean"]
+            row["p50_" + name] = rep[name]["p50"]
             row[name.replace("_ms", "s")] = rep[name]["count"]
     return row
 
 
+def decode_profile(engine, prompts, steps=5):
+    """One decode step of ``engine`` over ``len(prompts)`` live rows
+    (prompts prefilled into fresh reservations): host wall ms per step
+    unprofiled (mean of ``steps``), and one step under torch.profiler
+    with its device busy ms, kernel launches and idle share."""
+    from paddle_tpu_torch.decoding import KVCacheManager
+
+    kv = KVCacheManager(engine.cache_config)
+    sids = [kv.admit(len(p), 2 * steps + 4) for p in prompts]
+    tables = np.stack([kv.table_row(sid) for sid in sids])
+    state = {"tok": np.concatenate([
+        engine.prefill([np.asarray(p)], tables[i:i + 1],
+                       np.asarray([len(p)], np.int32))
+        for i, p in enumerate(prompts)]),
+        "pos": np.asarray([len(p) for p in prompts], np.int32)}
+
+    def step():
+        state["tok"] = engine.decode(state["tok"], state["pos"], tables)
+        state["pos"] = state["pos"] + 1
+
+    step()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    prof_ms, by_family, launches, top = profile_step(step, top=6)
+    for sid in sids:
+        kv.release(sid)
+    busy = sum(by_family.values())
+    return {"rows": len(prompts), "host_wall_ms": wall_ms,
+            "profiled_wall_ms": prof_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / prof_ms,
+            "device_idle_share_unprofiled": 1.0 - busy / wall_ms,
+            "kernel_launches": launches,
+            "device_ms_by_family": by_family, "top_kernels": top}
+
+
 def phase_serving(card):
+    """The greedy burst on captured buckets, the same burst on the eager
+    engine, the graphs' memory with one shared pool against a pool per
+    graph, and one decode step of each engine profiled."""
     from paddle_tpu_torch.decoding import CacheConfig
     from paddle_tpu_torch.ops import paged_window_attention
 
     model = build_model()
-    rng = np.random.RandomState(SEED + 1)
-    prompts = [rng.randint(0, MODEL["vocab_size"],
-                           size=rng.randint(16, 201)).tolist()
-               for _ in range(N_REQUESTS)]
-    run = serve_burst(model, CacheConfig(num_blocks=512, block_size=16,
-                                         max_blocks_per_seq=32),
-                      prompts, counters=(paged_window_attention,))
+    prompts = serving_prompts()
+    cache = CacheConfig(**SERVING_CACHE)
+    run = serve_burst(model, cache, prompts,
+                      counters=(paged_window_attention,))
     counts = route_counts(paged_window_attention)
+    check_graphs(run, "serving")
     launches = counts["launches"]
     steps = run["report"]["decode_step_ms"]["count"]
     if launches < MODEL["n_layer"] * steps or launches == 0:
@@ -673,10 +825,35 @@ def phase_serving(card):
             counts["tile_launches"] != launches:
         fail("serving: the paged launches did not take the split route "
              "(decode) and the query-tile route only: %s" % counts)
+    eager = serve_burst(model, cache, prompts, capture=False)
+    check_graphs(eager, "serving eager")
+    if run["streams"] != eager["streams"]:
+        bad = [i for i, (a, b) in enumerate(zip(run["streams"],
+                                                 eager["streams"])) if a != b]
+        fail("serving: the captured streams differ from the eager ones "
+             "(requests %s)" % bad)
+    # the graphs' memory: one pool shared by an engine's graphs (the
+    # default) against a pool per graph
+    private = serve_burst(model, cache, prompts[:2], share_pool=False)
+    check_graphs(private, "serving, a pool per graph")
+    profiles = {"captured": decode_profile(run["engines"][0], prompts),
+                "eager": decode_profile(eager["engines"][0], prompts)}
     emit({"phase": "serving", "card": card, **burst_row(run),
-          "kernel_launches": launches, "route_launches": counts})
-    check_oracle(*model, prompts, run["streams"])
-    return counts, model
+          "kernel_launches": launches, "route_launches": counts,
+          "eager": burst_row(eager),
+          "streams_equal_eager": True,
+          "tokens_per_s_over_eager": (burst_row(run)["tokens_per_s"]
+                                      / burst_row(eager)["tokens_per_s"]),
+          "graph_memory": {
+              "shared_pool_reserved_bytes": run["graph_reserved_bytes"],
+              "pool_per_graph_reserved_bytes":
+                  private["graph_reserved_bytes"]},
+          "decode_step_profile": profiles})
+    streams = run["streams"]
+    del run, eager, private
+    torch.cuda.empty_cache()
+    check_oracle(*model, prompts, streams)
+    return counts, model, streams
 
 
 def first_divergence(a, b):
@@ -684,10 +861,36 @@ def first_divergence(a, b):
     return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
+def near_ties(model, prompts, got, want, label):
+    """Streams ``got`` must equal ``want`` except where, at the first
+    token they part, the full forward's top-2 logit gap after the shared
+    history is below 1e-3 (a near tie, which another summation order may
+    break the other way). Returns the near ties found."""
+    import paddle_tpu_torch as fluid
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    main, logits, scope = model
+    ties = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        j = first_divergence(a, b)
+        if j is None:
+            continue
+        out, = exe.run(main, feed={"tokens": np.asarray(
+            [prompts[i] + b[:j]], np.int64)}, fetch_list=[logits],
+            scope=scope)
+        top2 = np.sort(out[0, -1])[-2:]
+        gap = float(top2[1] - top2[0])
+        if gap >= 1e-3:
+            fail("%s: request %d token %d: %d against %d (top-2 gap %g)"
+                 % (label, i, j, a[j], b[j], gap))
+        ties.append({"request": i, "token": j, "top2_gap": gap})
+    return ties
+
+
 def phase_prefix_int8(card, model):
     """Shared-prompt serving with prefix caching on int8 pools, and the
-    same traffic on f32 pools with and without prefix caching."""
-    import paddle_tpu_torch as fluid
+    same traffic on f32 pools with and without prefix caching, captured;
+    the int8 and f32 prefix-cached bursts again on the eager engine."""
     from paddle_tpu_torch.decoding import CacheConfig
     from paddle_tpu_torch.ops import paged_window_attention
 
@@ -696,20 +899,29 @@ def phase_prefix_int8(card, model):
     prompts = [system + rng.randint(0, MODEL["vocab_size"], size=rng.randint(
         SUFFIX_TOKENS[0], SUFFIX_TOKENS[1] + 1)).tolist()
         for _ in range(N_REQUESTS)]
-    geo = dict(num_blocks=512, block_size=16, max_blocks_per_seq=32)
+    kinds = {"int8": dict(kv_dtype="int8", prefix_cache=True),
+             "f32": dict(prefix_cache=True), "f32_nocache": {}}
     runs = {}
-    for name, kw in (("int8", dict(kv_dtype="int8", prefix_cache=True)),
-                     ("f32", dict(prefix_cache=True)), ("f32_nocache", {})):
-        runs[name] = serve_burst(model, CacheConfig(**geo, **kw), prompts,
-                                 counters=(paged_window_attention,))
+    for name, kw in kinds.items():
+        runs[name] = serve_burst(model, CacheConfig(**SERVING_CACHE, **kw),
+                                 prompts, counters=(paged_window_attention,))
+        check_graphs(runs[name], "prefix_int8 " + name)
         if name == "int8":
             counts = route_counts(paged_window_attention)
             launches = counts["launches"]
             int8_launches = counts["int8_launches"]
+    for name in ("int8", "f32"):
+        run = serve_burst(model, CacheConfig(**SERVING_CACHE, **kinds[name]),
+                          prompts, capture=False)
+        check_graphs(run, "prefix_int8 %s eager" % name)
+        if run["streams"] != runs[name]["streams"]:
+            fail("prefix_int8: the captured %s streams differ from the "
+                 "eager ones" % name)
+        runs[name + "_eager"] = run
     rep = runs["int8"]["report"]
     calls = (rep["decode_step_ms"]["count"] + rep["extend_ms"]["count"])
     want = (N_REQUESTS - 1, 1, (N_REQUESTS - 1) * SYSTEM_PROMPT)
-    for name in ("int8", "f32"):
+    for name in ("int8", "f32", "int8_eager", "f32_eager"):
         r = runs[name]["report"]
         got = (r["prefix_cache_hits_total"], r["prefix_cache_misses_total"],
                r["prefill_tokens_avoided_total"])
@@ -731,23 +943,8 @@ def phase_prefix_int8(card, model):
              "query-tile routes: %s" % counts)
     # f32 pools: prefix caching must not change the streams, except
     # where the full forward's top-2 logit gap says the two are a tie
-    exe = fluid.Executor(fluid.CUDAPlace(0))
-    main, logits, scope = model
-    near_ties = []
-    for i, (a, b) in enumerate(zip(runs["f32"]["streams"],
-                                   runs["f32_nocache"]["streams"])):
-        j = first_divergence(a, b)
-        if j is None:
-            continue
-        out, = exe.run(main, feed={"tokens": np.asarray(
-            [prompts[i] + b[:j]], np.int64)}, fetch_list=[logits],
-            scope=scope)
-        top2 = np.sort(out[0, -1])[-2:]
-        gap = float(top2[1] - top2[0])
-        if gap >= 1e-3:
-            fail("request %d token %d: prefix caching served %d, without "
-                 "it %d (top-2 gap %g)" % (i, j, a[j], b[j], gap))
-        near_ties.append({"request": i, "token": j, "top2_gap": gap})
+    ties = near_ties(model, prompts, runs["f32"]["streams"],
+                     runs["f32_nocache"]["streams"], "prefix_int8 f32")
     # report only: how far the int8 streams follow the f32 ones
     agree = [first_divergence(a, b) for a, b in zip(
         runs["int8"]["streams"], runs["f32"]["streams"])]
@@ -762,14 +959,172 @@ def phase_prefix_int8(card, model):
            "prefill_tokens_computed": rep["prefill_tokens_computed_total"],
            "kernel_launches": launches, "int8_launches": int8_launches,
            "route_launches": counts,
-           "f32_near_ties": near_ties,
+           "f32_near_ties": ties,
+           "captured_streams_equal_eager": {"int8": True, "f32": True},
            "int8_vs_f32_streams_identical": sum(a is None for a in agree),
            "int8_vs_f32_tokens_equal": same,
            "int8_vs_f32_first_divergence": agree}
     for name, run in runs.items():
         row[name] = burst_row(run)
+    del runs
+    torch.cuda.empty_cache()
     emit(row)
     return counts
+
+
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+
+
+def phase_sampling(card, model, greedy_streams):
+    """Mixed greedy and seeded sampled requests in one captured burst
+    (``DecodingConfig(sampling=True)``), the same burst submitted in
+    reverse order, and the sampling head's device time."""
+    from paddle_tpu_torch.decoding import (GREEDY, CacheConfig,
+                                           SamplingParams)
+
+    prompts = serving_prompts()
+    params = [GREEDY if i % 2 == 0 else
+              SamplingParams(**SAMPLED, seed=1000 + i)
+              for i in range(N_REQUESTS)]
+    params[1] = SamplingParams(temperature=0.8, top_k=1, seed=7)
+    cache = CacheConfig(**SERVING_CACHE)
+    fwd = serve_burst(model, cache, prompts, params=params, sampling=True)
+    order = list(range(N_REQUESTS))[::-1]
+    rev = serve_burst(model, cache, [prompts[i] for i in order],
+                      params=[params[i] for i in order], sampling=True)
+    rev_streams = [None] * N_REQUESTS
+    for k, i in enumerate(order):
+        rev_streams[i] = rev["streams"][k]
+    check_graphs(fwd, "sampling")
+    check_graphs(rev, "sampling reversed")
+    greedy_rows = [i for i, p in enumerate(params) if p.greedy]
+    for i in greedy_rows:
+        if fwd["streams"][i] != greedy_streams[i]:
+            fail("sampling: greedy request %d differs from the greedy "
+                 "burst's stream" % i)
+    if fwd["streams"][1] != greedy_streams[1]:
+        fail("sampling: the top_k=1 request differs from greedy")
+    if rev_streams != fwd["streams"]:
+        bad = [i for i in range(N_REQUESTS)
+               if rev_streams[i] != fwd["streams"][i]]
+        fail("sampling: seeded streams changed with the submission order "
+             "(requests %s)" % bad)
+    sampled_rows = [i for i, p in enumerate(params)
+                    if not p.greedy and p.top_k != 1]
+    moved = sum(fwd["streams"][i] != greedy_streams[i]
+                for i in sampled_rows)
+    head_ms, argmax_ms = sampling_head_ms(params)
+    emit({"phase": "sampling", "card": card, **burst_row(fwd),
+          "reversed": burst_row(rev),
+          "greedy_rows": len(greedy_rows),
+          "sampled_rows_off_greedy": moved,
+          "sampled_rows": len(sampled_rows),
+          "greedy_rows_equal_greedy_burst": True,
+          "top_k_1_equals_greedy": True,
+          "reversed_order_streams_equal": True,
+          "sampling_head_device_ms": head_ms,
+          "greedy_head_device_ms": argmax_ms})
+    del fwd, rev
+    torch.cuda.empty_cache()
+
+
+def sampling_head_ms(params):
+    """Device ms of the sampling head alone at the decode shape (two
+    sorts over V and a threefry of [B, V]) and of the greedy argmax, on
+    random logits with the burst's per-row parameters. The head is
+    timed as a captured graph's replay, as it runs in a decode step (its
+    ~400 launches would fill the launch queue behind ``device_ms``'s
+    spin)."""
+    from paddle_tpu_torch.decoding.sampling import _sample_token
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    logits = 3 * torch.randn(len(params), MODEL["vocab_size"], device=dev,
+                             generator=gen)
+    feeds = [torch.tensor([p.temperature for p in params], device=dev),
+             torch.tensor([p.top_k for p in params], device=dev,
+                          dtype=torch.int32),
+             torch.tensor([p.top_p for p in params], device=dev),
+             torch.tensor([p.seed for p in params], device=dev,
+                          dtype=torch.int32),
+             torch.arange(len(params), device=dev, dtype=torch.int32)]
+    _sample_token(logits, *feeds)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _sample_token(logits, *feeds)
+    return (device_ms(graph.replay, 20),
+            device_ms(lambda: torch.argmax(logits, -1), 50))
+
+
+def phase_speculative(card, model, greedy_streams):
+    """Speculative decoding of the greedy burst: a one-layer draft of the
+    same vocab and widths (its own scope, its own seed) at
+    ``speculate_k`` 3 (verify windows of 4: the split route) and 8
+    (windows of 9: the query-tile route), and a parameter-copied
+    self-draft at 3."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.decoding import CacheConfig
+    from paddle_tpu_torch.ops import paged_window_attention
+    from paddle_tpu_torch.ops.paged_attention import SPLIT_MAX_T
+
+    prompts = serving_prompts()
+    cache = CacheConfig(**SERVING_CACHE)
+    main, logits, scope = model
+    draft = build_model(n_layer=1, seed=SEED + 5)
+    self_scope = fluid.Scope()
+    for n in scope.local_var_names():
+        if not n.startswith("kv_cache@"):
+            self_scope.set_var(n, scope.find_var(n).clone())
+    runs = (("k3", 3, draft, 1), ("k8", 8, draft, 1),
+            ("self_k3", 3, (main, logits, self_scope), MODEL["n_layer"]))
+    rows, counts_by = {}, {}
+    for label, k, d, d_layers in runs:
+        run = serve_burst(model, cache, prompts,
+                          counters=(paged_window_attention,), draft=d,
+                          speculate_k=k)
+        counts = route_counts(paged_window_attention)
+        check_graphs(run, "speculative " + label)
+        rep, drep = run["report"], run["draft_report"]
+        verify = rep["verify_steps_total"]
+        draft_steps = drep["decode_step_ms"]["count"]
+        # the target never decodes: its paged launches are the verify
+        # windows', the draft's are its decode steps'
+        target, drafted = MODEL["n_layer"] * verify, d_layers * draft_steps
+        want = ({"split_launches": target + drafted, "tile_launches": 0}
+                if k + 1 <= SPLIT_MAX_T else
+                {"split_launches": drafted, "tile_launches": target})
+        got = {n: counts[n] for n in want}
+        if got != want or counts["generic_launches"] or \
+                counts["launches"] != target + drafted:
+            fail("speculative %s: route launches %s, expected %s over %d "
+                 "verify steps and %d draft steps" % (label, counts, want,
+                                                      verify, draft_steps))
+        ties = near_ties(model, prompts, run["streams"], greedy_streams,
+                         "speculative " + label)
+        if label.startswith("self") and rep["spec_acceptance_rate"] != 1.0:
+            fail("speculative %s: a parameter-copied self-draft accepted "
+                 "%.4f of its proposals, not all"
+                 % (label, rep["spec_acceptance_rate"]))
+        decoded = sum(len(x) for x in run["streams"]) - len(prompts)
+        rows[label] = {**burst_row(run), "speculate_k": k,
+                       "draft_layers": d_layers,
+                       "acceptance_rate": rep["spec_acceptance_rate"],
+                       "spec_proposed": rep["spec_proposed_total"],
+                       "spec_accepted": rep["spec_accepted_total"],
+                       "verify_steps": verify,
+                       # tokens a sequence gains from one verify
+                       "tokens_per_verify_row":
+                           decoded / rep["verify_rows_total"],
+                       "draft_decode_steps": draft_steps,
+                       "mean_draft_decode_step_ms":
+                           drep["decode_step_ms"]["mean"],
+                       "route_launches": counts, "near_ties": ties}
+        counts_by[label] = counts
+        del run
+        torch.cuda.empty_cache()
+    emit({"phase": "speculative", "card": card, **rows})
+    return counts_by
 
 
 def check_oracle(main, logits, scope, prompts, streams):
@@ -1739,8 +2094,10 @@ def main():
     phase_run_steps(card, recipe_losses, recipe_params)
     del recipe_params
     torch.cuda.empty_cache()
-    serving_counts, model = phase_serving(card)
+    serving_counts, model, greedy = phase_serving(card)
     prefix_counts = phase_prefix_int8(card, model)
+    phase_sampling(card, model, greedy)
+    spec_counts = phase_speculative(card, model, greedy)
     del model
     torch.cuda.empty_cache()
 
@@ -1763,10 +2120,17 @@ def main():
                     and r["dtype"] == dtype and r["pools"] == pools)
 
     # the decode shape, f32 pools (split route; the serving phase's
-    # launches, all on that route)
+    # launches, all on that route, and the speculative phase's: the
+    # draft's decode steps and the k=3 verify windows)
     kernels = [paged_entry("paged_window_attention", 137,
-                           serving_counts["split_launches"],
+                           serving_counts["split_launches"]
+                           + sum(c["split_launches"]
+                                 for c in spec_counts.values()),
                            kernel_row(1, "float32", "float32"))]
+    # the k=8 verify window (T=9): the query-tile route on f32 pools
+    kernels.append(paged_entry("paged_window_attention_verify", 200,
+                               spec_counts["k8"]["tile_launches"],
+                               kernel_row(9, "float32", "float32")))
     # the int8 variant at the decode shape, f32 queries (every launch of
     # the shared-prompt burst), and its query-tile route at the T=64
     # suffix bucket (the burst's suffix prefills past the threshold)

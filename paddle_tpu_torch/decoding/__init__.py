@@ -18,6 +18,14 @@ their suffix through the EXTEND program; ``CacheConfig(kv_dtype="int8")``
 keeps the pools as int8 codes with per-slot scales. Every decode and
 extend window attention runs the hand-written paged-attention kernel
 (ops/paged_attention.py), which dequantizes int8 pools as it gathers.
+
+``DecodingConfig(sampling=True)`` serves seeded per-request
+:class:`SamplingParams` (temperature, top-k, top-p; keys from the torch
+threefry, bit-equal to ``jax.random``), and
+``serve_decoding(..., draft_program=...)`` speculative decoding: a draft
+model proposes ``speculate_k`` tokens, the target verifies them in one
+window step. On a card every bucket runs as a captured CUDA graph
+(``warm_up`` captures them all).
 """
 
 from .batcher import ContinuousBatcher
@@ -26,6 +34,7 @@ from .engine import DecodeEngine, DecodingConfig
 from .rewrite import (BLOCK_TABLES, CACHED_LENS, NEXT_LOGITS, NEXT_TOKENS,
                       POSITIONS, SEQ_LENS, STEP_TOKENS, DecodePair,
                       derive_decode_programs)
+from .sampling import GREEDY, SAMPLING_FEEDS, SamplingParams
 from .session import DecodeSession, GenerationRequest, serve_decoding
 
 __all__ = [
@@ -42,8 +51,11 @@ __all__ = [
     "DecodePair",
     "DecodeSession",
     "DecodingConfig",
+    "GREEDY",
     "GenerationRequest",
     "KVCacheManager",
+    "SAMPLING_FEEDS",
+    "SamplingParams",
     "derive_decode_programs",
     "serve_decoding",
 ]

@@ -2,9 +2,9 @@
 (counterpart of paddle_tpu/decoding/engine.py).
 
 Owns the derived prefill/decode Program pair (rewrite.py) — plus the
-EXTEND program when prefix caching needs it — the executor that runs
-them, and the bucket discipline that keeps every call on a fixed set of
-shapes:
+EXTEND program when prefix caching or speculative decoding needs it —
+the executor that runs them, and the bucket discipline that keeps every
+call on a fixed set of shapes:
 
 * prefill executes at ``(prefill_batch_bucket, prompt_bucket)`` shapes —
   prompts pad up to the next prompt bucket, rows pad with block-table
@@ -12,16 +12,23 @@ shapes:
 * decode executes at ``decode_bucket`` batch shapes with ``T = 1`` —
   inactive rows carry ``positions = -1``;
 * extend executes at ``(prefill_batch_bucket, suffix_bucket)`` shapes
-  for prefix-cache suffix prefills — window slots past a row's suffix
-  are masked by ``seq_lens``.
+  for prefix-cache suffix prefills and at
+  ``(decode_bucket, speculate_k + 1)`` shapes for speculative verify
+  steps — window slots past a row's length are masked by ``seq_lens``.
 
-``warm_up()`` runs every bucket once with inert feeds, which builds the
-kernel and allocates on the card before traffic arrives.
+On a card every bucket is a captured CUDA graph (``Executor.run_graph``)
+— the port's counterpart of the JAX engine's compiled buckets —
+``warm_up()`` captures the full set, so traffic never pays a capture,
+and a step costs one feed copy, one replay and one fetch copy. The
+graphs of one engine share one memory pool: they replay one at a time
+on one stream, and nothing a replay leaves behind lives in the pool (the
+fetch buffers and the scope's tensors are allocated outside it). A
+failed capture raises; nothing falls back to eager runs. On a CPU place
+the programs run eagerly, since the CPU was asked for.
 
-Not ported yet: speculative verify (``speculate_k``), the sampling
-heads, the breaker, the degradation ladder and decode-shape autotune
-(each raises in ``DecodingConfig``), and the engine's trace spans and
-fault hooks.
+Not ported yet: the breaker, the degradation ladder and decode-shape
+autotune (each raises in ``DecodingConfig``), and the engine's trace
+spans and fault hooks.
 
 Threading contract: single-threaded execution — the DecodeSession's
 worker is the only caller after ``warm_up``.
@@ -33,13 +40,16 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+import torch
+
 from ..core.enforce import enforce
 from ..core.scope import global_scope
 from ..executor import Executor
 from ..serving.metrics import DecodeMetrics
 from .cache import CacheConfig
 from .rewrite import (BLOCK_TABLES, CACHED_LENS, NEXT_TOKENS, POSITIONS,
-                      SEQ_LENS, derive_decode_programs)
+                      SEQ_LENS, STEP_TOKENS, derive_decode_programs)
+from .sampling import sampling_feed_arrays
 
 
 def _pow2_buckets(lo: int, hi: int) -> List[int]:
@@ -68,13 +78,19 @@ class DecodingConfig:
     suffix_buckets: window lengths the EXTEND program runs prefix-cache
         suffix prefills at (default: powers of two from 1 to
         ``max_context``; used only when ``cache.prefix_cache``).
+    sampling: build the seeded per-request sampling heads
+        (temperature/top-k/top-p, decoding/sampling.py) instead of the
+        greedy heads. Default False: the greedy programs.
+    speculate_k: draft-token window for speculative decoding (0 = off);
+        a DecodeSession additionally needs a draft engine to use it.
+        Adds the ``(decode_bucket, k + 1)`` verify shapes to warm-up.
     max_new_tokens: default generation budget per request.
     queue_capacity / default_deadline_ms / warm_up: the session's
-        backpressure bound, default deadline and start-up warm-up.
+        backpressure bound, default deadline and start-up warm-up (on a
+        card: the captures of every bucket).
 
     Not ported yet (raise when set, naming their ROADMAP item):
-    ``sampling``, ``speculate_k``, ``breaker``, ``degrade``,
-    ``autotune``.
+    ``breaker``, ``degrade``, ``autotune``.
     """
 
     def __init__(self, cache: Optional[CacheConfig] = None,
@@ -91,9 +107,7 @@ class DecodingConfig:
                  breaker=None,
                  degrade=None,
                  autotune: bool = False):
-        not_ported = {"sampling": (sampling, "Queue A item 1 step 3"),
-                      "speculate_k": (speculate_k, "Queue A item 1 step 2"),
-                      "breaker": (breaker, "Queue A item 1 step 5"),
+        not_ported = {"breaker": (breaker, "Queue A item 1 step 5"),
                       "degrade": (degrade, "Queue A item 1 step 5"),
                       "autotune": (autotune, "Queue A item 1 step 5")}
         for name, (value, item) in not_ported.items():
@@ -128,6 +142,12 @@ class DecodingConfig:
                     % (self.suffix_buckets[-1], mc))
         else:
             self.suffix_buckets = _pow2_buckets(1, mc)
+        self.sampling = bool(sampling)
+        self.speculate_k = int(speculate_k)
+        enforce(self.speculate_k >= 0, "speculate_k must be >= 0")
+        enforce(self.speculate_k < mc,
+                "speculate_k %d must be < max_context %d"
+                % (self.speculate_k, mc))
         self.max_new_tokens = int(max_new_tokens)
         self.queue_capacity = int(queue_capacity)
         self.default_deadline_ms = default_deadline_ms
@@ -145,8 +165,8 @@ class DecodingConfig:
     @property
     def needs_extend(self) -> bool:
         """Whether the EXTEND program is derived and warmed: prefix
-        caching runs its suffix prefills through it."""
-        return self.cache.prefix_cache
+        caching (suffix prefills) or speculation (verify steps)."""
+        return self.cache.prefix_cache or self.speculate_k > 0
 
 
 def _bucket_for(buckets: Sequence[int], n: int) -> Optional[int]:
@@ -158,35 +178,66 @@ def _bucket_for(buckets: Sequence[int], n: int) -> Optional[int]:
 
 class DecodeEngine:
     """Executes the prefill/decode(/extend) programs at bucketed shapes
-    on one place (default ``CUDAPlace(0)``)."""
+    on one place (default ``CUDAPlace(0)``): on a card as captured CUDA
+    graphs, one per bucket, on the CPU eagerly.
+
+    ``_capture=False`` runs the programs eagerly on a card too, and
+    ``_share_pool=False`` captures each graph into a pool of its own:
+    private switches for comparing streams, times and memory against the
+    captured default."""
 
     def __init__(self, program, token_name: str, logits_name: str,
                  scope=None, config: Optional[DecodingConfig] = None,
-                 place=None, metrics: Optional[DecodeMetrics] = None):
+                 place=None, metrics: Optional[DecodeMetrics] = None,
+                 _capture: bool = True, _share_pool: bool = True):
         self.config = config or DecodingConfig()
         self.metrics = metrics or DecodeMetrics()
         self._exe = Executor(place)
         self.device = self._exe.device
         self.pair = derive_decode_programs(
             program, token_name, logits_name, self.config.cache,
-            with_extend=self.config.needs_extend)
+            with_extend=self.config.needs_extend,
+            sampling=self.config.sampling)
         self.scope = scope if scope is not None else global_scope()
         self.pair.init_scope(self.scope, self.device)
         self._token_dtype = self.pair.prefill.global_block().var(
             token_name).dtype
+        self.captured = bool(_capture) and self.device.type == "cuda"
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.captured and _share_pool else None)
 
     @property
     def cache_config(self) -> CacheConfig:
         return self.config.cache
 
-    def _extend_warm_shapes(self) -> List[Tuple[int, int]]:
-        """The (batch, window) extend shapes warm_up runs: prefill batch
-        buckets x suffix buckets, under prefix caching."""
+    @property
+    def sampling(self) -> bool:
+        return self.pair.sampling
+
+    @property
+    def num_compiled(self) -> int:
+        """CUDA graphs captured (one per bucket and fetch): after
+        ``warm_up`` it equals ``warm_bucket_count()`` and traffic never
+        adds one; 0 on the CPU and with ``_capture=False``."""
+        return self._exe.num_compiled
+
+    def _extend_warm_shapes(self) -> List[Tuple[int, int, str]]:
+        """The (batch, window, fetch) extend shapes warm_up runs: suffix
+        prefills pair prefill batch buckets with suffix buckets and
+        fetch the last-position token; verify steps pair decode buckets
+        with the one ``speculate_k + 1`` window and fetch the
+        per-position token row (another fetch is another graph).
+        Deduplicated."""
         cfg = self.config
-        if not cfg.cache.prefix_cache:
-            return []
-        return [(pb, wb) for pb in cfg.prefill_batch_buckets
-                for wb in cfg.suffix_buckets]
+        shapes = set()
+        if cfg.cache.prefix_cache:
+            for pb in cfg.prefill_batch_buckets:
+                for wb in cfg.suffix_buckets:
+                    shapes.add((pb, wb, NEXT_TOKENS))
+        if cfg.speculate_k > 0:
+            for db in cfg.decode_buckets:
+                shapes.add((db, cfg.speculate_k + 1, STEP_TOKENS))
+        return sorted(shapes)
 
     def warm_bucket_count(self) -> int:
         return (len(self.config.prefill_batch_buckets)
@@ -201,10 +252,11 @@ class DecodeEngine:
         return _bucket_for(self.config.suffix_buckets, length)
 
     def warm_up(self) -> int:
-        """Run every (prefill batch x prompt), decode and extend bucket
-        once with inert feeds (block tables all -1, so every cache write
-        drops and warm-up cannot disturb live pools; extend rows carry
-        ``cached`` 0 and length 0). Returns the bucket count."""
+        """Run every (prefill batch x prompt), decode, suffix and verify
+        bucket once with inert feeds (block tables all -1, so every
+        cache write drops and warm-up cannot disturb live pools; extend
+        rows carry ``cached`` 0 and length 0): on a card each run
+        captures its bucket's graph. Returns ``num_compiled``."""
         cfg = self.config
         for pb in cfg.prefill_batch_buckets:
             for tb in cfg.prompt_buckets:
@@ -214,23 +266,48 @@ class DecodeEngine:
         for db in cfg.decode_buckets:
             self.decode(np.zeros(db, np.int64), np.full(db, -1, np.int32),
                         np.stack([self._empty_row()] * db), _warm=True)
-        for bb, wb in self._extend_warm_shapes():
+        for bb, wb, fetch in self._extend_warm_shapes():
             self._run_extend(np.zeros((bb, wb), self._token_dtype),
                              np.stack([self._empty_row()] * bb),
                              np.zeros(bb, np.int32), np.zeros(bb, np.int32),
+                             fetch=fetch, params=None, steps=None,
                              timer=None)
-        return self.warm_bucket_count()
+        return self.num_compiled
 
     def _empty_row(self) -> np.ndarray:
         return self.cache_config.empty_table_row()
 
+    def _sampling_feed(self, params, steps, bucket: int) -> dict:
+        """The five per-row sampling feed arrays (only when the pair was
+        derived with the sampling heads)."""
+        if not self.pair.sampling:
+            return {}
+        params = params or []
+        steps = steps if steps is not None else [0] * len(params)
+        return sampling_feed_arrays(params, steps, bucket)
+
+    def _run(self, program, feed, fetch: str) -> np.ndarray:
+        """One run of a derived program: its bucket's graph on a card,
+        eagerly on the CPU (or with ``_capture=False``)."""
+        if self.captured:
+            out, = self._exe.run_graph(program, feed=feed,
+                                       fetch_list=[fetch], scope=self.scope,
+                                       pool=self._pool)
+        else:
+            out, = self._exe.run(program, feed=feed, fetch_list=[fetch],
+                                 scope=self.scope)
+        return out
+
     def prefill(self, token_rows: Sequence[np.ndarray],
                 tables: np.ndarray, seq_lens: np.ndarray,
+                params=None, steps=None,
                 _warm: bool = False) -> np.ndarray:
         """Run one prefill for ``len(token_rows)`` sequences: pads the
         batch to the next prefill batch bucket and every prompt to the
         next prompt bucket, writes the prompt K/V into the pools at the
-        table slots, returns the first generated token per row."""
+        table slots, returns the first generated token per row.
+        ``params``/``steps``: per-row SamplingParams and the stream
+        index of the emitted token (default 0) for the sampling head."""
         n = len(token_rows)
         enforce(n >= 1, "prefill needs at least one row")
         pb = _bucket_for(self.config.prefill_batch_buckets, n)
@@ -256,14 +333,15 @@ class DecodeEngine:
                              int(np.sum(lens[:n])))
         feed = {self.pair.token_name: tokens, BLOCK_TABLES: tab,
                 SEQ_LENS: lens}
+        feed.update(self._sampling_feed(
+            params, steps if steps is not None else [0] * n, pb))
         with self.metrics.timer(None if _warm else "prefill_ms"):
-            out, = self._exe.run(self.pair.prefill, feed=feed,
-                                 fetch_list=[NEXT_TOKENS], scope=self.scope)
+            out = self._run(self.pair.prefill, feed, NEXT_TOKENS)
         return out[:n]
 
     def extend_prefill(self, suffix_rows: Sequence[np.ndarray],
-                       tables: np.ndarray,
-                       cached_lens: np.ndarray) -> np.ndarray:
+                       tables: np.ndarray, cached_lens: np.ndarray,
+                       params=None, steps=None) -> np.ndarray:
         """Prefix-cache suffix prefill: run ONLY the un-cached suffix of
         each prompt against the already-populated shared prefix blocks
         (``cached_lens[b]`` positions). Pads the batch to the next
@@ -295,20 +373,58 @@ class DecodeEngine:
         self.metrics.inc("prefills_total")
         self.metrics.inc("prefill_tokens_computed_total",
                          int(np.sum(lens[:n])))
-        return self._run_extend(tokens, tab, cached, lens,
-                                timer="extend_ms")[:n]
+        return self._run_extend(
+            tokens, tab, cached, lens, fetch=NEXT_TOKENS, params=params,
+            steps=steps if steps is not None else [0] * n,
+            timer="extend_ms")[:n]
 
-    def _run_extend(self, tokens, tab, cached, lens,
-                    timer: Optional[str]) -> np.ndarray:
+    def verify(self, windows: np.ndarray, window_lens: np.ndarray,
+               cached_lens: np.ndarray, tables: np.ndarray,
+               params=None, steps=None) -> np.ndarray:
+        """Speculative verify: one multi-token target step over the live
+        set. ``windows[b]`` = [last_token, draft_1..draft_k] (``window_lens
+        [b]`` real slots, padded to the ``speculate_k + 1`` bucket);
+        returns the per-position target tokens ``[n, speculate_k + 1]``
+        — the greedy or sampled token the TARGET model produces at each
+        window position."""
+        enforce(self.pair.extend is not None and
+                self.config.speculate_k > 0,
+                "verify needs DecodingConfig(speculate_k >= 1)")
+        n = len(windows)
+        enforce(n >= 1, "verify needs at least one row")
+        db = _bucket_for(self.config.decode_buckets, n)
+        enforce(db is not None,
+                "active set %d exceeds the largest decode bucket %d"
+                % (n, self.config.max_active))
+        w = self.config.speculate_k + 1
+        enforce(np.shape(windows)[1] <= w,
+                "verify window wider than speculate_k + 1")
+        tokens = np.zeros((db, w), dtype=self._token_dtype)
+        tokens[:n, :np.shape(windows)[1]] = np.asarray(windows)
+        lens = np.zeros(db, np.int32)
+        lens[:n] = np.asarray(window_lens, np.int32)
+        cached = np.zeros(db, np.int32)
+        cached[:n] = np.asarray(cached_lens, np.int32)
+        mb = self.cache_config.max_blocks_per_seq
+        tab = np.full((db, mb), -1, np.int32)
+        tab[:n] = np.asarray(tables, np.int32)
+        self.metrics.inc("verify_steps_total")
+        self.metrics.inc("verify_rows_total", n)
+        return self._run_extend(tokens, tab, cached, lens,
+                                fetch=STEP_TOKENS, params=params,
+                                steps=steps, timer="verify_ms")[:n]
+
+    def _run_extend(self, tokens, tab, cached, lens, fetch: str, params,
+                    steps, timer: Optional[str]) -> np.ndarray:
         feed = {self.pair.token_name: tokens, BLOCK_TABLES: tab,
                 CACHED_LENS: cached, SEQ_LENS: lens}
+        feed.update(self._sampling_feed(params, steps, len(tokens)))
         with self.metrics.timer(timer):
-            out, = self._exe.run(self.pair.extend, feed=feed,
-                                 fetch_list=[NEXT_TOKENS], scope=self.scope)
-        return out
+            return self._run(self.pair.extend, feed, fetch)
 
     def decode(self, tokens: np.ndarray, positions: np.ndarray,
-               tables: np.ndarray, _warm: bool = False) -> np.ndarray:
+               tables: np.ndarray, params=None, steps=None,
+               _warm: bool = False) -> np.ndarray:
         """One decode step for ``len(tokens)`` sequences (their latest
         token, its position and their table rows); pads the batch to the
         next decode bucket with inactive rows. Returns the next token
@@ -328,7 +444,7 @@ class DecodeEngine:
         tab[:n] = np.asarray(tables, np.int32)
         feed = {self.pair.token_name: toks, BLOCK_TABLES: tab,
                 POSITIONS: pos}
+        feed.update(self._sampling_feed(params, steps, db))
         with self.metrics.timer(None if _warm else "decode_step_ms"):
-            out, = self._exe.run(self.pair.decode, feed=feed,
-                                 fetch_list=[NEXT_TOKENS], scope=self.scope)
+            out = self._run(self.pair.decode, feed, NEXT_TOKENS)
         return out[:n]

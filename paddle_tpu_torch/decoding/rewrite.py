@@ -1,6 +1,6 @@
 """Graph-level decode rewrite: derive the prefill/decode program pair
 (and optionally the EXTEND program) from a built forward Program
-(counterpart of paddle_tpu/decoding/rewrite.py with greedy heads).
+(counterpart of paddle_tpu/decoding/rewrite.py).
 
 It takes a causal decoder-only forward — token ids ``[B, T]`` in,
 next-token logits ``[B, T, V]`` out — and produces rewritten clones
@@ -13,7 +13,8 @@ sharing one set of persistable paged KV-cache pools
   the same attention math (prefill logits match the original forward)
   plus a write of the per-position K/V into the pools at the slots the
   block table names. Fetches gain the next token: the logits at
-  ``seq_len - 1`` and their greedy argmax.
+  ``seq_len - 1`` and their greedy argmax (or a seeded sample when the
+  sampling head is on).
 * **decode** — runs ONE token per sequence (``[B, 1]``).
   ``fused_attention`` becomes ``paged_attention_decode``: write the new
   token's K/V at ``positions[b]``, then attend over the sequence's block
@@ -24,8 +25,9 @@ sharing one set of persistable paged KV-cache pools
   write at absolute positions ``cached_lens[b] + t`` and attend over the
   block window through the kernel under the ``<= cached + t`` mask —
   the prefix-cache suffix prefill. ``pos_encoding`` becomes
-  ``pos_encoding_from``; fetches gain ``kv_step_tokens``, the greedy
-  token at every window position.
+  ``pos_encoding_from``; fetches gain ``kv_step_tokens``, the greedy (or
+  sampled) token at every window position — the speculative verify
+  surface.
 
 The decode and extend ops ALWAYS go through
 ``ops.paged_window_attention`` — the counterpart of the JAX package with
@@ -42,11 +44,13 @@ Pool writes are in place: the ops index into the scope's pool tensors
 and return the same objects, so no pool is ever copied. Out-of-range
 slots (padding rows whose table is ``-1``, prompt positions
 ``t >= seq_len``, inactive decode rows with ``positions < 0``, padded
-extend window slots ``t >= seq_lens[b]``) are filtered out before the
-write — the JAX package's scatter DROPS them, where torch indexing
-would fault or wrap.
+extend window slots ``t >= seq_lens[b]``) are dropped, as the JAX
+package's scatter drops them, without reading a host value
+(``_write_pools``): the programs run under CUDA graph capture.
 
-Not ported yet: the sampling heads (``sampling=True`` raises).
+``sampling=True`` replaces the greedy heads with the seeded per-row
+sampling ops (decoding/sampling.py) and adds the five ``[B]`` sampling
+feeds to every program; the default builds the greedy programs.
 """
 
 from __future__ import annotations
@@ -64,6 +68,9 @@ from ..core.program import Deferred, Program
 from ..models.transformer import attention, sinusoid_table
 from ..ops.paged_attention import paged_window_attention
 from .cache import CacheConfig
+from .sampling import (SAMPLE_STEPS, SAMPLING_FEEDS, SEEDS, TEMPERATURE,
+                       TOP_K, TOP_P, _greedy_tokens, _sample_token,
+                       _sample_tokens)
 
 # fixed public feed/fetch names of the derived programs (the JAX
 # package's)
@@ -103,23 +110,48 @@ def _write_pools(k_cache, v_cache, slots, valid, k_rows, v_rows,
                  k_scale=None, v_scale=None):
     """``pool[slots[valid]] = rows[valid]`` for both pools, over their
     flattened ``[nb * bs, H, D]`` views, in place; writes whose
-    ``valid`` is False are dropped. ``slots``/``valid`` have the leading
-    shape of the rows (``[B]`` or ``[B, T]``). With scale pools the rows
-    are quantized first and codes and scales land at the same kept
-    slots, so the pair never tears. Finding the kept rows costs one
-    device->host sync, shared by the pools."""
-    keep = valid.reshape(-1).nonzero().squeeze(1)
-    slots = slots.reshape(-1)[keep]
+    ``valid`` is False are dropped (the JAX package's scatter with
+    ``mode="drop"``). ``slots``/``valid`` have the leading shape of the
+    rows (``[B]`` or ``[B, T]``). With scale pools the rows are quantized
+    first and codes and scales land at the same slots, so the pair never
+    tears.
+
+    No host value is read (a decode step stays capturable): every write
+    is issued, and a dropped one is made a copy of another write of the
+    same call — the last kept row's slot and values when there is one,
+    else slot 0 and the values it already holds — so the duplicates
+    store the bytes that slot ends with anyway, and every other slot is
+    untouched. (The last kept row, because where two kept rows share a
+    slot the later one wins in the JAX package's scatter and in a
+    sequential ``index_copy_``; the engine never issues such a pair.)"""
+    valid = valid.reshape(-1)
+    slots = slots.reshape(-1).to(torch.int64)
+    any_kept = valid.any()
+    order = torch.arange(valid.shape[0], device=valid.device)
+    last = torch.argmax(torch.where(valid, order, -1)).reshape(1)
+    zero = torch.zeros(1, dtype=torch.int64, device=slots.device)
+    fill_slot = torch.where(any_kept, slots.index_select(0, last), zero)
+    target = torch.where(valid, slots, fill_slot)
+
+    def fill(new, old):
+        """Each dropped row's stand-in: the last kept row, or the
+        values slot 0 holds."""
+        keep = valid.reshape((-1,) + (1,) * (new.dim() - 1))
+        stand = torch.where(any_kept, new.index_select(0, last),
+                            old.index_select(0, zero))
+        return torch.where(keep, new, stand)
+
     for pool, scale, rows in ((k_cache, k_scale, k_rows),
                               (v_cache, v_scale, v_rows)):
         flat = pool.view(-1, *pool.shape[2:])
-        rows = rows.reshape(-1, *pool.shape[2:])[keep]
+        rows = rows.reshape(-1, *pool.shape[2:])
         if scale is None:
-            flat.index_copy_(0, slots, rows.to(pool.dtype))
+            flat.index_copy_(0, target, fill(rows.to(pool.dtype), flat))
         else:
             codes, sc = _quantize_rows(rows)
-            flat.index_copy_(0, slots, codes)
-            scale.view(-1).index_copy_(0, slots, sc)
+            sflat = scale.view(-1)
+            flat.index_copy_(0, target, fill(codes, flat))
+            sflat.index_copy_(0, target, fill(sc, sflat))
 
 
 def _with_scales(out, k_scale, v_scale):
@@ -274,12 +306,14 @@ def _greedy_token(next_logits):
     return torch.argmax(next_logits, dim=-1).to(torch.int32)
 
 
-def _greedy_tokens(logits):
-    """Window logits ``[B, T, V]`` -> argmax ids ``[B, T]``, computed
-    only when read: a suffix prefill fetches ``kv_next_tokens`` alone
-    and does not pay for the ``[B, T, V]`` pass."""
-    return Deferred(
-        lambda: torch.argmax(logits, dim=-1).to(torch.int32))
+def _deferred(fn):
+    """An op fn whose result is computed only when read: a suffix
+    prefill fetches ``kv_next_tokens`` alone and does not pay for the
+    window head's ``[B, T, V]`` pass."""
+    def op(*args):
+        return Deferred(lambda: fn(*args))
+    op.__name__ = fn.__name__
+    return op
 
 
 class DecodePair:
@@ -290,7 +324,8 @@ class DecodePair:
     def __init__(self, prefill: Program, decode: Program,
                  config: CacheConfig, token_name: str,
                  pool_specs: List[Tuple[str, tuple, np.dtype]],
-                 n_layers: int, extend: Optional[Program] = None):
+                 n_layers: int, extend: Optional[Program] = None,
+                 sampling: bool = False):
         self.prefill = prefill
         self.decode = decode
         self.extend = extend
@@ -298,10 +333,15 @@ class DecodePair:
         self.token_name = token_name
         self.pool_specs = pool_specs
         self.n_layers = n_layers
+        self.sampling = bool(sampling)
         self.prefill_feeds = [token_name, BLOCK_TABLES, SEQ_LENS]
         self.decode_feeds = [token_name, BLOCK_TABLES, POSITIONS]
         self.extend_feeds = [token_name, BLOCK_TABLES, CACHED_LENS,
                              SEQ_LENS]
+        if sampling:
+            for feeds in (self.prefill_feeds, self.decode_feeds,
+                          self.extend_feeds):
+                feeds.extend(SAMPLING_FEEDS)
         self.fetches = [NEXT_TOKENS, NEXT_LOGITS]
         self.extend_fetches = [NEXT_TOKENS, NEXT_LOGITS, STEP_TOKENS]
 
@@ -338,9 +378,25 @@ def _data_var(program: Program, name: str, shape, dtype="int32"):
                          is_data=True)
 
 
-def _append_head(program: Program, logits_name: str, prefill: bool) -> None:
+def _sampling_vars(program: Program) -> None:
+    """Create the five per-row sampling feeds (sampling head only)."""
+    _data_var(program, TEMPERATURE, (-1,), "float32")
+    _data_var(program, TOP_K, (-1,))
+    _data_var(program, TOP_P, (-1,), "float32")
+    _data_var(program, SEEDS, (-1,))
+    _data_var(program, SAMPLE_STEPS, (-1,))
+
+
+def _sampling_inputs(x_name: str):
+    return {"X": [x_name], "Temperature": [TEMPERATURE],
+            "TopK": [TOP_K], "TopP": [TOP_P], "Seeds": [SEEDS],
+            "Steps": [SAMPLE_STEPS]}
+
+
+def _append_head(program: Program, logits_name: str, prefill: bool,
+                 sampling: bool = False) -> None:
     """Append the next-token head: the last real position's logits,
-    then the greedy argmax."""
+    then the greedy argmax (or the seeded per-row sampler)."""
     gb = program.global_block()
     lv = gb.var(logits_name)
     vocab = lv.shape[-1] if lv.shape else -1
@@ -356,17 +412,31 @@ def _append_head(program: Program, logits_name: str, prefill: bool) -> None:
                      inputs={"X": [logits_name]},
                      outputs={"Out": [NEXT_LOGITS]},
                      fn=_last_token_logits)
-    gb.append_op(type="greedy_token", inputs={"X": [NEXT_LOGITS]},
-                 outputs={"Out": [NEXT_TOKENS]}, fn=_greedy_token)
+    if sampling:
+        gb.append_op(type="sample_token",
+                     inputs=_sampling_inputs(NEXT_LOGITS),
+                     outputs={"Out": [NEXT_TOKENS]}, fn=_sample_token)
+    else:
+        gb.append_op(type="greedy_token", inputs={"X": [NEXT_LOGITS]},
+                     outputs={"Out": [NEXT_TOKENS]}, fn=_greedy_token)
 
 
-def _append_window_head(program: Program, logits_name: str) -> None:
+def _append_window_head(program: Program, logits_name: str,
+                        sampling: bool = False) -> None:
     """Append the per-position window head on the extend program: one
-    greedy token per window slot (``kv_step_tokens``)."""
+    greedy (or sampled) token per window slot (``kv_step_tokens``, the
+    speculative verify surface), computed only when fetched."""
     gb = program.global_block()
     gb.create_var(name=STEP_TOKENS, shape=(-1, -1), dtype="int32")
-    gb.append_op(type="greedy_tokens", inputs={"X": [logits_name]},
-                 outputs={"Out": [STEP_TOKENS]}, fn=_greedy_tokens)
+    if sampling:
+        gb.append_op(type="sample_tokens",
+                     inputs=_sampling_inputs(logits_name),
+                     outputs={"Out": [STEP_TOKENS]},
+                     fn=_deferred(_sample_tokens))
+    else:
+        gb.append_op(type="greedy_tokens", inputs={"X": [logits_name]},
+                     outputs={"Out": [STEP_TOKENS]},
+                     fn=_deferred(_greedy_tokens))
 
 
 _MODES = {"prefill": ("paged_attention_prefill", _paged_prefill_attention,
@@ -504,12 +574,10 @@ def derive_decode_programs(program: Program, token_name: str,
     ``program`` — a built decoder-only forward: ``token_name`` feeds ids
     ``[B, T]``, ``logits_name`` is the ``[B, T, V]`` logits var. The
     input program is not mutated (all outputs are rewritten
-    ``clone(for_test=True)``s). ``sampling`` is not ported yet and
-    raises."""
-    if sampling:
-        raise NotImplementedError(
-            "derive_decode_programs(sampling=True): the sampling heads "
-            "are not ported yet (ROADMAP Queue A item 1 step 3)")
+    ``clone(for_test=True)``s). ``sampling=True`` replaces the greedy
+    heads with the seeded per-row sampling ops and adds the five
+    sampling feeds to every program; the default builds the greedy
+    programs."""
     config = config or CacheConfig()
     gb = program.global_block()
     enforce(gb._find_var_recursive(token_name) is not None,
@@ -520,13 +588,17 @@ def derive_decode_programs(program: Program, token_name: str,
     prefill = program.clone(for_test=True)
     _data_var(prefill, BLOCK_TABLES, (-1, config.max_blocks_per_seq))
     _data_var(prefill, SEQ_LENS, (-1,))
+    if sampling:
+        _sampling_vars(prefill)
     pool_specs = _rewrite_attention(prefill, config, "prefill")
     _swap_token_lookup(prefill, token_name)
-    _append_head(prefill, logits_name, prefill=True)
+    _append_head(prefill, logits_name, prefill=True, sampling=sampling)
 
     decode = program.clone(for_test=True)
     _data_var(decode, BLOCK_TABLES, (-1, config.max_blocks_per_seq))
     _data_var(decode, POSITIONS, (-1,))
+    if sampling:
+        _sampling_vars(decode)
     dspecs = _rewrite_attention(decode, config, "decode")
     enforce([s[:2] for s in dspecs] == [s[:2] for s in pool_specs],
             "prefill/decode rewrites disagree on pool layout")
@@ -535,7 +607,7 @@ def derive_decode_programs(program: Program, token_name: str,
     _swap_token_lookup(decode, token_name)
     # the decode step is one token per sequence, by construction
     decode.global_block().var(token_name).shape = (-1, 1)
-    _append_head(decode, logits_name, prefill=False)
+    _append_head(decode, logits_name, prefill=False, sampling=sampling)
     decode._bump()
 
     extend = None
@@ -544,16 +616,20 @@ def derive_decode_programs(program: Program, token_name: str,
         _data_var(extend, BLOCK_TABLES, (-1, config.max_blocks_per_seq))
         _data_var(extend, CACHED_LENS, (-1,))
         _data_var(extend, SEQ_LENS, (-1,))
+        if sampling:
+            _sampling_vars(extend)
         especs = _rewrite_attention(extend, config, "extend")
         enforce([s[:2] for s in especs] == [s[:2] for s in pool_specs],
                 "prefill/extend rewrites disagree on pool layout")
         _swap_pos_encoding(extend, CACHED_LENS, "CachedLens",
                            _pos_encoding_from, "pos_encoding_from")
         _swap_token_lookup(extend, token_name)
-        _append_head(extend, logits_name, prefill=True)
-        _append_window_head(extend, logits_name)
+        _append_head(extend, logits_name, prefill=True,
+                     sampling=sampling)
+        _append_window_head(extend, logits_name, sampling)
         extend._bump()
 
     n_layers = len([s for s in pool_specs if s[0].endswith(".k")])
     return DecodePair(prefill, decode, config, token_name, pool_specs,
-                      n_layers=n_layers, extend=extend)
+                      n_layers=n_layers, extend=extend,
+                      sampling=sampling)

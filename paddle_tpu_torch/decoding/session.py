@@ -1,5 +1,5 @@
 """DecodeSession: the server layer of the decode subsystem (counterpart
-of paddle_tpu/decoding/session.py, greedy and without a draft model).
+of paddle_tpu/decoding/session.py).
 
 An InferenceServer whose worker runs the CONTINUOUS batching loop:
 bounded submit queue with backpressure, per-sequence deadlines (queued
@@ -7,7 +7,10 @@ and mid-generation), streaming token callbacks, graceful drain —
 ``shutdown(drain=True)`` finishes every in-flight generation,
 ``shutdown(drain=False)`` flushes partial streams with the typed
 GenerationInterruptedError (futures are always resolved, never
-dropped).
+dropped). Requests carry a :class:`SamplingParams` (mixed greedy and
+sampled requests share one batch), and a draft engine enables
+speculative decoding (``serve_decoding(draft_program=...)`` builds it;
+the draft owns its own scope and KV pools).
 """
 
 from __future__ import annotations
@@ -24,29 +27,33 @@ from ..serving.errors import (DeadlineExceededError, PromptTooLongError,
                               QueueFullError, ServerClosedError)
 from ..serving.server import _STOP, InferenceServer, deliver
 from .batcher import ContinuousBatcher
-from .cache import KVCacheManager
+from .cache import CacheConfig, KVCacheManager
 from .engine import DecodeEngine, DecodingConfig
+from .sampling import GREEDY, SamplingParams
 
 
 class GenerationRequest:
     """One queued generation: prompt ids, budget, stop condition,
-    optional streaming callback, and the future its caller waits on
-    (resolves to the list of GENERATED token ids; eos, when configured
-    and produced, is included as the last token)."""
+    sampling config, optional streaming callback, and the future its
+    caller waits on (resolves to the list of GENERATED token ids; eos,
+    when configured and produced, is included as the last token)."""
 
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "on_token",
-                 "future", "enqueue_t", "deadline_t", "prefix_keys")
+                 "future", "enqueue_t", "deadline_t", "prefix_keys",
+                 "sampling")
 
     def __init__(self, prompt, max_new_tokens: int,
                  eos_id: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
-                 on_token: Optional[Callable[[int], None]] = None):
+                 on_token: Optional[Callable[[int], None]] = None,
+                 sampling: Optional[SamplingParams] = None):
         self.prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         enforce(len(self.prompt) >= 1, "empty prompt")
         enforce(int(max_new_tokens) >= 1, "max_new_tokens must be >= 1")
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = None if eos_id is None else int(eos_id)
         self.on_token = on_token
+        self.sampling = sampling or GREEDY
         self.future: Future = Future()
         self.enqueue_t = time.monotonic()
         self.deadline_t = (self.enqueue_t + deadline_ms / 1e3
@@ -61,21 +68,35 @@ class GenerationRequest:
 
 
 class DecodeSession(InferenceServer):
-    """Serve continuous-batched greedy generation.
+    """Serve continuous-batched generation.
 
-    One worker thread owns the engine; client threads block on
+    One worker thread owns the engine(s); client threads block on
     per-request futures or stream tokens via ``on_token`` callbacks
-    (invoked from the worker — keep them cheap)."""
+    (invoked from the worker — keep them cheap). ``draft_engine``
+    (optional) enables speculative decoding: a small model over its own
+    scope and pools proposes ``speculate_k`` tokens per step, the target
+    verifies them in one multi-token step."""
 
     def __init__(self, engine: DecodeEngine,
                  config: Optional[DecodingConfig] = None,
-                 auto_start: bool = True):
+                 auto_start: bool = True,
+                 draft_engine: Optional[DecodeEngine] = None):
         self.engine = engine
         self.metrics = engine.metrics
-        self.batcher = ContinuousBatcher(engine, metrics=self.metrics)
+        self.draft_engine = draft_engine
+        self.batcher = ContinuousBatcher(engine, metrics=self.metrics,
+                                         draft=draft_engine)
         self._waiting: List[GenerationRequest] = []
         self._stop_seen = False
         super().__init__(config or engine.config, auto_start=auto_start)
+
+    def start(self) -> "DecodeSession":
+        # the draft engine warms (on a card: captures) its own bucket
+        # set alongside the target's
+        if self.draft_engine is not None and self.config.warm_up \
+                and not self.running:
+            self.draft_engine.warm_up()
+        return super().start()
 
     @property
     def kv(self) -> KVCacheManager:
@@ -84,18 +105,26 @@ class DecodeSession(InferenceServer):
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                eos_id: Optional[int] = None,
                deadline_ms: Optional[float] = None,
-               on_token: Optional[Callable[[int], None]] = None) -> Future:
+               on_token: Optional[Callable[[int], None]] = None,
+               sampling: Optional[SamplingParams] = None) -> Future:
         """Enqueue one generation; returns a Future resolving to the
         generated token ids. Raises QueueFullError at capacity
         (backpressure), ServerClosedError after shutdown began, and
         PromptTooLongError for requests this cache geometry can never
-        hold."""
+        hold. ``sampling`` (a SamplingParams) needs an engine built with
+        ``DecodingConfig(sampling=True)``; greedy works everywhere."""
         if max_new_tokens is None:
             max_new_tokens = self.config.max_new_tokens
         if deadline_ms is None:
             deadline_ms = self.config.default_deadline_ms
+        if sampling is not None and not sampling.greedy:
+            enforce(self.engine.sampling,
+                    "this session was built without the sampling head "
+                    "(DecodingConfig(sampling=True)) — non-greedy "
+                    "SamplingParams cannot be served")
         req = GenerationRequest(prompt, max_new_tokens, eos_id=eos_id,
-                                deadline_ms=deadline_ms, on_token=on_token)
+                                deadline_ms=deadline_ms, on_token=on_token,
+                                sampling=sampling)
         cache = self.engine.cache_config
         if len(req.prompt) + req.max_new_tokens > cache.max_context or \
                 self.engine.prompt_bucket_for(len(req.prompt)) is None:
@@ -122,11 +151,12 @@ class DecodeSession(InferenceServer):
                  eos_id: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
                  on_token: Optional[Callable[[int], None]] = None,
-                 timeout: Optional[float] = None) -> List[int]:
+                 timeout: Optional[float] = None,
+                 sampling: Optional[SamplingParams] = None) -> List[int]:
         """Synchronous convenience wrapper over :meth:`submit`."""
         return self.submit(prompt, max_new_tokens, eos_id=eos_id,
-                           deadline_ms=deadline_ms,
-                           on_token=on_token).result(timeout=timeout)
+                           deadline_ms=deadline_ms, on_token=on_token,
+                           sampling=sampling).result(timeout=timeout)
 
     def _pump_queue(self, block: bool) -> None:
         """Move everything available from the queue into the FIFO
@@ -203,12 +233,57 @@ def serve_decoding(program, token_name: str, logits_name: str,
     """One-call entry point: derive the prefill/decode pair from a
     forward program, build the engine on ``place`` (default
     ``CUDAPlace(0)``), start a DecodeSession over it. The scope must hold
-    the program's parameters on that place. Speculative decoding
-    (``draft_program``) is not ported yet."""
-    if draft_program is not None:
-        raise NotImplementedError(
-            "serve_decoding(draft_program=...): speculative decoding is "
-            "not ported yet")
+    the program's parameters on that place.
+
+    ``draft_program`` (with ``draft_logits_name`` and a SEPARATE
+    ``draft_scope`` holding the draft's parameters) enables speculative
+    decoding: the draft engine shares the target's cache geometry,
+    prefix caching and bucket config (one prefill row at a time) but
+    owns its own pools. It needs ``config.speculate_k >= 1``, set to 4
+    (on a copy of the config) when a draft is given and the config
+    left it 0."""
+    config = config or DecodingConfig()
+    if draft_program is not None and config.speculate_k == 0:
+        # a draft with no window is a misconfiguration, not a mode: the
+        # JAX package's default, on a copy (the caller's config is not
+        # mutated, and the constructor re-validates speculate_k)
+        config = DecodingConfig(
+            cache=config.cache,
+            prompt_buckets=config.prompt_buckets,
+            decode_buckets=config.decode_buckets,
+            prefill_batch_buckets=config.prefill_batch_buckets,
+            suffix_buckets=config.suffix_buckets,
+            sampling=config.sampling, speculate_k=4,
+            max_new_tokens=config.max_new_tokens,
+            queue_capacity=config.queue_capacity,
+            default_deadline_ms=config.default_deadline_ms,
+            warm_up=config.warm_up)
     engine = DecodeEngine(program, token_name, logits_name, scope=scope,
                           config=config, place=place)
-    return DecodeSession(engine, auto_start=auto_start)
+    draft_engine = None
+    if draft_program is not None:
+        enforce(draft_logits_name is not None,
+                "serve_decoding: draft_program needs draft_logits_name")
+        enforce(draft_scope is not None and draft_scope is not scope,
+                "serve_decoding: the draft needs its OWN scope (its KV "
+                "pools share names with the target's)")
+        c = config.cache
+        draft_config = DecodingConfig(
+            # the draft inherits prefix_cache too: shared-prompt
+            # admissions suffix-prefill the draft's pools as well
+            cache=CacheConfig(num_blocks=c.num_blocks,
+                              block_size=c.block_size,
+                              max_blocks_per_seq=c.max_blocks_per_seq,
+                              kv_dtype=c.kv_dtype,
+                              prefix_cache=c.prefix_cache),
+            prompt_buckets=config.prompt_buckets,
+            decode_buckets=config.decode_buckets,
+            prefill_batch_buckets=(1,),
+            sampling=config.sampling,
+            max_new_tokens=config.max_new_tokens,
+            warm_up=config.warm_up)
+        draft_engine = DecodeEngine(draft_program, token_name,
+                                    draft_logits_name, scope=draft_scope,
+                                    config=draft_config, place=place)
+    return DecodeSession(engine, auto_start=auto_start,
+                         draft_engine=draft_engine)

@@ -44,6 +44,15 @@ fetch buffer, with a step counter on the card selecting each step's
 feed row and fetch row. ``run(feed=loader)`` drives a
 ``reader.DataLoader``, ``chunk`` batches a ``run_steps`` call.
 
+``run_graph`` (the counterpart of the JAX package's per-shape compiled
+``run``, which the decode engine's buckets rely on): one run of a
+program per call, on a card as a captured CUDA graph per feed shape
+(:class:`_CapturedRun`) — the feeds packed into one pinned host buffer
+and copied to the card in one non-blocking copy, the fetches packed
+into one buffer on the card and copied back in one copy, the scope's
+tensors at fixed addresses as ``run_steps`` keeps them. On the CPU it
+is ``run``.
+
 Donation (``_resolve_donation``: ``memory_optimize`` or the
 ``donate_state_buffers`` flag): on, ops update state in place and the
 graph works on the scope's own tensors; off, every run works on copies
@@ -79,9 +88,9 @@ _CAPTURE = threading.local()
 
 def _capture_error(what: str, e: Exception) -> Exception:
     if getattr(_CAPTURE, "active", False):
-        return EnforceError("%s failed while run_steps captured a CUDA "
-                            "graph (a host sync, or a call capture "
-                            "refuses, breaks capture): %s: %s"
+        return EnforceError("%s failed while a CUDA graph was captured "
+                            "(a host sync, or a call capture refuses, "
+                            "breaks capture): %s: %s"
                             % (what, type(e).__name__, e))
     return e
 
@@ -486,6 +495,7 @@ class _CapturedSteps:
         self.steps, self.unroll, self.donate = steps, unroll, donate
         self.device = device
         self.views = getattr(program, "_flat_state_views", None) or {}
+        self.caller = "run_steps"
         written = _written_persistables(program)
         # a startup program's per-name writes of a flat buffer's
         # parameters land in the packed buffer (as in Executor.run)
@@ -500,8 +510,22 @@ class _CapturedSteps:
         self.out: Optional[Dict[str, torch.Tensor]] = None
         self.idx = torch.zeros(1, dtype=torch.int64, device=device)
         self.graph = None
+        # the graph's memory pool (None: a private one), and the side
+        # stream the first call's eager step and the capture run on (the
+        # executor's one capture stream: the caching allocator keeps a
+        # stream's freed blocks for that stream, so a stream per capture
+        # would hold every eager step's temporaries apart)
+        self.pool = None
+        self.stream: Optional[torch.cuda.Stream] = None
         self.per_replay: Dict[tuple, int] = {}
         self.capture_s: Optional[float] = None
+
+    def _alloc_out(self, fetches) -> None:
+        """The fetch buffers the graph writes, each stacked on a leading
+        ``steps`` axis, allocated outside the graph's pool."""
+        self.out = {n: torch.empty((self.steps,) + tuple(v.shape),
+                                   dtype=v.dtype, device=self.device)
+                    for n, v in zip(self.fetch_names, fetches)}
 
     def _step(self, bufs: Dict[str, torch.Tensor], out) -> List:
         """One step over ``bufs`` (name -> state tensor): the feeds (a
@@ -540,7 +564,7 @@ class _CapturedSteps:
             buf = self.state.get(n)
             if buf is None:
                 enforce(isinstance(cur, torch.Tensor),
-                        "run_steps: state %r is not a tensor" % n)
+                        "%s: state %r is not a tensor" % (self.caller, n))
                 buf = cur.detach()
                 if buf.device != self.device:
                     buf = buf.to(self.device)
@@ -551,9 +575,9 @@ class _CapturedSteps:
                 enforce(isinstance(cur, torch.Tensor)
                         and tuple(cur.shape) == tuple(buf.shape)
                         and cur.dtype == buf.dtype,
-                        "run_steps: state %r is %s in the scope; its "
+                        "%s: state %r is %s in the scope; its "
                         "captured graph holds %s %s" % (
-                            n, (tuple(cur.shape), cur.dtype)
+                            self.caller, n, (tuple(cur.shape), cur.dtype)
                             if isinstance(cur, torch.Tensor) else cur,
                             tuple(buf.shape), buf.dtype))
                 buf.copy_(cur)
@@ -574,7 +598,7 @@ class _CapturedSteps:
 
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = self.stream or torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             bufs = dict(self.state)
@@ -585,9 +609,7 @@ class _CapturedSteps:
         # allocated on the side stream, read on the main one below
         for t in fetches + [bufs[n] for n in self.wo]:
             t.record_stream(main)
-        self.out = {n: torch.empty((self.steps,) + tuple(v.shape),
-                                   dtype=v.dtype, device=self.device)
-                    for n, v in zip(self.fetch_names, fetches)}
+        self._alloc_out(fetches)
         for n in self.wo:
             self.state[n] = bufs[n].clone()
         if self.unroll:
@@ -605,7 +627,8 @@ class _CapturedSteps:
             with torch.cuda.stream(side):
                 # thread_local: the loader's worker may pin and copy
                 # the next batches while this thread captures
-                graph.capture_begin(capture_error_mode="thread_local")
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
                 try:
                     for _ in range(self.steps if self.unroll else 1):
                         self._step(self.state, self.out)
@@ -618,9 +641,9 @@ class _CapturedSteps:
                 graph.capture_end()
         except Exception as e:
             raise EnforceError(
-                "run_steps: the CUDA graph capture failed%s: %s" % (
-                    "" if self.unroll else " (the eager first step had "
-                    "already updated the state)", e)) from e
+                "%s: the CUDA graph capture failed%s: %s" % (
+                    self.caller, "" if self.unroll else " (the eager first "
+                    "step had already updated the state)", e)) from e
         finally:
             _CAPTURE.active = False
             delta = {k: v - before.get(k, 0)
@@ -650,6 +673,99 @@ class _CapturedSteps:
         return fetches
 
 
+def _packed(specs, device, pin: bool):
+    """One uint8 buffer holding a tensor per ``(shape, dtype)`` spec,
+    each at a 16-byte aligned offset: (buffer, views)."""
+    offsets, total = [], 0
+    for shape, dt in specs:
+        offsets.append(total)
+        nbytes = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        total += -(-nbytes // 16) * 16
+    buf = torch.empty(max(total, 16), dtype=torch.uint8, device=device,
+                      pin_memory=pin)
+    views = [buf[off:off + int(np.prod(shape, dtype=np.int64))
+                 * dt.itemsize].view(dt).view(tuple(shape))
+             for off, (shape, dt) in zip(offsets, specs)]
+    return buf, views
+
+
+class _CapturedRun(_CapturedSteps):
+    """One run of a program over one scope on a card as a captured CUDA
+    graph, for one set of feed shapes (``Executor.run_graph``; the
+    decode engine's buckets).
+
+    The fixed addresses of :class:`_CapturedSteps`, with ``steps == 1``
+    and transport for a call per step:
+      * the feeds are views of one uint8 buffer on the card, filled from
+        its twin in pinned host memory by one non-blocking copy;
+      * the fetches are views of one uint8 buffer on the card, which the
+        graph writes and one copy brings to pinned host memory;
+      * the scope's state tensors are the graph's (donation on; with it
+        off, copies), replaced scope tensors copied in before a replay.
+    The first call runs the program eagerly (its result is the call's),
+    then captures; later calls replay. ``pool`` is the graph memory pool
+    to capture into (a handle several graphs share, or None for a
+    private one). Launch counters count each replay as
+    :class:`_CapturedSteps` does.
+    """
+
+    def __init__(self, program: Program, scope: Scope,
+                 fetch_names: Tuple[str, ...], state_names: Tuple[str, ...],
+                 feed_specs: Dict[str, tuple], donate: bool,
+                 device: torch.device, pool=None):
+        names = tuple(feed_specs)
+        specs = [feed_specs[n] for n in names]
+        self.host_in, host_views = _packed(specs, "cpu", pin=True)
+        self.dev_in, dev_views = _packed(specs, device, pin=False)
+        self.host_feeds = dict(zip(names, host_views))
+        super().__init__(program, scope, fetch_names, state_names, {}, (),
+                         1, False, donate, device)
+        self.caller = "run_graph"
+        self.feeds = dict(zip(names, dev_views))
+        self.pool = pool
+        self.host_out: Optional[torch.Tensor] = None
+        self.dev_out: Optional[torch.Tensor] = None
+        self.host_fetches: List[torch.Tensor] = []
+
+    def _alloc_out(self, fetches) -> None:
+        specs = [((1,) + tuple(v.shape), v.dtype) for v in fetches]
+        self.dev_out, outs = _packed(specs, self.device, pin=False)
+        self.host_out, self.host_fetches = _packed(specs, "cpu", pin=True)
+        self.out = dict(zip(self.fetch_names, outs))
+
+    def launch(self, feed: Dict) -> None:
+        """Queue one run without waiting for the card: copy the feeds in
+        (host arrays, converted to the declared dtypes), replay
+        (capturing on the first call), queue the fetches' copy to host
+        memory."""
+        for n, v in feed.items():
+            src = v if isinstance(v, torch.Tensor) \
+                else torch.from_numpy(np.ascontiguousarray(v))
+            self.host_feeds[n].copy_(src)
+        self.idx.zero_()
+        self.dev_in.copy_(self.host_in, non_blocking=True)
+        self._state_in(self.scope)
+        if self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+            _cuda.add_launches(self.per_replay, 1)
+        self.host_out.copy_(self.dev_out, non_blocking=True)
+        self._state_out(self.scope)
+
+    def fetch(self) -> List[np.ndarray]:
+        """Wait for the launched run (the call's one host sync) and
+        return its fetches as host numpy arrays (bfloat16 widened to
+        float32)."""
+        with RecordEvent("fetch_sync"):
+            torch.cuda.current_stream(self.device).synchronize()
+        return [_to_numpy(t[0]) for t in self.host_fetches]
+
+    def __call__(self, feed: Dict) -> List[np.ndarray]:
+        self.launch(feed)
+        return self.fetch()
+
+
 class Executor:
     """Runs programs on ``place`` (default ``CUDAPlace(0)``, which raises
     on a host without a card)."""
@@ -657,9 +773,12 @@ class Executor:
     def __init__(self, place: Optional[Place] = None):
         self.place = place if place is not None else default_place()
         self.device = self.place.torch_device()
-        # run_steps' captured graphs, by program, version, donation,
-        # feed/fetch/state names, feed shapes, steps and unroll
+        # captured graphs: run_steps' by program, version, scope,
+        # donation, feed/fetch/state names, feed shapes, steps and unroll;
+        # run_graph's by program, version, scope, donation, feed names and
+        # shapes, fetch names
         self._cache: Dict[tuple, _CapturedSteps] = {}
+        self._capture_stream: Optional[torch.cuda.Stream] = None
 
     def _resolve_state_names(self, program: Program, feed: Dict,
                              fetch_names: Tuple[str, ...],
@@ -891,17 +1010,94 @@ class Executor:
                                       state_names, feed_vals, stacked_names,
                                       steps, bool(unroll), donate,
                                       self.device)
+            captured.stream = self._stream()
         with RecordEvent("dispatch"):
             fetches = captured(feed_vals)
         self._cache[key] = captured
         return self._fetch_result(fetch_names, fetches, return_numpy)
 
+    def run_graph(self,
+                  program: Optional[Program] = None,
+                  feed: Optional[Dict] = None,
+                  fetch_list: Optional[Sequence] = None,
+                  scope: Optional[Scope] = None,
+                  pool=None) -> List[np.ndarray]:
+        """One run of ``program`` (the semantics of :meth:`run`), with
+        the fetches as host numpy arrays. On the CPU it is :meth:`run`.
+        On a card each set of feed names and shapes is a captured CUDA
+        graph (:class:`_CapturedRun`): the first call runs eagerly and
+        captures, later calls replay, so a call costs one feed copy, the
+        replay, one fetch copy and one synchronize. ``pool`` (a
+        ``torch.cuda.graph_pool_handle()``) is the memory pool the graphs
+        are captured into; graphs that never run concurrently may share
+        one. A capture that fails raises EnforceError naming the op;
+        nothing falls back to eager runs."""
+        program = program or default_main_program()
+        feed = dict(feed or {})
+        scope = scope if scope is not None else global_scope()
+        fetch_names = tuple(_as_names(fetch_list))
+        if self.device.type != "cuda":
+            return self.run(program, feed=feed, fetch_list=fetch_names,
+                            scope=scope)
+        key, captured = self._graph_for(program, feed, fetch_names, scope,
+                                        pool)
+        try:
+            with RecordEvent("dispatch"):
+                captured.launch(feed)
+            return captured.fetch()
+        finally:
+            # a graph is held once captured; a failed first call keeps
+            # nothing
+            if captured.graph is not None:
+                self._cache[key] = captured
+
+    def _graph_for(self, program: Program, feed: Dict,
+                   fetch_names: Tuple[str, ...], scope: Scope, pool):
+        """(cache key, the :class:`_CapturedRun` held for it or a new
+        one, not yet captured) of a ``run_graph`` call."""
+        donate = _resolve_donation(program)
+        key = (id(program), program._version, id(scope), donate, "graph",
+               tuple((n, tuple(np.shape(v)))
+                     for n, v in sorted(feed.items())), fetch_names)
+        captured = self._cache.get(key)
+        if captured is not None:
+            return key, captured
+        enforce(not any(op.type == "backward"
+                        for op in program.global_block().ops),
+                "run_graph runs inference programs; train through run or "
+                "run_steps")
+        for k in [k for k in self._cache if k[0] == id(program)
+                  and k[1] != program._version]:
+            del self._cache[k]
+        gb = program.global_block()
+        state_names = self._resolve_state_names(program, feed, fetch_names,
+                                                scope)
+        specs = {}
+        for n, v in sorted(feed.items()):
+            var = gb._find_var_recursive(n)
+            dt = (dtype_utils.to_torch(var.dtype)
+                  if var is not None and var.dtype is not None
+                  else torch.as_tensor(np.asarray(v)).dtype)
+            specs[n] = (tuple(np.shape(v)), dt)
+        captured = _CapturedRun(program, scope, fetch_names, state_names,
+                                specs, donate, self.device, pool=pool)
+        captured.stream = self._stream()
+        return key, captured
+
+    def _stream(self) -> torch.cuda.Stream:
+        """The side stream this executor's captures run on."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        return self._capture_stream
+
     @property
     def num_compiled(self) -> int:
-        """Captured CUDA graphs held (one per run_steps cache key: the
+        """Captured CUDA graphs held (one per ``run_steps`` cache key: the
         program and its version, the scope, donation, the feed, fetch and
-        state names, the feed shapes, steps and unroll); 0 on the CPU,
-        where nothing is captured."""
+        state names, the feed shapes, steps and unroll; one per
+        ``run_graph`` key: the program and its version, the scope,
+        donation, the feed names and shapes, the fetch names); 0 on the
+        CPU, where nothing is captured."""
         return sum(c.graph is not None for c in self._cache.values())
 
     @property

@@ -3,13 +3,15 @@
 on one NVIDIA card.
 
     python3 profile_decode.py [--steps 20] [--kv-dtype f32|int8]
-                              [--out TABLE.json]
+                              [--eager] [--out TABLE.json]
 
 Builds the causal LM of chip_smoke.py (Transformer-base widths, random
 weights from a seed) on ``CUDAPlace(0)``, prefills 16 prompts of 16-200
 tokens into the paged pools (f32, or int8 codes with per-slot scales
 under ``--kv-dtype int8``), then times decode steps of the full 16-row
-batch through ``DecodeEngine.decode``:
+batch through ``DecodeEngine.decode`` — each step a replay of the
+bucket's captured CUDA graph, or with ``--eager`` the engine's eager
+path (``_capture=False``):
 
 1. host wall time per step, without a profiler;
 2. the same steps under ``torch.profiler`` (CPU + CUDA activity): the
@@ -65,6 +67,9 @@ def main():
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--kv-dtype", choices=("f32", "int8"), default="f32",
                     help="the KV pools' storage type")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode steps eagerly, not as the "
+                         "captured graph")
     ap.add_argument("--out", help="write the per-kernel table here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -84,7 +89,8 @@ def main():
                           else args.kv_dtype),
         decode_buckets=(1, 2, 4, 8, 16), max_new_tokens=cs.MAX_NEW)
     engine = DecodeEngine(main_prog, "tokens", logits.name, scope=scope,
-                          config=config, place=fluid.CUDAPlace(0))
+                          config=config, place=fluid.CUDAPlace(0),
+                          _capture=not args.eager)
     engine.warm_up()
 
     n = cs.N_REQUESTS
@@ -135,7 +141,7 @@ def main():
     device_ms = sum(by_family.values()) / 1e3 / args.steps
     launches = sum(1 for name, _ in events if _family(name) != "copies")
     cs.emit({"phase": "decode_step", "card": card, "batch": n,
-             "kv_dtype": args.kv_dtype,
+             "kv_dtype": args.kv_dtype, "captured": engine.captured,
              "steps": args.steps, "host_wall_ms": wall_ms,
              "profiled_wall_ms": prof_wall_ms,
              "device_busy_ms": device_ms,

@@ -21,10 +21,14 @@ from paddle_tpu_torch.models.transformer import \
 
 VOCAB = 37
 LM = dict(vocab_size=VOCAB, n_layer=2, n_head=2, d_model=32, d_inner_hid=64)
+# the one-layer draft of tests/test_decoding_fleet.py (perturbed with
+# seed 5 there and here)
+DRAFT_LM = dict(vocab_size=VOCAB, n_layer=1, n_head=2, d_model=16,
+                d_inner_hid=32)
 CACHE = dict(num_blocks=24, block_size=8, max_blocks_per_seq=4)
 
 
-def jax_lm():
+def jax_lm(seed=11, lm=LM):
     """(program, scope, logits_var) of the JAX package, with every float
     parameter perturbed so greedy streams vary with the prompt (the
     recipe of tests/test_decoding.py)."""
@@ -34,9 +38,9 @@ def jax_lm():
     scope = jfluid.Scope()
     with jfluid.scope_guard(scope), j_unique_name.guard(), \
             jfluid.program_guard(main, startup):
-        _, logits = j_causal_lm(**LM)
+        _, logits = j_causal_lm(**lm)
         jfluid.Executor().run(startup)
-        rng = np.random.RandomState(11)
+        rng = np.random.RandomState(seed)
         for name in list(scope.local_var_names()):
             v = np.asarray(scope.find_var(name))
             if v.dtype.kind == "f":
@@ -45,11 +49,11 @@ def jax_lm():
     return main, scope, logits
 
 
-def torch_lm():
+def torch_lm(lm=LM):
     """(program, startup, logits_var) of the port, same builder calls."""
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
-        _, logits = t_causal_lm(**LM)
+        _, logits = t_causal_lm(**lm)
     return main, startup, logits
 
 

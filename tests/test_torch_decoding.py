@@ -119,9 +119,11 @@ def test_derive_refusals(lm):
                                  dtype="int32")
     with pytest.raises(tfluid.EnforceError, match="already defines"):
         tdec.derive_decode_programs(p2, "tokens", t_logits.name, cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tdec.derive_decode_programs(t_main, "tokens", t_logits.name, cfg,
-                                    sampling=True)
+    # the sampling heads are ported: sampling=True derives them
+    sp = tdec.derive_decode_programs(t_main, "tokens", t_logits.name, cfg,
+                                     sampling=True)
+    assert sp.sampling and "sample_token" in [
+        op.type for op in sp.decode.global_block().ops]
     # the extend program, prefix caching and int8 pools are ported
     pair = tdec.derive_decode_programs(
         t_main, "tokens", t_logits.name,
