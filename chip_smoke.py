@@ -95,15 +95,24 @@ Phases, one JSON line each (or one per shape):
              ms, tokens/s, peak memory, and one profiled step split by
              kernel family with the device's idle share.
 7. fused_update — ``fused_flat_update`` (the CUDA kernel) against
-             ``plain_flat_update`` on the card: SGD, Adagrad and Adam,
-             Adam with and without the beta-power advance, f32 and bf16
-             moments, at N = the recipe's flat group size and a ragged
-             N = 128*4099+37. Every output bit-equal (max abs error 0).
-             CUDA-event ms of the kernel and the plain version, the
-             bound (bytes read and written once over 3.35 TB/s), and
-             ``torch._fused_adam_`` (what ``torch.optim.Adam(fused=True)``
-             calls) over the same flat tensors with f32 moments, a time
-             yardstick only (it places eps differently).
+             ``plain_flat_update`` on the card, every kind and branch:
+             SGD, Adagrad and Adam (Adam with and without the
+             beta-power advance) at N = the recipe's flat group size;
+             Momentum (plain, Nesterov), Adamax (with and without its
+             beta-power advance), DecayedAdagrad, Adadelta, RMSProp
+             (plain, centered with momentum), Ftrl (lr_power -0.5 and
+             -0.25), ProximalGD and ProximalAdagrad at N = ResNet-50's
+             flat group (25,557,032); each with f32 and bf16 moments,
+             and each also at a ragged N = 128*4099+37. Every output
+             bit-equal (max abs error 0) and finite. CUDA-event ms of
+             the kernel and the plain version, the bound (bytes read and
+             written once over 3.35 TB/s), and a torch fused optimizer
+             over the same flat tensors with f32 state where one
+             computes the same update — ``torch._fused_adam_`` for
+             Adam, ``torch._fused_sgd_`` with a momentum buffer for
+             Momentum, ``torch._fused_adagrad_`` for Adagrad (its error
+             recorded where this torch lacks it on the card) — a time
+             yardstick only.
 8. recipe  — ``bench.py``'s recipe: ``transformer_base`` at the widths
              above with ``sparse_embedding=True``, ``attn_impl="pallas"``,
              ``Adam(1e-4)`` and the flags ``use_bfloat16``,
@@ -177,6 +186,27 @@ Phases, one JSON line each (or one per shape):
              (top-2 gap < 1e-3), and the self-draft's acceptance rate
              1.0. Reports acceptance, tokens per verified row, tokens/s and
              verify-step ms.
+
+13. resnet — ``bench_resnet.py``'s training path: ``resnet_imagenet``
+             depth 50, B=64, 3x224x224, 1000 classes, ``Momentum(0.1,
+             0.9)``, the flags ``use_bfloat16``, ``bf16_activations``
+             and ``bf16_moments``, ``memory_optimize``; a pool of 4
+             seeded batches on the card, one warm ``run_steps`` chunk,
+             then 16 timed steps in chunks of 4; in the per-parameter
+             layout and under ``fuse_optimizer_state``, where the
+             ``momentum`` kind of the fused update launches once per
+             group per step (by its counter, graph replays counted).
+             Checks, with ``cudnn.deterministic``: step 0's loss equal
+             between the layouts (rel 1e-5), every parameter after two
+             eager steps within 1e-6 of its max between them,
+             ``run_steps`` of the same two batches equal to the eager
+             steps (losses rel 1e-5, parameters 1e-6); the timed runs
+             (cuDNN's defaults) give finite losses; the space-to-depth
+             stem equals the plain stem at f32 (the same shape, within
+             1e-4 of its max). Reports images/s, step ms, capture s,
+             peak memory, and one replayed step profiled (idle share,
+             device ms by family: conv, batch_norm, elementwise, matmul,
+             fused_update, ...), per layout.
 
 Then the card's name and power limit, the kernels JSON line (wall and
 device ms of each kernel and its library call), and as the
@@ -1451,11 +1481,13 @@ def _train_family(name: str) -> str:
     return "other"
 
 
-def profile_step(run_step, top=15, family_launches=None):
+def profile_step(run_step, top=15, family_launches=None,
+                 family=_train_family):
     """One training step under torch.profiler: (host wall ms, device ms
-    by kernel family, kernel launches, the ``top`` kernels by device ms
-    as [name, ms, launches] rows). A dict passed as ``family_launches``
-    receives the kernels launched by family."""
+    by kernel family (``family`` of a kernel's name), kernel launches,
+    the ``top`` kernels by device ms as [name, ms, launches] rows). A
+    dict passed as ``family_launches`` receives the kernels launched by
+    family."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1469,7 +1501,7 @@ def profile_step(run_step, top=15, family_launches=None):
         if e.device_type != torch.autograd.DeviceType.CUDA \
                 or getattr(e, "is_user_annotation", False):
             continue
-        fam = _train_family(e.name)
+        fam = family(e.name)
         ms = float(e.time_range.elapsed_us()) / 1e3
         by_family[fam] = by_family.get(fam, 0.0) + ms
         name = by_name.setdefault(e.name[:90], [0.0, 0])
@@ -1605,17 +1637,38 @@ def phase_training(card):
 # bench.py's mixed-precision recipe (bench.py:80-86, :120)
 RECIPE_FLAGS = {"use_bfloat16": True, "bf16_activations": True,
                 "bf16_moments": True, "fuse_optimizer_state": True}
-FUSED_CONSTS = {"sgd": (1.0,), "adagrad": (1.0, 1e-6),
-                "adam": (1.0, 0.9, 0.999, 1e-8)}
-# (kind, bf16 moments, owns the beta-power advance); the recipe's group
-# is the last one
-FUSED_CASES = [("sgd", False, False), ("adagrad", False, False),
-               ("adagrad", True, False), ("adam", False, False),
-               ("adam", False, True), ("adam", True, False),
-               ("adam", True, True)]
+# the fused update's cases: label -> (kind, consts, flops per element in
+# the plain version's order). The recipe's kinds (sgd, adagrad, adam)
+# run at the recipe's flat group size, the others at ResNet-50's.
+FUSED_CONFIGS = {
+    "sgd": ("sgd", (1.0,), 2),
+    "adagrad": ("adagrad", (1.0, 1e-6), 7),
+    "adam": ("adam", (1.0, 0.9, 0.999, 1e-8), 12),
+    "momentum": ("momentum", (1.0, 0.9, False), 4),
+    "momentum_nesterov": ("momentum", (1.0, 0.9, True), 6),
+    "adamax": ("adamax", (1.0, 0.9, 0.999, 1e-8), 10),
+    "decayed_adagrad": ("decayed_adagrad", (1.0, 0.95, 1e-6), 9),
+    "adadelta": ("adadelta", (1.0, 0.95, 1e-6), 16),
+    "rmsprop": ("rmsprop", (1.0, 0.95, 1e-6, 0.9, False), 11),
+    "rmsprop_centered": ("rmsprop", (1.0, 0.95, 1e-6, 0.9, True), 16),
+    "ftrl": ("ftrl", (1.0, 0.01, 0.01, -0.5), 17),
+    "ftrl_power": ("ftrl", (1.0, 0.01, 0.01, -0.25), 17),
+    "proximal_gd": ("proximal_gd", (1.0, 0.01, 0.01), 8),
+    "proximal_adagrad": ("proximal_adagrad", (1.0, 0.01, 0.01), 16),
+}
+RECIPE_KINDS = ("sgd", "adagrad", "adam")
+# (label, bf16 moments, owns the shared scalars' advance); the recipe's
+# group is Adam's last case
+FUSED_CASES = (
+    [("sgd", False, False), ("adagrad", False, False),
+     ("adagrad", True, False), ("adam", False, False),
+     ("adam", False, True), ("adam", True, False), ("adam", True, True),
+     ("proximal_gd", False, False)]
+    + [(label, bf16, owns) for label in FUSED_CONFIGS
+       if label not in RECIPE_KINDS + ("proximal_gd",)
+       for bf16 in (False, True)
+       for owns in ((False, True) if label == "adamax" else (False,))])
 RAGGED_N = 128 * 4099 + 37
-# flops per element of each kind's update, in the plain version's order
-FUSED_OPS = {"sgd": 2, "adagrad": 7, "adam": 12}
 
 
 def build_recipe(fuse):
@@ -1641,47 +1694,59 @@ def build_recipe(fuse):
 
 def fused_inputs(kind, bf16, n, seed):
     """(p, g, lr, moments, shared scalars) on the card, from a seeded
-    generator: normals, Adam's first moment 0.1 N(0, 1), the other
-    moments squares of normals, beta powers of step 3."""
+    generator: normals; first moments, velocities and Ftrl's linear
+    term 0.1 N(0, 1), RMSProp's momentum 0.01 N and mean gradient 0.1 N
+    (its mean square twice the mean gradient's square and more, so the
+    centered variance stays positive after rounding to bf16), the other moments squares of normals;
+    beta powers of step 3."""
+    from paddle_tpu_torch.ops.fused_optimizer import KINDS
+
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
     rand = lambda: torch.randn(n, generator=gen, device=dev)  # noqa: E731
+    signed = {("adam", 0): 0.1, ("adamax", 0): 0.1, ("momentum", 0): 0.1,
+              ("rmsprop", 0): 0.01, ("rmsprop", 2): 0.1, ("ftrl", 1): 0.1}
     accs = []
-    for i in range({"sgd": 0, "adagrad": 1, "adam": 2}[kind]):
+    for i in range(KINDS[kind][0]):
         a = rand()
-        a = 0.1 * a if (kind, i) == ("adam", 0) else a * a
-        accs.append(a.to(torch.bfloat16 if bf16 else torch.float32))
-    shared = ((torch.tensor(0.9 ** 3, device=dev),
-               torch.tensor(0.999 ** 3, device=dev)) if kind == "adam"
-              else ())
+        accs.append(signed[kind, i] * a if (kind, i) in signed else a * a)
+    if kind == "rmsprop":
+        accs[1] = accs[1] + 2.0 * accs[2] * accs[2]
+    accs = [a.to(torch.bfloat16 if bf16 else torch.float32) for a in accs]
+    shared = (torch.tensor(0.9 ** 3, device=dev),
+              torch.tensor(0.999 ** 3, device=dev))[:KINDS[kind][1]]
     return rand(), rand(), torch.tensor(TRAIN_LR, device=dev), accs, shared
 
 
-def fused_work(kind, bf16, owns, n):
+def fused_work(label, bf16, owns, n):
     """(bound ms, bound_by, bytes, ops): p and g read and p written, each
     moment read and written, lr and the shared scalars read and the
     advanced ones written, once; the update's flops over the f32 peak."""
-    n_acc = {"sgd": 0, "adagrad": 1, "adam": 2}[kind]
-    n_sh = 2 if kind == "adam" else 0
+    from paddle_tpu_torch.ops.fused_optimizer import KINDS
+
+    kind, _consts, flops = FUSED_CONFIGS[label]
+    n_acc, n_sh = KINDS[kind][:2]
     nbytes = (n * (12 + 2 * n_acc * (2 if bf16 else 4))
               + 4 * (1 + n_sh + (n_sh if owns else 0)))
-    ops = FUSED_OPS[kind] * n
+    ops = flops * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[torch.float32] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops)
 
 
-def phase_fused_update(card, n_recipe):
-    """Every case bit-equal to the plain version at the recipe's group
-    size and a ragged size; times at the recipe's size."""
+def phase_fused_update(card, n_recipe, n_resnet):
+    """Every case bit-equal to the plain version at its main path's
+    group size (the recipe's kinds at the recipe's, the others at
+    ResNet-50's) and at a ragged size; times at the main size."""
     from paddle_tpu_torch.ops.fused_optimizer import (fused_flat_update,
                                                       plain_flat_update)
 
     rows = []
-    for n in (n_recipe, RAGGED_N):
-        for i, (kind, bf16, owns) in enumerate(FUSED_CASES):
-            consts = FUSED_CONSTS[kind]
+    for i, (label, bf16, owns) in enumerate(FUSED_CASES):
+        kind, consts, _flops = FUSED_CONFIGS[label]
+        n_main = n_recipe if label in RECIPE_KINDS else n_resnet
+        for n in (n_main, RAGGED_N):
             p, g, lr, accs, shared = fused_inputs(kind, bf16, n, 200 + i)
             want = plain_flat_update(kind, p, g, lr, accs, shared, owns,
                                      consts)
@@ -1690,37 +1755,44 @@ def phase_fused_update(card, n_recipe):
                                     [a.clone() for a in accs], shared, owns,
                                     consts)
             torch.cuda.synchronize()
+            case = (label, bf16, owns, n)
             if len(got) != len(want) or not all(
                     a.dtype == b.dtype and a.shape == b.shape
                     for a, b in zip(got, want)):
                 fail("fused_update %s: kernel outputs %s, plain %s"
-                     % ((kind, bf16, owns, n),
-                        [(a.dtype, tuple(a.shape)) for a in got],
+                     % (case, [(a.dtype, tuple(a.shape)) for a in got],
                         [(b.dtype, tuple(b.shape)) for b in want]))
+            if not all(bool(torch.isfinite(b).all()) for b in want):
+                fail("fused_update %s: the plain version is not finite on "
+                     "these inputs" % (case,))
             err = max(float((a.float() - b.float()).abs().max())
                       for a, b in zip(got, want))
             if err != 0.0 or not all(torch.equal(a, b)
                                      for a, b in zip(got, want)):
+                n_diff = [int((a != b).sum()) for a, b in zip(got, want)]
                 fail("fused_update %s: the kernel is not bit-equal to the "
-                     "plain version (max abs err %g)"
-                     % ((kind, bf16, owns, n), err))
-            row = {"phase": "fused_update", "card": card, "kind": kind,
-                   "moments": "bf16" if bf16 else "f32", "owns": owns,
-                   "n": n, "max_abs_err": err, "bit_equal": True}
-            if n == n_recipe:
+                     "plain version (max abs err %g, elements differing "
+                     "per output %s)" % (case, err, n_diff))
+            row = {"phase": "fused_update", "card": card, "label": label,
+                   "kind": kind, "moments": "bf16" if bf16 else "f32",
+                   "owns": owns, "n": n, "max_abs_err": err,
+                   "bit_equal": True}
+            if n == n_main:
                 pk, ak = p.clone(), [a.clone() for a in accs]
                 row["ms"] = cuda_ms(lambda: fused_flat_update(
                     kind, pk, g, lr, ak, shared, owns, consts), 20)
                 row["plain_ms"] = cuda_ms(lambda: plain_flat_update(
                     kind, p, g, lr, accs, shared, owns, consts), 5, warmup=1)
                 (row["bound_ms"], row["bound_by"], row["bytes"],
-                 row["ops"]) = fused_work(kind, bf16, owns, n)
+                 row["ops"]) = fused_work(label, bf16, owns, n)
                 row["device_ms"] = device_ms(lambda: fused_flat_update(
                     kind, pk, g, lr, ak, shared, owns, consts), 10)
                 row["library_ms"] = row["library_device_ms"] = None
-                if kind == "adam":
+                library = {"adam": fused_adam_ms, "adagrad": fused_adagrad_ms,
+                           "momentum": fused_sgd_ms}.get(label)
+                if library is not None:
                     (row["library_ms"], row["library_device_ms"],
-                     row["library_error"]) = fused_adam_ms(p, g, accs)
+                     row["library_error"]) = library(p, g, accs)
                 del pk, ak
             emit(row)
             rows.append(row)
@@ -1729,24 +1801,48 @@ def phase_fused_update(card, n_recipe):
     return rows
 
 
+def _library_ms(call):
+    """(wall ms, device ms, error) of a torch fused-optimizer call; (None,
+    None, the error) where this torch lacks it for these tensors."""
+    try:
+        return cuda_ms(call, 20), device_ms(call, 10), None
+    except (AttributeError, NotImplementedError, RuntimeError,
+            TypeError) as e:
+        return None, None, repr(e)
+
+
 def fused_adam_ms(p, g, accs):
-    """(wall ms, device ms, error) of ``torch._fused_adam_`` — what
-    ``torch.optim.Adam(fused=True)`` calls — over the same flat tensors
-    with f32 moments; (None, None, the error) where this torch lacks
-    it."""
+    """``torch._fused_adam_`` — what ``torch.optim.Adam(fused=True)``
+    calls — over the same flat tensors with f32 moments (a time
+    yardstick only: it places eps differently)."""
     pl = p.clone()
     m1, m2 = (a.float().clone() for a in accs)
     step = torch.tensor(3.0, device=p.device)
-    def call():
-        torch._fused_adam_(
-            [pl], [g], [m1], [m2], [], [step], lr=TRAIN_LR, beta1=0.9,
-            beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
-            maximize=False)
+    return _library_ms(lambda: torch._fused_adam_(
+        [pl], [g], [m1], [m2], [], [step], lr=TRAIN_LR, beta1=0.9,
+        beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+        maximize=False))
 
-    try:
-        return cuda_ms(call, 20), device_ms(call, 10), None
-    except (AttributeError, RuntimeError, TypeError) as e:
-        return None, None, repr(e)
+
+def fused_adagrad_ms(p, g, accs):
+    """``torch._fused_adagrad_`` (``torch.optim.Adagrad(fused=True)``)
+    over the same flat tensors with an f32 sum."""
+    pl, m = p.clone(), accs[0].float().clone()
+    step = torch.tensor(3.0, device=p.device)
+    return _library_ms(lambda: torch._fused_adagrad_(
+        [pl], [g], [m], [step], lr=TRAIN_LR, lr_decay=0.0,
+        weight_decay=0.0, eps=1e-6, maximize=False))
+
+
+def fused_sgd_ms(p, g, accs):
+    """``torch._fused_sgd_`` with a momentum buffer
+    (``torch.optim.SGD(momentum=0.9, fused=True)``) over the same flat
+    tensors with an f32 velocity: v = 0.9 v + g, p -= lr v, the
+    Momentum update."""
+    pl, v = p.clone(), accs[0].float().clone()
+    return _library_ms(lambda: torch._fused_sgd_(
+        [pl], [g], [v], weight_decay=0.0, momentum=0.9, lr=TRAIN_LR,
+        dampening=0.0, nesterov=False, maximize=False, is_first_step=False))
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2066,6 +2162,311 @@ def phase_run_steps(card, eager_losses, eager_params):
     exe.close()
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+# bench_resnet.py's protocol (bench_resnet.py:45-114): ResNet-50 at B=64,
+# 3x224x224, 1000 classes, Momentum(0.1, 0.9), the three bf16 flags,
+# memory_optimize; a pool of 4 seeded batches on the card, one warm
+# run_steps chunk, then 16 timed steps in chunks of 4
+RESNET_B, RESNET_HW, RESNET_CLASSES = 64, 224, 1000
+RESNET_FLAGS = {"use_bfloat16": True, "bf16_activations": True,
+                "bf16_moments": True}
+RESNET_POOL, RESNET_CHUNK, RESNET_STEPS = 4, 4, 16
+RESNET_PARAMS, RESNET_N = 161, 25557032
+
+
+def build_resnet(fuse):
+    """(main, startup, avg_cost) of bench_resnet.py's program after
+    ``memory_optimize``, with ``fuse_optimizer_state`` as ``fuse``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+
+    values = dict(RESNET_FLAGS, fuse_optimizer_state=fuse)
+    saved = {n: fluid.get_flag(n) for n in values}
+    fluid.set_flags(values)
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            img = fluid.layers.data(
+                name="img", shape=[-1, 3, RESNET_HW, RESNET_HW],
+                dtype="float32", append_batch_size=False)
+            lbl = fluid.layers.data(name="lbl", shape=[-1, 1],
+                                    dtype="int64", append_batch_size=False)
+            predict = resnet_imagenet(img, class_dim=RESNET_CLASSES)
+            cost = fluid.layers.cross_entropy(input=predict, label=lbl)
+            avg_cost = fluid.layers.mean(cost)
+            fluid.optimizer.Momentum(learning_rate=0.1,
+                                     momentum=0.9).minimize(avg_cost)
+    finally:
+        fluid.set_flags(saved)
+    fluid.memory_optimize(main)
+    return main, startup, avg_cost
+
+
+def resnet_weights(program, seed=SEED):
+    """Random weights from a numpy seed, as the model initializes them:
+    conv filters N(0, 2 / fan_in), batch-norm scales 1 and biases 0, the
+    fc weight N(0, 1 / fan_in) and its bias 0."""
+    rng = np.random.RandomState(seed)
+    arrays = {}
+    for p in program.all_parameters():
+        shape = tuple(p.shape)
+        if p.name.startswith("conv2d.w_"):
+            a = rng.standard_normal(shape) * math.sqrt(
+                2.0 / int(np.prod(shape[1:])))
+        elif p.name.startswith("fc.w_"):
+            a = rng.standard_normal(shape) / math.sqrt(shape[0])
+        elif p.name.startswith("batch_norm.w_"):
+            a = np.ones(shape)
+        else:
+            a = np.zeros(shape)
+        arrays[p.name] = a.astype(np.float32)
+    return arrays
+
+
+def resnet_pool(seed=SEED + 5):
+    """bench_resnet.py's synthetic batches: uniform images, uniform
+    labels, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    return [{"img": rng.rand(RESNET_B, 3, RESNET_HW, RESNET_HW).astype(
+                 np.float32),
+             "lbl": rng.randint(0, RESNET_CLASSES,
+                                (RESNET_B, 1)).astype(np.int64)}
+            for _ in range(RESNET_POOL)]
+
+
+def _resnet_family(name: str) -> str:
+    low = name.lower()
+    if any(k in low for k in ("fprop", "dgrad", "wgrad", "conv",
+                              "implicit")):
+        return "conv"
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "conv_layout"  # cuDNN's transposes around an NCHW conv
+    if "batch_norm" in low or "bn_" in low:
+        return "batch_norm"
+    if "pool" in low:
+        return "pool"
+    return _train_family(name)
+
+
+def _resnet_params(fluid, main, scope):
+    return {p.name: fluid.fetch_var(p.name, scope)
+            for p in main.all_parameters()}
+
+
+def _worst_rel(got, want):
+    """max over arrays of max |got - want| / max |want|."""
+    return max(float(np.abs(got[n] - w).max()
+                     / max(float(np.abs(w).max()), 1e-30))
+               for n, w in want.items())
+
+
+def s2d_stem_check(card):
+    """The space-to-depth stem against the plain 7x7/s2 conv on the card
+    at f32 (TF32 off), from the same weight: the same output shape, and
+    within 1e-4 of the output's max."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.resnet import _s2d_stem_conv
+
+    rng = np.random.RandomState(SEED + 6)
+    x = rng.rand(8, 3, RESNET_HW, RESNET_HW).astype(np.float32)
+    w = (rng.standard_normal((64, 3, 7, 7)) * math.sqrt(2.0 / 147)).astype(
+        np.float32)
+    place = fluid.CUDAPlace(0)
+    outs = {}
+    for mode in ("plain", "s2d"):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            img = fluid.layers.data(name="img",
+                                    shape=[-1, 3, RESNET_HW, RESNET_HW],
+                                    dtype="float32", append_batch_size=False)
+            out = (_s2d_stem_conv(img) if mode == "s2d" else
+                   fluid.layers.conv2d(input=img, num_filters=64,
+                                       filter_size=7, stride=2, padding=3,
+                                       bias_attr=False))
+        wname, = [p.name for p in main.all_parameters()]
+        scope = fluid.Scope()
+        fluid.params_from_numpy({wname: w}, scope, place, program=main)
+        outs[mode] = fluid.Executor(place).run(
+            main, feed={"img": x}, fetch_list=[out], scope=scope)[0]
+    if outs["s2d"].shape != outs["plain"].shape:
+        fail("s2d stem: output %s, plain stem %s"
+             % (outs["s2d"].shape, outs["plain"].shape))
+    rel = float(np.abs(outs["s2d"] - outs["plain"]).max()
+                / np.abs(outs["plain"]).max())
+    if not rel <= 1e-4:
+        fail("s2d stem: parts from the plain stem by %g of its max "
+             "(> 1e-4)" % rel)
+    return {"shape": list(outs["plain"].shape), "max_rel_err": rel}
+
+
+def phase_resnet(card):
+    """bench_resnet.py's training path on the card in both layouts (per
+    parameter, and fuse_optimizer_state with the momentum kind of the
+    fused update); returns the fused layout's timed run's launches of
+    ``fused_flat_update``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import _cuda
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    place = fluid.CUDAPlace(0)
+    pool = resnet_pool()
+    dev_pool = {n: torch.stack([torch.as_tensor(b[n]) for b in pool]).to(
+        place.torch_device()) for n in pool[0]}
+    nets = {fuse: build_resnet(fuse) for fuse in (False, True)}
+    main_f = nets[True][0]
+    groups = sum(op.type == "momentum_fused"
+                 for op in main_f.global_block().ops)
+    n_flat = int(main_f.global_block().var(
+        "fused_param_storage_0").shape[0])
+    n_params = len(main_f.all_parameters())
+    if (groups, n_flat, n_params) != (1, RESNET_N, RESNET_PARAMS):
+        fail("resnet: %d momentum groups of %d elements over %d "
+             "parameters, expected 1 of %d over %d"
+             % (groups, n_flat, n_params, RESNET_N, RESNET_PARAMS))
+    weights = resnet_weights(nets[False][0])
+
+    def fresh(fuse):
+        main, startup, cost = nets[fuse]
+        scope, exe = fluid.Scope(), fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        fluid.params_from_numpy(weights, scope, place, program=main)
+        return main, cost, scope, exe
+
+    # 1. the equality checks, with deterministic cuDNN algorithms (its
+    # weight-gradient algorithms may otherwise sum with atomics): two
+    # eager steps in each layout, then run_steps from the same start
+    torch.backends.cudnn.deterministic = True
+    eager = {}
+    try:
+        for fuse in (False, True):
+            main, cost, scope, exe = fresh(fuse)
+            reset_counts(fused_flat_update)
+            losses = [float(exe.run(main, feed=pool[i], fetch_list=[cost],
+                                    scope=scope)[0]) for i in range(2)]
+            if fused_flat_update.launches != (2 * groups if fuse else 0):
+                fail("resnet: two eager steps (fuse=%s) launched the fused "
+                     "update %d times" % (fuse, fused_flat_update.launches))
+            eager[fuse] = (losses, _resnet_params(fluid, main, scope))
+            del main, cost, scope, exe
+        main, cost, scope, exe = fresh(True)
+        rs_losses, = exe.run_steps(main, feed_list=pool[:2],
+                                   fetch_list=[cost], scope=scope)
+        rs_params = _resnet_params(fluid, main, scope)
+        exe.close()
+        del main, cost, scope, exe
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    losses = {f: eager[f][0] for f in eager}
+    if not all(math.isfinite(x) for f in losses for x in losses[f]):
+        fail("resnet: non-finite eager losses %s" % losses)
+    layout_loss_rel = abs(losses[True][0] - losses[False][0]) / abs(
+        losses[False][0])
+    if not layout_loss_rel <= 1e-5:
+        fail("resnet step-0 loss: fused %r, per-parameter %r (rel %g > "
+             "1e-5)" % (losses[True][0], losses[False][0], layout_loss_rel))
+    layout_param_rel = _worst_rel(eager[True][1], eager[False][1])
+    if not layout_param_rel <= 1e-6:
+        fail("resnet: after two eager steps the two layouts' parameters "
+             "part by %g of their max (> 1e-6)" % layout_param_rel)
+    rs_loss_rel = max(abs(float(a) - b) / abs(b)
+                      for a, b in zip(rs_losses, losses[True]))
+    rs_param_rel = _worst_rel(rs_params, eager[True][1])
+    if not (rs_loss_rel <= 1e-5 and rs_param_rel <= 1e-6):
+        fail("resnet: run_steps parts from the eager steps: losses %s "
+             "against %s (rel %g), parameters by %g of their max"
+             % (rs_losses.tolist(), losses[True], rs_loss_rel,
+                rs_param_rel))
+    n_equal = sum(bool(np.array_equal(eager[True][1][n], w))
+                  for n, w in eager[False][1].items())
+    del eager, rs_params
+
+    # 2. bench_resnet.py's protocol in each layout (cuDNN's defaults):
+    # a warm chunk, then RESNET_STEPS timed steps in chunks; the counts
+    # set to 0 just before and read just after
+    rows, launches = {}, None
+    for fuse in (False, True):
+        main, cost, scope, exe = fresh(fuse)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in _cuda.LAUNCHERS:
+            reset_counts(fn)
+        out, = exe.run_steps(main, feed=dev_pool, steps=RESNET_CHUNK,
+                             fetch_list=[cost], scope=scope,
+                             return_numpy=False)
+        out.cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = []
+        for _ in range(RESNET_STEPS // RESNET_CHUNK):
+            out, = exe.run_steps(main, feed=dev_pool, steps=RESNET_CHUNK,
+                                 fetch_list=[cost], scope=scope,
+                                 return_numpy=False)
+            timed.append(out)
+        timed = torch.cat(timed).cpu().numpy()
+        dt = time.perf_counter() - t0
+        counted = {fn.__name__: getattr(fn, c) for fn in _cuda.LAUNCHERS
+                   for c in fn.counts if getattr(fn, c)}
+        steps = RESNET_CHUNK + RESNET_STEPS
+        want = {"fused_flat_update": groups * steps} if fuse else {}
+        if counted != want:
+            fail("resnet (fuse=%s): %d steps launched %s, expected %s"
+                 % (fuse, steps, counted, want))
+        if fuse:
+            launches = counted["fused_flat_update"]
+        if not np.isfinite(timed).all():
+            fail("resnet (fuse=%s): non-finite losses %s"
+                 % (fuse, timed.tolist()))
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = dt / RESNET_STEPS * 1e3
+        # one replayed step (its graph captured by the call before),
+        # the batch already on the card
+        batch = {n: v[0] for n, v in dev_pool.items()}
+        exe.run_steps(main, feed=batch, steps=1, fetch_list=[cost],
+                      scope=scope)
+        wall_ms, by_family, kernels, top = profile_step(
+            lambda: exe.run_steps(main, feed=batch, steps=1,
+                                  fetch_list=[cost], scope=scope),
+            family=_resnet_family)
+        busy = sum(by_family.values())
+        rows["fused" if fuse else "per_param"] = {
+            "images_per_s": RESNET_B * RESNET_STEPS / dt,
+            "step_ms": step_ms, "timed_losses": timed.tolist(),
+            "capture_s": exe.capture_seconds,
+            "max_memory_allocated": peak,
+            "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms,
+            "device_idle_share_unprofiled": 1.0 - busy / step_ms,
+            "kernel_launches_per_step": kernels,
+            "device_ms_by_family": dict(sorted(by_family.items(),
+                                               key=lambda kv: -kv[1])),
+            "top_kernels": top}
+        exe.close()
+        del main, cost, scope, exe
+        torch.cuda.empty_cache()
+    emit({"phase": "resnet", "card": card, "batch": RESNET_B,
+          "image": [3, RESNET_HW, RESNET_HW], "classes": RESNET_CLASSES,
+          "flags": RESNET_FLAGS, "groups": groups, "group_elements": n_flat,
+          "group_params": n_params, "chunk": RESNET_CHUNK,
+          "timed_steps": RESNET_STEPS,
+          "deterministic_checks": "cudnn.deterministic on for the eager "
+                                  "steps and run_steps compared; off for "
+                                  "the timed runs",
+          "eager_losses": {"per_param": losses[False],
+                           "fused": losses[True]},
+          "run_steps_losses": rs_losses.tolist(),
+          "step0_layout_loss_rel_err": layout_loss_rel,
+          "step1_layout_param_max_rel_err": layout_param_rel,
+          "step1_params_bit_equal": "%d of %d" % (n_equal, n_params),
+          "run_steps_loss_max_rel_err": rs_loss_rel,
+          "run_steps_param_max_rel_err": rs_param_rel,
+          "s2d_stem": s2d_stem_check(card),
+          "momentum_launches": launches, **rows})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device is visible (torch.cuda.is_available() is "
@@ -2088,12 +2489,13 @@ def main():
     torch.cuda.empty_cache()
     n_recipe = int(build_recipe(True)[0].global_block().var(
         "fused_param_storage_0").shape[0])
-    fused_rows = phase_fused_update(card, n_recipe)
+    fused_rows = phase_fused_update(card, n_recipe, RESNET_N)
     recipe_launches, recipe_losses, recipe_params = phase_recipe(card)
     torch.cuda.empty_cache()
     phase_run_steps(card, recipe_losses, recipe_params)
     del recipe_params
     torch.cuda.empty_cache()
+    resnet_launches = phase_resnet(card)
     serving_counts, model, greedy = phase_serving(card)
     prefix_counts = phase_prefix_int8(card, model)
     phase_sampling(card, model, greedy)
@@ -2181,6 +2583,20 @@ def main():
         "bound_ms": fu["bound_ms"], "bound_by": fu["bound_by"],
         "library_ms": fu["library_ms"], "device_ms": fu["device_ms"],
         "library_device_ms": fu["library_device_ms"]})
+    # ResNet-50's group: Momentum with a bf16 velocity
+    mo = next(r for r in fused_rows if r["n"] == RESNET_N
+              and (r["label"], r["moments"]) == ("momentum", "bf16"))
+    kernels.append({
+        "name": "fused_flat_update_momentum", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
+        "replaces": "paddle_tpu/ops/fused_optimizer.py:71",
+        "launches": resnet_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in fused_rows
+                           if r["kind"] == "momentum"),
+        "ms": mo["ms"], "plain_ms": mo["plain_ms"],
+        "bound_ms": mo["bound_ms"], "bound_by": mo["bound_by"],
+        "library_ms": mo["library_ms"], "device_ms": mo["device_ms"],
+        "library_device_ms": mo["library_device_ms"]})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -51,7 +51,13 @@ from .core.flags import get_flag, set_flags
 from .data_feeder import DataFeeder
 from .executor import Executor, FetchHandle, fetch_var
 from .memory_optimization_transpiler import memory_optimize, release_memory
-from .optimizer import (SGD, Adagrad, AdagradOptimizer, Adam, AdamOptimizer,
+from .optimizer import (SGD, Adadelta, AdadeltaOptimizer, Adagrad,
+                        AdagradOptimizer, Adam, Adamax, AdamaxOptimizer,
+                        AdamOptimizer, DecayedAdagrad,
+                        DecayedAdagradOptimizer, Ftrl, FtrlOptimizer,
+                        Momentum, MomentumOptimizer, ProximalAdagrad,
+                        ProximalAdagradOptimizer, ProximalGD,
+                        ProximalGDOptimizer, RMSProp, RMSPropOptimizer,
                         SGDOptimizer)
 from .param_attr import ParamAttr
 from .reader.prefetch import batch

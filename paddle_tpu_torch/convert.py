@@ -6,9 +6,11 @@ JAX package — loads the same arrays by name. The arrays come from
 anywhere numpy does (``np.asarray`` of a JAX scope entry, a checkpoint
 file, a seeded generator). ``params_from_numpy`` loads the parameters;
 ``state_from_numpy`` loads every persistable of a training program —
-parameters, optimizer moments, beta powers, the learning rate — so a
-state taken from the JAX package in the middle of training resumes in
-the port.
+parameters, optimizer accumulators (moments, velocities, ``inf_norm``,
+Ftrl's ``squared``/``linear``, ...) in their storage dtype, beta powers,
+batch norm's running statistics, the learning rate and a schedule's
+``@LR_DECAY_COUNTER@`` — so a state taken from the JAX package in the
+middle of training resumes in the port.
 
 A program built with ``fuse_optimizer_state`` keeps its parameters and
 moments in flat buffers. Their per-name values write through the

@@ -472,9 +472,11 @@ class _CapturedSteps:
     ``unroll=True`` captures ``steps`` straight-line steps as one graph
     and replays it once. Capture runs nothing and wants an eager step
     before it (lazy initialisations: cuBLAS workspaces, the autograd
-    engine's threads), so the first call runs one step eagerly on the
-    capture stream: with ``unroll=False`` it is the call's first step,
-    and ``steps - 1`` replays follow; with ``unroll=True`` it runs on
+    engine's threads, cuDNN's choice of conv algorithms — and, with
+    ``cudnn.benchmark``, its search), so the first call runs one step
+    eagerly on the capture stream: with ``unroll=False`` it is the
+    call's first step, and ``steps - 1`` replays follow; with
+    ``unroll=True`` it runs on
     copies of the written state, which it leaves as they were. Either
     way the state advances by exactly ``steps`` steps a call.
 

@@ -1,6 +1,6 @@
 """Neural-network layer functions (counterpart of
-paddle_tpu/layers/nn.py): the ones the causal LM and Transformer-base
-training reach.
+paddle_tpu/layers/nn.py): the ones the causal LM, Transformer-base and
+ResNet training reach.
 
 Each function appends ops carrying torch fns to the default main program
 and returns the output Variable(s). Under ``use_bfloat16`` the matrix
@@ -316,6 +316,26 @@ def softmax(input, use_cudnn=False, name=None):
                      outputs={"Out": [out.name]},
                      fn=lambda x: torch.softmax(x.to(torch.float32),
                                                 -1).to(x.dtype))
+    return out
+
+
+def mean(x, name=None):
+    """The mean of every element of ``x``, a 0-d tensor."""
+    helper = LayerHelper("mean")
+    out = helper.create_tmp_variable(x.dtype, shape=())
+    helper.append_op(type="mean", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]}, fn=torch.mean)
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label)^2, elementwise."""
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_tmp_variable(input.dtype)
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": [input.name], "Label": [label.name]},
+                     outputs={"Out": [out.name]},
+                     fn=lambda x, y: torch.square(x - y))
     return out
 
 

@@ -6,30 +6,56 @@ Replaces ``fused_flat_update`` of ``paddle_tpu/ops/fused_optimizer.py``
 parameters of a (dtype, grad dtype, lr scale) group and each of their
 moments live in one flat ``[N]`` buffer, and one group op updates the
 whole group (optimizer.py ``_append_one_group``). The Pallas kernel
-streamed those buffers through VMEM in ``[block_rows, 128]`` tiles and
-padded a ragged N; here one launch walks the flat buffers with a
-grid-stride loop, masks the ragged tail itself and updates the
-parameters and moments in place (no padded copies, no output buffers).
+streamed those buffers through VMEM in ``[block_rows, 128]`` tiles,
+applied whatever ``_make_update_fn`` the optimizer handed it and padded
+a ragged N; here one launch walks the flat buffers with a grid-stride
+loop, applies one of the update functions below (its ``kind``), masks
+the ragged tail itself and updates the parameters and moments in place
+(no padded copies, no output buffers).
 
 Functions:
 
 * :func:`plain_flat_update` — the update with plain torch ops, in the
-  op order of the optimizers' per-parameter update (``optimizer.py``
-  builds those from it, so the two layouts cannot drift apart). What
-  CPU tensors run and what the kernel is held to on the card.
+  op order of the JAX package's ``_make_update_fn`` of each optimizer
+  (``optimizer.py`` builds its per-parameter ops from it, so the two
+  layouts cannot drift apart). What CPU tensors run and what the kernel
+  is held to on the card.
 * :func:`fused_flat_update` — the launcher. A CPU tensor takes the
   plain version; a CUDA tensor launches the kernel or raises. It counts
   its launches in ``.launches``.
 
-``kind`` is the optimizer's op type, ``"sgd"``, ``"adagrad"`` or
-``"adam"``; ``consts`` its Python-float hyperparameters: ``(scale,)``,
-``(scale, eps)`` and ``(scale, beta1, beta2, eps)``, where ``scale`` is
-the group's learning-rate scale. Moments are f32 or, under
-``bf16_moments``, bf16: they are widened to f32 for the arithmetic and
-rounded back to bf16 (nearest even) when stored. Adam's beta powers are
-shared by every group; only the owning group (``owns``) returns them
-advanced, as new tensors: the kernel reads the step-start value in
-every block, so it never advances them in place.
+``kind`` is the optimizer's op type; ``consts`` its hyperparameters as
+Python numbers, ``scale`` (the group's learning-rate scale) first:
+
+=================== ======= ====== ==========================================
+kind                moments shared consts
+=================== ======= ====== ==========================================
+``sgd``             0       0      ``(scale,)``
+``adagrad``         1       0      ``(scale, eps)``
+``adam``            2       2      ``(scale, beta1, beta2, eps)``
+``momentum``        1       0      ``(scale, mu, use_nesterov)``
+``adamax``          2       1      ``(scale, beta1, beta2, eps)``
+``decayed_adagrad`` 1       0      ``(scale, decay, eps)``
+``adadelta``        2       0      ``(scale, rho, eps)``
+``rmsprop``         3       0      ``(scale, rho, eps, momentum, centered)``
+``ftrl``            2       0      ``(scale, l1, l2, lr_power)``
+``proximal_gd``     0       0      ``(scale, l1, l2)``
+``proximal_adagrad`` 1      0      ``(scale, l1, l2)``
+=================== ======= ====== ==========================================
+
+Moments are f32 or, under ``bf16_moments``, bf16, and come back in
+their storage dtype (rounded to nearest even). Where the JAX update
+widens a stored moment first (``_acc``), so does the plain version;
+where it does not (Adagrad, ProximalAdagrad, Ftrl), the bf16 moment
+meets the f32 gradient and the sum is f32 in both frameworks. Ftrl's
+``sqrt``/``power`` of its stored ``squared`` moment is taken in f32 too:
+eagerly JAX would round it to bf16, but the JAX package's step is
+jitted, and XLA drops a bf16 rounding between two converts (only the
+power's exponent stays a bf16 constant). The shared
+scalars (Adam's two beta powers, Adamax's one) are shared by every
+group; only the owning group (``owns``) returns them advanced, as new
+tensors: the kernel reads the step-start value in every block, so it
+never advances them in place.
 """
 
 from __future__ import annotations
@@ -45,54 +71,205 @@ from . import _cuda
 __all__ = ["KINDS", "fused_flat_update", "plain_flat_update"]
 
 # kind -> (moments, shared scalars, consts): what each update reads
-KINDS = {"sgd": (0, 0, 1), "adagrad": (1, 0, 2), "adam": (2, 2, 4)}
-_KIND_ID = {"sgd": 0, "adagrad": 1, "adam": 2}
+KINDS = {"sgd": (0, 0, 1), "adagrad": (1, 0, 2), "adam": (2, 2, 4),
+         "momentum": (1, 0, 3), "adamax": (2, 1, 4),
+         "decayed_adagrad": (1, 0, 3), "adadelta": (2, 0, 3),
+         "rmsprop": (3, 0, 5), "ftrl": (2, 0, 4), "proximal_gd": (0, 0, 3),
+         "proximal_adagrad": (1, 0, 3)}
+# the kernel's kind ids (csrc/fused_optimizer.cu, enum Kind)
+_KIND_ID = {k: i for i, k in enumerate(KINDS)}
 _PLAIN_DEVICES = ("cpu", "meta")
 _MOMENT_DTYPES = (torch.float32, torch.bfloat16)
+# the C interface's fixed array lengths
+_MAX_MOMENTS, _MAX_SHARED, _MAX_CONSTS = 4, 2, 8
 
 
 def _f32(a, ref):
-    """A stored moment widened to the gradient's dtype: a Python float
-    times a bf16 tensor stays bf16 in torch, which would quantize the
-    decay (beta2 = 0.999 rounds to 0.9961)."""
+    """A stored moment widened to the gradient's dtype (the JAX
+    package's ``_acc``): a Python float times a bf16 tensor stays bf16
+    in torch, which would quantize the decay (beta2 = 0.999 rounds to
+    0.9961)."""
     return a if a.dtype == ref.dtype else a.to(ref.dtype)
+
+
+def _bf16_exponent(e: float) -> float:
+    """``e`` rounded to bf16: the exponent the JAX package gives the
+    power of a bf16 tensor (a Python float meeting a bf16 array is a bf16
+    weak type, folded into a bf16 constant)."""
+    return float(torch.tensor(e, dtype=torch.float64).to(torch.bfloat16))
+
+
+def _prox(prox, lr, l1, l2):
+    """``sign(prox) * max(|prox| - lr*l1, 0) / (1 + lr*l2)``, the
+    proximal step of ProximalGD and ProximalAdagrad."""
+    return (torch.sign(prox) * torch.clamp(torch.abs(prox) - lr * l1,
+                                           min=0.0)) / (1.0 + lr * l2)
 
 
 def plain_flat_update(kind: str, p, g, lr, accs: Sequence = (),
                       shared: Sequence = (), owns: bool = False,
-                      consts: Sequence[float] = ()):
+                      consts: Sequence = ()):
     """``(new_p, *new_accs[, *advanced_shared if owns])`` with plain
     torch ops. ``lr`` and ``shared`` are 0-d f32 tensors; the new
     moments come back in their storage dtype."""
     enforce(kind in KINDS, "fused update: unknown kind %r (one of %s)"
             % (kind, sorted(KINDS)))
-    if kind == "sgd":
-        scale, = consts
-        return (p - (lr * scale) * g,)
-    if kind == "adagrad":
-        scale, eps = consts
-        m, = accs
-        m_new = m + g * g
-        p_new = p - (lr * scale) * g / (torch.sqrt(m_new) + eps)
-        return p_new, m_new.to(m.dtype)
-    scale, b1, b2, eps = consts
+    accs, shared = tuple(accs), tuple(shared)
+    out = _PLAIN[kind](p, g, lr * consts[0], accs, shared, *consts[1:])
+    out = (out[0],) + tuple(v.to(a.dtype) for v, a in zip(out[1:], accs))
+    if owns:
+        # the shared beta powers advance by their betas (consts 1, 2)
+        out += tuple(s * b for s, b in zip(shared, consts[1:]))
+    return out
+
+
+def _sgd(p, g, lr, accs, shared):
+    return (p - lr * g,)
+
+
+def _adagrad(p, g, lr, accs, shared, eps):
+    m, = accs
+    m_new = m + g * g
+    return p - lr * g / (torch.sqrt(m_new) + eps), m_new
+
+
+def _adam(p, g, lr, accs, shared, b1, b2, eps):
     m1, m2 = accs
     b1p, b2p = shared
-    lr = lr * scale
     m1n = b1 * _f32(m1, g) + (1 - b1) * g
     m2n = b2 * _f32(m2, g) + (1 - b2) * g * g
     lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
-    p_new = p - lr_t * m1n / (torch.sqrt(m2n) + eps)
-    out = (p_new, m1n.to(m1.dtype), m2n.to(m2.dtype))
-    return out + (b1p * b1, b2p * b2) if owns else out
+    return p - lr_t * m1n / (torch.sqrt(m2n) + eps), m1n, m2n
+
+
+def _momentum(p, g, lr, accs, shared, mu, nesterov):
+    v, = accs
+    v_new = mu * _f32(v, g) + g
+    if nesterov:
+        return p - (g + mu * v_new) * lr, v_new
+    return p - lr * v_new, v_new
+
+
+def _adamax(p, g, lr, accs, shared, b1, b2, eps):
+    m, inf = accs
+    b1p, = shared
+    m_new = b1 * _f32(m, g) + (1 - b1) * g
+    inf_new = torch.maximum(b2 * _f32(inf, g), torch.abs(g) + eps)
+    lr_t = lr / (1 - b1p)
+    return p - lr_t * m_new / inf_new, m_new, inf_new
+
+
+def _decayed_adagrad(p, g, lr, accs, shared, decay, eps):
+    m, = accs
+    m_new = decay * _f32(m, g) + (1 - decay) * g * g
+    return p - lr * g / (torch.sqrt(m_new) + eps), m_new
+
+
+def _adadelta(p, g, lr, accs, shared, rho, eps):
+    asg, asu = (_f32(a, g) for a in accs)
+    asg_new = rho * asg + (1 - rho) * g * g
+    update = -torch.sqrt((asu + eps) / (asg_new + eps)) * g
+    asu_new = rho * asu + (1 - rho) * update * update
+    return p + lr * update, asg_new, asu_new
+
+
+def _rmsprop(p, g, lr, accs, shared, rho, eps, mu, centered):
+    mom, ms, mg = (_f32(a, g) for a in accs)
+    ms_new = rho * ms + (1 - rho) * g * g
+    if centered:
+        mg_new = rho * mg + (1 - rho) * g
+        denom = torch.sqrt(ms_new - mg_new * mg_new + eps)
+    else:
+        mg_new = mg  # passed through, still written
+        denom = torch.sqrt(ms_new + eps)
+    mom_new = mu * mom + lr * g / denom
+    return p - mom_new, mom_new, ms_new, mg_new
+
+
+def _ftrl(p, g, lr, accs, shared, l1, l2, lr_power):
+    # the JAX package's Ftrl does not widen its moments, but its jitted
+    # step computes sqrt/power of a bf16 ``squared`` in f32 all the same
+    # (XLA drops the bf16 rounding between a convert and its inverse);
+    # only the power's exponent stays rounded to bf16
+    sq, lin = accs
+    new_sq = sq + g * g
+    sq_f = _f32(sq, g)
+    if lr_power == -0.5:
+        sigma = (torch.sqrt(new_sq) - torch.sqrt(sq_f)) / lr
+        y = torch.sqrt(new_sq) / lr + 2 * l2
+    else:
+        e = -lr_power
+        e_sq = _bf16_exponent(e) if sq.dtype == torch.bfloat16 else e
+        sigma = (torch.pow(new_sq, e) - torch.pow(sq_f, e_sq)) / lr
+        y = torch.pow(new_sq, e) / lr + 2 * l2
+    lin_new = lin + g - sigma * p
+    x = l1 * torch.sign(lin_new) - lin_new
+    p_new = torch.where(torch.abs(lin_new) > l1, x / y, torch.zeros_like(p))
+    return p_new, new_sq, lin_new
+
+
+def _proximal_gd(p, g, lr, accs, shared, l1, l2):
+    return (_prox(p - lr * g, lr, l1, l2),)
+
+
+def _proximal_adagrad(p, g, lr, accs, shared, l1, l2):
+    m, = accs
+    m_new = m + g * g
+    eff = lr / torch.sqrt(m_new + 1e-12)
+    return _prox(p - eff * g, eff, l1, l2), m_new
+
+
+_PLAIN = {"sgd": _sgd, "adagrad": _adagrad, "adam": _adam,
+          "momentum": _momentum, "adamax": _adamax,
+          "decayed_adagrad": _decayed_adagrad, "adadelta": _adadelta,
+          "rmsprop": _rmsprop, "ftrl": _ftrl, "proximal_gd": _proximal_gd,
+          "proximal_adagrad": _proximal_adagrad}
+
+
+def kernel_consts(kind: str, consts: Sequence):
+    """(variant, floats) the kernel takes for ``consts``: the branch
+    (Nesterov, centered, ``lr_power == -0.5``) as 0/1, and the constants
+    the plain version's scalar operands carry, as Python computes them
+    (in double) before torch rounds them to float32."""
+    c = [float(x) for x in consts]
+    scale = c[0]
+    if kind == "sgd":
+        return 0, [scale]
+    if kind == "adagrad":
+        return 0, [scale, c[1]]
+    if kind == "adam":
+        b1, b2, eps = c[1:]
+        return 0, [scale, b1, 1 - b1, b2, 1 - b2, eps]
+    if kind == "momentum":
+        return int(bool(consts[2])), [scale, c[1]]
+    if kind == "adamax":
+        b1, b2, eps = c[1:]
+        return 0, [scale, b1, 1 - b1, b2, eps]
+    if kind in ("decayed_adagrad", "adadelta"):
+        decay, eps = c[1:]
+        return 0, [scale, decay, 1 - decay, eps]
+    if kind == "rmsprop":
+        rho, eps, mu = c[1:4]
+        return int(bool(consts[4])), [scale, rho, 1 - rho, eps, mu]
+    if kind == "ftrl":
+        l1, l2, lrp = c[1:]
+        e = -lrp
+        return int(lrp == -0.5), [scale, l1, 2 * l2, e, _bf16_exponent(e)]
+    if kind == "proximal_gd":
+        return 0, [scale, c[1], c[2]]
+    return 0, [scale, c[1], c[2], 1e-12]  # proximal_adagrad
 
 
 # ---------------------------------------------------------------- kernel
 
-# kind, bf16 moments; p, g, lr, m1, m2, b1p, b2p, b1p_out, b2p_out; n;
-# scale, beta1, 1-beta1, beta2, 1-beta2, eps; stream
-_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
-         + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+_PTRS = ctypes.c_void_p * _MAX_MOMENTS
+_SHARED = ctypes.c_void_p * _MAX_SHARED
+_CONSTS = ctypes.c_float * _MAX_CONSTS
+# kind, variant, bf16 moments; p, g, lr; moments[4], n moments;
+# shared[2], shared_out[2], n shared; n; consts[8], n consts; stream
+_ARGS = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+         + [_PTRS, ctypes.c_int, _SHARED, _SHARED, ctypes.c_int,
+            ctypes.c_longlong, _CONSTS, ctypes.c_int, ctypes.c_void_p])
 
 
 def _library():
@@ -144,7 +321,7 @@ def _check_cuda(kind, p, g, lr, accs, shared, consts):
 
 def fused_flat_update(kind: str, p, g, lr, accs: Sequence = (),
                       shared: Sequence = (), owns: bool = False,
-                      consts: Sequence[float] = ()):
+                      consts: Sequence = ()):
     """The group update: on a CUDA tensor one kernel launch that updates
     ``p`` and ``accs`` in place and returns them (and, if ``owns``, the
     advanced shared scalars as new tensors); on a CPU tensor
@@ -156,23 +333,20 @@ def fused_flat_update(kind: str, p, g, lr, accs: Sequence = (),
             % (kind, sorted(KINDS)))
     _check_cuda(kind, p, g, lr, accs, shared, consts)
     lib = _library()
-    scale, eps = float(consts[0]), float(consts[-1])
-    b1, b2 = (float(c) for c in consts[1:3]) if kind == "adam" else (0., 0.)
+    variant, floats = kernel_consts(kind, consts)
     adv = tuple(torch.empty_like(s) for s in shared) if owns else ()
-    # null pointers for what this kind does not read or write
-    ptrs = [t.data_ptr() if t is not None else None
-            for part in (accs, shared, adv)
-            for t in (part + (None, None))[:2]]
+    # null pointers for the slots this kind does not read or write
+    moments = _PTRS(*[a.data_ptr() for a in accs])
+    sh = _SHARED(*[s.data_ptr() for s in shared])
+    sh_out = _SHARED(*[s.data_ptr() for s in adv])
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_flat_update(
-            _KIND_ID[kind], int(bool(accs) and accs[0].dtype
-                                == torch.bfloat16),
-            p.data_ptr(), g.data_ptr(), lr.data_ptr(), *ptrs, p.numel(),
-            # the constants as Python computes them, in double, then
-            # rounded to float32 as torch's scalar ops round them (SGD's
-            # eps slot is its scale and unused)
-            scale, b1, 1.0 - b1, b2, 1.0 - b2, eps, stream)
+            _KIND_ID[kind], variant,
+            int(bool(accs) and accs[0].dtype == torch.bfloat16),
+            p.data_ptr(), g.data_ptr(), lr.data_ptr(), moments, len(accs),
+            sh, sh_out, len(adv), p.numel(), _CONSTS(*floats), len(floats),
+            stream)
     if err != 0:
         raise RuntimeError("fused_flat_update: kernel launch failed: CUDA "
                            "error %d (%s)"

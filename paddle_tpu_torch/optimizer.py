@@ -1,6 +1,8 @@
 """Optimizers (counterpart of paddle_tpu/optimizer.py): the base class
-with the per-parameter and the flat-group update paths, SGD, Adagrad
-and Adam.
+with the per-parameter and the flat-group update paths, and the
+optimizer family — SGD, Momentum, Adagrad, Adam, Adamax,
+DecayedAdagrad, Adadelta, RMSProp, Ftrl, ProximalGD and ProximalAdagrad
+— with the reference's aliases (``MomentumOptimizer``, ...).
 
 ``minimize(loss)`` = ``append_backward`` + gradient clipping +
 regularization + the update ops. Accumulators are named persistable
@@ -29,18 +31,19 @@ Per-name access (fetch, save, load) goes through the scope's flat views
 Row-sparse gradients (``embedding(is_sparse=True)``): SGD scatter-adds
 the rows, Adagrad and Adam ("lazy" Adam) update only the rows present,
 after summing duplicate rows. These ops update the table and its
-moments in place, so a step never copies a ``[V, D]`` table.
+moments in place, so a step never copies a ``[V, D]`` table. The other
+optimizers densify a sparse gradient, as in the JAX package.
 
 ``bf16_moments`` stores the moment accumulators in bf16; the update
 arithmetic stays f32 and scalars (beta powers) stay f32.
 
-Adam's two beta-power scalars are shared by every parameter: exactly
-one update op (the owner's: the last parameter's, or the last group's)
-advances them, and every other op reads the step-start value, because
-ops run in program order.
+Adam's two beta-power scalars (Adamax's one) are shared by every
+parameter: exactly one update op (the owner's: the last parameter's, or
+the last group's) advances them, and every other op reads the step-start
+value, because ops run in program order.
 
-Not ported yet: the rest of the optimizer family (Momentum, Adamax,
-RMSProp, ...).
+Not ported yet: ``ModelAverage`` and ``GradientAccumulation`` (ROADMAP
+Queue A 2).
 """
 
 from __future__ import annotations
@@ -622,6 +625,144 @@ class Adam(Optimizer):
              ("Beta1Pow", b1p), ("Beta2Pow", b2p)], fn, outs)
 
 
+class Momentum(Optimizer):
+    """v = mu*v + g; param - lr*v, or with Nesterov param - (g + mu*v)*lr."""
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    _OP_TYPE = "momentum"
+    _FUSE_ACCS = (("Velocity", "VelocityOut", "velocity"),)
+
+    def _update_consts(self, scale):
+        return (scale, self._momentum, bool(self._use_nesterov))
+
+
+class Adamax(Optimizer):
+    """Adam with the infinity norm; bias correction through one shared
+    beta1 power."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    _OP_TYPE = "adamax"
+    _FUSE_ACCS = (("Moment", "MomentOut", "moment"),
+                  ("InfNorm", "InfNormOut", "inf_norm"))
+    _FUSE_SHARED = (("Beta1Pow", "Beta1PowOut", "beta1_pow_acc",
+                     "_beta1"),)
+
+    def _update_consts(self, scale):
+        return (scale, self._beta1, self._beta2, self._epsilon)
+
+
+class DecayedAdagrad(Optimizer):
+    """m = decay*m + (1-decay)*g*g; param - lr*g / (sqrt(m) + eps)."""
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self._decay, self._epsilon = decay, epsilon
+
+    _OP_TYPE = "decayed_adagrad"
+    _FUSE_ACCS = (("Moment", "MomentOut", "moment"),)
+
+    def _update_consts(self, scale):
+        return (scale, self._decay, self._epsilon)
+
+
+class Adadelta(Optimizer):
+    """Running averages of the squared gradient and the squared update."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kw):
+        super().__init__(learning_rate, **kw)
+        self._epsilon, self._rho = epsilon, rho
+
+    _OP_TYPE = "adadelta"
+    _FUSE_ACCS = (("AvgSquaredGrad", "AvgSquaredGradOut",
+                   "avg_squared_grad"),
+                  ("AvgSquaredUpdate", "AvgSquaredUpdateOut",
+                   "avg_squared_update"))
+
+    def _update_consts(self, scale):
+        return (scale, self._rho, self._epsilon)
+
+
+class RMSProp(Optimizer):
+    """RMSProp with momentum (lr folded into it), optionally centered."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    _OP_TYPE = "rmsprop"
+    _FUSE_ACCS = (("Moment", "MomentOut", "momentum"),
+                  ("MeanSquare", "MeanSquareOut", "mean_square"),
+                  ("MeanGrad", "MeanGradOut", "mean_grad"))
+
+    def _update_consts(self, scale):
+        return (scale, self._rho, self._epsilon, self._momentum,
+                bool(self._centered))
+
+
+class Ftrl(Optimizer):
+    """Follow-the-regularized-leader with L1/L2 terms."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    _OP_TYPE = "ftrl"
+    _FUSE_ACCS = (("SquaredAccumulator", "SquaredAccumOut", "squared"),
+                  ("LinearAccumulator", "LinearAccumOut", "linear"))
+
+    def _update_consts(self, scale):
+        return (scale, self._l1, self._l2, self._lr_power)
+
+
+class ProximalGD(Optimizer):
+    """prox = param - lr*g; sign(prox) * max(|prox| - lr*l1, 0) /
+    (1 + lr*l2)."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1 = float(l1)
+        self._l2 = float(l2)
+
+    _OP_TYPE = "proximal_gd"
+
+    def _update_consts(self, scale):
+        return (scale, self._l1, self._l2)
+
+
+class ProximalAdagrad(Optimizer):
+    """m += g*g; the ProximalGD step at lr / sqrt(m + 1e-12)."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, **kw):
+        super().__init__(learning_rate, **kw)
+        self._l1 = float(l1)
+        self._l2 = float(l2)
+
+    _OP_TYPE = "proximal_adagrad"
+    _FUSE_ACCS = (("Moment", "MomentOut", "moment"),)
+
+    def _update_consts(self, scale):
+        return (scale, self._l1, self._l2)
+
+
+# the reference's aliases
 SGDOptimizer = SGD
+MomentumOptimizer = Momentum
 AdagradOptimizer = Adagrad
 AdamOptimizer = Adam
+AdamaxOptimizer = Adamax
+DecayedAdagradOptimizer = DecayedAdagrad
+AdadeltaOptimizer = Adadelta
+RMSPropOptimizer = RMSProp
+FtrlOptimizer = Ftrl
+ProximalGDOptimizer = ProximalGD
+ProximalAdagradOptimizer = ProximalAdagrad
