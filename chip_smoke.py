@@ -9,7 +9,8 @@ Phases, one JSON line each (or one per shape):
 
 1. device  — the card's name and power limit (nvidia-smi); builds the
              kernels from csrc/ (paged_attention.cu, flash_attention.cu,
-             fused_optimizer.cu; one nvcc each, started together) and
+             fused_optimizer.cu, dropout.cu; one nvcc each, started
+             together) and
              reports the build seconds, ptxas' register/spill report, and
              each flash kernel's shared bytes and blocks an SM.
 2. kernel  — ``ops.paged_window_attention`` (the CUDA kernels) against
@@ -208,6 +209,49 @@ Phases, one JSON line each (or one per shape):
              device ms by family: conv, batch_norm, elementwise, matmul,
              fused_update, ...), per layout.
 
+14. dropout — the dropout kernel (``ops.dropout.dropout_apply``) against
+             ``plain_dropout`` on the card: the recipe's mask shapes
+             [32, 256, 512] and [32, 256, 2048] in f32 and bf16 at p =
+             0.1 and 0.5, and a ragged N = 128*4099+37 at p = 0.1, each
+             with -0.0, +-inf and NaN at its head. The forward, the op's
+             output and its backward (the kernel on a seeded gradient)
+             bit-equal to the plain version, the counter's advance, the
+             kept fraction within 0.002 of 1-p. Wall and device ms, the
+             plain version's ms, the bound (bytes over 3.35 TB/s, or 75
+             integer operations an element over SMs x 128 x the SM
+             clock, the larger), and ``F.dropout``'s ms at the same
+             shape as a yardstick only (another stream, another scale).
+15. dropout_recipe — the recipe (phase 8) at ``transformer_base``'s
+             own ``dropout_rate=0.1`` after ``memory_optimize``: 62
+             dropout sites; 10 eager steps and one ``run_steps`` call of
+             the same 10 steps from the same state bit-equal (losses,
+             every dense parameter, the counter), the kernel launched 62
+             times forward and 62 backward a step (by its counters,
+             replays counted, and by the profiler in a replayed step).
+             Step ms and tokens/s in bench.py's protocol beside phase
+             9's dropout-0 figures, peak memory, one replayed step
+             profiled.
+16. fused_ce — the recipe with ``fused_ce=True`` against the same recipe
+             unfused, from the same weights: step 0's loss within rel
+             1e-3 and the head weight's gradient within 3e-2 of its max
+             (the unfused head rounds its logits to bf16, the fused op
+             keeps them f32); the predict head's ``mul`` neither live
+             nor run with only the loss fetched, eagerly or under
+             ``run_steps``. Peak memory, step ms and tokens/s of each
+             under ``memory_optimize`` and ``run_steps`` (bench.py's
+             protocol).
+17. vgg    — VGG-16 (batch norm) with phase 13's recipe (B=64,
+             3x224x224, 1000 classes, ``Momentum(0.1, 0.9)``, the three
+             bf16 flags, ``memory_optimize``, a pool of 4 batches on the
+             card, ``run_steps`` chunks of 4, the per-parameter layout):
+             two eager steps and ``run_steps`` of the same two batches
+             bit-equal under ``cudnn.deterministic`` (losses, every
+             parameter); a warm chunk and 16 timed steps with finite
+             losses, the dropout kernel its only kernel of this repo,
+             launched 2 + 2 times a step. Images/s, step ms, capture s,
+             peak memory, one replayed step profiled (idle share,
+             device ms by family).
+
 Then the card's name and power limit, the kernels JSON line (wall and
 device ms of each kernel and its library call), and as the
 last line ``{"ok": true, "device": {...}}``. Every phase row carries the
@@ -376,12 +420,13 @@ def route_counts(fn) -> dict:
 # ---------------------------------------------------------------- phase 1
 
 
-KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_optimizer")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_optimizer",
+                  "dropout")
 
 
 def phase_device():
-    from paddle_tpu_torch.ops import (_cuda, flash_attention, fused_optimizer,
-                                      paged_attention)
+    from paddle_tpu_torch.ops import (_cuda, dropout, flash_attention,
+                                      fused_optimizer, paged_attention)
 
     global CARD
     card = CARD = card_line()
@@ -391,6 +436,7 @@ def phase_device():
     paged_attention.build()
     flash_attention.build()
     fused_optimizer.build()
+    dropout.build()
     ptxas = {name: [ln.strip() for ln in
                     _cuda.build_logs.get(name, "").splitlines()
                     if "registers" in ln or "spill" in ln
@@ -1469,6 +1515,8 @@ def _train_family(name: str) -> str:
             return kernel
     if "fused_update_kernel" in low:
         return "fused_update"
+    if "dropout_kernel" in low:
+        return "dropout"
     if "memcpy" in low or "memset" in low:
         return "copies"
     if any(k in low for k in ("gemm", "gemv", "cutlass", "sm90_xmma",
@@ -1671,10 +1719,11 @@ FUSED_CASES = (
 RAGGED_N = 128 * 4099 + 37
 
 
-def build_recipe(fuse):
+def build_recipe(fuse, **model):
     """(main, startup, avg_cost) of the recipe, with
-    ``fuse_optimizer_state`` as ``fuse``; the flags are read while the
-    program is built."""
+    ``fuse_optimizer_state`` as ``fuse`` and ``model`` overriding
+    ``transformer_base``'s arguments (``dropout_rate``, ``fused_ce``);
+    the flags are read while the program is built."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models.transformer import transformer_base
 
@@ -1685,7 +1734,8 @@ def build_recipe(fuse):
         main, startup = fluid.Program(), fluid.Program()
         with fluid.unique_name.guard(), fluid.program_guard(main, startup):
             _, avg_cost, _ = transformer_base(
-                **TRAIN_MODEL, sparse_embedding=True, attn_impl="pallas")
+                **dict(TRAIN_MODEL, **model), sparse_embedding=True,
+                attn_impl="pallas")
             fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(avg_cost)
     finally:
         fluid.set_flags(saved)
@@ -1977,12 +2027,7 @@ def phase_run_steps(card, eager_losses, eager_params):
     per_step["fused_flat_update"] = groups
 
     def fresh():
-        scope = fluid.Scope()
-        exe = fluid.Executor(place)
-        exe.run(startup, scope=scope)
-        fluid.params_from_numpy(seeded_weights(main), scope, place,
-                                program=main)
-        return exe, scope
+        return _fresh_recipe(main, startup, place)
 
     def launched():
         return {fn.__name__: fn.launches for fn in launchers}
@@ -2160,6 +2205,8 @@ def phase_run_steps(card, eager_losses, eager_params):
                                              key=lambda kv: -kv[1])),
           "top_kernels": top})
     exe.close()
+    return {"step_ms": dev_s / BENCH_STEPS * 1e3, "tokens_per_s": dev_tps,
+            "max_memory_allocated": peak}
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2467,6 +2514,498 @@ def phase_resnet(card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+# the dropout kernel's cases: the recipe's two mask shapes (d_model and
+# FFN activations, B=32, T=256) in both types at p = 0.1 and 0.5, and a
+# ragged length; each also with -0.0, +-inf and NaN at its head
+DROPOUT_SHAPES = ((TRAIN_B, TRAIN_T, 512), (TRAIN_B, TRAIN_T, 2048),
+                  (RAGGED_N,))
+DROPOUT_SEED, DROPOUT_COUNTER = 12345, 7
+KEEP_TOL = 0.002  # |kept fraction - (1 - p)|
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def phase_dropout(card):
+    """The dropout kernel against ``plain_dropout`` on the card, forward
+    and backward, bit for bit; the kept fraction; times and the bound.
+    Returns the rows."""
+    from paddle_tpu_torch.ops import dropout as dr
+
+    dev = torch.device("cuda", 0)
+    int_rate = dr.int_ops_per_s(0)
+    counter = torch.tensor(DROPOUT_COUNTER, dtype=torch.int32, device=dev)
+    rows = []
+    for shape in DROPOUT_SHAPES:
+        for dtype in BOTH:
+            for p in (0.1, 0.5):
+                if shape == (RAGGED_N,) and p != 0.1:
+                    continue
+                gen = torch.Generator(device=dev).manual_seed(
+                    len(rows) + 1)
+                x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+                flat = x.view(-1)
+                flat[:4] = torch.tensor([-0.0, float("inf"), -float("inf"),
+                                         float("nan")], dtype=dtype)
+                g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+                # forward: the kernel (with the counter's advance) and
+                # the plain version
+                nxt = torch.empty((), dtype=torch.int32, device=dev)
+                got = dr.dropout_apply(x, DROPOUT_SEED, counter, p,
+                                       counter_out=nxt)
+                want = dr.plain_dropout(x, DROPOUT_SEED, counter, p)
+                # backward through the op: the kernel on g, same mask
+                xt = x.clone().requires_grad_(True)
+                out, _ = dr.dropout(xt, DROPOUT_SEED, counter, p)
+                out.backward(g)
+                want_g = dr.plain_dropout(g, DROPOUT_SEED, counter, p)
+                kept = float((dr.dropout_apply(
+                    torch.ones_like(x), DROPOUT_SEED, counter, p) != 0)
+                    .float().mean())
+                torch.cuda.synchronize()
+                fwd_equal = bool(torch.equal(_bits(got), _bits(want)))
+                op_equal = bool(torch.equal(_bits(out.detach()),
+                                            _bits(want)))
+                bwd_equal = bool(torch.equal(_bits(xt.grad), _bits(want_g)))
+                label = "%s %s p=%g" % ("x".join(map(str, shape)),
+                                        str(dtype)[6:], p)
+                if not (fwd_equal and op_equal and bwd_equal):
+                    fail("dropout %s: kernel and plain version differ "
+                         "(forward %s, op %s, backward %s)"
+                         % (label, fwd_equal, op_equal, bwd_equal))
+                if int(nxt) != DROPOUT_COUNTER + 1:
+                    fail("dropout %s: counter_out %d, expected %d"
+                         % (label, int(nxt), DROPOUT_COUNTER + 1))
+                if not abs(kept - (1 - p)) <= KEEP_TOL:
+                    fail("dropout %s: kept %.5f of the elements, expected "
+                         "%.3f +- %g" % (label, kept, 1 - p, KEEP_TOL))
+                n = x.numel()
+                bytes_ = 2 * n * x.element_size()
+                ops = n * dr.INT_OPS_PER_ELEMENT
+                bound = {"bytes": bytes_ / HBM_BYTES_PER_S * 1e3,
+                         "operations": ops / int_rate * 1e3}
+                bound_by = max(bound, key=bound.get)
+                kernel = lambda: dr.dropout_apply(  # noqa: E731
+                    x, DROPOUT_SEED, counter, p)
+                rows.append({
+                    "case": label, "shape": list(shape),
+                    "dtype": str(dtype)[6:], "p": p, "n": n,
+                    "bit_equal": True, "max_abs_err": 0.0,
+                    "kept_fraction": kept,
+                    "ms": cuda_ms(kernel, 50),
+                    "device_ms": device_ms(kernel, 50),
+                    "plain_ms": cuda_ms(lambda: dr.plain_dropout(
+                        x, DROPOUT_SEED, counter, p), 3, warmup=1),
+                    "f_dropout_ms": cuda_ms(lambda: F.dropout(
+                        x, p, training=True), 50),
+                    "bound_ms": bound[bound_by], "bound_by": bound_by,
+                    "bytes_bound_ms": bound["bytes"],
+                    "ops_bound_ms": bound["operations"]})
+                del x, g, got, want, xt, out, want_g
+    torch.cuda.empty_cache()
+    emit({"phase": "dropout", "card": card, "seed": DROPOUT_SEED,
+          "counter": DROPOUT_COUNTER,
+          "int_ops_per_s": int_rate,
+          "int_rate": "SMs x 128 lanes (4 schedulers, one warp "
+                      "instruction a clock each) x SM clock "
+                      "(cudaDevAttrMultiProcessorCount, "
+                      "cudaDevAttrClockRate)",
+          "int_ops_per_element": dr.INT_OPS_PER_ELEMENT,
+          "f_dropout": "F.dropout at the same shape: a time yardstick "
+                       "only (another stream, scaled by 1/(1-p))",
+          "rows": rows})
+    return rows
+
+
+# ---------------------------------------------------------------- phase 15
+
+
+RECIPE_DROPOUT = 0.1  # transformer_base's own default
+
+
+def _fresh_recipe(main, startup, place):
+    import paddle_tpu_torch as fluid
+
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    fluid.params_from_numpy(seeded_weights(main), scope, place,
+                            program=main)
+    return exe, scope
+
+
+def _timed_chunks(exe, main, feed, cost, scope, chunks):
+    """A warm ``run_steps`` chunk, then ``chunks`` timed ones: seconds
+    of the timed ones and their losses."""
+    exe.run_steps(main, feed=feed, steps=CHUNK, fetch_list=[cost],
+                  scope=scope, return_numpy=False)[0].cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [exe.run_steps(main, feed=feed, steps=CHUNK, fetch_list=[cost],
+                          scope=scope, return_numpy=False)[0]
+            for _ in range(chunks)]
+    losses = torch.cat(outs).cpu().numpy()
+    return time.perf_counter() - t0, losses
+
+
+def phase_dropout_recipe(card, base):
+    """The recipe at transformer_base's dropout_rate 0.1 under
+    ``memory_optimize`` and ``run_steps``: captured steps bit-equal to
+    eager steps from the same state, 62 dropout sites launching the
+    kernel forward and backward a step; step ms and tokens/s beside the
+    dropout-0 figures of the run_steps phase (``base``). Returns the
+    launches of the captured run."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import _cuda
+    from paddle_tpu_torch.ops import dropout as dr
+
+    place = fluid.CUDAPlace(0)
+    feed = train_batch()
+    main, startup, cost = build_recipe(True, dropout_rate=RECIPE_DROPOUT)
+    fluid.memory_optimize(main)
+    sites = sum(op.type == "dropout" for op in main.global_block().ops)
+    n_layer = TRAIN_MODEL["n_layer"]
+    if sites != 4 * n_layer + 6 * n_layer + 2:
+        fail("dropout_recipe: %d dropout sites, expected %d"
+             % (sites, 10 * n_layer + 2))
+    dense = [p.name for p in main.all_parameters()
+             if p.name in main._flat_state_views]
+    counter = "_dropout_rng_counter"
+
+    # 1. TRAIN_STEPS eager steps, and the same steps as one run_steps
+    # call (an eager step, the capture, replays) from the same state
+    exe, scope = _fresh_recipe(main, startup, place)
+    eager = [float(exe.run(main, feed=feed, fetch_list=[cost],
+                           scope=scope)[0]) for _ in range(TRAIN_STEPS)]
+    eager_params = {n: fluid.fetch_var(n, scope) for n in dense}
+    eager_counter = int(fluid.fetch_var(counter, scope))
+    del exe, scope
+    torch.cuda.empty_cache()
+    exe, scope = _fresh_recipe(main, startup, place)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _cuda.LAUNCHERS:
+        reset_counts(fn)
+    graph, = exe.run_steps(main, feed=feed, steps=TRAIN_STEPS,
+                           fetch_list=[cost], scope=scope)
+    launches = dr.dropout_apply.launches
+    backward = dr.dropout_apply.backward_launches
+    if (launches, backward) != (2 * sites * TRAIN_STEPS,
+                                sites * TRAIN_STEPS):
+        fail("dropout_recipe: %d steps launched the dropout kernel %d "
+             "times (%d backward), expected %d (%d)"
+             % (TRAIN_STEPS, launches, backward, 2 * sites * TRAIN_STEPS,
+                sites * TRAIN_STEPS))
+    n_equal = sum(bool(np.array_equal(fluid.fetch_var(n, scope), v))
+                  for n, v in eager_params.items())
+    graph_counter = int(fluid.fetch_var(counter, scope))
+    losses_equal = bool(np.array_equal(graph, np.asarray(eager,
+                                                         np.float32)))
+    if not (losses_equal and n_equal == len(dense)
+            and graph_counter == eager_counter == sites * TRAIN_STEPS):
+        fail("dropout_recipe: run_steps is not bit-equal to the eager "
+             "steps: losses %s against %s, %d of %d parameters equal, "
+             "counters %d and %d" % (graph.tolist(), eager, n_equal,
+                                     len(dense), graph_counter,
+                                     eager_counter))
+    if not np.isfinite(graph).all():
+        fail("dropout_recipe: non-finite losses %s" % graph.tolist())
+
+    # 2. bench.py's protocol with the feed on the card
+    dev_feed = {n: torch.as_tensor(v).to(place.torch_device())
+                for n, v in feed.items()}
+    dt, timed = _timed_chunks(exe, main, dev_feed, cost, scope,
+                              BENCH_STEPS // CHUNK)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(timed).all():
+        fail("dropout_recipe: non-finite timed losses %s" % timed.tolist())
+    step_ms = dt / BENCH_STEPS * 1e3
+    # 3. one replayed step profiled
+    exe.run_steps(main, feed=dev_feed, steps=1, fetch_list=[cost],
+                  scope=scope)
+    fam = {}
+    wall_ms, by_family, kernels, top = profile_step(
+        lambda: exe.run_steps(main, feed=dev_feed, steps=1,
+                              fetch_list=[cost], scope=scope),
+        family_launches=fam)
+    if fam.get("dropout", 0) != 2 * sites:
+        fail("dropout_recipe: one replayed step ran %d dropout kernels, "
+             "expected %d" % (fam.get("dropout", 0), 2 * sites))
+    busy = sum(by_family.values())
+    tokens = TRAIN_B * TRAIN_T
+    emit({"phase": "dropout_recipe", "card": card,
+          "dropout_rate": RECIPE_DROPOUT, "sites": sites,
+          "draws_per_step": int(sum(
+              np.prod(s) for s in [(TRAIN_B, TRAIN_T, TRAIN_MODEL[
+                  "d_model"])] * (sites - 2 * n_layer)
+              + [(TRAIN_B, TRAIN_T, TRAIN_MODEL["d_inner_hid"])]
+              * (2 * n_layer))),
+          "eager_losses": eager, "run_steps_losses": graph.tolist(),
+          "bit_equal": {"losses": losses_equal,
+                        "params": "%d of %d" % (n_equal, len(dense)),
+                        "counter": graph_counter},
+          "launches": launches, "backward_launches": backward,
+          "step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+          "dropout0_step_ms": base["step_ms"],
+          "dropout0_tokens_per_s": base["tokens_per_s"],
+          "max_memory_allocated": peak,
+          "dropout0_max_memory_allocated": base["max_memory_allocated"],
+          "timed_losses": timed.tolist(),
+          "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / wall_ms,
+          "device_idle_share_chunked": 1.0 - busy / step_ms,
+          "replayed_step_dropout_kernels": fam.get("dropout", 0),
+          "kernel_launches_per_step": kernels,
+          "device_ms_by_family": dict(sorted(by_family.items(),
+                                             key=lambda kv: -kv[1])),
+          "top_kernels": top})
+    exe.close()
+    return launches
+
+
+# ---------------------------------------------------------------- phase 16
+
+
+# fused against unfused on the card: the loss and the head weight's
+# gradient part by the bf16 rounding of the unfused head's logits (the
+# fused op keeps them f32), so the loss is held to rel 1e-3 and the
+# gradient to 3e-2 of its max (TOL[bf16])
+FUSED_CE_LOSS_TOL, FUSED_CE_GRAD_TOL = 1e-3, TOL[torch.bfloat16]
+
+
+def phase_fused_ce(card):
+    """The recipe with ``fused_ce=True`` against the same recipe unfused:
+    step 0's loss and the head weight's gradient, the predict head
+    skipped, peak memory and step ms of each under ``run_steps``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.executor import live_ops
+
+    place = fluid.CUDAPlace(0)
+    feed = train_batch()
+    dev_feed = {n: torch.as_tensor(v).to(place.torch_device())
+                for n, v in feed.items()}
+    rows = {}
+    for fused in (False, True):
+        main, startup, cost = build_recipe(True, fused_ce=fused)
+        gb = main.global_block()
+        head = next(op for op in reversed(gb.ops) if op.type == "mul")
+        head_w = head.input("Y")[0]
+        head_calls = []
+        if fused:
+            at = next(i for i, op in enumerate(gb.ops)
+                      if op.type == "fused_linear_softmax_ce")
+            head = gb.ops[at + 1]
+            if head.type != "mul" or head in live_ops(main, [cost.name]):
+                fail("fused_ce: the predict head's mul is live with only "
+                     "the loss fetched")
+            fn = head.fn
+            head.fn = lambda *a, _fn=fn: head_calls.append(1) or _fn(*a)
+        exe, scope = _fresh_recipe(main, startup, place)
+        step0 = exe.run(main, feed=feed, fetch_list=[cost, head_w + "@GRAD"],
+                        scope=scope)
+        if head_calls:
+            fail("fused_ce: the predict head's mul ran %d times with only "
+                 "the loss fetched" % len(head_calls))
+        del exe, scope
+        torch.cuda.empty_cache()
+        fluid.memory_optimize(main)
+        exe, scope = _fresh_recipe(main, startup, place)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dt, timed = _timed_chunks(exe, main, dev_feed, cost, scope,
+                                  BENCH_STEPS // CHUNK)
+        peak = torch.cuda.max_memory_allocated()
+        if head_calls:
+            fail("fused_ce: the predict head's mul ran under run_steps")
+        if not np.isfinite(timed).all():
+            fail("fused_ce (fused=%s): non-finite losses %s"
+                 % (fused, timed.tolist()))
+        step_ms = dt / BENCH_STEPS * 1e3
+        rows["fused" if fused else "unfused"] = {
+            "step0_loss": float(step0[0]), "head_grad": step0[1],
+            "step_ms": step_ms,
+            "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+            "max_memory_allocated": peak, "timed_losses": timed.tolist(),
+            "head_mul_calls": len(head_calls)}
+        exe.close()
+        del exe, scope, main
+        torch.cuda.empty_cache()
+    f, u = rows["fused"], rows["unfused"]
+    loss_rel = abs(f["step0_loss"] - u["step0_loss"]) / abs(u["step0_loss"])
+    gf, gu = f.pop("head_grad"), u.pop("head_grad")
+    grad_rel = float(np.abs(gf - gu).max() / np.abs(gu).max())
+    if not (loss_rel <= FUSED_CE_LOSS_TOL and grad_rel <= FUSED_CE_GRAD_TOL):
+        fail("fused_ce: step 0 parts from the unfused build: loss rel %g "
+             "(> %g?), head gradient %g of its max (> %g?)"
+             % (loss_rel, FUSED_CE_LOSS_TOL, grad_rel, FUSED_CE_GRAD_TOL))
+    emit({"phase": "fused_ce", "card": card,
+          "step0_loss_rel_err": loss_rel,
+          "head_grad_max_rel_err": grad_rel,
+          "tolerances": {"loss_rel": FUSED_CE_LOSS_TOL,
+                         "head_grad_of_max": FUSED_CE_GRAD_TOL},
+          "predict_head_skipped": True, **rows})
+
+
+# ---------------------------------------------------------------- phase 17
+
+
+VGG_PARAMS = 2 * (13 + 14 + 3)
+VGG_SITES = 2
+
+
+def build_vgg():
+    """(main, startup, avg_cost) of bench_resnet.py's program with
+    VGG-16 in place of ResNet-50, after ``memory_optimize``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.vgg import vgg16
+
+    saved = {n: fluid.get_flag(n) for n in RESNET_FLAGS}
+    fluid.set_flags(RESNET_FLAGS)
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            img = fluid.layers.data(
+                name="img", shape=[-1, 3, RESNET_HW, RESNET_HW],
+                dtype="float32", append_batch_size=False)
+            lbl = fluid.layers.data(name="lbl", shape=[-1, 1],
+                                    dtype="int64", append_batch_size=False)
+            predict = vgg16(img, class_dim=RESNET_CLASSES)
+            cost = fluid.layers.cross_entropy(input=predict, label=lbl)
+            avg_cost = fluid.layers.mean(cost)
+            fluid.optimizer.Momentum(learning_rate=0.1,
+                                     momentum=0.9).minimize(avg_cost)
+    finally:
+        fluid.set_flags(saved)
+    fluid.memory_optimize(main)
+    return main, startup, avg_cost
+
+
+def phase_vgg(card):
+    """VGG-16 with bench_resnet.py's recipe: ``run_steps`` bit-equal to
+    eager steps under ``cudnn.deterministic``, the dropout kernel 2 + 2
+    launches a step; images/s, step ms, peak memory, one replayed step
+    profiled. Returns the timed run's dropout launches."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import _cuda
+    from paddle_tpu_torch.ops import dropout as dr
+
+    place = fluid.CUDAPlace(0)
+    pool = resnet_pool()
+    dev_pool = {n: torch.stack([torch.as_tensor(b[n]) for b in pool]).to(
+        place.torch_device()) for n in pool[0]}
+    main, startup, cost = build_vgg()
+    params = [p.name for p in main.all_parameters()]
+    sites = sum(op.type == "dropout" for op in main.global_block().ops)
+    if (len(params), sites) != (VGG_PARAMS, VGG_SITES):
+        fail("vgg: %d parameters and %d dropout sites, expected %d and %d"
+             % (len(params), sites, VGG_PARAMS, VGG_SITES))
+    weights = resnet_weights(main)
+
+    def fresh():
+        scope, exe = fluid.Scope(), fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        fluid.params_from_numpy(weights, scope, place, program=main)
+        return exe, scope
+
+    # 1. two eager steps against run_steps of the same two batches,
+    # deterministic cuDNN algorithms
+    torch.backends.cudnn.deterministic = True
+    try:
+        exe, scope = fresh()
+        eager = [float(exe.run(main, feed=pool[i], fetch_list=[cost],
+                               scope=scope)[0]) for i in range(2)]
+        eager_params = _resnet_params(fluid, main, scope)
+        del exe, scope
+        exe, scope = fresh()
+        rs, = exe.run_steps(main, feed_list=pool[:2], fetch_list=[cost],
+                            scope=scope)
+        rs_params = _resnet_params(fluid, main, scope)
+        exe.close()
+        del exe, scope
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    n_equal = sum(bool(np.array_equal(rs_params[n], v))
+                  for n, v in eager_params.items())
+    losses_equal = bool(np.array_equal(rs, np.asarray(eager, np.float32)))
+    if not (losses_equal and n_equal == len(params)):
+        fail("vgg: run_steps is not bit-equal to the eager steps: losses "
+             "%s against %s, %d of %d parameters equal"
+             % (rs.tolist(), eager, n_equal, len(params)))
+    if not all(math.isfinite(x) for x in eager):
+        fail("vgg: non-finite eager losses %s" % eager)
+    del eager_params, rs_params
+
+    # 2. bench_resnet.py's protocol (cuDNN's defaults), the counts set to
+    # 0 just before and read just after
+    exe, scope = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _cuda.LAUNCHERS:
+        reset_counts(fn)
+    out, = exe.run_steps(main, feed=dev_pool, steps=RESNET_CHUNK,
+                         fetch_list=[cost], scope=scope, return_numpy=False)
+    out.cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [exe.run_steps(main, feed=dev_pool, steps=RESNET_CHUNK,
+                           fetch_list=[cost], scope=scope,
+                           return_numpy=False)[0]
+             for _ in range(RESNET_STEPS // RESNET_CHUNK)]
+    timed = torch.cat(timed).cpu().numpy()
+    dt = time.perf_counter() - t0
+    steps = RESNET_CHUNK + RESNET_STEPS
+    launches = dr.dropout_apply.launches
+    backward = dr.dropout_apply.backward_launches
+    counted = {fn.__name__: getattr(fn, c) for fn in _cuda.LAUNCHERS
+               for c in fn.counts if getattr(fn, c)}
+    if (launches, backward) != (2 * sites * steps, sites * steps) or \
+            set(counted) != {"dropout_apply"}:
+        fail("vgg: %d steps launched %s (dropout %d, %d backward), "
+             "expected the dropout kernel alone, %d (%d)"
+             % (steps, counted, launches, backward, 2 * sites * steps,
+                sites * steps))
+    if not np.isfinite(timed).all():
+        fail("vgg: non-finite losses %s" % timed.tolist())
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = dt / RESNET_STEPS * 1e3
+    batch = {n: v[0] for n, v in dev_pool.items()}
+    exe.run_steps(main, feed=batch, steps=1, fetch_list=[cost], scope=scope)
+    wall_ms, by_family, kernels, top = profile_step(
+        lambda: exe.run_steps(main, feed=batch, steps=1, fetch_list=[cost],
+                              scope=scope),
+        family=_resnet_family)
+    busy = sum(by_family.values())
+    emit({"phase": "vgg", "card": card, "model": "vgg16 (batch norm)",
+          "batch": RESNET_B, "image": [3, RESNET_HW, RESNET_HW],
+          "classes": RESNET_CLASSES, "flags": RESNET_FLAGS,
+          "params": len(params), "dropout_sites": sites,
+          "chunk": RESNET_CHUNK, "timed_steps": RESNET_STEPS,
+          "deterministic_checks": "cudnn.deterministic on for the eager "
+                                  "steps and run_steps compared; off for "
+                                  "the timed run",
+          "eager_losses": eager, "run_steps_losses": rs.tolist(),
+          "params_bit_equal": "%d of %d" % (n_equal, len(params)),
+          "dropout_launches": launches,
+          "dropout_backward_launches": backward,
+          "images_per_s": RESNET_B * RESNET_STEPS / dt, "step_ms": step_ms,
+          "capture_s": exe.capture_seconds, "timed_losses": timed.tolist(),
+          "max_memory_allocated": peak,
+          "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / wall_ms,
+          "device_idle_share_unprofiled": 1.0 - busy / step_ms,
+          "kernel_launches_per_step": kernels,
+          "device_ms_by_family": dict(sorted(by_family.items(),
+                                             key=lambda kv: -kv[1])),
+          "top_kernels": top})
+    exe.close()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device is visible (torch.cuda.is_available() is "
@@ -2490,12 +3029,19 @@ def main():
     n_recipe = int(build_recipe(True)[0].global_block().var(
         "fused_param_storage_0").shape[0])
     fused_rows = phase_fused_update(card, n_recipe, RESNET_N)
+    dropout_rows = phase_dropout(card)
     recipe_launches, recipe_losses, recipe_params = phase_recipe(card)
     torch.cuda.empty_cache()
-    phase_run_steps(card, recipe_losses, recipe_params)
+    base = phase_run_steps(card, recipe_losses, recipe_params)
     del recipe_params
     torch.cuda.empty_cache()
+    dropout_launches = phase_dropout_recipe(card, base)
+    torch.cuda.empty_cache()
+    phase_fused_ce(card)
+    torch.cuda.empty_cache()
     resnet_launches = phase_resnet(card)
+    vgg_launches = phase_vgg(card)
+    torch.cuda.empty_cache()
     serving_counts, model, greedy = phase_serving(card)
     prefix_counts = phase_prefix_int8(card, model)
     phase_sampling(card, model, greedy)
@@ -2597,6 +3143,23 @@ def main():
         "bound_ms": mo["bound_ms"], "bound_by": mo["bound_by"],
         "library_ms": mo["library_ms"], "device_ms": mo["device_ms"],
         "library_device_ms": mo["library_device_ms"]})
+    # the dropout kernel at the recipe's FFN mask ([32, 256, 2048] bf16,
+    # p = 0.1), with the dropout recipe's launches (62 sites, forward
+    # and backward, 10 steps); VGG-16's in vgg_launches
+    dr = next(r for r in dropout_rows
+              if r["shape"] == [TRAIN_B, TRAIN_T, 2048]
+              and r["dtype"] == "bfloat16" and r["p"] == 0.1)
+    kernels.append({
+        "name": "dropout", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/dropout.cu",
+        "replaces": "paddle_tpu/layers/nn.py:649",
+        "launches": dropout_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in dropout_rows),
+        "ms": dr["ms"], "plain_ms": dr["plain_ms"],
+        "bound_ms": dr["bound_ms"], "bound_by": dr["bound_by"],
+        "library_ms": None, "device_ms": dr["device_ms"],
+        "f_dropout_ms": dr["f_dropout_ms"],
+        "vgg_launches": vgg_launches})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,7 @@
 with its default setup (``jax_default_prng_impl="threefry2x32"``,
 ``jax_threefry_partitionable=True``, ``jax_high_dynamic_range_gumbel=
 False``): the counterpart of what ``jax.random`` gives the JAX package's
-sampling heads, and the generator training dropout will draw from.
+sampling heads and of the masks its training dropout draws.
 
 A key is a pair of uint32 words held as two int64 tensors of any (equal)
 batch shape, so a batch of rows carries a batch of keys and one call
@@ -17,11 +17,16 @@ value is read, so the functions run under CUDA graph capture.
   counter pair ``(0, data)`` under ``key``.
 * ``random_bits(key, n)`` — 32-bit ``jax.random.bits`` of shape
   ``[..., n]`` on the partitionable path: threefry of the counter pairs
-  ``(0, i)`` for ``i < n`` (the high and low words of a 64-bit iota),
-  then ``bits1 ^ bits2``.
+  ``(i >> 32, i & 0xffffffff)`` for ``i < n`` (the high and low words
+  of a 64-bit iota), then ``bits1 ^ bits2``.
 * ``uniform(key, n, minval, maxval)`` — f32 ``jax.random.uniform``: 23
   random mantissa bits under the exponent of 1.0, minus 1, scaled and
   shifted with one rounding, then ``max(minval, .)``.
+* ``bernoulli(key, p, shape)`` — ``jax.random.bernoulli(key, p,
+  shape)`` for a Python float ``p``: ``uniform(key, shape) < f32(p)``.
+  A uniform of shape ``(a, b, c)`` is the uniform of ``a*b*c`` values
+  in row-major order, so element ``i`` draws from the counter pair of
+  ``i``. The plain version of the dropout kernel (``ops/dropout.py``).
 * ``gumbel(key, n)`` — f32 ``jax.random.gumbel`` in its default "low"
   mode: ``-log(-log(uniform(minval=tiny, maxval=1)))``. The bits and the
   uniforms are bit-equal to jax; the two logs are torch's, which may sit
@@ -86,8 +91,8 @@ def random_bits(key, n: int) -> torch.Tensor:
     for a batch of keys: ``[*key_shape, n]`` uint32 values in int64."""
     k1, k2 = key
     iota = torch.arange(n, dtype=torch.int64, device=k1.device)
-    b1, b2 = threefry2x32(k1[..., None], k2[..., None],
-                          torch.zeros_like(iota), iota)
+    b1, b2 = threefry2x32(k1[..., None], k2[..., None], iota >> 32,
+                          iota & _MASK)
     return b1 ^ b2
 
 
@@ -106,6 +111,15 @@ def uniform(key, n: int, minval: float = 0.0,
     scaled = (floats.to(torch.float64) * float(hi - lo)
               + float(lo)).to(torch.float32)
     return torch.clamp(scaled, min=float(lo))
+
+
+def bernoulli(key, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``,
+    for a batch of keys: a bool tensor ``[*key_shape, *shape]``."""
+    shape = tuple(int(s) for s in shape)
+    u = uniform(key, int(np.prod(shape, dtype=np.int64)))
+    keep = u < float(np.float32(p))
+    return keep.reshape(tuple(key[0].shape) + shape)
 
 
 def gumbel(key, n: int) -> torch.Tensor:

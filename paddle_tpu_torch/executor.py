@@ -11,7 +11,10 @@ environment of tensors, as the reference's interpreter did
     an op writes flow back to the scope after the run (an op that
     updates a scope tensor in place returns the same object, and
     writing it back copies nothing);
-  * a fresh local environment per run for temporaries.
+  * a fresh local environment per run for temporaries;
+  * dead ops skipped (:func:`live_ops`, the counterpart of XLA's
+    dead-code elimination): an op whose outputs nothing later reads, no
+    fetch names and none is persistable does not run.
 
 A training program (one with the ``backward`` op of
 ``append_backward``) runs one forward pass per step: the ops before
@@ -261,6 +264,42 @@ def run_training_ops(ops, env: Dict[str, torch.Tensor]
     return env
 
 
+def live_ops(program: Program, fetch_names: Sequence[str]) -> List:
+    """The global block's ops less the dead ones, the counterpart of
+    XLA's dead-code elimination in the JAX package's compiled run: an op
+    is skipped when nothing after it reads its outputs, no fetch names
+    them and none of them is persistable (counters, batch-norm
+    statistics, optimizer state and parameters are always written). The
+    ``backward`` op always runs, and reads the loss. Cached on the
+    program by version and fetch names."""
+    key = (program._version, tuple(fetch_names))
+    cache = program.__dict__.get("_live_ops_cache", {})
+    hit = cache.get(key)
+    if hit is not None:
+        return hit
+    # keep the current version's entries only
+    cache = program._live_ops_cache = {k: v for k, v in cache.items()
+                                       if k[0] == program._version}
+    gb = program.global_block()
+
+    def persistable(n):
+        v = gb._find_var_recursive(n)
+        return v is not None and v.persistable
+
+    live, kept = set(fetch_names), []
+    for op in reversed(gb.ops):
+        outs = op.output_arg_names
+        if op.type == "backward" or not outs or any(
+                n in live or persistable(n) for n in outs):
+            kept.append(op)
+            live.update(op.input_arg_names)
+            if op.type == "backward":
+                live.add(op.attrs["loss"])
+    kept.reverse()
+    cache[key] = kept
+    return kept
+
+
 def _analyze_program_io(program: Program):
     """(produced, needed, view_produced) name sets of the global block;
     ``view_produced`` are the outputs of ``unpack_flat_params``: views
@@ -491,7 +530,7 @@ class _CapturedSteps:
                  steps: int, unroll: bool, donate: bool,
                  device: torch.device):
         self.program, self.scope = program, scope
-        self.ops = program.global_block().ops
+        self.ops = live_ops(program, fetch_names)
         self.training = any(op.type == "backward" for op in self.ops)
         self.fetch_names = fetch_names
         self.steps, self.unroll, self.donate = steps, unroll, donate
@@ -870,12 +909,13 @@ class Executor:
                 and isinstance(v, torch.Tensor) else v
         for name, val in feed.items():
             env[name] = self._feed_tensor(gb._find_var_recursive(name), val)
+        ops = live_ops(program, fetch_names)
         with RecordEvent("dispatch"):
-            if any(op.type == "backward" for op in gb.ops):
-                run_training_ops(gb.ops, env)
+            if any(op.type == "backward" for op in ops):
+                run_training_ops(ops, env)
             else:
                 with torch.no_grad():
-                    run_program_ops(gb.ops, env)
+                    run_program_ops(ops, env)
 
             views = getattr(program, "_flat_state_views", None) or {}
             with torch.no_grad():

@@ -1,6 +1,6 @@
 """Neural-network layer functions (counterpart of
-paddle_tpu/layers/nn.py): the ones the causal LM, Transformer-base and
-ResNet training reach.
+paddle_tpu/layers/nn.py): the ones the causal LM, Transformer-base,
+ResNet and VGG training reach.
 
 Each function appends ops carrying torch fns to the default main program
 and returns the output Variable(s). Under ``use_bfloat16`` the matrix
@@ -175,32 +175,43 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
 
 def dropout(x, dropout_prob: float, is_test: bool = False, seed=None,
             name=None):
-    """Inference dropout: ``x * (1 - dropout_prob)`` (the reference's
-    downgrade_in_infer). Training dropout is not ported yet."""
-    if not is_test:
-        raise not_ported("training dropout (dropout(is_test=False))",
-                         "Queue A 3, step 5: training dropout with a "
-                         "seeded generator")
+    """Dropout in the reference's downgrade_in_infer form: training
+    multiplies by a Bernoulli(1 - p) mask, inference (``is_test``, or
+    ``Program.clone(for_test=True)``) by ``1 - p``.
+
+    The mask is the JAX package's, bit for bit: keyed on
+    ``fold_in(PRNGKey(base_seed), counter)``, where ``base_seed`` is
+    ``seed`` or the program's next parameter seed (taken here, so
+    parameters and dropout sites draw from one sequence in build order,
+    as in the JAX package) and ``counter`` the shared persistable int32
+    ``_dropout_rng_counter``, which every site advances by one. On a
+    card the mask is drawn by the dropout kernel (``ops/dropout.py``),
+    forward and backward."""
     helper = LayerHelper("dropout")
     out = helper.create_tmp_variable(x.dtype)
     counter = _dropout_counter(helper)
+    base_seed = seed if seed is not None else \
+        helper.main_program.next_param_seed()
 
-    def fn(v, c, is_test=True):
-        return v * (1.0 - dropout_prob), c
+    def fn(v, c, is_test=False):
+        if is_test:
+            return v * (1.0 - dropout_prob), c
+        from ..ops.dropout import dropout as dropout_op
+
+        return dropout_op(v, base_seed, c, dropout_prob)
 
     helper.append_op(type="dropout",
                      inputs={"X": [x.name], "Seed": [counter.name]},
                      outputs={"Out": [out.name], "SeedOut": [counter.name]},
-                     attrs={"dropout_prob": dropout_prob, "is_test": True,
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
                             "_fn_attrs": ["is_test"]},
                      fn=fn)
     return out
 
 
 def _dropout_counter(helper):
-    """The shared persistable int32 step counter the JAX package keys
-    dropout masks on; kept so both packages build the same symbol
-    table."""
+    """The shared persistable int32 counter dropout masks are keyed on
+    (initialized to 0 by the startup program)."""
     gb = helper.main_program.global_block()
     name = "_dropout_rng_counter"
     if name in gb.vars:
@@ -305,6 +316,68 @@ def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
                      outputs={"Loss": [loss.name], "Softmax": [sm.name]},
                      fn=fn)
     return (loss, sm) if return_softmax else loss
+
+
+def fused_linear_softmax_ce(input, label, size: int,
+                            smooth_eps: float = 0.0, param_attr=None,
+                            bias_attr=None):
+    """The vocab projection and softmax cross-entropy as one op that
+    never forms the ``[.., size]`` logits (``ops/fused_ce.py``): a
+    drop-in for ``fc(num_flatten_dims=ndim-1)`` +
+    ``softmax_with_cross_entropy``.
+
+    Returns ``(loss [..., 1] f32, predict [..., size])``: ``predict`` is
+    the raw logits of the same affine map, as the plain ``mul`` +
+    ``elementwise_add`` pair ``fc`` emits, on the same parameters. The
+    executor skips that pair when nothing reads or fetches it (the JAX
+    package leaves it to XLA's dead-code elimination), so training that
+    fetches only the loss never computes it. The parameters come from
+    the ``"fc"`` name family, so a fused build and an unfused one have
+    the same parameter names and checkpoints interchange."""
+    from ..ops.fused_ce import fused_linear_softmax_ce_fn
+
+    helper = LayerHelper("fused_linear_softmax_ce")
+    param_helper = LayerHelper("fc")
+    dtype = input.dtype
+    d = int(input.shape[-1])
+    w = param_helper.create_parameter(param_attr, [d, size], dtype)
+    b = (None if bias_attr is False else
+         param_helper.create_parameter(bias_attr, [size], dtype,
+                                       is_bias=True))
+    loss = helper.create_tmp_variable("float32")
+    eps = float(smooth_eps or 0.0)
+    bf16 = bool(flags.get_flag("use_bfloat16"))
+
+    ce_inputs = {"X": [input.name], "W": [w.name], "Label": [label.name]}
+    if b is not None:
+        ce_inputs["Bias"] = [b.name]
+
+    def fn(xv, wv, yv, bv=None):
+        return fused_linear_softmax_ce_fn(xv, wv, bv, yv, smooth_eps=eps,
+                                          bf16=bf16)
+
+    helper.append_op(type="fused_linear_softmax_ce", inputs=ce_inputs,
+                     outputs={"Loss": [loss.name]},
+                     attrs={"smooth_eps": eps, "size": size}, fn=fn)
+
+    mul_out = helper.create_tmp_variable(dtype)
+    rule = _mm_rule()
+
+    def mul_fn(xv, wv):
+        lead = xv.shape[:-1]
+        y = _mm(xv.reshape(-1, xv.shape[-1]), wv, rule)
+        return y.reshape(*lead, y.shape[-1])
+
+    helper.append_op(type="mul", inputs={"X": [input.name], "Y": [w.name]},
+                     outputs={"Out": [mul_out.name]}, fn=mul_fn)
+    if b is None:
+        return loss, mul_out
+    predict = helper.create_tmp_variable(dtype)
+    helper.append_op(type="elementwise_add",
+                     inputs={"X": [mul_out.name], "Y": [b.name]},
+                     outputs={"Out": [predict.name]},
+                     fn=lambda xv, bv: xv + bv.to(xv.dtype))
+    return loss, predict
 
 
 def softmax(input, use_cudnn=False, name=None):

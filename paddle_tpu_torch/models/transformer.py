@@ -8,8 +8,11 @@ einsum path); ``"pallas"`` runs the hand-written flash-attention
 kernels (``ops/flash_attention.py``), forward and backward. ``None``
 resolves to ``"fused"``: the JAX package's crossover to its kernel at
 2048 keys was measured on a TPU, and the card's own rule waits for its
-measurements (PERF.md). The sequence-parallel ``"ring"`` path, tensor
-parallelism and the pipelined encoder belong to the multi-GPU tier and
+measurements (PERF.md). Training dropout draws its masks with the
+dropout kernel (``ops/dropout.py``); ``transformer_base(fused_ce=True)``
+ends in the chunked projection + CE op (``ops/fused_ce.py``). The
+sequence-parallel ``"ring"`` path, tensor parallelism, the pipelined
+encoder and distributed embeddings belong to the multi-GPU tier and
 are not ported yet.
 """
 
@@ -212,17 +215,15 @@ def transformer_model(src_word, trg_word, src_mask, src_vocab_size,
                       pp_encoder=False, pp_microbatches=2,
                       sparse_embedding=False, distributed_embedding=False,
                       return_hidden=False):
-    """Encoder-decoder -> next-token logits ``[B, T_trg, V_trg]``.
-    ``sparse_embedding`` gives both word tables row-sparse gradients.
-    Training dropout (``dropout_rate > 0`` with ``is_test=False``), the
-    pipelined encoder and distributed embeddings are not ported yet and
-    raise."""
+    """Encoder-decoder -> next-token logits ``[B, T_trg, V_trg]``, or
+    the decoder's last hidden states with ``return_hidden`` (for a head
+    of the caller's, such as the fused projection + CE op).
+    ``sparse_embedding`` gives both word tables row-sparse gradients;
+    ``dropout_rate`` drops at the JAX package's sites in training. Tensor
+    parallelism, the pipelined encoder and distributed embeddings are not
+    ported yet and raise."""
     if tp:
         raise not_ported("transformer_model(tp=True)", _MULTI_GPU)
-    if dropout_rate and not is_test:
-        raise not_ported("training dropout (dropout_rate > 0, is_test=False)",
-                         "Queue A 3, step 5: training dropout with a "
-                         "seeded generator")
     if pp_encoder:
         raise not_ported("transformer_model(pp_encoder=True)", _MULTI_GPU)
     if distributed_embedding:
@@ -268,11 +269,12 @@ def transformer_base(src_vocab_size=10000, trg_vocab_size=10000,
     """Build the full training graph: data vars, model, smoothed CE loss
     averaged over the real target tokens (``trg_mask``).
 
-    Returns (feed_vars, avg_cost, predict). ``fused_ce`` (the chunked
-    projection + CE op) is not ported yet and raises."""
-    if fused_ce:
-        raise not_ported("transformer_base(fused_ce=True)",
-                         "Queue A 3, step 6: fused_ce")
+    ``fused_ce=True`` replaces the vocab fc + softmax_with_cross_entropy
+    pair with the chunked op (``layers.fused_linear_softmax_ce``) that
+    never forms the ``[B, T, V]`` logits; ``predict`` is then its raw
+    logits head, computed only when fetched.
+
+    Returns (feed_vars, avg_cost, predict)."""
     src_word = layers.data(name="src_word", shape=[-1, -1], dtype="int64",
                            append_batch_size=False)
     trg_word = layers.data(name="trg_word", shape=[-1, -1], dtype="int64",
@@ -284,16 +286,22 @@ def transformer_base(src_vocab_size=10000, trg_vocab_size=10000,
     trg_mask = layers.data(name="trg_mask", shape=[-1, -1],
                            dtype="float32", append_batch_size=False)
 
-    predict = transformer_model(
+    out = transformer_model(
         src_word, trg_word, src_mask, src_vocab_size, trg_vocab_size,
         max_length, n_layer, n_head, d_model // n_head, d_model // n_head,
         d_model, d_inner_hid, dropout_rate, is_test=is_test, tp=tp,
         attn_impl=attn_impl, pp_encoder=pp_encoder,
         pp_microbatches=pp_microbatches, sparse_embedding=sparse_embedding,
-        distributed_embedding=distributed_embedding)
-    cost = layers.softmax_with_cross_entropy(
-        logits=predict, label=lbl_word, soft_label=False,
-        smooth_eps=label_smooth_eps)
+        distributed_embedding=distributed_embedding, return_hidden=fused_ce)
+    if fused_ce:
+        cost, predict = layers.fused_linear_softmax_ce(
+            out, lbl_word, size=trg_vocab_size,
+            smooth_eps=label_smooth_eps)
+    else:
+        predict = out
+        cost = layers.softmax_with_cross_entropy(
+            logits=predict, label=lbl_word, soft_label=False,
+            smooth_eps=label_smooth_eps)
     cost = layers.squeeze(cost, axes=[-1])
     # mask padded target positions, average over real tokens
     masked = layers.elementwise_mul(x=cost, y=trg_mask)

@@ -150,7 +150,10 @@ def test_unported_options_raise():
         assert multi_head_attention(x, x, x, 4, 4, 8, n_head=2,
                                     attn_impl="pallas").shape == (-1, 4, 8)
         with pytest.raises(NotImplementedError, match="not ported"):
-            tfluid.layers.dropout(x, dropout_prob=0.1, is_test=False)
+            tfluid.layers.embedding(x, size=[10, 4], is_distributed=True)
+        # training dropout is ported: it builds
+        assert tfluid.layers.dropout(x, dropout_prob=0.1,
+                                     is_test=False).dtype == x.dtype
 
 
 @pytest.mark.parametrize("package", ["jax", "torch"])

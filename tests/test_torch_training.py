@@ -21,7 +21,9 @@ package's ``"pallas"`` route runs its plain reference
 ``_xla_attention``; the port's runs the flash kernels' plain versions).
 A state carried from the JAX package after 2 steps
 (``state_from_numpy``) resumes for a 3rd that matches, and the options
-the port does not have yet raise ``NotImplementedError``.
+the port does not have yet raise ``NotImplementedError``
+(tests/test_torch_dropout.py trains with dropout,
+tests/test_torch_fused_ce.py with the fused head).
 tests/test_torch_recipe.py holds ``bench.py``'s full recipe (bf16
 flags, flat optimizer state, sparse embeddings) to the JAX package.
 """
@@ -398,9 +400,18 @@ def test_the_backward_op_refuses_to_run_outside_the_executor():
 @pytest.mark.parametrize("option", [
     "training_dropout", "fused_ce", "ring", "tp", "pp_encoder"])
 def test_options_not_ported_yet_raise(option):
-    """Each names the ROADMAP item that ports it."""
+    """Each option not ported yet raises, naming the ROADMAP item that
+    ports it. Training dropout and ``fused_ce``, once on this list, are
+    ported: those two now build, with their dropout sites and the fused
+    head."""
     kw = {"training_dropout": {"dropout_rate": 0.1},
           "fused_ce": {"fused_ce": True}, "ring": {},
           "tp": {"tp": True}, "pp_encoder": {"pp_encoder": True}}[option]
+    if option in ("training_dropout", "fused_ce"):
+        main = _build("torch", "fused", **kw)[0]
+        types = [op.type for op in main.global_block().ops]
+        assert ("dropout" in types) == (option == "training_dropout")
+        assert ("fused_linear_softmax_ce" in types) == (option == "fused_ce")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _build("torch", "ring" if option == "ring" else "fused", **kw)
