@@ -111,9 +111,10 @@ Phases, one JSON line each (or one per shape):
              over the same flat tensors with f32 state where one
              computes the same update — ``torch._fused_adam_`` for
              Adam, ``torch._fused_sgd_`` with a momentum buffer for
-             Momentum, ``torch._fused_adagrad_`` for Adagrad (its error
-             recorded where this torch lacks it on the card) — a time
-             yardstick only.
+             Momentum (``nesterov=True`` for Nesterov) and with
+             ``momentum=0`` for SGD, ``torch._fused_adagrad_`` for
+             Adagrad (its error recorded where this torch lacks it on
+             the card) — a time yardstick only.
 8. recipe  — ``bench.py``'s recipe: ``transformer_base`` at the widths
              above with ``sparse_embedding=True``, ``attn_impl="pallas"``,
              ``Adam(1e-4)`` and the flags ``use_bfloat16``,
@@ -251,9 +252,46 @@ Phases, one JSON line each (or one per shape):
              launched 2 + 2 times a step. Images/s, step ms, capture s,
              peak memory, one replayed step profiled (idle share,
              device ms by family).
+18. persist — persistence and the training loop through the port's
+             entry points (``Trainer``, ``ckpt``, ``io``, ``Inferencer``),
+             checkpoints under ``build/chip_smoke_persist`` (removed at
+             the end). (a) Phase 15's dropout recipe (the recipe flags,
+             sparse embeddings, one flat Adam group with bf16 moments,
+             ``dropout_rate=0.1``, ``attn_impl="pallas"``,
+             ``memory_optimize``) built by ``Trainer(train_func,
+             optimizer_func, checkpoint_config=CheckpointConfig(dir,
+             step_interval=10))`` and fed 20 seeded batches with
+             ``steps_per_loop=10``: C trains 20 steps uninterrupted with
+             async saves; A trains 10 and saves synchronously; B (a new
+             Trainer and Scope) auto-resumes A's checkpoint and B2 C's
+             async-written step-10 checkpoint, each training steps
+             10-19. B's and B2's losses and every tensor of their scopes
+             (parameters, the flat group, the bf16 moments, the tables
+             and their moments, the beta powers, the dropout counter)
+             bit-equal to C's; B launched each flash kernel 18 times, the
+             fused ``adam`` update once and the dropout kernel 62 + 62
+             times a step (by their counters); C's step-10 checkpoint
+             restored into C after its graph was captured, and the next
+             ``run_steps`` call replays (no capture) steps 10-19 bit-equal
+             again. (b) The serving phase's causal LM saved with
+             ``io.save_decode_model``, reloaded into a new Scope with
+             ``io.load_decode_model(program=)`` and served with
+             ``serve_decoding``: the 16-request burst streams the serving
+             phase's greedy tokens, decode on the split route. (c)
+             ``fit_a_line`` trained by ``Trainer`` on the card (20 steps,
+             SGD, the last loss under 5 % of the first);
+             ``save_inference_model`` → ``load_inference_model`` and
+             ``save_params`` → ``Inferencer.infer`` both equal
+             ``Executor.run`` on the trained scope. Reports the
+             checkpoint's bytes, save ms (sync; async on the caller's
+             thread), restore ms, the Trainer's step ms (a group of 10
+             replayed steps between its step events, feed conversion
+             included) beside the run_steps and dropout_recipe phases'
+             step ms, the decode artifact's save and load seconds.
 
 Then the card's name and power limit, the kernels JSON line (wall and
-device ms of each kernel and its library call), and as the
+device ms of each kernel and its library call; ``persist_launches``:
+the persist phase's launches of the kernels its paths run), and as the
 last line ``{"ok": true, "device": {...}}``. Every phase row carries the
 card's name and power limit. Any failed phase exits
 non-zero. Without a visible CUDA device — or outside a checkout that
@@ -262,6 +300,7 @@ holds ``paddle_tpu_torch`` — it exits non-zero and prints no result.
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1839,7 +1878,9 @@ def phase_fused_update(card, n_recipe, n_resnet):
                     kind, pk, g, lr, ak, shared, owns, consts), 10)
                 row["library_ms"] = row["library_device_ms"] = None
                 library = {"adam": fused_adam_ms, "adagrad": fused_adagrad_ms,
-                           "momentum": fused_sgd_ms}.get(label)
+                           "momentum": fused_sgd_ms,
+                           "momentum_nesterov": fused_sgd_nesterov_ms,
+                           "sgd": fused_sgd_plain_ms}.get(label)
                 if library is not None:
                     (row["library_ms"], row["library_device_ms"],
                      row["library_error"]) = library(p, g, accs)
@@ -1884,14 +1925,31 @@ def fused_adagrad_ms(p, g, accs):
         weight_decay=0.0, eps=1e-6, maximize=False))
 
 
-def fused_sgd_ms(p, g, accs):
+def fused_sgd_ms(p, g, accs, nesterov=False):
     """``torch._fused_sgd_`` with a momentum buffer
     (``torch.optim.SGD(momentum=0.9, fused=True)``) over the same flat
     tensors with an f32 velocity: v = 0.9 v + g, p -= lr v, the
-    Momentum update."""
+    Momentum update (``nesterov``: p -= lr (g + 0.9 v))."""
     pl, v = p.clone(), accs[0].float().clone()
     return _library_ms(lambda: torch._fused_sgd_(
         [pl], [g], [v], weight_decay=0.0, momentum=0.9, lr=TRAIN_LR,
+        dampening=0.0, nesterov=nesterov, maximize=False,
+        is_first_step=False))
+
+
+def fused_sgd_nesterov_ms(p, g, accs):
+    """``torch._fused_sgd_(nesterov=True)``, the Nesterov Momentum
+    update, with an f32 velocity."""
+    return fused_sgd_ms(p, g, accs, nesterov=True)
+
+
+def fused_sgd_plain_ms(p, g, accs):
+    """``torch._fused_sgd_`` with ``momentum=0`` and no buffer
+    (``torch.optim.SGD(fused=True)``): p -= lr g, the SGD update."""
+    del accs
+    pl = p.clone()
+    return _library_ms(lambda: torch._fused_sgd_(
+        [pl], [g], [], weight_decay=0.0, momentum=0.0, lr=TRAIN_LR,
         dampening=0.0, nesterov=False, maximize=False, is_first_step=False))
 
 
@@ -2764,7 +2822,7 @@ def phase_dropout_recipe(card, base):
                                              key=lambda kv: -kv[1])),
           "top_kernels": top})
     exe.close()
-    return launches
+    return launches, step_ms
 
 
 # ---------------------------------------------------------------- phase 16
@@ -3006,6 +3064,375 @@ def phase_vgg(card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 18
+
+
+PERSIST_BATCHES, PERSIST_INTERVAL = 20, 10
+PERSIST_FEEDS = ["src_word", "src_mask", "trg_word", "trg_mask", "lbl_word"]
+PERSIST_ROOT = "build/chip_smoke_persist"  # under the checkout, ignored
+FIT_BATCHES, FIT_B = 20, 32
+
+
+def persist_reader(n=PERSIST_BATCHES):
+    """The recipe's reader: ``n`` seeded batches of B=32 rows (one tuple
+    of the five feeds a sentence), ragged masks as ``train_batch``'s."""
+    batches = [train_batch(SEED + 100 + i) for i in range(n)]
+
+    def reader():
+        for b in batches:
+            yield list(zip(*(b[name] for name in PERSIST_FEEDS)))
+    return reader
+
+
+def persist_trainer(ckpt_dir, async_save=False, keep=1):
+    """A Trainer of the dropout recipe (phase 15's program: the recipe
+    flags, sparse embeddings, one flat Adam group with bf16 moments,
+    ``dropout_rate=0.1``, ``attn_impl="pallas"``) on the card, under
+    ``memory_optimize``, checkpointing every PERSIST_INTERVAL steps into
+    ``ckpt_dir`` (no epoch-end save: ``epoch_interval=2`` over one
+    epoch)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import transformer_base
+
+    def train_func():
+        _, avg_cost, _ = transformer_base(
+            **dict(TRAIN_MODEL, dropout_rate=RECIPE_DROPOUT),
+            sparse_embedding=True, attn_impl="pallas")
+        return avg_cost
+
+    saved = {n: fluid.get_flag(n) for n in RECIPE_FLAGS}
+    fluid.set_flags(RECIPE_FLAGS)
+    try:
+        trainer = fluid.Trainer(
+            train_func, lambda: fluid.optimizer.Adam(learning_rate=TRAIN_LR),
+            place=fluid.CUDAPlace(0),
+            checkpoint_config=fluid.CheckpointConfig(
+                ckpt_dir, step_interval=PERSIST_INTERVAL, epoch_interval=2,
+                max_num_checkpoints=keep, async_save=async_save))
+    finally:
+        fluid.set_flags(saved)
+    fluid.memory_optimize(trainer.train_program)
+    return trainer
+
+
+def persist_train(trainer, n=PERSIST_BATCHES):
+    """``Trainer.train`` over the first ``n`` batches, ``steps_per_loop``
+    = PERSIST_INTERVAL: ({step: loss}, {step: (begin s, end s)}, the
+    caller-thread seconds of each checkpoint save)."""
+    import paddle_tpu_torch as fluid
+
+    losses, marks, saves = {}, {}, []
+    inner = trainer._save_checkpoint
+
+    def timed_save(*a):
+        t0 = time.perf_counter()
+        inner(*a)
+        saves.append(time.perf_counter() - t0)
+
+    def handler(e):
+        if isinstance(e, fluid.BeginStepEvent):
+            marks[e.step] = (time.perf_counter(), None)
+        elif isinstance(e, fluid.EndStepEvent):
+            marks[e.step] = (marks[e.step][0], time.perf_counter())
+            losses[e.step] = float(np.asarray(e.metrics[0]))
+
+    trainer._save_checkpoint = timed_save
+    try:
+        trainer.train(1, event_handler=handler, reader=persist_reader(n),
+                      feed_order=PERSIST_FEEDS,
+                      steps_per_loop=PERSIST_INTERVAL)
+    finally:
+        del trainer._save_checkpoint
+    return losses, marks, saves
+
+
+def scope_state(trainer):
+    """Every tensor of a Trainer's scope, cloned on the card."""
+    return {n: trainer.scope.find_var(n).clone()
+            for n in trainer.scope.local_var_names()
+            if isinstance(trainer.scope.find_var(n), torch.Tensor)}
+
+
+def state_diff(got, want):
+    """Names whose tensors are not bit-equal (or missing)."""
+    return sorted(n for n in set(got) | set(want)
+                  if n not in got or n not in want
+                  or got[n].dtype != want[n].dtype
+                  or not torch.equal(got[n], want[n]))
+
+
+def serial_bytes(root, serial):
+    d = os.path.join(root, "checkpoint_%d" % serial)
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def phase_persist(card, model, greedy, base, dropout_step_ms):
+    """Checkpoint, resume and serve a trained model through the port's
+    entry points: (a) the dropout recipe through ``Trainer`` — C trains
+    20 steps uninterrupted (async saves), A trains 10 (a sync save), B
+    resumes A's checkpoint and B2 C's step-10 async checkpoint, each
+    training steps 10-19, bit-equal to C; a restore into C after its
+    graph was captured replays bit-equal; (b) the serving phase's causal
+    LM through ``save_decode_model`` / ``load_decode_model`` into a new
+    scope and ``serve_decoding``: the greedy streams again; (c)
+    fit_a_line through ``Trainer``, ``save_inference_model`` /
+    ``load_inference_model`` and ``Inferencer``. Returns B's launches by
+    kernel and the decode burst's paged launches."""
+    import shutil
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import ckpt
+    from paddle_tpu_torch.ops import _cuda
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_window_attention
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        PERSIST_ROOT)
+    shutil.rmtree(root, ignore_errors=True)
+    dirs = {k: os.path.join(root, k) for k in ("a", "c", "fit", "decode")}
+    n_layer = TRAIN_MODEL["n_layer"]
+    sites = 10 * n_layer + 2
+    launchers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                 fused_flat_update, dr.dropout_apply)
+    resumed = range(PERSIST_INTERVAL, PERSIST_BATCHES)
+
+    # (a) C: 20 steps uninterrupted, async saves at steps 10 and 20
+    c = persist_trainer(dirs["c"], async_save=True, keep=2)
+    c_losses, c_marks, c_saves = persist_train(c)
+    c_state = scope_state(c)
+    if sorted(ckpt.list_checkpoints(dirs["c"])) != [0, 1]:
+        fail("persist: C left serials %s, expected [0, 1]"
+             % ckpt.list_checkpoints(dirs["c"]))
+    ckpt_bytes = serial_bytes(dirs["c"], 0)
+    # the Trainer's own step: the second group (replays only) between
+    # its BeginStepEvent and its EndStepEvent, feed conversion included
+    step_ms = (c_marks[PERSIST_INTERVAL][1]
+               - c_marks[PERSIST_INTERVAL][0]) * 1e3 / PERSIST_INTERVAL
+    # a restore into C, whose graph is captured: the next replay reads it
+    graphs = c.exe.num_compiled
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore(dirs["c"], program=c.train_program, scope=c.scope,
+                 serial=0)
+    torch.cuda.synchronize()
+    restore_into_graph_s = time.perf_counter() - t0
+    feeder = c._make_feeder(PERSIST_FEEDS)
+    replay, = c.exe.run_steps(
+        c.train_program,
+        feed_list=[feeder.feed(b) for b in list(persist_reader()())[
+            PERSIST_INTERVAL:]], fetch_list=[c.loss], scope=c.scope)
+    if c.exe.num_compiled != graphs:
+        fail("persist: the restore made C capture again (%d graphs, %d "
+             "before)" % (c.exe.num_compiled, graphs))
+    replay_diff = state_diff(scope_state(c), c_state)
+    if replay.tolist() != [c_losses[s] for s in resumed] or replay_diff:
+        fail("persist: after a restore into C's captured graph the replay "
+             "is not bit-equal: losses %s against %s, tensors differing %s"
+             % (replay.tolist(), [c_losses[s] for s in resumed],
+                replay_diff[:8]))
+    c.stop()
+    del c, feeder
+    # B2 resumes C's async-written step-10 serial alone
+    shutil.rmtree(os.path.join(dirs["c"], "checkpoint_1"))
+    torch.cuda.empty_cache()
+
+    # A: 10 steps, a sync save at step 10
+    a = persist_trainer(dirs["a"])
+    a_losses, _, a_saves = persist_train(a, PERSIST_INTERVAL)
+    if [a_losses[s] for s in range(PERSIST_INTERVAL)] != \
+            [c_losses[s] for s in range(PERSIST_INTERVAL)]:
+        fail("persist: A's steps 0-9 differ from C's")
+    a.stop()
+    del a
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for label, ckpt_dir, async_save in (("sync", dirs["a"], False),
+                                        ("async", dirs["c"], True)):
+        restore_s = []
+        inner = ckpt.restore
+
+        def timed_restore(*args, **kw):
+            t0 = time.perf_counter()
+            out = inner(*args, **kw)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t0)
+            return out
+
+        ckpt.restore = timed_restore
+        try:
+            b = persist_trainer(ckpt_dir, async_save=async_save)
+        finally:
+            ckpt.restore = inner
+        if b.checkpoint_cfg.step_id != PERSIST_INTERVAL:
+            fail("persist %s: B resumed at step %d"
+                 % (label, b.checkpoint_cfg.step_id))
+        for fn in launchers:
+            reset_counts(fn)
+        b_losses, _, b_saves = persist_train(b)
+        launches = {fn.__name__: fn.launches for fn in launchers}
+        launches["dropout_backward"] = dr.dropout_apply.backward_launches
+        want = {"flash_fwd": ATTN_PER_STEP * len(resumed),
+                "flash_bwd_dq": ATTN_PER_STEP * len(resumed),
+                "flash_bwd_dkv": ATTN_PER_STEP * len(resumed),
+                "fused_flat_update": len(resumed),
+                "dropout_apply": 2 * sites * len(resumed),
+                "dropout_backward": sites * len(resumed)}
+        if launches != want:
+            fail("persist %s: B launched %s, expected %s"
+                 % (label, launches, want))
+        b_state = scope_state(b)
+        diff = state_diff(b_state, c_state)
+        losses_equal = [b_losses.get(s) for s in resumed] == \
+            [c_losses[s] for s in resumed]
+        if not losses_equal or diff or sorted(b_losses) != list(resumed):
+            fail("persist %s: B is not bit-equal to C: losses %s against "
+                 "%s, tensors differing %s"
+                 % (label, [b_losses.get(s) for s in resumed],
+                    [c_losses[s] for s in resumed], diff[:8]))
+        rows[label] = {"restore_ms": restore_s[0] * 1e3,
+                       "step_20_save_ms": b_saves[0] * 1e3,
+                       "losses": [b_losses[s] for s in resumed],
+                       "tensors_bit_equal": len(b_state),
+                       "counter": int(b_state["_dropout_rng_counter"]),
+                       "launches": launches}
+        b.stop()
+        del b, b_state
+        torch.cuda.empty_cache()
+    del c_state
+    torch.cuda.empty_cache()
+
+    # (b) the serving phase's model through the decode artifact
+    from paddle_tpu_torch.decoding import CacheConfig
+
+    main, logits, scope = model
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    cache = CacheConfig(**SERVING_CACHE)
+    t0 = time.perf_counter()
+    section = fluid.io.save_decode_model(dirs["decode"], "tokens", logits,
+                                         exe, main_program=main,
+                                         cache_config=cache, scope=scope)
+    decode_save_s = time.perf_counter() - t0
+    fresh = fluid.Scope()
+    t0 = time.perf_counter()
+    pair, loaded = fluid.io.load_decode_model(dirs["decode"], exe,
+                                              scope=fresh, program=main)
+    torch.cuda.synchronize()
+    decode_load_s = time.perf_counter() - t0
+    if loaded != section or not pair.decode._decode_stamp.endswith(
+            "+pallas"):
+        fail("persist: the reloaded decode section %s differs from the "
+             "saved %s" % (loaded, section))
+    run = serve_burst((main, logits, fresh), pair.config, serving_prompts(),
+                      counters=(paged_window_attention,))
+    counts = route_counts(paged_window_attention)
+    check_graphs(run, "persist decode")
+    if run["streams"] != greedy:
+        bad = [i for i, (x, y) in enumerate(zip(run["streams"], greedy))
+               if x != y]
+        fail("persist: the reloaded decode model's streams differ from the "
+             "serving phase's (requests %s)" % bad)
+    steps = run["report"]["decode_step_ms"]["count"]
+    if counts["generic_launches"] or counts["split_launches"] < \
+            MODEL["n_layer"] * steps:
+        fail("persist: the reloaded model's decode launches %s over %d "
+             "steps are not on the split route" % (counts, steps))
+    del fresh, pair, run
+    torch.cuda.empty_cache()
+
+    # (c) fit_a_line through Trainer, both inference artifacts
+    from paddle_tpu_torch.models import fit_a_line
+
+    def fit_func():
+        _, _, avg_cost, y_predict = fit_a_line.build_train()
+        return [avg_cost, y_predict]
+
+    rng = np.random.RandomState(SEED + 7)
+    true_w = rng.randn(13, 1).astype(np.float32)
+    fit_data = []
+    for _ in range(FIT_BATCHES):
+        xb = rng.randn(FIT_B, 13).astype(np.float32)
+        fit_data.append(list(zip(xb, xb @ true_w + 0.5)))
+    fit = fluid.Trainer(fit_func,
+                        lambda: fluid.optimizer.SGD(learning_rate=0.05),
+                        place=fluid.CUDAPlace(0))
+    fit_losses = persist_train_fit(fit, fit_data)
+    if not (np.isfinite(fit_losses).all()
+            and fit_losses[-1] < 0.05 * fit_losses[0]):
+        fail("persist: fit_a_line did not converge: %s" % fit_losses)
+    pred = fit.train_func_outputs[1].name
+    x = rng.randn(16, 13).astype(np.float32)
+    want, = fit.exe.run(fit.test_program.prune([pred]), feed={"x": x},
+                        fetch_list=[pred], scope=fit.scope)
+    fit.save_inference_model(dirs["fit"], ["x"], [1])
+    inf_scope = fluid.Scope()
+    prog, feeds, fetches = fluid.io.load_inference_model(
+        dirs["fit"], exe, scope=inf_scope, program=fit.test_program)
+    if (feeds, fetches) != (["x"], [pred]):
+        fail("persist: fit_a_line's artifact names feeds %s and fetches %s"
+             % (feeds, fetches))
+    got, = exe.run(prog, feed={"x": x}, fetch_list=fetches, scope=inf_scope)
+    fit.save_params(os.path.join(root, "fit_params"))
+
+    def infer_func():
+        xv = fluid.layers.data(name="x", shape=[13], dtype="float32")
+        return fluid.layers.fc(input=xv, size=1, act=None)
+
+    inferred, = fluid.Inferencer(infer_func, os.path.join(root, "fit_params"),
+                                 place=fluid.CUDAPlace(0)).infer({"x": x})
+    if not (np.array_equal(got, want) and np.array_equal(inferred, want)):
+        fail("persist: fit_a_line's inference artifacts do not serve what "
+             "Executor.run gives on the trained scope (max err %g, %g)"
+             % (np.abs(got - want).max(), np.abs(inferred - want).max()))
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "persist", "card": card,
+          "recipe": {"batches": PERSIST_BATCHES,
+                     "step_interval": PERSIST_INTERVAL,
+                     "checkpoint_bytes": ckpt_bytes,
+                     "save_ms_sync": a_saves[0] * 1e3,
+                     "save_ms_async_caller": c_saves[0] * 1e3,
+                     "restore_ms": rows["sync"]["restore_ms"],
+                     "restore_ms_async_serial": rows["async"]["restore_ms"],
+                     "restore_into_captured_graph_ms":
+                         restore_into_graph_s * 1e3,
+                     "trainer_step_ms": step_ms,
+                     "trainer_tokens_per_s": TRAIN_B * TRAIN_T
+                     / (step_ms / 1e3),
+                     "run_steps_phase_step_ms": base["step_ms"],
+                     "dropout_recipe_step_ms": dropout_step_ms,
+                     "c_losses": [c_losses[s] for s in range(PERSIST_BATCHES)],
+                     "resumed": rows,
+                     "replay_after_restore_bit_equal": True},
+          "decode_model": {"save_s": decode_save_s, "load_s": decode_load_s,
+                           "stamps": [section["prefill"]["stamp"],
+                                      section["decode"]["stamp"]],
+                           "streams_equal_serving": True,
+                           "route_launches": counts},
+          "fit_a_line": {"losses": fit_losses.tolist(),
+                         "inference_equal": True},
+          "phase_s": time.perf_counter() - t_phase})
+    return rows["sync"]["launches"], counts
+
+
+def persist_train_fit(trainer, data):
+    """fit_a_line's Trainer over ``data`` (batches of rows), groups of 10
+    steps: the losses."""
+    import paddle_tpu_torch as fluid
+
+    losses = {}
+
+    def handler(e):
+        if isinstance(e, fluid.EndStepEvent):
+            losses[e.step] = float(np.asarray(e.metrics[0]))
+
+    trainer.train(1, event_handler=handler, reader=lambda: iter(data),
+                  feed_order=["x", "y"], steps_per_loop=10)
+    return np.asarray([losses[s] for s in sorted(losses)])
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device is visible (torch.cuda.is_available() is "
@@ -3035,7 +3462,7 @@ def main():
     base = phase_run_steps(card, recipe_losses, recipe_params)
     del recipe_params
     torch.cuda.empty_cache()
-    dropout_launches = phase_dropout_recipe(card, base)
+    dropout_launches, dropout_step_ms = phase_dropout_recipe(card, base)
     torch.cuda.empty_cache()
     phase_fused_ce(card)
     torch.cuda.empty_cache()
@@ -3046,6 +3473,9 @@ def main():
     prefix_counts = phase_prefix_int8(card, model)
     phase_sampling(card, model, greedy)
     spec_counts = phase_speculative(card, model, greedy)
+    torch.cuda.empty_cache()
+    persist_launches, persist_counts = phase_persist(
+        card, model, greedy, base, dropout_step_ms)
     del model
     torch.cuda.empty_cache()
 
@@ -3075,6 +3505,9 @@ def main():
                            + sum(c["split_launches"]
                                  for c in spec_counts.values()),
                            kernel_row(1, "float32", "float32"))]
+    # the persist phase's paths (Trainer B of the dropout recipe, the
+    # reloaded decode model) ran these kernels too, counted apart
+    kernels[0]["persist_launches"] = persist_counts["split_launches"]
     # the k=8 verify window (T=9): the query-tile route on f32 pools
     kernels.append(paged_entry("paged_window_attention_verify", 200,
                                spec_counts["k8"]["tile_launches"],
@@ -3115,6 +3548,8 @@ def main():
                 "device_ms": fr["device_ms"][name],
                 "plain_device_ms": fr["plain_device_ms"][which],
                 "library_device_ms": fr["sdpa_device_ms"][which]})
+            if suffix:
+                kernels[-1]["persist_launches"] = persist_launches[name]
     # the recipe's own group: Adam, bf16 moments, owning the beta powers
     fu = next(r for r in fused_rows if r["n"] == n_recipe
               and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",
@@ -3128,7 +3563,8 @@ def main():
         "ms": fu["ms"], "plain_ms": fu["plain_ms"],
         "bound_ms": fu["bound_ms"], "bound_by": fu["bound_by"],
         "library_ms": fu["library_ms"], "device_ms": fu["device_ms"],
-        "library_device_ms": fu["library_device_ms"]})
+        "library_device_ms": fu["library_device_ms"],
+        "persist_launches": persist_launches["fused_flat_update"]})
     # ResNet-50's group: Momentum with a bf16 velocity
     mo = next(r for r in fused_rows if r["n"] == RESNET_N
               and (r["label"], r["moments"]) == ("momentum", "bf16"))
@@ -3159,7 +3595,8 @@ def main():
         "bound_ms": dr["bound_ms"], "bound_by": dr["bound_by"],
         "library_ms": None, "device_ms": dr["device_ms"],
         "f_dropout_ms": dr["f_dropout_ms"],
-        "vgg_launches": vgg_launches})
+        "vgg_launches": vgg_launches,
+        "persist_launches": persist_launches["dropout_apply"]})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

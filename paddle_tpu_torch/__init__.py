@@ -35,11 +35,25 @@ captured CUDA graph, and ``Executor.run(feed=loader)`` drives it from a
                                      program=main, chunk=10)
     losses, = exe.run(main, feed=loader, fetch_list=[avg_cost])
 
+Persistence and the training loop: ``io`` saves and loads
+variables and the inference and decode models in the JAX package's
+files, ``ckpt`` writes atomic checkpoints (dense, elastic, async) and
+restores them, and ``Trainer`` runs the epoch/step loop over
+``run_steps`` with auto-resumed checkpoints; ``Inferencer`` serves what
+a Trainer saved::
+
+    trainer = fluid.Trainer(train_func, optimizer_func,
+                            checkpoint_config=fluid.CheckpointConfig(dir))
+    trainer.train(num_epochs=1, reader=reader, feed_order=names,
+                  steps_per_loop=10)
+
 This package imports neither jax nor paddle_tpu.
 """
 
-from . import clip, layers, optimizer, profiler, reader, regularizer
+from . import (analysis, checkpoint, ckpt, clip, io, layers, optimizer,
+               passes, profiler, reader, regularizer)
 from .backward import append_backward
+from .ckpt import CheckpointConfig
 from .convert import params_from_numpy, state_from_numpy
 from .core import (CPUPlace, CUDAPlace, EnforceError, EOFException,
                    Operator, Parameter,
@@ -50,6 +64,7 @@ from .core import unique_name
 from .core.flags import get_flag, set_flags
 from .data_feeder import DataFeeder
 from .executor import Executor, FetchHandle, fetch_var
+from .inferencer import Inferencer
 from .memory_optimization_transpiler import memory_optimize, release_memory
 from .optimizer import (SGD, Adadelta, AdadeltaOptimizer, Adagrad,
                         AdagradOptimizer, Adam, Adamax, AdamaxOptimizer,
@@ -61,3 +76,5 @@ from .optimizer import (SGD, Adadelta, AdadeltaOptimizer, Adagrad,
                         SGDOptimizer)
 from .param_attr import ParamAttr
 from .reader.prefetch import batch
+from .trainer import (BeginEpochEvent, BeginStepEvent, EndEpochEvent,
+                      EndStepEvent, Trainer)

@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from . import dtype_utils, flags, unique_name
-from .enforce import EnforceError, enforce
+from .enforce import EnforceError, enforce, not_ported
 
 LOD_TENSOR = "lod_tensor"
 
@@ -258,6 +258,36 @@ class Program:
             # parameters from the same flat buffers
             p._flat_state_views = self._flat_state_views
         return p
+
+    def prune(self, targets: Sequence[str]) -> "Program":
+        """A clone keeping only the ops needed to produce ``targets``
+        (names) and the vars those ops and targets name, as the JAX
+        package's ``Program.prune`` (reference: framework/prune.h;
+        io.py:512 prunes for inference export). The clone keeps the
+        flat-state view map and gets a version of its own."""
+        p = self.clone()
+        gb = p.global_block()
+        needed = set(targets)
+        kept: List[Operator] = []
+        for op in reversed(gb.ops):
+            if set(op.output_arg_names) & needed or op.type == "fetch":
+                kept.append(op)
+                needed.update(op.input_arg_names)
+        gb.ops = list(reversed(kept))
+        referenced = set(targets)
+        for op in gb.ops:
+            referenced.update(op.input_arg_names)
+            referenced.update(op.output_arg_names)
+        gb.vars = {n: v for n, v in gb.vars.items() if n in referenced}
+        p._bump()
+        return p
+
+    def validate(self, feed=None, fetch_list=None,
+                 raise_on_error: bool = True, with_comm: bool = False):
+        """The static program verifier of the JAX package
+        (``analysis.check_program``) is not ported."""
+        raise not_ported("Program.validate (analysis.check_program)",
+                         "Queue A 8")
 
     def list_vars(self):
         for b in self.blocks:

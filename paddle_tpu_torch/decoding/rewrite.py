@@ -563,6 +563,22 @@ def _swap_pos_encoding(program: Program, feed: str, slot: str, fn,
             op.type = op_type
 
 
+def _stamp(config: CacheConfig, which: str, sampling: bool,
+           pallas: bool = False) -> str:
+    """A derived program's stamp, the JAX package's string
+    (``decoding/<digest>/<which>``, ``+sampling`` and ``+pallas`` when
+    those are on; int8 KV rides the digest). The port's decode and
+    extend programs always run the kernel, so they carry ``+pallas``,
+    as the JAX package's do with ``pallas_paged_attention`` on;
+    ``io.load_decode_model`` compares stamps without it."""
+    s = f"decoding/{config.digest()}/{which}"
+    if sampling:
+        s += "+sampling"
+    if pallas:
+        s += "+pallas"
+    return s
+
+
 def derive_decode_programs(program: Program, token_name: str,
                            logits_name: str,
                            config: Optional[CacheConfig] = None,
@@ -593,6 +609,7 @@ def derive_decode_programs(program: Program, token_name: str,
     pool_specs = _rewrite_attention(prefill, config, "prefill")
     _swap_token_lookup(prefill, token_name)
     _append_head(prefill, logits_name, prefill=True, sampling=sampling)
+    prefill._decode_stamp = _stamp(config, "prefill", sampling)
 
     decode = program.clone(for_test=True)
     _data_var(decode, BLOCK_TABLES, (-1, config.max_blocks_per_seq))
@@ -608,6 +625,7 @@ def derive_decode_programs(program: Program, token_name: str,
     # the decode step is one token per sequence, by construction
     decode.global_block().var(token_name).shape = (-1, 1)
     _append_head(decode, logits_name, prefill=False, sampling=sampling)
+    decode._decode_stamp = _stamp(config, "decode", sampling, pallas=True)
     decode._bump()
 
     extend = None
@@ -627,6 +645,8 @@ def derive_decode_programs(program: Program, token_name: str,
         _append_head(extend, logits_name, prefill=True,
                      sampling=sampling)
         _append_window_head(extend, logits_name, sampling)
+        extend._decode_stamp = _stamp(config, "extend", sampling,
+                                      pallas=True)
         extend._bump()
 
     n_layers = len([s for s in pool_specs if s[0].endswith(".k")])

@@ -368,7 +368,12 @@ class Optimizer:
         first, then fill rows ``vocab`` (out of range) with zero sums.
         Nothing depends on the data's size, so there is no host sync and
         a CUDA graph captures it; :func:`_set_rows` drops the fill rows'
-        writes."""
+        writes. The sums accumulate through ``index_put_(accumulate=
+        True)``, whose CUDA path sorts the indices and adds each row's
+        entries in their order (``index_add_``'s atomics add them in
+        whatever order the card runs them, so a resumed run would not
+        repeat an uninterrupted one bit for bit); on the CPU both add in
+        index order."""
         r = rows.reshape(-1).to(torch.int64)
         s, order = torch.sort(r, stable=True)
         first = torch.ones_like(s, dtype=torch.bool)
@@ -378,7 +383,7 @@ class Optimizer:
         inv = torch.empty_like(group).scatter_(0, order, group)
         summed = torch.zeros((r.shape[0],) + tuple(vals.shape[1:]),
                              dtype=vals.dtype, device=vals.device)
-        return u, summed.index_add_(0, inv, vals)
+        return u, summed.index_put_((inv,), vals, accumulate=True)
 
     def _densify_grad(self, block, param, grad):
         """For an optimizer without a row-sparse update: scatter the

@@ -1,9 +1,27 @@
 """Program passes of paddle_tpu_torch (counterpart of paddle_tpu/passes).
 
-Only ``memory_optimize`` and ``release_memory`` are ported; the pass
-manager, the registry and the other passes are not (ROADMAP Queue A 8).
+Ported: the declarative pass API and its registry (``base``), the
+inference fusion family (``fc_act_fuse``, ``attention_fuse``,
+``transpose_eliminate``, ``dce``; ``fusion``), the pass manager in its
+legacy mode with the inference pipeline ``io.save_inference_model``
+runs (``manager``), and ``memory_optimize``/``release_memory``. The
+checked and stamped manager, the transforms (conv+BN fold, bf16 cast,
+quantization, schedules) and remat are not (ROADMAP Queue A 8).
 """
 
+from .base import (Pass, PassError, build_pipeline, get_pass, list_passes,
+                   pass_class, register_pass)
+from .fusion import (AttentionFusePass, DeadCodeEliminatePass,
+                     FcActFusePass, TransposeEliminatePass, fuse_op_chain)
+from .manager import PassManager, apply_passes, inference_pass_pipeline
 from .transforms import memory_optimize, release_memory
 
-__all__ = ["memory_optimize", "release_memory"]
+#: legacy alias (core/passes.py ProgramPass) — same class
+ProgramPass = Pass
+
+__all__ = ["AttentionFusePass", "DeadCodeEliminatePass", "FcActFusePass",
+           "Pass", "PassError", "PassManager", "ProgramPass",
+           "TransposeEliminatePass", "apply_passes", "build_pipeline",
+           "fuse_op_chain", "get_pass", "inference_pass_pipeline",
+           "list_passes", "memory_optimize", "pass_class", "register_pass",
+           "release_memory"]
