@@ -60,8 +60,9 @@ Phases, one JSON line each (or one per shape):
              card: the training path's shape (B=32, T=256, H=8, D=64)
              unmasked, causal and key-masked (ragged tails), a ragged
              cross shape (Tq=200, Tk=333), the long-context shape (B=4,
-             T=2048) plain and causal, and D=128 (B=4, T=512, H=4,
-             causal, key-masked), each in f32 and bf16.
+             T=2048) plain and causal, D=128 (B=4, T=512, H=4, causal,
+             key-masked) and BERT-base's phase-1 shape (B=64, T=128,
+             H=12, D=64, key-masked), each in f32 and bf16.
              o within 1e-4 (f32) / 3e-2 (bf16), lse within 1e-4,
              dq/dk/dv within 1e-3 / 3e-2 of their max magnitude (sums
              run in another order), all finite; the bf16 o also within
@@ -74,7 +75,8 @@ Phases, one JSON line each (or one per shape):
              kernel, its bound, the plain versions and
              ``F.scaled_dot_product_attention`` (forward, and its
              backward alone); at the key-masked training shape, the
-             long-context shapes and D=128 also device times
+             long-context shapes, D=128 and BERT's shape also device
+             times
              (``device_ms``, ``plain_device_ms``, ``sdpa_device_ms``).
 5. routes  — ``attn_impl="fused"`` (plain torch attention) against
              ``"pallas"`` (the kernels), forward and forward+backward, at
@@ -104,7 +106,9 @@ Phases, one JSON line each (or one per shape):
              (plain, centered with momentum), Ftrl (lr_power -0.5 and
              -0.25), ProximalGD and ProximalAdagrad at N = ResNet-50's
              flat group (25,557,032); each with f32 and bf16 moments,
-             and each also at a ragged N = 128*4099+37. Every output
+             and each also at a ragged N = 128*4099+37; and Adam at
+             BERT-base's flat group (bf16 moments) and DeepFM's (f32
+             moments). Every output
              bit-equal (max abs error 0) and finite. CUDA-event ms of
              the kernel and the plain version, the bound (bytes read and
              written once over 3.35 TB/s), and a torch fused optimizer
@@ -213,8 +217,10 @@ Phases, one JSON line each (or one per shape):
 14. dropout — the dropout kernel (``ops.dropout.dropout_apply``) against
              ``plain_dropout`` on the card: the recipe's mask shapes
              [32, 256, 512] and [32, 256, 2048] in f32 and bf16 at p =
-             0.1 and 0.5, and a ragged N = 128*4099+37 at p = 0.1, each
-             with -0.0, +-inf and NaN at its head. The forward, the op's
+             0.1 and 0.5, a ragged N = 128*4099+37 at p = 0.1, and
+             BERT-base's masks [64, 128, 768] and [64, 128, 3072] in
+             bf16 at p = 0.1, each with -0.0, +-inf and NaN at its
+             head. The forward, the op's
              output and its backward (the kernel on a seeded gradient)
              bit-equal to the plain version, the counter's advance, the
              kept fraction within 0.002 of 1-p. Wall and device ms, the
@@ -288,10 +294,44 @@ Phases, one JSON line each (or one per shape):
              replayed steps between its step events, feed conversion
              included) beside the run_steps and dropout_recipe phases'
              step ms, the decode artifact's save and load seconds.
+19. bert   — BERT-base pretraining at its published widths (12 layers,
+             hidden 768, 12 heads, FFN 3072, vocab 30522, 512
+             positions; random weights from a numpy seed): first step
+             0 at f32, dropout 0, B=64, T=128 under
+             ``attn_impl="pallas"`` and ``"fused"`` (the loss within
+             rel 1e-5, the gradients of ``word_embedding`` and the
+             first layer's Q weight within 1e-3 of their max or twice
+             the card-vs-host distance); then the recipe's flags,
+             ``attn_impl="pallas"``, dropout 0.1 (49 sites),
+             ``Adam(1e-4)``, ``memory_optimize``, at the phase-1 shape
+             (B=64, T=128, 20 predictions, lengths 64-128, about 15 %
+             of each sequence masked): 10 eager steps and one
+             ``run_steps`` call of the same 10 steps from the same
+             state bit-equal (losses and every scope tensor), exact
+             launches (12 of each flash kernel, one fused update and
+             2 x 49 dropout a step), then a warm chunk and 20 timed
+             steps in chunks of 10 with finite, falling losses (step
+             ms, tokens/s, sequences/s, peak memory, one replayed step
+             profiled: device ms by family, idle share); and at the
+             phase-2 shape (B=16, T=512, 80 predictions): 10 steps
+             under ``run_steps`` with exact launches, a warm and a
+             timed chunk, finite, falling losses.
+20. deepfm — DeepFM at the JAX package's defaults (100000 features, 39
+             fields, embed 16, MLP 400-400-400, ``is_distributed=True``:
+             a plain lookup on one card), B=4096, f32, ``Adam(1e-3)``,
+             ``fuse_optimizer_state``, ``memory_optimize``: 10 eager
+             steps and one ``run_steps`` call of the same steps
+             bit-equal, one fused ``adam`` update a step, ``auc``
+             within 1e-6 of the same binning in numpy at each eager
+             step, a warm chunk and 20 timed steps with finite, falling
+             losses; examples/s, step ms, peak memory, one replayed
+             step profiled.
 
 Then the card's name and power limit, the kernels JSON line (wall and
-device ms of each kernel and its library call; ``persist_launches``:
-the persist phase's launches of the kernels its paths run), and as the
+device ms of each kernel and its library call; ``persist_launches``,
+``bert_launches`` and ``deepfm_launches``: those phases' launches of
+the kernels their paths run; the rows at BERT-base's and DeepFM's
+shapes carry the bert and deepfm phases' launches), and as the
 last line ``{"ok": true, "device": {...}}``. Every phase row carries the
 card's name and power limit. Any failed phase exits
 non-zero. Without a visible CUDA device — or outside a checkout that
@@ -361,11 +401,13 @@ FLASH_CASES = [
     ("long", 4, 2048, 2048, 8, 64, False, False, BOTH),
     ("long_causal", 4, 2048, 2048, 8, 64, True, False, BOTH),
     ("d128", 4, 512, 512, 4, 128, True, True, BOTH),
+    # BERT-base's phase-1 shape: 12 heads, ragged key mask
+    ("bert", 64, 128, 128, 12, 64, False, True, BOTH),
 ]
 GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}  # of max |grad|
 # flash cases whose rows also carry device times (device_ms): the
 # training shape with its key mask, the long-context shapes, and D=128
-DEVICE_CASES = ("path_masked", "long", "long_causal", "d128")
+DEVICE_CASES = ("path_masked", "long", "long_causal", "d128", "bert")
 
 
 # the card's name and power limit (nvidia-smi), printed beside every
@@ -1824,18 +1866,24 @@ def fused_work(label, bf16, owns, n):
             else "operations", nbytes, ops)
 
 
-def phase_fused_update(card, n_recipe, n_resnet):
+def phase_fused_update(card, n_recipe, n_resnet, n_bert, n_deepfm):
     """Every case bit-equal to the plain version at its main path's
     group size (the recipe's kinds at the recipe's, the others at
-    ResNet-50's) and at a ragged size; times at the main size."""
+    ResNet-50's) and at a ragged size; times at the main size. Adam's
+    groups of BERT-base (bf16 moments) and DeepFM (f32) at their
+    sizes too."""
     from paddle_tpu_torch.ops.fused_optimizer import (fused_flat_update,
                                                       plain_flat_update)
 
     rows = []
-    for i, (label, bf16, owns) in enumerate(FUSED_CASES):
+    cases = ([(c, None) for c in FUSED_CASES]
+             + [(("adam", True, True), n_bert),
+                (("adam", False, True), n_deepfm)])
+    for i, ((label, bf16, owns), n_model) in enumerate(cases):
         kind, consts, _flops = FUSED_CONFIGS[label]
-        n_main = n_recipe if label in RECIPE_KINDS else n_resnet
-        for n in (n_main, RAGGED_N):
+        n_main = n_model or (n_recipe if label in RECIPE_KINDS
+                             else n_resnet)
+        for n in (n_main,) if n_model else (n_main, RAGGED_N):
             p, g, lr, accs, shared = fused_inputs(kind, bf16, n, 200 + i)
             want = plain_flat_update(kind, p, g, lr, accs, shared, owns,
                                      consts)
@@ -2085,7 +2133,7 @@ def phase_run_steps(card, eager_losses, eager_params):
     per_step["fused_flat_update"] = groups
 
     def fresh():
-        return _fresh_recipe(main, startup, place)
+        return _fresh(main, startup, place)
 
     def launched():
         return {fn.__name__: fn.launches for fn in launchers}
@@ -2579,7 +2627,10 @@ def phase_resnet(card):
 # FFN activations, B=32, T=256) in both types at p = 0.1 and 0.5, and a
 # ragged length; each also with -0.0, +-inf and NaN at its head
 DROPOUT_SHAPES = ((TRAIN_B, TRAIN_T, 512), (TRAIN_B, TRAIN_T, 2048),
-                  (RAGGED_N,))
+                  (RAGGED_N,), (64, 128, 768), (64, 128, 3072))
+# BERT-base's masks (B=64, T=128: hidden 768, FFN 3072) run as BERT
+# draws them only: bf16 at p = 0.1
+BERT_DROPOUT_SHAPES = ((64, 128, 768), (64, 128, 3072))
 DROPOUT_SEED, DROPOUT_COUNTER = 12345, 7
 KEEP_TOL = 0.002  # |kept fraction - (1 - p)|
 
@@ -2602,6 +2653,9 @@ def phase_dropout(card):
         for dtype in BOTH:
             for p in (0.1, 0.5):
                 if shape == (RAGGED_N,) and p != 0.1:
+                    continue
+                if shape in BERT_DROPOUT_SHAPES and (
+                        dtype, p) != (torch.bfloat16, 0.1):
                     continue
                 gen = torch.Generator(device=dev).manual_seed(
                     len(rows) + 1)
@@ -2685,7 +2739,8 @@ def phase_dropout(card):
 RECIPE_DROPOUT = 0.1  # transformer_base's own default
 
 
-def _fresh_recipe(main, startup, place):
+def _fresh(main, startup, place):
+    """An executor and a scope holding ``main``'s seeded weights."""
     import paddle_tpu_torch as fluid
 
     scope = fluid.Scope()
@@ -2736,14 +2791,14 @@ def phase_dropout_recipe(card, base):
 
     # 1. TRAIN_STEPS eager steps, and the same steps as one run_steps
     # call (an eager step, the capture, replays) from the same state
-    exe, scope = _fresh_recipe(main, startup, place)
+    exe, scope = _fresh(main, startup, place)
     eager = [float(exe.run(main, feed=feed, fetch_list=[cost],
                            scope=scope)[0]) for _ in range(TRAIN_STEPS)]
     eager_params = {n: fluid.fetch_var(n, scope) for n in dense}
     eager_counter = int(fluid.fetch_var(counter, scope))
     del exe, scope
     torch.cuda.empty_cache()
-    exe, scope = _fresh_recipe(main, startup, place)
+    exe, scope = _fresh(main, startup, place)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in _cuda.LAUNCHERS:
@@ -2862,7 +2917,7 @@ def phase_fused_ce(card):
                      "the loss fetched")
             fn = head.fn
             head.fn = lambda *a, _fn=fn: head_calls.append(1) or _fn(*a)
-        exe, scope = _fresh_recipe(main, startup, place)
+        exe, scope = _fresh(main, startup, place)
         step0 = exe.run(main, feed=feed, fetch_list=[cost, head_w + "@GRAD"],
                         scope=scope)
         if head_calls:
@@ -2871,7 +2926,7 @@ def phase_fused_ce(card):
         del exe, scope
         torch.cuda.empty_cache()
         fluid.memory_optimize(main)
-        exe, scope = _fresh_recipe(main, startup, place)
+        exe, scope = _fresh(main, startup, place)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         dt, timed = _timed_chunks(exe, main, dev_feed, cost, scope,
@@ -3146,11 +3201,10 @@ def persist_train(trainer, n=PERSIST_BATCHES):
     return losses, marks, saves
 
 
-def scope_state(trainer):
-    """Every tensor of a Trainer's scope, cloned on the card."""
-    return {n: trainer.scope.find_var(n).clone()
-            for n in trainer.scope.local_var_names()
-            if isinstance(trainer.scope.find_var(n), torch.Tensor)}
+def scope_tensors(scope):
+    """Every tensor of a scope, cloned."""
+    return {n: scope.find_var(n).clone() for n in scope.local_var_names()
+            if isinstance(scope.find_var(n), torch.Tensor)}
 
 
 def state_diff(got, want):
@@ -3202,7 +3256,7 @@ def phase_persist(card, model, greedy, base, dropout_step_ms):
     # (a) C: 20 steps uninterrupted, async saves at steps 10 and 20
     c = persist_trainer(dirs["c"], async_save=True, keep=2)
     c_losses, c_marks, c_saves = persist_train(c)
-    c_state = scope_state(c)
+    c_state = scope_tensors(c.scope)
     if sorted(ckpt.list_checkpoints(dirs["c"])) != [0, 1]:
         fail("persist: C left serials %s, expected [0, 1]"
              % ckpt.list_checkpoints(dirs["c"]))
@@ -3227,7 +3281,7 @@ def phase_persist(card, model, greedy, base, dropout_step_ms):
     if c.exe.num_compiled != graphs:
         fail("persist: the restore made C capture again (%d graphs, %d "
              "before)" % (c.exe.num_compiled, graphs))
-    replay_diff = state_diff(scope_state(c), c_state)
+    replay_diff = state_diff(scope_tensors(c.scope), c_state)
     if replay.tolist() != [c_losses[s] for s in resumed] or replay_diff:
         fail("persist: after a restore into C's captured graph the replay "
              "is not bit-equal: losses %s against %s, tensors differing %s"
@@ -3284,7 +3338,7 @@ def phase_persist(card, model, greedy, base, dropout_step_ms):
         if launches != want:
             fail("persist %s: B launched %s, expected %s"
                  % (label, launches, want))
-        b_state = scope_state(b)
+        b_state = scope_tensors(b.scope)
         diff = state_diff(b_state, c_state)
         losses_equal = [b_losses.get(s) for s in resumed] == \
             [c_losses[s] for s in resumed]
@@ -3433,6 +3487,377 @@ def persist_train_fit(trainer, data):
     return np.asarray([losses[s] for s in sorted(losses)])
 
 
+# ---------------------------------------------------------------- phase 19
+
+
+# BERT-base at its published widths (Devlin et al. 2019): 12 layers,
+# hidden 768, 12 heads, FFN 3072, vocab 30522, 512 positions
+BERT_MODEL = dict(vocab_size=30522, n_layer=12, n_head=12, d_model=768,
+                  d_inner=3072, max_pos=512)
+# pretraining's two shapes: (B, T, max_predictions) of phase 1 (T=128)
+# and phase 2 (T=512, 80 = about 0.15 x 512 predictions)
+BERT_LEGS = {"phase1": (64, 128, 20), "phase2": (16, 512, 80)}
+BERT_LR, BERT_DROPOUT = 1e-4, 0.1
+def build_bert(max_predictions, attn_impl="pallas", dropout=BERT_DROPOUT,
+               flags=RECIPE_FLAGS):
+    """(main, startup, [total, mlm, ns]) of ``bert_pretrain`` at
+    BERT_MODEL's widths + ``Adam(BERT_LR)``, built under ``flags``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.bert import bert_pretrain
+
+    saved = {n: fluid.get_flag(n) for n in flags}
+    fluid.set_flags(flags)
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            _, total, (mlm, ns) = bert_pretrain(
+                **BERT_MODEL, max_predictions=max_predictions,
+                dropout=dropout, attn_impl=attn_impl)
+            fluid.optimizer.Adam(learning_rate=BERT_LR).minimize(total)
+    finally:
+        fluid.set_flags(saved)
+    return main, startup, [total, mlm, ns]
+
+
+def bert_batch(B, T, P, seed=SEED + 7, vocab=BERT_MODEL["vocab_size"]):
+    """A pretraining batch: lengths from T/2 to T (the key mask), two
+    segments, about 15 % of each sequence's positions (at most P) drawn
+    without replacement from 1..len-1; padded prediction slots point at
+    0 with weight 0."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(T // 2, T + 1, size=B)
+    mask = (np.arange(T)[None, :] < lens[:, None])
+    pos = np.zeros((B, P), np.int64)
+    weight = np.zeros((B, P), np.float32)
+    for b, n in enumerate(lens):
+        k = min(P, max(1, int(round(0.15 * n))))
+        pos[b, :k] = rng.choice(np.arange(1, n), size=k, replace=False)
+        weight[b, :k] = 1.0
+    return {"src_ids": (rng.randint(1, vocab, size=(B, T)) * mask
+                        ).astype(np.int64),
+            "sent_ids": ((np.arange(T)[None, :] >= (lens // 2)[:, None])
+                         & mask).astype(np.int64),
+            "pos_ids": np.tile(np.arange(T, dtype=np.int64), (B, 1)),
+            "input_mask": mask.astype(np.float32), "mask_pos": pos,
+            "mask_label": rng.randint(1, vocab, size=(B, P)).astype(
+                np.int64),
+            "mask_weight": weight,
+            "ns_label": rng.randint(0, 2, size=(B, 1)).astype(np.int64)}
+
+
+def bert_routes(card):
+    """Step 0 of BERT-base at f32, dropout 0, phase-1 shape, under
+    ``attn_impl="pallas"`` (the flash kernels) and ``"fused"`` (plain
+    torch attention) from the same weights: the total loss within rel
+    1e-5, the gradients of ``word_embedding`` and the first layer's Q
+    weight within 1e-3 of their max (or twice the distance of the fused
+    step on the card from the same step on the host)."""
+    import paddle_tpu_torch as fluid
+
+    B, T, P = BERT_LEGS["phase1"]
+    feed = bert_batch(B, T, P)
+    checked = ["word_embedding@GRAD", "fc.w_0@GRAD"]
+    out = {}
+    for attn in ("pallas", "fused"):
+        main, startup, loss = build_bert(P, attn, dropout=0.0, flags={})
+        exe, scope = _fresh(main, startup, fluid.CUDAPlace(0))
+        out[attn] = exe.run(main, feed=feed, fetch_list=[loss[0]] + checked,
+                            scope=scope)
+        del exe, scope
+        torch.cuda.empty_cache()
+    loss_rel = abs(float(out["pallas"][0]) - float(out["fused"][0])) / abs(
+        float(out["fused"][0]))
+    if not loss_rel <= 1e-5:
+        fail("bert: step 0's loss under pallas %r, fused %r (rel %g > "
+             "1e-5)" % (float(out["pallas"][0]), float(out["fused"][0]),
+                        loss_rel))
+    grad_rel = {n: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                for n, a, b in zip(checked, out["pallas"][1:],
+                                   out["fused"][1:])}
+    floor = None
+    if max(grad_rel.values()) > 1e-3:
+        # the f32 noise floor: the fused step on the host
+        main, startup, loss = build_bert(P, "fused", dropout=0.0, flags={})
+        exe, scope = _fresh(main, startup, fluid.CPUPlace())
+        host = exe.run(main, feed=feed, fetch_list=checked, scope=scope)
+        floor = {n: float(np.abs(d - h).max() / max(np.abs(h).max(), 1e-30))
+                 for n, d, h in zip(checked, out["fused"][1:], host)}
+        bad = {n: r for n, r in grad_rel.items()
+               if r > max(1e-3, 2 * floor[n])}
+        if bad:
+            fail("bert: pallas and fused gradients part by %s of their max "
+                 "(bound: 1e-3 or twice the card-vs-host distance %s)"
+                 % (bad, floor))
+    return {"step0_loss_pallas": float(out["pallas"][0]),
+            "step0_loss_fused": float(out["fused"][0]),
+            "step0_loss_rel_err": loss_rel, "grad_rel_err": grad_rel,
+            "grad_noise_floor": floor}
+
+
+def phase_bert(card):
+    """BERT-base pretraining on the card: the f32 route check, then the
+    recipe at the phase-1 shape (eager steps and ``run_steps`` bit-equal,
+    exact launches, falling loss, bench.py's protocol, one replayed step
+    profiled) and ten ``run_steps`` at the phase-2 shape. Returns the
+    phase-1 ``run_steps`` call's launches by launcher."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import _cuda
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    t_phase = time.perf_counter()
+    routes = bert_routes(card)
+    place = fluid.CUDAPlace(0)
+    n_layer = BERT_MODEL["n_layer"]
+    launchers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                 fused_flat_update, dr.dropout_apply)
+    row = {"phase": "bert", "card": card, "model": BERT_MODEL,
+           "flags": RECIPE_FLAGS, "lr": BERT_LR, "dropout": BERT_DROPOUT,
+           "attn_impl": "pallas", "routes": routes}
+    result = None
+    for leg, (B, T, P) in BERT_LEGS.items():
+        feed = bert_batch(B, T, P)
+        main, startup, loss = build_bert(P)
+        cost = loss[0]
+        fluid.memory_optimize(main)
+        gb = main.global_block()
+        sites = sum(op.type == "dropout" for op in gb.ops)
+        groups = sum(op.type.endswith("_fused") for op in gb.ops)
+        n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+        per_step = {"flash_fwd": n_layer, "flash_bwd_dq": n_layer,
+                    "flash_bwd_dkv": n_layer, "fused_flat_update": groups,
+                    "dropout_apply": 2 * sites}
+        if sites != 1 + 4 * n_layer:
+            fail("bert: %d dropout sites, expected %d"
+                 % (sites, 1 + 4 * n_layer))
+        info = {"batch": B, "seq": T, "max_predictions": P,
+                "masked_positions": int(feed["mask_weight"].sum()),
+                "sites": sites, "groups": groups, "params": n_params,
+                "group_elements": int(gb.var(
+                    "fused_param_storage_0").shape[0])}
+        steps = TRAIN_STEPS
+        eager = None
+        if leg == "phase1":
+            # eager steps, then the same steps as one run_steps call from
+            # the same start state
+            exe, scope = _fresh(main, startup, place)
+            eager = [float(exe.run(main, feed=feed, fetch_list=[cost],
+                                   scope=scope)[0]) for _ in range(steps)]
+            want = scope_tensors(scope)
+            del exe, scope
+            torch.cuda.empty_cache()
+        exe, scope = _fresh(main, startup, place)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in _cuda.LAUNCHERS:
+            reset_counts(fn)
+        graph, = exe.run_steps(main, feed=feed, steps=steps,
+                               fetch_list=[cost], scope=scope)
+        launches = {fn.__name__: fn.launches for fn in launchers}
+        expect = {k: v * steps for k, v in per_step.items()}
+        if launches != expect:
+            fail("bert %s: %d steps launched %s, expected %s"
+                 % (leg, steps, launches, expect))
+        if leg == "phase1":
+            result = launches
+            differ = state_diff(scope_tensors(scope), want)
+            losses_equal = bool(np.array_equal(graph, np.asarray(
+                eager, np.float32)))
+            if differ or not losses_equal:
+                fail("bert: run_steps is not bit-equal to the eager steps: "
+                     "losses %s against %s, tensors differing %s"
+                     % (graph.tolist(), eager, differ))
+            del want
+            info.update(eager_losses=eager, bit_equal={
+                "losses": losses_equal,
+                "scope_tensors": len(scope_tensors(scope))})
+        dev_feed = {n: torch.as_tensor(v).to(place.torch_device())
+                    for n, v in feed.items()}
+        chunks = BENCH_STEPS // CHUNK if leg == "phase1" else 1
+        dt, timed = _timed_chunks(exe, main, dev_feed, cost, scope, chunks)
+        peak = torch.cuda.max_memory_allocated()
+        losses = np.concatenate([graph, timed])
+        if not np.isfinite(losses).all():
+            fail("bert %s: non-finite losses %s" % (leg, losses.tolist()))
+        if not losses[-1] < losses[0]:
+            fail("bert %s: the loss did not fall: %s"
+                 % (leg, losses.tolist()))
+        step_ms = dt / (chunks * CHUNK) * 1e3
+        info.update(run_steps_losses=graph.tolist(),
+                    timed_losses=timed.tolist(), launches=launches,
+                    launches_per_step=per_step, step_ms=step_ms,
+                    tokens_per_s=B * T / (step_ms / 1e3),
+                    sequences_per_s=B / (step_ms / 1e3),
+                    max_memory_allocated=peak)
+        if leg == "phase1":
+            exe.run_steps(main, feed=dev_feed, steps=1, fetch_list=[cost],
+                          scope=scope)
+            fam = {}
+            wall_ms, by_family, kernels, top = profile_step(
+                lambda: exe.run_steps(main, feed=dev_feed, steps=1,
+                                      fetch_list=[cost], scope=scope),
+                family_launches=fam)
+            busy = sum(by_family.values())
+            info.update(profiled_step_wall_ms=wall_ms, device_busy_ms=busy,
+                        device_idle_share=1.0 - busy / wall_ms,
+                        device_idle_share_unprofiled=1.0 - busy / step_ms,
+                        kernel_launches_per_step=kernels,
+                        family_launches=fam,
+                        device_ms_by_family=dict(sorted(
+                            by_family.items(), key=lambda kv: -kv[1])),
+                        top_kernels=top)
+        row[leg] = info
+        exe.close()
+        del exe, scope, dev_feed, main, startup
+        torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return result
+
+
+# ---------------------------------------------------------------- phase 20
+
+
+# DeepFM at the JAX package's defaults (deepfm.py:21-23): 100000
+# features, 39 fields, embed 16, MLP 400-400-400, the tables
+# is_distributed (a plain lookup on one card)
+DEEPFM_MODEL = dict(num_features=100000, num_fields=39, embed_dim=16,
+                    mlp_dims=(400, 400, 400))
+DEEPFM_B, DEEPFM_LR = 4096, 1e-3
+AUC_TOL = 1e-6
+
+
+def build_deepfm():
+    """(main, startup, avg_cost, prob, auc) of ``deepfm()`` + ``auc`` +
+    ``Adam(DEEPFM_LR)`` with ``fuse_optimizer_state`` (f32)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.deepfm import deepfm
+
+    saved = fluid.get_flag("fuse_optimizer_state")
+    fluid.set_flags({"fuse_optimizer_state": True})
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            feeds, avg_cost, prob = deepfm(**DEEPFM_MODEL)
+            auc = fluid.layers.auc(prob, feeds[2])
+            fluid.optimizer.Adam(learning_rate=DEEPFM_LR).minimize(avg_cost)
+    finally:
+        fluid.set_flags({"fuse_optimizer_state": saved})
+    return main, startup, avg_cost, prob, auc
+
+
+def deepfm_batch(B=DEEPFM_B, seed=SEED + 8):
+    """Feature ids uniform over the table, values in [0, 1), 0/1
+    labels."""
+    rng = np.random.RandomState(seed)
+    F_ = DEEPFM_MODEL["num_fields"]
+    return {"feat_ids": rng.randint(0, DEEPFM_MODEL["num_features"],
+                                    size=(B, F_)).astype(np.int64),
+            "feat_vals": rng.rand(B, F_).astype(np.float32),
+            "label": rng.randint(0, 2, size=(B, 1)).astype(np.float32)}
+
+
+def numpy_auc(prob, label, num_thresholds=200):
+    """``layers.auc``'s binning in numpy: thresholds ``i / (n - 1)`` in
+    f32, true and false positive rates, the trapezoid."""
+    p = prob.reshape(-1)
+    y = label.reshape(-1).astype(np.float64)
+    th = np.arange(num_thresholds, dtype=np.float32) / np.float32(
+        num_thresholds - 1)
+    predpos = p[None, :] >= th[:, None]
+    tpr = (predpos * y).sum(1) / (y.sum() + 1e-8)
+    fpr = (predpos * (1 - y)).sum(1) / ((1 - y).sum() + 1e-8)
+    return -float(np.sum((fpr[1:] - fpr[:-1]) * (tpr[1:] + tpr[:-1]) / 2))
+
+
+def phase_deepfm(card):
+    """DeepFM at its defaults on the card: eager steps and ``run_steps``
+    bit-equal, one fused ``adam`` update a step, a falling loss, ``auc``
+    against numpy, bench.py's protocol, one replayed step profiled.
+    Returns the ``run_steps`` call's fused-update launches."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import _cuda
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    t_phase = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    feed = deepfm_batch()
+    main, startup, cost, prob, auc = build_deepfm()
+    fluid.memory_optimize(main)
+    gb = main.global_block()
+    groups = sum(op.type.endswith("_fused") for op in gb.ops)
+    steps = TRAIN_STEPS
+
+    exe, scope = _fresh(main, startup, place)
+    eager, aucs = [], []
+    for _ in range(steps):
+        c, p, a = exe.run(main, feed=feed, fetch_list=[cost, prob, auc],
+                          scope=scope)
+        eager.append(float(c))
+        aucs.append((float(a), numpy_auc(p, feed["label"])))
+    want = scope_tensors(scope)
+    auc_err = max(abs(a - b) for a, b in aucs)
+    if not auc_err <= AUC_TOL:
+        fail("deepfm: auc parts from numpy's binning by %g (> %g): %s"
+             % (auc_err, AUC_TOL, aucs))
+    exe, scope = _fresh(main, startup, place)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _cuda.LAUNCHERS:
+        reset_counts(fn)
+    graph, = exe.run_steps(main, feed=feed, steps=steps, fetch_list=[cost],
+                           scope=scope)
+    launches = fused_flat_update.launches
+    if launches != groups * steps:
+        fail("deepfm: %d steps launched the fused update %d times, "
+             "expected %d" % (steps, launches, groups * steps))
+    differ = state_diff(scope_tensors(scope), want)
+    losses_equal = bool(np.array_equal(graph, np.asarray(eager, np.float32)))
+    if differ or not losses_equal:
+        fail("deepfm: run_steps is not bit-equal to the eager steps: losses "
+             "%s against %s, tensors differing %s"
+             % (graph.tolist(), eager, differ))
+    dev_feed = {n: torch.as_tensor(v).to(place.torch_device())
+                for n, v in feed.items()}
+    dt, timed = _timed_chunks(exe, main, dev_feed, cost, scope,
+                              BENCH_STEPS // CHUNK)
+    peak = torch.cuda.max_memory_allocated()
+    losses = np.concatenate([graph, timed])
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail("deepfm: the losses are not finite and falling: %s"
+             % losses.tolist())
+    step_ms = dt / BENCH_STEPS * 1e3
+    exe.run_steps(main, feed=dev_feed, steps=1, fetch_list=[cost],
+                  scope=scope)
+    fam = {}
+    wall_ms, by_family, kernels, top = profile_step(
+        lambda: exe.run_steps(main, feed=dev_feed, steps=1,
+                              fetch_list=[cost], scope=scope),
+        family_launches=fam)
+    busy = sum(by_family.values())
+    emit({"phase": "deepfm", "card": card, "model": DEEPFM_MODEL,
+          "batch": DEEPFM_B, "lr": DEEPFM_LR, "groups": groups,
+          "group_elements": int(gb.var("fused_param_storage_0").shape[0]),
+          "eager_losses": eager, "run_steps_losses": graph.tolist(),
+          "bit_equal": {"losses": losses_equal,
+                        "scope_tensors": len(want)},
+          "auc": aucs[-1][0], "numpy_auc": aucs[-1][1],
+          "auc_max_abs_err": auc_err, "launches": launches,
+          "timed_losses": timed.tolist(), "step_ms": step_ms,
+          "examples_per_s": DEEPFM_B / (step_ms / 1e3),
+          "max_memory_allocated": peak,
+          "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / wall_ms,
+          "device_idle_share_unprofiled": 1.0 - busy / step_ms,
+          "kernel_launches_per_step": kernels, "family_launches": fam,
+          "device_ms_by_family": dict(sorted(by_family.items(),
+                                             key=lambda kv: -kv[1])),
+          "top_kernels": top, "phase_s": time.perf_counter() - t_phase})
+    exe.close()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device is visible (torch.cuda.is_available() is "
@@ -3453,9 +3878,13 @@ def main():
     phase_routes()
     flash_launches = phase_training(card)
     torch.cuda.empty_cache()
-    n_recipe = int(build_recipe(True)[0].global_block().var(
-        "fused_param_storage_0").shape[0])
-    fused_rows = phase_fused_update(card, n_recipe, RESNET_N)
+    n_recipe, n_bert, n_deepfm = (
+        int(prog.global_block().var("fused_param_storage_0").shape[0])
+        for prog in (build_recipe(True)[0],
+                     build_bert(BERT_LEGS["phase1"][2])[0],
+                     build_deepfm()[0]))
+    fused_rows = phase_fused_update(card, n_recipe, RESNET_N, n_bert,
+                                    n_deepfm)
     dropout_rows = phase_dropout(card)
     recipe_launches, recipe_losses, recipe_params = phase_recipe(card)
     torch.cuda.empty_cache()
@@ -3478,6 +3907,8 @@ def main():
         card, model, greedy, base, dropout_step_ms)
     del model
     torch.cuda.empty_cache()
+    bert_launches = phase_bert(card)
+    deepfm_launches = phase_deepfm(card)
 
     def paged_entry(name, replaces, launches, row):
         return {"name": name, "route": "cuda",
@@ -3523,10 +3954,13 @@ def main():
                                kernel_row(64, "float32", "int8")))
     # the training path's shape with its key mask (12 of the 18
     # attention calls of a step are key-masked; PERF.md has the rest):
-    # f32 with the f32 training phase's launches, bf16 with the recipe's
-    for dtype, launches, suffix in (("float32", flash_launches, ""),
-                                    ("bfloat16", recipe_launches, "_bf16")):
-        fr = next(r for r in flash_rows if r["case"] == "path_masked"
+    # f32 with the f32 training phase's launches, bf16 with the recipe's;
+    # and bf16 at BERT-base's shape with the bert phase's
+    for case, dtype, launches, suffix in (
+            ("path_masked", "float32", flash_launches, ""),
+            ("path_masked", "bfloat16", recipe_launches, "_bf16"),
+            ("bert", "bfloat16", bert_launches, "_bert_bf16")):
+        fr = next(r for r in flash_rows if r["case"] == case
                   and r["dtype"] == dtype)
         for name, line, err, plain, lib in (
                 ("flash_fwd", 184, fr["errors"]["o"], fr["plain_fwd_ms"],
@@ -3548,8 +3982,9 @@ def main():
                 "device_ms": fr["device_ms"][name],
                 "plain_device_ms": fr["plain_device_ms"][which],
                 "library_device_ms": fr["sdpa_device_ms"][which]})
-            if suffix:
+            if suffix == "_bf16":
                 kernels[-1]["persist_launches"] = persist_launches[name]
+                kernels[-1]["bert_launches"] = bert_launches[name]
     # the recipe's own group: Adam, bf16 moments, owning the beta powers
     fu = next(r for r in fused_rows if r["n"] == n_recipe
               and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",
@@ -3564,7 +3999,26 @@ def main():
         "bound_ms": fu["bound_ms"], "bound_by": fu["bound_by"],
         "library_ms": fu["library_ms"], "device_ms": fu["device_ms"],
         "library_device_ms": fu["library_device_ms"],
-        "persist_launches": persist_launches["fused_flat_update"]})
+        "persist_launches": persist_launches["fused_flat_update"],
+        "bert_launches": bert_launches["fused_flat_update"],
+        "deepfm_launches": deepfm_launches})
+    # BERT-base's group (Adam, bf16 moments) and DeepFM's (Adam, f32)
+    for name, n, moments, launches in (
+            ("fused_flat_update_bert", n_bert, "bf16",
+             bert_launches["fused_flat_update"]),
+            ("fused_flat_update_deepfm", n_deepfm, "f32",
+             deepfm_launches)):
+        fm = next(r for r in fused_rows if r["n"] == n
+                  and (r["kind"], r["moments"]) == ("adam", moments))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
+            "replaces": "paddle_tpu/ops/fused_optimizer.py:71",
+            "launches": launches, "max_abs_err": fm["max_abs_err"],
+            "ms": fm["ms"], "plain_ms": fm["plain_ms"],
+            "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
+            "library_ms": fm["library_ms"], "device_ms": fm["device_ms"],
+            "library_device_ms": fm["library_device_ms"], "n": n})
     # ResNet-50's group: Momentum with a bf16 velocity
     mo = next(r for r in fused_rows if r["n"] == RESNET_N
               and (r["label"], r["moments"]) == ("momentum", "bf16"))
@@ -3596,7 +4050,20 @@ def main():
         "library_ms": None, "device_ms": dr["device_ms"],
         "f_dropout_ms": dr["f_dropout_ms"],
         "vgg_launches": vgg_launches,
-        "persist_launches": persist_launches["dropout_apply"]})
+        "persist_launches": persist_launches["dropout_apply"],
+        "bert_launches": bert_launches["dropout_apply"]})
+    # at BERT-base's FFN mask ([64, 128, 3072] bf16, p = 0.1), with the
+    # bert phase's launches (49 sites, forward and backward, 10 steps)
+    db = next(r for r in dropout_rows if r["shape"] == [64, 128, 3072])
+    kernels.append({
+        "name": "dropout_bert", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/dropout.cu",
+        "replaces": "paddle_tpu/layers/nn.py:649",
+        "launches": bert_launches["dropout_apply"],
+        "max_abs_err": db["max_abs_err"], "ms": db["ms"],
+        "plain_ms": db["plain_ms"], "bound_ms": db["bound_ms"],
+        "bound_by": db["bound_by"], "library_ms": None,
+        "device_ms": db["device_ms"], "f_dropout_ms": db["f_dropout_ms"]})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,11 @@
 
 Each initializer appends an op to the startup program whose fn draws the
 initial value from an explicit ``torch.Generator`` seeded at build time.
-Values are drawn on the CPU, so a seed gives the same weights on every
-device; the executor moves them to its device when it writes them back.
+Values are made on the CPU, constants too: a seed gives the same
+weights on every device, and the pack of a flat parameter buffer
+(``fuse_optimizer_state``) joins tensors of one device, though the
+executor makes other input-less ops' tensors on its own. The executor
+moves them to its device when it writes them back.
 The numbers differ from the JAX package's (another generator): tests
 that compare the packages carry weights across with
 ``paddle_tpu_torch.convert.params_from_numpy``.
@@ -50,7 +53,7 @@ class Constant(Initializer):
 
     def make_fn(self, shape, dtype, seed):
         value = self.value
-        return lambda: torch.full(shape, value, dtype=dtype)
+        return lambda: torch.full(shape, value, dtype=dtype, device="cpu")
 
 
 class Uniform(Initializer):
@@ -62,7 +65,7 @@ class Uniform(Initializer):
 
         def fn():
             u = torch.rand(shape, generator=_generator(seed),
-                           dtype=torch.float32)
+                           dtype=torch.float32, device="cpu")
             return (u * (high - low) + low).to(dtype)
 
         return fn
@@ -75,7 +78,7 @@ class Normal(Initializer):
     def make_fn(self, shape, dtype, seed):
         loc, scale = self.loc, self.scale
         return lambda: (torch.randn(shape, generator=_generator(seed),
-                                    dtype=torch.float32)
+                                    dtype=torch.float32, device="cpu")
                         * scale + loc).to(dtype)
 
 

@@ -112,10 +112,11 @@ def _value(env, name):
 
 
 def run_program_ops(ops, env: Dict[str, torch.Tensor],
-                    post_op=None) -> Dict[str, torch.Tensor]:
+                    post_op=None, device=None) -> Dict[str, torch.Tensor]:
     """Execute a sequence of Operators over an environment dict.
     ``post_op(op, out) -> out`` may rewrite an op's raw result before it
-    lands in the environment (backward's error clips)."""
+    lands in the environment (backward's error clips). An op with no
+    inputs (a constant) makes its tensors on ``device`` when given."""
     for op in ops:
         if op.fn is None:  # structural markers (feed/fetch) are no-ops
             continue
@@ -127,7 +128,11 @@ def run_program_ops(ops, env: Dict[str, torch.Tensor],
                 "neither fed, in scope, nor produced by a prior op") from e
         kwargs = {a: op.attrs[a] for a in op.attrs.get("_fn_attrs", ())}
         try:
-            out = op.fn(*args, **kwargs)
+            if device is not None and not args:
+                with torch.device(device):
+                    out = op.fn(**kwargs)
+            else:
+                out = op.fn(*args, **kwargs)
         except Exception as e:
             err = _capture_error("op %r (outputs %s)"
                                  % (op.type, op.output_arg_names), e)
@@ -177,7 +182,7 @@ def _lookup_rows(ids: torch.Tensor) -> torch.Tensor:
     return idx.reshape(-1)
 
 
-def run_training_ops(ops, env: Dict[str, torch.Tensor]
+def run_training_ops(ops, env: Dict[str, torch.Tensor], device=None
                      ) -> Dict[str, torch.Tensor]:
     """Run a block holding a ``backward`` op with one forward pass: the
     ops before it under autograd over leaf aliases of its dense
@@ -215,7 +220,7 @@ def run_training_ops(ops, env: Dict[str, torch.Tensor]
         return clips(op, out) if clips is not None else out
 
     with torch.enable_grad():
-        run_program_ops(ops[:i], env, post_op=post)
+        run_program_ops(ops[:i], env, post_op=post, device=device)
     missing = [n for n in dense if n not in leaves]
     enforce(not missing, "backward: parameter(s) %s are neither in scope "
             "nor produced before the backward op" % missing)
@@ -260,7 +265,7 @@ def run_training_ops(ops, env: Dict[str, torch.Tensor]
         env[out_names[k + 1]] = torch.cat(vals)
         k += 2
     with torch.no_grad():
-        run_program_ops(ops[i + 1:], env)
+        run_program_ops(ops[i + 1:], env, device=device)
     return env
 
 
@@ -580,10 +585,10 @@ class _CapturedSteps:
             env[n] = buf.index_select(0, self.idx)[0] \
                 if n in self.stacked else buf
         if self.training:
-            run_training_ops(self.ops, env)
+            run_training_ops(self.ops, env, self.device)
         else:
             with torch.no_grad():
-                run_program_ops(self.ops, env)
+                run_program_ops(self.ops, env, device=self.device)
         with torch.no_grad():
             for n in self.rw + self.wo:
                 v = _value(env, n).detach()
@@ -912,10 +917,10 @@ class Executor:
         ops = live_ops(program, fetch_names)
         with RecordEvent("dispatch"):
             if any(op.type == "backward" for op in ops):
-                run_training_ops(ops, env)
+                run_training_ops(ops, env, self.device)
             else:
                 with torch.no_grad():
-                    run_program_ops(ops, env)
+                    run_program_ops(ops, env, device=self.device)
 
             views = getattr(program, "_flat_state_views", None) or {}
             with torch.no_grad():

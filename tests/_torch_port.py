@@ -125,3 +125,49 @@ def _flags(pkg, values):
         yield
     finally:
         reg.set_flags(saved)
+
+
+# ------------------------------------------- a model in both packages
+
+
+def package(pkg):
+    """(fluid, unique_name.guard) of ``"jax"`` or ``"torch"``."""
+    return ((jfluid, j_unique_name.guard) if pkg == "jax"
+            else (tfluid, tfluid.unique_name.guard))
+
+
+def train_both(build, feed, steps):
+    """``steps`` steps of the same program in both packages from the
+    JAX package's start state, carried into the port with
+    ``state_from_numpy``. ``build(pkg, fluid)`` appends the model and
+    its optimizer to the current programs and returns the variables to
+    fetch. Returns a dict: ``j_main``/``t_main``, ``state`` (the start
+    state), ``j_out``/``t_out`` (a list of fetched arrays per step) and
+    ``j_state``/``t_state`` (every persistable after the steps)."""
+    progs = {}
+    for pkg in ("jax", "torch"):
+        fluid, guard = package(pkg)
+        main, startup = fluid.Program(), fluid.Program()
+        with guard(), fluid.program_guard(main, startup):
+            fetch = build(pkg, fluid)
+        progs[pkg] = main, startup, fetch
+    j_main, j_startup, j_fetch = progs["jax"]
+    scope = jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        exe = jfluid.Executor(jfluid.CPUPlace())
+        exe.run(j_startup)
+        state = {v.name: np.asarray(scope.find_var(v.name))
+                 for v in j_main.list_vars() if v.persistable}
+        j_out = [[np.asarray(o) for o in exe.run(
+            j_main, feed=feed, fetch_list=[v.name for v in j_fetch])]
+            for _ in range(steps)]
+        j_state = {n: np.asarray(scope.find_var(n)) for n in state}
+    t_main, _, t_fetch = progs["torch"]
+    place, t_scope = tfluid.CPUPlace(), tfluid.Scope()
+    tfluid.state_from_numpy(state, t_scope, place, program=t_main)
+    exe = tfluid.Executor(place)
+    t_out = [exe.run(t_main, feed=feed, fetch_list=t_fetch, scope=t_scope)
+             for _ in range(steps)]
+    t_state = {n: tfluid.fetch_var(n, t_scope) for n in state}
+    return dict(j_main=j_main, t_main=t_main, state=state, j_out=j_out,
+                t_out=t_out, j_state=j_state, t_state=t_state)
