@@ -326,12 +326,40 @@ Phases, one JSON line each (or one per shape):
              step, a warm chunk and 20 timed steps with finite, falling
              losses; examples/s, step ms, peak memory, one replayed
              step profiled.
+21. static — the static tier over the training programs phases 9
+             (the recipe under ``run_steps``), 13 (ResNet-50, fused
+             layout), 17 (VGG-16), 19 (BERT phases 1 and 2) and 20
+             (DeepFM) built and timed, at their feed shapes:
+             ``obs.cost.report``'s FLOPs and bytes a step, by family,
+             unknown op types; achieved TFLOP/s from the phase's
+             measured step ms and MFU against the H100 SXM's published
+             dense peak for the step's matmul dtype (bf16 989.4, f32
+             without TF32 66.9 TFLOP/s); ``analyze_liveness``' predicted
+             peak beside the phase's ``max_memory_allocated``. Fails on
+             an unknown op in the matmul, conv or attention family, on
+             any ``check_program`` error, and unless one recipe step
+             with the ``check_program`` flag on is checked once, before
+             any kernel launched, and passes.
+22. remat  — BERT-base at the phase-2 shape (B=16, T=512, 80
+             predictions), phase 19's flags, dropout 0.1,
+             ``attn_impl="pallas"``, two ``run_steps`` chunks of 10 at
+             ``memory_optimize(level=0)`` and at ``level=1``: losses
+             and every scope tensor bit-equal, exact launches a step at
+             level 1 (flash forward 2 x 12, dQ 12, dK/dV 12, dropout
+             3 x 49, one fused update) and level 0 (12, 12, 12, 2 x 49,
+             1), and a lower peak at level 1; then
+             ``RematPolicyPass(assume_batch=16, target_batch=32)`` (the
+             sequence axis pinned at 512 first: the pass's static model
+             counts every -1 as the batch) picks segments, and B=32
+             runs with them and without remat, bit-equal. Reports step
+             ms, peaks and the liveness predictions of each run.
 
 Then the card's name and power limit, the kernels JSON line (wall and
 device ms of each kernel and its library call; ``persist_launches``,
-``bert_launches`` and ``deepfm_launches``: those phases' launches of
-the kernels their paths run; the rows at BERT-base's and DeepFM's
-shapes carry the bert and deepfm phases' launches), and as the
+``bert_launches``, ``deepfm_launches`` and ``remat_launches``: those
+phases' launches of the kernels their paths run; the rows at
+BERT-base's and DeepFM's shapes carry the bert, remat and deepfm
+phases' launches), and as the
 last line ``{"ok": true, "device": {...}}``. Every phase row carries the
 card's name and power limit. Any failed phase exits
 non-zero. Without a visible CUDA device — or outside a checkout that
@@ -2312,7 +2340,10 @@ def phase_run_steps(card, eager_losses, eager_params):
           "top_kernels": top})
     exe.close()
     return {"step_ms": dev_s / BENCH_STEPS * 1e3, "tokens_per_s": dev_tps,
-            "max_memory_allocated": peak}
+            "max_memory_allocated": peak,
+            "timed": timed_program("recipe", main, feed, cost,
+                                   dev_s / BENCH_STEPS * 1e3, peak,
+                                   "bf16")}
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2539,7 +2570,7 @@ def phase_resnet(card):
     # 2. bench_resnet.py's protocol in each layout (cuDNN's defaults):
     # a warm chunk, then RESNET_STEPS timed steps in chunks; the counts
     # set to 0 just before and read just after
-    rows, launches = {}, None
+    rows, launches, timed_run = {}, None, None
     for fuse in (False, True):
         main, cost, scope, exe = fresh(fuse)
         torch.cuda.synchronize()
@@ -2574,6 +2605,10 @@ def phase_resnet(card):
                  % (fuse, timed.tolist()))
         peak = torch.cuda.max_memory_allocated()
         step_ms = dt / RESNET_STEPS * 1e3
+        if fuse:
+            timed_run = timed_program(
+                "resnet50", main, {n: v[0] for n, v in dev_pool.items()},
+                cost, step_ms, peak, "bf16")
         # one replayed step (its graph captured by the call before),
         # the batch already on the card
         batch = {n: v[0] for n, v in dev_pool.items()}
@@ -2617,7 +2652,7 @@ def phase_resnet(card):
           "run_steps_param_max_rel_err": rs_param_rel,
           "s2d_stem": s2d_stem_check(card),
           "momentum_launches": launches, **rows})
-    return launches
+    return launches, timed_run
 
 
 # ---------------------------------------------------------------- phase 14
@@ -3116,7 +3151,8 @@ def phase_vgg(card):
                                              key=lambda kv: -kv[1])),
           "top_kernels": top})
     exe.close()
-    return launches
+    return launches, timed_program("vgg16", main, batch, cost, step_ms,
+                                   peak, "bf16")
 
 
 # ---------------------------------------------------------------- phase 18
@@ -3615,7 +3651,7 @@ def phase_bert(card):
     row = {"phase": "bert", "card": card, "model": BERT_MODEL,
            "flags": RECIPE_FLAGS, "lr": BERT_LR, "dropout": BERT_DROPOUT,
            "attn_impl": "pallas", "routes": routes}
-    result = None
+    result, timed_runs = None, []
     for leg, (B, T, P) in BERT_LEGS.items():
         feed = bert_batch(B, T, P)
         main, startup, loss = build_bert(P)
@@ -3690,6 +3726,8 @@ def phase_bert(card):
                     tokens_per_s=B * T / (step_ms / 1e3),
                     sequences_per_s=B / (step_ms / 1e3),
                     max_memory_allocated=peak)
+        timed_runs.append(timed_program("bert_" + leg, main, feed, cost,
+                                        step_ms, peak, "bf16"))
         if leg == "phase1":
             exe.run_steps(main, feed=dev_feed, steps=1, fetch_list=[cost],
                           scope=scope)
@@ -3709,11 +3747,11 @@ def phase_bert(card):
                         top_kernels=top)
         row[leg] = info
         exe.close()
-        del exe, scope, dev_feed, main, startup
+        del exe, scope, dev_feed, startup
         torch.cuda.empty_cache()
     row["phase_s"] = time.perf_counter() - t_phase
     emit(row)
-    return result
+    return result, timed_runs
 
 
 # ---------------------------------------------------------------- phase 20
@@ -3855,7 +3893,311 @@ def phase_deepfm(card):
                                              key=lambda kv: -kv[1])),
           "top_kernels": top, "phase_s": time.perf_counter() - t_phase})
     exe.close()
-    return launches
+    return launches, timed_program("deepfm", main, feed, cost, step_ms,
+                                   peak, "f32")
+
+
+# ---------------------------------------------------------------- phase 21
+
+# MFU denominators: NVIDIA's published dense peaks of the H100 SXM (the
+# card of these runs, "NVIDIA H100 80GB HBM3", at its 700 W limit),
+# without sparsity; f32 is the rate outside the tensor cores (no TF32:
+# main() turns TF32 off)
+MFU_PEAK_CARD = "NVIDIA H100 SXM 80GB (H100 80GB HBM3), 700 W"
+MFU_PEAK_FLOPS = {"bf16": 989.4e12, "f32": 66.9e12}
+# families whose unknown ops would make the MFU numerator undercount
+COMPUTE_FAMILIES = ("matmul", "conv", "attention")
+
+
+def timed_program(label, program, feed, fetch, step_ms, peak, dtype):
+    """What the static phase reads of a phase's timed training run: the
+    program, one step's feed shapes, the fetched loss, the measured step
+    ms and peak memory, and the step's matmul dtype (its MFU peak)."""
+    return {"label": label, "program": program,
+            "feed_shapes": {n: tuple(v.shape) for n, v in feed.items()},
+            "fetch": [fetch.name], "step_ms": step_ms,
+            "max_memory_allocated": peak, "dtype": dtype}
+
+
+def concrete_program(program, feed_shapes):
+    """A clone of ``program`` whose symbol table holds the shapes of
+    ``feed_shapes`` (a -1 stays dynamic) and every other variable's
+    shape as inference derives it from them. The liveness report counts
+    each -1 as ``assume_batch``, which a free sequence axis breaks (a
+    [B, T] feed declared [-1, -1] would count as [B, B]); the clone pins
+    the axes the run pinned."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.core.program import _DYN_SENTINEL
+
+    p = program.clone()
+    gb = p.global_block()
+    for n, shape in feed_shapes.items():
+        gb.var(n).shape = tuple(shape)
+    for (b, n), t in analysis.infer_program_types(p).types.items():
+        v = p.blocks[b]._find_var_recursive(n)
+        if v is None or v.shape is None or t.shape is None \
+                or len(t.shape) != len(v.shape):
+            continue
+        # an extent that is a multiple of the dynamic-dim stand-in is a
+        # product with a dynamic axis (a flattened [-1, T]): it stays -1
+        v.shape = tuple(d if d >= 0 and (d == 0 or d % _DYN_SENTINEL)
+                        else -1 for d in t.shape)
+    return p
+
+
+def predicted_peak(program, feed_shapes, fetch):
+    """``analyze_liveness``' peak for one run of ``program`` at
+    ``feed_shapes``, under the program's own remat policy and donation."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.executor import _resolve_donation, _resolve_remat
+
+    rep = analysis.analyze_liveness(
+        concrete_program(program, feed_shapes), feed=list(feed_shapes),
+        fetch_list=fetch, remat=_resolve_remat(program),
+        donation=_resolve_donation(program))
+    return {"peak_bytes": rep.peak_bytes, "peak_op": "%d (%s)" % (
+        rep.peak_op_index, rep.peak_op_type),
+        "persistable_bytes": rep.persistable_bytes,
+        "unsized_vars": len(rep.unsized_vars)}
+
+
+def phase_static(card, runs):
+    """The static tier over the training programs the earlier phases
+    built and timed: ``obs.cost.report`` at the run's feed shapes
+    (FLOPs and bytes a step, by family, unknown op types), achieved
+    TFLOP/s and MFU from the measured step ms against the card's peak
+    for the step's matmul dtype, ``analysis.check_program`` (no error),
+    and ``analyze_liveness``' predicted peak beside the run's
+    ``torch.cuda.max_memory_allocated``; then one recipe step with the
+    ``check_program`` flag on, checked before any kernel launched."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.obs import cost
+    from paddle_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    rows = []
+    for r in runs:
+        prog, shapes = r["program"], r["feed_shapes"]
+        rep = cost.report(prog, feed_shapes=shapes)
+        fam = rep.by_family()
+        blind = {f: fam[f]["unknown"] for f in COMPUTE_FAMILIES
+                 if fam.get(f, {}).get("unknown")}
+        if blind:
+            fail("static %s: unknown ops in the compute families %s: the "
+                 "MFU numerator would undercount" % (r["label"], blind))
+        check = analysis.check_program(prog, feed=list(shapes),
+                                       fetch_list=r["fetch"])
+        if not check.ok:
+            fail("static %s: check_program reports errors:\n%s"
+                 % (r["label"], check))
+        peak_flops = MFU_PEAK_FLOPS[r["dtype"]]
+        ach = cost.achieved(rep.total_flops, r["step_ms"] / 1e3, peak_flops)
+        live = predicted_peak(prog, shapes, r["fetch"])
+        rows.append({
+            "program": r["label"], "feed_shapes": shapes,
+            "ops": len(rep.ops), "flops_per_step": rep.total_flops,
+            "bytes_per_step": rep.total_bytes,
+            "by_family": fam, "unknown_op_types": rep.unknown_op_types(),
+            "step_ms": r["step_ms"],
+            "achieved_tflops": ach["flops_per_sec"] / 1e12,
+            "matmul_dtype": r["dtype"], "peak_tflops": peak_flops / 1e12,
+            "mfu": ach["mfu"],
+            "check_program": {"errors": len(check.errors),
+                              "warnings": sorted(
+                                  {d.code for d in check.warnings})},
+            "liveness": live,
+            "max_memory_allocated": r["max_memory_allocated"],
+            "predicted_over_measured": live["peak_bytes"]
+            / r["max_memory_allocated"]})
+
+    # one recipe step with the check_program flag on: the check runs
+    # once, before any kernel of the step launched, and passes
+    place = fluid.CUDAPlace(0)
+    main, startup, loss = build_recipe(True)
+    fluid.memory_optimize(main)
+    exe, scope = _fresh(main, startup, place)
+    feed = train_batch()
+    seen = []
+    real = analysis.check_program
+
+    def recorded(*args, **kwargs):
+        seen.append(sum(_cuda.launch_counts().values()))
+        report = real(*args, **kwargs)
+        seen.append(report.ok)
+        return report
+
+    saved = fluid.get_flag("check_program")
+    for fn in _cuda.LAUNCHERS:
+        reset_counts(fn)
+    analysis.check_program = recorded
+    fluid.set_flags({"check_program": True})
+    try:
+        flagged = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                 scope=scope)[0]) for _ in range(2)]
+    finally:
+        analysis.check_program = real
+        fluid.set_flags({"check_program": saved})
+    launched = sum(_cuda.launch_counts().values())
+    if seen != [0, True] or not launched or \
+            not np.isfinite(flagged).all():
+        fail("static: with the check_program flag on, the check saw %s "
+             "(launches before it, its verdict; want [0, True] once) and "
+             "the steps launched %d kernels, losses %s"
+             % (seen, launched, flagged))
+    exe.close()
+    del exe, scope
+    torch.cuda.empty_cache()
+    emit({"phase": "static", "card": card, "peak_card": MFU_PEAK_CARD,
+          "peak_tflops": {k: v / 1e12 for k, v in MFU_PEAK_FLOPS.items()},
+          "programs": rows,
+          "check_program_flag": {"checks": len(seen) // 2,
+                                 "launches_before_check": seen[0],
+                                 "passed": seen[1], "losses": flagged,
+                                 "launches": launched},
+          "phase_s": time.perf_counter() - t_phase})
+
+
+# ---------------------------------------------------------------- phase 22
+
+REMAT_B, REMAT_T, REMAT_P = BERT_LEGS["phase2"]
+REMAT_TARGET_B = 2 * REMAT_B
+
+
+def remat_run(main, startup, feed, loss, place, launchers):
+    """``_timed_chunks`` from the seeded state, the feed on the card: a
+    warm chunk (the eager step, the capture, replays) and a timed one,
+    launches counted and the peak taken over both. Returns the row (the
+    timed losses, the launches of the 2 x CHUNK steps, step ms, peak)
+    and the final scope tensors."""
+    from paddle_tpu_torch.ops import _cuda
+
+    exe, scope = _fresh(main, startup, place)
+    dev_feed = {n: torch.as_tensor(v).to(place.torch_device())
+                for n, v in feed.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _cuda.LAUNCHERS:
+        reset_counts(fn)
+    dt, losses = _timed_chunks(exe, main, dev_feed, loss, scope, 1)
+    counts = {fn.__name__: fn.launches for fn in launchers}
+    peak = torch.cuda.max_memory_allocated()
+    state = scope_tensors(scope)
+    exe.close()
+    del exe, scope, dev_feed
+    torch.cuda.empty_cache()
+    if not np.isfinite(losses).all():
+        fail("remat: non-finite losses %s" % losses.tolist())
+    return {"losses": losses.tolist(), "launches": counts,
+            "step_ms": dt / CHUNK * 1e3,
+            "max_memory_allocated": peak}, state
+
+
+def phase_remat(card):
+    """BERT-base at the phase-2 shape (B=16, T=512), the bert phase's
+    flags, dropout 0.1, ``attn_impl="pallas"``, under ``run_steps`` at
+    ``memory_optimize(level=0)`` and ``level=1``: losses and the final
+    scope bit-equal, exact launches a replayed step (the recompute
+    relaunches the flash forward and dropout kernels), a lower peak.
+    Then ``RematPolicyPass(assume_batch=16, target_batch=32)`` picks
+    segments, and B=32 runs with them and without remat: bit-equal.
+    Returns the level-1 run's launches."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+    from paddle_tpu_torch.passes import PassManager, RematPolicyPass
+
+    t_phase = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    launchers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                 dr.dropout_apply, fused_flat_update)
+    n_layer = BERT_MODEL["n_layer"]
+    feed = bert_batch(REMAT_B, REMAT_T, REMAT_P)
+    shapes = {n: tuple(v.shape) for n, v in feed.items()}
+    runs, states = {}, {}
+    for level in (0, 1):
+        main, startup, loss = build_bert(REMAT_P)
+        fluid.memory_optimize(main, level=level)
+        sites = sum(op.type == "dropout" for op in main.global_block().ops)
+        row, states[level] = remat_run(main, startup, feed, loss[0], place,
+                                       launchers)
+        row["liveness"] = predicted_peak(main, shapes, [loss[0].name])
+        runs["level%d" % level] = row
+    groups = sum(op.type.endswith("_fused")
+                 for op in main.global_block().ops)
+    per_step = {"flash_fwd": (1 + 1) * n_layer, "flash_bwd_dq": n_layer,
+                "flash_bwd_dkv": n_layer, "dropout_apply": 3 * sites,
+                "fused_flat_update": groups}
+    # two chunks: the eager step, the capture (its launches put back)
+    # and 2 x CHUNK - 1 replays
+    steps = 2 * CHUNK
+    got = runs["level1"]["launches"]
+    if got != {k: v * steps for k, v in per_step.items()}:
+        fail("remat: level 1 launched %s in %d steps, expected %s a step"
+             % (got, steps, per_step))
+    base = {k: v * steps for k, v in per_step.items()}
+    base.update(flash_fwd=n_layer * steps, dropout_apply=2 * sites * steps)
+    if runs["level0"]["launches"] != base:
+        fail("remat: level 0 launched %s, expected %s"
+             % (runs["level0"]["launches"], base))
+    differ = state_diff(states[1], states[0])
+    equal = runs["level1"]["losses"] == runs["level0"]["losses"]
+    if differ or not equal:
+        fail("remat: level 1 is not bit-equal to level 0: losses %s against "
+             "%s, tensors differing %s" % (runs["level1"]["losses"],
+                                          runs["level0"]["losses"], differ))
+    if not runs["level1"]["max_memory_allocated"] < \
+            runs["level0"]["max_memory_allocated"]:
+        fail("remat: level 1's peak %d is not below level 0's %d"
+             % (runs["level1"]["max_memory_allocated"],
+                runs["level0"]["max_memory_allocated"]))
+    del states
+
+    # the remat_policy pass at the phase-2 shape: its static model
+    # counts each -1 as the batch, so the sequence axis is pinned first
+    feed32 = bert_batch(REMAT_TARGET_B, REMAT_T, REMAT_P)
+    shapes32 = {n: tuple(v.shape) for n, v in feed32.items()}
+    pinned = {n: (-1,) + s[1:] for n, s in shapes.items()}
+    main, startup, loss = build_bert(REMAT_P)
+    main = concrete_program(main, pinned)
+    plain = main.clone()
+    for prog in (main, plain):
+        fluid.memory_optimize(prog)
+    main = PassManager([RematPolicyPass(assume_batch=REMAT_B,
+                                        target_batch=REMAT_TARGET_B)]
+                       ).apply(main)
+    chosen = list(getattr(main, "_remat_policy", ()) or ())
+    if not chosen:
+        fail("remat: RematPolicyPass chose no segment for B=%d"
+             % REMAT_TARGET_B)
+    segs = sorted({op.attrs["_remat_segment"]
+                   for op in main.global_block().ops
+                   if "_remat_segment" in op.attrs})
+    b32, states = {}, {}
+    for label, prog in (("none", plain), ("segments", main)):
+        row, states[label] = remat_run(prog, startup, feed32, loss[0],
+                                       place, launchers)
+        row["liveness"] = predicted_peak(prog, shapes32, [loss[0].name])
+        b32[label] = row
+    differ = state_diff(states["segments"], states["none"])
+    if differ or b32["segments"]["losses"] != b32["none"]["losses"]:
+        fail("remat: B=%d with segments %s is not bit-equal to no remat: "
+             "losses %s against %s, tensors differing %s"
+             % (REMAT_TARGET_B, chosen, b32["segments"]["losses"],
+                b32["none"]["losses"], differ))
+    del states
+    torch.cuda.empty_cache()
+    emit({"phase": "remat", "card": card, "model": BERT_MODEL,
+          "flags": RECIPE_FLAGS, "dropout": BERT_DROPOUT,
+          "attn_impl": "pallas", "batch": REMAT_B, "seq": REMAT_T,
+          "max_predictions": REMAT_P, "chunk": CHUNK, "sites": sites,
+          "launches_per_step": per_step, "bit_equal": True, **runs,
+          "policy": {"assume_batch": REMAT_B,
+                     "target_batch": REMAT_TARGET_B, "segments": segs,
+                     "chosen": chosen, "stamp": main._schedule_stamp},
+          "b32": b32, "phase_s": time.perf_counter() - t_phase})
+    return runs["level1"]["launches"]
 
 
 def main():
@@ -3895,8 +4237,8 @@ def main():
     torch.cuda.empty_cache()
     phase_fused_ce(card)
     torch.cuda.empty_cache()
-    resnet_launches = phase_resnet(card)
-    vgg_launches = phase_vgg(card)
+    resnet_launches, resnet_timed = phase_resnet(card)
+    vgg_launches, vgg_timed = phase_vgg(card)
     torch.cuda.empty_cache()
     serving_counts, model, greedy = phase_serving(card)
     prefix_counts = phase_prefix_int8(card, model)
@@ -3907,8 +4249,13 @@ def main():
         card, model, greedy, base, dropout_step_ms)
     del model
     torch.cuda.empty_cache()
-    bert_launches = phase_bert(card)
-    deepfm_launches = phase_deepfm(card)
+    bert_launches, bert_timed = phase_bert(card)
+    deepfm_launches, deepfm_timed = phase_deepfm(card)
+    torch.cuda.empty_cache()
+    phase_static(card, [base["timed"], resnet_timed, vgg_timed]
+                 + bert_timed + [deepfm_timed])
+    torch.cuda.empty_cache()
+    remat_launches = phase_remat(card)
 
     def paged_entry(name, replaces, launches, row):
         return {"name": name, "route": "cuda",
@@ -3985,6 +4332,10 @@ def main():
             if suffix == "_bf16":
                 kernels[-1]["persist_launches"] = persist_launches[name]
                 kernels[-1]["bert_launches"] = bert_launches[name]
+            if suffix == "_bert_bf16":
+                # the remat phase's level-1 run (20 steps at the phase-2
+                # shape): the recompute relaunches the forward
+                kernels[-1]["remat_launches"] = remat_launches[name]
     # the recipe's own group: Adam, bf16 moments, owning the beta powers
     fu = next(r for r in fused_rows if r["n"] == n_recipe
               and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",
@@ -4019,6 +4370,9 @@ def main():
             "bound_ms": fm["bound_ms"], "bound_by": fm["bound_by"],
             "library_ms": fm["library_ms"], "device_ms": fm["device_ms"],
             "library_device_ms": fm["library_device_ms"], "n": n})
+        if name == "fused_flat_update_bert":
+            kernels[-1]["remat_launches"] = remat_launches[
+                "fused_flat_update"]
     # ResNet-50's group: Momentum with a bf16 velocity
     mo = next(r for r in fused_rows if r["n"] == RESNET_N
               and (r["label"], r["moments"]) == ("momentum", "bf16"))
@@ -4063,7 +4417,8 @@ def main():
         "max_abs_err": db["max_abs_err"], "ms": db["ms"],
         "plain_ms": db["plain_ms"], "bound_ms": db["bound_ms"],
         "bound_by": db["bound_by"], "library_ms": None,
-        "device_ms": db["device_ms"], "f_dropout_ms": db["f_dropout_ms"]})
+        "device_ms": db["device_ms"], "f_dropout_ms": db["f_dropout_ms"],
+        "remat_launches": remat_launches["dropout_apply"]})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -50,8 +50,8 @@ a Trainer saved::
 This package imports neither jax nor paddle_tpu.
 """
 
-from . import (analysis, checkpoint, ckpt, clip, io, layers, optimizer,
-               passes, profiler, reader, regularizer)
+from . import (analysis, checkpoint, ckpt, clip, io, layers, obs,
+               optimizer, passes, profiler, reader, regularizer)
 from .backward import append_backward
 from .ckpt import CheckpointConfig
 from .convert import params_from_numpy, state_from_numpy

@@ -1,9 +1,12 @@
-"""Structured diagnostics (counterpart of
-paddle_tpu/analysis/diagnostics.py).
+"""Structured diagnostics for the static program verifier (counterpart
+of paddle_tpu/analysis/diagnostics.py, the same record and codes).
 
-Only the record, its severities and the codes the restore-lint emits
-are ported; the static program verifier that emits the other codes is
-not (ROADMAP Queue A 8).
+Reference: the PADDLE_ENFORCE machinery surfaces op-level context as
+formatted strings at the failure site (platform/enforce.h:241); here the
+analyzer returns *records* so callers (tests, the Executor gate,
+``Program.validate``) can filter by severity/code and render
+consistently. The communication lints' codes are not ported (ROADMAP
+Queue A 9).
 """
 
 from __future__ import annotations
@@ -13,8 +16,17 @@ from typing import List, Optional
 ERROR = "error"
 WARNING = "warning"
 
+# Diagnostic codes (one kebab-case slug per defect class).
+UNDEFINED_VAR = "undefined-var"
+USE_BEFORE_DEF = "use-before-def"
+WRITE_AFTER_WRITE = "write-after-write"
+DANGLING_FETCH = "dangling-fetch"
+SUBBLOCK_UNRESOLVED = "subblock-unresolved"
+DONATION_ALIAS = "donation-alias"
 SHAPE_MISMATCH = "shape-mismatch"
 DTYPE_MISMATCH = "dtype-mismatch"
+MAYBE_UNINITIALIZED = "maybe-uninitialized"
+RECOMPILE_HAZARD = "recompile-hazard"
 
 
 class Diagnostic:

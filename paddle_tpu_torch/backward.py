@@ -14,8 +14,8 @@ port would run every forward op twice per step. Here the Executor takes
 the gradient from the forward pass it has just run (executor.py): it
 runs the ops before ``backward`` with autograd on, over leaf aliases of
 the ``Params``, then executes ``backward`` as
-``torch.autograd.grad(loss, leaves)``. The op's fn only refuses to run
-anywhere else.
+``torch.autograd.grad(loss, leaves)``. The op's fn is only its shape
+function (for static analysis), and refuses to run anywhere else.
 
 Row-sparse tables (``embedding(is_sparse=True)`` read only by local
 lookups of fed ids) get the pair ``<table>@GRAD@ROWS`` (the looked-up
@@ -26,7 +26,10 @@ lookup output and differentiates with respect to it; here the
 executor makes each lookup output an autograd leaf, which is the same
 derivative, and the table itself is never differentiated.
 
-Not ported yet (they raise): rematerialization and ``calc_gradient``.
+Rematerialization (``memory_optimize(level>=1)``, the ``remat_policy``
+pass) is the executor's too: it runs the forward slice, or each chosen
+segment of :func:`remat_segment_plan`, under ``torch.utils.checkpoint``
+so the backward pass recomputes it. ``calc_gradient`` is not ported.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from .core.enforce import EnforceError, enforce, not_ported
+from .core.enforce import EnforceError, enforce
 from .core.program import Program, Variable
 
 GRAD_SUFFIX = "@GRAD"
@@ -97,20 +100,25 @@ def _sparse_sites(fwd_ops, param_names, gb, other_inputs):
     return sites
 
 
-def _forward_slice(program: Program, target: str):
-    """Ops needed to produce `target`, plus their external input names
-    (order-sensitive: a var read before any kept op produced it is
-    external, even if a later op writes it)."""
-    gb = program.global_block()
+def slice_ops(ops, target: str) -> List:
+    """The ops of ``ops`` needed to produce ``target``, in order (a
+    ``backward`` op never is)."""
     needed = {target}
     kept = []
-    for op in reversed(gb.ops):
+    for op in reversed(ops):
         if op.type == "backward":
             continue
         if set(op.output_arg_names) & needed:
             kept.append(op)
             needed.update(op.input_arg_names)
-    kept = list(reversed(kept))
+    return list(reversed(kept))
+
+
+def _forward_slice(program: Program, target: str):
+    """Ops needed to produce `target`, plus their external input names
+    (order-sensitive: a var read before any kept op produced it is
+    external, even if a later op writes it)."""
+    kept = slice_ops(program.global_block().ops, target)
     ext, produced = [], set()
     for op in kept:
         for n in op.input_arg_names:
@@ -120,11 +128,79 @@ def _forward_slice(program: Program, target: str):
     return kept, ext
 
 
-def _executed_by_executor(*_args):
-    raise EnforceError(
-        "the backward op is executed by Executor.run, which takes the "
-        "gradient from the forward pass it has just run; it cannot run "
-        "as a plain op")
+def remat_segment_plan(fwd_ops, loss_name: str):
+    """Partition a forward slice into contiguous remat segments.
+
+    Ops annotated with ``op.attrs["_remat_segment"] = k`` (written by the
+    ``remat_policy`` pass) group into maximal runs sharing one id;
+    unannotated runs form ``None`` segments that are never checkpointed.
+    For each segment the plan records the dataflow boundary the
+    checkpointing (and ``analysis.liveness``'s static model of it)
+    needs:
+
+    - ``needed_in`` — names the segment reads that it does not define
+      first (the values a checkpoint saves as its inputs),
+    - ``keep_out`` — names the segment defines that a *later* segment or
+      the loss reads (the values that cross the boundary forward).
+
+    Returns ``[(segment_id, ops, needed_in, keep_out), ...]`` in program
+    order with deterministic name ordering."""
+    groups: List[Tuple[Optional[int], List]] = []
+    for op in fwd_ops:
+        sid = op.attrs.get("_remat_segment")
+        if groups and groups[-1][0] == sid:
+            groups[-1][1].append(op)
+        else:
+            groups.append((sid, [op]))
+    needs_after = []
+    acc = {loss_name}
+    for sid, ops in reversed(groups):
+        needs_after.append(frozenset(acc))
+        for op in ops:
+            acc.update(op.input_arg_names)
+    needs_after.reverse()
+    plan = []
+    for (sid, ops), after in zip(groups, needs_after):
+        defined: set = set()
+        needed: List[str] = []
+        for op in ops:
+            for n in op.input_arg_names:
+                if n not in defined and n not in needed:
+                    needed.append(n)
+            defined.update(op.output_arg_names)
+        keep = [n for n in dict.fromkeys(
+            o for op in ops for o in op.output_arg_names) if n in after]
+        plan.append((sid, list(ops), tuple(needed), tuple(keep)))
+    return plan
+
+
+def _grad_shapes(param_names, input_names, dense_names, sites):
+    """The backward op's fn: its shape function, and nothing more. On
+    meta tensors (build-time and static shape inference) it returns
+    tensors shaped as the JAX package's backward op returns them — a
+    gradient like each dense parameter; per sparse table the rows
+    (int32, one per looked-up id) and the values (one row per id). On
+    any other tensor it raises: the Executor takes the gradient from
+    the forward pass it has just run."""
+
+    def fn(*vals):
+        if not all(v.device.type == "meta" for v in vals):
+            raise EnforceError(
+                "the backward op is executed by Executor.run, which takes "
+                "the gradient from the forward pass it has just run; it "
+                "cannot run as a plain op")
+        env = dict(zip(list(param_names) + list(input_names), vals))
+        outs = [torch.empty_like(env[n]) for n in dense_names]
+        for table in dict.fromkeys(s[0] for s in sites):
+            n = sum(env[ids].numel() for t, ids, _, _ in sites
+                    if t == table)
+            outs.append(torch.empty((n,), dtype=torch.int32,
+                                    device="meta"))
+            outs.append(torch.empty((n, env[table].shape[-1]),
+                                    dtype=env[table].dtype, device="meta"))
+        return tuple(outs)
+
+    return fn
 
 
 def append_backward(loss: Variable,
@@ -139,9 +215,6 @@ def append_backward(loss: Variable,
 
     fwd_ops, ext_inputs = _forward_slice(program, loss.name)
     enforce(fwd_ops, "loss %r is not produced by any op" % loss.name)
-    if any("_remat_segment" in op.attrs for op in fwd_ops):
-        raise not_ported("rematerialization in append_backward",
-                         "Queue A 8, passes")
 
     if parameter_list is not None:
         param_names = [p if isinstance(p, str) else p.name
@@ -206,6 +279,7 @@ def append_backward(loss: Variable,
         attrs={"loss": loss.name,
                "_error_clips": _error_clip_map(fwd_ops, gb),
                "_sparse_sites": sites},
-        fn=_executed_by_executor,
+        fn=_grad_shapes(param_names, backward_input_names, dense_names,
+                        sites),
     )
     return [(gb.var(pn), grad_vars[pn]) for pn in param_names]

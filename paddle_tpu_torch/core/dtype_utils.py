@@ -59,3 +59,9 @@ def rounded_sqrt(n: int, dtype) -> float:
     dtype))``. In bfloat16 sqrt(128) is 11.3125 (f32: 11.3137); a
     perfect square such as 64 is exact in both."""
     return float(torch.tensor(float(n)).sqrt().to(dtype))
+
+
+def itemsize(dtype) -> int:
+    """Bytes per element of a symbol-table dtype."""
+    dtype = normalize_dtype(dtype)
+    return 2 if dtype is torch.bfloat16 else dtype.itemsize

@@ -16,8 +16,8 @@ flat group update op always runs the hand-written fused-update kernel
 (ops/fused_optimizer.py). That is what the JAX package does with those
 flags on.
 
-The executor reads ``donate_state_buffers`` and ``scan_unroll`` at each
-run, ``reader.DataLoader`` reads ``dataloader_buffer_size`` when it is
+The executor reads ``donate_state_buffers``, ``scan_unroll`` and
+``check_program`` at each run, ``reader.DataLoader`` reads ``dataloader_buffer_size`` when it is
 made.
 """
 
@@ -76,6 +76,14 @@ define_flag("scan_unroll", False,
             "Executor.run_steps(unroll=None) captures its N steps as one "
             "straight-line CUDA graph, replayed once, instead of one "
             "step replayed N times")
+define_flag("check_program", False,
+            "run the static program verifier (paddle_tpu_torch.analysis."
+            "check_program) over each new program version before "
+            "Executor.run or run_steps runs it; structural errors "
+            "(undefined vars, use-before-def, shape/dtype mismatches...) "
+            "raise EnforceError with op-level context before any op runs "
+            "(reference analog: the C++ InferShape/InferVarType sweep over "
+            "the ProgramDesc)")
 define_flag("dataloader_buffer_size", 2,
             "default number of batches a reader.DataLoader keeps in "
             "flight (reader thread, DataFeeder conversion and the copy to "

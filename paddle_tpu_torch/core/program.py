@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from . import dtype_utils, flags, unique_name
-from .enforce import EnforceError, enforce, not_ported
+from .enforce import EnforceError, enforce
 
 LOD_TENSOR = "lod_tensor"
 
@@ -205,7 +205,8 @@ class Block:
 
 
 class Program:
-    """The program: a list of blocks (this slice builds one)."""
+    """The program: a list of blocks (the layers build the global block
+    only; ``_create_block`` adds a sub-block)."""
 
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
@@ -219,6 +220,20 @@ class Program:
 
     def current_block(self) -> Block:
         return self.blocks[self._current_block_idx]
+
+    def _create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new sub-block under ``parent_idx`` (default: the current
+        block), made current; the sub-block's names resolve through its
+        ancestors (``Block._find_var_recursive``)."""
+        parent = (self._current_block_idx if parent_idx is None
+                  else parent_idx)
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self._current_block_idx = b.idx
+        return b
+
+    def _rollback(self) -> None:
+        self._current_block_idx = self.current_block().parent_idx
 
     def _bump(self) -> None:
         self._version += 1
@@ -284,10 +299,22 @@ class Program:
 
     def validate(self, feed=None, fetch_list=None,
                  raise_on_error: bool = True, with_comm: bool = False):
-        """The static program verifier of the JAX package
-        (``analysis.check_program``) is not ported."""
-        raise not_ported("Program.validate (analysis.check_program)",
-                         "Queue A 8")
+        """Run the static program verifier (paddle_tpu_torch.analysis)
+        over this program: graph validation, shape/dtype inference,
+        recompile lint (``with_comm=True`` raises: the communication
+        lints are ROADMAP Queue A 9). Returns the AnalysisReport; with
+        ``raise_on_error`` (the default) error-severity diagnostics
+        raise EnforceError first — the build-time equivalent of the
+        reference's InferShape/InferVarType enforcement over the
+        ProgramDesc."""
+        from .. import analysis
+
+        report = analysis.check_program(self, feed=feed or (),
+                                        fetch_list=fetch_list or (),
+                                        with_comm=with_comm)
+        if raise_on_error and not report.ok:
+            raise EnforceError(str(report))
+        return report
 
     def list_vars(self):
         for b in self.blocks:

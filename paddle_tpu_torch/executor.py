@@ -62,13 +62,25 @@ graph works on the scope's own tensors; off, every run works on copies
 of the state it writes, so a tensor obtained from the scope before a
 run keeps its values.
 
-Not ported yet: the compile cache, sharding, AMP stamps, passes other
-than ``memory_optimize``, program readers and host offload.
+Rematerialization (``_resolve_remat``: ``memory_optimize(level>=1)``
+or the ``remat_policy`` pass's segments): the loss's forward slice, or
+each chosen segment of it, runs under ``torch.utils.checkpoint``, so
+the backward pass recomputes its activations instead of keeping them
+(:func:`_run_forward_remat`); the policy is part of ``run_steps``'
+graph key.
+
+The ``check_program`` flag runs ``analysis.check_program`` over each
+new program version before ``run``/``run_steps`` runs it, and raises
+on an error diagnostic.
+
+Not ported yet: the compile cache, sharding, AMP stamps, program
+readers and host offload.
 """
 
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -182,12 +194,134 @@ def _lookup_rows(ids: torch.Tensor) -> torch.Tensor:
     return idx.reshape(-1)
 
 
-def run_training_ops(ops, env: Dict[str, torch.Tensor], device=None
+def _resolve_remat(program: Program):
+    """The remat policy of a training run: a frozenset of segment ids
+    when the ``remat_policy`` pass solved one, else the all-or-nothing
+    ``memory_optimize(level>=1)`` bool. The one home of the rule."""
+    policy = getattr(program, "_remat_policy", None)
+    if policy:
+        return frozenset(policy)
+    return bool(getattr(program, "_memory_optimize_remat", False))
+
+
+def _run_forward_remat(fwd, env, post, device, policy, loss_name,
+                       reads_later, keep, outside) -> None:
+    """The ops before ``backward`` with the forward slice of
+    ``loss_name`` recomputed in the backward pass.
+
+    ``policy`` ``True`` puts the whole slice under checkpoints;
+    a frozenset puts each op whose ``_remat_segment`` is in it under its
+    segment's checkpoint. Consecutive ops of one segment run as one
+    ``torch.utils.checkpoint.checkpoint`` call, which takes the values
+    the run reads before defining them as explicit inputs and returns
+    only what a later op, the backward op, a fetch (``keep``) or the
+    scope (a persistable) reads — the rest is dropped, and the backward
+    pass recomputes it. Ops off the slice, and the ops in ``outside``
+    (those whose outputs become autograd leaves: parameters the step
+    produces, sparse lookup outputs), run as they do without remat, so
+    no leaf is made inside a recomputed region. An op off the slice
+    between two ops of one segment splits its checkpoint in two.
+
+    ``use_reentrant=False`` is what lets ``torch.autograd.grad`` take
+    the gradient through a checkpoint; ``preserve_rng_state=False``
+    because the port's randomness is keyed on counters that the
+    recomputed ops read again (the dropout counter a region read crosses
+    in as an input, never advanced in place before the backward pass),
+    and stashing the CUDA RNG state is not allowed in a captured
+    graph. Early stop is off: torch stops a recompute by raising an
+    exception through the op being recomputed, whose traceback would
+    keep the region's tensors in a reference cycle until the cyclic
+    collector runs; without it every op of a region runs once more, in
+    the backward pass."""
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+    from .backward import slice_ops
+
+    in_slice = {id(op) for op in slice_ops(fwd, loss_name)}
+
+    def region(op):
+        if id(op) not in in_slice or id(op) in outside:
+            return None
+        if policy is True:
+            return True
+        sid = op.attrs.get("_remat_segment")
+        return sid if sid in policy else None
+
+    # names read at or after each position (later ops of the block too)
+    after = [set() for _ in range(len(fwd) + 1)]
+    after[-1] = set(reads_later) | set(keep) | {loss_name}
+    for k in range(len(fwd) - 1, -1, -1):
+        after[k] = after[k + 1] | set(fwd[k].input_arg_names)
+    block = fwd[0].block if fwd else None
+
+    def persistable(n):
+        v = block._find_var_recursive(n)
+        return v is not None and v.persistable
+
+    k = 0
+    while k < len(fwd):
+        rid = region(fwd[k])
+        if rid is None:
+            run_program_ops(fwd[k:k + 1], env, post_op=post, device=device)
+            k += 1
+            continue
+        end = k
+        while end < len(fwd) and region(fwd[end]) == rid:
+            end += 1
+        group = fwd[k:end]
+        defined, ins = set(), []
+        for op in group:
+            for n in op.input_arg_names:
+                if n not in defined and n not in ins:
+                    ins.append(n)
+            defined.update(op.output_arg_names)
+        outs = [n for n in dict.fromkeys(
+            o for op in group for o in op.output_arg_names)
+            if n in after[end] or persistable(n)]
+        args = [n for n in ins if isinstance(env.get(n), torch.Tensor)]
+        other = {n: env[n] for n in ins if n in env and n not in args}
+        # names the group's environment drops after each op: those no
+        # later op of the group reads and the group does not return
+        last = {}
+        for j, op in enumerate(group):
+            for n in op.input_arg_names + op.output_arg_names:
+                last[n] = j
+        dead = [[] for _ in group]
+        for n, j in last.items():
+            if n not in outs:
+                dead[j].append(n)
+
+        def run_group(*vals, _ops=group, _args=args, _other=other,
+                      _outs=outs, _dead=dead):
+            # dropping values as the run goes keeps only what the
+            # checkpoint saves alive, in the forward pass and in the
+            # recompute alike
+            e = dict(_other)
+            e.update(zip(_args, vals))
+            for op, names in zip(_ops, _dead):
+                run_program_ops([op], e, post_op=post, device=device)
+                for n in names:
+                    e.pop(n, None)
+            return tuple(e[n] for n in _outs)
+
+        with set_checkpoint_early_stop(False):
+            vals = checkpoint(run_group, *[env[n] for n in args],
+                              use_reentrant=False, preserve_rng_state=False)
+        env.update(zip(outs, vals))
+        k = end
+
+
+def run_training_ops(ops, env: Dict[str, torch.Tensor], device=None,
+                     remat=False, keep: Sequence[str] = ()
                      ) -> Dict[str, torch.Tensor]:
     """Run a block holding a ``backward`` op with one forward pass: the
     ops before it under autograd over leaf aliases of its dense
     ``Params`` and of its sparse tables' lookup outputs, the op itself
-    as ``torch.autograd.grad``, the ops after it with autograd off."""
+    as ``torch.autograd.grad``, the ops after it with autograd off.
+    ``remat`` (:func:`_resolve_remat`) recomputes the loss's forward
+    slice, or the chosen segments of it, in the backward pass
+    (:func:`_run_forward_remat`); ``keep`` names the values the caller
+    reads afterwards besides the scope's (its fetches)."""
     at = [i for i, op in enumerate(ops) if op.type == "backward"]
     enforce(len(at) == 1, "a program runs at most one backward op, found %d"
             % len(at))
@@ -220,7 +354,14 @@ def run_training_ops(ops, env: Dict[str, torch.Tensor], device=None
         return clips(op, out) if clips is not None else out
 
     with torch.enable_grad():
-        run_program_ops(ops[:i], env, post_op=post, device=device)
+        if remat:
+            outside = {id(op) for op in ops[:i] if any(
+                n in want or n in probes for n in op.output_arg_names)}
+            later = {n for op in ops[i:] for n in op.input_arg_names}
+            _run_forward_remat(ops[:i], env, post, device, remat,
+                               bw.attrs["loss"], later, keep, outside)
+        else:
+            run_program_ops(ops[:i], env, post_op=post, device=device)
     missing = [n for n in dense if n not in leaves]
     enforce(not missing, "backward: parameter(s) %s are neither in scope "
             "nor produced before the backward op" % missing)
@@ -533,10 +674,11 @@ class _CapturedSteps:
                  fetch_names: Tuple[str, ...], state_names: Tuple[str, ...],
                  feed_vals: Dict, stacked_names: Tuple[str, ...],
                  steps: int, unroll: bool, donate: bool,
-                 device: torch.device):
+                 device: torch.device, remat=False):
         self.program, self.scope = program, scope
         self.ops = live_ops(program, fetch_names)
         self.training = any(op.type == "backward" for op in self.ops)
+        self.remat = remat
         self.fetch_names = fetch_names
         self.steps, self.unroll, self.donate = steps, unroll, donate
         self.device = device
@@ -585,7 +727,8 @@ class _CapturedSteps:
             env[n] = buf.index_select(0, self.idx)[0] \
                 if n in self.stacked else buf
         if self.training:
-            run_training_ops(self.ops, env, self.device)
+            run_training_ops(self.ops, env, self.device, remat=self.remat,
+                             keep=self.fetch_names)
         else:
             with torch.no_grad():
                 run_program_ops(self.ops, env, device=self.device)
@@ -820,11 +963,36 @@ class Executor:
         self.place = place if place is not None else default_place()
         self.device = self.place.torch_device()
         # captured graphs: run_steps' by program, version, scope,
-        # donation, feed/fetch/state names, feed shapes, steps and unroll;
+        # donation, remat policy, feed/fetch/state names, feed shapes,
+        # steps and unroll;
         # run_graph's by program, version, scope, donation, feed names and
         # shapes, fetch names
         self._cache: Dict[tuple, _CapturedSteps] = {}
         self._capture_stream: Optional[torch.cuda.Stream] = None
+        # program -> the version check_program last passed
+        self._verified = weakref.WeakKeyDictionary()
+
+    def _maybe_check_program(self, program: Program, feed,
+                             fetch_names: Tuple[str, ...]) -> None:
+        """Opt-in verification before a run (the ``check_program``
+        flag): run ``analysis.check_program`` over each NEW version of
+        the program and fail with op-level context before any op runs.
+        Warnings pass through silently — only error-severity diagnostics
+        block execution."""
+        if not flags.get_flag("check_program"):
+            return
+        if self._verified.get(program) == program._version:
+            return
+        from . import analysis
+
+        report = analysis.check_program(program, feed=tuple(feed or ()),
+                                        fetch_list=fetch_names)
+        if not report.ok:
+            raise EnforceError(
+                "check_program found errors in the program (set the "
+                "check_program flag to False to skip verification):\n"
+                + str(report))
+        self._verified[program] = program._version
 
     def _resolve_state_names(self, program: Program, feed: Dict,
                              fetch_names: Tuple[str, ...],
@@ -902,6 +1070,7 @@ class Executor:
         fetch_names = tuple(_as_names(fetch_list))
         gb = program.global_block()
 
+        self._maybe_check_program(program, feed, fetch_names)
         state_names = self._resolve_state_names(program, feed, fetch_names,
                                                 scope)
         written = _written_persistables(program)
@@ -917,7 +1086,9 @@ class Executor:
         ops = live_ops(program, fetch_names)
         with RecordEvent("dispatch"):
             if any(op.type == "backward" for op in ops):
-                run_training_ops(ops, env, self.device)
+                run_training_ops(ops, env, self.device,
+                                 remat=_resolve_remat(program),
+                                 keep=fetch_names)
             else:
                 with torch.no_grad():
                     run_program_ops(ops, env, device=self.device)
@@ -1023,6 +1194,7 @@ class Executor:
             gb, feed, feed_list, steps)
         if unroll is None:
             unroll = bool(flags.get_flag("scan_unroll"))
+        self._maybe_check_program(program, feed, fetch_names)
 
         if self.device.type != "cuda":
             outs = [self.run(program, feed={
@@ -1038,9 +1210,10 @@ class Executor:
         feed_vals = {n: self._feed_tensor(gb._find_var_recursive(n), v)
                      for n, v in sorted(feed.items())}
         donate = _resolve_donation(program)
+        remat = _resolve_remat(program)
         # one graph per scope too: with donation on a graph's buffers are
         # its scope's tensors, which another scope must not share
-        key = (id(program), program._version, id(scope), donate,
+        key = (id(program), program._version, id(scope), donate, remat,
                tuple(feed_vals), fetch_names, state_names,
                tuple((n, tuple(v.shape), str(v.dtype))
                      for n, v in feed_vals.items()),
@@ -1056,7 +1229,7 @@ class Executor:
             captured = _CapturedSteps(program, scope, fetch_names,
                                       state_names, feed_vals, stacked_names,
                                       steps, bool(unroll), donate,
-                                      self.device)
+                                      self.device, remat=remat)
             captured.stream = self._stream()
         with RecordEvent("dispatch"):
             fetches = captured(feed_vals)
@@ -1140,7 +1313,8 @@ class Executor:
     @property
     def num_compiled(self) -> int:
         """Captured CUDA graphs held (one per ``run_steps`` cache key: the
-        program and its version, the scope, donation, the feed, fetch and
+        program and its version, the scope, donation, the remat policy,
+        the feed, fetch and
         state names, the feed shapes, steps and unroll; one per
         ``run_graph`` key: the program and its version, the scope,
         donation, the feed names and shapes, the fetch names); 0 on the

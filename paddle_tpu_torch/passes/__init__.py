@@ -2,11 +2,13 @@
 
 Ported: the declarative pass API and its registry (``base``), the
 inference fusion family (``fc_act_fuse``, ``attention_fuse``,
-``transpose_eliminate``, ``dce``; ``fusion``), the pass manager in its
-legacy mode with the inference pipeline ``io.save_inference_model``
-runs (``manager``), and ``memory_optimize``/``release_memory``. The
-checked and stamped manager, the transforms (conv+BN fold, bf16 cast,
-quantization, schedules) and remat are not (ROADMAP Queue A 8).
+``transpose_eliminate``, ``dce``; ``fusion``), the checked and stamped
+pass manager with the inference pipeline ``io.save_inference_model``
+runs (``manager``), ``memory_optimize``/``release_memory`` at every
+level (``transforms``) and the ``remat_policy`` scheduling pass
+(``schedule``). The other transforms (conv+BN fold, bf16 cast,
+quantization) and the ``host_offload`` pass are not (ROADMAP Queue
+A 8), nor is ``comm_overlap`` (Queue A 9).
 """
 
 from .base import (Pass, PassError, build_pipeline, get_pass, list_passes,
@@ -14,6 +16,7 @@ from .base import (Pass, PassError, build_pipeline, get_pass, list_passes,
 from .fusion import (AttentionFusePass, DeadCodeEliminatePass,
                      FcActFusePass, TransposeEliminatePass, fuse_op_chain)
 from .manager import PassManager, apply_passes, inference_pass_pipeline
+from .schedule import RematPolicyPass, apply_remat_policy
 from .transforms import memory_optimize, release_memory
 
 #: legacy alias (core/passes.py ProgramPass) — same class
@@ -21,7 +24,7 @@ ProgramPass = Pass
 
 __all__ = ["AttentionFusePass", "DeadCodeEliminatePass", "FcActFusePass",
            "Pass", "PassError", "PassManager", "ProgramPass",
-           "TransposeEliminatePass", "apply_passes", "build_pipeline",
-           "fuse_op_chain", "get_pass", "inference_pass_pipeline",
+           "RematPolicyPass", "TransposeEliminatePass", "apply_passes",
+           "apply_remat_policy", "build_pipeline", "fuse_op_chain", "get_pass", "inference_pass_pipeline",
            "list_passes", "memory_optimize", "pass_class", "register_pass",
            "release_memory"]

@@ -12,8 +12,8 @@ A :class:`Pass` declares:
     failure carries;
   * ``reads``     — op families the rewrite inspects (informational);
   * ``writes``    — op types the rewrite may INTRODUCE (the checked
-    manager of the JAX package diffs the op-type set around each pass;
-    the port runs the legacy manager only, passes/manager.py);
+    manager diffs the op-type set around each pass, passes/manager.py;
+    ``None`` skips the check);
   * ``stamp_attr``— set by self-stamping passes;
   * ``fingerprint()`` — a stable content digest of the pass's
     parameters.

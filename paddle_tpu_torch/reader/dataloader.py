@@ -116,42 +116,6 @@ class PipelineMetrics:
         return out
 
 
-def _shape_hazards(program: Program, names: Sequence[str],
-                   batch_size: Optional[int], drop_last: bool) -> List[str]:
-    """Feed shapes that make ``Executor.run_steps`` capture a graph per
-    batch instead of one (the JAX package's recompile lint,
-    analysis/recompile.py ``check_dataloader_shapes``): a feed with no
-    declared shape, a dynamic non-batch axis, a batch axis pinned to
-    another size than the loader's, and a ragged tail kept."""
-    out = []
-    gb = program.global_block()
-    for n in names:
-        v = gb._find_var_recursive(n)
-        if v is None:
-            continue
-        if v.shape is None:
-            out.append("%s: feed has no declared shape — every distinct "
-                       "batch shape captures a new graph" % n)
-            continue
-        dyn = [i for i, s in enumerate(v.shape) if s == -1 and i != 0]
-        if dyn:
-            out.append("%s: dynamic extent on non-batch axis(es) %s of "
-                       "declared shape %s — each distinct length captures "
-                       "a new graph; pad or bucket this axis in the data "
-                       "pipeline" % (n, dyn, v.shape))
-        if batch_size and v.shape and v.shape[0] not in (-1, batch_size):
-            out.append("%s: declared batch axis is pinned to %d but the "
-                       "DataLoader delivers fixed batches of %d — declare "
-                       "the batch axis as -1 or match the loader's batch "
-                       "size" % (n, v.shape[0], batch_size))
-    if not drop_last:
-        out.append("drop_last=False: the ragged tail batch of each pass has "
-                   "its own shape and runs step by step, outside the "
-                   "captured graph — drop the tail or pad it to the "
-                   "loader's batch size")
-    return out
-
-
 class DataLoader:
     """Overlapped reader -> DataFeeder -> device pipeline.
 
@@ -176,7 +140,8 @@ class DataLoader:
             one shape (tuple-style batches; dict-style readers batch for
             themselves).
         check_recompile: warn, once the first batch's size is known, of
-            feed shapes that make run_steps capture a graph per batch.
+            feed shapes that make run_steps capture a graph per batch
+            (``analysis.check_dataloader_shapes``).
     """
 
     _pdtpu_dataloader = True  # duck-type marker (executor dispatch)
@@ -240,7 +205,10 @@ class DataLoader:
         prog = self._feeder_program
         if prog is None or not names:
             return
-        for d in _shape_hazards(prog, names, batch_size, self.drop_last):
+        from ..analysis import check_dataloader_shapes
+
+        for d in check_dataloader_shapes(prog, names, batch_size,
+                                         self.drop_last):
             warnings.warn(f"data loader {self.name!r}: {d}")
 
     # -- worker-side conversion --------------------------------------------

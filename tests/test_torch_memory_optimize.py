@@ -4,9 +4,9 @@ tests/test_memory_optimize.py (level 0 and the donation opt-out).
 * Level 0 marks the program for in-place state updates and bumps its
   version; training with it gives the losses of training without it,
   bit for bit (the port runs the same ops either way).
-* Level 1 (remat of the backward's forward slice) and ``print_log``
-  (the liveness report) raise NotImplementedError naming ROADMAP Queue
-  A 8; ``release_memory`` is the JAX package's no-op.
+* Level >= 1 (remat of the backward's forward slice) trains to level
+  0's losses bit for bit, and ``print_log`` prints the liveness report;
+  ``release_memory`` is the JAX package's no-op.
 * ``donate_state_buffers=False``: a state tensor obtained before a step
   keeps its values after it — the JAX package's copy-out contract — on
   a sparse table, which the port updates in place (so the check has
@@ -46,10 +46,10 @@ def _mlp():
     return main, startup, loss
 
 
-def _train(mem_opt, steps=10):
+def _train(mem_opt, steps=10, level=0):
     main, startup, loss = _mlp()
     if mem_opt:
-        fluid.memory_optimize(main, level=0)
+        fluid.memory_optimize(main, level=level)
         assert fluid.release_memory(main) is None
     scope = fluid.Scope()
     exe = fluid.Executor(CPU)
@@ -85,14 +85,27 @@ def test_level0_marks_the_program_and_bumps_its_version():
 @pytest.mark.parametrize("kwargs,what", [
     ({"level": 1}, "remat"), ({"level": 2}, "remat"),
     ({"print_log": True}, "liveness")])
-def test_level1_and_print_log_are_not_ported(kwargs, what):
+def test_level1_and_print_log_are_not_ported(kwargs, what, capsys):
+    """Once refused (ROADMAP Queue A 8), both are ported: level >= 1 is
+    donation plus the all-or-nothing remat flag, and trains to the
+    losses of level 0 bit for bit; ``print_log`` prints the liveness
+    report of ``analysis.analyze_liveness``."""
     main, _, _ = _mlp()
     v = main._version
-    with pytest.raises(NotImplementedError, match=what) as ei:
-        fluid.memory_optimize(main, **kwargs)
-    assert "Queue A 8" in str(ei.value)
-    assert getattr(main, "_memory_optimize", None) is None
-    assert main._version == v
+    fluid.memory_optimize(main, **kwargs)
+    assert main._memory_optimize is True and main._version > v
+    remat = kwargs.get("level", 0) >= 1
+    assert main._memory_optimize_remat is remat
+    out = capsys.readouterr().out
+    if what == "liveness":
+        report = fluid.analysis.analyze_liveness(main)
+        assert out == ("memory_optimize: buffer donation on; remat off\n"
+                       + report.render() + "\n")
+        assert "peak-HBM report" in out and "span=" in out
+    else:
+        assert out == ""
+        assert _train(mem_opt=False) == _train(mem_opt=True,
+                                               level=kwargs["level"])
 
 
 def _sparse_program():

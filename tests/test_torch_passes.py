@@ -17,9 +17,10 @@ passes, held to paddle_tpu's.
   cancel, DCE keeps persistable writes and fetch targets, fusion never
   swallows a ``keep`` name.
 * The registry (names, ``get_pass``, ``build_pipeline``, fingerprints
-  equal to the JAX package's) and the refusals: the checked and stamped
-  manager and ``Program.validate`` raise NotImplementedError naming
-  ROADMAP Queue A 8.
+  equal to the JAX package's); the checked and stamped manager (the JAX
+  package's op lists and ``_passes_stamp``, a pass introducing an error
+  stopped) and ``Program.validate``; ``lint_comm`` raises naming ROADMAP
+  Queue A 9.
 """
 
 import warnings
@@ -253,7 +254,8 @@ def test_dce_keeps_targets_and_persistable_writes():
 def test_registry_and_fingerprints_match_the_jax_package():
     from paddle_tpu.passes import fusion as j_fusion
 
-    assert list_passes() == ["attention_fuse", "dce", "fc_act_fuse",
+    assert list_passes() == ["attention_fuse", "comm_overlap", "dce",
+                             "fc_act_fuse", "host_offload", "remat_policy",
                              "transpose_eliminate"]
     for tcls, jcls in ((FcActFusePass, j_fusion.FcActFusePass),
                        (AttentionFusePass, j_fusion.AttentionFusePass),
@@ -273,6 +275,15 @@ def test_registry_and_fingerprints_match_the_jax_package():
 
 
 def test_legacy_manager_applies_in_order_and_checked_one_is_refused():
+    """The legacy manager applies in order and stamps nothing. The
+    checked and stamped manager and ``Program.validate``, once refused
+    (ROADMAP Queue A 8), are ported: the manager re-infers, composes
+    ``_passes_stamp`` as the JAX package's does and stops a pass that
+    introduces an error; ``validate`` returns the report. ``lint_comm``
+    raises, naming Queue A 9."""
+    from paddle_tpu.passes.fusion import FcActFusePass as JFcActFusePass
+    from paddle_tpu.passes.manager import PassManager as JPassManager
+
     main, _, predict, _ = _fit(tfluid)
     p = main.clone(for_test=True).prune([predict])
     out = apply_passes([FcActFusePass(keep=[predict]),
@@ -281,10 +292,36 @@ def test_legacy_manager_applies_in_order_and_checked_one_is_refused():
     assert [op.type for op in out.global_block().ops].count(
         "fc_act_fused") == 2
     assert not hasattr(out, "_passes_stamp")
+    j_main, _, j_predict, _ = _fit(jfluid)
     for kw in ({}, {"check": True, "stamp": False},
-               {"check": False, "stamp": True},
-               {"check": False, "stamp": False, "lint_comm": True}):
-        with pytest.raises(NotImplementedError, match="Queue A 8"):
-            PassManager(["dce"], **kw)
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        main.validate()
+               {"check": False, "stamp": True}):
+        progs = {}
+        for pkg, fit, pred, Manager, Fuse in (
+                ("torch", main, predict, PassManager, FcActFusePass),
+                ("jax", j_main, j_predict, JPassManager, JFcActFusePass)):
+            prog = fit.clone(for_test=True).prune([pred])
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                progs[pkg] = Manager([Fuse(keep=[pred]), "dce"],
+                                     **kw).apply(prog)
+        assert [op.type for op in progs["torch"].global_block().ops] == \
+            [op.type for op in progs["jax"].global_block().ops]
+        assert getattr(progs["torch"], "_passes_stamp", None) == \
+            getattr(progs["jax"], "_passes_stamp", None)
+    with pytest.raises(NotImplementedError, match="Queue A 9"):
+        PassManager(["dce"], check=False, stamp=False, lint_comm=True)
+
+    class Breaks(tfluid.passes.Pass):
+        name = "breaks"
+
+        def apply(self, program, scope=None):
+            gb = program.global_block()
+            gb.append_op(type="scale", inputs={"X": ["ghost"]},
+                         outputs={"Out": [predict]}, fn=lambda v: v)
+            return program
+
+    with pytest.raises(tfluid.passes.PassError,
+                       match="introduced-diagnostics"):
+        PassManager([Breaks()]).apply(main.clone())
+    report = main.validate()
+    assert report.ok and not report.errors
