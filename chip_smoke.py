@@ -353,11 +353,53 @@ Phases, one JSON line each (or one per shape):
              counts every -1 as the batch) picks segments, and B=32
              runs with them and without remat, bit-equal. Reports step
              ms, peaks and the liveness predictions of each run.
+23. resilience — (run after phase 12) the decode tier's fault and
+             overload paths over phase 3's model, every bucket captured:
+             (a) default off: the serving burst with no plan, breaker or
+             ladder gives phase 3's streams, paged launches by route and
+             graphs; (b) a seeded ``FaultPlan`` (``serving.admission``,
+             ``decoding.prefill`` and ``decoding.step`` raises, one
+             ``decoding.prefix_commit`` corruption) with a
+             ``CircuitBreaker`` over phase 10's int8 shared-prompt burst:
+             exactly the two prefill-injected requests fail, every other
+             stream equals phase 10's (but at a near tie), a decode step
+             re-steps its sequences alone (one retry), the injections
+             equal the plan's ``schedule()``, the breaker opens and a
+             probe closes it, no capture after warm-up; (c) the
+             degradation ladder on a 104-block pool: the lowest class
+             streams first, the ladder is forced to stage 2 and the two
+             higher classes preempt it (5 preemptions, 3 resumed through
+             their published prefixes), every stream equals phase 3's
+             (but at a near tie), stage 4 sheds the lowest class with a
+             retriable ``OverloadedError`` and its Retry-After hint,
+             then the ladder walks back to 0; (d) phase 12's one-layer
+             draft at k=3: a ``decoding.draft_step`` raise falls back
+             to plain decoding for good (``DraftEngineError``), a
+             ``decoding.verify_step`` raise costs one plain round, both
+             with phase 3's streams. Reports injections, transitions,
+             re-steps and paged launches by route per leg.
+24. server — (run after phase 23) the bucketed request server: a
+             BERT-base sentence-pair classifier (BERT_MODEL's widths,
+             ``is_test``, ``attn_impl="pallas"``, the bert phase's bf16
+             flags, feeds [-1, 128], the next-sentence head's
+             ``fc(tanh)``, ``fc(2)`` and a softmax over [CLS]; seeded
+             weights) saved with ``save_inference_model``, loaded with
+             ``load_inference_model`` and served with ``serve_program``
+             (buckets 1-64, ``batch_timeout_ms=2``): 8 client threads
+             send 256 seeded requests of 1-8 rows, then one of 100 rows.
+             Every reply within 3e-2 of an eager ``Executor.run`` of its
+             own rows, 7 graphs after warm-up and after the traffic, a
+             ``serving.step``-injected poison request fails alone, and
+             the flash forward launched 12 times an executed batch.
+             Reports rows/s, the padded-row share, request latency p50
+             and p99 (an ``obs.metrics.Histogram``), queue wait and
+             batch execute, and ``render_prometheus()``'s line count.
 
 Then the card's name and power limit, the kernels JSON line (wall and
 device ms of each kernel and its library call; ``persist_launches``,
-``bert_launches``, ``deepfm_launches`` and ``remat_launches``: those
-phases' launches of the kernels their paths run; the rows at
+``bert_launches``, ``deepfm_launches``, ``remat_launches``,
+``resilience_launches`` and ``server_launches``: those phases' launches
+of the kernels their paths run; the rows at
 BERT-base's and DeepFM's shapes carry the bert, remat and deepfm
 phases' launches), and as the
 last line ``{"ok": true, "device": {...}}``. Every phase row carries the
@@ -818,6 +860,39 @@ def serving_prompts():
 SERVING_CACHE = dict(num_blocks=512, block_size=16, max_blocks_per_seq=32)
 
 
+def decoding_config(cache, **config_kw):
+    """The serving phases' DecodingConfig: decode buckets 1-16, MAX_NEW
+    new tokens, warm-up run by the caller."""
+    from paddle_tpu_torch.decoding import DecodingConfig
+
+    return DecodingConfig(cache=cache, decode_buckets=(1, 2, 4, 8, 16),
+                          max_new_tokens=MAX_NEW, warm_up=False, **config_kw)
+
+
+def open_session(model, cache, draft=None, warm=True, **config_kw):
+    """A DecodeSession over ``model`` on the card (``draft`` = (program,
+    logits, scope) makes it speculative), not started; with ``warm``
+    every bucket is captured first. Returns (session, engines)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.decoding import serve_decoding
+
+    main, logits, scope = model
+    kw = {}
+    if draft is not None:
+        kw = dict(draft_program=draft[0], draft_logits_name=draft[1].name,
+                  draft_scope=draft[2])
+    session = serve_decoding(main, "tokens", logits.name, scope=scope,
+                             config=decoding_config(cache, **config_kw),
+                             place=fluid.CUDAPlace(0), auto_start=False,
+                             **kw)
+    engines = [e for e in (session.engine, session.draft_engine)
+               if e is not None]
+    if warm:
+        for e in reversed(engines):  # the draft first, as a session starts
+            e.warm_up()
+    return session, engines
+
+
 def serve_burst(model, cache, prompts, counters=(), capture=True,
                 share_pool=True, params=None, draft=None, **config_kw):
     """Serve ``prompts`` as one burst (32 new tokens each) on the card
@@ -837,29 +912,19 @@ def serve_burst(model, cache, prompts, counters=(), capture=True,
     after the burst, the memory the warm-up reserved, peak memory, and
     the session's engines (for a profile)."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.decoding import (DecodeEngine, DecodeSession,
-                                           DecodingConfig, serve_decoding)
+    from paddle_tpu_torch.decoding import DecodeEngine, DecodeSession
 
-    main, logits, scope = model
-    config = DecodingConfig(cache=cache, decode_buckets=(1, 2, 4, 8, 16),
-                            max_new_tokens=MAX_NEW, warm_up=False,
-                            **config_kw)
-    place = fluid.CUDAPlace(0)
     if capture and share_pool:
-        kw = {}
-        if draft is not None:
-            kw = dict(draft_program=draft[0], draft_logits_name=draft[1].name,
-                      draft_scope=draft[2])
-        session = serve_decoding(main, "tokens", logits.name, scope=scope,
-                                 config=config, place=place,
-                                 auto_start=False, **kw)
+        session, engines = open_session(model, cache, draft=draft,
+                                        warm=False, **config_kw)
     else:
+        main, logits, scope = model
         engine = DecodeEngine(main, "tokens", logits.name, scope=scope,
-                              config=config, place=place, _capture=capture,
+                              config=decoding_config(cache, **config_kw),
+                              place=fluid.CUDAPlace(0), _capture=capture,
                               _share_pool=share_pool)
         session = DecodeSession(engine, auto_start=False)
-    engines = [e for e in (session.engine, session.draft_engine)
-               if e is not None]
+        engines = [engine]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved()
@@ -940,11 +1005,14 @@ def burst_row(run):
            "warm_bucket_count": run["warm_bucket_count"],
            "pool_bytes": run["pool_bytes"],
            "max_memory_allocated": run["max_memory_allocated"]}
-    for name in ("decode_step_ms", "prefill_ms", "extend_ms", "verify_ms"):
-        if name in rep:
-            row["mean_" + name] = rep[name]["mean"]
-            row["p50_" + name] = rep[name]["p50"]
-            row[name.replace("_ms", "s")] = rep[name]["count"]
+    for name, label in (("decode_step", "decode_step"),
+                        ("prefill_latency", "prefill"),
+                        ("extend", "extend"), ("verify", "verify")):
+        h = rep[name]
+        if h["count"]:
+            row["mean_%s_ms" % label] = h["mean_ms"]
+            row["p50_%s_ms" % label] = h["p50_ms"]
+            row[label + "s"] = h["count"]
     return row
 
 
@@ -1000,7 +1068,7 @@ def phase_serving(card):
     counts = route_counts(paged_window_attention)
     check_graphs(run, "serving")
     launches = counts["launches"]
-    steps = run["report"]["decode_step_ms"]["count"]
+    steps = run["report"]["decode_step"]["count"]
     if launches < MODEL["n_layer"] * steps or launches == 0:
         fail("kernel launched %d times over %d decode steps of %d layers"
              % (launches, steps, MODEL["n_layer"]))
@@ -1072,18 +1140,25 @@ def near_ties(model, prompts, got, want, label):
     return ties
 
 
+def shared_prompts():
+    """16 prompts sharing a SYSTEM_PROMPT-token system prompt, each with
+    a private suffix of SUFFIX_TOKENS tokens."""
+    rng = np.random.RandomState(SEED + 3)
+    system = rng.randint(0, MODEL["vocab_size"], size=SYSTEM_PROMPT).tolist()
+    return [system + rng.randint(0, MODEL["vocab_size"], size=rng.randint(
+        SUFFIX_TOKENS[0], SUFFIX_TOKENS[1] + 1)).tolist()
+        for _ in range(N_REQUESTS)]
+
+
 def phase_prefix_int8(card, model):
     """Shared-prompt serving with prefix caching on int8 pools, and the
     same traffic on f32 pools with and without prefix caching, captured;
-    the int8 and f32 prefix-cached bursts again on the eager engine."""
+    the int8 and f32 prefix-cached bursts again on the eager engine.
+    Returns the int8 burst's paged launches and streams."""
     from paddle_tpu_torch.decoding import CacheConfig
     from paddle_tpu_torch.ops import paged_window_attention
 
-    rng = np.random.RandomState(SEED + 3)
-    system = rng.randint(0, MODEL["vocab_size"], size=SYSTEM_PROMPT).tolist()
-    prompts = [system + rng.randint(0, MODEL["vocab_size"], size=rng.randint(
-        SUFFIX_TOKENS[0], SUFFIX_TOKENS[1] + 1)).tolist()
-        for _ in range(N_REQUESTS)]
+    prompts = shared_prompts()
     kinds = {"int8": dict(kv_dtype="int8", prefix_cache=True),
              "f32": dict(prefix_cache=True), "f32_nocache": {}}
     runs = {}
@@ -1104,7 +1179,7 @@ def phase_prefix_int8(card, model):
                  "eager ones" % name)
         runs[name + "_eager"] = run
     rep = runs["int8"]["report"]
-    calls = (rep["decode_step_ms"]["count"] + rep["extend_ms"]["count"])
+    calls = (rep["decode_step"]["count"] + rep["extend"]["count"])
     want = (N_REQUESTS - 1, 1, (N_REQUESTS - 1) * SYSTEM_PROMPT)
     for name in ("int8", "f32", "int8_eager", "f32_eager"):
         r = runs[name]["report"]
@@ -1121,7 +1196,7 @@ def phase_prefix_int8(card, model):
     # decode steps take the split route, suffix prefills the query-tile
     # route (or the split route at buckets up to its threshold)
     if counts["generic_launches"] or counts["split_launches"] < \
-            MODEL["n_layer"] * rep["decode_step_ms"]["count"] or \
+            MODEL["n_layer"] * rep["decode_step"]["count"] or \
             counts["tile_launches"] < MODEL["n_layer"] or \
             counts["split_launches"] + counts["tile_launches"] != launches:
         fail("prefix_int8: the paged launches did not take the split and "
@@ -1151,10 +1226,11 @@ def phase_prefix_int8(card, model):
            "int8_vs_f32_first_divergence": agree}
     for name, run in runs.items():
         row[name] = burst_row(run)
+    int8_streams = runs["int8"]["streams"]
     del runs
     torch.cuda.empty_cache()
     emit(row)
-    return counts
+    return counts, int8_streams
 
 
 SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
@@ -1272,7 +1348,7 @@ def phase_speculative(card, model, greedy_streams):
         check_graphs(run, "speculative " + label)
         rep, drep = run["report"], run["draft_report"]
         verify = rep["verify_steps_total"]
-        draft_steps = drep["decode_step_ms"]["count"]
+        draft_steps = drep["decode_step"]["count"]
         # the target never decodes: its paged launches are the verify
         # windows', the draft's are its decode steps'
         target, drafted = MODEL["n_layer"] * verify, d_layers * draft_steps
@@ -1303,13 +1379,550 @@ def phase_speculative(card, model, greedy_streams):
                            decoded / rep["verify_rows_total"],
                        "draft_decode_steps": draft_steps,
                        "mean_draft_decode_step_ms":
-                           drep["decode_step_ms"]["mean"],
+                           drep["decode_step"]["mean_ms"],
                        "route_launches": counts, "near_ties": ties}
         counts_by[label] = counts
         del run
         torch.cuda.empty_cache()
     emit({"phase": "speculative", "card": card, **rows})
     return counts_by
+
+
+# ------------------------------------------------------- resilience, server
+
+# the ladder leg's pool: 104 blocks of 16 (the burst's worst case is 154)
+# hold the lowest class's requests and some more, so the higher classes
+# preempt (5 preemptions) and some preempted requests find their
+# published prefix still cached when they resume (3 suffix prefills);
+# the admission order, and so these counts, do not depend on the card
+LADDER_CACHE = dict(num_blocks=104, block_size=16, max_blocks_per_seq=32)
+LADDER_CLASSES = (0, 1, 2)  # PRIORITY_HIGH, _NORMAL, _LOW by i % 3
+
+
+def outcomes(futs, timeout=600):
+    """Each future's stream, or the exception it resolved with."""
+    out = []
+    for f in futs:
+        try:
+            out.append(f.result(timeout=timeout))
+        except Exception as e:  # the caller checks the class
+            out.append(e)
+    return out
+
+
+def accepted_equal(model, prompts, got, want, label):
+    """Every completed stream (not an exception) equals ``want`` but at
+    a near tie (``near_ties``); returns (accepted count, near ties)."""
+    keep = [i for i, g in enumerate(got) if not isinstance(g, Exception)]
+    for i in keep:
+        if len(got[i]) != MAX_NEW:
+            fail("%s: request %d completed with %d tokens" % (
+                label, i, len(got[i])))
+    ties = near_ties(model, [prompts[i] for i in keep],
+                     [got[i] for i in keep], [want[i] for i in keep],
+                     label)
+    return len(keep), ties
+
+
+def check_warm_graphs(engines, label):
+    """No capture after warm-up: each engine holds exactly its warm
+    buckets' graphs."""
+    got = [e.num_compiled for e in engines]
+    want = [e.warm_bucket_count() for e in engines]
+    if got != want:
+        fail("%s: %s graphs after the traffic, expected the warm buckets' "
+             "%s" % (label, got, want))
+    return got
+
+
+def schedule_matches(plan, log, hits):
+    """The live injections equal the plan's simulation of the observed
+    hit counts, site by site (the live log interleaves sites)."""
+    sim = plan.schedule(hits)
+    return all([r for r in log if r["site"] == site]
+               == [r for r in sim if r["site"] == site] for site in hits)
+
+
+class Hold:
+    """A streaming callback that holds the session's worker at the first
+    token of its request until ``release()``: what follows (a ladder
+    stage, more submits) lands at a fixed point of the stream."""
+
+    def __init__(self):
+        import threading
+
+        self.tokens = []
+        self.reached = threading.Event()
+        self.go = threading.Event()
+
+    def __call__(self, tok):
+        self.tokens.append(tok)
+        if len(self.tokens) == 1:
+            self.reached.set()
+            self.go.wait(timeout=300)
+
+    def release(self):
+        self.go.set()
+
+
+def phase_resilience(card, model, greedy, serving_counts, prefix_streams):
+    """The decode tier's fault and overload paths over the serving
+    phase's model, every bucket captured: (a) default off — the serving
+    burst again, no plan, breaker or ladder; (b) a seeded FaultPlan with
+    a circuit breaker over the prefix_int8 phase's shared-prompt burst
+    (int8 pools, prefix caching); (c) the degradation ladder: priority classes, preemption
+    and resumption, stage-4 shedding, the walk back; (d) speculation's
+    draft-step and verify-step faults. Returns the paged launches by
+    route of each leg."""
+    from paddle_tpu_torch.decoding import CacheConfig
+    from paddle_tpu_torch.ops import paged_window_attention as pwa
+    from paddle_tpu_torch.resilience import (CircuitBreaker,
+                                             DegradationConfig,
+                                             DegradationManager, FaultPlan,
+                                             InjectedFault, faults)
+    from paddle_tpu_torch.serving import (DraftEngineError,
+                                          GenerationInterruptedError,
+                                          OverloadedError, is_retriable)
+
+    t_phase = time.perf_counter()
+    prompts = serving_prompts()
+    cache = CacheConfig(**SERVING_CACHE)
+    counts, row = {}, {"phase": "resilience", "card": card}
+
+    # (a) default off: the serving phase's streams, launches and graphs
+    if faults.active_plan() is not None:
+        fail("resilience: a fault plan is active before the default-off leg")
+    run = serve_burst(model, cache, prompts, counters=(pwa,))
+    counts["default_off"] = route_counts(pwa)
+    check_graphs(run, "resilience default-off")
+    if run["streams"] != greedy:
+        fail("resilience default-off: the streams differ from the serving "
+             "phase's")
+    if counts["default_off"] != serving_counts:
+        fail("resilience default-off: paged launches %s, the serving "
+             "phase's %s" % (counts["default_off"], serving_counts))
+    row["default_off"] = {**burst_row(run), "streams_equal_serving": True,
+                          "route_launches": counts["default_off"]}
+    del run
+
+    # (b) a seeded plan over the shared-prompt int8 burst, with a
+    # breaker: two admission raises (the request stays queued), two
+    # prefill raises (those two requests fail alone, and the breaker
+    # opens), three decode-step raises (a batch step, then a solo
+    # re-step: its retry), and the second prefix publish corrupted (a
+    # request's private suffix blocks stay private; nothing shares
+    # them, so no stream depends on it — under int8 a hit's stream may
+    # differ from a miss's, so the system prompt's publish is spared)
+    sp = shared_prompts()
+    plan = (FaultPlan(seed=SEED + 11)
+            .rule("serving.admission", "raise", hits=[0, 5])
+            .rule("decoding.prefill", "raise", hits=[3, 4])
+            .rule("decoding.step", "raise", hits=[6, 7, 30])
+            .rule("decoding.prefix_commit", "corrupt", hits=[1]))
+    br = CircuitBreaker(window=4, min_samples=2, failure_rate=0.5,
+                        reset_timeout_s=0.05)
+    session, engines = open_session(
+        model, CacheConfig(**SERVING_CACHE, kv_dtype="int8",
+                           prefix_cache=True), breaker=br)
+    reset_counts(pwa)
+    faults.install_plan(plan)
+    try:
+        futs = [session.submit(p, max_new_tokens=MAX_NEW) for p in sp]
+        session.start()
+        got = outcomes(futs)
+        log, hits = faults.injection_log(), faults.hit_counts()
+        injected = faults.injections()
+    finally:
+        faults.clear_plan()
+    opened = [t for t in br.transitions if t["to"] == "open"]
+    # the breaker opened on the prefill failures; a probe after its reset
+    # timeout is admitted half-open and closes it
+    time.sleep(2 * br.reset_timeout_s)
+    probe = session.submit(sp[0], max_new_tokens=MAX_NEW).result(timeout=600)
+    state = br.state
+    rep = session.metrics.report()
+    counts["faults"] = route_counts(pwa)
+    graphs = check_warm_graphs(engines, "resilience faults")
+    session.shutdown(drain=True, timeout=120)
+    failed = {i: type(g).__name__ for i, g in enumerate(got)
+              if isinstance(g, Exception)}
+    if sorted(failed.values()).count("InjectedFault") != 2 or any(
+            not isinstance(got[i], (InjectedFault,
+                                    GenerationInterruptedError))
+            for i in failed):
+        fail("resilience faults: failed requests %s, expected two prefill "
+             "injections (and at most interrupted re-steps)" % failed)
+    n_ok, ties = accepted_equal(model, sp, got, prefix_streams,
+                                "resilience faults")
+    if not schedule_matches(plan, log, hits):
+        fail("resilience faults: injections %s differ from the plan's "
+             "schedule of %s" % (log, hits))
+    if not opened or state != "closed":
+        fail("resilience faults: the breaker's transitions %s (state %s): "
+             "it should open on the failures and close after a probe"
+             % (br.transitions, state))
+    if rep["retries_total"] < 1 or rep["prefix_commits_dropped_total"] != 1:
+        fail("resilience faults: %d retries, %d dropped prefix publishes"
+             % (rep["retries_total"], rep["prefix_commits_dropped_total"]))
+    accepted_equal(model, [sp[0]], [probe], [prefix_streams[0]],
+                   "resilience probe")
+    row["faults"] = {
+        "plan": plan.to_dict(), "injections": injected, "hits": hits,
+        "schedule_equals_plan": True, "failed": failed,
+        "accepted": n_ok, "near_ties": ties,
+        "restep_retries": rep["retries_total"],
+        "decode_steps": rep["decode_steps_total"],
+        "prefix_commits_dropped": rep["prefix_commits_dropped_total"],
+        "prefix_cache_hits": rep["prefix_cache_hits_total"],
+        "breaker_transitions": [(t["from"], t["to"], t["reason"])
+                                for t in br.transitions],
+        "graphs": graphs, "route_launches": counts["faults"]}
+
+    # (c) the ladder: the lowest class streams first on a pool that
+    # holds four of them; at stage 2 the higher classes arrive and
+    # preempt them; every stream then completes, the preempted ones
+    # resumed through their published prefixes (suffix prefills)
+    mgr = DegradationManager(DegradationConfig(down_after=10 ** 6))
+    session, engines = open_session(
+        model, CacheConfig(**LADDER_CACHE, prefix_cache=True), degrade=mgr)
+    prio = [LADDER_CLASSES[i % 3] for i in range(N_REQUESTS)]
+    low = [i for i in range(N_REQUESTS) if prio[i] == 2]
+    hold = Hold()
+    reset_counts(pwa)
+    futs = {low[0]: session.submit(prompts[low[0]], max_new_tokens=MAX_NEW,
+                                   priority=2, on_token=hold)}
+    for i in low[1:]:
+        futs[i] = session.submit(prompts[i], max_new_tokens=MAX_NEW,
+                                 priority=2)
+    session.start()
+    try:
+        if not hold.reached.wait(timeout=300):
+            fail("resilience ladder: the first request never streamed")
+        mgr.force_stage(2, "chip_smoke")
+        for i in range(N_REQUESTS):
+            if i not in futs:
+                futs[i] = session.submit(prompts[i], max_new_tokens=MAX_NEW,
+                                         priority=prio[i])
+    finally:
+        hold.release()
+    got = outcomes([futs[i] for i in range(N_REQUESTS)])
+    if any(isinstance(g, Exception) for g in got):
+        fail("resilience ladder: %s" % [repr(g) for g in got
+                                        if isinstance(g, Exception)])
+    n_ok, ladder_ties = accepted_equal(model, prompts, got, greedy,
+                                       "resilience ladder")
+    if hold.tokens != got[low[0]]:
+        fail("resilience ladder: the held request streamed %s, resolved "
+             "%s" % (hold.tokens, got[low[0]]))
+    lrep = session.metrics.report()
+    counts["ladder"] = route_counts(pwa)
+    if lrep["preemptions_total"] < 1 or lrep["prefix_cache_hits_total"] < 1 \
+            or counts["ladder"]["tile_launches"] \
+            + counts["ladder"]["split_launches"] != \
+            counts["ladder"]["launches"] or \
+            counts["ladder"]["generic_launches"]:
+        fail("resilience ladder: %d preemptions, %d resumed through a "
+             "cached prefix, launches %s"
+             % (lrep["preemptions_total"], lrep["prefix_cache_hits_total"],
+                counts["ladder"]))
+    # stage 4 sheds the lowest class with a Retry-After hint; a higher
+    # class is still served
+    mgr.force_stage(4, "chip_smoke")
+    try:
+        session.submit(prompts[low[0]], max_new_tokens=MAX_NEW, priority=2)
+        fail("resilience ladder: stage 4 admitted the lowest class")
+    except OverloadedError as e:
+        if not is_retriable(e) or not e.retry_after_s > 0:
+            fail("resilience ladder: shed without a retriable hint (%r)"
+                 % (e,))
+        hint = e.retry_after_s
+    served = session.submit(prompts[1], max_new_tokens=MAX_NEW,
+                            priority=1).result(timeout=600)
+    accepted_equal(model, [prompts[1]], [served], [greedy[1]],
+                   "resilience stage 4")
+    # pressure cleared: with a short hysteresis the idle worker's
+    # evaluations walk the ladder back, one stage at a time
+    mgr.config.down_after = 2
+    deadline = time.monotonic() + 60
+    while mgr.stage > 0 and time.monotonic() < deadline:
+        time.sleep(0.02)
+    if mgr.stage != 0:
+        fail("resilience ladder: stuck at stage %d" % mgr.stage)
+    graphs = check_warm_graphs(engines, "resilience ladder")
+    session.shutdown(drain=True, timeout=120)
+    row["ladder"] = {
+        "cache": LADDER_CACHE, "accepted": n_ok, "near_ties": ladder_ties,
+        "preemptions": lrep["preemptions_total"],
+        "resumed_from_prefix": lrep["prefix_cache_hits_total"],
+        "suffix_prefills": lrep["extend"]["count"],
+        "admission_blocked": lrep["admission_blocked_total"],
+        "shed": lrep["admissions_rejected_total"], "retry_after_s": hint,
+        "transitions": [(t["from"], t["to"], t["reason"])
+                        for t in mgr.transitions],
+        "graphs": graphs, "route_launches": counts["ladder"],
+        "decode_step_ms_mean": lrep["decode_step"]["mean_ms"]}
+
+    # (d) speculation (the speculative phase's one-layer draft, k=3): a
+    # draft-step raise mid-burst falls back to plain decoding for good;
+    # a verify-step raise costs one plain round
+    draft = build_model(n_layer=1, seed=SEED + 5)
+    for label, site, hit in (("draft_fault", "decoding.draft_step", 20),
+                             ("verify_fault", "decoding.verify_step", 2)):
+        plan = FaultPlan(seed=SEED + 12).rule(site, "raise", hits=[hit])
+        session, engines = open_session(model, cache, draft=draft,
+                                        speculate_k=3)
+        reset_counts(pwa)
+        faults.install_plan(plan)
+        try:
+            futs = [session.submit(p, max_new_tokens=MAX_NEW)
+                    for p in prompts]
+            session.start()
+            got = outcomes(futs)
+            injected = faults.injections()
+        finally:
+            faults.clear_plan()
+        health = session.health()
+        drep = session.metrics.report()
+        counts[label] = route_counts(pwa)
+        graphs = check_warm_graphs(engines, "resilience " + label)
+        err = session.batcher.draft_error
+        session.shutdown(drain=True, timeout=120)
+        n_ok, ties = accepted_equal(model, prompts, got, greedy,
+                                    "resilience " + label)
+        if n_ok != N_REQUESTS or injected != {site + ":raise": 1}:
+            fail("resilience %s: %d of %d completed, injections %s"
+                 % (label, n_ok, N_REQUESTS, injected))
+        fallback = isinstance(err, DraftEngineError)
+        if fallback != (label == "draft_fault"):
+            fail("resilience %s: draft error %r, speculation %s"
+                 % (label, err, health.get("speculation")))
+        row[label] = {"injections": injected, "near_ties": ties,
+                      "speculation": health["speculation"],
+                      "spec_disabled": drep["spec_disabled_total"],
+                      "verify_steps": drep["verify_steps_total"],
+                      "acceptance_rate": drep["spec_acceptance_rate"],
+                      "graphs": graphs, "route_launches": counts[label]}
+    del draft
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return counts
+
+
+SERVER_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+SERVER_T = 128           # BERT-base's phase-1 sequence length
+SERVER_REQUESTS, SERVER_CLIENTS, SERVER_ROWS = 256, 8, (1, 8)
+SERVER_OVERSIZE = 100    # one request past the largest bucket
+SERVER_ROOT = "build/chip_smoke_server"  # under the checkout, ignored
+SERVER_FLAGS = {"use_bfloat16": True, "bf16_activations": True}
+
+
+def build_server_model():
+    """A BERT-base sentence-pair classifier for inference: the encoder
+    of ``bert_encoder`` at BERT_MODEL's widths (``is_test``,
+    ``attn_impl="pallas"``, built under the bert phase's bf16 flags),
+    feeds ``[-1, SERVER_T]``, then ``bert_pretrain``'s next-sentence
+    head over [CLS] — ``fc(tanh)``, ``fc(2)`` — and a softmax. Returns
+    (main, feed names, probabilities var, scope) with numpy-seeded
+    weights on the card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.bert import bert_encoder
+
+    saved = {n: fluid.get_flag(n) for n in SERVER_FLAGS}
+    fluid.set_flags(SERVER_FLAGS)
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            feeds = [fluid.layers.data(name=n, shape=[-1, SERVER_T],
+                                       dtype=dt, append_batch_size=False)
+                     for n, dt in (("src_ids", "int64"),
+                                   ("sent_ids", "int64"),
+                                   ("pos_ids", "int64"),
+                                   ("input_mask", "float32"))]
+            enc = bert_encoder(*feeds, **BERT_MODEL, dropout=BERT_DROPOUT,
+                               is_test=True, attn_impl="pallas")
+            cls = fluid.layers.squeeze(fluid.layers.slice(
+                enc, axes=[1], starts=[0], ends=[1]), axes=[1])
+            pooled = fluid.layers.fc(input=cls, size=BERT_MODEL["d_model"],
+                                     act="tanh")
+            prob = fluid.layers.softmax(fluid.layers.fc(input=pooled,
+                                                        size=2))
+    finally:
+        fluid.set_flags(saved)
+    scope = fluid.Scope()
+    fluid.params_from_numpy(seeded_weights(main, SEED + 13), scope,
+                            fluid.CUDAPlace(0), program=main)
+    return main, [v.name for v in feeds], prob, scope
+
+
+def server_requests(seed=SEED + 14):
+    """SERVER_REQUESTS sentence pairs of 1-8 rows each, then one of
+    SERVER_OVERSIZE rows: lengths 8-128, two segments, ids from the
+    vocab."""
+    rng = np.random.RandomState(seed)
+    sizes = list(rng.randint(SERVER_ROWS[0], SERVER_ROWS[1] + 1,
+                             size=SERVER_REQUESTS)) + [SERVER_OVERSIZE]
+    out = []
+    for n in sizes:
+        lens = rng.randint(8, SERVER_T + 1, size=n)
+        first = rng.randint(1, SERVER_T, size=n) % lens
+        cols = np.arange(SERVER_T)[None, :]
+        mask = cols < lens[:, None]
+        out.append({
+            "src_ids": np.where(mask, rng.randint(
+                1, BERT_MODEL["vocab_size"], size=(n, SERVER_T)),
+                0).astype(np.int64),
+            "sent_ids": (mask & (cols > first[:, None])).astype(np.int64),
+            "pos_ids": np.broadcast_to(cols, (n, SERVER_T)).astype(np.int64),
+            "input_mask": mask.astype(np.float32)})
+    return out
+
+
+def phase_server(card):
+    """The bucketed request server over an inference program: BERT-base
+    sentence-pair classification saved with ``save_inference_model``,
+    loaded with ``load_inference_model`` and served with
+    ``serve_program`` (buckets 1-64, every bucket a captured graph) to
+    8 client threads; then a poison request. Returns the flash forward's
+    launches and the batches executed."""
+    import shutil
+    import threading
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.obs import metrics as obs_metrics
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.resilience import FaultPlan, InjectedFault, faults
+    from paddle_tpu_torch.serving import (InferenceServer, ServingConfig,
+                                          serve_program)
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SERVER_ROOT)
+    shutil.rmtree(root, ignore_errors=True)
+    main, feed_names, prob, scope = build_server_model()
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    fluid.io.save_inference_model(root, feed_names, [prob], exe,
+                                  main_program=main, scope=scope,
+                                  export_stablehlo=False)
+    save_s = time.perf_counter() - t0
+    del scope
+    served_scope = fluid.Scope()
+    t0 = time.perf_counter()
+    program, feeds, fetches = fluid.io.load_inference_model(
+        root, exe, scope=served_scope, program=main)
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    config = ServingConfig(buckets=SERVER_BUCKETS, batch_timeout_ms=2.0,
+                           queue_capacity=4 * SERVER_REQUESTS)
+    server = serve_program(program, feeds, fetches, scope=served_scope,
+                           config=config, place=fluid.CUDAPlace(0),
+                           auto_start=False)
+    t0 = time.perf_counter()
+    server.start()  # warm_up: one capture per bucket
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    engine = server.engine
+    if engine.compile_count != len(SERVER_BUCKETS):
+        fail("server: %d graphs after warm-up, expected one per bucket (%d)"
+             % (engine.compile_count, len(SERVER_BUCKETS)))
+    reqs = server_requests()
+    replies = [None] * len(reqs)
+    latency = obs_metrics.Histogram()
+    lock = threading.Lock()
+
+    def client(c):
+        for i in range(c, SERVER_REQUESTS, SERVER_CLIENTS):
+            t = time.perf_counter()
+            out, = server.infer(reqs[i], timeout=600)
+            ms = (time.perf_counter() - t) * 1e3
+            with lock:
+                latency.observe(ms)
+            replies[i] = out
+
+    reset_counts(fa.flash_fwd)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or any(
+            r is None for r in replies[:SERVER_REQUESTS]):
+        fail("server: not every client request was answered")
+    t = time.perf_counter()
+    replies[-1], = server.infer(reqs[-1], timeout=600)  # oversize: chunks
+    oversize_ms = (time.perf_counter() - t) * 1e3
+    server.shutdown(drain=True, timeout=120)
+    rep = server.metrics.report()
+    # a poison request: three requests coalesce into one batch (queued
+    # before the worker starts); serving.step raises on that batch and on
+    # the second solo re-run, so that request alone fails
+    poison = InferenceServer(engine, config=ServingConfig(
+        buckets=SERVER_BUCKETS, batch_timeout_ms=200.0, warm_up=False),
+        auto_start=False)
+    pfeeds = reqs[:3]
+    pfuts = [poison.submit(f) for f in pfeeds]
+    faults.install_plan(FaultPlan(seed=SEED + 15).rule(
+        "serving.step", "raise", hits=[0, 2]))
+    try:
+        poison.start()
+        pgot = outcomes(pfuts)
+    finally:
+        faults.clear_plan()
+        poison.shutdown(drain=True, timeout=120)
+    if [isinstance(g, InjectedFault) for g in pgot] != [False, True, False]:
+        fail("server: the poison request did not fail alone (%s)"
+             % [repr(g) if isinstance(g, Exception) else "ok" for g in pgot])
+    executed = server.metrics.report()["batch_execute"]["count"]
+    launches = fa.flash_fwd.launches
+    if launches != BERT_MODEL["n_layer"] * executed:
+        fail("server: the flash forward launched %d times over %d executed "
+             "batches of %d layers" % (launches, executed,
+                                       BERT_MODEL["n_layer"]))
+    if engine.compile_count != len(SERVER_BUCKETS):
+        fail("server: %d graphs after the traffic, expected %d"
+             % (engine.compile_count, len(SERVER_BUCKETS)))
+    # every reply against an eager Executor.run of its own rows
+    worst = 0.0
+    for i, (feed, got) in enumerate(zip(reqs, replies)):
+        want, = exe.run(program, feed=feed, fetch_list=fetches,
+                        scope=served_scope)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail("server: request %d replied %s, eager %s" % (
+                i, got.shape, want.shape))
+        worst = max(worst, float(np.abs(got - want).max()))
+    for g, feed in zip(pgot[::2], pfeeds[::2]):
+        want, = exe.run(program, feed=feed, fetch_list=fetches,
+                        scope=served_scope)
+        worst = max(worst, float(np.abs(g[0] - want).max()))
+    if worst > TOL[torch.bfloat16]:
+        fail("server: a reply differs from its eager run by %g" % worst)
+    rows = sum(len(r["src_ids"]) for r in reqs)
+    emit({"phase": "server", "card": card, "model": BERT_MODEL,
+          "flags": SERVER_FLAGS, "seq_len": SERVER_T,
+          "buckets": SERVER_BUCKETS, "batch_timeout_ms": 2.0,
+          "requests": len(reqs), "clients": SERVER_CLIENTS, "rows": rows,
+          "save_s": save_s, "load_s": load_s, "warm_up_s": warm_s,
+          "graphs": engine.compile_count,
+          "rows_per_s": (rows - SERVER_OVERSIZE) / wall_s,
+          "traffic_wall_s": wall_s, "oversize_ms": oversize_ms,
+          "padded_row_share": rep["padding_overhead"],
+          "batches": rep["batches_total"], "executed_batches": executed,
+          "mean_batch_rows": rep["batch_size"]["mean_rows"],
+          "request_latency_ms": latency.snapshot(),
+          "queue_wait_ms": rep["queue_wait"],
+          "batch_execute_ms": rep["batch_execute"],
+          "flash_fwd_launches": launches,
+          "max_abs_err_vs_eager": worst, "poison_fails_alone": True,
+          "prometheus_lines": len(
+              obs_metrics.render_prometheus().splitlines()),
+          "phase_s": time.perf_counter() - t_phase})
+    del server, poison, engine, served_scope
+    torch.cuda.empty_cache()
+    return {"flash_fwd": launches, "batches": executed}
 
 
 def check_oracle(main, logits, scope, prompts, streams):
@@ -3425,7 +4038,7 @@ def phase_persist(card, model, greedy, base, dropout_step_ms):
                if x != y]
         fail("persist: the reloaded decode model's streams differ from the "
              "serving phase's (requests %s)" % bad)
-    steps = run["report"]["decode_step_ms"]["count"]
+    steps = run["report"]["decode_step"]["count"]
     if counts["generic_launches"] or counts["split_launches"] < \
             MODEL["n_layer"] * steps:
         fail("persist: the reloaded model's decode launches %s over %d "
@@ -4241,9 +4854,14 @@ def main():
     vgg_launches, vgg_timed = phase_vgg(card)
     torch.cuda.empty_cache()
     serving_counts, model, greedy = phase_serving(card)
-    prefix_counts = phase_prefix_int8(card, model)
+    prefix_counts, prefix_streams = phase_prefix_int8(card, model)
     phase_sampling(card, model, greedy)
     spec_counts = phase_speculative(card, model, greedy)
+    torch.cuda.empty_cache()
+    resilience_counts = phase_resilience(card, model, greedy,
+                                         serving_counts, prefix_streams)
+    torch.cuda.empty_cache()
+    server_launches = phase_server(card)
     torch.cuda.empty_cache()
     persist_launches, persist_counts = phase_persist(
         card, model, greedy, base, dropout_step_ms)
@@ -4284,21 +4902,35 @@ def main():
                                  for c in spec_counts.values()),
                            kernel_row(1, "float32", "float32"))]
     # the persist phase's paths (Trainer B of the dropout recipe, the
-    # reloaded decode model) ran these kernels too, counted apart
+    # reloaded decode model) ran these kernels too, counted apart; so did
+    # the resilience phase's legs (faults, re-steps, preemption and
+    # resumption, the draft and verify faults), by route
     kernels[0]["persist_launches"] = persist_counts["split_launches"]
+    res_f32 = [c for leg, c in resilience_counts.items() if leg != "faults"]
+    kernels[0]["resilience_launches"] = sum(c["split_launches"]
+                                            for c in res_f32)
     # the k=8 verify window (T=9): the query-tile route on f32 pools
     kernels.append(paged_entry("paged_window_attention_verify", 200,
                                spec_counts["k8"]["tile_launches"],
                                kernel_row(9, "float32", "float32")))
+    # f32 query-tile launches of the resilience phase: the ladder leg's
+    # suffix prefills of resumed requests
+    kernels[-1]["resilience_launches"] = sum(c["tile_launches"]
+                                             for c in res_f32)
     # the int8 variant at the decode shape, f32 queries (every launch of
     # the shared-prompt burst), and its query-tile route at the T=64
     # suffix bucket (the burst's suffix prefills past the threshold)
     kernels.append(paged_entry("paged_window_attention_int8", 218,
                                prefix_counts["int8_launches"],
                                kernel_row(1, "float32", "int8")))
+    # the resilience phase's faulted int8 burst, by route
+    kernels[-1]["resilience_launches"] = resilience_counts["faults"][
+        "int8_launches"]
     kernels.append(paged_entry("paged_window_attention_tile", 200,
                                prefix_counts["tile_launches"],
                                kernel_row(64, "float32", "int8")))
+    kernels[-1]["resilience_launches"] = resilience_counts["faults"][
+        "tile_launches"]
     # the training path's shape with its key mask (12 of the 18
     # attention calls of a step are key-masked; PERF.md has the rest):
     # f32 with the f32 training phase's launches, bf16 with the recipe's;
@@ -4336,6 +4968,10 @@ def main():
                 # the remat phase's level-1 run (20 steps at the phase-2
                 # shape): the recompute relaunches the forward
                 kernels[-1]["remat_launches"] = remat_launches[name]
+                if name == "flash_fwd":
+                    # the server phase: 12 launches an executed batch
+                    kernels[-1]["server_launches"] = server_launches[
+                        "flash_fwd"]
     # the recipe's own group: Adam, bf16 moments, owning the beta powers
     fu = next(r for r in fused_rows if r["n"] == n_recipe
               and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",

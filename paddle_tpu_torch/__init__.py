@@ -47,11 +47,17 @@ a Trainer saved::
     trainer.train(num_epochs=1, reader=reader, feed_order=names,
                   steps_per_loop=10)
 
+The request server (``serving.serve_program``) pads coalesced requests
+to bucket shapes, each a captured CUDA graph on the card; the decode
+and request servers share ``resilience``' fault plane, circuit breaker
+and degradation ladder, and ``obs``' metrics registry and traces.
+
 This package imports neither jax nor paddle_tpu.
 """
 
 from . import (analysis, checkpoint, ckpt, clip, io, layers, obs,
-               optimizer, passes, profiler, reader, regularizer)
+               optimizer, passes, profiler, reader, regularizer,
+               resilience)
 from .backward import append_backward
 from .ckpt import CheckpointConfig
 from .convert import params_from_numpy, state_from_numpy

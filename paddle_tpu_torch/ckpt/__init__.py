@@ -19,9 +19,11 @@ The files are the JAX package's, in both directions:
     (``check_restore``), ``apply_state`` (one write per flat buffer) and
     ``restore``.
 
+The writers fire the ``ckpt.publish`` and ``ckpt.payload`` fault
+points (``resilience``).
+
 Not ported: sharded layouts and multi-process saves (ROADMAP Queue A
-9), the resilience fault points (Queue A 10), the ``tools.ckpt`` CLI
-(Queue A 10).
+9), the ``tools.ckpt`` CLI (Queue A 10).
 """
 
 from __future__ import annotations

@@ -21,9 +21,8 @@ every manifest parses and every payload matches its sha256 and size.
 The port writes and reads the single-process format: the whole serial
 is built in a hidden temp dir and published with ONE ``os.rename``
 (first-publisher-wins). Multi-process saves and the legacy sharded
-format wait for multi-GPU support (ROADMAP Queue A 9); the resilience fault points of the JAX package's
-writers (``ckpt.publish``, ``ckpt.payload``) wait for ``resilience/``
-(Queue A 10).
+format wait for multi-GPU support (ROADMAP Queue A 9). The writers fire
+the ``ckpt.publish`` and ``ckpt.payload`` fault points.
 """
 
 from __future__ import annotations
@@ -100,8 +99,11 @@ def write_process_files(d: str, pid: int, entries: Dict[str, Any],
     tmp = os.path.join(d, f".tmp_{shard_file}")
     npz.savez(tmp, payload)
     digest, size = _sha256(tmp), os.path.getsize(tmp)
-    # the JAX package fires its ckpt.payload fault point here (ROADMAP
-    # Queue A 10: resilience/)
+    # digest recorded — an injected corruption here yields an invalid
+    # serial that restore's newest-valid fallback must skip
+    from ..resilience import faults
+
+    faults.fire("ckpt.payload", tmp)
     os.replace(tmp, os.path.join(d, shard_file))
     _atomic_write_json(d, f"manifest_{pid}.json", {
         "format": ELASTIC_FORMAT, "process_index": pid,
@@ -135,8 +137,11 @@ def publish_serial(root: str, serial: int, entries: Dict[str, Any],
         return False
     tmp_dir = tempfile.mkdtemp(prefix=".ckpt_tmp_", dir=root)
     try:
-        # the JAX package fires its ckpt.publish fault point here
-        # (ROADMAP Queue A 10: resilience/)
+        # fired once the temp dir exists: an injected crash orphans it
+        # for ckpt.sweep_orphans, a delay widens the preemption window
+        from ..resilience import faults
+
+        faults.fire("ckpt.publish")
         write_process_files(tmp_dir, 0, entries, trainer_id=trainer_id,
                             trainer_args=trainer_args)
         write_meta(tmp_dir, serial, 1, entries, extra_meta)

@@ -15,10 +15,14 @@ queued behind the steps that wrote them); the async saver's background
 worker only serializes, hashes and publishes host copies, and the next
 step may overwrite the tensors at once.
 
+The writers fire the JAX package's fault points: ``ckpt.publish`` once
+the temp dir exists (an injected crash orphans it for
+``sweep_orphans``) and ``ckpt.payload`` once the payload's digest is
+recorded (an injected corruption makes that serial invalid, so
+restore's newest-valid fallback skips it).
+
 Not ported: the legacy sharded format and multi-process elastic saves
-(``save_checkpoint_sharded``, ``pcount > 1``; ROADMAP Queue A 9), and
-the resilience fault points of the JAX package's writers
-(``ckpt.publish``, ``ckpt.payload``; Queue A 10).
+(``save_checkpoint_sharded``, ``pcount > 1``; ROADMAP Queue A 9).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Any, Dict, List, Optional
 from ..core import npz
 from ..core.enforce import not_ported
 from ..profiler import RecordEvent
+from ..resilience import faults
 from .base import (_META_FILE, _TRAINER_PREFIX, _md5, _scroll_delete,
                    _serial_dir, list_checkpoints)
 from .manifest import publish_serial, snapshot_state
@@ -58,12 +63,17 @@ def save_checkpoint(root: str,
 
     tmp_dir = tempfile.mkdtemp(prefix=".ckpt_tmp_", dir=root)
     try:
-        # the JAX package fires its ckpt.publish fault point here and
-        # ckpt.payload once the digest is recorded (ROADMAP Queue A 10)
+        # AFTER mkdtemp: an injected crash here orphans the temp dir
+        # (the kill signature sweep_orphans reclaims); a delay widens
+        # the real crash window
+        faults.fire("ckpt.publish")
         state_p = npz.savez(os.path.join(tmp_dir, "state.npz"), arrays)
         meta = {"md5": _md5(state_p), "serial": serial,
                 "names": sorted(arrays)}
         meta.update(extra_meta or {})
+        # the digest is recorded: a corruption landing on the payload
+        # NOW makes this serial invalid, as a torn write would
+        faults.fire("ckpt.payload", state_p)
         with open(os.path.join(tmp_dir, _META_FILE), "w") as f:
             json.dump(meta, f)
         if trainer_args is not None:

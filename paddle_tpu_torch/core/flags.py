@@ -16,6 +16,10 @@ flat group update op always runs the hand-written fused-update kernel
 (ops/fused_optimizer.py). That is what the JAX package does with those
 flags on.
 
+``resilience.faults`` reads ``fault_plan`` (a plan as inline JSON or a
+file path) at the first ``fire`` when no plan was installed and
+``PDTPU_FAULT_PLAN`` is unset.
+
 The executor reads ``donate_state_buffers``, ``scan_unroll`` and
 ``check_program`` at each run, ``reader.DataLoader`` reads ``dataloader_buffer_size`` when it is
 made.
@@ -90,3 +94,7 @@ define_flag("dataloader_buffer_size", 2,
             "the card run this far ahead of the consuming step); raise it "
             "when the loader's stall fraction shows the card waiting on "
             "input")
+define_flag("fault_plan", "",
+            "a resilience.FaultPlan (inline JSON or a path to a JSON "
+            "file) activated at the first fault-point fire when no plan "
+            "was installed and PDTPU_FAULT_PLAN is unset")

@@ -26,6 +26,13 @@ threefry, bit-equal to ``jax.random``), and
 model proposes ``speculate_k`` tokens, the target verifies them in one
 window step. On a card every bucket runs as a captured CUDA graph
 (``warm_up`` captures them all).
+
+``DecodingConfig(breaker=, degrade=)`` wire the circuit breaker and the
+degradation ladder (``resilience``): priority classes, preemption with
+bit-equal resumption, speculation shedding, stage-4 load shedding. A
+failed decode step re-steps each sequence alone, a failed draft falls
+back to plain decoding for good (``DraftEngineError``), and the
+``resilience`` fault points exercise each path on demand.
 """
 
 from .batcher import ContinuousBatcher

@@ -26,9 +26,11 @@ Blocks become shareable only after :meth:`KVCacheManager.commit_prefix`
 — called by the batcher AFTER the prefill that wrote them succeeded, so
 a failed or aborted prefill never publishes garbage K/V.
 
-Not ported yet: the ``decoding.prefix_commit`` fault guard of the JAX
-package (it waits for the port of ``resilience/``); until then a commit
-publishes without it.
+Every publish (a commit, a preemption-time publish) passes the
+``decoding.prefix_commit`` fault point with its chain keys as payload:
+a corrupted payload or an injected raise publishes NOTHING — the blocks
+stay private to their sequence (correctness kept, sharing lost) and
+``prefix_commits_dropped_total`` counts it.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..core.enforce import enforce
+from ..resilience import faults
+from ..resilience.faults import InjectedFault
 
 
 class CacheConfig:
@@ -318,13 +322,31 @@ class KVCacheManager:
             self._ref[b] = self._ref.get(b, 0) + 1
             shared.append(b)
 
+    def _commit_guard(self, keys: Sequence[str]) -> bool:
+        """The ``decoding.prefix_commit`` fault point: the publish's
+        chain keys go through :func:`faults.fire` as its payload; a
+        corrupted payload or an injected raise publishes nothing."""
+        if not keys:
+            return True
+        payload = "\n".join(keys).encode()
+        try:
+            out = faults.fire("decoding.prefix_commit", payload)
+        except InjectedFault:
+            out = None
+        if out != payload:
+            if self.metrics is not None:
+                self.metrics.inc("prefix_commits_dropped_total")
+            return False
+        return True
+
     def commit_prefix(self, sid: int) -> None:
         """Publish the sequence's freshly-written full-prefix blocks
         into the content index. Call ONLY after the prefill/extend that
         wrote them succeeded; first publisher wins (a same-prompt
-        sequence admitted before this commit keeps its private copy).
-        Publishes without the JAX package's fault guard (not ported)."""
+        sequence admitted before this commit keeps its private copy)."""
         pending = self._pending.pop(sid, ())
+        if pending and not self._commit_guard([k for k, _ in pending]):
+            return
         self._publish(sid, [(k, b) for k, b in pending
                             if k not in self._by_key])
 
@@ -348,6 +370,8 @@ class KVCacheManager:
         fresh = [(keys[j], blocks[j]) for j in range(n)
                  if blocks[j] not in shared
                  and keys[j] not in self._by_key]
+        if fresh and not self._commit_guard([k for k, _ in fresh]):
+            fresh = []
         self._publish(sid, fresh)
         # a still-pending admission-time publish is superseded (same
         # leading keys)

@@ -26,9 +26,14 @@ fetch buffers and the scope's tensors are allocated outside it). A
 failed capture raises; nothing falls back to eager runs. On a CPU place
 the programs run eagerly, since the CPU was asked for.
 
-Not ported yet: the breaker, the degradation ladder and decode-shape
-autotune (each raises in ``DecodingConfig``), and the engine's trace
-spans and fault hooks.
+Every run is a timed ``metrics.span`` (``decoding/engine.*``, a
+profiler span that joins the request's trace when ``obs.trace`` is on).
+The ``decoding.prefill``, ``decoding.step`` and ``decoding.verify_step``
+fault points fire on the host before the launch or replay, where the
+JAX package fires them — never inside a captured region.
+
+Not ported: decode-shape autotune (``DecodingConfig(autotune=True)``
+raises; it waits for ``tuning/``, ROADMAP Queue A 8).
 
 Threading contract: single-threaded execution — the DecodeSession's
 worker is the only caller after ``warm_up``.
@@ -44,12 +49,19 @@ import torch
 
 from ..core.enforce import enforce
 from ..core.scope import global_scope
+from ..core.enforce import not_ported
 from ..executor import Executor
+from ..resilience import faults
 from ..serving.metrics import DecodeMetrics
 from .cache import CacheConfig
 from .rewrite import (BLOCK_TABLES, CACHED_LENS, NEXT_TOKENS, POSITIONS,
                       SEQ_LENS, STEP_TOKENS, derive_decode_programs)
 from .sampling import sampling_feed_arrays
+
+PREFILL_SPAN = "decoding/engine.prefill"
+DECODE_SPAN = "decoding/engine.decode"
+EXTEND_SPAN = "decoding/engine.extend"
+VERIFY_SPAN = "decoding/engine.verify"
 
 
 def _pow2_buckets(lo: int, hi: int) -> List[int]:
@@ -88,9 +100,16 @@ class DecodingConfig:
     queue_capacity / default_deadline_ms / warm_up: the session's
         backpressure bound, default deadline and start-up warm-up (on a
         card: the captures of every bucket).
-
-    Not ported yet (raise when set, naming their ROADMAP item):
-    ``breaker``, ``degrade``, ``autotune``.
+    breaker: a ``resilience.CircuitBreaker`` (as in ServingConfig);
+        None (default) = disabled.
+    degrade: a ``resilience.DegradationConfig`` (or a built
+        ``DegradationManager``) enabling the ordered degradation ladder
+        — token-budget admission per priority class, priority
+        preemption, speculation shedding, stage-4 load shedding. None
+        (default) = disabled, byte-identical admission; the ladder is a
+        runtime plane and never changes programs.
+    autotune: not ported (raises: it waits for ``tuning/``, ROADMAP
+        Queue A 8).
     """
 
     def __init__(self, cache: Optional[CacheConfig] = None,
@@ -107,14 +126,9 @@ class DecodingConfig:
                  breaker=None,
                  degrade=None,
                  autotune: bool = False):
-        not_ported = {"breaker": (breaker, "Queue A item 1 step 5"),
-                      "degrade": (degrade, "Queue A item 1 step 5"),
-                      "autotune": (autotune, "Queue A item 1 step 5")}
-        for name, (value, item) in not_ported.items():
-            if value:
-                raise NotImplementedError(
-                    "DecodingConfig(%s=%r) is not ported yet (ROADMAP %s)"
-                    % (name, value, item))
+        if autotune:
+            raise not_ported("DecodingConfig(autotune=True) (decode-shape "
+                             "autotune)", "Queue A 8 (`tuning/`)")
         self.cache = cache or CacheConfig()
         mc = self.cache.max_context
         if prompt_buckets:
@@ -152,6 +166,8 @@ class DecodingConfig:
         self.queue_capacity = int(queue_capacity)
         self.default_deadline_ms = default_deadline_ms
         self.warm_up = bool(warm_up)
+        self.breaker = breaker
+        self.degrade = degrade
 
     @property
     def max_active(self) -> int:
@@ -271,7 +287,7 @@ class DecodeEngine:
                              np.stack([self._empty_row()] * bb),
                              np.zeros(bb, np.int32), np.zeros(bb, np.int32),
                              fetch=fetch, params=None, steps=None,
-                             timer=None)
+                             span=EXTEND_SPAN, hist=None)
         return self.num_compiled
 
     def _empty_row(self) -> np.ndarray:
@@ -329,13 +345,20 @@ class DecodeEngine:
         lens[:n] = np.asarray(seq_lens, np.int32)
         if not _warm:
             self.metrics.inc("prefills_total")
+            self.metrics.inc("prefill_rows_total", n)
             self.metrics.inc("prefill_tokens_computed_total",
                              int(np.sum(lens[:n])))
+            # chaos hook: exercises per-sequence re-prefill isolation
+            faults.fire("decoding.prefill")
+            self.metrics.inc("batched_rows_total", pb)
+            self.metrics.inc("padded_rows_total", pb - n)
         feed = {self.pair.token_name: tokens, BLOCK_TABLES: tab,
                 SEQ_LENS: lens}
         feed.update(self._sampling_feed(
             params, steps if steps is not None else [0] * n, pb))
-        with self.metrics.timer(None if _warm else "prefill_ms"):
+        with self.metrics.span(PREFILL_SPAN,
+                               None if _warm
+                               else self.metrics.prefill_latency):
             out = self._run(self.pair.prefill, feed, NEXT_TOKENS)
         return out[:n]
 
@@ -371,12 +394,16 @@ class DecodeEngine:
         cached = np.zeros(bb, np.int32)
         cached[:n] = np.asarray(cached_lens, np.int32)
         self.metrics.inc("prefills_total")
+        self.metrics.inc("prefill_rows_total", n)
         self.metrics.inc("prefill_tokens_computed_total",
                          int(np.sum(lens[:n])))
+        faults.fire("decoding.prefill")
+        self.metrics.inc("batched_rows_total", bb)
+        self.metrics.inc("padded_rows_total", bb - n)
         return self._run_extend(
             tokens, tab, cached, lens, fetch=NEXT_TOKENS, params=params,
             steps=steps if steps is not None else [0] * n,
-            timer="extend_ms")[:n]
+            span=EXTEND_SPAN, hist=self.metrics.extend)[:n]
 
     def verify(self, windows: np.ndarray, window_lens: np.ndarray,
                cached_lens: np.ndarray, tables: np.ndarray,
@@ -410,16 +437,23 @@ class DecodeEngine:
         tab[:n] = np.asarray(tables, np.int32)
         self.metrics.inc("verify_steps_total")
         self.metrics.inc("verify_rows_total", n)
+        self.metrics.inc("decode_rows_total", n)
+        # chaos hook: a failing verify degrades the round to plain
+        # decoding (its own site, so a plan can target speculation)
+        faults.fire("decoding.verify_step")
+        self.metrics.inc("batched_rows_total", db)
+        self.metrics.inc("padded_rows_total", db - n)
         return self._run_extend(tokens, tab, cached, lens,
                                 fetch=STEP_TOKENS, params=params,
-                                steps=steps, timer="verify_ms")[:n]
+                                steps=steps, span=VERIFY_SPAN,
+                                hist=self.metrics.verify)[:n]
 
     def _run_extend(self, tokens, tab, cached, lens, fetch: str, params,
-                    steps, timer: Optional[str]) -> np.ndarray:
+                    steps, span: str, hist) -> np.ndarray:
         feed = {self.pair.token_name: tokens, BLOCK_TABLES: tab,
                 CACHED_LENS: cached, SEQ_LENS: lens}
         feed.update(self._sampling_feed(params, steps, len(tokens)))
-        with self.metrics.timer(timer):
+        with self.metrics.span(span, hist):
             return self._run(self.pair.extend, feed, fetch)
 
     def decode(self, tokens: np.ndarray, positions: np.ndarray,
@@ -442,9 +476,18 @@ class DecodeEngine:
         mb = self.cache_config.max_blocks_per_seq
         tab = np.full((db, mb), -1, np.int32)
         tab[:n] = np.asarray(tables, np.int32)
+        if not _warm:
+            self.metrics.inc("decode_steps_total")
+            self.metrics.inc("decode_rows_total", n)
+            # chaos hook: exercises the batcher's solo re-steps
+            faults.fire("decoding.step")
+            self.metrics.inc("batched_rows_total", db)
+            self.metrics.inc("padded_rows_total", db - n)
         feed = {self.pair.token_name: toks, BLOCK_TABLES: tab,
                 POSITIONS: pos}
         feed.update(self._sampling_feed(params, steps, db))
-        with self.metrics.timer(None if _warm else "decode_step_ms"):
+        with self.metrics.span(DECODE_SPAN,
+                               None if _warm
+                               else self.metrics.decode_step):
             out = self._run(self.pair.decode, feed, NEXT_TOKENS)
         return out[:n]

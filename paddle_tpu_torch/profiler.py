@@ -17,9 +17,14 @@ fetches to the host), ``feed_wait`` (the consumer blocked on a
 batch and queueing its copy to the card). Spans are recorded from the
 loader's worker threads too, so the table is updated under a lock.
 
+With ``obs.trace`` enabled (it installs :func:`set_trace_hook`), every
+span also carries a ``(trace_id, span_id, parent_id)`` triple and is
+recorded even while the profiler is off, so one request's spans form
+one causally linked trace across threads.
+
 Not ported: the device trace directory (``jax.profiler``'s role is
-``torch.profiler``'s, which the caller runs), the structured-trace hook
-of ``obs.trace`` and the registry gauge of dropped spans.
+``torch.profiler``'s, which the caller runs) and the registry gauge of
+dropped spans.
 """
 
 from __future__ import annotations
@@ -33,19 +38,36 @@ from typing import Dict, List
 import torch
 
 __all__ = ["RecordEvent", "event_counts", "event_totals", "get_spans",
-           "reset_profiler", "start_profiler", "stop_profiler"]
+           "reset_profiler", "set_trace_hook", "start_profiler",
+           "stop_profiler"]
 
 MAX_SPANS = 1_000_000
 
 _STATE = {"enabled": False, "spans_dropped": 0}
 # name -> [count, total_s, min_s, max_s], in first-seen order
 _EVENTS: Dict[str, List[float]] = {}
+# (name, t0, t1, thread id, thread name, trace) records
 _SPANS: deque = deque()
 _LOCK = threading.Lock()
 
+# the structured-trace hook (obs.trace installs it): ``begin(name) ->
+# token`` at span open, ``end(token) -> (trace_id, span_id, parent_id)
+# | None`` at close. None (the default) costs one global read a span.
+_TRACE_HOOK = None
 
-def _record_span(name: str, t0: float, t1: float) -> None:
+
+def set_trace_hook(hook) -> None:
+    """Install (or, with None, remove) the structured-trace hook. Owned
+    by ``obs.trace`` — call ``trace.enable()``/``disable()`` instead."""
+    global _TRACE_HOOK
+    _TRACE_HOOK = hook
+
+
+def _record_span(name: str, t0: float, t1: float, trace=None) -> None:
+    """Fold one closed span into the table and the ring (shared by
+    RecordEvent and ``obs.trace.root_span``)."""
     dt = t1 - t0
+    th = threading.current_thread()
     with _LOCK:
         ev = _EVENTS.get(name)
         if ev is None:
@@ -57,29 +79,42 @@ def _record_span(name: str, t0: float, t1: float) -> None:
         if len(_SPANS) >= MAX_SPANS:
             _SPANS.popleft()
             _STATE["spans_dropped"] += 1
-        _SPANS.append((name, t0, t1))
+        _SPANS.append((name, t0, t1, th.ident, th.name, trace))
 
 
 class RecordEvent:
     """A host span: a context manager or a decorator. Records nothing
-    while the profiler is off and no torch profiler runs."""
+    while the profiler is off, tracing is off and no torch profiler
+    runs."""
 
     def __init__(self, name: str):
         self.name = name
         self._t0 = None
         self._torch = None
+        self._tok = None
+        self._hook = None
 
     def __enter__(self):
         if torch.autograd._profiler_enabled():
             self._torch = torch.profiler.record_function(self.name)
             self._torch.__enter__()
-        if _STATE["enabled"]:
+        # end() runs on the hook that issued the token, even if tracing
+        # is turned off in between (else its context would stay on this
+        # thread's stack and misparent every later span)
+        hook = self._hook = _TRACE_HOOK
+        if hook is not None:
+            self._tok = hook.begin(self.name)
+        if _STATE["enabled"] or self._tok is not None:
             self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
+        tok, self._tok = self._tok, None
+        hook, self._hook = self._hook, None
+        trace = (hook.end(tok) if hook is not None and tok is not None
+                 else None)
         if self._t0 is not None:
-            _record_span(self.name, self._t0, time.perf_counter())
+            _record_span(self.name, self._t0, time.perf_counter(), trace)
             self._t0 = None
         if self._torch is not None:
             span, self._torch = self._torch, None
@@ -136,11 +171,19 @@ def _render_report() -> str:
     return "\n".join(lines)
 
 
-def get_spans():
-    """A copy of the recorded ``(name, t0, t1)`` spans (``perf_counter``
-    seconds), oldest first."""
+def get_spans(with_threads: bool = False, with_trace: bool = False):
+    """A copy of the recorded spans, oldest first (``perf_counter``
+    seconds): ``(name, t0, t1)`` triples by default, with
+    ``with_threads`` ``(name, t0, t1, thread_id, thread_name)``, and with
+    ``with_trace`` the six-field records whose last element is None or
+    the ``(trace_id, span_id, parent_id)`` triple of ``obs.trace``."""
     with _LOCK:
-        return list(_SPANS)
+        spans = list(_SPANS)
+    if with_trace:
+        return spans
+    if with_threads:
+        return [s[:5] for s in spans]
+    return [s[:3] for s in spans]
 
 
 def event_counts() -> Dict[str, int]:

@@ -175,8 +175,18 @@ def overlap_iter(source, convert, buffer_size: int, thread_name: str,
     q: _queue.Queue = _queue.Queue()
     slots = threading.Semaphore(buffer_size)
     stop = threading.Event()
+    # the worker's spans join the creator's trace (obs.trace; None
+    # when tracing is off)
+    from ..obs import trace as obs_trace
+    from ..resilience import faults
+
+    creator_ctx = obs_trace.current()
 
     def worker():
+        with obs_trace.attach(creator_ctx):
+            _worker_body()
+
+    def _worker_body():
         try:
             for item in (source() if callable(source) else source):
                 while not stop.is_set():
@@ -184,6 +194,9 @@ def overlap_iter(source, convert, buffer_size: int, thread_name: str,
                         break
                 if stop.is_set():
                     return
+                # chaos hook: a "raise" surfaces in the consumer like
+                # any worker failure; "delay" simulates stalled input
+                faults.fire("reader.worker")
                 out = convert(item)
                 if keep is not None and not keep(out):
                     slots.release()

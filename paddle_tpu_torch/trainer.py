@@ -17,10 +17,11 @@ the checkpoint interval. A checkpoint restored into a Trainer whose
 graph is already captured is honoured by the next replay: the executor
 copies a scope tensor that was replaced into the graph's buffer first.
 
+Each step fires the ``trainer.step`` fault point (``resilience``).
+
 Not ported: ``parallel=True`` (ROADMAP Queue A 9, multi-GPU), the
 per-step telemetry of ``steplog=`` (Queue A 8, ``obs/``), and the
-resilience hooks of each step — the ``trainer.step`` fault point and the
-supervisor heartbeat (Queue A 10).
+supervisor heartbeat of each step (Queue A 10).
 """
 
 from __future__ import annotations
@@ -148,9 +149,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _tick(self):
-        """Per-step hook. The JAX package fires its ``trainer.step``
-        fault point and beats the supervisor's heartbeat here; both wait
-        for ``resilience/`` (ROADMAP Queue A 10)."""
+        """Per-step hook: the ``trainer.step`` fault point. (The JAX
+        package also beats the supervisor's heartbeat here; the
+        supervisor waits for ROADMAP Queue A 10.)"""
+        from .resilience import faults
+
+        faults.fire("trainer.step")
         self._steps_done = getattr(self, "_steps_done", 0) + 1
 
     def _run_step(self, feed: Dict[str, np.ndarray], fetch_names):

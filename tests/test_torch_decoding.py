@@ -304,7 +304,7 @@ def test_served_streams_match_jax_and_sequential(lm, jax_streams):
         assert streamed[i] == out
     rep = s.metrics.report()
     assert rep["sequences_completed"] == 2 * len(reqs)
-    assert rep["ttft_ms"]["count"] == 2 * len(reqs)
+    assert rep["ttft"]["count"] == 2 * len(reqs)
 
 
 def _raised(fn):

@@ -415,7 +415,8 @@ def test_shared_prefix_workload_matches_jax(lm):
     assert (off["prefix_cache_hits_total"],
             off["prefix_cache_misses_total"]) == (0, 0)
     # one full prefill and 7 suffix prefills of one token each
-    assert on["prefill_ms"]["count"] == 1 and on["extend_ms"]["count"] == 7
+    assert on["prefill_latency"]["count"] == 1 and \
+        on["extend"]["count"] == 7
     assert on["prefills_total"] == off["prefills_total"] == 8
     assert on["prefill_tokens_computed_total"] == 17 + 7
     assert off["prefill_tokens_computed_total"] == 8 * 17
