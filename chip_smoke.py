@@ -394,11 +394,44 @@ Phases, one JSON line each (or one per shape):
              Reports rows/s, the padded-row share, request latency p50
              and p99 (an ``obs.metrics.Histogram``), queue wait and
              batch execute, and ``render_prometheus()``'s line count.
+25. artifact — (run after phase 24) exported artifacts, every kernel
+             reached through its ``paddle_tpu_torch::*`` custom op from
+             a ``torch.export`` graph. (a) Phase 24's classifier,
+             its scope copied to the CPU, saved there with
+             ``save_inference_model(export_batch_sizes=SERVER_BUCKETS)``
+             (a program per bucket, traced on the CPU) and served on the
+             card by ``serve_program(<dir>)`` alone (no program, no
+             scope): 7 graphs after warm-up and after phase 24's
+             traffic, the flash forward launched 12 times an executed
+             batch, every bucket bit-equal to ``Executor.run`` of the
+             same pruned, optimized program on the card, every reply
+             within 3e-2 of an eager run of its own rows. (b) Phase 15's
+             dropout recipe, saved with ``save_trainable_program`` from
+             the card scope after step 0 and loaded with
+             ``load_trainable_program``: 10 ``run`` steps and one
+             ``run_steps(steps=10)`` call (a captured graph of the step)
+             bit-equal to 10 ``Executor.run`` steps from the same state,
+             losses and every state tensor, with exact launches (flash
+             forward, dQ and dK/dV 18 a step, the fused Adam update once,
+             dropout 2 x 62); ``run_steps``' step ms beside PR 11's.
+             (c) ResNet-50 in test mode (seeded weights and running
+             statistics), folded by ``InferenceTranspiler`` and cast by
+             ``transpile_to_bfloat16``, exported at B=64 and run by
+             ``NativePredictor``: bit-equal to ``Executor.run`` of the
+             folded program, within 3e-2 of the unfolded one
+             (probabilities, and logits as a share of their max).
+             Reports export, load and warm-up seconds, rows/s and the
+             padded share beside phase 24's, step ms, images/s and the
+             captured forward's device ms; and the host microseconds of
+             one flash forward call through its custom op, through the
+             op under autograd, and as the CUDA kernel function called
+             directly (the binding's cost to an eager path).
 
 Then the card's name and power limit, the kernels JSON line (wall and
 device ms of each kernel and its library call; ``persist_launches``,
 ``bert_launches``, ``deepfm_launches``, ``remat_launches``,
-``resilience_launches`` and ``server_launches``: those phases' launches
+``resilience_launches``, ``server_launches`` and ``artifact_launches``:
+those phases' launches
 of the kernels their paths run; the rows at
 BERT-base's and DeepFM's shapes carry the bert, remat and deepfm
 phases' launches), and as the
@@ -1922,7 +1955,10 @@ def phase_server(card):
           "phase_s": time.perf_counter() - t_phase})
     del server, poison, engine, served_scope
     torch.cuda.empty_cache()
-    return {"flash_fwd": launches, "batches": executed}
+    return {"flash_fwd": launches, "batches": executed, "save_s": save_s,
+            "load_s": load_s, "warm_up_s": warm_s,
+            "rows_per_s": (rows - SERVER_OVERSIZE) / wall_s,
+            "padded_row_share": rep["padding_overhead"]}
 
 
 def check_oracle(main, logits, scope, prompts, streams):
@@ -4812,6 +4848,405 @@ def phase_remat(card):
           "b32": b32, "phase_s": time.perf_counter() - t_phase})
     return runs["level1"]["launches"]
 
+# ---------------------------------------------------------------- phase 25
+
+
+ARTIFACT_ROOT = "build/chip_smoke_artifact"  # under the checkout, ignored
+PR11_DROPOUT_STEP_MS = 35.23  # the dropout recipe under run_steps, PR 11
+RESNET_FOLD_TOL = TOL[torch.bfloat16]  # of the probabilities
+
+
+def _cpu_scope(scope):
+    """A copy of ``scope`` with every tensor on the CPU."""
+    import paddle_tpu_torch as fluid
+
+    out = fluid.Scope()
+    for n in scope.local_var_names():
+        v = scope.find_var(n)
+        out.set_var(n, v.detach().cpu() if torch.is_tensor(v) else v)
+    return out
+
+
+def _bucket_feed(reqs, rows):
+    """The first ``rows`` rows of the requests, concatenated."""
+    out = {n: np.concatenate([r[n] for r in reqs])[:rows] for n in reqs[0]}
+    if len(out["src_ids"]) < rows:
+        fail("artifact: the requests hold fewer than %d rows" % rows)
+    return out
+
+
+def artifact_serving(card, root, server_figures):
+    """(a) BERT-base classification exported from a CPU scope and served
+    from its directory alone: 7 captured graphs, each bucket bit-equal
+    to ``Executor.run`` of the same optimized program on the card,
+    traffic within TOL[bf16] of eager runs of its own rows, the flash
+    forward launched 12 times an executed batch. Returns its figures."""
+    import json as _json
+    import threading
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.obs import metrics as obs_metrics
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.passes.manager import inference_pass_pipeline
+    from paddle_tpu_torch.serving import ServingConfig, serve_program
+
+    main, feed_names, prob, scope = build_server_model()
+    cpu_scope = _cpu_scope(scope)
+    t0 = time.perf_counter()
+    fluid.io.save_inference_model(
+        root, feed_names, [prob], fluid.Executor(fluid.CPUPlace()),
+        main_program=main, scope=cpu_scope,
+        export_batch_sizes=SERVER_BUCKETS)
+    export_s = time.perf_counter() - t0
+    del cpu_scope
+    with open(os.path.join(root, "__model__.json")) as f:
+        manifest = _json.load(f)
+    buckets = sorted(int(b) for b in manifest.get("torch_export_buckets",
+                                                  {}))
+    if buckets != list(SERVER_BUCKETS):
+        fail("artifact: the manifest's torch_export_buckets are %s, "
+             "expected %s" % (buckets, list(SERVER_BUCKETS)))
+    config = ServingConfig(buckets=SERVER_BUCKETS, batch_timeout_ms=2.0,
+                           queue_capacity=4 * SERVER_REQUESTS)
+    t0 = time.perf_counter()
+    server = serve_program(root, config=config, auto_start=False)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server.start()  # warm_up: one capture per bucket
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    engine = server.engine
+    if engine.compile_count != len(SERVER_BUCKETS):
+        fail("artifact: %d graphs after warm-up, expected %d"
+             % (engine.compile_count, len(SERVER_BUCKETS)))
+    reqs = server_requests()
+    replies = [None] * len(reqs)
+
+    def client(c):
+        for i in range(c, SERVER_REQUESTS, SERVER_CLIENTS):
+            replies[i], = server.infer(reqs[i], timeout=600)
+
+    reset_counts(fa.flash_fwd)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or any(
+            r is None for r in replies[:SERVER_REQUESTS]):
+        fail("artifact: not every client request was answered")
+    replies[-1], = server.infer(reqs[-1], timeout=600)  # oversize
+    server.shutdown(drain=True, timeout=120)
+    rep = server.metrics.report()
+    executed = rep["batch_execute"]["count"]
+    launches = fa.flash_fwd.launches
+    if launches != BERT_MODEL["n_layer"] * executed:
+        fail("artifact: the flash forward launched %d times over %d "
+             "executed batches of %d layers"
+             % (launches, executed, BERT_MODEL["n_layer"]))
+    if engine.compile_count != len(SERVER_BUCKETS):
+        fail("artifact: %d graphs after the traffic, expected %d"
+             % (engine.compile_count, len(SERVER_BUCKETS)))
+    # the same pruned, optimized program run eagerly on the card
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    program = inference_pass_pipeline([prob.name]).apply(
+        main.prune([prob.name]))
+    bit_equal, bucket_err = {}, 0.0
+    for b in SERVER_BUCKETS:
+        feed = _bucket_feed(reqs, b)
+        got, = engine.run(feed)
+        want, = exe.run(program, feed=feed, fetch_list=[prob.name],
+                        scope=scope)
+        bit_equal[b] = bool(np.array_equal(got, want))
+        bucket_err = max(bucket_err, float(np.abs(got - want).max()))
+    worst = 0.0
+    for i, (feed, got) in enumerate(zip(reqs, replies)):
+        want, = exe.run(program, feed=feed, fetch_list=[prob.name],
+                        scope=scope)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail("artifact: request %d replied %s, eager %s"
+                 % (i, got.shape, want.shape))
+        worst = max(worst, float(np.abs(got - want).max()))
+    if not all(bit_equal.values()) and bucket_err > TOL[torch.bfloat16]:
+        fail("artifact: a bucket differs from Executor.run by %g"
+             % bucket_err)
+    if worst > TOL[torch.bfloat16]:
+        fail("artifact: a reply differs from its eager run by %g" % worst)
+    rows = sum(len(r["src_ids"]) for r in reqs)
+    out = {"export_s": export_s, "load_s": load_s, "warm_up_s": warm_s,
+           "graphs": engine.compile_count,
+           "rows_per_s": (rows - SERVER_OVERSIZE) / wall_s,
+           "padded_row_share": rep["padding_overhead"],
+           "executed_batches": executed, "flash_fwd_launches": launches,
+           "buckets_bit_equal_to_executor": bit_equal,
+           "bucket_max_abs_err": bucket_err,
+           "max_abs_err_vs_eager_own_rows": worst,
+           "server_phase": server_figures,
+           "prometheus_lines": len(
+               obs_metrics.render_prometheus().splitlines())}
+    del server, engine, scope, exe
+    torch.cuda.empty_cache()
+    return out
+
+
+def _state_diff(got, want):
+    """Names whose tensors differ (bit for bit) between two states."""
+    return [n for n, w in want.items()
+            if n in got and not torch.equal(got[n].to(w.device), w)]
+
+
+def artifact_training(card, root, dropout_step_ms):
+    """(b) The dropout recipe's trainable artifact, written after step 0
+    from the card scope: 10 ``run`` steps and one ``run_steps(10)`` call
+    bit-equal to 10 ``Executor.run`` steps from the same state (losses
+    and every state tensor), exact launches; the run_steps step ms.
+    Returns (figures, launches of the ``run`` leg)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import _cuda
+    from paddle_tpu_torch.ops import dropout as dr
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_optimizer as fu
+
+    place = fluid.CUDAPlace(0)
+    main, startup, cost = build_recipe(True, dropout_rate=RECIPE_DROPOUT)
+    fluid.memory_optimize(main)
+    sites = sum(op.type == "dropout" for op in main.global_block().ops)
+    groups = sum(op.type.endswith("_fused")
+                 for op in main.global_block().ops)
+    batches = [train_batch(SEED + 20 + i) for i in range(TRAIN_STEPS + 1)]
+    exe, scope = _fresh(main, startup, place)
+    exe.run(main, feed=batches[0], fetch_list=[cost], scope=scope)
+    shapes = {n: v.shape for n, v in batches[0].items()}
+    t0 = time.perf_counter()
+    fluid.io.save_trainable_program(root, shapes, [cost], exe,
+                                    main_program=main, scope=scope)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_run = fluid.io.load_trainable_program(root)
+    load_s = time.perf_counter() - t0
+    by_steps = fluid.io.load_trainable_program(root)
+    names = list(by_run.state_dict())
+
+    steps = batches[1:]
+    want = [float(exe.run(main, feed=b, fetch_list=[cost],
+                          scope=scope)[0]) for b in steps]
+    ref = {n: scope.get(n) for n in names}
+    for fn in _cuda.LAUNCHERS:
+        reset_counts(fn)
+    got = [float(by_run.run(b)[0]) for b in steps]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches
+                for fn in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                           fu.fused_flat_update, dr.dropout_apply)}
+    expect = {"flash_fwd": ATTN_PER_STEP * TRAIN_STEPS,
+              "flash_bwd_dq": ATTN_PER_STEP * TRAIN_STEPS,
+              "flash_bwd_dkv": ATTN_PER_STEP * TRAIN_STEPS,
+              "fused_flat_update": groups * TRAIN_STEPS,
+              "dropout_apply": 2 * sites * TRAIN_STEPS}
+    if launches != expect:
+        fail("artifact: 10 steps from the trainable artifact launched %s, "
+             "expected %s" % (launches, expect))
+    stacked = {n: np.stack([b[n] for b in steps]) for n in shapes}
+    for fn in _cuda.LAUNCHERS:
+        reset_counts(fn)
+    graph = by_steps.run_steps(stacked, steps=TRAIN_STEPS)[0]
+    graph_launches = {fn.__name__: fn.launches
+                      for fn in (fa.flash_fwd, fa.flash_bwd_dq,
+                                 fa.flash_bwd_dkv, fu.fused_flat_update,
+                                 dr.dropout_apply)}
+    if graph_launches != expect:
+        fail("artifact: run_steps(10) launched %s, expected %s"
+             % (graph_launches, expect))
+    run_diff = _state_diff(by_run.state_dict(), ref)
+    steps_diff = _state_diff(by_steps.state_dict(), ref)
+    equal = {"run_losses": got == want,
+             "run_steps_losses": [float(v) for v in graph] == want,
+             "run_state_differs": run_diff,
+             "run_steps_state_differs": steps_diff}
+    if not (equal["run_losses"] and equal["run_steps_losses"]
+            and not run_diff and not steps_diff):
+        fail("artifact: the trainable artifact is not bit-equal to "
+             "Executor.run: %s (losses %s / %s against %s)"
+             % (equal, got, [float(v) for v in graph], want))
+    # replays only: two more calls of TRAIN_STEPS steps, timed
+    dev = {n: torch.as_tensor(v).to(place.torch_device())
+           for n, v in stacked.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [by_steps.run_steps(dev, steps=TRAIN_STEPS,
+                                return_numpy=False)[0] for _ in range(2)]
+    timed = torch.cat(timed).cpu().numpy()
+    step_ms = (time.perf_counter() - t0) / (2 * TRAIN_STEPS) * 1e3
+    if not np.isfinite(timed).all():
+        fail("artifact: non-finite timed losses %s" % timed.tolist())
+    out = {"export_s": export_s, "load_s": load_s, "losses": got,
+           "bit_equal": equal, "launches": launches,
+           "run_steps_launches": graph_launches, "sites": sites,
+           "groups": groups, "run_steps_step_ms": step_ms,
+           "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+           "dropout_recipe_step_ms": dropout_step_ms,
+           "pr11_dropout_recipe_step_ms": PR11_DROPOUT_STEP_MS}
+    exe.close()
+    del by_run, by_steps, exe, scope, ref
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def artifact_resnet(card, root):
+    """(c) ResNet-50 in test mode, folded (``InferenceTranspiler``) and
+    cast to bf16 (``transpile_to_bfloat16``), exported at B=64 and run
+    from its artifact: bit-equal to ``Executor.run`` of the folded
+    program, within RESNET_FOLD_TOL of the unfolded one; images/s."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.inference import (NativeConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+
+    saved = {n: fluid.get_flag(n) for n in RESNET_FLAGS}
+    fluid.set_flags(RESNET_FLAGS)
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            img = fluid.layers.data(
+                name="img", shape=[-1, 3, RESNET_HW, RESNET_HW],
+                dtype="float32", append_batch_size=False)
+            prob = resnet_imagenet(img, class_dim=RESNET_CLASSES,
+                                   is_test=True)
+    finally:
+        fluid.set_flags(saved)
+    place = fluid.CUDAPlace(0)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.params_from_numpy(resnet_weights(main), scope, place,
+                            program=main)
+    # running statistics away from 0 and 1, so the fold moves weights
+    rng = np.random.RandomState(SEED + 21)
+    stats = {}
+    for op in main.global_block().ops:
+        if op.type == "batch_norm":
+            c = int(main.global_block().var(op.input("Mean")[0]).shape[0])
+            stats[op.input("Mean")[0]] = 0.1 * rng.standard_normal(c)
+            stats[op.input("Variance")[0]] = rng.uniform(0.5, 1.5, c)
+    for n, a in stats.items():
+        scope.set_var(n, torch.from_numpy(a.astype(np.float32)).to(
+            place.torch_device()))
+    # the logits too: random weights saturate the softmax, so the
+    # probabilities alone would hide a difference
+    logits = next(op for op in main.global_block().ops
+                  if op.type == "softmax").input_arg_names[0]
+    fetch = [prob.name, logits]
+    feed = {"img": resnet_pool()[0]["img"]}
+    unfolded = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    folded = fluid.InferenceTranspiler().transpile(main, scope=scope)
+    fluid.transpile_to_bfloat16(folded, scope=scope)
+    n_bn = sum(op.type == "batch_norm" for op in folded.global_block().ops)
+    want = exe.run(folded, feed=feed, fetch_list=fetch, scope=scope)
+    t0 = time.perf_counter()
+    fluid.io.save_inference_model(root, ["img"], fetch, exe,
+                                  main_program=folded, scope=scope,
+                                  export_batch_sizes=[RESNET_B])
+    export_s = time.perf_counter() - t0
+    pred = create_paddle_predictor(NativeConfig(model_dir=root))
+    got = pred.run_batch(feed)
+    if pred.compile_count != 1:
+        fail("artifact: the ResNet-50 predictor captured %d graphs"
+             % pred.compile_count)
+    iters = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pred.run_batch(feed)
+    images_s = iters * RESNET_B / (time.perf_counter() - t0)
+    # the card's time for the captured forward alone (no feed copies)
+    replay_ms = cuda_ms(pred._graphs[RESNET_B].graph.replay, iters)
+    err_folded = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    err_prob = float(np.abs(got[0] - unfolded[0]).max())
+    rel_logits = float(np.abs(got[1] - unfolded[1]).max()
+                       / np.abs(unfolded[1]).max())
+    if not all(np.isfinite(g).all() for g in got) or n_bn:
+        fail("artifact: the folded ResNet-50 kept %d batch norms or gave "
+             "non-finite outputs" % n_bn)
+    if err_folded > RESNET_FOLD_TOL or err_prob > RESNET_FOLD_TOL \
+            or rel_logits > RESNET_FOLD_TOL:
+        fail("artifact: the folded ResNet-50's artifact differs by %g from "
+             "the folded program; from the unfolded one by %g "
+             "(probabilities) and %g of max |logit|"
+             % (err_folded, err_prob, rel_logits))
+    out = {"batch": RESNET_B, "export_s": export_s,
+           "batch_norms_left": n_bn,
+           "bit_equal_to_folded_executor": all(
+               bool(np.array_equal(g, w)) for g, w in zip(got, want)),
+           "max_abs_err_vs_folded": err_folded,
+           "prob_max_abs_err_vs_unfolded": err_prob,
+           "logits_rel_err_vs_unfolded": rel_logits,
+           "max_abs_logit": float(np.abs(unfolded[1]).max()),
+           "tolerance": RESNET_FOLD_TOL,
+           "top1_agreement_vs_unfolded": float(np.mean(
+               got[0].argmax(-1) == unfolded[0].argmax(-1))),
+           "images_per_s": images_s, "graph_replay_ms": replay_ms,
+           "replay_images_per_s": RESNET_B / (replay_ms / 1e3)}
+    del pred, exe, scope
+    torch.cuda.empty_cache()
+    return out
+
+
+def binding_host_us(calls=500):
+    """Host microseconds a call of the flash forward at a tiny shape
+    (B=1, T=64, H=1, D=64, bf16) through its custom op, through the op
+    under autograd (``flash_attention`` on inputs that require grad),
+    and as the CUDA kernel function called directly: what the custom-op
+    binding costs an eager path per kernel call."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q = torch.randn(1, 64, 1, 64, device="cuda", dtype=torch.bfloat16)
+    qg = q.clone().requires_grad_()
+    ways = {"op": lambda: fa.flash_fwd(q, q, q),
+            "op_autograd": lambda: fa.flash_attention(qg, qg, qg),
+            "direct": lambda: fa._flash_fwd_cuda(q, q, q, None, False,
+                                                 0.125)}
+    out = {}
+    for name, fn in ways.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
+def phase_artifact(card, server_figures, dropout_step_ms):
+    """Exported artifacts on the card: (a) serving BERT-base from its
+    artifact alone, (b) training the dropout recipe from its trainable
+    artifact, (c) the folded bf16 ResNet-50 from its artifact. Returns
+    the launches of (a)'s flash forward and of (b)'s kernels."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ARTIFACT_ROOT)
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        serving = artifact_serving(card, os.path.join(root, "serving"),
+                                   server_figures)
+        training, train_launches = artifact_training(
+            card, os.path.join(root, "training"), dropout_step_ms)
+        resnet = artifact_resnet(card, os.path.join(root, "resnet"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "artifact", "card": card, "serving": serving,
+          "training": training, "resnet": resnet,
+          "binding_host_us": binding_host_us(),
+          "phase_s": time.perf_counter() - t_phase})
+    return {"serving_flash_fwd": serving["flash_fwd_launches"],
+            "training": train_launches}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4862,6 +5297,9 @@ def main():
                                          serving_counts, prefix_streams)
     torch.cuda.empty_cache()
     server_launches = phase_server(card)
+    torch.cuda.empty_cache()
+    artifact_launches = phase_artifact(card, server_launches,
+                                       dropout_step_ms)
     torch.cuda.empty_cache()
     persist_launches, persist_counts = phase_persist(
         card, model, greedy, base, dropout_step_ms)
@@ -4964,14 +5402,20 @@ def main():
             if suffix == "_bf16":
                 kernels[-1]["persist_launches"] = persist_launches[name]
                 kernels[-1]["bert_launches"] = bert_launches[name]
+                # the dropout recipe's trainable artifact, 10 run steps
+                kernels[-1]["artifact_launches"] = artifact_launches[
+                    "training"][name]
             if suffix == "_bert_bf16":
                 # the remat phase's level-1 run (20 steps at the phase-2
                 # shape): the recompute relaunches the forward
                 kernels[-1]["remat_launches"] = remat_launches[name]
                 if name == "flash_fwd":
-                    # the server phase: 12 launches an executed batch
+                    # the server phase: 12 launches an executed batch;
+                    # the artifact phase's server, the same
                     kernels[-1]["server_launches"] = server_launches[
                         "flash_fwd"]
+                    kernels[-1]["artifact_launches"] = artifact_launches[
+                        "serving_flash_fwd"]
     # the recipe's own group: Adam, bf16 moments, owning the beta powers
     fu = next(r for r in fused_rows if r["n"] == n_recipe
               and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",
@@ -4988,7 +5432,9 @@ def main():
         "library_device_ms": fu["library_device_ms"],
         "persist_launches": persist_launches["fused_flat_update"],
         "bert_launches": bert_launches["fused_flat_update"],
-        "deepfm_launches": deepfm_launches})
+        "deepfm_launches": deepfm_launches,
+        "artifact_launches": artifact_launches["training"][
+            "fused_flat_update"]})
     # BERT-base's group (Adam, bf16 moments) and DeepFM's (Adam, f32)
     for name, n, moments, launches in (
             ("fused_flat_update_bert", n_bert, "bf16",
@@ -5041,7 +5487,9 @@ def main():
         "f_dropout_ms": dr["f_dropout_ms"],
         "vgg_launches": vgg_launches,
         "persist_launches": persist_launches["dropout_apply"],
-        "bert_launches": bert_launches["dropout_apply"]})
+        "bert_launches": bert_launches["dropout_apply"],
+        "artifact_launches": artifact_launches["training"][
+            "dropout_apply"]})
     # at BERT-base's FFN mask ([64, 128, 3072] bf16, p = 0.1), with the
     # bert phase's launches (49 sites, forward and backward, 10 steps)
     db = next(r for r in dropout_rows if r["shape"] == [64, 128, 3072])

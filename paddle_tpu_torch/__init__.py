@@ -47,6 +47,15 @@ a Trainer saved::
     trainer.train(num_epochs=1, reader=reader, feed_order=names,
                   steps_per_loop=10)
 
+Exported artifacts: ``io.save_inference_model`` writes the pruned
+forward as a ``torch.export`` program per batch bucket, which
+``inference.NativePredictor`` (and ``serving.serve_program(<dir>)``)
+runs without the Program; ``io.save_trainable_program`` writes the whole
+training step, which ``io.load_trainable_program`` continues in another
+process. Every kernel is a ``torch.library`` custom op
+(``paddle_tpu_torch::*``), so an exported graph runs the hand-written
+kernels on a card and their plain versions on the CPU.
+
 The request server (``serving.serve_program``) pads coalesced requests
 to bucket shapes, each a captured CUDA graph on the card; the decode
 and request servers share ``resilience``' fault plane, circuit breaker
@@ -55,8 +64,8 @@ and degradation ladder, and ``obs``' metrics registry and traces.
 This package imports neither jax nor paddle_tpu.
 """
 
-from . import (analysis, checkpoint, ckpt, clip, io, layers, obs,
-               optimizer, passes, profiler, reader, regularizer,
+from . import (analysis, checkpoint, ckpt, clip, inference, io, layers,
+               obs, optimizer, passes, profiler, reader, regularizer,
                resilience)
 from .backward import append_backward
 from .ckpt import CheckpointConfig
@@ -70,6 +79,7 @@ from .core import unique_name
 from .core.flags import get_flag, set_flags
 from .data_feeder import DataFeeder
 from .executor import Executor, FetchHandle, fetch_var
+from .inference_transpiler import InferenceTranspiler, transpile_to_bfloat16
 from .inferencer import Inferencer
 from .memory_optimization_transpiler import memory_optimize, release_memory
 from .optimizer import (SGD, Adadelta, AdadeltaOptimizer, Adagrad,

@@ -69,6 +69,14 @@ the backward pass recomputes its activations instead of keeping them
 (:func:`_run_forward_remat`); the policy is part of ``run_steps``'
 graph key.
 
+``export_program_ops`` traces one run of a program's ops (a training
+step through ``torch.autograd.grad`` included) with ``make_fx`` on fake
+tensors and exports it with ``torch.export``: the artifact behind
+``io.save_inference_model`` and ``io.save_trainable_program``.
+``capture_graph`` is the one capture routine of the executor's graphs
+and of the artifacts' (``inference.NativePredictor``,
+``io.TrainableProgram.run_steps``).
+
 The ``check_program`` flag runs ``analysis.check_program`` over each
 new program version before ``run``/``run_steps`` runs it, and raises
 on an error diagnostic.
@@ -488,6 +496,69 @@ def _written_persistables(program: Program) -> Tuple[str, ...]:
     return tuple(written)
 
 
+def export_program_ops(ops, feed_names: Sequence[str],
+                       state_names: Sequence[str],
+                       example: Sequence[torch.Tensor],
+                       fetch_names: Sequence[str],
+                       written: Sequence[str] = ()):
+    """A ``torch.export`` program of one run of ``ops``, the artifact
+    behind ``io.save_inference_model`` and
+    ``io.save_trainable_program``: ``(exported, written_out)``.
+
+    The graph's inputs are the feeds, then the state, in the order of
+    the names; ``example`` holds a tensor of each, on the device the
+    trace runs for. A block holding a ``backward`` op runs through
+    :func:`run_training_ops` (its ``torch.autograd.grad`` included),
+    any other under ``no_grad`` through :func:`run_program_ops`, as
+    :meth:`Executor.run` runs them. The graph returns the fetches, then
+    each ``written`` name whose value an op made as a new tensor
+    (``written_out`` lists them); state an op updates in place (a fused
+    update's flat buffers, a table's rows) is updated in place in the
+    tensor the caller passes.
+
+    The run is traced first with ``make_fx`` on fake tensors and the
+    traced graph exported: ``torch.export`` cannot take the autograd
+    call itself. The kernels are custom ops, so the graph names them
+    and their kernels follow the device the graph runs on; tensors an
+    op makes from nothing carry the trace's device, which
+    ``torch.export.passes.move_to_device_pass`` rewrites at load."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    names = list(feed_names) + list(state_names)
+    enforce(len(example) == len(names),
+            "export: %d example tensors for %d inputs"
+            % (len(example), len(names)))
+    device = example[0].device if example else torch.device("cpu")
+    training = any(op.type == "backward" for op in ops)
+    written_out: List[str] = []
+
+    def run(*args):
+        env = dict(zip(names, args))
+        if training:
+            run_training_ops(ops, env, device, keep=fetch_names)
+        else:
+            with torch.no_grad():
+                run_program_ops(ops, env, device=device)
+        with torch.no_grad():
+            # fetches are copies: a graph output may not alias an input
+            outs = [_value(env, n).detach().clone() for n in fetch_names]
+            written_out.clear()
+            for n in written:
+                v = _value(env, n)
+                if any(v is a for a in args):
+                    continue  # updated in place, or passed through
+                written_out.append(n)
+                outs.append(v.detach())
+        return tuple(outs)
+
+    traced = make_fx(run, tracing_mode="fake")(*example)
+    exported = torch.export.export(traced, tuple(example))
+    # the example tensors (the parameters among them) stay out of the
+    # artifact: the caller passes them at every run
+    exported._example_inputs = None
+    return exported, list(written_out)
+
+
 def fetch_var(name: str, scope: Optional[Scope] = None,
               return_numpy: bool = True):
     """The value of a (persistable) variable straight from a scope — a
@@ -808,39 +879,14 @@ class _CapturedSteps:
                 self.out[n][0].copy_(v)
         del bufs, fetches
 
-        before = _cuda.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        side.wait_stream(main)
-        _CAPTURE.active = True
-        try:
-            with torch.cuda.stream(side):
-                # thread_local: the loader's worker may pin and copy
-                # the next batches while this thread captures
-                graph.capture_begin(pool=self.pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    for _ in range(self.steps if self.unroll else 1):
-                        self._step(self.state, self.out)
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass  # the capture was already invalidated
-                    raise
-                graph.capture_end()
-        except Exception as e:
-            raise EnforceError(
-                "%s: the CUDA graph capture failed%s: %s" % (
-                    self.caller, "" if self.unroll else " (the eager first "
-                    "step had already updated the state)", e)) from e
-        finally:
-            _CAPTURE.active = False
-            delta = {k: v - before.get(k, 0)
-                     for k, v in _cuda.launch_counts().items()}
-            _cuda.add_launches(delta, -1)
-        main.wait_stream(side)
-        self.per_replay = delta
-        self.graph = graph
+        def steps():
+            for _ in range(self.steps if self.unroll else 1):
+                self._step(self.state, self.out)
+
+        self.graph, self.per_replay = capture_graph(
+            steps, self.device, side, self.pool, "%s%s" % (
+                self.caller, "" if self.unroll else " (the eager first "
+                "step had already updated the state)"))
         self.capture_s = time.perf_counter() - t0
         return 1 if self.unroll else self.steps - 1
 
@@ -860,6 +906,47 @@ class _CapturedSteps:
         fetches = [self.out[n].clone() for n in self.fetch_names]
         self._state_out(self.scope)
         return fetches
+
+
+def capture_graph(fn, device: torch.device, stream: torch.cuda.Stream,
+                  pool=None, caller: str = "capture"):
+    """Capture ``fn()`` as a CUDA graph on ``stream`` (into the memory
+    pool ``pool``, None for a private one): ``(graph, per_replay)``.
+    ``fn`` must read and write fixed addresses, and something like it
+    must have run eagerly before (lazy initializations cannot be
+    captured). Capture runs nothing: the kernel wrappers' launch counts
+    that rose during it are put back, and ``per_replay`` is what each
+    replay launches, for ``_cuda.add_launches``. A failed capture
+    raises EnforceError naming ``caller``."""
+    before = _cuda.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    main = torch.cuda.current_stream(device)
+    stream.wait_stream(main)
+    _CAPTURE.active = True
+    try:
+        with torch.cuda.stream(stream):
+            # thread_local: a loader's worker may pin and copy the next
+            # batches while this thread captures
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture was already invalidated
+                raise
+            graph.capture_end()
+    except Exception as e:
+        raise EnforceError("%s: the CUDA graph capture failed: %s"
+                           % (caller, e)) from e
+    finally:
+        _CAPTURE.active = False
+        delta = {k: v - before.get(k, 0)
+                 for k, v in _cuda.launch_counts().items()}
+        _cuda.add_launches(delta, -1)
+    main.wait_stream(stream)
+    return graph, delta
 
 
 def _packed(specs, device, pin: bool):

@@ -15,13 +15,12 @@ the scope's tensor or the artifact's manifest names the dtype
 The inference model keeps the reference's two artifacts (io.py:550):
 ``__model__.json`` — the pruned program's symbol table and topology
 (op types/slots/attrs), after the inference pass pipeline
-(passes/manager.py) — and ``__params__.npz``. The JAX package also
-lowers the forward to StableHLO for its native runner; the port's
-counterpart (a ``torch.export`` artifact) is not built yet, so
-``export_stablehlo=True`` takes the JAX package's best-effort branch:
-it records ``stablehlo_error`` in the manifest and warns (ROADMAP
-Queue A 6). The durable training-program artifact
-(``save_trainable_program``) waits for the same item.
+(passes/manager.py) — and ``__params__.npz``. Where the JAX package
+lowers the forward to StableHLO for its native runner, the port exports
+it with ``torch.export`` (``__model__.pt2`` and one program per batch
+bucket), which ``inference.NativePredictor`` runs. The durable
+training-program artifact (``save_trainable_program``) exports the whole
+step the same way.
 """
 
 from __future__ import annotations
@@ -44,11 +43,6 @@ __all__ = [
     "save_decode_model", "load_decode_model",
     "get_inference_program",
 ]
-
-_NO_EXPORT = ("the torch.export artifact of the inference model (the "
-              "StableHLO module's counterpart) is not ported yet (ROADMAP "
-              "Queue A 6)")
-
 
 def _is_persistable(var: Variable) -> bool:
     return bool(var.persistable)
@@ -212,6 +206,98 @@ def _program_manifest(program: Program, feeds: List[str],
     }
 
 
+def _batch_feeds(gb, feeds: Sequence[str], batch: int):
+    """Zero tensors of each feed at ``batch``: the leading -1 is the
+    batch axis, any other unknown dim 1 (as the JAX package lowers);
+    None when a feed has no declared shape."""
+    import torch
+
+    out = []
+    for n in feeds:
+        v = gb._find_var_recursive(n)
+        if v is None or v.shape is None:
+            return None
+        shape = tuple((batch if i == 0 else 1) if s == -1 else s
+                      for i, s in enumerate(v.shape))
+        out.append(torch.zeros(shape, dtype=dtype_utils.to_torch(v.dtype)))
+    return out
+
+
+def _export_inference(dirname: str, program: Program, feeds: List[str],
+                      fetch_names: List[str], param_names: List[str],
+                      scope: Scope, manifest: dict,
+                      export_batch_sizes: Optional[Sequence[int]]) -> None:
+    """``save_inference_model``'s compiled artifact, the counterpart of
+    the JAX package's StableHLO modules: the pruned forward exported with
+    ``torch.export`` (``executor.export_program_ops``: feeds, then the
+    parameters in ``param_names`` order, in; the fetches out) at batch 1
+    as ``__model__.pt2`` and at each of ``export_batch_sizes`` as
+    ``__model__.b<N>.pt2``, recorded under ``torch_export``,
+    ``torch_export_batch_size`` and ``torch_export_buckets``
+    (``torch_export_feeds``: the feeds the graph takes, those an op
+    reads). The trace runs on the device the scope's parameters lie on;
+    the loader moves the graph to its own. An explicit bucket request is validated first
+    and raises where it cannot be met; the batch-1 export is best-effort
+    (a failure is recorded in ``torch_export_error`` with a warning, the
+    JSON program staying canonical)."""
+    import torch
+
+    from .executor import export_program_ops, live_ops
+
+    gb = program.global_block()
+    if export_batch_sizes:
+        for bsz in export_batch_sizes:
+            enforce(int(bsz) >= 1, "export_batch_sizes must be >= 1")
+        # a fixed-shape feed would bake its own batch into every bucket
+        shapes = {n: getattr(gb._find_var_recursive(n), "shape", None)
+                  for n in feeds}
+        bad = [n for n, shape in shapes.items()
+               if not shape or shape[0] != -1]
+        enforce(not bad,
+                "export_batch_sizes requires feeds with a declared -1 "
+                "leading batch axis; offending feeds: %s" % bad)
+    params = [scope.get(n) for n in param_names]
+    device = params[0].device if params else torch.device("cpu")
+    ops = live_ops(program, fetch_names)
+    # a feed no op reads (a loss-only mask of a pruned training program)
+    # is no input of the graph
+    read = {n for op in ops for n in op.input_arg_names}
+    graph_feeds = [n for n in feeds if n in read]
+
+    def export(batch, fname):
+        example = [f.to(device) for f in _batch_feeds(gb, graph_feeds,
+                                                      batch)]
+        exported, _ = export_program_ops(ops, graph_feeds, param_names,
+                                         example + params, fetch_names)
+        torch.export.save(exported, os.path.join(dirname, fname))
+
+    if _batch_feeds(gb, graph_feeds, 1) is not None:
+        try:
+            export(1, "__model__.pt2")
+            manifest["torch_export"] = "__model__.pt2"
+            manifest["torch_export_batch_size"] = 1
+            manifest["torch_export_feeds"] = graph_feeds
+        except Exception as e:
+            manifest["torch_export_error"] = "%s: %s" % (type(e).__name__,
+                                                         e)
+            warnings.warn("save_inference_model: torch.export failed (%s: "
+                          "%s); saving JSON program only"
+                          % (type(e).__name__, e))
+    if export_batch_sizes:
+        enforce("torch_export" in manifest,
+                "export_batch_sizes requested but the batch-1 export "
+                "failed: %s" % manifest.get("torch_export_error",
+                                            "feeds lack declared shapes"))
+        buckets = {}
+        for bsz in sorted(set(int(b) for b in export_batch_sizes)):
+            fname = ("__model__.pt2" if bsz == 1
+                     else "__model__.b%d.pt2" % bsz)
+            if bsz != 1:
+                export(bsz, fname)
+            buckets[str(bsz)] = fname
+        manifest["torch_export_buckets"] = buckets
+
+
 def save_inference_model(dirname: str,
                          feeded_var_names: Sequence[str],
                          target_vars: Sequence,
@@ -231,11 +317,10 @@ def save_inference_model(dirname: str,
     of the declared ``target_vars``), and saves ``__model__.json`` and
     ``__params__.npz`` — the persistables the pruned program's ops read.
 
-    ``export_stablehlo`` (default on, as in the JAX package) records
-    ``manifest["stablehlo_error"]`` and warns: the port's compiled
-    artifact is not built yet (ROADMAP Queue A 6). An explicit
-    ``export_batch_sizes`` request raises, as the JAX package does when
-    the base lowering failed."""
+    ``export_stablehlo`` (default on; the JAX package's name is kept
+    for callers) writes the compiled artifact, the forward exported with
+    ``torch.export`` at batch 1, and ``export_batch_sizes`` one program
+    per bucket (:func:`_export_inference`)."""
     program = main_program or default_main_program()
     scope = scope or global_scope()
     target_vars = (target_vars if isinstance(target_vars, (list, tuple))
@@ -268,15 +353,18 @@ def save_inference_model(dirname: str,
 
     manifest = _program_manifest(pruned, feeds, fetch_names)
     manifest["param_names"] = param_names
+    # a parameter stored in another dtype than its variable declares
+    # (cast by transpile_to_bfloat16): the loader reads it as stored
+    stored = {n: dtype_utils.name(scope.get(n).dtype) for n in param_names
+              if hasattr(scope.get(n), "dtype")}
+    cast = {n: d for n, d in stored.items()
+            if d != manifest["vars"].get(n, {}).get("dtype")}
+    if cast:
+        manifest["param_dtypes"] = cast
 
     if export_stablehlo:
-        manifest["stablehlo_error"] = _NO_EXPORT
-        warnings.warn("save_inference_model: StableHLO export failed (%s); "
-                      "saving JSON program only" % _NO_EXPORT)
-        if export_batch_sizes:
-            raise EnforceError(
-                "export_batch_sizes requested but the base StableHLO "
-                "lowering failed: %s" % _NO_EXPORT)
+        _export_inference(dirname, pruned, feeds, fetch_names, param_names,
+                          scope, manifest, export_batch_sizes)
 
     with open(os.path.join(dirname, model_filename or "__model__.json"),
               "w") as f:
@@ -284,22 +372,28 @@ def save_inference_model(dirname: str,
     return fetch_names
 
 
+def _manifest_dtype(manifest: dict, name: str) -> Optional[str]:
+    """The dtype an artifact's manifest records for ``name``: the stored
+    one (``param_dtypes``: a parameter cast by ``transpile_to_bfloat16``)
+    or else the var table's."""
+    return (manifest.get("param_dtypes", {}).get(name)
+            or manifest.get("vars", {}).get(name, {}).get("dtype"))
+
+
 def _load_params_file(path: str, scope: Scope, manifest: dict,
                       program: Optional[Program], place) -> None:
     """Every member of an artifact's params file into ``scope``; a raw
-    two-byte member takes the dtype the manifest's var table records."""
+    two-byte member takes the dtype the manifest records."""
     import numpy as np
 
     from .ckpt.restore import apply_state
 
-    table = manifest.get("vars", {})
     state: Dict[str, object] = {}
     with np.load(path) as data:
         for n in data.files:
             a = data[n]
-            rec = table.get(n)
-            if npz.is_raw16(a) and rec is not None \
-                    and rec.get("dtype") == "bfloat16":
+            if npz.is_raw16(a) and _manifest_dtype(manifest, n) \
+                    == "bfloat16":
                 a = npz.to_tensor(a, "bfloat16", name=n)
             state[n] = a
     apply_state(scope, state, program, place=place)
@@ -316,8 +410,8 @@ def load_inference_model(dirname: str,
     The Python path needs the original in-memory ``program`` (op fns
     cannot be rebuilt from JSON): its pruned clone is returned with the
     params loaded into ``scope`` (on ``executor``'s place where the
-    scope holds no tensor of that name). Without it this raises, as the
-    JAX package does without its native runner."""
+    scope holds no tensor of that name). Without it this raises, naming
+    the exported artifact's runner, ``inference.NativePredictor``."""
     scope = scope or global_scope()
     path = os.path.join(dirname, model_filename or "__model__.json")
     with open(path) as f:
@@ -331,9 +425,10 @@ def load_inference_model(dirname: str,
     if program is not None:
         return program.prune(fetches), feeds, fetches
     raise EnforceError(
-        "load_inference_model without the original Program needs a "
-        "compiled artifact, which the port does not build yet (ROADMAP "
-        "Queue A 6); pass `program=` for the Python path")
+        "load_inference_model without the original Program cannot "
+        "rebuild its op fns from JSON: pass `program=` for the Python "
+        "path, or run the exported artifact with "
+        "paddle_tpu_torch.inference.create_paddle_predictor")
 
 
 # ---------------------------------------------------------------------------
@@ -452,7 +547,11 @@ def load_decode_model(dirname: str, executor=None,
 
 
 # ---------------------------------------------------------------------------
-# Durable TRAINING program artifact: not ported.
+# Durable TRAINING program artifact: the whole step (forward, backward, the
+# optimizer's updates) exported with torch.export, beside the persistable
+# state and a symbol manifest. A fresh process loads it and continues
+# training bit for bit, without the Python code that built the program. One
+# artifact per feed-shape specialization.
 # ---------------------------------------------------------------------------
 
 
@@ -460,14 +559,303 @@ def save_trainable_program(dirname: str, feed_shapes: dict,
                            fetch_list: Sequence, executor=None,
                            main_program: Optional[Program] = None,
                            scope: Optional[Scope] = None) -> List[str]:
-    """The serialized training step of the JAX package (``jax.export``):
-    its counterpart needs the port's kernels as ``torch.library`` custom
-    ops, which the port does not have yet."""
-    raise not_ported("io.save_trainable_program (a serialized training "
-                     "step)", "Queue A 6")
+    """Serialize the whole training step and its state so that a new
+    process continues training (the JAX package's ``jax.export``
+    artifact; reference: io.py:550 persisting the ProgramDesc with
+    save_persistables).
+
+    ``feed_shapes``: ``{feed name: shape}``, the batch specialization to
+    export (dtypes from the program's symbol table). Writes
+    ``__train_step__.pt2`` (``executor.export_program_ops``: the feeds
+    in sorted order, then the state in ``train_state_names`` order, in;
+    the fetches and the state written out of place out),
+    ``__train_state__.npz`` (bf16 as raw two-byte members) and
+    ``__train__.json`` (the JAX package's manifest keys, plus
+    ``train_written_outputs``). The step is traced on the device the
+    scope's state lies on. A program whose backward recomputes its
+    forward (``memory_optimize(level>=1)``, the ``remat_policy`` pass)
+    is refused: its checkpointed regions are not exported."""
+    import torch
+
+    from .executor import (_analyze_program_io, _reject_view_feeds,
+                           _resolve_remat, _written_persistables,
+                           export_program_ops, live_ops)
+
+    program = main_program or default_main_program()
+    scope = scope or global_scope()
+    if _resolve_remat(program):
+        raise not_ported("save_trainable_program of a program that "
+                         "recomputes its forward (memory_optimize level "
+                         ">= 1, remat_policy)", "Queue A 6")
+    fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                   for v in (fetch_list if isinstance(fetch_list,
+                                                      (list, tuple))
+                             else [fetch_list])]
+    gb = program.global_block()
+    produced, needed, view_produced = _analyze_program_io(program)
+    _reject_view_feeds(feed_shapes, view_produced)
+    needed |= {n for n in fetch_names if n not in produced}
+    state_names = tuple(sorted(
+        n for n in needed if n not in feed_shapes and n not in
+        view_produced and scope.has_var(n)))
+    missing = [n for n in needed
+               if n not in feed_shapes and not scope.has_var(n)
+               and n not in produced]
+    enforce(not missing,
+            "save_trainable_program: %s neither fed nor in scope — run "
+            "the startup program first" % missing)
+    written_state = _written_persistables(program)
+    feeds = sorted(feed_shapes)
+    state = [scope.get(n) for n in state_names]
+    device = state[0].device if state else torch.device("cpu")
+    example = []
+    for n in feeds:
+        v = gb._find_var_recursive(n)
+        enforce(v is not None, "unknown feed %r" % n)
+        example.append(torch.zeros(
+            tuple(int(s) for s in feed_shapes[n]),
+            dtype=dtype_utils.to_torch(v.dtype or "float32"), device=device))
+    exported, written_out = export_program_ops(
+        live_ops(program, fetch_names), feeds, state_names,
+        example + state, fetch_names, written_state)
+
+    os.makedirs(dirname, exist_ok=True)
+    torch.export.save(exported, os.path.join(dirname, "__train_step__.pt2"))
+    npz.savez(os.path.join(dirname, "__train_state__"),
+              {n: npz.host_array(t) for n, t in zip(state_names, state)})
+    manifest = _program_manifest(program, feeds, fetch_names)
+    manifest["train_feed_shapes"] = {n: list(map(int, s))
+                                     for n, s in feed_shapes.items()}
+    manifest["train_state_names"] = list(state_names)
+    manifest["train_written_state"] = list(written_state)
+    manifest["train_written_outputs"] = written_out
+    manifest["torch_export"] = "__train_step__.pt2"
+    with open(os.path.join(dirname, "__train__.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return fetch_names
 
 
-def load_trainable_program(dirname: str):
-    """See :func:`save_trainable_program`."""
-    raise not_ported("io.load_trainable_program (a serialized training "
-                     "step)", "Queue A 6")
+def _npz_tensors(path: str, manifest: dict, device) -> Dict[str, object]:
+    """Every member of an artifact's ``.npz`` as a tensor on ``device``;
+    a raw two-byte member takes the dtype the manifest records (and
+    raises where that is not bfloat16)."""
+    import numpy as np
+
+    with np.load(path) as data:
+        return {n: npz.to_tensor(
+            data[n], _manifest_dtype(manifest, n)
+            if npz.is_raw16(data[n]) else None, device, name=n)
+            for n in data.files}
+
+
+def load_exported(path: str, device):
+    """A ``torch.export`` artifact moved to ``device`` (the tensors its
+    ops made on the exporter's device included): its module."""
+    import torch
+    from torch.export.passes import move_to_device_pass
+
+    # the modules that register the graph's custom ops
+    from .layers import nn  # noqa: F401
+    from .ops import (dropout, flash_attention,  # noqa: F401
+                      fused_optimizer, paged_attention)
+
+    return move_to_device_pass(torch.export.load(path),
+                               str(device)).module()
+
+
+class TrainableProgram:
+    """A reloaded training program (:func:`load_trainable_program`): one
+    step per :meth:`run`, the state carried on the artifact's device in
+    tensors that never move, so a captured CUDA graph can read and write
+    them."""
+
+    def __init__(self, module, manifest: dict, state: Dict[str, object],
+                 device):
+        import torch
+
+        self._module = module
+        self.manifest = manifest
+        self.device = torch.device(device)
+        self.feed_names = list(manifest["feed_names"])
+        self.fetch_names = list(manifest["fetch_names"])
+        self.feed_shapes = {n: tuple(s) for n, s in
+                            manifest["train_feed_shapes"].items()}
+        self._state_names = list(manifest["train_state_names"])
+        self._written_out = list(manifest["train_written_outputs"])
+        self._state = dict(state)
+        table = manifest["vars"]
+        self._feed_dtypes = {n: dtype_utils.to_torch(
+            table.get(n, {}).get("dtype") or "float32")
+            for n in self.feed_names}
+        # steps -> the captured step of run_steps on a card
+        self._graphs: Dict[int, "_StepGraph"] = {}
+
+    def _feed(self, feed: dict, lead: tuple = ()):
+        import numpy as np
+        import torch
+
+        enforce(set(feed) == set(self.feed_shapes),
+                "TrainableProgram: feed must provide exactly %s"
+                % sorted(self.feed_shapes))
+        out = []
+        for n in self.feed_names:
+            a = feed[n]
+            t = a if isinstance(a, torch.Tensor) \
+                else torch.as_tensor(np.asarray(a))
+            want = lead + self.feed_shapes[n]
+            enforce(tuple(t.shape) == want,
+                    "feed %r shape %s != exported specialization %s (one "
+                    "artifact per shape; re-export for new shapes)"
+                    % (n, tuple(t.shape), want))
+            out.append(t.to(device=self.device,
+                            dtype=self._feed_dtypes[n]))
+        return out
+
+    def _step(self, feeds) -> list:
+        """One step over the state tensors: the fetches (new tensors);
+        the state written out of place is copied into its tensor."""
+        outs = self._module(*feeds,
+                            *[self._state[n] for n in self._state_names])
+        k = len(self.fetch_names)
+        for n, v in zip(self._written_out, outs[k:]):
+            if n in self._state:
+                self._state[n].copy_(v)
+            else:
+                self._state[n] = v.clone()
+        return list(outs[:k])
+
+    def run(self, feed: dict, fetch_list=None, return_numpy: bool = True):
+        """One step; the fetches (host arrays, or tensors without
+        ``return_numpy``)."""
+        from .executor import _to_numpy
+
+        fetches = self._step(self._feed(feed))
+        if return_numpy:
+            return [_to_numpy(f) for f in fetches]
+        return fetches
+
+    def run_steps(self, feed: dict, steps: int, return_numpy: bool = True):
+        """``steps`` steps in one call, exactly ``steps`` calls of
+        :meth:`run`: every feed carries a leading ``steps`` axis over the
+        exported shape; the fetches come back stacked on it. On the CPU
+        a loop of steps; on a card one captured CUDA graph of the step,
+        replayed (a graph per ``steps``; its first call runs the first
+        step eagerly and captures, as ``Executor.run_steps`` does)."""
+        import torch
+
+        from .executor import _to_numpy
+
+        enforce(int(steps) >= 1, "steps must be >= 1")
+        steps = int(steps)
+        feeds = self._feed(feed, lead=(steps,))
+        if self.device.type != "cuda":
+            outs = [self._step([f[i] for f in feeds]) for i in range(steps)]
+            stacked = [torch.stack([o[k] for o in outs])
+                       for k in range(len(self.fetch_names))]
+        else:
+            graph = self._graphs.get(steps)
+            if graph is None:
+                graph = self._graphs[steps] = _StepGraph(self, feeds)
+            stacked = graph(feeds)
+        if return_numpy:
+            return [_to_numpy(f) for f in stacked]
+        return stacked
+
+    def state_dict(self) -> Dict[str, object]:
+        """The state tensors by name (live: the next step updates them)."""
+        return dict(self._state)
+
+    def save_state(self, dirname: str) -> None:
+        """Write the state back into the artifact's ``__train_state__``."""
+        npz.savez(os.path.join(dirname, "__train_state__"),
+                  {n: npz.host_array(t) for n, t in self._state.items()})
+
+
+class _StepGraph:
+    """``steps`` steps of a :class:`TrainableProgram` on a card as one
+    captured CUDA graph of the step, replayed: the feeds stacked in a
+    buffer whose row a step counter on the card selects, the fetches
+    written to the rows of a stacked buffer, the state in the program's
+    own tensors. The first call runs step 0 eagerly on the capture
+    stream (lazy initializations cannot be captured), then captures one
+    step and replays it ``steps - 1`` times; later calls replay
+    ``steps`` times. Launch counts count the replays."""
+
+    def __init__(self, prog: TrainableProgram, feeds):
+        import torch
+
+        self.prog = prog
+        self.steps = int(feeds[0].shape[0]) if feeds else 1
+        self.feeds = [torch.empty_like(f) for f in feeds]
+        self.idx = torch.zeros(1, dtype=torch.int64, device=prog.device)
+        self.out = None
+        self.graph = None
+        self.per_replay = {}
+        self.stream = torch.cuda.Stream(prog.device)
+
+    def _one(self, out):
+        import torch
+
+        fetches = self.prog._step([b.index_select(0, self.idx)[0]
+                                   for b in self.feeds])
+        with torch.no_grad():
+            if out is not None:
+                for buf, v in zip(out, fetches):
+                    buf.index_copy_(0, self.idx, v.unsqueeze(0))
+            self.idx.add_(1)
+        return fetches
+
+    def __call__(self, feeds):
+        import torch
+
+        from .executor import capture_graph
+        from .ops import _cuda
+
+        self.idx.zero_()
+        for buf, f in zip(self.feeds, feeds):
+            buf.copy_(f)
+        replays = self.steps
+        if self.graph is None:
+            main = torch.cuda.current_stream(self.prog.device)
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                first = self._one(None)
+            main.wait_stream(self.stream)
+            for v in first:  # allocated on the side stream, read here
+                v.record_stream(main)
+            self.out = [torch.empty((self.steps,) + tuple(v.shape),
+                                    dtype=v.dtype, device=self.prog.device)
+                        for v in first]
+            for buf, v in zip(self.out, first):
+                buf[0].copy_(v)
+            self.graph, self.per_replay = capture_graph(
+                lambda: self._one(self.out), self.prog.device, self.stream,
+                caller="TrainableProgram.run_steps (the eager first step "
+                "had already updated the state)")
+            replays = self.steps - 1
+        for _ in range(replays):
+            self.graph.replay()
+        _cuda.add_launches(self.per_replay, replays)
+        return [o.clone() for o in self.out]
+
+
+def load_trainable_program(dirname: str, place=None) -> TrainableProgram:
+    """Reload a :func:`save_trainable_program` artifact in any process,
+    onto ``place`` (default ``CUDAPlace(0)``, which raises on a host
+    without a card): a :class:`TrainableProgram` whose ``run(feed)``
+    continues training where the saved state left off."""
+    from .core.place import default_place
+
+    place = place if place is not None else default_place()
+    device = place.torch_device()
+    with open(os.path.join(dirname, "__train__.json")) as f:
+        manifest = json.load(f)
+    enforce("torch_export" in manifest,
+            "%s has no torch_export artifact (a JAX-written directory "
+            "holds __train_step__.bin, which the port cannot run)"
+            % dirname)
+    module = load_exported(os.path.join(dirname, manifest["torch_export"]),
+                           device)
+    state = _npz_tensors(os.path.join(dirname, "__train_state__.npz"),
+                         manifest, device)
+    return TrainableProgram(module, manifest, state, device)

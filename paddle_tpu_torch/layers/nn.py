@@ -27,15 +27,26 @@ from ..core.program import Deferred, Variable
 from ..layer_helper import LayerHelper
 
 
-def _mm_f32(a, b):
-    """f32 product of two bf16 matrices. On the card cuBLAS takes the
-    bf16 operands and writes f32 (``torch.mm(..., out_dtype=)``); that
-    op has no CPU kernel, so there the operands are widened first — a
-    product of two bf16 values is exact in f32, and the sums run in
-    f32 either way."""
-    if a.device.type == "cuda":
-        return torch.mm(a, b, out_dtype=torch.float32)
+@torch.library.custom_op("paddle_tpu_torch::mm_f32", mutates_args=(),
+                         device_types="cpu")
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 product of two bf16 matrices, as a torch.library custom op so
+    that an exported graph picks the kernel by device when it runs. On
+    the card cuBLAS takes the bf16 operands and writes f32
+    (``torch.mm(..., out_dtype=)``); that op has no CPU kernel, so there
+    the operands are widened first — a product of two bf16 values is
+    exact in f32, and the sums run in f32 either way."""
     return torch.mm(a.to(torch.float32), b.to(torch.float32))
+
+
+@_mm_f32.register_fake
+def _(a, b):
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=torch.float32)
+
+
+@_mm_f32.register_kernel("cuda")
+def _(a, b):
+    return torch.mm(a, b, out_dtype=torch.float32)
 
 
 class _Bf16MatmulF32(torch.autograd.Function):
@@ -73,8 +84,14 @@ def _mm_rule():
 def _mm(a, b, rule):
     """Matrix product under ``rule`` (:func:`_mm_rule`). A batched
     product under the ``"f32"`` rule widens its bf16 operands to f32
-    (exact products, f32 sums: the same numbers)."""
+    (exact products, f32 sums: the same numbers). Under no rule,
+    operands of two float types meet in the wider one, as the JAX
+    package's promotion has them (an f32 input against weights cast to
+    bf16 by ``transpile_to_bfloat16``)."""
     if rule is None:
+        if a.dtype != b.dtype:
+            dt = torch.promote_types(a.dtype, b.dtype)
+            a, b = a.to(dt), b.to(dt)
         return torch.matmul(a, b)
     a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
     if rule == "bf16":

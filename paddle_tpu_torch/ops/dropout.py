@@ -20,22 +20,24 @@ Functions:
 * :func:`plain_dropout` — the same function with plain torch ops
   (``core/prng.py``). What CPU tensors run and what the kernel is held
   to on the card.
-* :func:`dropout_apply` — the launcher: ``x * mask`` on a CUDA tensor in
-  one kernel launch (or raises), the plain version on a CPU tensor. The
+* :func:`dropout_apply` — the ``paddle_tpu_torch::dropout_apply``
+  custom op: ``x * mask`` on a CUDA tensor in one kernel launch (or
+  raises), the plain version on a CPU tensor. The
   counter is a one-element int32 tensor on ``x``'s device, read by the
   kernel (no host read); ``counter_out``, when given, receives
   ``counter + 1`` from the same launch. It counts its launches in
   ``.launches`` and, of those, the backward pass's in
   ``.backward_launches``.
-* :func:`dropout` — the op: ``(x * mask, counter + 1)`` as a
-  ``torch.autograd.Function`` whose backward is the kernel on the
-  incoming gradient under the counter its forward read (the mask drawn
-  again, none stored).
+* :func:`dropout` — the layer's op: ``(x * mask, counter + 1)`` as a
+  ``torch.autograd.Function`` over ``dropout_apply`` whose backward is
+  ``dropout_apply`` on the incoming gradient under the counter its
+  forward read (the mask drawn again, none stored).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -46,7 +48,6 @@ from . import _cuda
 
 __all__ = ["dropout", "dropout_apply", "keep_threshold", "plain_dropout"]
 
-_PLAIN_DEVICES = ("cpu", "meta")
 _DTYPES = (torch.float32, torch.bfloat16)
 # integer operations the kernel spends on one element: the threefry's 20
 # rounds (add, rotate, xor) and 5 key injections of 2 adds, its 2 input
@@ -118,8 +119,6 @@ def int_ops_per_s(device: int = 0) -> float:
 
 
 def _check_cuda(x, counter, counter_out):
-    enforce(x.device.type == "cuda", "dropout: unsupported device %s"
-            % x.device)
     enforce(x.dtype in _DTYPES and x.is_contiguous(),
             "dropout: the kernel takes a contiguous float32 or bfloat16 "
             "tensor, got %s (contiguous: %s)" % (x.dtype, x.is_contiguous()))
@@ -132,17 +131,29 @@ def _check_cuda(x, counter, counter_out):
                                  c.device))
 
 
-def dropout_apply(x: torch.Tensor, seed: int, counter: torch.Tensor,
-                  p: float, counter_out=None,
-                  backward: bool = False) -> torch.Tensor:
-    """``x * mask`` (a new tensor): on a CUDA tensor one kernel launch,
-    which also writes ``counter + 1`` into ``counter_out`` when given;
-    on a CPU tensor :func:`plain_dropout` (and ``counter_out`` filled
-    the same way). ``backward`` marks a launch for the gradient."""
-    if x.device.type in _PLAIN_DEVICES:
-        if counter_out is not None:
-            counter_out.copy_(counter.reshape(counter_out.shape) + 1)
-        return plain_dropout(x, seed, counter, p)
+# The kernel as a torch.library custom op (see ops/flash_attention.py):
+# the CPU kernel is plain_dropout, the CUDA kernel the hand-written one,
+# the fake kernel gives tracing the output's shape. ``counter_out`` is
+# declared mutated: both kernels write ``counter + 1`` into it.
+
+
+@torch.library.custom_op("paddle_tpu_torch::dropout_apply",
+                         mutates_args=("counter_out",), device_types="cpu")
+def _dropout_apply_op(x: torch.Tensor, seed: int, counter: torch.Tensor,
+                      p: float, counter_out: Optional[torch.Tensor],
+                      backward: bool) -> torch.Tensor:
+    if counter_out is not None:
+        counter_out.copy_(counter.reshape(counter_out.shape) + 1)
+    return plain_dropout(x, seed, counter, p)
+
+
+@_dropout_apply_op.register_fake
+def _(x, seed, counter, p, counter_out, backward):
+    return torch.empty_like(x)
+
+
+@_dropout_apply_op.register_kernel("cuda")
+def _(x, seed, counter, p, counter_out, backward):
     _check_cuda(x, counter, counter_out)
     lib = _library()
     out = torch.empty_like(x)
@@ -164,6 +175,18 @@ def dropout_apply(x: torch.Tensor, seed: int, counter: torch.Tensor,
     return out
 
 
+def dropout_apply(x: torch.Tensor, seed: int, counter: torch.Tensor,
+                  p: float, counter_out=None,
+                  backward: bool = False) -> torch.Tensor:
+    """``x * mask`` (a new tensor): the ``dropout_apply`` op — on a CUDA
+    tensor one kernel launch, which also writes ``counter + 1`` into
+    ``counter_out`` when given; on a CPU tensor :func:`plain_dropout`
+    (and ``counter_out`` filled the same way). ``backward`` marks a
+    launch for the gradient."""
+    return _dropout_apply_op(x, int(seed), counter, float(p), counter_out,
+                             bool(backward))
+
+
 _cuda.register_launcher(dropout_apply,
                         counts=("launches", "backward_launches"))
 
@@ -174,7 +197,10 @@ class _Dropout(torch.autograd.Function):
     tensor itself is saved, not the scope's: nothing writes it in place
     before the backward pass (a step's state is written back after its
     updates), and autograd's version check would refuse it if something
-    did."""
+    did. An autograd Function over the op, not the op's own
+    ``register_autograd``: torch registers autograd formulas for
+    functional ops only, and ``dropout_apply`` mutates ``counter_out``.
+    A trace (``make_fx``) records the op in both passes all the same."""
 
     @staticmethod
     def forward(ctx, x, counter, seed, p):

@@ -4,9 +4,11 @@ kernels for Hopper (csrc/flash_attention.cu).
 Replaces the Pallas family of ``paddle_tpu/ops/flash_attention.py``:
 ``_mha_forward`` (kernel ``_fwd_kernel``), and the two kernels of
 ``_mha_backward`` (``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``), tied
-together by ``jax.custom_vjp``. Here one ``torch.autograd.Function``
-ties them: its forward launches the forward kernel and saves
-``(q, k, v, mask, o, lse)``; its backward launches dQ, then dK/dV.
+together by ``jax.custom_vjp``. Here each kernel is a
+``torch.library`` custom op (``paddle_tpu_torch::flash_fwd``,
+``::flash_bwd_dq``, ``::flash_bwd_dkv``), and the forward op's
+registered autograd formula ties them: it saves ``(q, k, v, mask, o,
+lse)`` and its backward calls the dQ op, then the dK/dV op.
 
 What the kernels compute, and what they keep out of device memory, is
 the TPU family's: the ``[Tq, Tk]`` scores never reach device memory;
@@ -41,18 +43,20 @@ Functions:
   second products); the card tests hold those kernels to them element
   by element (:func:`bf16_ulps` at most 1).
 * :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv` — the
-  three launchers. A CPU tensor takes the plain version (so does a
-  meta tensor, which build-time shape inference passes); a CUDA tensor
-  launches the kernel or raises (float32 or bfloat16, head dim 64 or
-  128; inputs whose pointer or (batch, time, head) strides are not
-  16-byte aligned are refused too). Each has a ``.launches`` counter of
-  kernel launches.
+  three ops. The dispatcher picks the kernel by device: a CPU tensor
+  takes the plain version, a meta or fake one (build-time shape
+  inference, tracing) the fake kernel, a CUDA tensor the hand-written
+  kernel, which raises on what it does not take (float32 or bfloat16,
+  head dim 64 or 128; inputs whose pointer or (batch, time, head)
+  strides are not 16-byte aligned are refused too). Each has a
+  ``.launches`` counter of kernel launches, raised by the CUDA kernel
+  alone.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -65,9 +69,6 @@ __all__ = ["BF16_MODEL_FLOOR", "bf16_ulps", "flash_attention",
            "plain_flash_forward", "plain_flash_forward_bf16"]
 
 HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
-# devices whose tensors take the plain versions: the CPU, and "meta"
-# (shape inference at build time, which moves no data)
-_PLAIN_DEVICES = ("cpu", "meta")
 
 
 # ---------------------------------------------------------------- plain
@@ -145,22 +146,31 @@ def plain_flash_forward_bf16(q, k, v, causal=False, scale=None,
     return o.to(q.dtype), lse[..., 0]
 
 
+def _delta(o, do):
+    """``rowsum(dO * O)`` ``[B, H, Tq]`` f32."""
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1)
+
+
+def _probs(q, k, v, lse, delta, do, causal, scale, kv_mask):
+    """The backward's f32 probabilities ``p`` and score gradients
+    ``ds`` ``[B, H, Tq, Tk]``, rebuilt from ``lse`` and ``delta``."""
+    s, valid = _scores(q, k, causal, scale, kv_mask)
+    p = torch.where(valid, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
 def _backward(q, k, v, o, lse, do, causal, scale, kv_mask, operand):
     """(dq, dk, dv); ``operand`` is the dtype p and ds are rounded to
     before the second products (None: kept in f32)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    s, valid = _scores(q, k, causal, scale, kv_mask)
-    p = torch.where(valid, torch.exp(s - lse[..., None]),
-                    torch.zeros_like(s))
-    dof = do.float()
-    delta = (dof * o.float()).sum(-1).permute(0, 2, 1)        # [B, H, Tq]
-    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
-    ds = p * (dp - delta[..., None]) * scale
+    p, ds = _probs(q, k, v, lse, _delta(o, do), do, causal, scale, kv_mask)
     if operand is not None:
         p, ds = p.to(operand).float(), ds.to(operand).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -261,8 +271,6 @@ def _strides(t):
 
 def _check_cuda(name, q, k, v, kv_mask, *more):
     """Refuse what the kernels do not take; returns (B, Tq, Tk, H, D)."""
-    enforce(q.device.type == "cuda",
-            "%s: unsupported device %s" % (name, q.device))
     enforce(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
             "%s: q, k, v must be [B, T, H, D]" % name)
     B, Tq, H, D = (int(s) for s in q.shape)
@@ -339,12 +347,43 @@ def _fn(lib, name, dtype):
                                 else "_bf16"))
 
 
-def flash_fwd(q, k, v, causal=False, scale=None, kv_mask=None):
-    """(o, lse): the forward kernel on a CUDA tensor, the plain version
-    on a CPU one."""
-    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    if q.device.type in _PLAIN_DEVICES:
-        return plain_flash_forward(q, k, v, causal, scale, kv_mask)
+def _scale(q, scale) -> float:
+    return q.shape[-1] ** -0.5 if scale is None else float(scale)
+
+
+def _contiguous(*ts):
+    return tuple(t.contiguous() for t in ts)
+
+
+# ---------------------------------------------------------------- ops
+#
+# Each kernel is a torch.library custom op: a graph that torch.export
+# writes names the op, and the dispatcher picks its kernel by the device
+# of the tensors when the graph runs. The CPU kernel is the plain
+# version, the CUDA kernel the hand-written one (or it raises), and the
+# fake kernel gives tracing (and build-time shape inference on "meta"
+# tensors) the shapes and dtypes. The launch counters rise in the CUDA
+# kernels only, so a trace counts nothing.
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_mask: Optional[torch.Tensor], causal: bool,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _contiguous(*plain_flash_forward(q, k, v, causal, scale,
+                                            kv_mask))
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, kv_mask, causal, scale):
+    B, Tq, H = q.shape[:3]
+    return (q.new_empty((B, Tq, H, v.shape[-1])),
+            q.new_empty((B, H, Tq), dtype=torch.float32))
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, kv_mask, causal, scale):
     B, Tq, Tk, H, D = _check_cuda("flash_fwd", q, k, v, kv_mask)
     _check_aligned("flash_fwd", q, k, v)
     lib = _library()
@@ -358,19 +397,31 @@ def flash_fwd(q, k, v, causal=False, scale=None, kv_mask=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
             o.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, D,
             *_strides(q), *_strides(k), *_strides(v), mask_sb,
-            int(bool(causal)), scale, stream)
+            int(causal), scale, stream)
     _check_launch("flash_fwd", lib, err)
     flash_fwd.launches += 1
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, o, lse, do, causal=False, scale=None,
-                 kv_mask=None):
-    """(dq, delta) on a CUDA tensor: the dQ kernel, which also writes
-    ``delta = rowsum(dO * O)`` ``[B, H, Tq]`` f32 for the dK/dV kernel.
-    CUDA only: the plain version of the backward is
-    :func:`plain_flash_backward`."""
-    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd_dq", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     kv_mask: Optional[torch.Tensor], causal: bool,
+                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    delta = _delta(o, do)
+    _, ds = _probs(q, k, v, lse, delta, do, causal, scale, kv_mask)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+    return _contiguous(dq, delta)
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, o, lse, do, kv_mask, causal, scale):
+    return torch.empty_like(q), torch.empty_like(lse)
+
+
+@_flash_bwd_dq_op.register_kernel("cuda")
+def _(q, k, v, o, lse, do, kv_mask, causal, scale):
     B, Tq, Tk, H, D = _check_cuda("flash_bwd_dq", q, k, v, kv_mask, o, do)
     enforce(tuple(lse.shape) == (B, H, Tq) and lse.dtype == torch.float32
             and lse.is_contiguous() and lse.device == q.device,
@@ -388,17 +439,32 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal=False, scale=None,
             o.data_ptr(), mask_ptr, lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), B, H, Tq, Tk, D,
             *_strides(q), *_strides(k), *_strides(v), *_strides(do),
-            *_strides(o), mask_sb, int(bool(causal)), scale, stream)
+            *_strides(o), mask_sb, int(causal), scale, stream)
     _check_launch("flash_bwd_dq", lib, err)
     flash_bwd_dq.launches += 1
     return dq, delta
 
 
-def flash_bwd_dkv(q, k, v, lse, delta, do, causal=False, scale=None,
-                  kv_mask=None):
-    """(dk, dv) on a CUDA tensor: the dK/dV kernel, reading the
-    ``delta`` that :func:`flash_bwd_dq` wrote. CUDA only."""
-    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd_dkv",
+                         mutates_args=(), device_types="cpu")
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lse: torch.Tensor, delta: torch.Tensor,
+                      do: torch.Tensor, kv_mask: Optional[torch.Tensor],
+                      causal: bool, scale: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    p, ds = _probs(q, k, v, lse, delta, do, causal, scale, kv_mask)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(k.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float()).to(v.dtype)
+    return _contiguous(dk, dv)
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, lse, delta, do, kv_mask, causal, scale):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+@_flash_bwd_dkv_op.register_kernel("cuda")
+def _(q, k, v, lse, delta, do, kv_mask, causal, scale):
     B, Tq, Tk, H, D = _check_cuda("flash_bwd_dkv", q, k, v, kv_mask, do)
     for name, t in (("lse", lse), ("delta", delta)):
         enforce(tuple(t.shape) == (B, H, Tq) and t.dtype == torch.float32
@@ -418,10 +484,35 @@ def flash_bwd_dkv(q, k, v, lse, delta, do, causal=False, scale=None,
             mask_ptr, lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, Tq, Tk, D,
             *_strides(q), *_strides(k), *_strides(v), *_strides(do),
-            mask_sb, int(bool(causal)), scale, stream)
+            mask_sb, int(causal), scale, stream)
     _check_launch("flash_bwd_dkv", lib, err)
     flash_bwd_dkv.launches += 1
     return dk, dv
+
+
+def flash_fwd(q, k, v, causal=False, scale=None, kv_mask=None):
+    """(o, lse): the ``flash_fwd`` op — the forward kernel on a CUDA
+    tensor, the plain version on a CPU one."""
+    return _flash_fwd_op(q, k, v, kv_mask, bool(causal), _scale(q, scale))
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, causal=False, scale=None,
+                 kv_mask=None):
+    """(dq, delta): the ``flash_bwd_dq`` op — on a CUDA tensor the dQ
+    kernel, which also writes ``delta = rowsum(dO * O)`` ``[B, H, Tq]``
+    f32 for the dK/dV kernel; on a CPU one the same two with plain
+    torch ops."""
+    return _flash_bwd_dq_op(q, k, v, o, lse, do, kv_mask, bool(causal),
+                            _scale(q, scale))
+
+
+def flash_bwd_dkv(q, k, v, lse, delta, do, causal=False, scale=None,
+                  kv_mask=None):
+    """(dk, dv): the ``flash_bwd_dkv`` op — the dK/dV kernel on a CUDA
+    tensor, reading the ``delta`` that :func:`flash_bwd_dq` wrote; the
+    plain version on a CPU one."""
+    return _flash_bwd_dkv_op(q, k, v, lse, delta, do, kv_mask,
+                             bool(causal), _scale(q, scale))
 
 
 for _launcher in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
@@ -430,48 +521,45 @@ for _launcher in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
 
 def flash_backward(q, k, v, o, lse, do, causal=False, scale=None,
                    kv_mask=None):
-    """(dq, dk, dv): the plain version on a CPU tensor; on a CUDA one
-    the dQ kernel, then the dK/dV kernel on the same stream."""
-    if q.device.type in _PLAIN_DEVICES:
-        return plain_flash_backward(q, k, v, o, lse, do, causal, scale,
-                                    kv_mask)
+    """(dq, dk, dv): the dQ op, then the dK/dV op on the same stream."""
     dq, delta = flash_bwd_dq(q, k, v, o, lse, do, causal, scale, kv_mask)
     dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale, kv_mask)
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal, scale):
-        o, lse = flash_fwd(q, k, v, causal, scale, kv_mask)
-        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, kv_mask, causal, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+    ctx.causal, ctx.scale = causal, scale
+    ctx.mark_non_differentiable(lse)
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, kv_mask, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
-        dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.causal,
-                                    ctx.scale, kv_mask)
-        return dq, dk, dv, None, None, None
+
+def _fwd_backward(ctx, do, _dlse):
+    q, k, v, kv_mask, o, lse = ctx.saved_tensors
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.causal, ctx.scale,
+                                kv_mask)
+    return dq, dk, dv, None, None, None
+
+
+_flash_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None, kv_mask=None):
     """Multi-head attention, differentiable: ``q [B, Tq, H, D]``, ``k, v
     [B, Tk, H, D]``, ``kv_mask`` an optional ``[B, Tk]`` 0/1 mask over
-    keys. CPU tensors run the plain versions; CUDA tensors the kernels
-    (or raise)."""
-    if q.device.type in _PLAIN_DEVICES:
-        for t in (k, v) + (() if kv_mask is None else (kv_mask,)):
-            enforce(t.device == q.device,
-                    "flash_attention: q is on the CPU but an input is on %s"
-                    % t.device)
-    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    keys. The ``flash_fwd`` op, whose backward is the ``flash_bwd_dq``
+    and ``flash_bwd_dkv`` ops: CPU tensors run the plain versions, CUDA
+    tensors the kernels (or raise)."""
+    for t in (k, v) + (() if kv_mask is None else (kv_mask,)):
+        enforce(t.device == q.device,
+                "flash_attention: q is on %s but an input is on %s"
+                % (q.device, t.device))
     if kv_mask is not None:
         kv_mask = kv_mask.to(torch.float32)
         if kv_mask.stride(-1) != 1:
             kv_mask = kv_mask.contiguous()
-    return _FlashAttention.apply(q, k, v, kv_mask, bool(causal), scale)
+    return _flash_fwd_op(q, k, v, kv_mask, bool(causal), _scale(q, scale))[0]

@@ -20,9 +20,10 @@ Functions:
   (``optimizer.py`` builds its per-parameter ops from it, so the two
   layouts cannot drift apart). What CPU tensors run and what the kernel
   is held to on the card.
-* :func:`fused_flat_update` — the launcher. A CPU tensor takes the
-  plain version; a CUDA tensor launches the kernel or raises. It counts
-  its launches in ``.launches``.
+* :func:`fused_flat_update` — the ``paddle_tpu_torch::fused_flat_update``
+  custom op, which updates ``p`` and the moments in place on either
+  device: a CPU tensor takes the plain version, a CUDA tensor launches
+  the kernel or raises. It counts its launches in ``.launches``.
 
 ``kind`` is the optimizer's op type; ``consts`` its hyperparameters as
 Python numbers, ``scale`` (the group's learning-rate scale) first:
@@ -61,7 +62,7 @@ never advances them in place.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
@@ -78,7 +79,6 @@ KINDS = {"sgd": (0, 0, 1), "adagrad": (1, 0, 2), "adam": (2, 2, 4),
          "proximal_adagrad": (1, 0, 3)}
 # the kernel's kind ids (csrc/fused_optimizer.cu, enum Kind)
 _KIND_ID = {k: i for i, k in enumerate(KINDS)}
-_PLAIN_DEVICES = ("cpu", "meta")
 _MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 # the C interface's fixed array lengths
 _MAX_MOMENTS, _MAX_SHARED, _MAX_CONSTS = 4, 2, 8
@@ -297,8 +297,6 @@ def _check_cuda(kind, p, g, lr, accs, shared, consts):
                                            len(accs), len(shared),
                                            len(consts)))
     dev = p.device
-    enforce(dev.type == "cuda", "fused_flat_update: unsupported device %s"
-            % dev)
     enforce(p.dim() == 1 and p.dtype == torch.float32 and p.is_contiguous(),
             "fused_flat_update: the parameters must be a contiguous flat "
             "float32 buffer, got %s %s" % (p.dtype, tuple(p.shape)))
@@ -319,40 +317,71 @@ def _check_cuda(kind, p, g, lr, accs, shared, consts):
                 "float32 element on %s" % dev)
 
 
-def fused_flat_update(kind: str, p, g, lr, accs: Sequence = (),
-                      shared: Sequence = (), owns: bool = False,
-                      consts: Sequence = ()):
-    """The group update: on a CUDA tensor one kernel launch that updates
-    ``p`` and ``accs`` in place and returns them (and, if ``owns``, the
-    advanced shared scalars as new tensors); on a CPU tensor
-    :func:`plain_flat_update`."""
-    accs, shared, consts = tuple(accs), tuple(shared), tuple(consts)
-    if p.device.type in _PLAIN_DEVICES:
-        return plain_flat_update(kind, p, g, lr, accs, shared, owns, consts)
-    enforce(kind in KINDS, "fused update: unknown kind %r (one of %s)"
-            % (kind, sorted(KINDS)))
+# The kernel as a torch.library custom op (see ops/flash_attention.py):
+# ``p`` and ``accs`` are declared mutated and updated in place by both
+# kernels (the CPU one copies plain_flat_update's new tensors into
+# them), and so is ``shared_out``: the buffers, empty or fresh from the
+# wrapper, that receive the advanced shared scalars when the group owns
+# them. The op returns nothing.
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_flat_update",
+                         mutates_args=("p", "accs", "shared_out"),
+                         device_types="cpu")
+def _fused_flat_update_op(kind: str, p: torch.Tensor, g: torch.Tensor,
+                          lr: torch.Tensor, accs: List[torch.Tensor],
+                          shared: List[torch.Tensor],
+                          shared_out: List[torch.Tensor],
+                          consts: List[float]) -> None:
+    out = plain_flat_update(kind, p, g, lr, accs, shared, bool(shared_out),
+                            consts)
+    for dst, src in zip([p] + list(accs) + list(shared_out), out):
+        dst.copy_(src)
+
+
+@_fused_flat_update_op.register_fake
+def _(kind, p, g, lr, accs, shared, shared_out, consts):
+    return None
+
+
+@_fused_flat_update_op.register_kernel("cuda")
+def _(kind, p, g, lr, accs, shared, shared_out, consts):
     _check_cuda(kind, p, g, lr, accs, shared, consts)
     lib = _library()
     variant, floats = kernel_consts(kind, consts)
-    adv = tuple(torch.empty_like(s) for s in shared) if owns else ()
     # null pointers for the slots this kind does not read or write
     moments = _PTRS(*[a.data_ptr() for a in accs])
     sh = _SHARED(*[s.data_ptr() for s in shared])
-    sh_out = _SHARED(*[s.data_ptr() for s in adv])
+    sh_out = _SHARED(*[s.data_ptr() for s in shared_out])
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_flat_update(
             _KIND_ID[kind], variant,
             int(bool(accs) and accs[0].dtype == torch.bfloat16),
             p.data_ptr(), g.data_ptr(), lr.data_ptr(), moments, len(accs),
-            sh, sh_out, len(adv), p.numel(), _CONSTS(*floats), len(floats),
-            stream)
+            sh, sh_out, len(shared_out), p.numel(), _CONSTS(*floats),
+            len(floats), stream)
     if err != 0:
         raise RuntimeError("fused_flat_update: kernel launch failed: CUDA "
                            "error %d (%s)"
                            % (err, lib.fused_update_error_string(err)
                               .decode()))
     fused_flat_update.launches += 1
+
+
+def fused_flat_update(kind: str, p, g, lr, accs: Sequence = (),
+                      shared: Sequence = (), owns: bool = False,
+                      consts: Sequence = ()):
+    """The group update, the ``fused_flat_update`` op: one kernel launch
+    on a CUDA tensor, :func:`plain_flat_update` on a CPU one; either
+    updates ``p`` and ``accs`` in place. Returns ``(p, *accs)`` and, if
+    ``owns``, the advanced shared scalars as new tensors."""
+    enforce(kind in KINDS, "fused update: unknown kind %r (one of %s)"
+            % (kind, sorted(KINDS)))
+    accs, shared = tuple(accs), tuple(shared)
+    adv = tuple(torch.empty_like(s) for s in shared) if owns else ()
+    _fused_flat_update_op(kind, p, g, lr, list(accs), list(shared),
+                          list(adv), [float(c) for c in consts])
     return (p,) + accs + adv
 
 

@@ -32,17 +32,18 @@ Functions:
 * :func:`plain_split_window_attention` — the split route's algorithm,
   partials and merge, in torch.
 * :func:`plan_route` — the route planner the wrapper calls.
-* :func:`paged_window_attention` — the wrapper: the plain version for
-  tensors on the CPU, a kernel for tensors on a CUDA device (or an
-  error; there is no fallback on the card). It counts launches in
-  ``LAUNCH_COUNTS`` attributes: all, int8, and per route.
+* :func:`paged_window_attention` — the
+  ``paddle_tpu_torch::paged_window_attention`` custom op: the plain
+  version for tensors on the CPU, a kernel for tensors on a CUDA device
+  (or an error; there is no fallback on the card). It counts launches
+  in ``LAUNCH_COUNTS`` attributes: all, int8, and per route.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -297,41 +298,31 @@ def build() -> None:
     _library()
 
 
-def paged_window_attention(q, k_pool, v_pool, tables, cached_lens, *,
-                           k_scale=None, v_scale=None, route=None):
-    """Window attention over the paged KV pool (the contract of
-    :func:`plain_window_attention`).
+# The kernel as a torch.library custom op (see ops/flash_attention.py):
+# the CPU kernel is plain_window_attention, the CUDA kernel plans a route
+# and launches it.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel:
-    q float32 or bfloat16; pools of q's type, or int8 codes with
-    ``k_scale``/``v_scale`` (given together) float32 ``[nb, bs]`` scale
-    pools; tables and cached_lens int32; all contiguous on one device;
-    anything else raises. Any window length T launches. The route comes
-    from :func:`plan_route` (the shapes alone); ``route="generic"``
-    launches the generic route's kernel instead, on any shape (the yardstick
-    ``chip_smoke.py`` times beside the planned route). For rows with at
-    least one valid key the kernel
-    matches the plain version; a fully masked row (an inactive slot)
-    comes out as zeros, where the plain version averages whatever the
-    wrapped ``-1`` indices gather — both are finite, and neither is ever
-    read."""
-    enforce((k_scale is None) == (v_scale is None),
-            "paged_window_attention: k_scale and v_scale go together")
+
+@torch.library.custom_op("paddle_tpu_torch::paged_window_attention",
+                         mutates_args=(), device_types="cpu")
+def _paged_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+              tables: torch.Tensor, cached_lens: torch.Tensor,
+              k_scale: Optional[torch.Tensor],
+              v_scale: Optional[torch.Tensor],
+              route: Optional[str]) -> torch.Tensor:
+    return plain_window_attention(q, k_pool, v_pool, tables, cached_lens,
+                                  k_scale=k_scale,
+                                  v_scale=v_scale).contiguous()
+
+
+@_paged_op.register_fake
+def _(q, k_pool, v_pool, tables, cached_lens, k_scale, v_scale, route):
+    return q.new_empty(tuple(q.shape[:3]) + (v_pool.shape[-1],))
+
+
+@_paged_op.register_kernel("cuda")
+def _(q, k_pool, v_pool, tables, cached_lens, k_scale, v_scale, route):
     quant = k_scale is not None
-    enforce(route in (None, "generic"),
-            "paged_window_attention: route must be None or 'generic', "
-            "got %r" % (route,))
-    if q.device.type == "cpu":
-        for t in (k_pool, v_pool, tables, cached_lens) + (
-                (k_scale, v_scale) if quant else ()):
-            enforce(t.device.type == "cpu",
-                    "paged_window_attention: q is on the CPU but an input "
-                    "is on %s" % t.device)
-        return plain_window_attention(q, k_pool, v_pool, tables,
-                                      cached_lens, k_scale=k_scale,
-                                      v_scale=v_scale)
-    enforce(q.device.type == "cuda",
-            "paged_window_attention: unsupported device %s" % q.device)
     B, T, H, Dk = q.shape
     enforce(k_pool.dim() == 4 and v_pool.dim() == 4,
             "paged_window_attention: pools must be [nb, bs, H, D]")
@@ -418,6 +409,42 @@ def paged_window_attention(q, k_pool, v_pool, tables, cached_lens, *,
         if plan.route == "tile_mma":
             fn_self.mma_launches += 1
     return out
+
+
+
+
+def paged_window_attention(q, k_pool, v_pool, tables, cached_lens, *,
+                           k_scale=None, v_scale=None, route=None):
+    """Window attention over the paged KV pool (the contract of
+    :func:`plain_window_attention`).
+
+    The ``paged_window_attention`` op: CPU tensors take the plain
+    version. CUDA tensors launch the kernel:
+    q float32 or bfloat16; pools of q's type, or int8 codes with
+    ``k_scale``/``v_scale`` (given together) float32 ``[nb, bs]`` scale
+    pools; tables and cached_lens int32; all contiguous on one device;
+    anything else raises. Any window length T launches. The route comes
+    from :func:`plan_route` (the shapes alone); ``route="generic"``
+    launches the generic route's kernel instead, on any shape (the yardstick
+    ``chip_smoke.py`` times beside the planned route). For rows with at
+    least one valid key the kernel
+    matches the plain version; a fully masked row (an inactive slot)
+    comes out as zeros, where the plain version averages whatever the
+    wrapped ``-1`` indices gather — both are finite, and neither is ever
+    read."""
+    enforce((k_scale is None) == (v_scale is None),
+            "paged_window_attention: k_scale and v_scale go together")
+    quant = k_scale is not None
+    enforce(route in (None, "generic"),
+            "paged_window_attention: route must be None or 'generic', "
+            "got %r" % (route,))
+    for t in (k_pool, v_pool, tables, cached_lens) + (
+            (k_scale, v_scale) if quant else ()):
+        enforce(t.device == q.device,
+                "paged_window_attention: q is on %s but an input is on %s"
+                % (q.device, t.device))
+    return _paged_op(q, k_pool, v_pool, tables, cached_lens, k_scale,
+                     v_scale, route)
 
 
 # .launches counts every kernel launch; .int8_launches those on int8

@@ -3,16 +3,16 @@ paddle_tpu/serving/engine.py): pad any feed batch to a small set of
 bucket shapes, so arbitrary traffic runs on a handful of prepared
 executables instead of one per batch size.
 
-The program backend: an in-memory Program run through a dedicated
-:class:`~paddle_tpu_torch.executor.Executor`. On a card each bucket is
-one captured CUDA graph (``Executor.run_graph``) — the counterpart of
-the JAX package's one compiled executable per bucket — so
-``compile_count`` counts captures, ``warm_up()`` captures every bucket,
-and traffic replays them. On a CPU place the program runs eagerly
-(``compile_count`` stays 0), since the CPU was asked for.
-
-Not ported: the artifact backend (``from_artifact``, the native
-predictor over a compiled artifact; ROADMAP Queue A 6).
+Two backends. The program backend: an in-memory Program run through a
+dedicated :class:`~paddle_tpu_torch.executor.Executor`. The artifact
+backend (``from_artifact``): a ``save_inference_model`` directory run
+through ``inference.NativePredictor``, its exported program per bucket.
+On a card each bucket is one captured CUDA graph (``Executor.run_graph``
+or the predictor's) — the counterpart of the JAX package's one compiled
+executable per bucket — so ``compile_count`` counts captures,
+``warm_up()`` captures every bucket, and traffic replays them. On the
+CPU both run eagerly (``compile_count`` stays 0), since the CPU was
+asked for.
 
 The engine is the single-threaded execution layer — the server's
 worker thread is its only caller after ``warm_up``.
@@ -25,7 +25,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..core.enforce import enforce, not_ported
+from ..core.enforce import enforce
 from ..resilience import faults
 from .metrics import ServingMetrics
 
@@ -93,26 +93,40 @@ class ServingConfig:
 
 
 class BucketedEngine:
-    """Pads feed batches to bucket shapes, runs them, and slices the
-    fetches back to the true batch size."""
+    """Pads feed batches to bucket shapes, runs them on one of the two
+    backends, and slices the fetches back to the true batch size."""
 
     def __init__(self, config: Optional[ServingConfig] = None, *,
-                 program=None,
+                 predictor=None, program=None,
                  feed_names: Optional[Sequence[str]] = None,
                  fetch_list: Optional[Sequence] = None,
                  scope=None, place=None,
                  metrics: Optional[ServingMetrics] = None):
-        from ..analysis import check_serving_buckets
-        from ..core.program import Program
-        from ..core.scope import global_scope
-        from ..executor import Executor
-
         self.config = config or ServingConfig()
         self.metrics = metrics or ServingMetrics()
         self.buckets = list(self.config.buckets)
         # bucket size -> tuple of fetch leading dims (calibration data
         # for batched_fetch_mask)
         self._fetch_lead: Dict[int, tuple] = {}
+        enforce((predictor is None) != (program is None),
+                "BucketedEngine needs exactly one backend: predictor= "
+                "(artifact) or program= (in-memory)")
+        self._predictor = predictor
+        self._program = None
+        if predictor is not None:
+            self.device = predictor.device
+            self.feed_names = list(predictor.feed_names)
+            self.fetch_names = list(predictor.fetch_names)
+            self._feed_meta = {
+                n: (tuple(predictor._feed_meta[n]["shape"] or ()),
+                    predictor._feed_meta[n]["dtype"])
+                for n in self.feed_names}
+            return
+        from ..analysis import check_serving_buckets
+        from ..core.program import Program
+        from ..core.scope import global_scope
+        from ..executor import Executor
+
         enforce(isinstance(program, Program), "program= must be a Program")
         enforce(feed_names, "the program backend needs feed_names=")
         enforce(fetch_list, "the program backend needs fetch_list=")
@@ -147,12 +161,26 @@ class BucketedEngine:
     def from_artifact(cls, model_dir: str,
                       config: Optional[ServingConfig] = None,
                       device: int = 0,
-                      metrics: Optional[ServingMetrics] = None
-                      ) -> "BucketedEngine":
-        """Engine over a compiled ``save_inference_model`` artifact:
-        not ported (it needs the native predictor)."""
-        raise not_ported("BucketedEngine.from_artifact (the native "
-                         "predictor)", "Queue A 6")
+                      metrics: Optional[ServingMetrics] = None,
+                      place=None) -> "BucketedEngine":
+        """Engine over a ``save_inference_model`` directory, through
+        ``inference.NativePredictor`` on ``cuda:<device>`` (``place``,
+        when given, picks the device instead: ``CPUPlace()`` runs on the
+        CPU). With ``config`` None the buckets are the artifact's own
+        (``available_batch_sizes()``), so warm-up captures exactly the
+        exported set."""
+        from ..inference import NativeConfig, create_paddle_predictor
+
+        if place is not None:
+            dev = place.torch_device()
+            use_gpu, device = dev.type == "cuda", dev.index or 0
+        else:
+            use_gpu = True
+        pred = create_paddle_predictor(
+            NativeConfig(model_dir=model_dir, use_gpu=use_gpu, device=device))
+        if config is None:
+            config = ServingConfig(buckets=pred.available_batch_sizes())
+        return cls(config, predictor=pred, metrics=metrics)
 
     @classmethod
     def from_program(cls, program, feed_names: Sequence[str],
@@ -169,6 +197,8 @@ class BucketedEngine:
     @property
     def compile_count(self) -> int:
         """CUDA graphs captured, one per bucket run (0 on the CPU)."""
+        if self._predictor is not None:
+            return self._predictor.compile_count
         return self._executor.num_compiled
 
     @property
@@ -290,6 +320,8 @@ class BucketedEngine:
     def _execute(self, arrays: Dict[str, np.ndarray]) -> List[np.ndarray]:
         """One bucket: its captured graph on a card, eagerly on the
         CPU."""
+        if self._predictor is not None:
+            return self._predictor.run_batch(arrays)
         return self._executor.run_graph(self._program, feed=arrays,
                                         fetch_list=list(self.fetch_names),
                                         scope=self._scope)

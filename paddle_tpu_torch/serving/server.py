@@ -354,15 +354,15 @@ def serve_program(program_or_model_dir, feed_names: Optional[
     """One-call entry point: build the bucketed engine on ``place``
     (default ``CUDAPlace(0)``) and start a server over it.
 
-    Pass an in-memory Program plus ``feed_names``/``fetch_list`` (and
-    the scope holding its parameters on that place). A
-    ``save_inference_model`` directory (str) asks for the artifact
-    backend, which raises (``BucketedEngine.from_artifact``: ROADMAP
-    Queue A 6).
+    Pass a ``save_inference_model`` directory (str) for the artifact
+    backend (``BucketedEngine.from_artifact``: no program, no scope), or
+    an in-memory Program plus ``feed_names``/``fetch_list`` (and the
+    scope holding its parameters on that place) for the executor
+    backend.
     """
     if isinstance(program_or_model_dir, str):
         engine = BucketedEngine.from_artifact(program_or_model_dir,
-                                              config=config)
+                                              config=config, place=place)
     else:
         engine = BucketedEngine.from_program(
             program_or_model_dir, feed_names=feed_names,

@@ -206,7 +206,8 @@ def test_plain_versions_match_xla_attention_on_valid_rows(case):
 
 def test_cpu_tensors_take_the_plain_versions():
     """The launchers run the plain version for CPU tensors and count no
-    launch; the autograd op's backward is the plain backward."""
+    launch; the autograd op's backward is the plain backward, and so are
+    the two backward launchers."""
     q, k, v, do, mask = _inputs(*CASES["causal_masked"])
     before = (flash_fwd.launches, flash_bwd_dq.launches,
               flash_bwd_dkv.launches)
@@ -222,10 +223,16 @@ def test_cpu_tensors_take_the_plain_versions():
                                 _t(do), True, None, _t(mask))
     for got, w in zip(grads, want):
         assert torch.equal(got, w)
+    # the backward ops run their plain versions on the CPU too (each is
+    # a custom op whose CPU kernel is the plain version)
+    dq, delta = flash_bwd_dq(_t(q), _t(k), _t(v), o, lse, _t(do), True,
+                             None, _t(mask))
+    dk, dv = flash_bwd_dkv(_t(q), _t(k), _t(v), lse, delta, _t(do), True,
+                           None, _t(mask))
+    for got, w in zip((dq, dk, dv), want):
+        assert torch.equal(got, w)
     assert (flash_fwd.launches, flash_bwd_dq.launches,
             flash_bwd_dkv.launches) == before
-    with pytest.raises(EnforceError, match="unsupported device"):
-        flash_bwd_dq(_t(q), _t(k), _t(v), o, lse, _t(do))
 
 
 def test_kernel_build_is_keyed_by_source_and_needs_nvcc():

@@ -228,9 +228,14 @@ def test_launcher_takes_the_plain_version_on_the_cpu():
     args = _torch(*arrays, "bf16")
     before = fused_flat_update.launches
     consts = CONFIGS["adam"][3]
+    # the launcher updates p and the moments in place on the CPU too, as
+    # the kernel does on the card: the plain version runs on copies first
+    copies = [tuple(t.clone() for t in a) if isinstance(a, tuple)
+              else a.clone() for a in args]
+    want = plain_flat_update("adam", *copies, owns=True, consts=consts)
     got = fused_flat_update("adam", *args, owns=True, consts=consts)
-    want = plain_flat_update("adam", *args, owns=True, consts=consts)
     assert fused_flat_update.launches == before
+    assert got[0] is args[0] and got[1] is args[3][0]
     assert [t.dtype for t in got] == [torch.float32, torch.bfloat16,
                                       torch.bfloat16, torch.float32,
                                       torch.float32]

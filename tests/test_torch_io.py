@@ -21,8 +21,10 @@ model, held to paddle_tpu's files.
   and attrs in order, the var table, after the pass pipeline — and
   ``__params__.npz`` members equal bit for bit. ``load_inference_model
   (program=)`` serves what ``Executor.run`` gives on the trained scope.
-  ``export_stablehlo`` records ``stablehlo_error`` and warns,
-  ``export_batch_sizes`` and a load without ``program`` raise.
+  ``export_stablehlo`` writes the ``torch.export`` program
+  (``torch_export``) without a warning, ``export_batch_sizes`` one per
+  bucket; a load without ``program`` raises, pointing at the
+  predictor.
 * **Decode artifact.** The JAX package's ``save_decode_model`` (with
   ``pallas_paged_attention`` off and on: stamps without and with
   ``+pallas``) loads in the port (``load_decode_model(program=)``), and
@@ -288,7 +290,8 @@ def _both_artifacts(model, tmp_path):
          for v in t_main.list_vars() if v.persistable},
         scope, CPU, program=t_main)
     tdir = str(tmp_path / "torch")
-    with pytest.warns(UserWarning, match="Queue A 6"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # the export succeeds silently
         tfluid.io.save_inference_model(
             tdir, feeds, [t_pred], exe,
             main_program=t_main.clone(for_test=True), scope=scope)
@@ -301,7 +304,12 @@ def test_inference_artifact_equals_the_jax_packages(tmp_path, model):
                                                              tmp_path)
     jm = json.load(open(os.path.join(jdir, "__model__.json")))
     tm = json.load(open(os.path.join(tdir, "__model__.json")))
-    assert "stablehlo_error" in tm and "Queue A 6" in tm["stablehlo_error"]
+    # the compiled artifact is a torch.export program, not StableHLO
+    assert tm["torch_export"] == "__model__.pt2"
+    assert tm["torch_export_batch_size"] == 1
+    assert os.path.exists(os.path.join(tdir, "__model__.pt2"))
+    assert not any(k.startswith(("stablehlo", "torch_export_error"))
+                   for k in tm)
     assert "tuned_configs" not in tm
     for key in ("format_version", "feed_names", "fetch_names",
                 "param_names", "vars", "ops"):
@@ -326,23 +334,33 @@ def test_inference_artifact_equals_the_jax_packages(tmp_path, model):
 
 
 def test_inference_artifact_refusals(tmp_path):
+    """Bucket sizes below 1 raise before anything is written; an
+    explicit bucket request is met (one program per bucket); a load
+    without ``program=`` points at the predictor; a trainable program
+    written by the JAX package (no ``torch_export``) is refused."""
     main, startup, pred, _, scope, exe = _trained_port()
-    with pytest.raises(EnforceError, match="export_batch_sizes"), \
-            pytest.warns(UserWarning):
+    with pytest.raises(EnforceError, match="export_batch_sizes"):
         tfluid.io.save_inference_model(str(tmp_path / "b"), ["x"], [pred],
                                        exe, main_program=main, scope=scope,
-                                       export_batch_sizes=[1, 4])
+                                       export_batch_sizes=[0, 4])
+    tfluid.io.save_inference_model(str(tmp_path / "b"), ["x"], [pred], exe,
+                                   main_program=main, scope=scope,
+                                   export_batch_sizes=[1, 4])
+    tm = json.load(open(str(tmp_path / "b" / "__model__.json")))
+    assert tm["torch_export_buckets"] == {"1": "__model__.pt2",
+                                          "4": "__model__.b4.pt2"}
     tfluid.io.save_inference_model(str(tmp_path / "a"), ["x"], [pred], exe,
                                    main_program=main, scope=scope,
                                    export_stablehlo=False)
-    with pytest.raises(EnforceError, match="program="):
+    assert "torch_export" not in json.load(
+        open(str(tmp_path / "a" / "__model__.json")))
+    with pytest.raises(EnforceError, match="paddle_tpu_torch.inference"):
         tfluid.io.load_inference_model(str(tmp_path / "a"), exe,
                                        scope=Scope())
-    for fn in (lambda: tfluid.io.save_trainable_program(
-            str(tmp_path), {"x": (2, 13)}, [pred]),
-               lambda: tfluid.io.load_trainable_program(str(tmp_path))):
-        with pytest.raises(NotImplementedError, match="Queue A 6"):
-            fn()
+    with open(str(tmp_path / "a" / "__train__.json"), "w") as f:
+        json.dump({"train_state_names": []}, f)
+    with pytest.raises(EnforceError, match="torch_export"):
+        tfluid.io.load_trainable_program(str(tmp_path / "a"), place=CPU)
 
 
 # ---------------------------------------------------------- decode model

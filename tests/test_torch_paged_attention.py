@@ -138,7 +138,8 @@ def test_plain_wraps_negative_table_indices_like_jnp_take():
 
 def test_wrapper_refuses_mixed_devices():
     q, kp, vp, tables, cached, _, _ = _torch_run(_mk(*GEOMS[0]))
-    with pytest.raises(EnforceError, match="on the CPU"):
+    with pytest.raises(EnforceError, match="q is on cpu but an input is on"
+                                           " meta"):
         paged_window_attention(q, kp.to("meta"), vp, tables, cached)
 
 

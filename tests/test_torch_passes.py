@@ -254,9 +254,19 @@ def test_dce_keeps_targets_and_persistable_writes():
 def test_registry_and_fingerprints_match_the_jax_package():
     from paddle_tpu.passes import fusion as j_fusion
 
-    assert list_passes() == ["attention_fuse", "comm_overlap", "dce",
+    from paddle_tpu.passes import transforms as j_transforms
+
+    from paddle_tpu_torch.passes import transforms as t_transforms
+
+    assert list_passes() == ["attention_fuse", "cast_params_bf16",
+                             "comm_overlap", "conv_bn_fold", "dce",
                              "fc_act_fuse", "host_offload", "remat_policy",
                              "transpose_eliminate"]
+    for name in ("ConvBNFoldPass", "CastParamsBF16Pass"):
+        tcls, jcls = getattr(t_transforms, name), getattr(j_transforms, name)
+        assert (tcls.name, tcls.reads, tcls.writes, tcls.mutates_scope) == \
+            (jcls.name, jcls.reads, jcls.writes, jcls.mutates_scope)
+        assert tcls().fingerprint() == jcls().fingerprint()
     for tcls, jcls in ((FcActFusePass, j_fusion.FcActFusePass),
                        (AttentionFusePass, j_fusion.AttentionFusePass),
                        (TransposeEliminatePass,

@@ -447,17 +447,32 @@ def test_error_taxonomy_and_wire_form_across_packages():
     assert type(unknown) is RuntimeError and "Nope" in str(unknown)
 
 
-def test_unported_names_raise_naming_their_item():
+def test_unported_names_raise_naming_their_item(tmp_path):
     for name in ("Supervisor", "supervise", "note_progress",
                  "SupervisorGaveUp", "read_heartbeat", "HEARTBEAT_ENV"):
         with pytest.raises(NotImplementedError, match="Queue A 10"):
             getattr(tres, name)
     with pytest.raises(NotImplementedError, match="Queue A 8"):
         tdec.DecodingConfig(autotune=True)
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        tfluid.serving.BucketedEngine.from_artifact("/nonexistent")
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        tfluid.serving.serve_program("/nonexistent")
+    # the artifact backend is ported: a missing directory is a missing
+    # file, and an exported model serves from its directory alone
+    with pytest.raises(FileNotFoundError):
+        tfluid.serving.BucketedEngine.from_artifact("/nonexistent",
+                                                    place=CPU)
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[4], dtype="float32")
+        out = tfluid.layers.fc(input=x, size=2, act="softmax")
+    scope, exe = tfluid.Scope(), tfluid.Executor(CPU)
+    exe.run(startup, scope=scope)
+    d = str(tmp_path / "model")
+    tfluid.io.save_inference_model(d, ["x"], [out], exe, main_program=main,
+                                   scope=scope, export_batch_sizes=[1, 2])
+    srv = tfluid.serving.serve_program(d, place=CPU, auto_start=False)
+    assert srv.engine.buckets == [1, 2] and srv.engine.compile_count == 0
+    feed = {"x": np.ones((2, 4), "float32")}
+    want, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+    np.testing.assert_array_equal(srv.engine.run(feed)[0], want)
     # breaker= and degrade= are accepted now
     cfg = tdec.DecodingConfig(breaker=CircuitBreaker(),
                               degrade=tres.DegradationConfig())

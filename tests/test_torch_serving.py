@@ -5,8 +5,9 @@ One small MLP is built with the same calls in both packages and the
 JAX package's initialized parameters are carried into the port. Both
 serve it through ``serve_program`` with the same buckets; every fetch
 is held to the JAX package's at f32 rtol 1e-5 / atol 1e-6. Mirrors
-tests/test_serving.py (less its artifact and predictor tests, which
-wait for the native predictor) and the serving half of
+tests/test_serving.py (its artifact and predictor tests over the port's
+``save_inference_model`` directory, served with no program and no
+scope) and the serving half of
 tests/test_resilience.py: padding and oversize chunks, a non-batched
 fetch, batch timeout, queue-full and deadline errors, drain and
 no-drain shutdown, poison isolation under the ``serving.step`` fault,
@@ -15,6 +16,7 @@ incompatible shapes.
 """
 
 import concurrent.futures as cf
+import os
 import time
 
 import numpy as np
@@ -483,3 +485,104 @@ def test_request_trace_spans_join_across_the_worker(mlp):
         assert rec[4] != root[4]  # recorded on the worker thread
     assert by_name["serving/batcher"][5][2] == ctx.span_id
     assert by_name["serving/engine"][5][2] == by_name["serving/batcher"][5][1]
+
+
+# ------------------------------------------------------------- artifacts
+# the artifact tests of tests/test_serving.py: the port's MLP, with the
+# JAX package's parameters, written by save_inference_model with one
+# exported program per bucket and served from its directory alone
+
+
+@pytest.fixture(scope="module")
+def artifact(mlp, tmp_path_factory):
+    t_main, t_scope, t_out = mlp[1]
+    d = str(tmp_path_factory.mktemp("torch_serving") / "model")
+    tfluid.io.save_inference_model(d, ["x"], [t_out], tfluid.Executor(CPU),
+                                   main_program=t_main, scope=t_scope,
+                                   export_batch_sizes=BUCKETS)
+    return d
+
+
+def test_native_predictor_odd_batch_and_compile_counter(mlp, artifact):
+    """``run()`` takes any batch (decomposed over the buckets) and
+    ``compile_count`` counts captures: none on the CPU."""
+    from paddle_tpu_torch.inference import (NativeConfig,
+                                            create_paddle_predictor)
+
+    pred = create_paddle_predictor(NativeConfig(model_dir=artifact,
+                                                use_gpu=False))
+    assert pred.available_batch_sizes() == BUCKETS
+    x = np.random.RandomState(3).randn(5, 8).astype("float32")
+    outs = pred.run({"x": x})
+    assert outs[0].shape[0] == 5
+    np.testing.assert_allclose(outs[0].data, _jax_direct(mlp, x), **TOL)
+    assert pred.compile_count == 0
+
+
+def test_export_batch_sizes_rejects_fixed_shape_feeds(tmp_path):
+    """An explicit bucket request over a fixed-leading-shape feed raises,
+    never ships an artifact without buckets."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[4, 8], dtype="float32",
+                               append_batch_size=False)  # fixed batch 4
+        out = tfluid.layers.fc(input=x, size=4)
+    scope, exe = tfluid.Scope(), tfluid.Executor(CPU)
+    exe.run(startup, scope=scope)
+    with pytest.raises(tfluid.EnforceError, match="leading batch axis"):
+        tfluid.io.save_inference_model(
+            str(tmp_path / "m"), ["x"], [out], exe, main_program=main,
+            scope=scope, export_batch_sizes=[4])
+    assert not os.path.exists(str(tmp_path / "m" / "__model__.json"))
+
+
+def test_artifact_without_bucket_export_still_serves(mlp, tmp_path):
+    """An artifact without ``export_batch_sizes`` serves with buckets
+    collapsed to [1]: batch-1 slices, no padding."""
+    t_main, t_scope, t_out = mlp[1]
+    d = str(tmp_path / "model_b1")
+    tfluid.io.save_inference_model(d, ["x"], [t_out], tfluid.Executor(CPU),
+                                   main_program=t_main, scope=t_scope)
+    eng = BucketedEngine.from_artifact(d, place=CPU)
+    assert eng.buckets == [1]
+    x = np.random.RandomState(5).randn(3, 8).astype("float32")
+    got, = eng.run({"x": x})
+    np.testing.assert_allclose(got, _jax_direct(mlp, x), **TOL)
+    assert eng.compile_count == 0
+
+
+def test_e2e_concurrent_mixed_batches_against_artifact(mlp, artifact):
+    """36 concurrent mixed-batch requests through ``serve_program(<dir>)``
+    with no program and no scope: every reply equals a direct predictor
+    run of its request and the JAX package's reply, the batcher
+    coalesced, and the spans are in the profiler table."""
+    from paddle_tpu_torch.inference import (NativeConfig,
+                                            create_paddle_predictor)
+
+    oracle = create_paddle_predictor(NativeConfig(model_dir=artifact,
+                                                  use_gpu=False))
+    rng = np.random.RandomState(7)
+    feeds = [rng.randn(1 + (i % 7), 8).astype("float32")
+             for i in range(36)]
+    tprofiler.reset_profiler()
+    tprofiler.start_profiler("CPU")
+    srv = serve_program(artifact, config=ServingConfig(
+        buckets=BUCKETS, batch_timeout_ms=2.0, queue_capacity=128),
+        place=CPU)
+    try:
+        with cf.ThreadPoolExecutor(max_workers=16) as pool:
+            results = list(pool.map(
+                lambda f: srv.infer({"x": f}, timeout=60)[0], feeds))
+    finally:
+        srv.shutdown(drain=True, timeout=60)
+        tprofiler.stop_profiler(print_report=False)
+    for f, got in zip(feeds, results):
+        np.testing.assert_allclose(got, oracle.run({"x": f})[0].data, **TOL)
+        np.testing.assert_allclose(got, _jax_direct(mlp, f), **TOL)
+    assert srv.engine.compile_count == 0  # nothing is captured on the CPU
+    assert srv.metrics.get("batches_total") < len(feeds)
+    assert srv.metrics.get("responses_total") == len(feeds)
+    counts = tprofiler.event_counts()
+    tprofiler.reset_profiler()
+    assert counts["serving/batcher"] == srv.metrics.get("batches_total")
+    assert counts["serving/engine"] >= counts["serving/batcher"]
