@@ -119,6 +119,46 @@ Phases, one JSON line each (or one per shape):
              ``momentum=0`` for SGD, ``torch._fused_adagrad_`` for
              Adagrad (its error recorded where this torch lacks it on
              the card) — a time yardstick only.
+7b. amp   — (run after phase 7) mixed precision. (a) ``amp_gate``: the
+             fused update gated on a device flag (``apply``) against the
+             gated ``plain_flat_update``, every kind and branch, f32 and
+             bf16 moments, with and without the beta-power advance,
+             each flag value (Adam at the recipe's group size, the rest
+             at ResNet-50's): bit-equal, and a false flag leaves every
+             buffer as it was and hands out the step-start powers; the
+             recipe's group timed ungated, gated true and gated false
+             beside ``torch._fused_adam_(found_inf=)`` with each value,
+             the bound (a skipped step reads the flag and the powers).
+             (b) ``amp_recipe``: ``bench_amp.py``'s build at its
+             accelerator config under ``amp.decorate(Adam(1e-4))``,
+             with ``attn_impl="pallas"`` and ``fuse_optimizer_state``,
+             ``memory_optimize``, the training phases' batch: 10 eager
+             steps and one ``run_steps`` call of 10 from the same start
+             bit-equal, 18 launches of each flash kernel and one gated
+             update a group a step, losses within rtol 0.15 of the same
+             program without AMP (mean relative gap under 5 %); step
+             ms, tokens/s, peak memory, MFU over the bf16 peak, the
+             ratio over f32. (c) ``amp_overflow``: the loss scale set on
+             the card, then one ``run_steps`` call of 8 whose steps 3
+             and 4 carry an inf token weight: the parameters, both
+             moments and both beta powers held bit for bit across them,
+             ``found_inf`` set at them, the scale halved at the second,
+             training after. (d) ``amp_accumulation``:
+             ``GradientAccumulation(Adam, 4)`` in f32, four micro-steps
+             of B=8 against one B=32 step on the same tokens (full
+             masks): bit-unchanged after micro-steps 1-3; the fourth's
+             mean gradient and update bit-equal to their recomputation
+             from the four micro-batches' gradients (the sum from zeros,
+             over 4, one ``fused_flat_update``); the micro-batches' mean
+             loss within 1e-5 of the B=32 loss; the parameters' distance
+             from the B=32 step's reported (the elements beyond 1e-5 of
+             their max counted). (e) ``amp_serving``
+             (run after phase 3): ``amp.rewrite_program`` of phase 3's
+             causal LM served with phase 3's burst: bf16 pools, every
+             paged launch on them (split route at decode), the kernel
+             on bf16 pools within 3e-2 of its plain version; tokens/s,
+             decode-step ms, TTFT, and the share of tokens equal to the
+             f32 greedy streams (reported, not enforced).
 8. recipe  — ``bench.py``'s recipe: ``transformer_base`` at the widths
              above with ``sparse_embedding=True``, ``attn_impl="pallas"``,
              ``Adam(1e-4)`` and the flags ``use_bfloat16``,
@@ -428,11 +468,13 @@ Phases, one JSON line each (or one per shape):
              directly (the binding's cost to an eager path).
 
 Then the card's name and power limit, the kernels JSON line (wall and
-device ms of each kernel and its library call; ``persist_launches``,
+device ms of each kernel and its library call; ``amp_launches``,
+``persist_launches``,
 ``bert_launches``, ``deepfm_launches``, ``remat_launches``,
 ``resilience_launches``, ``server_launches`` and ``artifact_launches``:
 those phases' launches
-of the kernels their paths run; the rows at
+of the kernels their paths run; ``fused_flat_update_amp``, the gated
+Adam of the AMP path with its gated and skipped launches; the rows at
 BERT-base's and DeepFM's shapes carry the bert, remat and deepfm
 phases' launches), and as the
 last line ``{"ok": true, "device": {...}}``. Every phase row carries the
@@ -2434,7 +2476,7 @@ def phase_training(card):
           "device_ms_by_family": dict(sorted(by_family.items(),
                                              key=lambda kv: -kv[1])),
           "top_kernels": top})
-    return launches
+    return launches, step_ms
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2627,17 +2669,21 @@ def _library_ms(call):
         return None, None, repr(e)
 
 
-def fused_adam_ms(p, g, accs):
+def fused_adam_ms(p, g, accs, found_inf=None):
     """``torch._fused_adam_`` — what ``torch.optim.Adam(fused=True)``
     calls — over the same flat tensors with f32 moments (a time
-    yardstick only: it places eps differently)."""
+    yardstick only: it places eps differently); with ``found_inf`` (0.0
+    or 1.0) the gated call a GradScaler makes, which skips the update
+    on 1.0."""
     pl = p.clone()
     m1, m2 = (a.float().clone() for a in accs)
     step = torch.tensor(3.0, device=p.device)
+    fi = None if found_inf is None else torch.tensor(float(found_inf),
+                                                     device=p.device)
     return _library_ms(lambda: torch._fused_adam_(
         [pl], [g], [m1], [m2], [], [step], lr=TRAIN_LR, beta1=0.9,
         beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
-        maximize=False))
+        maximize=False, found_inf=fi))
 
 
 def fused_adagrad_ms(p, g, accs):
@@ -2676,6 +2722,651 @@ def fused_sgd_plain_ms(p, g, accs):
     return _library_ms(lambda: torch._fused_sgd_(
         [pl], [g], [], weight_decay=0.0, momentum=0.0, lr=TRAIN_LR,
         dampening=0.0, nesterov=False, maximize=False, is_first_step=False))
+
+
+# ---------------------------------------------------------------- amp
+
+# the AMP recipe's overflow replay: steps whose batch carries an inf
+# token weight (two in a row: the default decr_every_n_nan_or_inf=2
+# backs the scale off at the second), in a run_steps call of AMP_REPLAY
+AMP_REPLAY, AMP_BAD_STEPS = 8, (3, 4)
+AMP_SCALE = 2.0 ** 15  # decorate's init_loss_scaling, set on the card
+AMP_LOSS_RTOL, AMP_LOSS_MEAN_REL = 0.15, 0.05  # tests/test_amp.py:298-301
+AMP_MICRO = 4  # GradientAccumulation's accumulate_steps
+# GradientAccumulation against the combined batch: the losses; the mean
+# gradient (relative 2-norm, tensor by tensor) in float64, where only
+# rounding parts them; the same in float32, where the forward rows of
+# B=8 and B=32 differ by ~1e-6 (the GEMM library picks its kernel by
+# the row count) and the first step's gradients, sums over 8192 tokens
+# at random weights that largely cancel, widen that to ~1e-3
+AMP_ACCUM_TOL, AMP_ACCUM_F64_TOL, AMP_ACCUM_F32_TOL = 1e-5, 1e-10, 2e-3
+
+
+def build_amp_recipe(use_amp, accumulate=None):
+    """``bench_amp.py:37-56``'s build at its accelerator config
+    (``:102-107``: TRAIN_MODEL's widths, dropout 0), ``Adam(1e-4)``,
+    under ``amp.decorate`` when ``use_amp``, or inside
+    ``GradientAccumulation(Adam, accumulate)``; ``memory_optimize``.
+    Two changes from bench_amp.py: ``attn_impl="pallas"`` (the three
+    flash kernels; the port's default is plain torch attention), and
+    ``fuse_optimizer_state`` (the update is the fused kernel, gated under
+    AMP and accumulation). The build-time bf16 flags stay off, as in
+    bench_amp.py: the rewrite makes the bf16 stream. Returns (main,
+    startup, avg_cost, the optimizer)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import transformer_base
+
+    saved = fluid.get_flag("fuse_optimizer_state")
+    fluid.set_flags({"fuse_optimizer_state": True})
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            _, avg_cost, _ = transformer_base(**TRAIN_MODEL,
+                                              attn_impl="pallas")
+            opt = fluid.optimizer.Adam(learning_rate=TRAIN_LR)
+            if use_amp:
+                opt = fluid.amp.decorate(opt)
+            elif accumulate:
+                opt = fluid.optimizer.GradientAccumulation(opt, accumulate)
+            opt.minimize(avg_cost)
+    finally:
+        fluid.set_flags({"fuse_optimizer_state": saved})
+    fluid.memory_optimize(main)
+    return main, startup, avg_cost, opt
+
+
+def amp_group(main):
+    """(N, bf16 moments, owns the beta powers) of the AMP recipe's one
+    gated Adam group: the shape the main path hands the gated kernel."""
+    from paddle_tpu_torch.core import dtype_utils
+
+    gb = main.global_block()
+    op, = [op for op in gb.ops if op.type == "adam_fused"]
+    n = int(gb.var(op.input("FlatParam")[0]).shape[0])
+    moments = dtype_utils.to_torch(
+        gb.var(op.input("Moment1")[0]).dtype)
+    return n, moments == torch.bfloat16, bool(op.output("Beta1PowOut"))
+
+
+def amp_gate(card, group, n_resnet):
+    """(a) The gated kernel against the gated plain version: every kind
+    and branch, f32 and bf16 moments, with and without the shared
+    scalars' advance, each flag value; Adam at the AMP recipe's group
+    size (``group``, from ``amp_group``), the rest at ResNet-50's.
+    Bit-equal; a false flag leaves every buffer as it was and hands out
+    the step-start scalars. Then Adam at the AMP group's shape (its N,
+    its moment dtype, its ownership of the powers) timed ungated, gated
+    true and gated false, beside ``_fused_adam_`` with each
+    ``found_inf``."""
+    from paddle_tpu_torch.ops.fused_optimizer import (KINDS,
+                                                      fused_flat_update,
+                                                      plain_flat_update)
+
+    n_amp, amp_bf16, amp_owns = group
+    cases, worst = 0, 0.0
+    for i, (label, (kind, consts, _flops)) in enumerate(
+            FUSED_CONFIGS.items()):
+        n_acc, n_sh = KINDS[kind][:2]
+        n = n_amp if label == "adam" else n_resnet
+        for bf16 in ((False, True) if n_acc else (False,)):
+            for owns in ((False, True) if n_sh else (False,)):
+                p, g, lr, accs, shared = fused_inputs(kind, bf16, n, 300 + i)
+                ins = [p] + list(accs) + (list(shared) if owns else [])
+                for flag in (True, False):
+                    apply = torch.tensor(flag, device=p.device)
+                    want = plain_flat_update(kind, p, g, lr, accs, shared,
+                                             owns, consts, apply)
+                    got = fused_flat_update(kind, p.clone(), g, lr,
+                                            [a.clone() for a in accs],
+                                            shared, owns, consts, apply)
+                    torch.cuda.synchronize()
+                    case = (label, "bf16" if bf16 else "f32", owns, flag, n)
+                    if len(got) != len(want) or not all(
+                            a.dtype == b.dtype and torch.equal(a, b)
+                            for a, b in zip(got, want)):
+                        fail("amp gate %s: the gated kernel is not bit-equal "
+                             "to the gated plain version" % (case,))
+                    if not flag and not all(torch.equal(a, b)
+                                            for a, b in zip(got, ins)):
+                        fail("amp gate %s: a false flag changed a buffer or "
+                             "the scalars handed out" % (case,))
+                    worst = max(worst, max(float((a.float() - b.float())
+                                                 .abs().max())
+                                           for a, b in zip(got, want)))
+                    cases += 1
+                del p, g, lr, accs, shared, ins, want, got
+                torch.cuda.empty_cache()
+
+    kind, consts, _flops = FUSED_CONFIGS["adam"]
+    p, g, lr, accs, shared = fused_inputs(kind, amp_bf16, n_amp, 399)
+    on = torch.tensor(True, device=p.device)
+    off = torch.tensor(False, device=p.device)
+    pk, ak = p.clone(), [a.clone() for a in accs]
+
+    def call(apply):
+        return lambda: fused_flat_update(kind, pk, g, lr, ak, shared,
+                                         amp_owns, consts, apply)
+
+    _bound, bound_by, nbytes, _ops = fused_work("adam", amp_bf16, amp_owns,
+                                                n_amp)
+    # a skipped step reads the flag (1 byte); an owner also reads the
+    # two powers and writes them out: 17 bytes
+    skipped_bytes = 1 + (16 if amp_owns else 0)
+    row = {"n": n_amp, "moments": "bf16" if amp_bf16 else "f32",
+           "owns": amp_owns, "cases": cases, "max_abs_err": worst,
+           "ungated_ms": cuda_ms(call(None), 20),
+           "ungated_device_ms": device_ms(call(None), 10),
+           "ms": cuda_ms(call(on), 20), "device_ms": device_ms(call(on), 10),
+           "skipped_ms": cuda_ms(call(off), 20),
+           "skipped_device_ms": device_ms(call(off), 10),
+           "plain_ms": cuda_ms(lambda: plain_flat_update(
+               kind, p, g, lr, accs, shared, amp_owns, consts, on), 5,
+               warmup=1),
+           "bound_ms": (nbytes + 1) / HBM_BYTES_PER_S * 1e3,
+           "bound_by": bound_by, "bytes": nbytes + 1,
+           "skipped_bound_ms": skipped_bytes / HBM_BYTES_PER_S * 1e3,
+           "skipped_bytes": skipped_bytes}
+    del pk, ak
+    (row["library_ms"], row["library_device_ms"],
+     row["library_error"]) = fused_adam_ms(p, g, accs, 0.0)
+    (row["library_skipped_ms"], row["library_skipped_device_ms"],
+     _err) = fused_adam_ms(p, g, accs, 1.0)
+    del p, g, lr, accs, shared
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_amp(card, n_resnet, f32_step_ms):
+    """Mixed precision on the card: (a) the gated kernel (``amp_gate``);
+    (b) bench_amp.py's recipe (``build_amp_recipe``) at full width, B=32,
+    T=256 with the training phases' ragged masks: 10 eager steps and one
+    ``run_steps`` call of 10 from the same start bit-equal, exact
+    launches (each flash kernel 18 a step, the gated update once a
+    group), losses within rtol 0.15 of the same program without AMP
+    (mean relative gap under 5 %), step ms, tokens/s, peak memory, MFU
+    over the bf16 peak, the speedup over f32; (c) an overflow inside a
+    replay: the loss scale set on the card, then one run_steps call whose
+    steps 3 and 4 carry an inf token weight (their losses and gradients
+    are not finite): those steps leave the parameters, both moments and
+    both beta powers bit-unchanged, ``found_inf`` is set at them, the
+    scale backs off by ``decr_ratio`` at the second, and the steps after
+    train; (d) ``amp_accumulation``. Returns (the row, the recipe's
+    timed program for the static phase)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.obs import cost as obs_cost
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    t_phase = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    main, startup, cost, opt = build_amp_recipe(True)
+    gate = amp_gate(card, amp_group(main), n_resnet)
+    gate["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "amp_gate", "card": card, **gate})
+
+    # (b) the AMP recipe
+    feed = train_batch()
+    groups = sum(op.type.endswith("_fused")
+                 for op in main.global_block().ops)
+    gated = [op for op in main.global_block().ops
+             if op.type.endswith("_fused") and op.input("ApplyFlag")]
+    if groups < 1 or len(gated) != groups:
+        fail("amp: %d of %d group ops gated" % (len(gated), groups))
+    flash = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    launchers = flash + (fused_flat_update,)
+
+    def launched():
+        out = {fn.__name__: fn.launches for fn in launchers}
+        out["gated"] = fused_flat_update.gated_launches
+        return out
+
+    exe, scope = _fresh(main, startup, place)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in launchers:
+        reset_counts(fn)
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=feed, fetch_list=[cost],
+                                    scope=scope)[0]))
+        step_s.append(time.perf_counter() - t0)
+    eager_state = scope_tensors(scope)
+    eager_launches = launched()
+    exe2, scope2 = _fresh(main, startup, place)
+    replayed, = exe2.run_steps(main, feed=feed, steps=TRAIN_STEPS,
+                               fetch_list=[cost], scope=scope2)
+    launches = launched()
+    diff = state_diff(scope_tensors(scope2), eager_state)
+    if [float(x) for x in replayed] != losses or diff:
+        fail("amp: run_steps' %d steps are not bit-equal to the eager ones "
+             "(losses %s against %s; tensors differing %s)"
+             % (TRAIN_STEPS, list(replayed), losses, diff[:8]))
+    del eager_state
+    per_step = {fn.__name__: ATTN_PER_STEP for fn in flash}
+    per_step["fused_flat_update"] = per_step["gated"] = groups
+    want = {k: 2 * TRAIN_STEPS * v for k, v in per_step.items()}
+    if launches != want:
+        fail("amp: 10 eager steps and 10 replayed launched %s, expected %s"
+             % (launches, want))
+    if not all(math.isfinite(x) for x in losses) or \
+            opt.found_overflow(scope):
+        fail("amp: the recipe overflowed or lost finiteness: %s" % losses)
+    peak = torch.cuda.max_memory_allocated()
+    eager_ms = float(np.mean(step_s[1:])) * 1e3
+    run_s, timed_losses = _timed_chunks(exe2, main, feed, cost, scope2, 2)
+    if not np.isfinite(timed_losses).all():
+        fail("amp: non-finite timed losses")
+    step_ms = run_s * 1e3 / (2 * CHUNK)
+    del exe, scope
+    torch.cuda.empty_cache()
+
+    # the same program without AMP: the loss reference, and bench_amp's
+    # ratio (f32 over AMP, run_steps against run_steps)
+    main32, startup32, cost32, _ = build_amp_recipe(False)
+    exe32, scope32 = _fresh(main32, startup32, place)
+    f32_losses = [float(exe32.run(main32, feed=feed, fetch_list=[cost32],
+                                  scope=scope32)[0])
+                  for _ in range(TRAIN_STEPS)]
+    run32_s, _ = _timed_chunks(exe32, main32, feed, cost32, scope32, 2)
+    f32_run_steps_ms = run32_s * 1e3 / (2 * CHUNK)
+    exe32.close()
+    del exe32, scope32
+    torch.cuda.empty_cache()
+    rel = np.abs(np.array(losses) - f32_losses) / np.abs(f32_losses)
+    if not (rel <= AMP_LOSS_RTOL).all() or not rel.mean() < \
+            AMP_LOSS_MEAN_REL:
+        fail("amp: losses %s part from f32's %s (rel %s; limits %g each, "
+             "mean %g)" % (losses, f32_losses, rel.tolist(), AMP_LOSS_RTOL,
+                           AMP_LOSS_MEAN_REL))
+    shapes = {n: tuple(v.shape) for n, v in feed.items()}
+    flops = obs_cost.report(main, feed_shapes=shapes).total_flops
+    ach = obs_cost.achieved(flops, step_ms / 1e3, MFU_PEAK_FLOPS["bf16"])
+    recipe = {"groups": groups, "losses": losses, "f32_losses": f32_losses,
+              "loss_rel": rel.tolist(), "loss_rel_mean": float(rel.mean()),
+              "eager_step_ms": eager_ms, "step_ms": step_ms,
+              "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+              "eager_tokens_per_s": TRAIN_B * TRAIN_T / (eager_ms / 1e3),
+              "f32_run_steps_ms": f32_run_steps_ms,
+              "speedup_over_f32_run_steps": f32_run_steps_ms / step_ms,
+              "training_phase_f32_step_ms": f32_step_ms,
+              "speedup_over_training_phase": f32_step_ms / eager_ms,
+              "flops_per_step": flops, "mfu_bf16": ach["mfu"],
+              "max_memory_allocated": peak,
+              "eager_launches": eager_launches, "launches": launches}
+    emit({"phase": "amp_recipe", "card": card, **recipe})
+
+    # (c) an overflow inside one replay: the scale set on the card (no
+    # host read), two steps whose token weights hold an inf
+    scale = opt.scaler.scale_var.name
+    found = opt.scaler.found_inf_var.name
+    inner = opt.inner
+    watch = ["fused_param_storage_0", "fused_moment1_storage_0",
+             "fused_moment2_storage_0",
+             inner._shared_scalars["beta1_pow_acc"].name,
+             inner._shared_scalars["beta2_pow_acc"].name]
+    scope2.find_var(scale).fill_(AMP_SCALE)
+    batches = []
+    for i in range(AMP_REPLAY):
+        b = dict(feed)
+        if i in AMP_BAD_STEPS:
+            b["trg_mask"] = feed["trg_mask"].copy()
+            b["trg_mask"][0, 0] = np.inf
+        batches.append(b)
+    for fn in launchers:
+        reset_counts(fn)
+    outs = exe2.run_steps(main, feed_list=batches, steps=AMP_REPLAY,
+                          fetch_list=[cost, found, scale] + watch,
+                          scope=scope2, return_numpy=False)
+    torch.cuda.synchronize()
+    o_loss, o_found, o_scale = (t.cpu().numpy() for t in outs[:3])
+    held = outs[3:]
+    o_launches = launched()
+    bad = list(AMP_BAD_STEPS)
+    first, last = bad[0], bad[-1]
+    unchanged = all(torch.equal(t[first - 1], t[i]) for t in held
+                    for i in bad)
+    trains = not torch.equal(held[0][last], held[0][last + 1])
+    want_found = [i in AMP_BAD_STEPS for i in range(AMP_REPLAY)]
+    want_scale = [AMP_SCALE if i < last else AMP_SCALE * 0.5
+                  for i in range(AMP_REPLAY)]
+    if [bool(x) for x in o_found] != want_found or \
+            [float(x) for x in o_scale] != want_scale or not unchanged \
+            or not trains or not np.isfinite(
+                np.delete(o_loss, bad)).all():
+        fail("amp overflow replay: found_inf %s (want %s), scale %s (want "
+             "%s), state held across the skipped steps %s, trains after "
+             "%s, losses %s" % (o_found.tolist(), want_found,
+                                o_scale.tolist(), want_scale, unchanged,
+                                trains, o_loss.tolist()))
+    if o_launches["gated"] != groups * AMP_REPLAY:
+        fail("amp overflow replay launched %s" % o_launches)
+    overflow = {"steps": AMP_REPLAY, "bad_steps": bad,
+                "found_inf": [bool(x) for x in o_found],
+                "scale": [float(x) for x in o_scale],
+                "losses": o_loss.tolist(), "held_bit_equal": True,
+                "held": watch, "gated_launches": o_launches["gated"],
+                "skipped_launches": groups * int(o_found.sum())}
+    emit({"phase": "amp_overflow", "card": card, **overflow})
+    timed = timed_program("amp_recipe", main, feed, cost, step_ms, peak,
+                          "bf16")
+    exe2.close()
+    del exe2, scope2, outs, held
+    torch.cuda.empty_cache()
+    t_accumulation = time.perf_counter()
+    accumulation = amp_accumulation(card, place, launchers, launched,
+                                    groups)
+    row = {"gate": gate, "recipe": recipe, "overflow": overflow,
+           "accumulation": accumulation, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    # where the phase's time goes: the gate; the recipe, its f32 twin
+    # and the overflow replay; the accumulation check
+    emit({"phase": "amp", "card": card, "phase_s": row["phase_s"],
+          "gate_s": gate["phase_s"],
+          "recipe_s": t_accumulation - t_phase - gate["phase_s"],
+          "accumulation_s": time.perf_counter() - t_accumulation})
+    return row, timed
+
+
+def _adam_group(program, adam):
+    """(gradient names, state names — flat parameter, moments, beta
+    powers — learning-rate name, update constants) of ``program``'s one
+    flat Adam group."""
+    op = next(op for op in program.global_block().ops
+              if op.type == "adam_fused")
+    state = [op.input(slot)[0] for slot in ("FlatParam", "Moment1",
+                                            "Moment2", "Beta1Pow",
+                                            "Beta2Pow")]
+    return (op.input("Grad"), state, op.input("LearningRate")[0],
+            adam._update_consts(1.0))
+
+
+def _adam_recomputed(start, grads, lr, consts):
+    """One Adam update of the flat group from ``start`` by the kernel,
+    on ``grads`` concatenated: the state it leaves."""
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    return fused_flat_update(
+        "adam", start[0].clone(), torch.cat([g.reshape(-1) for g in grads]),
+        lr, [start[1].clone(), start[2].clone()], start[3:], True, consts)
+
+
+def _as_float64(main, scope, feed):
+    """Retype ``main``'s float32 variables and ``scope``'s float32
+    tensors to float64; the feed too."""
+    for blk in main.blocks:
+        for v in blk.vars.values():
+            if v.dtype == np.float32:
+                v.dtype = np.dtype("float64")
+    for name in list(scope.local_var_names()):
+        t = scope.find_var(name)
+        if isinstance(t, torch.Tensor) and t.dtype == torch.float32:
+            scope.set_var(name, t.double())
+    return {n: v.astype("float64") if v.dtype == np.float32 else v
+            for n, v in feed.items()}
+
+
+def accumulation_float64(place, full, parts):
+    """``GradientAccumulation(Adam, 4)`` over ``parts`` against one Adam
+    step over ``full``, in float64: plain attention and per-parameter
+    Adam (the flash kernels and the flat group update take f32 and
+    bf16), the program's float32 variables and the scope's tensors
+    retyped after the startup (``layer_norm`` and the loss compute in at
+    least f32, so in f64 here). Returns (the mean gradient's widest
+    relative 2-norm gap, the parameters' widest relative gap after the
+    step, whether both started from the same parameters)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import transformer_base
+
+    def step(accumulate, batches):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            _, cost, _ = transformer_base(**TRAIN_MODEL)
+            opt = fluid.optimizer.Adam(learning_rate=TRAIN_LR)
+            if accumulate:
+                opt = fluid.optimizer.GradientAccumulation(opt, AMP_MICRO)
+            opt.minimize(cost)
+        adam = [op for op in main.global_block().ops if op.type == "adam"]
+        grads = [op.input("Grad")[0] for op in adam]
+        params = [op.input("Param")[0] for op in adam]
+        exe, scope = _fresh(main, startup, place)
+        start = [scope.find_var(n).clone() for n in params]
+        for b in batches:
+            out = exe.run(main, feed=_as_float64(main, scope, b),
+                          fetch_list=grads, scope=scope, return_numpy=False)
+        got = ([g.clone() for g in out],
+               [scope.find_var(n).clone() for n in params], start)
+        exe.close()
+        del exe, scope, out
+        torch.cuda.empty_cache()
+        return got
+
+    g_acc, p_acc, s_acc = step(True, parts)
+    g_one, p_one, s_one = step(False, [full])
+    same = len(s_acc) == len(s_one) and all(
+        torch.equal(a, b) for a, b in zip(s_acc, s_one))
+    grad_gap = max(float((a - b).norm() / b.norm().clamp_min(1e-300))
+                   for a, b in zip(g_acc, g_one))
+    param_gap = max(float((a - b).abs().max()
+                          / b.abs().max().clamp_min(1e-300))
+                    for a, b in zip(p_acc, p_one))
+    return grad_gap, param_gap, same
+
+
+def amp_accumulation(card, place, launchers, launched, groups):
+    """(d) ``GradientAccumulation(Adam, 4)`` in f32: four micro-steps of
+    B=8 against one Adam step of B=32 on the same tokens (full masks, so
+    every micro-batch has the same token count). Held: micro-steps 1-3
+    leave the state bit-unchanged; the applied step's mean gradient and
+    update are bit-equal to their recomputation from the micro-batches'
+    gradients, and the B=32 step's update to its recomputation from its
+    own gradient, from the same start; the mean micro loss within
+    ``AMP_ACCUM_TOL`` of the B=32 loss; the mean gradient within
+    ``AMP_ACCUM_F32_TOL`` of the B=32 gradient (``|difference|_2 /
+    |B=32|_2``, tensor by tensor); every parameter's gap within the
+    gradient's gap times the first Adam step's slope at 0,
+    ``lr_t (1 - beta1) / eps``; and the same comparison in float64
+    (``accumulation_float64``) within ``AMP_ACCUM_F64_TOL``, so what
+    parts the f32 steps is rounding, not the accumulation. Adam's first
+    step moves an element by ``lr g / (|g| + eps / sqrt(1 - beta2))``, a
+    soft sign of width 3.2e-7 (slope 316 at lr 1e-4), so the gradients'
+    gap parts elements near zero by up to 316 times that gap; the
+    parameters' gap is reported against ``AMP_ACCUM_TOL``."""
+    feed = train_batch()
+    full = dict(feed, src_mask=np.ones_like(feed["src_mask"]),
+                trg_mask=np.ones_like(feed["trg_mask"]))
+    micro = TRAIN_B // AMP_MICRO
+    parts = [{n: v[k * micro:(k + 1) * micro] for n, v in full.items()}
+             for k in range(AMP_MICRO)]
+    gmain, gstartup, gcost, gopt = build_amp_recipe(False, AMP_MICRO)
+    avg_names, state, lr_name, consts = _adam_group(gmain, gopt.inner)
+    grad_names = [n[:-len("@ACCUM_AVG")] for n in avg_names]
+    exe, scope = _fresh(gmain, gstartup, place)
+    start = [scope.find_var(n).clone() for n in state]
+    for fn in launchers:
+        reset_counts(fn)
+    held_micro, g_losses, grads = [], [], []
+    for k, part in enumerate(parts):
+        out = exe.run(gmain, feed=part, scope=scope, return_numpy=False,
+                      fetch_list=[gcost] + grad_names + (
+                          avg_names if k == AMP_MICRO - 1 else []))
+        g_losses.append(float(out[0]))
+        grads.append([g.clone() for g in out[1:1 + len(grad_names)]])
+        if k < AMP_MICRO - 1:
+            held_micro.append(all(torch.equal(scope.find_var(n), t)
+                                  for n, t in zip(state, start)))
+    avg = [a.clone() for a in out[1 + len(grad_names):]]
+    g_launches = launched()
+    after = [scope.find_var(n).clone() for n in state]
+    lr = scope.find_var(lr_name).clone()
+    views = {n: v for n, v in gmain._flat_state_views.items()
+             if v[0] == state[0]}
+    exe.close()
+    del exe, scope, out
+    # acc = ((g1 + g2) + g3) from zeros, the mean (acc + g4) / 4
+    ref_avg = []
+    for i in range(len(grad_names)):
+        acc = torch.zeros_like(grads[0][i])
+        for k in range(AMP_MICRO):
+            acc = acc + grads[k][i]
+        ref_avg.append(acc / AMP_MICRO)
+    avg_equal = all(torch.equal(a, b) for a, b in zip(avg, ref_avg))
+    update_equal = all(torch.equal(a, b) for a, b in zip(
+        _adam_recomputed(start, ref_avg, lr, consts), after))
+    del grads, ref_avg
+    torch.cuda.empty_cache()
+
+    # one Adam step of B=32 on the same tokens, from the same start
+    pmain, pstartup, pcost, popt = build_amp_recipe(False)
+    g32_names, state32, lr32_name, consts32 = _adam_group(pmain, popt)
+    exe, scope = _fresh(pmain, pstartup, place)
+    start32 = [scope.find_var(n).clone() for n in state32]
+    out = exe.run(pmain, feed=full, fetch_list=[pcost] + g32_names,
+                  scope=scope, return_numpy=False)
+    whole_loss = float(out[0])
+    g32 = [g.clone() for g in out[1:]]
+    after32 = [scope.find_var(n).clone() for n in state32]
+    update32_equal = all(torch.equal(a, b) for a, b in zip(
+        _adam_recomputed(start32, g32, scope.find_var(lr32_name), consts32),
+        after32))
+    exe.close()
+    del exe, scope, out
+    same_start = grad_names == list(g32_names) and all(
+        torch.equal(a, b) for a, b in zip(start, start32))
+
+    # the gradients' gap, tensor by tensor
+    grad_gap = [float((a.double() - b.double()).norm()
+                      / b.double().norm().clamp_min(1e-300))
+                for a, b in zip(avg, g32)]
+    grad_gap_max = [float((a - b).abs().max()
+                          / b.abs().max().clamp_min(1e-30))
+                    for a, b in zip(avg, g32)]
+    worst = sorted(zip(grad_gap, grad_gap_max, grad_names),
+                   reverse=True)[:5]
+    # the parameters' gap within the first step's slope times the
+    # gradients' gap, up to a unit in the last place and the update's
+    # rounding
+    beta1, eps = popt._beta1, popt._epsilon
+    b1p, b2p = float(start32[3]), float(start32[4])
+    first_step = not (start32[1].any() or start32[2].any())
+    slope = float(lr) * math.sqrt(1.0 - b2p) / (1.0 - b1p) * (1.0 - beta1) \
+        / eps
+    dg = (torch.cat([a.reshape(-1) for a in avg])
+          - torch.cat([g.reshape(-1) for g in g32])).abs()
+    dp = (after[0] - after32[0]).abs()
+    p_abs = torch.maximum(after[0].abs(), after32[0].abs())
+    ulp = torch.nextafter(p_abs, torch.full_like(p_abs, math.inf)) - p_abs
+    within_slope = first_step and bool(
+        (dp <= slope * dg * (1 + 1e-5) + ulp + 1e-6 * float(lr)).all())
+    del dg, p_abs, ulp, avg, g32
+    rel, beyond, elements = {}, 0, 0
+    for name, (_flat, o, n, _shape, _dt) in views.items():
+        w = after32[0][o:o + n].abs().max().clamp_min(1e-30)
+        d = dp[o:o + n]
+        rel[name] = float(d.max() / w)
+        beyond += int((d > AMP_ACCUM_TOL * w).sum())
+        elements += n
+    del dp, after, after32, start, start32
+    torch.cuda.empty_cache()
+    loss_rel = abs(float(np.mean(g_losses)) - whole_loss) / abs(whole_loss)
+    f64_grad_gap, f64_param_gap, f64_same = accumulation_float64(
+        place, full, parts)
+    if not all(held_micro) or not avg_equal or not update_equal or \
+            not update32_equal or not same_start or \
+            not loss_rel <= AMP_ACCUM_TOL or \
+            not max(grad_gap) <= AMP_ACCUM_F32_TOL or not within_slope or \
+            not f64_same or not f64_grad_gap <= AMP_ACCUM_F64_TOL or \
+            g_launches["gated"] != AMP_MICRO * groups:
+        fail("amp accumulation: micro-steps 1-3 held the state %s; the "
+             "mean gradient %s and the applied update %s bit-equal to "
+             "their recomputation from the micro-batches; the B=32 update "
+             "%s to its own; same start and gradient order %s; mean micro "
+             "loss against the B=32 loss rel %g (limit %g); the mean "
+             "gradient against the B=32 gradient %g (limit %g; the widest "
+             "tensors: 2-norm gap, element gap, name %s); parameters "
+             "within the first step's slope %g times the gradients' gap "
+             "%s; in float64 from the same start %s, the mean gradient's "
+             "gap %g (limit %g); gated launches %s"
+             % (held_micro, avg_equal, update_equal, update32_equal,
+                same_start, loss_rel, AMP_ACCUM_TOL, max(grad_gap),
+                AMP_ACCUM_F32_TOL, worst, slope, within_slope, f64_same,
+                f64_grad_gap, AMP_ACCUM_F64_TOL, g_launches))
+    accumulation = {
+        "micro_batch": micro, "steps": AMP_MICRO,
+        "held_micro_steps": held_micro, "mean_gradient_bit_equal": avg_equal,
+        "update_bit_equal": update_equal,
+        "b32_update_bit_equal": update32_equal,
+        "micro_losses": g_losses, "b32_loss": whole_loss,
+        "loss_rel_err": loss_rel,
+        "b32_grad_gap_norm_max": max(grad_gap),
+        "b32_grad_gap_norm_median": float(np.median(grad_gap)),
+        "b32_grad_gap_elem_max": max(grad_gap_max),
+        "b32_grad_gap_widest": worst,
+        "f64_b32_grad_gap_norm_max": f64_grad_gap,
+        "f64_b32_param_max_rel_err": f64_param_gap,
+        "adam_first_step_slope": slope, "params_within_slope": within_slope,
+        "b32_param_max_rel_err": max(rel.values()),
+        "b32_params_within_1e-5": sum(r <= AMP_ACCUM_TOL
+                                      for r in rel.values()),
+        "params": len(rel), "b32_elements_beyond_1e-5": beyond,
+        "elements": elements, "gated_launches": g_launches["gated"]}
+    emit({"phase": "amp_accumulation", "card": card, **accumulation})
+    return accumulation
+
+
+def phase_amp_serving(card, model, greedy):
+    """(e) bf16 serving: ``amp.rewrite_program`` of the serving phase's
+    ``causal_lm`` (a clone), served by ``serve_decoding`` with the
+    serving phase's cache and burst, every bucket captured. The pools
+    are bf16 (the rewrite puts the paged ops on the bf16 stream), so
+    every paged launch takes the bf16-pool kernel (bf16 queries; split
+    route at decode); the kernel at the decode shape on bf16 pools
+    within 3e-2 of its plain version. Reports tokens/s, decode-step ms,
+    TTFT, and the share of tokens equal to the f32 greedy streams (not
+    enforced: bf16 rounding moves near ties)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import dtype_utils
+    from paddle_tpu_torch.decoding import CacheConfig
+    from paddle_tpu_torch.ops import (paged_window_attention,
+                                      plain_window_attention)
+
+    t_phase = time.perf_counter()
+    main, logits, scope = model
+    bf = amp.rewrite_program(main.clone(for_test=True))
+    prompts = serving_prompts()
+    run = serve_burst((bf, logits, scope), CacheConfig(**SERVING_CACHE),
+                      prompts, counters=(paged_window_attention,))
+    counts = route_counts(paged_window_attention)
+    check_graphs(run, "amp serving")
+    pools = sorted({dtype_utils.name(dt) for _, _, dt in
+                    run["engines"][0].pair.pool_specs})
+    steps = run["report"]["decode_step"]["count"]
+    if pools != ["bfloat16"] or counts["generic_launches"] or \
+            counts["int8_launches"] or counts["split_launches"] < \
+            MODEL["n_layer"] * steps:
+        fail("amp serving: pools %s, paged launches %s over %d decode "
+             "steps" % (pools, counts, steps))
+    args, scales = make_problem(16, 1, torch.bfloat16, seed=77,
+                                inactive_row=True)
+    out = paged_window_attention(*args, **scales)
+    ref = plain_window_attention(*args, **scales)
+    torch.cuda.synchronize()
+    _, valid = window_masks(args[3], args[4], 1)
+    err = float((out.float() - ref.float()).abs()[valid].max())
+    if not err <= TOL[torch.bfloat16] or not bool(torch.isfinite(out).all()):
+        fail("amp serving: the bf16-pool kernel parts from its plain "
+             "version by %g (limit %g)" % (err, TOL[torch.bfloat16]))
+    same = sum(a == b for s, g in zip(run["streams"], greedy)
+               for a, b in zip(s, g))
+    total = sum(len(g) for g in greedy)
+    row = {**burst_row(run), "pools": pools, "route_launches": counts,
+           "kernel_max_abs_err": err, "greedy_token_agreement": same / total,
+           "streams_equal_f32": sum(s == g for s, g in
+                                    zip(run["streams"], greedy)),
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "amp_serving", "card": card, **row})
+    del run
+    return row
 
 
 # ---------------------------------------------------------------- phase 8
@@ -5266,7 +5957,7 @@ def main():
     rows = phase_kernel()
     flash_rows = phase_flash()
     phase_routes()
-    flash_launches = phase_training(card)
+    flash_launches, f32_step_ms = phase_training(card)
     torch.cuda.empty_cache()
     n_recipe, n_bert, n_deepfm = (
         int(prog.global_block().var("fused_param_storage_0").shape[0])
@@ -5275,6 +5966,9 @@ def main():
                      build_deepfm()[0]))
     fused_rows = phase_fused_update(card, n_recipe, RESNET_N, n_bert,
                                     n_deepfm)
+    torch.cuda.empty_cache()
+    amp_row, amp_timed = phase_amp(card, RESNET_N, f32_step_ms)
+    torch.cuda.empty_cache()
     dropout_rows = phase_dropout(card)
     recipe_launches, recipe_losses, recipe_params = phase_recipe(card)
     torch.cuda.empty_cache()
@@ -5289,6 +5983,8 @@ def main():
     vgg_launches, vgg_timed = phase_vgg(card)
     torch.cuda.empty_cache()
     serving_counts, model, greedy = phase_serving(card)
+    amp_row["serving"] = phase_amp_serving(card, model, greedy)
+    torch.cuda.empty_cache()
     prefix_counts, prefix_streams = phase_prefix_int8(card, model)
     phase_sampling(card, model, greedy)
     spec_counts = phase_speculative(card, model, greedy)
@@ -5308,7 +6004,7 @@ def main():
     bert_launches, bert_timed = phase_bert(card)
     deepfm_launches, deepfm_timed = phase_deepfm(card)
     torch.cuda.empty_cache()
-    phase_static(card, [base["timed"], resnet_timed, vgg_timed]
+    phase_static(card, [base["timed"], amp_timed, resnet_timed, vgg_timed]
                  + bert_timed + [deepfm_timed])
     torch.cuda.empty_cache()
     remat_launches = phase_remat(card)
@@ -5400,6 +6096,9 @@ def main():
                 "plain_device_ms": fr["plain_device_ms"][which],
                 "library_device_ms": fr["sdpa_device_ms"][which]})
             if suffix == "_bf16":
+                # the AMP recipe (the amp phase: 10 eager steps and one
+                # run_steps call of 10) runs this shape in bf16 too
+                kernels[-1]["amp_launches"] = amp_row["launches"][name]
                 kernels[-1]["persist_launches"] = persist_launches[name]
                 kernels[-1]["bert_launches"] = bert_launches[name]
                 # the dropout recipe's trainable artifact, 10 run steps
@@ -5435,6 +6134,31 @@ def main():
         "deepfm_launches": deepfm_launches,
         "artifact_launches": artifact_launches["training"][
             "fused_flat_update"]})
+    # the gated Adam of the AMP path, timed at the AMP recipe's group
+    # shape (its N, f32 moments, owning the beta powers): its launches on
+    # the AMP recipe, the skipped ones of the overflow replay
+    ga = amp_row["gate"]
+    kernels.append({
+        "name": "fused_flat_update_amp", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
+        "replaces": "paddle_tpu/ops/fused_optimizer.py:71",
+        "launches": amp_row["launches"]["fused_flat_update"],
+        "gated_launches": amp_row["launches"]["gated"],
+        "skipped_launches": amp_row["overflow"]["skipped_launches"],
+        "overflow_replay_launches": amp_row["overflow"]["gated_launches"],
+        "accumulation_launches": amp_row["accumulation"]["gated_launches"],
+        "max_abs_err": ga["max_abs_err"], "ms": ga["ms"],
+        "plain_ms": ga["plain_ms"], "bound_ms": ga["bound_ms"],
+        "bound_by": ga["bound_by"], "library_ms": ga["library_ms"],
+        "device_ms": ga["device_ms"],
+        "library_device_ms": ga["library_device_ms"],
+        "skipped_ms": ga["skipped_ms"],
+        "skipped_device_ms": ga["skipped_device_ms"],
+        "skipped_bound_ms": ga["skipped_bound_ms"],
+        "library_skipped_ms": ga["library_skipped_ms"],
+        "ungated_ms": ga["ungated_ms"],
+        "ungated_device_ms": ga["ungated_device_ms"], "n": ga["n"],
+        "moments": ga["moments"]})
     # BERT-base's group (Adam, bf16 moments) and DeepFM's (Adam, f32)
     for name, n, moments, launches in (
             ("fused_flat_update_bert", n_bert, "bf16",

@@ -24,6 +24,14 @@ embeddings with lazy Adam::
             ..., sparse_embedding=True, attn_impl="pallas")
         fluid.optimizer.Adam(learning_rate=1e-4).minimize(avg_cost)
 
+Mixed precision is a program rewrite: ``amp.decorate(opt)`` wraps an
+optimizer so ``minimize`` casts the forward to bf16 (f32 master weights
+and moments), scales the loss, and skips an overflowed step on the card;
+``amp.rewrite_program`` serves a program in bf16. ``GradientAccumulation``
+and ``ModelAverage`` wrap an optimizer as in the JAX package::
+
+    fluid.amp.decorate(fluid.optimizer.Adam(1e-4)).minimize(avg_cost)
+
 Its training loop is ``bench.py``'s: ``memory_optimize`` keeps the
 state updated in place, ``Executor.run_steps`` runs N steps as one
 captured CUDA graph, and ``Executor.run(feed=loader)`` drives it from a
@@ -64,9 +72,10 @@ and degradation ladder, and ``obs``' metrics registry and traces.
 This package imports neither jax nor paddle_tpu.
 """
 
-from . import (analysis, checkpoint, ckpt, clip, inference, io, layers,
-               obs, optimizer, passes, profiler, reader, regularizer,
-               resilience)
+from . import (amp, analysis, average, checkpoint, ckpt, clip, inference,
+               io, layers, obs, optimizer, passes, profiler, reader,
+               regularizer, resilience)
+from . import initializer_api as initializer  # noqa: F401
 from .backward import append_backward
 from .ckpt import CheckpointConfig
 from .convert import params_from_numpy, state_from_numpy
@@ -86,6 +95,7 @@ from .optimizer import (SGD, Adadelta, AdadeltaOptimizer, Adagrad,
                         AdagradOptimizer, Adam, Adamax, AdamaxOptimizer,
                         AdamOptimizer, DecayedAdagrad,
                         DecayedAdagradOptimizer, Ftrl, FtrlOptimizer,
+                        GradientAccumulation, ModelAverage,
                         Momentum, MomentumOptimizer, ProximalAdagrad,
                         ProximalAdagradOptimizer, ProximalGD,
                         ProximalGDOptimizer, RMSProp, RMSPropOptimizer,

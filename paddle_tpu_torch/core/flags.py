@@ -20,8 +20,8 @@ flags on.
 file path) at the first ``fire`` when no plan was installed and
 ``PDTPU_FAULT_PLAN`` is unset.
 
-The executor reads ``donate_state_buffers``, ``scan_unroll`` and
-``check_program`` at each run, ``reader.DataLoader`` reads ``dataloader_buffer_size`` when it is
+The executor reads ``donate_state_buffers``, ``scan_unroll``,
+``check_program`` and ``check_nan_inf`` at each run, ``reader.DataLoader`` reads ``dataloader_buffer_size`` when it is
 made.
 """
 
@@ -88,6 +88,12 @@ define_flag("check_program", False,
             "raise EnforceError with op-level context before any op runs "
             "(reference analog: the C++ InferShape/InferVarType sweep over "
             "the ProgramDesc)")
+define_flag("check_nan_inf", False,
+            "after each Executor.run (and each run_steps call, over its "
+            "stacked fetches) check the fetched values and the state the "
+            "run wrote for NaN/Inf: one reduction on the device and one "
+            "bool read; a failure names the variable (debug mode; "
+            "reference: FLAGS_check_nan_inf)")
 define_flag("dataloader_buffer_size", 2,
             "default number of batches a reader.DataLoader keeps in "
             "flight (reader thread, DataFeeder conversion and the copy to "

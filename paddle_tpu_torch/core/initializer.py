@@ -40,6 +40,9 @@ class Initializer:
     def make_fn(self, shape, dtype, seed):
         raise NotImplementedError
 
+    def __call__(self, param):
+        self._append_init_op(param)
+
 
 def _generator(seed: int) -> torch.Generator:
     g = torch.Generator(device="cpu")
@@ -110,3 +113,92 @@ class Xavier(Initializer):
         std = math.sqrt(2.0 / (fi + fo))
         return Normal(0.0, std).make_fn(shape, dtype, seed)
 
+
+class MSRA(Initializer):
+    """He init (reference: initializer.py MSRAInitializer): uniform on
+    +-sqrt(6 / fan_in), or normal with std sqrt(2 / fan_in)."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def make_fn(self, shape, dtype, seed):
+        fi, _ = _fan_in_out(shape)
+        fi = self.fan_in or fi
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            return Uniform(-limit, limit).make_fn(shape, dtype, seed)
+        std = math.sqrt(2.0 / fi)
+        return Normal(0.0, std).make_fn(shape, dtype, seed)
+
+
+class NumpyArrayInitializer(Initializer):
+    """Initialize from a host array (reference: initializer.py
+    NumpyArrayInitializer)."""
+
+    def __init__(self, value: np.ndarray):
+        self.value = np.asarray(value)
+
+    def make_fn(self, shape, dtype, seed):
+        value = torch.from_numpy(np.array(self.value)).to(dtype).reshape(
+            shape)
+        return lambda: value.clone()
+
+
+ConstantInitializer = Constant
+UniformInitializer = Uniform
+NormalInitializer = Normal
+XavierInitializer = Xavier
+MSRAInitializer = MSRA
+
+
+class Bilinear(Initializer):
+    """Bilinear-upsampling kernel for a ``[C_out, C_in, K, K]``
+    conv_transpose filter (reference: initializer.py
+    BilinearInitializer): the layer interpolates bilinearly until
+    trained otherwise. Computed in float32 numpy, as the JAX package
+    does."""
+
+    def make_fn(self, shape, dtype, seed):
+        if len(shape) != 4:
+            raise ValueError("Bilinear initializer needs a 4-D filter")
+        C_out, C_in, H, W = (int(s) for s in shape)
+        if H != W:
+            raise ValueError("Bilinear initializer needs square kernels")
+        f = math.ceil(W / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        xs = np.arange(W)
+        ys = np.arange(H)
+        kern = ((1 - np.abs(xs[None, :] / f - c)) *
+                (1 - np.abs(ys[:, None] / f - c))).astype("float32")
+        w = np.zeros(shape, "float32")
+        w[:, :] = kern
+        value = torch.from_numpy(w).to(dtype)
+        return lambda: value.clone()
+
+
+BilinearInitializer = Bilinear
+
+
+# reference: initializer.py force_init_on_cpu/init_on_cpu — a switch
+# that pins variable initialization to the CPU. Every initializer here
+# already makes its value on the CPU (the executor moves it to its
+# device when it writes it back), so the switch changes nothing; it is
+# kept for source compatibility, as in the JAX package.
+_FORCE_INIT_ON_CPU = False
+
+
+def force_init_on_cpu() -> bool:
+    return _FORCE_INIT_ON_CPU
+
+
+class init_on_cpu:
+    def __enter__(self):
+        global _FORCE_INIT_ON_CPU
+        self._prev = _FORCE_INIT_ON_CPU
+        _FORCE_INIT_ON_CPU = True
+        return self
+
+    def __exit__(self, *exc):
+        global _FORCE_INIT_ON_CPU
+        _FORCE_INIT_ON_CPU = self._prev
+        return False

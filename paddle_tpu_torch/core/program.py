@@ -272,6 +272,10 @@ class Program:
             # fuse_optimizer_state's view map: a clone reads its
             # parameters from the same flat buffers
             p._flat_state_views = self._flat_state_views
+        if hasattr(self, "_amp_stamp"):
+            # an AMP-rewritten program's clones keep the rewritten ops,
+            # and with them the stamp (amp/rewrite.py)
+            p._amp_stamp = self._amp_stamp
         return p
 
     def prune(self, targets: Sequence[str]) -> "Program":

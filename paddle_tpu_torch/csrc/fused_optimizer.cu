@@ -35,6 +35,20 @@
 // shared scalars (Adam's beta powers, Adamax's beta1 power) are read in
 // every block at their step-start value; the owning group's advance
 // goes to separate outputs, written by one thread.
+//
+// The gate (the JAX package's mask_update_op, optimizer.py:35: amp's
+// overflow skip, GradientAccumulation's k-th step): an optional device
+// flag, a bool the caller's step computed on the card. The JAX package
+// selects between each output and its input with where(); here the
+// update is in place, so the input is gone once written, and the flag
+// is read before any write instead: each block reads it once, into
+// shared memory, before its grid-stride loop, and a false flag writes
+// nothing to p or the moments (a skipped step reads one byte). The
+// owning group's shared_out, which the wrapper allocates fresh each
+// step, then receives the step-start scalars. Gated and ungated
+// launches are separate instantiations (template GATED): the host
+// checks the flag pointer for null once, and an ungated launch runs
+// the kernel as it was before the gate existed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +74,7 @@ struct Params {
   float* shared_out[kMaxShared];  // null unless the group owns them
   long long n;
   float c[kMaxConsts];  // ops/fused_optimizer.py:kernel_consts
+  const bool* apply;    // the gate; null for an ungated launch
 };
 
 __device__ __forceinline__ float load(const float* m, long long i) {
@@ -99,8 +114,22 @@ __device__ __forceinline__ float prox_step(float prox, float lr, float l1,
                    __fadd_rn(1.f, __fmul_rn(lr, l2)));
 }
 
-template <int KIND, int VARIANT, typename MT>
+template <int KIND, int VARIANT, typename MT, bool GATED>
 __global__ void fused_update_kernel(Params a) {
+  if constexpr (GATED) {
+    __shared__ bool apply;
+    if (threadIdx.x == 0) apply = *a.apply;
+    __syncthreads();
+    if (!apply) {
+      // skipped: the owner's outputs get the step-start scalars
+      if (a.shared_out[0] != nullptr && blockIdx.x == 0 &&
+          threadIdx.x == 0) {
+        a.shared_out[0][0] = a.shared[0][0];
+        if (KIND == kAdam) a.shared_out[1][0] = a.shared[1][0];
+      }
+      return;
+    }
+  }
   MT* m0 = static_cast<MT*>(a.m[0]);
   MT* m1 = static_cast<MT*>(a.m[1]);
   MT* m2 = static_cast<MT*>(a.m[2]);
@@ -255,8 +284,12 @@ cudaError_t launch(const Params& a, cudaStream_t stream) {
   long long blocks = (a.n + kThreads - 1) / kThreads;
   if (blocks > 132LL * 16) blocks = 132LL * 16;
   if (blocks < 1) blocks = 1;
-  fused_update_kernel<KIND, VARIANT, MT>
-      <<<(unsigned)blocks, kThreads, 0, stream>>>(a);
+  if (a.apply != nullptr)
+    fused_update_kernel<KIND, VARIANT, MT, true>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(a);
+  else
+    fused_update_kernel<KIND, VARIANT, MT, false>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -282,13 +315,14 @@ extern "C" {
 // cudaErrorInvalidValue. moments[i] point at float or __nv_bfloat16 by
 // moment_bf16; shared_out is all null unless the group owns the
 // shared scalars' advance (n_shared_out = 0). consts come from
-// ops/fused_optimizer.py:kernel_consts.
+// ops/fused_optimizer.py:kernel_consts. apply is the gate's device flag,
+// null for an ungated launch.
 int fused_flat_update(int kind, int variant, int moment_bf16, float* p,
                       const float* g, const float* lr,
                       void* const* moments, int n_moments,
                       const float* const* shared, float* const* shared_out,
                       int n_shared_out, long long n, const float* consts,
-                      int n_consts, void* stream) {
+                      int n_consts, const bool* apply, void* stream) {
   if (kind < 0 || kind >= kNumKinds || n_moments != kMoments[kind] ||
       (n_shared_out != 0 && n_shared_out != kShared[kind]) ||
       n_consts < 1 || n_consts > kMaxConsts)
@@ -304,6 +338,7 @@ int fused_flat_update(int kind, int variant, int moment_bf16, float* p,
   }
   a.n = n;
   for (int i = 0; i < n_consts; ++i) a.c[i] = consts[i];
+  a.apply = apply;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (kind) {

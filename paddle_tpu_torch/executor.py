@@ -79,10 +79,15 @@ and of the artifacts' (``inference.NativePredictor``,
 
 The ``check_program`` flag runs ``analysis.check_program`` over each
 new program version before ``run``/``run_steps`` runs it, and raises
-on an error diagnostic.
+on an error diagnostic. The ``check_nan_inf`` flag checks, after each
+``run`` (``run_steps``: after the replay, over the stacked fetches), the
+fetched values and the state the run wrote for NaN/Inf with one
+read-only reduction on the device and one bool read
+(``amp.device_all_finite``); only when it fails does a per-tensor pass
+run, to name the variable.
 
-Not ported yet: the compile cache, sharding, AMP stamps, program
-readers and host offload.
+Not ported yet: the compile cache, sharding, program readers and host
+offload.
 """
 
 from __future__ import annotations
@@ -571,6 +576,26 @@ def fetch_var(name: str, scope: Optional[Scope] = None,
             "persistable variables live in the scope used by Executor.run")
     val = scope.get(name)
     return _to_numpy(val) if return_numpy else val
+
+
+def _assert_all_finite(named_vals) -> None:
+    """The ``check_nan_inf`` sweep: one reduction over every float value
+    on the device and one bool read; only on failure a per-tensor pass,
+    to name the first variable (in the order given: the fetches, then
+    the written state by name, as the JAX package's state dict comes
+    out of its jitted step) holding NaN/Inf."""
+    from .amp.scaler import device_all_finite
+
+    floats = [(n, v) for n, v in named_vals
+              if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    if not floats:
+        return
+    if bool(device_all_finite([v for _, v in floats])):
+        return
+    for n, v in floats:
+        if not bool(torch.isfinite(v).all()):
+            raise EnforceError(f"NaN/Inf detected in variable {n!r}")
+    raise EnforceError("NaN/Inf detected")  # unreachable safeguard
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -1202,6 +1227,10 @@ class Executor:
                     v = _value(env, n)
                     fetches.append(v.detach() if isinstance(v, torch.Tensor)
                                    else v)
+                if flags.get_flag("check_nan_inf"):
+                    _assert_all_finite(
+                        list(zip(fetch_names, fetches))
+                        + [(n, scope.find_var(n)) for n in sorted(written)])
         return self._fetch_result(fetch_names, fetches, return_numpy)
 
     def _run_from_loader(self, program, loader, fetch_list, scope,
@@ -1284,10 +1313,12 @@ class Executor:
         self._maybe_check_program(program, feed, fetch_names)
 
         if self.device.type != "cuda":
-            outs = [self.run(program, feed={
+            # each step's fetches cloned: a fetched state tensor is the
+            # scope's own, which the next step may update in place
+            outs = [[v.clone() for v in self.run(program, feed={
                 n: v[i] if n in stacked_names else v
                 for n, v in feed.items()}, fetch_list=fetch_names,
-                scope=scope, return_numpy=False) for i in range(steps)]
+                scope=scope, return_numpy=False)] for i in range(steps)]
             stacked = [torch.stack([o[k] for o in outs])
                        for k in range(len(fetch_names))]
             return self._fetch_result(fetch_names, stacked, return_numpy)
@@ -1321,6 +1352,11 @@ class Executor:
         with RecordEvent("dispatch"):
             fetches = captured(feed_vals)
         self._cache[key] = captured
+        if flags.get_flag("check_nan_inf"):
+            _assert_all_finite(
+                list(zip(fetch_names, fetches))
+                + [(n, scope.find_var(n))
+                   for n in sorted(captured.rw + captured.wo)])
         return self._fetch_result(fetch_names, fetches, return_numpy)
 
     def run_graph(self,

@@ -266,9 +266,10 @@ def layer_norm(input, scale: bool = True, shift: bool = True,
     out = helper.create_tmp_variable(dtype)
 
     def fn(x, *sb):
-        # stats in f32 even for a bf16 activation stream; output returns
-        # to the input dtype
-        xf = x.to(torch.float32)
+        # stats in f32 even for a bf16 activation stream (in f64 for an
+        # f64 one); output returns to the input dtype
+        cdt = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(cdt)
         ax = tuple(range(begin_norm_axis, x.dim()))
         mean = torch.mean(xf, dim=ax, keepdim=True)
         var = torch.var(xf, dim=ax, keepdim=True, unbiased=False)
@@ -276,10 +277,10 @@ def layer_norm(input, scale: bool = True, shift: bool = True,
         tail = x.shape[begin_norm_axis:]
         i = 0
         if scale:
-            y = y * sb[i].reshape(tail).to(torch.float32)
+            y = y * sb[i].reshape(tail).to(cdt)
             i += 1
         if shift:
-            y = y + sb[i].reshape(tail).to(torch.float32)
+            y = y + sb[i].reshape(tail).to(cdt)
         return y.to(x.dtype)
 
     helper.append_op(type="layer_norm", inputs=inputs,

@@ -328,13 +328,15 @@ def _dropout_counter(helper):
 
 def _hard_label_ce_forward(lg, idx, eps):
     """(loss ``[.., 1]`` f32, lse ``[.., 1]`` f32) from the f32
-    log-sum-exp; the ``[.., V]`` log-probabilities are never formed."""
-    mx = lg.amax(-1, keepdim=True).to(torch.float32)
-    lse = torch.log(torch.exp(lg.to(torch.float32) - mx)
+    log-sum-exp (f64 for f64 logits); the ``[.., V]`` log-probabilities
+    are never formed."""
+    cdt = torch.promote_types(lg.dtype, torch.float32)
+    mx = lg.amax(-1, keepdim=True).to(cdt)
+    lse = torch.log(torch.exp(lg.to(cdt) - mx)
                     .sum(-1, keepdim=True)) + mx
-    picked = torch.gather(lg, -1, idx[..., None]).to(torch.float32)
+    picked = torch.gather(lg, -1, idx[..., None]).to(cdt)
     if eps:
-        mean_lg = lg.to(torch.float32).mean(-1, keepdim=True)
+        mean_lg = lg.to(cdt).mean(-1, keepdim=True)
         loss = -((1.0 - eps) * picked + eps * mean_lg - lse)
     else:
         loss = lse - picked
@@ -360,14 +362,14 @@ class _HardLabelCE(torch.autograd.Function):
         lg, idx, lse = ctx.saved_tensors
         eps = ctx.eps
         v = lg.shape[-1]
-        g = torch.exp(lg.to(torch.float32) - lse)          # softmax
+        g = torch.exp(lg.to(lse.dtype) - lse)              # softmax
         at = idx[..., None]
         p_at = torch.gather(g, -1, at)
         # p - tgt with tgt = (1-eps)*onehot + eps/V, element by element
         # as the JAX package rounds it, without forming the one-hot
         # (made on the device: a host scalar copied over would sync the
         # host, which a captured CUDA graph cannot hold)
-        tgt_at = torch.full((), 1.0 - eps, dtype=torch.float32,
+        tgt_at = torch.full((), 1.0 - eps, dtype=g.dtype,
                             device=g.device)
         if eps:
             tgt_at = tgt_at + eps / v

@@ -62,8 +62,8 @@ def positional_encoding(x, max_length=2048):
 def attention(qh, kh, vh, mask=None, causal=False):
     """Multi-head attention on head-split ``[B, T, H, D]`` tensors: the
     JAX package's fused math in the same order — logits divided by
-    ``sqrt(D)`` rounded to q's dtype, ``-1e9`` masking, softmax in f32,
-    cast back."""
+    ``sqrt(D)`` rounded to q's dtype, ``-1e9`` masking, softmax in f32
+    (f64 for f64 operands), cast back."""
     Tq, Tk = qh.shape[1], kh.shape[1]
     logits = (torch.einsum("bqhd,bkhd->bhqk", qh, kh)
               / rounded_sqrt(qh.shape[-1], qh.dtype))
@@ -74,7 +74,9 @@ def attention(qh, kh, vh, mask=None, causal=False):
         cm = torch.ones((Tq, Tk), dtype=torch.bool,
                         device=logits.device).tril()
         logits = torch.where(cm[None, None, :, :], logits, neg)
-    w = torch.softmax(logits.to(torch.float32), dim=-1).to(vh.dtype)
+    w = torch.softmax(logits.to(torch.promote_types(logits.dtype,
+                                                    torch.float32)),
+                      dim=-1).to(vh.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, vh)
 
 

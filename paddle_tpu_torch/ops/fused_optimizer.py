@@ -23,7 +23,19 @@ Functions:
 * :func:`fused_flat_update` — the ``paddle_tpu_torch::fused_flat_update``
   custom op, which updates ``p`` and the moments in place on either
   device: a CPU tensor takes the plain version, a CUDA tensor launches
-  the kernel or raises. It counts its launches in ``.launches``.
+  the kernel or raises. It counts its launches in ``.launches``, and
+  those gated on a flag in ``.gated_launches``.
+
+Both take an optional ``apply`` flag, a 0-d bool tensor on the
+parameters' device (the JAX package's ``mask_update_op``: the overflow
+skip of ``amp.decorate``, the k-th micro-step of
+``GradientAccumulation``). Where it is false every output keeps its
+input: the parameters and moments are left as they were, and the owning
+group's advanced scalars come out at their step-start values. The plain
+version takes ``torch.where`` over its outputs; the kernel reads the
+flag from the card once per block and writes nothing when it is false,
+so a captured step skips an overflowed update without a host sync.
+Where it is true both give the bits of the ungated update.
 
 ``kind`` is the optimizer's op type; ``consts`` its hyperparameters as
 Python numbers, ``scale`` (the group's learning-rate scale) first:
@@ -62,7 +74,7 @@ never advances them in place.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -108,10 +120,11 @@ def _prox(prox, lr, l1, l2):
 
 def plain_flat_update(kind: str, p, g, lr, accs: Sequence = (),
                       shared: Sequence = (), owns: bool = False,
-                      consts: Sequence = ()):
+                      consts: Sequence = (), apply=None):
     """``(new_p, *new_accs[, *advanced_shared if owns])`` with plain
     torch ops. ``lr`` and ``shared`` are 0-d f32 tensors; the new
-    moments come back in their storage dtype."""
+    moments come back in their storage dtype. ``apply`` (a 0-d bool
+    tensor, or None) gates every output on its input."""
     enforce(kind in KINDS, "fused update: unknown kind %r (one of %s)"
             % (kind, sorted(KINDS)))
     accs, shared = tuple(accs), tuple(shared)
@@ -120,6 +133,9 @@ def plain_flat_update(kind: str, p, g, lr, accs: Sequence = (),
     if owns:
         # the shared beta powers advance by their betas (consts 1, 2)
         out += tuple(s * b for s, b in zip(shared, consts[1:]))
+    if apply is not None:
+        ins = (p,) + accs + (shared if owns else ())
+        out = tuple(torch.where(apply, o, i) for o, i in zip(out, ins))
     return out
 
 
@@ -266,10 +282,12 @@ _PTRS = ctypes.c_void_p * _MAX_MOMENTS
 _SHARED = ctypes.c_void_p * _MAX_SHARED
 _CONSTS = ctypes.c_float * _MAX_CONSTS
 # kind, variant, bf16 moments; p, g, lr; moments[4], n moments;
-# shared[2], shared_out[2], n shared; n; consts[8], n consts; stream
+# shared[2], shared_out[2], n shared; n; consts[8], n consts; the apply
+# flag (null: ungated); stream
 _ARGS = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
          + [_PTRS, ctypes.c_int, _SHARED, _SHARED, ctypes.c_int,
-            ctypes.c_longlong, _CONSTS, ctypes.c_int, ctypes.c_void_p])
+            ctypes.c_longlong, _CONSTS, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p])
 
 
 def _library():
@@ -288,7 +306,7 @@ def build() -> None:
     _library()
 
 
-def _check_cuda(kind, p, g, lr, accs, shared, consts):
+def _check_cuda(kind, p, g, lr, accs, shared, consts, apply):
     n_acc, n_shared, n_consts = KINDS[kind]
     enforce(len(accs) == n_acc and len(shared) == n_shared
             and len(consts) == n_consts,
@@ -315,6 +333,11 @@ def _check_cuda(kind, p, g, lr, accs, shared, consts):
                 and s.device == dev,
                 "fused_flat_update: lr and shared scalars must be one "
                 "float32 element on %s" % dev)
+    enforce(apply is None or (apply.numel() == 1
+                              and apply.dtype == torch.bool
+                              and apply.device == dev),
+            "fused_flat_update: the apply flag must be one bool element on "
+            "%s" % dev)
 
 
 # The kernel as a torch.library custom op (see ops/flash_attention.py):
@@ -322,7 +345,8 @@ def _check_cuda(kind, p, g, lr, accs, shared, consts):
 # kernels (the CPU one copies plain_flat_update's new tensors into
 # them), and so is ``shared_out``: the buffers, empty or fresh from the
 # wrapper, that receive the advanced shared scalars when the group owns
-# them. The op returns nothing.
+# them. The op returns nothing. ``apply`` is the optional gate, read on
+# the parameters' device.
 
 
 @torch.library.custom_op("paddle_tpu_torch::fused_flat_update",
@@ -332,21 +356,22 @@ def _fused_flat_update_op(kind: str, p: torch.Tensor, g: torch.Tensor,
                           lr: torch.Tensor, accs: List[torch.Tensor],
                           shared: List[torch.Tensor],
                           shared_out: List[torch.Tensor],
-                          consts: List[float]) -> None:
+                          consts: List[float],
+                          apply: Optional[torch.Tensor] = None) -> None:
     out = plain_flat_update(kind, p, g, lr, accs, shared, bool(shared_out),
-                            consts)
+                            consts, apply)
     for dst, src in zip([p] + list(accs) + list(shared_out), out):
         dst.copy_(src)
 
 
 @_fused_flat_update_op.register_fake
-def _(kind, p, g, lr, accs, shared, shared_out, consts):
+def _(kind, p, g, lr, accs, shared, shared_out, consts, apply=None):
     return None
 
 
 @_fused_flat_update_op.register_kernel("cuda")
-def _(kind, p, g, lr, accs, shared, shared_out, consts):
-    _check_cuda(kind, p, g, lr, accs, shared, consts)
+def _(kind, p, g, lr, accs, shared, shared_out, consts, apply=None):
+    _check_cuda(kind, p, g, lr, accs, shared, consts, apply)
     lib = _library()
     variant, floats = kernel_consts(kind, consts)
     # null pointers for the slots this kind does not read or write
@@ -360,29 +385,34 @@ def _(kind, p, g, lr, accs, shared, shared_out, consts):
             int(bool(accs) and accs[0].dtype == torch.bfloat16),
             p.data_ptr(), g.data_ptr(), lr.data_ptr(), moments, len(accs),
             sh, sh_out, len(shared_out), p.numel(), _CONSTS(*floats),
-            len(floats), stream)
+            len(floats), None if apply is None else apply.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError("fused_flat_update: kernel launch failed: CUDA "
                            "error %d (%s)"
                            % (err, lib.fused_update_error_string(err)
                               .decode()))
     fused_flat_update.launches += 1
+    if apply is not None:
+        fused_flat_update.gated_launches += 1
 
 
 def fused_flat_update(kind: str, p, g, lr, accs: Sequence = (),
                       shared: Sequence = (), owns: bool = False,
-                      consts: Sequence = ()):
+                      consts: Sequence = (), apply=None):
     """The group update, the ``fused_flat_update`` op: one kernel launch
     on a CUDA tensor, :func:`plain_flat_update` on a CPU one; either
     updates ``p`` and ``accs`` in place. Returns ``(p, *accs)`` and, if
-    ``owns``, the advanced shared scalars as new tensors."""
+    ``owns``, the advanced shared scalars as new tensors. ``apply`` (a
+    0-d bool tensor, or None) gates the update: where it is false
+    nothing changes and the advanced scalars are the step-start ones."""
     enforce(kind in KINDS, "fused update: unknown kind %r (one of %s)"
             % (kind, sorted(KINDS)))
     accs, shared = tuple(accs), tuple(shared)
     adv = tuple(torch.empty_like(s) for s in shared) if owns else ()
     _fused_flat_update_op(kind, p, g, lr, list(accs), list(shared),
-                          list(adv), [float(c) for c in consts])
+                          list(adv), [float(c) for c in consts], apply)
     return (p,) + accs + adv
 
 
-_cuda.register_launcher(fused_flat_update)
+_cuda.register_launcher(fused_flat_update, ("launches", "gated_launches"))

@@ -1,8 +1,9 @@
 """Optimizers (counterpart of paddle_tpu/optimizer.py): the base class
-with the per-parameter and the flat-group update paths, and the
-optimizer family — SGD, Momentum, Adagrad, Adam, Adamax,
-DecayedAdagrad, Adadelta, RMSProp, Ftrl, ProximalGD and ProximalAdagrad
-— with the reference's aliases (``MomentumOptimizer``, ...).
+with the per-parameter and the flat-group update paths, the optimizer
+family — SGD, Momentum, Adagrad, Adam, Adamax, DecayedAdagrad,
+Adadelta, RMSProp, Ftrl, ProximalGD and ProximalAdagrad — with the
+reference's aliases (``MomentumOptimizer``, ...), and the wrappers
+``GradientAccumulation`` and ``ModelAverage``.
 
 ``minimize(loss)`` = ``append_backward`` + gradient clipping +
 regularization + the update ops. Accumulators are named persistable
@@ -42,8 +43,18 @@ parameter: exactly one update op (the owner's: the last parameter's, or
 the last group's) advances them, and every other op reads the step-start
 value, because ops run in program order.
 
-Not ported yet: ``ModelAverage`` and ``GradientAccumulation`` (ROADMAP
-Queue A 2).
+Gated updates (:func:`mask_update_op`, shared by ``amp.decorate``'s
+overflow skip and ``GradientAccumulation``): an update op gated on a
+bool flag leaves every state it writes — parameters, moments, beta
+powers — as it was where the flag is false. Each update op built here
+takes the flag itself (its fn is marked ``takes_apply``), because the
+row-sparse ops and the flat group op update in place and the input is
+gone once they have written: the dense per-parameter ops select each
+new tensor against its input with ``torch.where``; the row-sparse ops
+select each row before it is written back (SGD adds ``-0.0`` instead of
+its step, which leaves every value's bits), so the ``[V, D]`` table is
+never copied; the flat group op hands the flag to the fused-update
+kernel, which reads it on the card.
 """
 
 from __future__ import annotations
@@ -69,6 +80,32 @@ _BF16_MOMENT_KEYS = ("moment", "moment1", "moment2", "velocity",
                      "inf_norm", "avg_squared_grad", "avg_squared_update",
                      "mean_square", "mean_grad", "momentum", "squared",
                      "linear")
+
+
+def mask_update_op(op, apply_flag) -> None:
+    """Gate an optimizer update op on a bool flag variable: every output
+    falls back to its input where the flag is false, so parameters and
+    accumulators (moments, beta powers) advance only on apply steps.
+    The one conditional-update mechanism shared by
+    ``GradientAccumulation`` (apply every k-th micro-step) and
+    ``amp.decorate`` (skip overflowed steps). The flag is the op's last
+    input, slot ``ApplyFlag``; the op's fn — an update op this module
+    built — takes it as ``apply`` and gates its own update (in place
+    where the op updates in place)."""
+    enforce("ApplyFlag" not in op.inputs,
+            "op %r is already gated by mask_update_op — a second wrap "
+            "would consume a real input as the flag" % op.type)
+    orig_fn = op.fn
+    enforce(getattr(orig_fn, "takes_apply", False),
+            "op %r is no update op of paddle_tpu_torch.optimizer: its fn "
+            "takes no apply flag" % op.type)
+
+    def fn(*args):
+        return orig_fn(*args[:-1], apply=args[-1])
+
+    op.inputs["ApplyFlag"] = [apply_flag.name]
+    op.fn = fn
+    op.block.program._bump()
 
 
 def _moment_storage_dtype(key: str, dtype):
@@ -322,12 +359,14 @@ class Optimizer:
         kind, consts = self._OP_TYPE, self._update_consts(scale)
         n_g, n_a = len(grads), len(acc_vars)
 
-        def group_fn(p_flat, *rest):
+        def group_fn(p_flat, *rest, apply=None):
             gs, lr = rest[:n_g], rest[n_g]
             accs, sh = rest[n_g + 1:n_g + 1 + n_a], rest[n_g + 1 + n_a:]
             g_flat = torch.cat([g.reshape(-1) for g in gs])
             return fused_flat_update(kind, p_flat, g_flat, lr, accs, sh,
-                                     owns, consts)
+                                     owns, consts, apply)
+
+        group_fn.takes_apply = True
 
         inputs = {"FlatParam": [gname], "Grad": [g.name for g in grads],
                   "LearningRate": [self._learning_rate_var.name]}
@@ -482,6 +521,12 @@ class Optimizer:
 
     def _append_update(self, block, opt_name, param, grad, extra_in, fn,
                        extra_out=None):
+        """The update op ``opt_name``: ``fn(param, grad, lr, *extra_in)``
+        -> (new param, *extra_out), each output pinned to its declared
+        dtype. The op takes the gate of :func:`mask_update_op`: a fn
+        marked ``takes_apply`` (an in-place row update) gates itself;
+        any other fn's new tensors are selected against the inputs of
+        the same names, which it has left as they were."""
         lr = self._learning_rate_var
         inputs = {"Param": [param.name], "Grad": [grad.name],
                   "LearningRate": [lr.name]}
@@ -493,17 +538,24 @@ class Optimizer:
 
         # pin every output to its declared storage dtype, so promotion
         # never flips a state variable's dtype between steps
-        out_dtypes = [dtype_utils.to_torch(var.dtype) for var in
-                      [param] + [var for _, var in (extra_out or [])]]
+        out_vars = [param] + [var for _, var in (extra_out or [])]
+        out_dtypes = [dtype_utils.to_torch(var.dtype) for var in out_vars]
+        in_names = [n for ns in inputs.values() for n in ns]
+        in_pos = [in_names.index(var.name) for var in out_vars]
+        gates_itself = getattr(fn, "takes_apply", False)
 
-        def pinned(*args):
-            res = fn(*args)
+        def pinned(*args, apply=None):
+            res = fn(*args, apply=apply) if gates_itself else fn(*args)
             one = not isinstance(res, (tuple, list))
             vals = (res,) if one else tuple(res)
             cast = tuple(v if v.dtype == dt else v.to(dt)
                          for v, dt in zip(vals, out_dtypes))
+            if apply is not None and not gates_itself:
+                cast = tuple(torch.where(apply, v, args[i])
+                             for v, i in zip(cast, in_pos))
             return cast[0] if one else cast
 
+        pinned.takes_apply = True
         return block.append_op(type=opt_name, inputs=inputs,
                                outputs=outputs, fn=pinned)
 
@@ -537,10 +589,14 @@ class SGD(Optimizer):
         p, g = param_and_grad
         scale = self._param_lr_scale(p)
 
-        def fn(pv, gv, lr, rv):
-            return pv.index_add_(0, rv.to(torch.int64),
-                                 -(lr * scale) * gv.to(pv.dtype))
+        def fn(pv, gv, lr, rv, apply=None):
+            step = -(lr * scale) * gv.to(pv.dtype)
+            if apply is not None:
+                # x + (-0.0) is x, bit for bit
+                step = torch.where(apply, step, -0.0)
+            return pv.index_add_(0, rv.to(torch.int64), step)
 
+        fn.takes_apply = True
         return self._append_update(block, "sgd_sparse", p, g,
                                    [("Rows", g.rows_var)], fn)
 
@@ -564,15 +620,21 @@ class Adagrad(Optimizer):
         m = self._get_accumulator("moment", p)
         eps, scale = self._epsilon, self._param_lr_scale(p)
 
-        def fn(pv, gv, lr, rv, mv):
+        def fn(pv, gv, lr, rv, mv, apply=None):
             vocab = pv.shape[0]
             u, gm = self._merge_rows(rv, gv.to(pv.dtype), vocab)
             uc = u.clamp(max=vocab - 1)  # safe reads; fill writes dropped
-            m_rows = mv[uc].to(gm.dtype) + gm * gm
-            p_rows = pv[uc] - (lr * scale) * gm / (torch.sqrt(m_rows) + eps)
+            m_old, p_old = mv[uc], pv[uc]
+            m_rows = m_old.to(gm.dtype) + gm * gm
+            p_rows = p_old - (lr * scale) * gm / (torch.sqrt(m_rows) + eps)
+            m_rows = m_rows.to(mv.dtype)
+            if apply is not None:
+                p_rows = torch.where(apply, p_rows, p_old)
+                m_rows = torch.where(apply, m_rows, m_old)
             return (_set_rows(pv, u, p_rows, vocab),
-                    _set_rows(mv, u, m_rows.to(mv.dtype), vocab))
+                    _set_rows(mv, u, m_rows, vocab))
 
+        fn.takes_apply = True
         return self._append_update(block, "adagrad_sparse", p, g,
                                    [("Rows", g.rows_var), ("Moment", m)],
                                    fn, [("MomentOut", m)])
@@ -608,19 +670,27 @@ class Adam(Optimizer):
         scale = self._param_lr_scale(p)
         owns = p.name == self._beta_pow_owner
 
-        def fn(pv, gv, lr, rv, m1v, m2v, b1pv, b2pv):
+        def fn(pv, gv, lr, rv, m1v, m2v, b1pv, b2pv, apply=None):
             vocab = pv.shape[0]
             u, gm = self._merge_rows(rv, gv.to(pv.dtype), vocab)
             uc = u.clamp(max=vocab - 1)  # safe reads; fill writes dropped
-            m1r = b1 * m1v[uc].to(gm.dtype) + (1 - b1) * gm
-            m2r = b2 * m2v[uc].to(gm.dtype) + (1 - b2) * gm * gm
+            old = (pv[uc], m1v[uc], m2v[uc])
+            m1r = b1 * old[1].to(gm.dtype) + (1 - b1) * gm
+            m2r = b2 * old[2].to(gm.dtype) + (1 - b2) * gm * gm
             lr_t = (lr * scale) * torch.sqrt(1 - b2pv) / (1 - b1pv)
-            p_rows = pv[uc] - lr_t * m1r / (torch.sqrt(m2r) + eps)
-            out = (_set_rows(pv, u, p_rows, vocab),
-                   _set_rows(m1v, u, m1r.to(m1v.dtype), vocab),
-                   _set_rows(m2v, u, m2r.to(m2v.dtype), vocab))
-            return (out + (b1pv * b1, b2pv * b2)) if owns else out
+            p_rows = old[0] - lr_t * m1r / (torch.sqrt(m2r) + eps)
+            rows = (p_rows, m1r.to(m1v.dtype), m2r.to(m2v.dtype))
+            pows = (b1pv * b1, b2pv * b2)
+            if apply is not None:
+                rows = tuple(torch.where(apply, r, o)
+                             for r, o in zip(rows, old))
+                pows = (torch.where(apply, pows[0], b1pv),
+                        torch.where(apply, pows[1], b2pv))
+            out = tuple(_set_rows(t, u, r, vocab)
+                        for t, r in zip((pv, m1v, m2v), rows))
+            return (out + pows) if owns else out
 
+        fn.takes_apply = True
         outs = [("Moment1Out", m1), ("Moment2Out", m2)]
         if owns:
             outs += [("Beta1PowOut", b1p), ("Beta2PowOut", b2p)]
@@ -757,6 +827,148 @@ class ProximalAdagrad(Optimizer):
 
     def _update_consts(self, scale):
         return (scale, self._l1, self._l2)
+
+
+class ModelAverage(Optimizer):
+    """Running parameter sums for an averaged model (reference:
+    optimizer.py:1111 ModelAverage). ``apply_to(program)`` appends one
+    ``model_average_accum`` op per trainable parameter, after the
+    program's update ops, adding the parameter into its ``sum``
+    accumulator and one into its ``num_accum`` counter;
+    ``averaged_value`` reads ``sum / max(num, 1)``. As in the JAX
+    package, the window arguments are kept but not applied, and no
+    ``apply()``/``restore()`` context swaps the averages in."""
+
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, **kw):
+        super().__init__(0.0, **kw)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self.params: List[Parameter] = []
+
+    def apply_to(self, program: Program):
+        """Append the averaging ops over every trainable parameter of
+        ``program``."""
+        self._program = program
+        gb = program.global_block()
+        self.params = [p for p in gb.all_parameters() if p.trainable]
+        self._create_global_learning_rate()
+        for p in self.params:
+            s = self._add_accumulator("sum", p)
+            n = self._add_accumulator("num_accum", p, shape=())
+
+            def fn(pv, sv, nv):
+                return sv + pv, nv + 1.0
+
+            gb.append_op(type="model_average_accum",
+                         inputs={"Param": [p.name], "Sum": [s.name],
+                                 "Num": [n.name]},
+                         outputs={"SumOut": [s.name], "NumOut": [n.name]},
+                         fn=fn)
+
+    def averaged_value(self, scope, param: Parameter):
+        """``sum / max(num, 1)`` of ``param`` from ``scope`` (a tensor
+        on the scope's device)."""
+        s = scope.get(self._get_accumulator("sum", param).name)
+        n = scope.get(self._get_accumulator("num_accum", param).name)
+        return s / torch.clamp(n, min=1.0)
+
+
+class GradientAccumulation(Optimizer):
+    """Micro-batch gradient accumulation around an inner optimizer.
+    Gradients add up in persistable ``grad_acc`` buffers for
+    ``accumulate_steps`` steps; on the k-th the inner optimizer applies
+    their mean, and the buffers reset. The apply predicate comes from a
+    step counter on the card (``grad_accum_tick``), and the inner update
+    ops are gated on it (:func:`mask_update_op`), so a step never waits
+    for the host: k micro-steps at fixed parameters equal one inner step
+    on their mean gradient (one step on the concatenated batch when the
+    loss is a batch mean). Clipping and regularization apply to the
+    mean. Row-sparse gradients are refused."""
+
+    def __init__(self, inner_optimizer: Optimizer, accumulate_steps: int,
+                 **kw):
+        enforce(accumulate_steps >= 1, "accumulate_steps must be >= 1")
+        super().__init__(inner_optimizer._learning_rate, **kw)
+        self.inner = inner_optimizer
+        self.k = int(accumulate_steps)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .clip import append_gradient_clip_ops
+
+        if isinstance(self.inner._learning_rate, Variable):
+            warnings.warn(
+                "GradientAccumulation: LR-schedule counters advance once "
+                "per MICRO-step (every exe.run), not per applied update — "
+                "scale decay_steps by accumulate_steps to keep the "
+                "schedule aligned with applied steps")
+        params_grads = append_backward(loss, parameter_list, no_grad_set)
+        for p, g in params_grads:
+            enforce(not getattr(g, "is_sparse_rows", False),
+                    "GradientAccumulation does not support sparse "
+                    "(rows, values) gradients; use a dense embedding "
+                    f"for {p.name!r}")
+
+        program = loss.block.program
+        self._program = self.inner._program = program
+        if startup_program is not None:
+            self._startup = self.inner._startup = startup_program
+        gb = program.global_block()
+        k = self.k
+
+        # the step counter and the apply flag, on the resolved programs
+        counter = self._create_persistable_state(
+            unique_name.generate("grad_accum_step"), (), "int32", 0)
+        apply_flag = gb.create_var(
+            name=unique_name.generate("grad_accum_apply"), shape=(),
+            dtype="bool")
+
+        def tick(c):
+            c_new = c + 1
+            return torch.remainder(c_new, k) == 0, c_new
+
+        gb.append_op(type="grad_accum_tick",
+                     inputs={"Counter": [counter.name]},
+                     outputs={"Apply": [apply_flag.name],
+                              "CounterOut": [counter.name]}, fn=tick)
+
+        # acc += g; the mean acc / k feeds the inner optimizer; acc
+        # resets on apply steps
+        new_pg = []
+        for p, g in params_grads:
+            if g is None:
+                new_pg.append((p, g))
+                continue
+            acc = self.inner._add_accumulator("grad_acc", p)
+            avg = gb.create_var(name=g.name + "@ACCUM_AVG",
+                                shape=g.shape, dtype=g.dtype)
+
+            def acc_fn(gv, av, fl):
+                a_new = av + gv
+                return (torch.where(fl, torch.zeros_like(a_new), a_new),
+                        a_new / k)
+
+            gb.append_op(type="grad_accumulate",
+                         inputs={"Grad": [g.name], "Acc": [acc.name],
+                                 "Apply": [apply_flag.name]},
+                         outputs={"AccOut": [acc.name],
+                                  "Avg": [avg.name]}, fn=acc_fn)
+            new_pg.append((p, avg))
+
+        # clip and regularize the mean (clip(mean) != mean(clip)): the
+        # combined-batch equivalence
+        new_pg = append_gradient_clip_ops(new_pg)
+        new_pg = append_regularization_ops(
+            new_pg, self.regularization or self.inner.regularization)
+
+        ops = self.inner._create_optimization_pass(new_pg, loss,
+                                                   startup_program)
+        for op in ops:
+            mask_update_op(op, apply_flag)
+        self._learning_rate_var = self.inner._learning_rate_var
+        return ops, params_grads
 
 
 # the reference's aliases

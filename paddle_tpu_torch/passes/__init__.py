@@ -5,7 +5,7 @@ inference fusion family (``fc_act_fuse``, ``attention_fuse``,
 ``transpose_eliminate``, ``dce``; ``fusion``), the checked and stamped
 pass manager with the inference pipeline ``io.save_inference_model``
 runs (``manager``), the conv+BN fold and bf16 cast transforms (``conv_bn_fold``,
-``cast_params_bf16``) and ``memory_optimize``/``release_memory`` at
+``cast_params_bf16``), the bf16 autocast rewrite (``amp_bf16``) and ``memory_optimize``/``release_memory`` at
 every level (``transforms``), and the ``remat_policy`` scheduling pass
 (``schedule``). Quantization and the ``host_offload`` pass are not
 (ROADMAP Queue A 8), nor is ``comm_overlap`` (Queue A 9).
@@ -17,14 +17,14 @@ from .fusion import (AttentionFusePass, DeadCodeEliminatePass,
                      FcActFusePass, TransposeEliminatePass, fuse_op_chain)
 from .manager import PassManager, apply_passes, inference_pass_pipeline
 from .schedule import RematPolicyPass, apply_remat_policy
-from .transforms import (CastParamsBF16Pass, ConvBNFoldPass,
+from .transforms import (AmpRewritePass, CastParamsBF16Pass, ConvBNFoldPass,
                          InferenceTranspiler, memory_optimize,
                          release_memory, transpile_to_bfloat16)
 
 #: legacy alias (core/passes.py ProgramPass) — same class
 ProgramPass = Pass
 
-__all__ = ["AttentionFusePass", "CastParamsBF16Pass", "ConvBNFoldPass",
+__all__ = ["AmpRewritePass", "AttentionFusePass", "CastParamsBF16Pass", "ConvBNFoldPass",
            "DeadCodeEliminatePass", "FcActFusePass", "InferenceTranspiler",
            "Pass", "PassError", "PassManager", "ProgramPass",
            "RematPolicyPass", "TransposeEliminatePass", "apply_passes",

@@ -5,7 +5,9 @@ reference: transpiler/inference_transpiler.py:22) and the bf16 parameter
 cast (``transpile_to_bfloat16``, the ``cast_params_bf16`` pass;
 reference: contrib/float16/float16_transpiler.py) — and memory
 optimization (``memory_optimize`` and ``release_memory``; reference:
-transpiler/memory_optimization_transpiler.py:366,385).
+transpiler/memory_optimization_transpiler.py:366,385) — and the
+graph-level bf16 autocast as the registered ``amp_bf16`` pass (wraps
+``amp.rewrite_program``).
 
 The fold computes the folded weights as the JAX package does, in
 float64 on the host, and writes them back in the parameters' dtype on
@@ -254,3 +256,34 @@ def release_memory(input_program: Optional[Program] = None,
     package."""
     del input_program, skip_opt_set
     return None
+
+
+# ---------------------------------------------------------------------------
+# amp: the autocast rewrite as a registered pass
+# ---------------------------------------------------------------------------
+
+
+@register_pass("amp_bf16")
+class AmpRewritePass(Pass):
+    """Graph-level bf16 autocast (wraps
+    :func:`paddle_tpu_torch.amp.rewrite_program`). Self-stamping: the
+    rewrite sets ``program._amp_stamp`` itself, the same stamp as a
+    direct call, which the pass manager verifies."""
+
+    stamp_attr = "_amp_stamp"
+    reads = frozenset({"*"})  # the policy partitions every op type
+    writes = frozenset({"cast", "amp_cast_params"})
+
+    def __init__(self, policy=None):
+        self.policy = policy
+
+    def fingerprint(self) -> str:
+        from ..amp.policy import AmpPolicy
+
+        policy = self.policy or AmpPolicy()
+        return f"bfloat16/{policy.fingerprint()}"
+
+    def apply(self, program: Program, scope=None) -> Program:
+        from ..amp import rewrite_program
+
+        return rewrite_program(program, policy=self.policy)

@@ -22,8 +22,15 @@ and the port rounds op by op — the test below holds the port's plain
 version bit-equal to numpy's op-by-op float32 arithmetic, which is the
 order the kernel reproduces.
 
+The gate (``apply``, the JAX package's ``mask_update_op``): for every
+case, the plain version with the flag true is bit-equal to the ungated
+update and with it false gives back every input bit for bit (the owner's
+scalars at their step-start values); the op on the CPU updates in place
+accordingly.
+
 The kernel itself is compared with the plain version by the tests
-marked ``cuda`` (bit-equal), which skip on a host without a card. JAX
+marked ``cuda`` (bit-equal, gated with each flag value too), which skip
+on a host without a card. JAX
 is imported inside the tests that use it, so the card tests also run
 on a machine without JAX:
 
@@ -248,6 +255,28 @@ def test_launcher_takes_the_plain_version_on_the_cpu():
         fused_flat_update("lamb", *args[:3], consts=(1.0,))
 
 
+@pytest.mark.parametrize("case", CASES, ids=[_ids(c) for c in CASES])
+def test_gated_plain_update_is_the_update_or_nothing(case):
+    config, mdt, owns = case
+    kind, consts = CONFIGS[config][0], CONFIGS[config][3]
+    p, g, lr, accs, shared = _torch(*_inputs(kind, 1000, mdt, seed=7), mdt)
+    want = plain_flat_update(kind, p, g, lr, accs, shared, owns, consts)
+    ins = (p,) + accs + (shared if owns else ())
+    for flag in (True, False):
+        got = plain_flat_update(kind, p, g, lr, accs, shared, owns, consts,
+                                apply=torch.tensor(flag))
+        assert len(got) == len(want)
+        for a, b in zip(got, want if flag else ins):
+            assert a.dtype == b.dtype and torch.equal(a, b), (case, flag)
+        # the op on the CPU: in place, the advanced scalars new tensors
+        pc, ac = p.clone(), [a.clone() for a in accs]
+        out = fused_flat_update(kind, pc, g, lr, ac, shared, owns, consts,
+                                apply=torch.tensor(flag))
+        assert out[0] is pc
+        for a, b in zip(out, want if flag else ins):
+            assert a.dtype == b.dtype and torch.equal(a, b), (case, flag)
+
+
 def test_kernel_build_is_keyed_by_its_source():
     path = _cuda.library_path("fused_optimizer")
     assert path.parent == _cuda.BUILD_DIR
@@ -281,6 +310,38 @@ def test_cuda_kernel_is_bit_equal_to_plain(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=[_ids(c) for c in CASES])
+def test_cuda_gated_kernel_is_bit_equal_to_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    config, mdt, owns = case
+    kind, consts = CONFIGS[config][0], CONFIGS[config][3]
+    for n in SIZES + [1 << 20]:
+        p, g, lr, accs, shared = _torch(*_inputs(kind, n, mdt), mdt, "cuda")
+        ins = (p,) + accs + (shared if owns else ())
+        for flag in (True, False):
+            apply = torch.tensor(flag, device="cuda")
+            want = plain_flat_update(kind, p, g, lr, accs, shared, owns,
+                                     consts, apply)
+            before = (fused_flat_update.launches,
+                      fused_flat_update.gated_launches)
+            got = fused_flat_update(kind, p.clone(), g, lr,
+                                    [a.clone() for a in accs], shared, owns,
+                                    consts, apply)
+            torch.cuda.synchronize()
+            assert (fused_flat_update.launches,
+                    fused_flat_update.gated_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), \
+                    (case, n, flag)
+            if not flag:  # nothing written, the scalars step-start
+                for a, b in zip(got, ins):
+                    assert torch.equal(a, b), (case, n)
+
+
+@pytest.mark.cuda
 def test_cuda_refuses_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -295,3 +356,6 @@ def test_cuda_refuses_what_the_kernel_does_not_take():
                           consts=CONFIGS["adam"][3])
     with pytest.raises(EnforceError, match="contiguous flat float32"):
         fused_flat_update("sgd", p.reshape(8, 8), g, lr, consts=(1.0,))
+    with pytest.raises(EnforceError, match="apply flag"):
+        fused_flat_update("sgd", p, g, lr, consts=(1.0,),
+                          apply=torch.tensor(True))  # on the host

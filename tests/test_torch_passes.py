@@ -258,14 +258,16 @@ def test_registry_and_fingerprints_match_the_jax_package():
 
     from paddle_tpu_torch.passes import transforms as t_transforms
 
-    assert list_passes() == ["attention_fuse", "cast_params_bf16",
+    assert list_passes() == ["amp_bf16", "attention_fuse",
+                             "cast_params_bf16",
                              "comm_overlap", "conv_bn_fold", "dce",
                              "fc_act_fuse", "host_offload", "remat_policy",
                              "transpose_eliminate"]
-    for name in ("ConvBNFoldPass", "CastParamsBF16Pass"):
+    for name in ("ConvBNFoldPass", "CastParamsBF16Pass", "AmpRewritePass"):
         tcls, jcls = getattr(t_transforms, name), getattr(j_transforms, name)
-        assert (tcls.name, tcls.reads, tcls.writes, tcls.mutates_scope) == \
-            (jcls.name, jcls.reads, jcls.writes, jcls.mutates_scope)
+        assert (tcls.name, tcls.reads, tcls.writes, tcls.mutates_scope,
+                tcls.stamp_attr) == (jcls.name, jcls.reads, jcls.writes,
+                                     jcls.mutates_scope, jcls.stamp_attr)
         assert tcls().fingerprint() == jcls().fingerprint()
     for tcls, jcls in ((FcActFusePass, j_fusion.FcActFusePass),
                        (AttentionFusePass, j_fusion.AttentionFusePass),

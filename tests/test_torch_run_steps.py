@@ -109,6 +109,27 @@ def test_feed_list_matches_sequential_runs():
     assert exe.num_compiled == 0  # nothing is captured on the CPU
 
 
+def test_fetched_state_is_each_steps_value():
+    """A fetched state tensor that an op updates in place (a flat
+    group's buffer) comes back stacked with each step's value, as the
+    card's graph writes it into its fetch buffer step by step."""
+    feeds = _feeds(3)
+    fluid.set_flags({"fuse_optimizer_state": True})
+    try:
+        main, startup, loss = _build_mlp()
+    finally:
+        fluid.set_flags({"fuse_optimizer_state": False})
+    flat = "fused_param_storage_0"
+    exe, seq_scope = _fresh(main, startup)
+    seq = [exe.run(main, feed=f, fetch_list=[flat], scope=seq_scope)[0]
+           for f in feeds]
+    exe, scan_scope = _fresh(main, startup)
+    stacked, = exe.run_steps(main, feed_list=feeds, fetch_list=[flat],
+                             scope=scan_scope)
+    np.testing.assert_array_equal(stacked, np.stack(seq))
+    assert not np.array_equal(stacked[0], stacked[-1])
+
+
 def test_stacked_feed_and_invariant_feed():
     feeds = _feeds(3, seed=7)
     main, startup, loss = _build_mlp()
