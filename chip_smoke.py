@@ -107,8 +107,8 @@ Phases, one JSON line each (or one per shape):
              -0.25), ProximalGD and ProximalAdagrad at N = ResNet-50's
              flat group (25,557,032); each with f32 and bf16 moments,
              and each also at a ragged N = 128*4099+37; and Adam at
-             BERT-base's flat group (bf16 moments) and DeepFM's (f32
-             moments). Every output
+             BERT-base's flat group (bf16 moments), DeepFM's and the
+             seq2seq NMT's (f32 moments). Every output
              bit-equal (max abs error 0) and finite. CUDA-event ms of
              the kernel and the plain version, the bound (bytes read and
              written once over 3.35 TB/s), and a torch fused optimizer
@@ -467,16 +467,36 @@ Phases, one JSON line each (or one per shape):
              op under autograd, and as the CUDA kernel function called
              directly (the binding's cost to an eager path).
 
+26. seq2seq, sentiment, srl — (run after phase 20) the sequence tier's
+             models at the JAX package's default widths, f32, random
+             weights from a numpy seed, ``Adam(1e-3)`` on one flat
+             fused group, synthetic rows from the seed padded by the
+             port's DataFeeder: ``machine_translation.build_train()``
+             (dicts 30000, word 256, hidden 512; B=64 pairs, lengths
+             3-19, the target +1), ``sentiment.build_train(5147,
+             "stacked_lstm")`` (B=64, 8-100 tokens) and
+             ``label_semantic_roles.db_lstm()`` (B=32, 5-29 tokens in
+             its 128 slots, the CRF loss). 10 eager steps (srl: 5) and
+             the same steps as one ``run_steps`` call, bit-equal in
+             losses and every scope tensor, the fused update once a
+             step, falling losses; eager and replayed step ms, tokens/s,
+             capture s, peak memory, and one eager and one replayed step
+             profiled (device busy, idle share, launches by family).
+             srl decodes its trained emissions with ``crf_decoding`` on
+             the card and holds every path to ``numpy_viterbi``. Phase
+             7 times the seq2seq group (Adam, f32 moments) too.
+
 Then the card's name and power limit, the kernels JSON line (wall and
 device ms of each kernel and its library call; ``amp_launches``,
 ``persist_launches``,
 ``bert_launches``, ``deepfm_launches``, ``remat_launches``,
-``resilience_launches``, ``server_launches`` and ``artifact_launches``:
+``resilience_launches``, ``server_launches``, ``artifact_launches``,
+``seq2seq_launches``, ``sentiment_launches`` and ``srl_launches``:
 those phases' launches
 of the kernels their paths run; ``fused_flat_update_amp``, the gated
 Adam of the AMP path with its gated and skipped launches; the rows at
-BERT-base's and DeepFM's shapes carry the bert, remat and deepfm
-phases' launches), and as the
+BERT-base's, DeepFM's and the seq2seq NMT's shapes carry the bert,
+remat, deepfm and seq2seq phases' launches), and as the
 last line ``{"ok": true, "device": {...}}``. Every phase row carries the
 card's name and power limit. Any failed phase exits
 non-zero. Without a visible CUDA device — or outside a checkout that
@@ -2585,19 +2605,21 @@ def fused_work(label, bf16, owns, n):
             else "operations", nbytes, ops)
 
 
-def phase_fused_update(card, n_recipe, n_resnet, n_bert, n_deepfm):
+def phase_fused_update(card, n_recipe, n_resnet, n_bert, n_deepfm,
+                       n_seq2seq):
     """Every case bit-equal to the plain version at its main path's
     group size (the recipe's kinds at the recipe's, the others at
     ResNet-50's) and at a ragged size; times at the main size. Adam's
-    groups of BERT-base (bf16 moments) and DeepFM (f32) at their
-    sizes too."""
+    groups of BERT-base (bf16 moments), DeepFM and the seq2seq NMT (f32)
+    at their sizes too."""
     from paddle_tpu_torch.ops.fused_optimizer import (fused_flat_update,
                                                       plain_flat_update)
 
     rows = []
     cases = ([(c, None) for c in FUSED_CASES]
              + [(("adam", True, True), n_bert),
-                (("adam", False, True), n_deepfm)])
+                (("adam", False, True), n_deepfm),
+                (("adam", False, True), n_seq2seq)])
     for i, ((label, bf16, owns), n_model) in enumerate(cases):
         kind, consts, _flops = FUSED_CONFIGS[label]
         n_main = n_model or (n_recipe if label in RECIPE_KINDS
@@ -5237,6 +5259,310 @@ def phase_deepfm(card):
                                    peak, "f32")
 
 
+# ---------------------------------------------------------------- phase 26
+
+# the sequence models at the JAX package's default widths, f32, Adam on
+# the flat fused group: the models' arguments, then (batch, steps)
+SEQ2SEQ_MODEL = dict(src_dict_size=30000, trg_dict_size=30000, word_dim=256,
+                     hidden_dim=512)
+SENTIMENT_MODEL = dict(dict_dim=5147, model="stacked_lstm")
+SRL_MODEL = {}  # db_lstm's defaults: word dict 44068, max_len 128, depth 4
+SEQ_LR = 1e-3
+SEQ_BATCHES = {"seq2seq": (64, 10), "sentiment": (64, 10), "srl": (32, 5)}
+
+
+def build_sequence(name):
+    """(main, startup, avg_cost, feed names, extra) of one sequence model
+    with ``Adam(SEQ_LR)`` under ``fuse_optimizer_state``; for ``srl``
+    ``extra`` is (emission var, transition var, length var)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import (label_semantic_roles,
+                                         machine_translation, sentiment)
+
+    saved = fluid.get_flag("fuse_optimizer_state")
+    fluid.set_flags({"fuse_optimizer_state": True})
+    extra = None
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            if name == "seq2seq":
+                feeds, cost, _ = machine_translation.build_train(
+                    **SEQ2SEQ_MODEL)
+            elif name == "sentiment":
+                data, label, cost, _, _ = sentiment.build_train(
+                    **SENTIMENT_MODEL)
+                feeds = [data, label]
+            else:
+                feeds, cost, crf = label_semantic_roles.db_lstm(**SRL_MODEL)
+                ops = main.global_block().ops
+                em = [op for op in ops if op.type == "linear_chain_crf"][0]
+                extra = (main.global_block().var(em.input("Emission")[0]),
+                         crf._crf_transition,
+                         fluid.layers.length_var_of(feeds[0]))
+            fluid.optimizer.Adam(learning_rate=SEQ_LR).minimize(cost)
+    finally:
+        fluid.set_flags({"fuse_optimizer_state": saved})
+    return main, startup, cost, [v.name for v in feeds], extra
+
+
+def build_srl_decode():
+    """(program, emission var, path var): db_lstm's forward at
+    ``SRL_MODEL`` and ``crf_decoding`` of its emissions with the CRF's
+    transition, parameters named as build_sequence("srl") names them."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import label_semantic_roles
+
+    main = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main,
+                                                        fluid.Program()):
+        feeds, _, crf = label_semantic_roles.db_lstm(**SRL_MODEL)
+        em = [op for op in main.global_block().ops
+              if op.type == "linear_chain_crf"][0].input("Emission")[0]
+        emission = main.global_block().var(em)
+        path = fluid.layers.crf_decoding(
+            emission, transition=crf._crf_transition,
+            length=fluid.layers.length_var_of(feeds[0]))
+    return main, emission, path
+
+
+def sequence_batches(name, main, feed_names, seed):
+    """``SEQ_BATCHES[name]`` batches of synthetic rows from ``seed``,
+    padded by the port's DataFeeder; each batch's first row has the
+    longest length, so every batch pads to one width (one graph).
+    seq2seq: source and target lengths 3..19, the target +1 for its
+    start/end token (dataset/wmt14.py); sentiment: 8..100 tokens, the
+    label whether their mean id is above half the vocabulary
+    (dataset/imdb.py's rule); srl: 5..29 tokens (dataset/conll05.py) in
+    the 128-wide slots, the eight features and the tags uniform.
+    sentiment and srl train on one batch every step: the loss of a
+    batch of 64 coin-flip-like labels, or a CRF loss summed over tokens
+    of other lengths, moves more from batch to batch than ten steps
+    lower it."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import label_semantic_roles as srl
+
+    B, n = SEQ_BATCHES[name]
+    rng = np.random.RandomState(seed)
+    if name == "srl":
+        ids = lambda hi: rng.randint(0, hi, (B, 128)).astype(  # noqa
+            np.int64)
+        feed = {n_: ids(srl.WORD_DICT_LEN) for n_ in feed_names[:6]}
+        feed.update(verb_data=ids(srl.PRED_DICT_LEN),
+                    mark_data=ids(srl.MARK_DICT_LEN),
+                    target=ids(srl.LABEL_DICT_LEN))
+        feed["word_data@LEN"] = rng.randint(5, 30, B).astype(np.int32)
+        return [feed] * n
+    feeder = fluid.DataFeeder(feed_names, program=main)
+    if name == "sentiment":
+        rows = []
+        for r in range(B):
+            words = rng.randint(0, 5147, 100 if r == 0
+                                else int(rng.randint(8, 101)))
+            rows.append((words.tolist(), [int(words.mean() > 5147 / 2)]))
+        return [feeder.feed(rows)] * n
+    batches = []
+    for _ in range(n):
+        rows = []
+        for r in range(B):
+            sl = 19 if r == 0 else int(rng.randint(3, 20))
+            tl = 19 if r == 0 else int(rng.randint(3, 20))
+            trg = rng.randint(3, 30000, tl).tolist()
+            rows.append((rng.randint(3, 30000, sl).tolist(), [0] + trg,
+                         trg + [1]))
+        batches.append(feeder.feed(rows))
+    shapes = {tuple((k, v.shape) for k, v in sorted(b.items()))
+              for b in batches}
+    if len(shapes) != 1:
+        fail("%s: the batches pad to different shapes %s" % (name, shapes))
+    return batches
+
+
+def numpy_viterbi(em, trans, lens):
+    """Best tag paths of f32 emissions [B, T, N] under ``trans`` [N+2, N]
+    in numpy f32 (the adds and maxima of crf_decoding, ties to the lower
+    tag); 0 past each length."""
+    B, T, N = em.shape
+    start, stop, tr = trans[0], trans[1], trans[2:]
+    out = np.zeros((B, T), np.int64)
+    for b in range(B):
+        L = int(lens[b])
+        delta = start + em[b, 0]
+        bps = []
+        for t in range(1, L):
+            scores = delta[:, None] + tr
+            bps.append(np.argmax(scores, axis=0))
+            delta = scores.max(axis=0) + em[b, t]
+        tag = int(np.argmax(delta + stop))
+        path = [tag]
+        for bp in reversed(bps):
+            tag = int(bp[tag])
+            path.append(tag)
+        out[b, :L] = path[::-1]
+    return out
+
+
+def _seq_family(name: str) -> str:
+    fam = _train_family(name)
+    low = name.lower()
+    if fam == "other":
+        for key in ("gather", "scatter", "index", "cat", "sort", "softmax",
+                    "logsumexp"):
+            if key in low:
+                return key
+    return fam
+
+
+def phase_sequence_model(card, name):
+    """One sequence model at the JAX package's widths on the card: 10
+    eager steps (5 for srl) over seeded batches, the same steps as one
+    ``run_steps`` call (a captured CUDA graph of the step replayed),
+    bit-equal in losses and every scope tensor; the fused Adam update
+    launched once a step; falling losses; step ms eager and replayed,
+    tokens/s, peak memory, and one eager and one replayed step profiled
+    (device busy, idle share, kernel launches). srl also decodes the
+    trained emissions with ``crf_decoding`` and holds the paths to a
+    numpy Viterbi. Returns (the run_steps call's fused-update launches,
+    the group's element count)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import _cuda
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    t_phase = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    main, startup, cost, feed_names, extra = build_sequence(name)
+    fluid.memory_optimize(main)
+    gb = main.global_block()
+    groups = sum(op.type.endswith("_fused") for op in gb.ops)
+    n_group = int(gb.var("fused_param_storage_0").shape[0])
+    batches = sequence_batches(name, main, feed_names, SEED + 20)
+    steps = len(batches)
+    n_params = sum(int(np.prod(p.shape)) for p in main.all_parameters())
+
+    exe, scope = _fresh(main, startup, place)
+    eager = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for feed in batches:
+        eager.append(float(exe.run(main, feed=feed, fetch_list=[cost],
+                                   scope=scope)[0]))
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / steps * 1e3
+    want = scope_tensors(scope)
+    fam_eager = {}
+    eager_wall, eager_by_family, eager_kernels, _ = profile_step(
+        lambda: exe.run(main, feed=batches[0], fetch_list=[cost],
+                        scope=scope), family_launches=fam_eager,
+        family=_seq_family)
+    exe.close()
+    del scope
+    torch.cuda.empty_cache()
+
+    exe, scope = _fresh(main, startup, place)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _cuda.LAUNCHERS:
+        reset_counts(fn)
+    t0 = time.perf_counter()
+    graph, = exe.run_steps(main, feed_list=batches, fetch_list=[cost],
+                           scope=scope)
+    first_call_s = time.perf_counter() - t0
+    launches = fused_flat_update.launches
+    if launches != groups * steps:
+        fail("%s: %d steps launched the fused update %d times, expected %d"
+             % (name, steps, launches, groups * steps))
+    differ = state_diff(scope_tensors(scope), want)
+    losses_equal = bool(np.array_equal(graph, np.asarray(eager, np.float32)))
+    if differ or not losses_equal:
+        fail("%s: run_steps is not bit-equal to the eager steps: losses %s "
+             "against %s, tensors differing %s"
+             % (name, graph.tolist(), eager, differ))
+    if not (np.isfinite(graph).all() and graph[-1] < graph[0]):
+        fail("%s: the losses are not finite and falling: %s"
+             % (name, graph.tolist()))
+    # replayed steps timed: the same graph again, then a fresh call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe.run_steps(main, feed_list=batches, fetch_list=[cost], scope=scope,
+                  return_numpy=False)[0].cpu()
+    replay_ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    dev_feed = {n: torch.as_tensor(v).to(place.torch_device())
+                for n, v in batches[0].items()}
+    exe.run_steps(main, feed=dev_feed, steps=1, fetch_list=[cost],
+                  scope=scope)
+    fam = {}
+    wall_ms, by_family, kernels, top = profile_step(
+        lambda: exe.run_steps(main, feed=dev_feed, steps=1,
+                              fetch_list=[cost], scope=scope),
+        family_launches=fam, family=_seq_family)
+    busy = sum(by_family.values())
+    eager_busy = sum(eager_by_family.values())
+    if name == "seq2seq":
+        tokens = [float(b["target_language_word@LEN"].sum())
+                  for b in batches]
+    elif name == "sentiment":
+        tokens = [float(b["words@LEN"].sum()) for b in batches]
+    else:
+        tokens = [float(b["word_data@LEN"].sum()) for b in batches]
+    row = {"phase": name, "card": card, "batch": SEQ_BATCHES[name][0],
+           "padded_shapes": {n: list(v.shape) for n, v in
+                             batches[0].items()},
+           "params": n_params, "groups": groups, "group_elements": n_group,
+           "lr": SEQ_LR, "eager_losses": eager,
+           "run_steps_losses": graph.tolist(),
+           "bit_equal": {"losses": losses_equal,
+                         "scope_tensors": len(want)},
+           "launches": launches, "eager_step_ms": eager_ms,
+           "replay_step_ms": replay_ms,
+           "first_run_steps_call_s": first_call_s,
+           "capture_s": exe.capture_seconds,
+           "tokens_per_s_replayed": sum(tokens) / (replay_ms * steps / 1e3),
+           "tokens_per_s_eager": sum(tokens) / (eager_ms * steps / 1e3),
+           "max_memory_allocated": peak,
+           "eager_profiled_wall_ms": eager_wall,
+           "eager_device_busy_ms": eager_busy,
+           "eager_device_idle_share": 1.0 - eager_busy / eager_wall,
+           "eager_kernel_launches_per_step": eager_kernels,
+           "eager_family_launches": fam_eager,
+           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall_ms,
+           "device_idle_share_unprofiled": 1.0 - busy / replay_ms,
+           "kernel_launches_per_step": kernels, "family_launches": fam,
+           "device_ms_by_family": dict(sorted(by_family.items(),
+                                              key=lambda kv: -kv[1])),
+           "top_kernels": top}
+    if name == "srl":
+        # the trained emissions decoded by an inference program of the
+        # same model function (its parameters, by name, are the trained
+        # scope's views of the flat group)
+        infer, emission, path = build_srl_decode()
+        em, got = exe.run(infer, feed=batches[0],
+                          fetch_list=[emission, path], scope=scope)
+        trans = fluid.fetch_var(extra[1].name, scope)
+        want_path = numpy_viterbi(em, trans, batches[0]["word_data@LEN"])
+        differ = int((np.asarray(got) != want_path).sum())
+        if differ:
+            fail("srl: crf_decoding on the card parts from the numpy "
+                 "Viterbi at %d positions" % differ)
+        row["crf_decoding"] = {"positions": int(
+            batches[0]["word_data@LEN"].sum()), "differing": differ}
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    exe.close()
+    return launches, n_group
+
+
+def phase_sequence(card):
+    """Phase 26: the seq2seq NMT, the stacked-LSTM sentiment model and the
+    SRL db-lstm, each trained on the card. Returns {model: (fused
+    launches, group elements)}."""
+    out = {}
+    for name in ("seq2seq", "sentiment", "srl"):
+        out[name] = phase_sequence_model(card, name)
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- phase 21
 
 # MFU denominators: NVIDIA's published dense peaks of the H100 SXM (the
@@ -5959,13 +6285,13 @@ def main():
     phase_routes()
     flash_launches, f32_step_ms = phase_training(card)
     torch.cuda.empty_cache()
-    n_recipe, n_bert, n_deepfm = (
+    n_recipe, n_bert, n_deepfm, n_seq2seq = (
         int(prog.global_block().var("fused_param_storage_0").shape[0])
         for prog in (build_recipe(True)[0],
                      build_bert(BERT_LEGS["phase1"][2])[0],
-                     build_deepfm()[0]))
+                     build_deepfm()[0], build_sequence("seq2seq")[0]))
     fused_rows = phase_fused_update(card, n_recipe, RESNET_N, n_bert,
-                                    n_deepfm)
+                                    n_deepfm, n_seq2seq)
     torch.cuda.empty_cache()
     amp_row, amp_timed = phase_amp(card, RESNET_N, f32_step_ms)
     torch.cuda.empty_cache()
@@ -6003,6 +6329,11 @@ def main():
     torch.cuda.empty_cache()
     bert_launches, bert_timed = phase_bert(card)
     deepfm_launches, deepfm_timed = phase_deepfm(card)
+    torch.cuda.empty_cache()
+    seq = phase_sequence(card)
+    if seq["seq2seq"][1] != n_seq2seq:
+        fail("seq2seq: the trained group has %d elements, the fused_update "
+             "phase timed %d" % (seq["seq2seq"][1], n_seq2seq))
     torch.cuda.empty_cache()
     phase_static(card, [base["timed"], amp_timed, resnet_timed, vgg_timed]
                  + bert_timed + [deepfm_timed])
@@ -6133,7 +6464,10 @@ def main():
         "bert_launches": bert_launches["fused_flat_update"],
         "deepfm_launches": deepfm_launches,
         "artifact_launches": artifact_launches["training"][
-            "fused_flat_update"]})
+            "fused_flat_update"],
+        "seq2seq_launches": seq["seq2seq"][0],
+        "sentiment_launches": seq["sentiment"][0],
+        "srl_launches": seq["srl"][0]})
     # the gated Adam of the AMP path, timed at the AMP recipe's group
     # shape (its N, f32 moments, owning the beta powers): its launches on
     # the AMP recipe, the skipped ones of the overflow replay
@@ -6159,12 +6493,15 @@ def main():
         "ungated_ms": ga["ungated_ms"],
         "ungated_device_ms": ga["ungated_device_ms"], "n": ga["n"],
         "moments": ga["moments"]})
-    # BERT-base's group (Adam, bf16 moments) and DeepFM's (Adam, f32)
+    # BERT-base's group (Adam, bf16 moments), DeepFM's and the seq2seq
+    # NMT's (Adam, f32)
     for name, n, moments, launches in (
             ("fused_flat_update_bert", n_bert, "bf16",
              bert_launches["fused_flat_update"]),
             ("fused_flat_update_deepfm", n_deepfm, "f32",
-             deepfm_launches)):
+             deepfm_launches),
+            ("fused_flat_update_seq2seq", n_seq2seq, "f32",
+             seq["seq2seq"][0])):
         fm = next(r for r in fused_rows if r["n"] == n
                   and (r["kind"], r["moments"]) == ("adam", moments))
         kernels.append({

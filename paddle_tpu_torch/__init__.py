@@ -69,18 +69,31 @@ to bucket shapes, each a captured CUDA graph on the card; the decode
 and request servers share ``resilience``' fault plane, circuit breaker
 and degradation ladder, and ``obs``' metrics registry and traces.
 
+The sequence tier (``layers/{sequence,rnn,control_flow,beam_search,crf,
+ctc}``, ``nets``, ``lod_tensor``, ``metrics``, ``evaluator``) takes
+padded sequences with length companions: ``layers.data(...,
+lod_level=1)`` declares ``<name>@LEN``, which ``DataFeeder`` fills
+while it pads ragged rows; the recurrences are eager loops over the
+padded time axis, so a training step of the seq2seq NMT, the stacked
+LSTM or the SRL db-lstm replays as a captured CUDA graph::
+
+    words = fluid.layers.data(name="words", shape=[-1, -1, 1],
+                              dtype="int64", lod_level=1,
+                              append_batch_size=False)
+    feed = fluid.DataFeeder([words, label]).feed(rows)  # + "words@LEN"
+
 This package imports neither jax nor paddle_tpu.
 """
 
-from . import (amp, analysis, average, checkpoint, ckpt, clip, inference,
-               io, layers, obs, optimizer, passes, profiler, reader,
-               regularizer, resilience)
+from . import (amp, analysis, average, checkpoint, ckpt, clip, evaluator,
+               inference, io, layers, lod_tensor, metrics, nets, obs,
+               optimizer, passes, profiler, reader, regularizer, resilience)
 from . import initializer_api as initializer  # noqa: F401
 from .backward import append_backward
 from .ckpt import CheckpointConfig
 from .convert import params_from_numpy, state_from_numpy
 from .core import (CPUPlace, CUDAPlace, EnforceError, EOFException,
-                   Operator, Parameter,
+                   GraphCaptureError, Operator, Parameter,
                    Program, Scope, Variable, default_main_program,
                    default_startup_program, global_scope, program_guard,
                    scope_guard, switch_main_program, switch_startup_program)
@@ -90,6 +103,8 @@ from .data_feeder import DataFeeder
 from .executor import Executor, FetchHandle, fetch_var
 from .inference_transpiler import InferenceTranspiler, transpile_to_bfloat16
 from .inferencer import Inferencer
+from .lod_tensor import (LoDTensor, LoDTensorArray, create_lod_tensor,
+                         create_random_int_lodtensor)
 from .memory_optimization_transpiler import memory_optimize, release_memory
 from .optimizer import (SGD, Adadelta, AdadeltaOptimizer, Adagrad,
                         AdagradOptimizer, Adam, Adamax, AdamaxOptimizer,

@@ -1,6 +1,6 @@
 """Core IR, scope, placement and error types of paddle_tpu_torch."""
 
-from .enforce import EOFException, EnforceError, enforce
+from .enforce import EOFException, EnforceError, GraphCaptureError, enforce
 from .place import CPUPlace, CUDAPlace, Place, default_place
 from .program import (Operator, Parameter, Program, Variable,
                       default_main_program, default_startup_program,

@@ -16,6 +16,13 @@ class EnforceError(RuntimeError):
     """Raised when an enforce() check fails (reference: EnforceNotMet)."""
 
 
+class GraphCaptureError(EnforceError):
+    """A program cannot run as a captured CUDA graph: one of its ops
+    reads a device value on the host each run (``while``,
+    ``conditional_block``, ``print``). Raised by ``Executor.run_steps``
+    and ``run_graph`` on a card, naming the op, before any capture."""
+
+
 class EOFException(Exception):
     """Raised when a data stream is exhausted (reference: EOFException,
     enforce.h:66)."""

@@ -50,6 +50,14 @@ class Variable:
         self.type = type
         # op that produces this var (set by append_op); None for feed/param
         self.op: Optional[Operator] = None
+        # name of the companion per-example length var of a sequence
+        # (``<data>@LEN``): carried through the ops that keep the
+        # [batch, time, ...] lead (Block._propagate_seq_length)
+        self.seq_length_name: Optional[str] = None
+        # a 2-level sequence's OUTER companion ([B] inner-sequence
+        # counts, ``<data>@LEN0``); seq_length_name then names the
+        # innermost one ([B, S])
+        self.seq_outer_length_name: Optional[str] = None
 
     def __repr__(self):
         return (f"Variable(name={self.name!r}, shape={self.shape}, "
@@ -187,8 +195,30 @@ class Block:
             if v is not None and v.op is None:
                 v.op = op
         _infer_shapes(op, self)
+        self._propagate_seq_length(op)
         self.program._bump()
         return op
+
+    def _propagate_seq_length(self, op: Operator) -> None:
+        """Outputs inherit the length companion of their inputs when all
+        sequence inputs share one (the LoD propagation of the
+        reference's per-op InferShape, framework/shape_inference.h); an
+        output that already names one keeps it."""
+        ins = [self._find_var_recursive(n) for n in op.input_arg_names]
+        lens = {v.seq_length_name for v in ins
+                if v is not None and v.seq_length_name}
+        if len(lens) != 1:
+            return
+        ln = next(iter(lens))
+        outer = {v.seq_outer_length_name for v in ins
+                 if v is not None and v.seq_outer_length_name}
+        on = next(iter(outer)) if len(outer) == 1 else None
+        for name in op.output_arg_names:
+            v = self._find_var_recursive(name)
+            if v is not None and v.seq_length_name is None:
+                v.seq_length_name = ln
+                if on is not None and v.seq_outer_length_name is None:
+                    v.seq_outer_length_name = on
 
     def prepend_op(self, type: str, inputs=None, outputs=None, attrs=None,
                    fn: Optional[Callable] = None) -> Operator:
@@ -350,7 +380,9 @@ _DATA_DEPENDENT = re.compile(
 
 
 def _infer_shapes(op: "Operator", block: "Block") -> None:
-    if op.fn is None:
+    if op.fn is None or op.attrs.get("_non_tensor_out"):
+        # an op that declares a non-tensor product (a tensor array, a
+        # rank table) has nothing for shape inference to check
         return
     out_vars = [block._find_var_recursive(n) for n in op.output_arg_names]
     if all(v is None or v.shape is not None for v in out_vars):
@@ -375,6 +407,13 @@ def _infer_shapes(op: "Operator", block: "Block") -> None:
             # the mismatch involves the symbolic-dim stand-in, not a
             # build bug (a symbolic batch meeting a concrete one
             # broadcasts fine at run time)
+            return
+        if any(getattr(block._find_var_recursive(n), "lod_level", 0)
+               for n in op.input_arg_names):
+            # a sequence input may be declared with the reference's
+            # per-step shape (the time axis implicit, filled by the
+            # DataFeeder's padding): its declared rank is not its run-time
+            # rank, and abstract evaluation cannot be trusted either way
             return
         if flags.get_flag("debug_fallback"):
             raise EnforceError(

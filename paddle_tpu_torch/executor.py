@@ -100,7 +100,8 @@ import numpy as np
 import torch
 
 from .core import dtype_utils, flags
-from .core.enforce import EnforceError, EOFException, enforce
+from .core.enforce import (EnforceError, EOFException, GraphCaptureError,
+                           enforce)
 from .core.place import Place, default_place
 from .core.program import Deferred, Program, Variable, default_main_program
 from .core.scope import Scope, global_scope
@@ -121,6 +122,25 @@ def _capture_error(what: str, e: Exception) -> Exception:
                             "breaks capture): %s: %s"
                             % (what, type(e).__name__, e))
     return e
+
+
+def check_capturable(program: Program) -> None:
+    """Raise :class:`GraphCaptureError` naming the first op of any block
+    that reads a device value on the host each run (the ``_host_sync``
+    attr of ``while``, ``conditional_block`` and ``print``; a sub-block's
+    ops run inside its parent's composite op): a CUDA graph would replay
+    the trip count or branch of its capture, so ``run_steps`` and
+    ``run_graph`` refuse such a program on a card before capturing
+    anything."""
+    for block in program.blocks:
+        for i, op in enumerate(block.ops):
+            if op.attrs.get("_host_sync"):
+                raise GraphCaptureError(
+                    "op %r (op %d of block %d, outputs %s) reads a device "
+                    "value on the host each run and cannot be replayed as "
+                    "a captured CUDA graph; run the program step by step "
+                    "with Executor.run"
+                    % (op.type, i, block.idx, op.output_arg_names))
 
 
 def _as_names(fetch_list) -> List[str]:
@@ -1296,9 +1316,12 @@ class Executor:
         (:attr:`num_compiled` counts them): one step replayed ``steps``
         times, or with ``unroll`` (default: the ``scan_unroll`` flag)
         ``steps`` straight-line steps replayed once. An op the capture
-        cannot take raises EnforceError naming it; nothing falls back to
-        eager steps. Programs with readers must be driven through
-        :meth:`run`."""
+        cannot take raises EnforceError naming it, and a program holding
+        an op that reads a device value on the host each run (``while``,
+        ``conditional_block``, ``print``) raises
+        :class:`GraphCaptureError` naming it before any capture
+        (:func:`check_capturable`); nothing falls back to eager steps.
+        Programs with readers must be driven through :meth:`run`."""
         program = program or default_main_program()
         scope = scope if scope is not None else global_scope()
         fetch_names = tuple(_as_names(fetch_list))
@@ -1338,6 +1361,7 @@ class Executor:
                steps, stacked_names, bool(unroll))
         captured = self._cache.get(key)
         if captured is None:
+            check_capturable(program)
             # a long-lived executor over a mutating program keeps only
             # the current version's graphs (the entry holds the program
             # and the scope, so their ids are not reused while it lives)
@@ -1409,6 +1433,7 @@ class Executor:
                         for op in program.global_block().ops),
                 "run_graph runs inference programs; train through run or "
                 "run_steps")
+        check_capturable(program)
         for k in [k for k in self._cache if k[0] == id(program)
                   and k[1] != program._version]:
             del self._cache[k]

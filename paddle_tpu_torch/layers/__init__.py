@@ -1,13 +1,33 @@
 """Layer functions of paddle_tpu_torch (counterpart of
 paddle_tpu/layers): every function of the JAX package's
-``layers/{ops,tensor,nn}.py``, its metrics (``accuracy``, ``auc``,
-``mean_iou``, ``precision_recall``; ``chunk_eval`` raises), the conv
-tier, ``data`` and the learning-rate schedules.
+``layers/{ops,tensor,nn,metric_op}.py``, the conv tier, ``data`` (with
+sequence inputs), the learning-rate schedules, and the sequence tier:
+``layers/{sequence,rnn,control_flow,beam_search,crf,ctc}.py``.
 ``layer_helper.append_activation`` finds an ``act=`` by its name
 here."""
 
 from . import learning_rate_scheduler
+from .beam_search import __all__ as _beam_all
+from .control_flow import __all__ as _control_flow_all
+from .crf import __all__ as _crf_all
+from .ctc import __all__ as _ctc_all
+from .rnn import __all__ as _rnn_all
+from .sequence import __all__ as _sequence_all
+from .beam_search import (beam_search, beam_search_decode,
+                          cross_entropy_over_beam, greedy_search)
+from .control_flow import (ConditionalBlock, DynamicRNN, IfElse, ParallelDo,
+                           Print, StaticRNN, Switch, While, array_length,
+                           array_read, array_to_lod_tensor, array_write,
+                           create_array, equal, greater_equal, greater_than,
+                           is_empty, less_equal, less_than, logical_and,
+                           logical_not, logical_or, lod_rank_table,
+                           lod_tensor_to_array, max_sequence_len,
+                           merge_lod_tensor, not_equal,
+                           reorder_lod_tensor_by_rank, shrink_memory,
+                           split_lod_tensor)
 from .conv import batch_norm, conv2d, layer_norm, pool2d
+from .crf import crf_decoding, linear_chain_crf
+from .ctc import ctc_greedy_decoder, edit_distance, warpctc
 from .io import data
 from .learning_rate_scheduler import (append_LARS, cosine_decay,
                                       exponential_decay, inverse_time_decay,
@@ -34,6 +54,14 @@ from .ops import (abs, brelu, ceil, clip, clip_by_norm, cos, elementwise_add,
                   sqrt, square, stanh, sum, swish, tanh, tanh_shrink,
                   thresholded_relu, uniform_random,
                   uniform_random_batch_size_like)
+from .rnn import (dynamic_gru, dynamic_lstm, dynamic_lstmp, gru_unit,
+                  lstm_unit, simple_rnn)
+from .sequence import (length_var_of, lod_reset, outer_length_var_of,
+                       sequence_concat, sequence_conv, sequence_erase,
+                       sequence_expand, sequence_first_step,
+                       sequence_last_step, sequence_mask, sequence_pad,
+                       sequence_pool, sequence_reshape, sequence_reverse,
+                       sequence_slice, sequence_softmax, sub_nested_seq)
 from .tensor import (argmin, argsort, assign, cast, create_global_var,
                      create_parameter, create_tensor, cumsum, fill_constant,
                      fill_constant_batch_size_like, increment, ones, reverse,
@@ -68,4 +96,6 @@ __all__ = ['abs', 'accuracy', 'append_LARS', 'argmax', 'argmin', 'argsort',
            'square_error_cost', 'squeeze', 'stack', 'stanh', 'sum', 'sums',
            'swish', 'tanh', 'tanh_shrink', 'thresholded_relu', 'topk',
            'transpose', 'uniform_random', 'uniform_random_batch_size_like',
-           'unsqueeze', 'zeros']
+           'unsqueeze', 'zeros'] + (
+    _beam_all + _control_flow_all + _crf_all + _ctc_all + _rnn_all
+    + _sequence_all)

@@ -136,13 +136,14 @@ def package(pkg):
             else (tfluid, tfluid.unique_name.guard))
 
 
-def train_both(build, feed, steps):
+def train_both(build, feed, steps, params=None):
     """``steps`` steps of the same program in both packages from the
     JAX package's start state, carried into the port with
     ``state_from_numpy``. ``build(pkg, fluid)`` appends the model and
-    its optimizer to the current programs and returns the variables to
-    fetch. Returns a dict: ``j_main``/``t_main``, ``state`` (the start
-    state), ``j_out``/``t_out`` (a list of fetched arrays per step) and
+    its optimizer to the current programs and returns the variables (or
+    names) to fetch; ``params`` (name -> array) overrides start values.
+    Returns a dict: ``j_main``/``t_main``, ``state`` (the start state),
+    ``j_out``/``t_out`` (a list of fetched arrays per step) and
     ``j_state``/``t_state`` (every persistable after the steps)."""
     progs = {}
     for pkg in ("jax", "torch"):
@@ -156,10 +157,15 @@ def train_both(build, feed, steps):
     with jfluid.scope_guard(scope):
         exe = jfluid.Executor(jfluid.CPUPlace())
         exe.run(j_startup)
+        import jax.numpy as jnp
+
+        for n, a in (params or {}).items():
+            scope.set_var(n, jnp.asarray(a))
         state = {v.name: np.asarray(scope.find_var(v.name))
                  for v in j_main.list_vars() if v.persistable}
+        names = [v if isinstance(v, str) else v.name for v in j_fetch]
         j_out = [[np.asarray(o) for o in exe.run(
-            j_main, feed=feed, fetch_list=[v.name for v in j_fetch])]
+            j_main, feed=feed, fetch_list=names)]
             for _ in range(steps)]
         j_state = {n: np.asarray(scope.find_var(n)) for n in state}
     t_main, _, t_fetch = progs["torch"]

@@ -33,7 +33,8 @@ Tolerances, per case (``rtol``/``atol`` of ``assert_allclose``):
 
 ``embedding(is_distributed=True)`` (the repair: a plain lookup on one
 device) is held with its table's gradient, ``is_sparse`` ignored.
-``chunk_eval`` needs ``layers/sequence.py`` and raises in the port.
+``chunk_eval`` reads its sequences' lengths through ``length=`` here
+(tests/test_torch_crf_ctc.py has it over sequence inputs).
 """
 
 import ast
@@ -410,6 +411,21 @@ def _all_cases():
         lambda L, v: L.auc(v["p"], v["y"], num_thresholds=17),
         {"p": _rng(7).dirichlet(np.ones(2), 40).astype(np.float32),
          "y": _i(40, 1, hi=2, seed=3)})
+    for scheme, types in (("IOB", 2), ("IOE", 2), ("IOBES", 1),
+                          ("plain", 3)):
+        n_tags = {"IOB": 2, "IOE": 2, "IOBES": 4, "plain": 1}[scheme]
+        c["chunk_eval_" + scheme] = Case(
+            lambda L, v, s=scheme, k=types: list(L.chunk_eval(
+                v["inf"], v["lab"], s, k, length=v["len"])),
+            {"inf": _i(3, 8, hi=types * n_tags + 1, seed=4),
+             "lab": _i(3, 8, hi=types * n_tags + 1, seed=5),
+             "len": np.array([8, 3, 6], np.int64)})
+    c["chunk_eval_excluded"] = Case(
+        lambda L, v: list(L.chunk_eval(v["inf"], v["lab"], "IOB", 3,
+                                       excluded_chunk_types=[0],
+                                       length=v["len"])),
+        {"inf": _i(3, 8, hi=7, seed=6), "lab": _i(3, 8, hi=7, seed=6),
+         "len": np.array([5, 8, 1], np.int64)})
     c["mean_iou"] = Case(lambda L, v: list(L.mean_iou(v["p"], v["y"], 4)),
                          {"p": _i(3, 5, hi=3), "y": _i(3, 5, hi=4,
                                                       seed=1)})
@@ -547,8 +563,6 @@ def _public(path):
 @pytest.mark.parametrize("module", ["ops", "tensor", "nn", "metric_op"])
 def test_layers_export_the_jax_surface(module):
     want = _public("paddle_tpu/layers/%s.py" % module)
-    if module == "metric_op":
-        want -= {"chunk_eval"}
     missing = sorted(n for n in want if not hasattr(tfluid.layers, n))
     assert not missing
     assert want <= set(tfluid.layers.__all__)
@@ -560,8 +574,14 @@ def test_layers_export_the_jax_surface(module):
 
 
 def test_chunk_eval_names_its_roadmap_item():
+    """chunk_eval is ported (its cases above); what stays of its family
+    — the detection mAP evaluators — names the ROADMAP item that ports
+    it."""
+    assert CASES["chunk_eval_IOB"]
     with pytest.raises(NotImplementedError, match="Queue A 7"):
-        tfluid.layers.chunk_eval(None, None, "IOB", 2)
+        tfluid.evaluator.DetectionMAP(None, None, None)
+    with pytest.raises(NotImplementedError, match="Queue A 7"):
+        tfluid.metrics.DetectionMAP()
 
 
 def test_embedding_distributed_is_annotated_and_dense():
