@@ -485,6 +485,51 @@ Phases, one JSON line each (or one per shape):
              srl decodes its trained emissions with ``crf_decoding`` on
              the card and holds every path to ``numpy_viterbi``. Phase
              7 times the seq2seq group (Adam, f32 moments) too.
+27. ssd    — (run after phase 26) MobileNet-SSD on PASCAL VOC at
+             300x300 (PaddlePaddle/models, fluid/object_detection/
+             mobilenet_ssd.py and train.py; ``build_ssd``): 21 classes,
+             1917 priors (asserted), B=64, synthetic images and 1-8
+             boxes an image padded to 16 rows from a numpy seed, random
+             weights from a seed, ``ssd_loss`` summed,
+             ``RMSProp(piecewise_decay([40000, 60000], [1e-3, 5e-4,
+             2.5e-4]), L2Decay(5e-5))`` on fused flat groups (the convs
+             at lr scale 0.1, the rest at 1.0). Under
+             ``cudnn.deterministic``: 2 eager steps, the same 2 as one
+             ``run_steps`` call (losses and every scope tensor
+             bit-equal), then 10 steps over a pool of four batches
+             replayed (the first two losses the eager ones, every loss
+             finite, the last pass's mean below the first's, the fused
+             update ``groups`` times a step by its counter); the test
+             clone (``detection_output`` at nms 0.45) on two test
+             batches through ``run_graph`` bit-equal to ``Executor.run``,
+             the eval clone's ``evaluator.DetectionMAP`` (11-point,
+             difficult boxes out) equal to ``metrics.DetectionMAP`` over
+             the fetched rows (plumbing) and within 1e-6 of the VOC
+             11-point definition written in the script, and refused (``GraphCaptureError``) by
+             ``run_steps`` and ``run_graph``; ``detection_output`` alone
+             on the fetched heads, captured and eager, profiled (device
+             ms, launches). Then, with cuDNN's defaults, the replayed
+             step timed (ms, images/s, peak memory) and one replayed
+             step profiled (device busy, idle share, kernels by family).
+             Phase 7 times RMSProp at the conv group (f32, lr scale
+             0.1).
+28. op_tier — (run after phase 27) every other new layer once on the
+             card at a realistic shape, forward and input gradient
+             against the port's CPU result on the same inputs within
+             1e-4 of the max (a leading slice of the batch where the
+             CPU would be slow): channels-last batch norm at ResNet-50's
+             first ([64, 112, 112, 64], also against the NCHW batch norm
+             on the card), a DCGAN ``conv2d_transpose`` ([64, 512, 4, 4]
+             to [64, 256, 8, 8]), ``conv3d_transpose``, ``conv3d`` and
+             ``pool3d`` at a C3D block ([8, 64, 16, 56, 56]), AlexNet's
+             ``lrn``, a CRNN ``im2sequence``, ``image_resize`` 300 to
+             600 (bilinear) and 600 to 300 (nearest), Fast R-CNN's
+             ``roi_pool`` (128 rois at 7x7 on [8, 512, 38, 50]),
+             ``hsigmoid``, ``nce`` and ``sampled_softmax`` at imikolov's
+             dict (2074) with 512 hidden, the fake-quantize ops, and
+             ``switch_moe`` at google/switch-base-8's widths over 64 x
+             128 tokens (parity at 4 x 128); forward and forward+backward
+             ms on the card.
 
 Then the card's name and power limit, the kernels JSON line (wall and
 device ms of each kernel and its library call; ``amp_launches``,
@@ -496,7 +541,8 @@ those phases' launches
 of the kernels their paths run; ``fused_flat_update_amp``, the gated
 Adam of the AMP path with its gated and skipped launches; the rows at
 BERT-base's, DeepFM's and the seq2seq NMT's shapes carry the bert,
-remat, deepfm and seq2seq phases' launches), and as the
+remat, deepfm and seq2seq phases' launches; ``fused_flat_update_rmsprop``,
+RMSProp at MobileNet-SSD's conv group, the ssd phase's), and as the
 last line ``{"ok": true, "device": {...}}``. Every phase row carries the
 card's name and power limit. Any failed phase exits
 non-zero. Without a visible CUDA device — or outside a checkout that
@@ -2523,6 +2569,8 @@ FUSED_CONFIGS = {
     "ftrl_power": ("ftrl", (1.0, 0.01, 0.01, -0.25), 17),
     "proximal_gd": ("proximal_gd", (1.0, 0.01, 0.01), 8),
     "proximal_adagrad": ("proximal_adagrad", (1.0, 0.01, 0.01), 16),
+    # MobileNet-SSD's convs: RMSProp's defaults at their lr scale 0.1
+    "rmsprop_ssd": ("rmsprop", (0.1, 0.95, 1e-6, 0.0, False), 11),
 }
 RECIPE_KINDS = ("sgd", "adagrad", "adam")
 # (label, bf16 moments, owns the shared scalars' advance); the recipe's
@@ -2533,7 +2581,7 @@ FUSED_CASES = (
      ("adam", False, True), ("adam", True, False), ("adam", True, True),
      ("proximal_gd", False, False)]
     + [(label, bf16, owns) for label in FUSED_CONFIGS
-       if label not in RECIPE_KINDS + ("proximal_gd",)
+       if label not in RECIPE_KINDS + ("proximal_gd", "rmsprop_ssd")
        for bf16 in (False, True)
        for owns in ((False, True) if label == "adamax" else (False,))])
 RAGGED_N = 128 * 4099 + 37
@@ -2590,12 +2638,15 @@ def fused_inputs(kind, bf16, n, seed):
 
 def fused_work(label, bf16, owns, n):
     """(bound ms, bound_by, bytes, ops): p and g read and p written, each
-    moment read and written, lr and the shared scalars read and the
+    moment the update changes read and written (not RMSProp's mean
+    gradient unless centered), lr and the shared scalars read and the
     advanced ones written, once; the update's flops over the f32 peak."""
     from paddle_tpu_torch.ops.fused_optimizer import KINDS
 
-    kind, _consts, flops = FUSED_CONFIGS[label]
+    kind, consts, flops = FUSED_CONFIGS[label]
     n_acc, n_sh = KINDS[kind][:2]
+    if kind == "rmsprop" and not consts[4]:
+        n_acc -= 1
     nbytes = (n * (12 + 2 * n_acc * (2 if bf16 else 4))
               + 4 * (1 + n_sh + (n_sh if owns else 0)))
     ops = flops * n
@@ -2606,12 +2657,13 @@ def fused_work(label, bf16, owns, n):
 
 
 def phase_fused_update(card, n_recipe, n_resnet, n_bert, n_deepfm,
-                       n_seq2seq):
+                       n_seq2seq, n_ssd):
     """Every case bit-equal to the plain version at its main path's
     group size (the recipe's kinds at the recipe's, the others at
     ResNet-50's) and at a ragged size; times at the main size. Adam's
     groups of BERT-base (bf16 moments), DeepFM and the seq2seq NMT (f32)
-    at their sizes too."""
+    at their sizes too, and RMSProp at MobileNet-SSD's conv group (f32,
+    lr scale 0.1)."""
     from paddle_tpu_torch.ops.fused_optimizer import (fused_flat_update,
                                                       plain_flat_update)
 
@@ -2619,7 +2671,8 @@ def phase_fused_update(card, n_recipe, n_resnet, n_bert, n_deepfm,
     cases = ([(c, None) for c in FUSED_CASES]
              + [(("adam", True, True), n_bert),
                 (("adam", False, True), n_deepfm),
-                (("adam", False, True), n_seq2seq)])
+                (("adam", False, True), n_seq2seq),
+                (("rmsprop_ssd", False, False), n_ssd)])
     for i, ((label, bf16, owns), n_model) in enumerate(cases):
         kind, consts, _flops = FUSED_CONFIGS[label]
         n_main = n_model or (n_recipe if label in RECIPE_KINDS
@@ -5563,6 +5616,733 @@ def phase_sequence(card):
     return out
 
 
+# ---------------------------------------------------------------- phase 27
+
+# MobileNet-SSD on PASCAL VOC at 300x300 (PaddlePaddle/models,
+# fluid/object_detection/mobilenet_ssd.py and train.py): 21 classes,
+# RMSProp under a piecewise decay with L2 decay 5e-5, NMS at 0.45
+SSD_CLASSES, SSD_HW, SSD_B, SSD_G = 21, 300, 64, 16
+SSD_MIN_SIZES = [60.0, 105.0, 150.0, 195.0, 240.0, 285.0]
+SSD_MAX_SIZES = [[], 150.0, 195.0, 240.0, 285.0, 300.0]
+SSD_ARS = [[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0],
+           [2.0, 3.0]]
+SSD_PRIORS = 19 * 19 * 3 + (10 * 10 + 5 * 5 + 3 * 3 + 2 * 2 + 1) * 6  # 1917
+SSD_LR = ([40000, 60000], [1e-3, 5e-4, 2.5e-4])
+SSD_L2 = 5e-5
+SSD_POOL, SSD_EAGER, SSD_REPLAY, SSD_TEST_BATCHES = 4, 2, 10, 2
+SSD_FLAGS = {"fuse_optimizer_state": True}
+
+
+def mobilenet_ssd(fluid, img, num_classes, scale=1.0, hw=SSD_HW,
+                  bn_is_test=False):
+    """mobilenet_ssd.py's ``mobile_net`` in either package (``fluid``):
+    a 3x3/s2 conv-bn of 32, thirteen depthwise-separable blocks (module11
+    the 19x19x512 map at 300x300, module13 the 10x10x1024 one), four
+    extra blocks (1x1, then 3x3/s2) of 512, 256, 256 and 128, and
+    ``multi_box_head`` over the six maps. ``scale`` multiplies every
+    width (an extra block's groups stay 1); the prior sizes scale with
+    ``hw / 300``. Convs carry ``ParamAttr(learning_rate=0.1,
+    initializer=MSRA())``, as the original's."""
+    L = fluid.layers
+
+    def conv_bn(x, k, n, stride, pad, groups=1):
+        attr = fluid.ParamAttr(learning_rate=0.1,
+                               initializer=fluid.initializer.MSRA())
+        conv = L.conv2d(x, num_filters=n, filter_size=k, stride=stride,
+                        padding=pad, groups=groups, param_attr=attr,
+                        bias_attr=False)
+        return L.batch_norm(conv, act="relu", is_test=bn_is_test)
+
+    def separable(x, n1, n2, groups, stride):
+        dw = conv_bn(x, 3, int(n1 * scale), stride, 1,
+                     groups=int(groups * scale))
+        return conv_bn(dw, 1, int(n2 * scale), 1, 0)
+
+    def extra(x, n1, n2):
+        pw = conv_bn(x, 1, int(n1 * scale), 1, 0)
+        return conv_bn(pw, 3, int(n2 * scale), 2, 1)
+
+    t = conv_bn(img, 3, int(32 * scale), 2, 1)
+    for n1, n2, stride in ((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                           (128, 256, 2), (256, 256, 1), (256, 512, 2)):
+        t = separable(t, n1, n2, n1, stride)
+    for _ in range(5):
+        t = separable(t, 512, 512, 512, 1)
+    module11 = t
+    t = separable(t, 512, 1024, 512, 2)
+    module13 = separable(t, 1024, 1024, 1024, 1)
+    module14 = extra(module13, 256, 512)
+    module15 = extra(module14, 128, 256)
+    module16 = extra(module15, 128, 256)
+    module17 = extra(module16, 64, 128)
+    size = hw / 300.0
+    return L.multi_box_head(
+        inputs=[module11, module13, module14, module15, module16,
+                module17],
+        image=img, num_classes=num_classes, min_ratio=20, max_ratio=90,
+        min_sizes=[s * size for s in SSD_MIN_SIZES],
+        max_sizes=[[]] + [s * size for s in SSD_MAX_SIZES[1:]],
+        aspect_ratios=SSD_ARS, base_size=hw, offset=0.5, flip=True)
+
+
+def build_ssd(fluid, scale=1.0, hw=SSD_HW, classes=SSD_CLASSES, G=SSD_G,
+              bn_is_test=False):
+    """train.py's programs in either package: (main, startup, test
+    program, eval program, loss, detections, (cur_map, accum_map)). The
+    test program is main's ``clone(for_test=True)`` before the
+    optimizer (``detection_output`` at nms_threshold 0.45 and the loss);
+    the eval program is another clone with ``evaluator.DetectionMAP``
+    (11-point, difficult boxes left out) appended. Ground truth: ``G``
+    padded rows an image, with the ``gt_box@LEN`` count; ``bn_is_test``
+    as in :func:`mobilenet_ssd`."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        img = L.data(name="image", shape=[-1, 3, hw, hw], dtype="float32",
+                     append_batch_size=False)
+        gt_box = L.data(name="gt_box", shape=[-1, G, 4], dtype="float32",
+                        append_batch_size=False, lod_level=1)
+        gt_label = L.data(name="gt_label", shape=[-1, G, 1], dtype="int32",
+                          append_batch_size=False)
+        difficult = L.data(name="gt_difficult", shape=[-1, G, 1],
+                           dtype="int32", append_batch_size=False)
+        locs, confs, box, box_var = mobilenet_ssd(fluid, img, classes,
+                                                  scale, hw, bn_is_test)
+        nmsed = L.detection_output(locs, confs, box, box_var,
+                                   nms_threshold=0.45)
+        loss = L.reduce_sum(L.ssd_loss(locs, confs, gt_box, gt_label, box,
+                                       box_var))
+        test_program = main.clone(for_test=True)
+        eval_program = main.clone(for_test=True)
+        with fluid.program_guard(eval_program):
+            map_eval = fluid.evaluator.DetectionMAP(
+                nmsed, gt_label, gt_box, difficult, classes,
+                overlap_threshold=0.5, evaluate_difficult=False,
+                ap_version="11point")
+        fluid.optimizer.RMSProp(
+            learning_rate=L.piecewise_decay(*SSD_LR),
+            regularization=fluid.regularizer.L2Decay(SSD_L2)).minimize(loss)
+    return (main, startup, test_program, eval_program, loss, nmsed,
+            map_eval.get_map_var())
+
+
+def ssd_batches(n, B=SSD_B, hw=SSD_HW, classes=SSD_CLASSES, G=SSD_G,
+                seed=SEED + 30):
+    """``n`` synthetic batches from a numpy seed: uniform images; 1 +
+    Poisson(1.5) boxes an image (VOC averages about 2.5), at most 8 (and
+    ``G``),
+    corners uniform with sides 0.05-0.5, labels 1-20, one box in ten
+    difficult; padding rows label -1, box 0."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        cnt = np.minimum(1 + rng.poisson(1.5, B), min(8, G))
+        lo = rng.rand(B, G, 2) * 0.7
+        box = np.concatenate(
+            [lo, np.minimum(lo + 0.05 + rng.rand(B, G, 2) * 0.45, 1.0)],
+            -1).astype(np.float32)
+        lab = rng.randint(1, classes, (B, G, 1)).astype(np.int32)
+        diff = (rng.rand(B, G, 1) < 0.1).astype(np.int32)
+        pad = np.arange(G)[None, :] >= cnt[:, None]
+        box[pad], lab[pad], diff[pad] = 0.0, -1, 0
+        out.append({"image": rng.rand(B, 3, hw, hw).astype(np.float32),
+                    "gt_box": box, "gt_box@LEN": cnt.astype(np.int32),
+                    "gt_label": lab, "gt_difficult": diff})
+    return out
+
+
+def numpy_map(dets, batches, overlap=0.5, evaluate_difficult=False,
+              ap_version="11point"):
+    """The mAP of fetched detection rows ``dets`` (one ``[B, D, 6]``
+    array a batch) against the batches' ground truth, by
+    ``metrics.DetectionMAP`` (the numpy evaluator) alone."""
+    from paddle_tpu_torch.layers.detection import update_map_from_padded
+    from paddle_tpu_torch.metrics import DetectionMAP
+
+    m = DetectionMAP(overlap_threshold=overlap,
+                     evaluate_difficult=evaluate_difficult,
+                     ap_version=ap_version)
+    for det, b in zip(dets, batches):
+        lab = np.concatenate([b["gt_label"], b["gt_difficult"],
+                              b["gt_box"]], -1).astype(np.float32)
+        update_map_from_padded(m, det, lab)
+    return m.eval()
+
+
+def voc_map_11point(dets, batches, overlap=0.5):
+    """The VOC 11-point mAP of fetched detection rows ``dets`` (one
+    ``[B, D, 6]`` array a batch: label, score, x1, y1, x2, y2; label -1
+    empty) against the batches' ground truth, written here from the
+    definition and independent of the port's metrics. In each image the
+    detections, in falling score order, each take the box of their
+    class with the highest IoU: a true positive when it is at least
+    ``overlap`` and the box is not yet taken, left out when the box is
+    difficult, else a false positive. Difficult boxes count in no
+    class's total. A class's AP is the mean over the recalls 0, 0.1,
+    ..., 1 of the highest precision at that recall or beyond; the mAP is
+    the mean over the classes that have a box."""
+    scores, hits, n_gt = {}, {}, {}
+    for det, b in zip(dets, batches):
+        for i in range(det.shape[0]):
+            cnt = int(b["gt_box@LEN"][i])
+            gbox = b["gt_box"][i, :cnt].astype(np.float64)
+            glab = b["gt_label"][i, :cnt, 0]
+            gdiff = b["gt_difficult"][i, :cnt, 0] != 0
+            for c in glab[~gdiff]:
+                n_gt[int(c)] = n_gt.get(int(c), 0) + 1
+            rows = det[i][det[i][:, 0] >= 0].astype(np.float64)
+            rows = rows[np.argsort(-rows[:, 1], kind="stable")]
+            taken = np.zeros(cnt, bool)
+            for c, score, x1, y1, x2, y2 in rows:
+                c = int(c)
+                ix = np.maximum(0.0, np.minimum(x2, gbox[:, 2])
+                                - np.maximum(x1, gbox[:, 0]))
+                iy = np.maximum(0.0, np.minimum(y2, gbox[:, 3])
+                                - np.maximum(y1, gbox[:, 1]))
+                inter = ix * iy
+                union = ((x2 - x1) * (y2 - y1) + (gbox[:, 2] - gbox[:, 0])
+                         * (gbox[:, 3] - gbox[:, 1]) - inter)
+                iou = np.where((glab == c) & (union > 0),
+                               inter / np.where(union > 0, union, 1.0), 0.0)
+                j = int(np.argmax(iou)) if cnt else -1
+                hit = False
+                if j >= 0 and iou[j] >= overlap:
+                    if gdiff[j]:
+                        continue
+                    hit, taken[j] = not taken[j], True
+                scores.setdefault(c, []).append(score)
+                hits.setdefault(c, []).append(hit)
+    aps = []
+    for c, total in n_gt.items():
+        if c not in scores:
+            aps.append(0.0)
+            continue
+        order = np.argsort(-np.asarray(scores[c]), kind="stable")
+        hit = np.asarray(hits[c])[order]
+        tp, fp = np.cumsum(hit), np.cumsum(~hit)
+        recall, precision = tp / total, tp / (tp + fp)
+        aps.append(np.mean([precision[recall >= t].max(initial=0.0)
+                            for t in np.linspace(0, 1, 11)]))
+    return float(np.mean(aps)) if aps else 0.0
+
+
+def ssd_conv_group():
+    """The element count of the full-size MobileNet-SSD's conv group
+    (the fused RMSProp group at lr scale 0.1)."""
+    import paddle_tpu_torch as fluid
+
+    saved = {n: fluid.get_flag(n) for n in SSD_FLAGS}
+    fluid.set_flags(SSD_FLAGS)
+    try:
+        main = build_ssd(fluid)[0]
+    finally:
+        fluid.set_flags(saved)
+    return ssd_groups(main)[0.1]
+
+
+def ssd_groups(program):
+    """{lr scale: elements} of the fused RMSProp groups of ``program``
+    (the convs train at 0.1, the rest at 1.0)."""
+    out = {}
+    for p in program.all_parameters():
+        scale = float(p.optimize_attr.get("learning_rate", 1.0))
+        out[scale] = out.get(scale, 0) + int(np.prod(p.shape))
+    return out
+
+
+def ssd_weights(program, seed=SEED + 31):
+    """Random weights from a numpy seed: conv filters N(0, 2 / fan_in),
+    batch-norm scales 1, biases 0."""
+    rng = np.random.RandomState(seed)
+    arrays = {}
+    for p in program.all_parameters():
+        shape = tuple(p.shape)
+        if p.name.startswith("conv2d.w_"):
+            a = rng.standard_normal(shape) * math.sqrt(
+                2.0 / int(np.prod(shape[1:])))
+        elif p.name.startswith("batch_norm.w_"):
+            a = np.ones(shape)
+        else:
+            a = np.zeros(shape)
+        arrays[p.name] = a.astype(np.float32)
+    return arrays
+
+
+def _ssd_family(name: str) -> str:
+    fam = _resnet_family(name)
+    if fam == "other":
+        return _seq_family(name)
+    return fam
+
+
+def ssd_detection(exe, scope, test_prog, eval_prog, nmsed, maps):
+    """The trained model's test clone on two test batches through
+    ``run_graph`` (captured), bit-equal to ``Executor.run``; the eval
+    clone's ``DetectionMAP`` (host ops, ``Executor.run``) equal to the
+    numpy evaluator over the fetched rows (a check of the plumbing: the
+    host ops run that evaluator) and within 1e-6 of
+    :func:`voc_map_11point` (a check of the mAP), and refused by
+    ``run_steps`` and ``run_graph``; ``detection_output`` alone on the fetched heads,
+    captured and eager, profiled."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.enforce import GraphCaptureError
+
+    batches = ssd_batches(SSD_TEST_BATCHES, seed=SEED + 32)
+    det_op = next(op for op in test_prog.global_block().ops
+                  if op.type == "detection_output")
+    heads = det_op.input_arg_names          # loc, conf, prior, variances
+    captured, eager, head_vals = [], [], []
+    for b in batches:
+        captured.append(exe.run_graph(test_prog, feed=b,
+                                      fetch_list=[nmsed], scope=scope)[0])
+        got = exe.run(test_prog, feed=b, fetch_list=[nmsed] + heads,
+                      scope=scope)
+        eager.append(got[0])
+        head_vals.append(got[1:])
+    differ = [int((a != e).sum()) for a, e in zip(captured, eager)]
+    if any(differ):
+        fail("ssd: the captured test program's detections part from "
+             "Executor.run's at %s elements" % differ)
+    kept = [int((d[..., 0] >= 0).sum()) for d in captured]
+    if not all(k > 0 for k in kept):
+        fail("ssd: detection_output kept no box in a batch: %s" % kept)
+    mp = [[float(v) for v in exe.run(eval_prog, feed=b,
+                                      fetch_list=list(maps), scope=scope)]
+          for b in batches]
+    # plumbing: the host ops run the port's numpy evaluator, so this
+    # holds only the feeds and fetches of the eval clone
+    want = [float(np.float32(numpy_map(captured[:1], batches[:1]))),
+            float(np.float32(numpy_map(captured, batches)))]
+    if [mp[0][0], mp[1][1]] != want:
+        fail("ssd: DetectionMAP gives cur %r and accumulated %r, the numpy "
+             "evaluator over the fetched rows %r" % (mp[0][0], mp[1][1],
+                                                      want))
+    # the mAP itself, against the definition (tolerance 1e-6: the f32
+    # result of another summation order)
+    voc = [voc_map_11point(captured[:1], batches[:1]),
+           voc_map_11point(captured, batches)]
+    if not all(abs(a - b) <= 1e-6 for a, b in zip(want, voc)):
+        fail("ssd: DetectionMAP gives %r, the VOC 11-point definition %r"
+             % (want, voc))
+    refused = {}
+    for how, call in (
+            ("run_steps", lambda: exe.run_steps(
+                eval_prog, feed=batches[0], steps=1,
+                fetch_list=list(maps), scope=scope)),
+            ("run_graph", lambda: exe.run_graph(
+                eval_prog, feed=batches[0], fetch_list=list(maps),
+                scope=scope))):
+        try:
+            call()
+        except GraphCaptureError as e:
+            refused[how] = str(e)[:120]
+        else:
+            fail("ssd: %s captured a program holding detection_map" % how)
+
+    # detection_output alone on the fetched heads
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        ins = [L.data(name=n, shape=[-1] + list(v.shape[1:]) if i < 2
+                      else list(v.shape), dtype="float32",
+                      append_batch_size=False)
+               for i, (n, v) in enumerate(zip(("loc", "conf", "prior",
+                                               "pvar"), head_vals[0]))]
+        out = L.detection_output(*ins, nms_threshold=0.45)
+    feed = {n: torch.as_tensor(v).cuda() for n, v in
+            zip(("loc", "conf", "prior", "pvar"), head_vals[0])}
+    det_exe = fluid.Executor(fluid.CUDAPlace(0))
+    alone = det_exe.run_graph(main, feed=feed, fetch_list=[out])[0]
+    if not np.array_equal(alone, captured[0]):
+        fail("ssd: detection_output alone parts from the test program's")
+    eager_wall, eager_fam, eager_launches, _ = profile_step(
+        lambda: det_exe.run(main, feed=feed, fetch_list=[out],
+                            return_numpy=False)[0].cpu(),
+        family=_ssd_family)
+    wall, fam, launches, top = profile_step(
+        lambda: det_exe.run_graph(main, feed=feed, fetch_list=[out]),
+        family=_ssd_family)
+    det_row = {"batch": SSD_B, "priors": int(head_vals[0][2].shape[0]),
+               "classes": SSD_CLASSES, "nms_top_k": 400, "keep_top_k": 200,
+               "kept_rows": kept,
+               "device_ms": sum(fam.values()),
+               "device_ms_by_family": fam, "launches": launches,
+               "replay_wall_ms": wall, "top_kernels": top,
+               "eager_wall_ms": eager_wall,
+               "eager_device_ms": sum(eager_fam.values()),
+               "eager_launches": eager_launches}
+    det_exe.close()
+    return {"test_batches": SSD_TEST_BATCHES,
+            "captured_equals_eager": True, "map": mp,
+            "numpy_map": want, "voc_map": voc, "refused": refused,
+            "detection_output": det_row}
+
+
+def phase_ssd(card):
+    """Phase 27: MobileNet-SSD (VOC, 300x300) trains and detects on the
+    card. Returns (the fused RMSProp launches of the 10-step replay,
+    {lr scale: group elements})."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import _cuda
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    t_phase = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    saved = {n: fluid.get_flag(n) for n in SSD_FLAGS}
+    fluid.set_flags(SSD_FLAGS)
+    try:
+        (main, startup, test_prog, eval_prog, loss, nmsed,
+         maps) = build_ssd(fluid)
+    finally:
+        fluid.set_flags(saved)
+    gb = main.global_block()
+    ssd_op = next(op for op in gb.ops if op.type == "ssd_loss")
+    priors = gb.var(ssd_op.input_arg_names[4]).shape
+    if tuple(priors) != (SSD_PRIORS, 4):
+        fail("ssd: %s priors, expected (%d, 4)" % (priors, SSD_PRIORS))
+    groups = sum(op.type == "rmsprop_fused" for op in gb.ops)
+    sizes = ssd_groups(main)
+    if groups != len(sizes):
+        fail("ssd: %d fused RMSProp groups for lr scales %s"
+             % (groups, sizes))
+    weights = ssd_weights(main)
+
+    def fresh():
+        scope, exe = fluid.Scope(), fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        fluid.params_from_numpy(weights, scope, place, program=main)
+        return exe, scope
+
+    pool = ssd_batches(SSD_POOL)
+    feeds = [pool[i % SSD_POOL] for i in range(SSD_REPLAY)]
+
+    # 1. equality, with deterministic cuDNN algorithms: eager steps, and
+    # the same steps replayed from the same start
+    torch.backends.cudnn.deterministic = True
+    try:
+        exe, scope = fresh()
+        reset_counts(fused_flat_update)
+        eager = []
+        for i in range(SSD_EAGER):
+            # the last step timed (the first warms the allocator and cuDNN)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager.append(float(exe.run(main, feed=feeds[i],
+                                       fetch_list=[loss], scope=scope)[0]))
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) * 1e3
+        if fused_flat_update.launches != groups * SSD_EAGER:
+            fail("ssd: %d eager steps launched the fused update %d times"
+                 % (SSD_EAGER, fused_flat_update.launches))
+        want = scope_tensors(scope)
+        exe.close()
+        exe, scope = fresh()
+        rs, = exe.run_steps(main, feed_list=feeds[:SSD_EAGER],
+                            fetch_list=[loss], scope=scope)
+        differ = state_diff(scope_tensors(scope), want)
+        if differ or not np.array_equal(rs, np.asarray(eager, np.float32)):
+            fail("ssd: run_steps is not bit-equal to the eager steps: "
+                 "losses %s against %s, tensors differing %s"
+                 % (rs.tolist(), eager, differ[:10]))
+        exe.close()
+        del want
+        exe, scope = fresh()
+        for fn in _cuda.LAUNCHERS:
+            reset_counts(fn)
+        graph, = exe.run_steps(main, feed_list=feeds, fetch_list=[loss],
+                               scope=scope)
+        counted = {fn.__name__: getattr(fn, c) for fn in _cuda.LAUNCHERS
+                   for c in fn.counts if getattr(fn, c)}
+        if counted != {"fused_flat_update": groups * SSD_REPLAY}:
+            fail("ssd: %d replayed steps launched %s, expected the fused "
+                 "update %d times" % (SSD_REPLAY, counted,
+                                      groups * SSD_REPLAY))
+        launches = counted["fused_flat_update"]
+        if not np.array_equal(graph[:SSD_EAGER],
+                              np.asarray(eager, np.float32)):
+            fail("ssd: the replay's first losses %s are not the eager "
+                 "steps' %s" % (graph[:SSD_EAGER].tolist(), eager))
+        first, last = graph[:SSD_POOL].mean(), graph[-SSD_POOL:].mean()
+        if not (np.isfinite(graph).all() and last < first):
+            fail("ssd: the losses are not finite and falling over the "
+                 "pool: %s" % graph.tolist())
+        detection = ssd_detection(exe, scope, test_prog, eval_prog, nmsed,
+                                  maps)
+        exe.close()
+        del scope
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+    # 2. timing with cuDNN's defaults and the batches already on the card
+    # (stacked on a leading steps axis): the 10 steps captured and
+    # replayed, then replayed again, timed
+    dev = place.torch_device()
+    dev_feeds = {n: torch.stack([torch.as_tensor(f[n]) for f in feeds]).to(
+        dev) for n in feeds[0]}
+    exe, scope = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exe.run_steps(main, feed=dev_feeds, steps=SSD_REPLAY, fetch_list=[loss],
+                  scope=scope, return_numpy=False)[0].cpu()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe.run_steps(main, feed=dev_feeds, steps=SSD_REPLAY, fetch_list=[loss],
+                  scope=scope, return_numpy=False)[0].cpu()
+    replay_ms = (time.perf_counter() - t0) / SSD_REPLAY * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del dev_feeds
+    dev_feed = {n: torch.as_tensor(v).to(dev) for n, v in pool[0].items()}
+    exe.run_steps(main, feed=dev_feed, steps=1, fetch_list=[loss],
+                  scope=scope)
+    fam_launches = {}
+    wall_ms, by_family, kernels, top = profile_step(
+        lambda: exe.run_steps(main, feed=dev_feed, steps=1,
+                              fetch_list=[loss], scope=scope),
+        family_launches=fam_launches, family=_ssd_family)
+    busy = sum(by_family.values())
+    row = {"phase": "ssd", "card": card, "batch": SSD_B,
+           "image": [3, SSD_HW, SSD_HW], "classes": SSD_CLASSES,
+           "priors": SSD_PRIORS, "gt_rows": SSD_G,
+           "gt_boxes_per_image": [float(b["gt_box@LEN"].mean())
+                                  for b in pool],
+           "params": sum(sizes.values()), "groups": groups,
+           "group_elements_by_lr_scale": {str(k): v
+                                          for k, v in sizes.items()},
+           "flags": SSD_FLAGS, "eager_losses": eager,
+           "run_steps_losses": graph.tolist(), "bit_equal": True,
+           "deterministic_checks": "cudnn.deterministic on for the eager "
+                                   "steps, the replays compared and the "
+                                   "detections; off for the timed replay",
+           "eager_step_ms_is": "the second eager step's",
+           "replay_feed": "stacked on the card",
+           "rmsprop_launches": launches, "eager_step_ms": eager_ms,
+           "eager_images_per_s": SSD_B / eager_ms * 1e3,
+           "replay_step_ms": replay_ms,
+           "images_per_s": SSD_B / replay_ms * 1e3,
+           "capture_s": exe.capture_seconds,
+           "max_memory_allocated": peak,
+           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall_ms,
+           "device_idle_share_unprofiled": 1.0 - busy / replay_ms,
+           "kernel_launches_per_step": kernels,
+           "family_launches": fam_launches,
+           "device_ms_by_family": dict(sorted(by_family.items(),
+                                              key=lambda kv: -kv[1])),
+           "top_kernels": top, "detection": detection}
+    exe.close()
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return launches, sizes
+
+
+# ---------------------------------------------------------------- phase 28
+
+# the op tier's other layers, one realistic shape each: (name, shapes)
+IMIKOLOV_DICT = 2074   # paddle_tpu/dataset/imikolov.py:6, VOCAB_SIZE
+OP_TIER_TOL = 1e-4     # of the max, card against the port's CPU result
+
+
+def _op_program(build, feeds, seed):
+    """(main, startup, the output var, the feed arrays) of ``build(L)``
+    over data vars named and shaped as ``feeds`` (name -> array)."""
+    import paddle_tpu_torch as fluid
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        L = fluid.layers
+        data = {n: L.data(name=n, shape=list(a.shape),
+                          dtype=str(a.dtype), append_batch_size=False)
+                for n, a in feeds.items()}
+        out = build(L, data)
+    return main, startup, out
+
+
+def _op_env(main, startup, feeds, device, grads):
+    """(environment, leaves) for runs of ``main``'s ops on ``device``:
+    the startup program's values (run on the CPU, so both devices start
+    alike) and the feeds, those named in ``grads`` autograd leaves."""
+    import paddle_tpu_torch as fluid
+
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    env = {n: scope.find_var(n).to(device) for n in scope.local_var_names()
+           if isinstance(scope.find_var(n), torch.Tensor)}
+    env.update({n: torch.as_tensor(a).to(device) for n, a in feeds.items()})
+    leaves = {n: env[n].detach().requires_grad_(True) for n in grads}
+    env.update(leaves)
+    return env, leaves
+
+
+def _op_apply(main, out, env, leaves, grads):
+    """One run of ``main``'s ops over a copy of ``env`` under autograd:
+    (the output, the gradients of ``sum(out * r)``, r seeded, with
+    respect to the leaves named in ``grads``)."""
+    from paddle_tpu_torch.executor import run_program_ops
+
+    env = dict(env)
+    with torch.enable_grad():
+        run_program_ops(main.global_block().ops, env,
+                        device=next(iter(env.values())).device)
+        y = env[out.name]
+        if not grads:
+            return y.detach(), []
+        gs = torch.autograd.grad((y.float() * _cotangent(y)).sum(),
+                                 [leaves[n] for n in grads])
+    return y.detach(), [g.detach() for g in gs]
+
+
+_COTANGENTS = {}
+
+
+def _cotangent(y):
+    """A seeded normal tensor of ``y``'s shape on its device, made once
+    per shape and device (the same values on every device)."""
+    key = (tuple(y.shape), str(y.device))
+    if key not in _COTANGENTS:
+        _COTANGENTS[key] = torch.as_tensor(np.random.RandomState(
+            7).standard_normal(key[0]).astype(np.float32)).to(y.device)
+    return _COTANGENTS[key]
+
+
+def _op_cases():
+    """name -> (build(L, data), full-size feeds, {input: the leading rows
+    the parity check takes}, the inputs whose gradients are held)."""
+    r = np.random.RandomState(SEED + 40)
+    f32 = lambda *s: r.standard_normal(s).astype(np.float32)  # noqa: E731
+    lo = r.rand(128, 2) * 300
+    rois = np.concatenate([lo, lo + 40 + r.rand(128, 2) * 200], 1)
+    words = r.randint(0, IMIKOLOV_DICT, (1024, 1)).astype(np.int64)
+    moe_x = f32(64, 128, 768)
+    cases = {
+        # ResNet-50's first batch norm, channels last
+        "batch_norm_nhwc": (lambda L, d: L.batch_norm(
+            d["x"], data_layout="NHWC"), {"x": f32(64, 112, 112, 64)},
+            {}, ["x"]),
+        # a DCGAN generator layer
+        "conv2d_transpose": (lambda L, d: L.conv2d_transpose(
+            d["x"], num_filters=256, filter_size=4, stride=2, padding=1),
+            {"x": f32(64, 512, 4, 4)}, {"x": 8}, ["x"]),
+        "conv3d_transpose": (lambda L, d: L.conv3d_transpose(
+            d["x"], num_filters=64, filter_size=2, stride=2),
+            {"x": f32(8, 128, 8, 28, 28)}, {"x": 1}, ["x"]),
+        # a C3D block: conv 64 -> 128 (3x3x3), pool 2x2x2
+        "conv3d": (lambda L, d: L.conv3d(d["x"], num_filters=128,
+                                         filter_size=3, padding=1),
+                   {"x": f32(8, 64, 16, 56, 56)}, {"x": 1}, ["x"]),
+        "pool3d": (lambda L, d: L.pool3d(d["x"], pool_size=2,
+                                         pool_stride=2),
+                   {"x": f32(8, 128, 16, 56, 56)}, {"x": 1}, ["x"]),
+        # AlexNet's first LRN
+        "lrn": (lambda L, d: L.lrn(d["x"], n=5, alpha=1e-4, beta=0.75),
+                {"x": f32(64, 96, 55, 55)}, {"x": 8}, ["x"]),
+        # an OCR line (CRNN's patches)
+        "im2sequence": (lambda L, d: L.im2sequence(
+            d["x"], filter_size=3, stride=1, padding=1),
+            {"x": f32(64, 1, 32, 100)}, {"x": 8}, ["x"]),
+        "image_resize_up": (lambda L, d: L.image_resize(
+            d["x"], out_shape=[600, 600]), {"x": f32(16, 3, 300, 300)},
+            {"x": 4}, ["x"]),
+        "image_resize_down_nearest": (lambda L, d: L.image_resize(
+            d["x"], out_shape=[300, 300], resample="NEAREST"),
+            {"x": f32(16, 3, 600, 600)}, {"x": 4}, ["x"]),
+        # Fast R-CNN's pool5 on a VGG conv5 map
+        "roi_pool": (lambda L, d: L.roi_pool(
+            d["x"], d["rois"], pooled_height=7, pooled_width=7,
+            spatial_scale=1.0 / 16, rois_batch_idx=d["idx"]),
+            {"x": f32(8, 512, 38, 50), "rois": rois.astype(np.float32),
+             "idx": r.randint(0, 8, 128).astype(np.int32)},
+            {"rois": 16, "idx": 16}, ["x"]),
+        # word2vec on imikolov, 512 hidden
+        "hsigmoid": (lambda L, d: L.hsigmoid(d["x"], d["y"],
+                                             IMIKOLOV_DICT),
+                     {"x": f32(1024, 512), "y": words}, {}, ["x"]),
+        "nce": (lambda L, d: L.nce(d["x"], d["y"], IMIKOLOV_DICT,
+                                   num_neg_samples=10, seed=1),
+                {"x": f32(1024, 512), "y": words}, {}, ["x"]),
+        "sampled_softmax": (lambda L, d:
+                            L.sampled_softmax_with_cross_entropy(
+                                d["x"], d["y"], IMIKOLOV_DICT,
+                                num_samples=64, seed=2),
+                            {"x": f32(1024, 512), "y": words}, {},
+                            ["x"]),
+        "fake_quantize_dequantize": (
+            lambda L, d: L.fake_dequantize_max_abs(
+                *L.fake_quantize_abs_max(d["x"]), max_range=127.0),
+            {"x": f32(64, 4096)}, {}, ["x"]),
+        "fake_quantize_range_abs_max": (
+            lambda L, d: L.fake_quantize_range_abs_max(d["x"])[0],
+            {"x": f32(64, 4096)}, {}, ["x"]),
+        # google/switch-base-8: d_model 768, d_ff 3072, 8 experts
+        "switch_moe": (lambda L, d: L.switch_moe(d["x"], 8, 3072)[0],
+                       {"x": moe_x}, {"x": 4}, ["x"]),
+    }
+    return cases
+
+
+def phase_op_tier(card):
+    """Phase 28: each other new layer once on the card at a realistic
+    shape, its forward and input gradient held to the port's CPU result
+    on the same inputs within 1e-4 of the max (on a leading slice where
+    the CPU would take long; switch_moe at 4 x 128 tokens), NHWC batch
+    norm also to the NCHW batch norm on the card; the card's forward and
+    forward+backward ms at the full shape."""
+    cpu, gpu = torch.device("cpu"), torch.device("cuda", 0)
+    rows = []
+    for name, (build, feeds, cut, grads) in _op_cases().items():
+        main, startup, out = _op_program(build, feeds, SEED + 41)
+        small = {n: a[:cut[n]] if n in cut else a for n, a in feeds.items()}
+        sm, ss, so = _op_program(build, small, SEED + 41)
+        got = _op_apply(sm, so, *_op_env(sm, ss, small, gpu, grads), grads)
+        want = _op_apply(sm, so, *_op_env(sm, ss, small, cpu, grads), grads)
+        errs = {}
+        for label, a, b in [("out", got[0], want[0])] + [
+                ("d" + n, g, c) for n, g, c in zip(grads, got[1], want[1])]:
+            a, b = a.float().cpu(), b.float()
+            if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                fail("op_tier %s: %s on the card %s (finite %s), CPU %s"
+                     % (name, label, tuple(a.shape),
+                        bool(torch.isfinite(a).all()), tuple(b.shape)))
+            errs[label] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+        env, leaves = _op_env(main, startup, feeds, gpu, grads)
+        if name == "batch_norm_nhwc":
+            full = _op_apply(main, out, env, leaves, grads)
+            nchw = {"x": np.ascontiguousarray(feeds["x"].transpose(0, 3, 1,
+                                                                   2))}
+            # the NCHW batch norm, its output transposed back (the same
+            # cotangent then meets both)
+            cm, cs_, co = _op_program(lambda L, d: L.transpose(
+                L.batch_norm(d["x"]), perm=[0, 2, 3, 1]), nchw, SEED + 41)
+            ref = _op_apply(cm, co, *_op_env(cm, cs_, nchw, gpu, grads),
+                            grads)
+            for label, a, b in (("nchw_out", full[0], ref[0]),
+                                ("nchw_dx", full[1][0],
+                                 ref[1][0].permute(0, 2, 3, 1))):
+                errs[label] = float((a - b).abs().max()) / max(
+                    float(b.abs().max()), 1e-30)
+            del full, ref
+        if max(errs.values()) > OP_TIER_TOL:
+            fail("op_tier %s: the card parts from the reference by %s of "
+                 "the max (> %g)" % (name, errs, OP_TIER_TOL))
+        _COTANGENTS.clear()
+        row = {"phase": "op_tier", "card": card, "op": name,
+               "shapes": {n: list(a.shape) for n, a in feeds.items()},
+               "parity_shapes": {n: list(a.shape) for n, a in small.items()},
+               "max_rel_err": errs,
+               "fwd_ms": cuda_ms(lambda: _op_apply(main, out, env, leaves,
+                                                   []), 3, warmup=1),
+               "fwd_bwd_ms": cuda_ms(lambda: _op_apply(main, out, env,
+                                                       leaves, grads), 3,
+                                     warmup=1)}
+        emit(row)
+        rows.append(row)
+        del env, leaves, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------- phase 21
 
 # MFU denominators: NVIDIA's published dense peaks of the H100 SXM (the
@@ -6290,8 +7070,9 @@ def main():
         for prog in (build_recipe(True)[0],
                      build_bert(BERT_LEGS["phase1"][2])[0],
                      build_deepfm()[0], build_sequence("seq2seq")[0]))
+    n_ssd = ssd_conv_group()
     fused_rows = phase_fused_update(card, n_recipe, RESNET_N, n_bert,
-                                    n_deepfm, n_seq2seq)
+                                    n_deepfm, n_seq2seq, n_ssd)
     torch.cuda.empty_cache()
     amp_row, amp_timed = phase_amp(card, RESNET_N, f32_step_ms)
     torch.cuda.empty_cache()
@@ -6334,6 +7115,13 @@ def main():
     if seq["seq2seq"][1] != n_seq2seq:
         fail("seq2seq: the trained group has %d elements, the fused_update "
              "phase timed %d" % (seq["seq2seq"][1], n_seq2seq))
+    torch.cuda.empty_cache()
+    ssd_launches, ssd_sizes = phase_ssd(card)
+    if ssd_sizes[0.1] != n_ssd:
+        fail("ssd: the trained conv group has %d elements, the "
+             "fused_update phase timed %d" % (ssd_sizes[0.1], n_ssd))
+    torch.cuda.empty_cache()
+    phase_op_tier(card)
     torch.cuda.empty_cache()
     phase_static(card, [base["timed"], amp_timed, resnet_timed, vgg_timed]
                  + bert_timed + [deepfm_timed])
@@ -6516,6 +7304,18 @@ def main():
         if name == "fused_flat_update_bert":
             kernels[-1]["remat_launches"] = remat_launches[
                 "fused_flat_update"]
+    # MobileNet-SSD's conv group: RMSProp, f32 moments, lr scale 0.1;
+    # the launches of the ssd phase's replay (both groups, 10 steps)
+    rm = next(r for r in fused_rows if r["label"] == "rmsprop_ssd")
+    kernels.append({
+        "name": "fused_flat_update_rmsprop", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
+        "replaces": "paddle_tpu/ops/fused_optimizer.py:71",
+        "launches": ssd_launches, "max_abs_err": rm["max_abs_err"],
+        "ms": rm["ms"], "plain_ms": rm["plain_ms"],
+        "bound_ms": rm["bound_ms"], "bound_by": rm["bound_by"],
+        "library_ms": rm["library_ms"], "device_ms": rm["device_ms"],
+        "library_device_ms": rm["library_device_ms"], "n": n_ssd})
     # ResNet-50's group: Momentum with a bf16 velocity
     mo = next(r for r in fused_rows if r["n"] == RESNET_N
               and (r["label"], r["moments"]) == ("momentum", "bf16"))

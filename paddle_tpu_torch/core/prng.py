@@ -31,6 +31,12 @@ value is read, so the functions run under CUDA graph capture.
   mode: ``-log(-log(uniform(minval=tiny, maxval=1)))``. The bits and the
   uniforms are bit-equal to jax; the two logs are torch's, which may sit
   an ulp from XLA's.
+* ``randint(key, n, minval, maxval)`` — int32 ``jax.random.randint``
+  for Python int bounds: the bits of the two keys of ``split(key)``
+  (the fold-ins of 0 and 1), ``hi % span * (2**32 % span) + lo % span``
+  modulo ``span``, in uint32 arithmetic as jax does it (``2**32 %
+  span`` is formed as ``(2**16 % span)**2 % span`` in uint32, which
+  wraps to 0 for spans above ``2**16``).
 """
 
 from __future__ import annotations
@@ -127,3 +133,20 @@ def gumbel(key, n: int) -> torch.Tensor:
     keys: ``[*key_shape, n]``."""
     u = uniform(key, n, minval=_F32_TINY, maxval=1.0)
     return -torch.log(-torch.log(u))
+
+
+def randint(key, n: int, minval: int, maxval: int) -> torch.Tensor:
+    """int32 ``jax.random.randint(key, (n,), minval, maxval)`` for Python
+    int bounds, for a batch of keys: ``[*key_shape, n]`` values in
+    int64."""
+    k1, k2 = key
+    if maxval <= minval:
+        return torch.full(tuple(k1.shape) + (n,), minval,
+                          dtype=torch.int64, device=k1.device)
+    span = maxval - minval
+    mult = (((2 ** 16) % span) ** 2 & _MASK) % span
+    one = torch.ones_like(_u32(k1))
+    hi = random_bits(fold_in(key, torch.zeros_like(one)), n)
+    lo = random_bits(fold_in(key, one), n)
+    offset = (((hi % span) * mult) & _MASK) + lo % span
+    return minval + (offset & _MASK) % span

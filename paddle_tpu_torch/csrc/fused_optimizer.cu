@@ -227,11 +227,14 @@ __global__ void fused_update_kernel(Params a) {
       // (c: scale, rho, 1-rho, eps, mu)
       const float ms = __fadd_rn(__fmul_rn(c[1], load(m1, i)),
                                  __fmul_rn(__fmul_rn(c[2], g), g));
-      float mg = load(m2, i), d;
+      float d;
       if (VARIANT) {
-        mg = __fadd_rn(__fmul_rn(c[1], mg), __fmul_rn(c[2], g));
+        const float mg = __fadd_rn(__fmul_rn(c[1], load(m2, i)),
+                                   __fmul_rn(c[2], g));
         d = __fsqrt_rn(__fadd_rn(__fsub_rn(ms, __fmul_rn(mg, mg)), c[3]));
+        store(m2, i, mg);
       } else {
+        // mg is neither read nor written: in place, it stays as it was
         d = __fsqrt_rn(__fadd_rn(ms, c[3]));
       }
       const float mom = __fadd_rn(__fmul_rn(c[4], load(m0, i)),
@@ -239,7 +242,6 @@ __global__ void fused_update_kernel(Params a) {
       pn = __fsub_rn(p, mom);
       store(m0, i, mom);
       store(m1, i, ms);
-      store(m2, i, mg);  // passed through when not centered: still written
     } else if (KIND == kFtrl) {
       // sq' = sq + g*g;  sigma = (sq'^e - sq^e) / lr, e = -lr_power
       // (sqrt when lr_power = -0.5; sq widened, its exponent rounded to

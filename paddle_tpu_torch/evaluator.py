@@ -6,9 +6,8 @@ The metric state lives in persistable variables that ops of the
 training program update each minibatch (the executor writes persistable
 op outputs back to the scope), so one step updates the model and the
 metric state; ``reset()`` zeroes them with a small program and
-``eval()`` reads them. ``metrics.*`` is the host-side alternative.
-``DetectionMAP`` waits for the detection layers (ROADMAP Queue A 7,
-step (e)) and raises."""
+``eval()`` reads them. ``metrics.*`` is the host-side alternative;
+``DetectionMAP`` keeps its statistics in one, updated by a host op."""
 
 from __future__ import annotations
 
@@ -18,7 +17,6 @@ import numpy as np
 
 from . import layers
 from .core import unique_name
-from .core.enforce import not_ported
 from .core.program import Program, Variable, program_guard
 from .layer_helper import LayerHelper
 
@@ -167,8 +165,68 @@ class Accuracy(Evaluator):
 
 
 class DetectionMAP(Evaluator):
-    """Accumulated detection mean average precision: not ported yet."""
+    """Accumulated detection mean average precision (reference:
+    evaluator.py:296 DetectionMAP over detection_map ops).
 
-    def __init__(self, *a, **kw):
-        raise not_ported("evaluator.DetectionMAP (it reads the detection "
-                         "layers' detection_map)", "Queue A 7")
+    ``get_map_var()`` returns (cur_map, accum_map): the batch's mAP (the
+    ``detection_map`` op) and the mAP accumulated since the last
+    ``reset`` (a ``detection_map_accum`` op updating a host-side
+    ``metrics.DetectionMAP``, once per executed run). Both ops read the
+    device on the host (``_host_sync``): run the program with
+    ``Executor.run``.
+
+    Inputs follow the padded detection layout (layers/detection.py):
+    ``input`` [B, D, 6] (label, score, x1, y1, x2, y2; label<0 = padding),
+    ``gt_label`` [B, G, 1], ``gt_box`` [B, G, 4], optional
+    ``gt_difficult`` [B, G, 1]."""
+
+    def __init__(self, input, gt_label, gt_box, gt_difficult=None,
+                 class_num=None, background_label=0,
+                 overlap_threshold=0.5, evaluate_difficult=True,
+                 ap_version="integral"):
+        super().__init__("map_eval")
+        from .layers.detection import _host_scalar, update_map_from_padded
+        from .metrics import DetectionMAP as _HostMAP
+
+        self._host = _HostMAP(overlap_threshold=overlap_threshold,
+                              evaluate_difficult=evaluate_difficult,
+                              ap_version=ap_version)
+
+        gt_label = layers.cast(gt_label, gt_box.dtype)
+        if gt_difficult is not None:
+            gt_difficult = layers.cast(gt_difficult, gt_box.dtype)
+            label = layers.concat([gt_label, gt_difficult, gt_box],
+                                  axis=-1)
+        else:
+            label = layers.concat([gt_label, gt_box], axis=-1)
+
+        self.cur_map = layers.detection_map(
+            input, label, class_num, background_label,
+            overlap_threshold=overlap_threshold,
+            evaluate_difficult=evaluate_difficult, ap_version=ap_version)
+
+        out = self.helper.create_tmp_variable(np.float32)
+        host = self._host
+
+        def host_accum(det, lab):
+            update_map_from_padded(host, det, lab)
+            # the mAP of everything accumulated since reset()
+            return host.eval()
+
+        self.helper.append_op(
+            type="detection_map_accum",
+            inputs={"DetectRes": [input.name], "Label": [label.name]},
+            outputs={"AccumMAP": [out.name]},
+            attrs={"ap_version": ap_version, "_host_sync": True},
+            fn=lambda det, lab: _host_scalar(host_accum, det, lab))
+        self.accum_map = out
+        self.metrics.extend([self.cur_map, self.accum_map])
+
+    def get_map_var(self):
+        """reference: evaluator.py get_map_var."""
+        return self.cur_map, self.accum_map
+
+    def reset(self, executor=None, reset_program=None):
+        """Zero the accumulated statistics (host-side state; the executor
+        arg is accepted for reference-API compatibility)."""
+        self._host.reset()

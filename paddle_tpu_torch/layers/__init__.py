@@ -1,15 +1,20 @@
 """Layer functions of paddle_tpu_torch (counterpart of
 paddle_tpu/layers): every function of the JAX package's
 ``layers/{ops,tensor,nn,metric_op}.py``, the conv tier, ``data`` (with
-sequence inputs), the learning-rate schedules, and the sequence tier:
-``layers/{sequence,rnn,control_flow,beam_search,crf,ctc}.py``.
-``layer_helper.append_activation`` finds an ``act=`` by its name
-here."""
+sequence inputs), the learning-rate schedules, the sequence tier
+(``layers/{sequence,rnn,control_flow,beam_search,crf,ctc}.py``) and the
+rest of the op tier: ``layers/{image,detection,sampled,quantize,moe}.py``.
+The program readers of the JAX package's ``layers/io.py`` are not
+ported (ROADMAP Queue A 6). ``layer_helper.append_activation`` finds an
+``act=`` by its name here."""
 
-from . import learning_rate_scheduler
+from . import detection, learning_rate_scheduler
 from .beam_search import __all__ as _beam_all
 from .control_flow import __all__ as _control_flow_all
 from .crf import __all__ as _crf_all
+from .detection import __all__ as _detection_all
+from .quantize import __all__ as _quantize_all
+from .sampled import __all__ as _sampled_all
 from .ctc import __all__ as _ctc_all
 from .rnn import __all__ as _rnn_all
 from .sequence import __all__ as _sequence_all
@@ -25,7 +30,14 @@ from .control_flow import (ConditionalBlock, DynamicRNN, IfElse, ParallelDo,
                            merge_lod_tensor, not_equal,
                            reorder_lod_tensor_by_rank, shrink_memory,
                            split_lod_tensor)
-from .conv import batch_norm, conv2d, layer_norm, pool2d
+from .conv import (batch_norm, conv2d, conv2d_transpose, conv3d,
+                   conv3d_transpose, im2sequence, layer_norm, lrn, pool2d,
+                   pool3d)
+from .detection import (anchor_generator, bipartite_match, box_coder,
+                        detection_map, detection_output, iou_similarity,
+                        multi_box_head, multiclass_nms, prior_box,
+                        rpn_target_assign, ssd_loss, target_assign)
+from .image import image_resize, image_resize_short, resize_bilinear, roi_pool
 from .crf import crf_decoding, linear_chain_crf
 from .ctc import ctc_greedy_decoder, edit_distance, warpctc
 from .io import data
@@ -34,6 +46,7 @@ from .learning_rate_scheduler import (append_LARS, cosine_decay,
                                       natural_exp_decay, noam_decay,
                                       piecewise_decay, polynomial_decay)
 from .metric_op import accuracy, auc, chunk_eval, mean_iou, precision_recall
+from .moe import switch_moe
 from .nn import (argmax, autoincreased_step_counter, concat, cos_sim, crop,
                  cross_entropy, dice_loss, dropout, embedding, fc,
                  fused_linear_softmax_ce, gather, l2_normalize, label_smooth,
@@ -54,8 +67,11 @@ from .ops import (abs, brelu, ceil, clip, clip_by_norm, cos, elementwise_add,
                   sqrt, square, stanh, sum, swish, tanh, tanh_shrink,
                   thresholded_relu, uniform_random,
                   uniform_random_batch_size_like)
+from .quantize import (fake_dequantize_max_abs, fake_quantize_abs_max,
+                       fake_quantize_range_abs_max)
 from .rnn import (dynamic_gru, dynamic_lstm, dynamic_lstmp, gru_unit,
                   lstm_unit, simple_rnn)
+from .sampled import hsigmoid, nce, sampled_softmax_with_cross_entropy
 from .sequence import (length_var_of, lod_reset, outer_length_var_of,
                        sequence_concat, sequence_conv, sequence_erase,
                        sequence_expand, sequence_first_step,
@@ -98,4 +114,10 @@ __all__ = ['abs', 'accuracy', 'append_LARS', 'argmax', 'argmin', 'argsort',
            'transpose', 'uniform_random', 'uniform_random_batch_size_like',
            'unsqueeze', 'zeros'] + (
     _beam_all + _control_flow_all + _crf_all + _ctc_all + _rnn_all
-    + _sequence_all)
+    + _sequence_all + [
+        'conv3d', 'conv2d_transpose', 'conv3d_transpose', 'pool3d', 'lrn',
+        'im2sequence', 'image_resize', 'image_resize_short',
+        'resize_bilinear', 'roi_pool', 'detection', 'switch_moe']
+    + [n for n in _detection_all
+       if n not in ('nms_jax', 'update_map_from_padded')]
+    + _quantize_all + _sampled_all)

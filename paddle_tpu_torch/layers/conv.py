@@ -1,12 +1,18 @@
 """Convolution, pooling and normalization layers (counterpart of
-paddle_tpu/layers/conv.py): ``conv2d``, ``pool2d``, ``batch_norm`` and
-``layer_norm``.
+paddle_tpu/layers/conv.py): ``conv2d``, ``conv3d``, the transposed
+``conv2d_transpose``/``conv3d_transpose``, ``pool2d``, ``pool3d``,
+``batch_norm`` (NCHW and NHWC), ``layer_norm``, ``lrn`` and
+``im2sequence``.
 
-The layout is NCHW at the API, as in the JAX package. The JAX package
-lowers these through XLA (``lax.conv_general_dilated``,
-``lax.reduce_window``); no Pallas kernel stands behind them, so here
-they are PyTorch's own ops (cuDNN on the card): ``F.conv2d``,
-``F.max_pool2d``/``F.avg_pool2d`` and ``F.batch_norm``.
+The layout is NCHW (NCDHW) at the API, as in the JAX package; batch
+norm also takes channels-last input. The JAX package lowers these
+through XLA (``lax.conv_general_dilated``, ``lax.reduce_window``); no
+Pallas kernel stands behind them, so here they are PyTorch's own ops
+(cuDNN on the card): ``F.conv2d``/``F.conv3d``, ``F.conv_transpose2d``/
+``F.conv_transpose3d`` (which take the reference's ``(in, out / groups,
+k...)`` filter as it is, where the JAX package flips it into an
+input-dilated forward conv), ``F.max_pool*``/``F.avg_pool*``,
+``F.batch_norm`` and ``F.unfold``.
 
 Mixed precision follows the JAX package's rule, read when the layer is
 built (a built program does not change with later flag flips):
@@ -31,8 +37,12 @@ from ..core.enforce import enforce
 from ..layer_helper import LayerHelper
 
 
-def _pair(v):
-    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+def _pair(v, n=2):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v,) * n
+
+
+def _triple(v):
+    return _pair(v, 3)
 
 
 def _conv_dtype():
@@ -53,51 +63,143 @@ def _stream_dtype(x, stream: bool):
     return torch.bfloat16 if stream else x.dtype
 
 
-def conv2d(input, num_filters: int, filter_size, stride=1, padding=0,
-           dilation=1, groups: int = 1, param_attr=None, bias_attr=None,
-           use_cudnn: bool = True, act=None, name=None):
-    """2-D convolution, NCHW, filters ``[num_filters, C / groups, kh,
-    kw]`` initialized N(0, 2 / fan_in); bias and activation after."""
-    helper = LayerHelper("conv2d")
+def _conv(kind, nd, input, num_filters, filter_size, stride, padding,
+          dilation, groups, param_attr, bias_attr, act):
+    """The ``nd``-D convolution ``kind`` over NC...: filters
+    ``[num_filters, C / groups, k...]`` initialized N(0, 2 / fan_in);
+    bias and activation after. The conv2d op carries its geometry as
+    attributes, as the JAX package's does."""
+    helper = LayerHelper(kind)
     dtype = input.dtype
-    fsize = _pair(filter_size)
-    stride = _pair(stride)
-    padding = _pair(padding)
-    dilation = _pair(dilation)
+    fsize = _pair(filter_size, nd)
+    stride = _pair(stride, nd)
+    padding = _pair(padding, nd)
+    dilation = _pair(dilation, nd)
     in_channels = input.shape[1]
     enforce(in_channels is not None and in_channels > 0,
-            "conv2d input needs a static channel dim")
+            "%s input needs a static channel dim" % kind)
     filter_shape = (num_filters, in_channels // groups, *fsize)
-    fan_in = (in_channels // groups) * fsize[0] * fsize[1]
+    fan_in = (in_channels // groups) * math.prod(fsize)
     w = helper.create_parameter(
         param_attr, filter_shape, dtype,
         default_initializer=init.Normal(0.0, (2.0 / fan_in) ** 0.5))
     out = helper.create_tmp_variable(dtype)
     cdt, stream = _conv_dtype(), flags.bf16_stream()
+    conv = F.conv2d if nd == 2 else F.conv3d
 
     def fn(x, wv):
-        y = F.conv2d(_maybe_bf16(x, cdt), _maybe_bf16(wv, cdt), None,
-                     stride, padding, dilation, groups)
+        y = conv(_maybe_bf16(x, cdt), _maybe_bf16(wv, cdt), None, stride,
+                 padding, dilation, groups)
         return y.to(_stream_dtype(x, stream))
 
-    helper.append_op(type="conv2d",
+    helper.append_op(type=kind,
                      inputs={"Input": [input.name], "Filter": [w.name]},
                      outputs={"Output": [out.name]},
                      attrs={"strides": stride, "paddings": padding,
-                            "groups": groups, "dilations": dilation},
-                     fn=fn)
+                            "groups": groups, "dilations": dilation}
+                     if kind == "conv2d" else None, fn=fn)
+    out = _add_bias(helper, out, bias_attr, num_filters, dtype, nd)
+    return helper.append_activation(out, act)
 
-    if bias_attr is not False:
-        b = helper.create_parameter(bias_attr, [num_filters], dtype,
-                                    is_bias=True)
-        pre_act = helper.create_tmp_variable(dtype)
-        helper.append_op(type="elementwise_add",
-                         inputs={"X": [out.name], "Y": [b.name]},
-                         outputs={"Out": [pre_act.name]},
-                         fn=lambda x, bv: x + bv[None, :, None, None])
-    else:
-        pre_act = out
-    return helper.append_activation(pre_act, act)
+
+def conv2d(input, num_filters: int, filter_size, stride=1, padding=0,
+           dilation=1, groups: int = 1, param_attr=None, bias_attr=None,
+           use_cudnn: bool = True, act=None, name=None):
+    """2-D convolution, NCHW, filters ``[num_filters, C / groups, kh,
+    kw]`` initialized N(0, 2 / fan_in); bias and activation after."""
+    return _conv("conv2d", 2, input, num_filters, filter_size, stride,
+                 padding, dilation, groups, param_attr, bias_attr, act)
+
+
+def _add_bias(helper, out, bias_attr, num_filters, dtype, nd):
+    """``out`` plus a ``[num_filters]`` bias over the channel axis of an
+    ``nd``-spatial-dim NC... tensor (no bias when ``bias_attr`` is
+    False)."""
+    if bias_attr is False:
+        return out
+    b = helper.create_parameter(bias_attr, [num_filters], dtype,
+                                is_bias=True)
+    pre = helper.create_tmp_variable(dtype)
+    view = (1, -1) + (1,) * nd
+    helper.append_op(type="elementwise_add",
+                     inputs={"X": [out.name], "Y": [b.name]},
+                     outputs={"Out": [pre.name]},
+                     fn=lambda x, bv: x + bv.reshape(view))
+    return pre
+
+
+def conv3d(input, num_filters: int, filter_size, stride=1, padding=0,
+           dilation=1, groups: int = 1, param_attr=None, bias_attr=None,
+           use_cudnn: bool = True, act=None, name=None):
+    """3-D convolution, NCDHW, filters ``[num_filters, C / groups, kd,
+    kh, kw]`` initialized N(0, 2 / fan_in); bias and activation
+    after."""
+    return _conv("conv3d", 3, input, num_filters, filter_size, stride,
+                 padding, dilation, groups, param_attr, bias_attr, act)
+
+
+def _conv_transpose(kind, input, num_filters, output_size, filter_size,
+                    padding, stride, dilation, groups, param_attr,
+                    bias_attr, act):
+    """The transposed conv of ``nd`` spatial dims (``kind`` is
+    ``conv2d_transpose`` or ``conv3d_transpose``): filters ``(C,
+    num_filters / groups, k...)`` initialized Xavier; without
+    ``filter_size`` the filter is the size that maps the input to
+    ``output_size``; bias and activation after."""
+    nd = 2 if kind == "conv2d_transpose" else 3
+    helper = LayerHelper(kind)
+    dtype = input.dtype
+    stride = _pair(stride, nd)
+    padding = _pair(padding, nd)
+    dilation = _pair(dilation, nd)
+    in_channels = input.shape[1]
+    if filter_size is None:
+        enforce(output_size is not None,
+                "either filter_size or output_size required")
+        osize = _pair(output_size, nd)
+        dims = input.shape[2:2 + nd]
+        filter_size = tuple(osize[i] - (dims[i] - 1) * stride[i]
+                            + 2 * padding[i] for i in range(nd))
+    fsize = _pair(filter_size, nd)
+    filter_shape = (in_channels, num_filters // groups, *fsize)
+    w = helper.create_parameter(param_attr, filter_shape, dtype,
+                                default_initializer=init.Xavier())
+    out = helper.create_tmp_variable(dtype)
+    cdt, stream = _conv_dtype(), flags.bf16_stream()
+    conv = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+
+    def fn(x, wv):
+        y = conv(_maybe_bf16(x, cdt), _maybe_bf16(wv, cdt), None, stride,
+                 padding, 0, groups, dilation)
+        return y.to(_stream_dtype(x, stream))
+
+    helper.append_op(type=kind,
+                     inputs={"Input": [input.name], "Filter": [w.name]},
+                     outputs={"Output": [out.name]}, fn=fn)
+    out = _add_bias(helper, out, bias_attr, num_filters, dtype, nd)
+    return helper.append_activation(out, act)
+
+
+def conv2d_transpose(input, num_filters: int, output_size=None,
+                     filter_size=None, padding=0, stride=1, dilation=1,
+                     groups: int = 1, param_attr=None, bias_attr=None,
+                     use_cudnn: bool = True, act=None, name=None):
+    """Transposed 2-D conv, NCHW, filters ``(C, num_filters / groups,
+    kh, kw)``."""
+    return _conv_transpose("conv2d_transpose", input, num_filters,
+                           output_size, filter_size, padding, stride,
+                           dilation, groups, param_attr, bias_attr, act)
+
+
+def conv3d_transpose(input, num_filters: int, output_size=None,
+                     filter_size=None, padding=0, stride=1, dilation=1,
+                     groups: int = 1, param_attr=None, bias_attr=None,
+                     use_cudnn: bool = True, act=None, name=None):
+    """Transposed 3-D conv, NCDHW, filters ``(C, num_filters / groups,
+    kd, kh, kw)``."""
+    return _conv_transpose("conv3d_transpose", input, num_filters,
+                           output_size, filter_size, padding, stride,
+                           dilation, groups, param_attr, bias_attr, act)
 
 
 def _ceil_extra(size, k, s, p):
@@ -106,6 +208,45 @@ def _ceil_extra(size, k, s, p):
     starts in the padding)."""
     n = math.ceil((size + 2 * p - k) / s) + 1
     return max(0, (n - 1) * s + k - size - 2 * p)
+
+
+def _pool(nd, pool_type, psize, stride, padding, global_pooling,
+          ceil_mode, exclusive):
+    """The op fn of ``nd``-D max or average pooling over NC... (the
+    rules of :func:`pool2d`)."""
+    max_pool = F.max_pool2d if nd == 2 else F.max_pool3d
+    avg_pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
+
+    def fn(x):
+        if global_pooling:
+            if pool_type == "max":
+                # max pooling routes a tie's gradient to one element, as
+                # the JAX package's select-and-scatter does
+                return max_pool(x, tuple(x.shape[2:]))
+            return x.sum(dim=tuple(range(2, 2 + nd)), keepdim=True) / (
+                math.prod(x.shape[2:]))
+        ex = tuple(_ceil_extra(x.shape[2 + i], psize[i], stride[i],
+                               padding[i]) if ceil_mode else 0
+                   for i in range(nd))
+        padded = any(padding) or any(ex)
+        # torch pads symmetrically, at most half a window
+        if not any(ex) and all(p <= k // 2 for p, k in zip(padding, psize)):
+            if pool_type == "max":
+                return max_pool(x, psize, stride, padding)
+            return avg_pool(x, psize, stride, padding,
+                            count_include_pad=not (exclusive and padded))
+        # F.pad takes the last dim first
+        pads = sum(((p, p + e) for p, e in zip(reversed(padding),
+                                               reversed(ex))), ())
+        if pool_type == "max":
+            return max_pool(F.pad(x, pads, value=-math.inf), psize, stride)
+        total = avg_pool(F.pad(x, pads), psize, stride, divisor_override=1)
+        if exclusive and padded:
+            return total / avg_pool(F.pad(torch.ones_like(x), pads), psize,
+                                    stride, divisor_override=1)
+        return total / math.prod(psize)
+
+    return fn
 
 
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
@@ -124,47 +265,29 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
     the whole plane."""
     helper = LayerHelper("pool2d")
     out = helper.create_tmp_variable(input.dtype)
-    psize = _pair(pool_size)
-    stride = _pair(pool_stride)
-    padding = _pair(pool_padding)
     enforce(pool_type in ("max", "avg"), "pool_type must be max|avg")
-
-    def fn(x):
-        if global_pooling:
-            if pool_type == "max":
-                # max_pool2d routes a tie's gradient to one element, as
-                # the JAX package's select-and-scatter does
-                return F.max_pool2d(x, tuple(x.shape[2:]))
-            return x.sum(dim=(2, 3), keepdim=True) / (x.shape[2]
-                                                      * x.shape[3])
-        ex = ((_ceil_extra(x.shape[2], psize[0], stride[0], padding[0]),
-               _ceil_extra(x.shape[3], psize[1], stride[1], padding[1]))
-              if ceil_mode else (0, 0))
-        padded = any(padding) or any(ex)
-        # torch pads symmetrically, at most half a window
-        native = not any(ex) and all(p <= k // 2
-                                     for p, k in zip(padding, psize))
-        if native:
-            if pool_type == "max":
-                return F.max_pool2d(x, psize, stride, padding)
-            return F.avg_pool2d(x, psize, stride, padding,
-                                count_include_pad=not (exclusive and padded))
-        pads = (padding[1], padding[1] + ex[1], padding[0], padding[0] + ex[0])
-        if pool_type == "max":
-            return F.max_pool2d(F.pad(x, pads, value=-math.inf), psize,
-                                stride)
-        total = F.avg_pool2d(F.pad(x, pads), psize, stride,
-                             divisor_override=1)
-        if exclusive and padded:
-            cnt = F.avg_pool2d(F.pad(torch.ones_like(x), pads), psize,
-                               stride, divisor_override=1)
-            return total / cnt
-        return total / (psize[0] * psize[1])
-
+    fn = _pool(2, pool_type, _pair(pool_size), _pair(pool_stride),
+               _pair(pool_padding), global_pooling, ceil_mode, exclusive)
     helper.append_op(type="pool2d", inputs={"X": [input.name]},
                      outputs={"Out": [out.name]},
                      attrs={"pooling_type": pool_type,
                             "global_pooling": global_pooling}, fn=fn)
+    return out
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None):
+    """3-D max or average pooling, NCDHW. Max pooling pads with -inf;
+    average pooling sums over zero padding and divides by the window's
+    size (padding included). ``ceil_mode`` is accepted and, as in the
+    JAX package, has no effect."""
+    helper = LayerHelper("pool3d")
+    out = helper.create_tmp_variable(input.dtype)
+    fn = _pool(3, pool_type, _triple(pool_size), _triple(pool_stride),
+               _triple(pool_padding), global_pooling, False, False)
+    helper.append_op(type="pool3d", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, fn=fn)
     return out
 
 
@@ -173,8 +296,11 @@ def batch_norm(input, act=None, is_test: bool = False, momentum: float = 0.9,
                data_layout="NCHW", in_place: bool = False, name=None,
                moving_mean_name=None, moving_variance_name=None,
                do_model_average_for_mean_and_var=False, fuse_with_relu=False):
-    """Batch normalization over N, H, W (NCHW) with persistable f32
-    running statistics.
+    """Batch normalization with persistable f32 running statistics:
+    over N, H, W of NCHW input, or, ``data_layout="NHWC"``, over every
+    axis but the last of channels-last input (the JAX package's rule;
+    such input runs as a channels-last view of NCHW, so the same
+    ``F.batch_norm`` normalizes it).
 
     Training: normalized by the batch's mean and population variance
     (``F.batch_norm`` with no running statistics: in f32, emitted in the
@@ -190,9 +316,10 @@ def batch_norm(input, act=None, is_test: bool = False, momentum: float = 0.9,
     running statistics and returns them unchanged."""
     helper = LayerHelper("batch_norm")
     dtype = input.dtype
-    enforce(data_layout == "NCHW", "batch_norm: only the NCHW layout is "
-            "ported")
-    c = input.shape[1]
+    enforce(data_layout in ("NCHW", "NHWC"),
+            "batch_norm: data_layout must be NCHW or NHWC")
+    last = data_layout == "NHWC"
+    c = input.shape[-1] if last else input.shape[1]
     enforce(c is not None and c > 0, "batch_norm needs static channel dim")
 
     scale = helper.create_parameter(param_attr, [c], dtype,
@@ -222,9 +349,11 @@ def batch_norm(input, act=None, is_test: bool = False, momentum: float = 0.9,
     out = helper.create_tmp_variable(dtype)
 
     def fn(x, sc, b, mm, mv, is_test=False):
+        if last:
+            x = x.movedim(-1, 1)
         if is_test:
             y = F.batch_norm(x, mm, mv, sc, b, training=False, eps=epsilon)
-            return y, mm, mv
+            return (y.movedim(1, -1) if last else y), mm, mv
         with torch.no_grad():
             ax = (0,) + tuple(range(2, x.dim()))
             var, mean = torch.var_mean(x.detach().to(torch.float32), dim=ax,
@@ -232,7 +361,7 @@ def batch_norm(input, act=None, is_test: bool = False, momentum: float = 0.9,
             mm_new = momentum * mm + (1 - momentum) * mean.to(mm.dtype)
             mv_new = momentum * mv + (1 - momentum) * var.to(mv.dtype)
         y = F.batch_norm(x, None, None, sc, b, training=True, eps=epsilon)
-        return y, mm_new, mv_new
+        return (y.movedim(1, -1) if last else y), mm_new, mv_new
 
     helper.append_op(
         type="batch_norm",
@@ -288,3 +417,44 @@ def layer_norm(input, scale: bool = True, shift: bool = True,
                      attrs={"epsilon": epsilon,
                             "begin_norm_axis": begin_norm_axis}, fn=fn)
     return helper.append_activation(out, act)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalization across channels: ``x / (k + alpha *
+    sum of x**2 over a window of n channels) ** beta``, the window's
+    zero padding ``n // 2`` channels before and the rest after."""
+    helper = LayerHelper("lrn")
+    out = helper.create_tmp_variable(input.dtype)
+
+    def fn(x):
+        sq = torch.square(x)
+        pad = n // 2
+        sq_p = F.pad(sq, (0, 0, 0, 0, pad, n - 1 - pad))
+        # summed slice by slice in window order, as the JAX package does
+        acc = sum(sq_p[:, i:i + x.shape[1]] for i in range(n))
+        return x / torch.pow(k + alpha * acc, beta)
+
+    helper.append_op(type="lrn", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, fn=fn)
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    """Image patches as a sequence: ``[N, C, H, W]`` to ``[N * oh * ow, C
+    * kh * kw]``, one row per output position (row-major over the
+    image), each row a patch in (channel, kh, kw) order."""
+    helper = LayerHelper("im2sequence")
+    out = helper.create_tmp_variable(input.dtype)
+    fsize = _pair(filter_size)
+    stride_ = _pair(stride)
+    pad = _pair(padding)
+
+    def fn(x):
+        n = x.shape[0]
+        xp = F.pad(x, (pad[1], pad[1], pad[0], pad[0]))
+        patches = F.unfold(xp, fsize, stride=stride_)  # [N, C*kh*kw, L]
+        return patches.transpose(1, 2).reshape(n * patches.shape[2], -1)
+
+    helper.append_op(type="im2sequence", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, fn=fn)
+    return out

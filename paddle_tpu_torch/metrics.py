@@ -1,13 +1,12 @@
 """Host-side streaming metrics (counterpart of paddle_tpu/metrics.py, a
 copy of its numpy code; reference: python/paddle/fluid/metrics.py:49-538).
-``DetectionMAP`` waits for the detection layers (ROADMAP Queue A 7,
-step (e)) and raises."""
+``DetectionMAP`` is also the mAP of the in-graph ``detection_map`` op and
+of ``evaluator.DetectionMAP``."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from .core.enforce import not_ported
 
 
 class MetricBase:
@@ -194,8 +193,87 @@ class Auc(MetricBase):
 
 
 class DetectionMAP(MetricBase):
-    """Mean average precision for detection: not ported yet."""
+    """Mean average precision for detection (reference: metrics.py
+    DetectionMAP, operators/detection_map_op.cc). 11-point interpolated
+    or integral AP, averaged over classes.
 
-    def __init__(self, *a, **kw):
-        raise not_ported("metrics.DetectionMAP (it pairs with the "
-                         "detection layers)", "Queue A 7")
+    update() takes per-image detections [[label, score, x1, y1, x2, y2]]
+    and ground truths [[label, x1, y1, x2, y2]] or
+    [[label, x1, y1, x2, y2, difficult]]; with evaluate_difficult=False
+    (the reference default) difficult GT boxes are excluded from the mAP
+    denominator and matching them neither helps nor hurts."""
+
+    def __init__(self, name=None, overlap_threshold=0.5,
+                 evaluate_difficult=False, ap_version="integral"):
+        super().__init__(name)
+        self.overlap_threshold = overlap_threshold
+        self.evaluate_difficult = evaluate_difficult
+        self.ap_version = ap_version
+        self.reset()
+
+    def reset(self):
+        self._dets = {}    # class -> [(score, matched)]
+        self._n_gt = {}    # class -> count
+
+    @staticmethod
+    def _iou(a, b):
+        ax1, ay1, ax2, ay2 = a
+        bx1, by1, bx2, by2 = b
+        ix = max(0.0, min(ax2, bx2) - max(ax1, bx1))
+        iy = max(0.0, min(ay2, by2) - max(ay1, by1))
+        inter = ix * iy
+        ua = (ax2 - ax1) * (ay2 - ay1) + (bx2 - bx1) * (by2 - by1) - inter
+        return inter / ua if ua > 0 else 0.0
+
+    def update(self, detections, ground_truths):
+        gts_by_cls = {}
+        for g in ground_truths:
+            c = int(g[0])
+            difficult = bool(g[5]) if len(g) > 5 else False
+            gts_by_cls.setdefault(c, []).append(
+                [list(g[1:5]), False, difficult])
+            if self.evaluate_difficult or not difficult:
+                self._n_gt[c] = self._n_gt.get(c, 0) + 1
+        for d in sorted(detections, key=lambda r: -r[1]):
+            c, score = int(d[0]), float(d[1])
+            box = list(d[2:])
+            best, best_i = 0.0, -1
+            for i, (gbox, used, diff) in enumerate(gts_by_cls.get(c, [])):
+                o = self._iou(box, gbox)
+                if o > best:
+                    best, best_i = o, i
+            if best >= self.overlap_threshold and best_i >= 0:
+                gbox, used, diff = gts_by_cls[c][best_i]
+                if diff and not self.evaluate_difficult:
+                    continue  # matches to difficult GT are ignored entirely
+                matched = not used
+                gts_by_cls[c][best_i][1] = True
+            else:
+                matched = False
+            self._dets.setdefault(c, []).append((score, matched))
+
+    def eval(self):
+        aps = []
+        for c, n_gt in self._n_gt.items():
+            dets = sorted(self._dets.get(c, []), key=lambda r: -r[0])
+            if not dets or n_gt == 0:
+                aps.append(0.0)
+                continue
+            tp = np.cumsum([1.0 if m else 0.0 for _, m in dets])
+            fp = np.cumsum([0.0 if m else 1.0 for _, m in dets])
+            rec = tp / n_gt
+            prec = tp / np.maximum(tp + fp, 1e-8)
+            if self.ap_version == "11point":
+                ap = float(np.mean([
+                    max([p for r, p in zip(rec, prec) if r >= t],
+                        default=0.0)
+                    for t in np.linspace(0, 1, 11)]))
+            else:  # integral
+                ap = 0.0
+                prev_r = 0.0
+                for r, p in zip(rec, prec):
+                    ap += (r - prev_r) * p
+                    prev_r = r
+                ap = float(ap)
+            aps.append(ap)
+        return float(np.mean(aps)) if aps else 0.0

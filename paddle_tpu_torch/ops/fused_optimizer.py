@@ -196,7 +196,7 @@ def _rmsprop(p, g, lr, accs, shared, rho, eps, mu, centered):
         mg_new = rho * mg + (1 - rho) * g
         denom = torch.sqrt(ms_new - mg_new * mg_new + eps)
     else:
-        mg_new = mg  # passed through, still written
+        mg_new = mg  # unchanged: the kernel neither reads nor writes it
         denom = torch.sqrt(ms_new + eps)
     mom_new = mu * mom + lr * g / denom
     return p - mom_new, mom_new, ms_new, mg_new

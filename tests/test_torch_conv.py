@@ -43,6 +43,13 @@ torch.set_num_threads(1)
 
 BF16 = {"use_bfloat16": True, "bf16_activations": True}
 TOL = {"f32": 1e-5, "bf16": 2e-2}
+# each layer of the module -> the tests here that hold it to the JAX
+# package ("test[case]": one case of the file's parametrised table)
+PARITY = {
+    "conv2d": ("test_conv2d_matches_the_jax_package",),
+    "pool2d": ("test_pool2d_matches_the_jax_package",),
+    "batch_norm": ("test_batch_norm_matches_the_jax_package",),
+}
 
 
 def _package(pkg):

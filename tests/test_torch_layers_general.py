@@ -560,28 +560,157 @@ def _public(path):
     return {n for n in names if not n.startswith("_")}
 
 
-@pytest.mark.parametrize("module", ["ops", "tensor", "nn", "metric_op"])
+# the rest of the op tier: module -> the test files holding its cases
+OP_TIER_CASES = {
+    "conv": ("test_torch_conv.py", "test_torch_op_tier.py"),
+    "image": ("test_torch_op_tier.py",),
+    "detection": ("test_torch_detection.py",),
+    "sampled": ("test_torch_sampled.py",),
+    "quantize": ("test_torch_quantize_layers.py",),
+    "moe": ("test_torch_moe.py",),
+}
+
+
+@pytest.mark.parametrize("module", ["ops", "tensor", "nn", "metric_op"]
+                         + sorted(OP_TIER_CASES))
 def test_layers_export_the_jax_surface(module):
     want = _public("paddle_tpu/layers/%s.py" % module)
-    missing = sorted(n for n in want if not hasattr(tfluid.layers, n))
+    # the JAX package's layers namespace exports most of a module's
+    # names; the rest (detection's nms_jax, update_map_from_padded) are
+    # reached through the module, in both packages
+    top = {n for n in want if hasattr(jfluid.layers, n)}
+    missing = sorted(n for n in top if not hasattr(tfluid.layers, n))
     assert not missing
-    assert want <= set(tfluid.layers.__all__)
-    assert all(callable(getattr(tfluid.layers, n)) for n in want)
-    # every exported function of the module has a case here (named by
-    # it, or by it and a mode)
-    assert not sorted(n for n in want if n not in CASES and not any(
-        k.startswith(n + "_") for k in CASES))
+    assert top <= set(tfluid.layers.__all__)
+    sub = getattr(tfluid.layers, module)
+    assert not sorted(n for n in want - top if not hasattr(sub, n))
+    assert all(callable(getattr(sub, n)) for n in want)
+    if module not in OP_TIER_CASES:
+        # every exported function of the module has a case here (named
+        # by it, or by it and a mode)
+        assert not sorted(n for n in want if n not in CASES and not any(
+            k.startswith(n + "_") for k in CASES))
+        return
+    # every function has a parity case in the module's test files, named
+    # in their PARITY tables
+    parity = {}
+    for f in OP_TIER_CASES[module]:
+        for n, tests in _parity_table(f).items():
+            parity.setdefault(n, []).extend(tests)
+    assert not sorted(n for n in want if not parity.get(n))
+
+
+def _parity_table(path):
+    """A test file's ``PARITY`` table, {layer: tests}, each test a test
+    function of the file, and each ``test[case]`` a key of one of the
+    file's module-level dict tables."""
+    tree = ast.parse(open(os.path.join(_ROOT, "tests", path)).read())
+    tests, keys, table = set(), set(), None
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) \
+                and node.name.startswith("test_"):
+            tests.add(node.name)
+        elif isinstance(node, ast.Assign) \
+                and isinstance(node.value, ast.Dict):
+            names = [t.id for t in node.targets if isinstance(t, ast.Name)]
+            if names == ["PARITY"]:
+                table = ast.literal_eval(node.value)
+            else:
+                keys.update(k.value for k in node.value.keys
+                            if isinstance(k, ast.Constant))
+    assert table, "%s has no PARITY table" % path
+    for layer, cases in table.items():
+        for case in cases:
+            fn, _, key = case.partition("[")
+            assert fn in tests, (path, layer, case)
+            assert not key or key[:-1] in keys, (path, layer, case)
+    return table
 
 
 def test_chunk_eval_names_its_roadmap_item():
-    """chunk_eval is ported (its cases above); what stays of its family
-    — the detection mAP evaluators — names the ROADMAP item that ports
-    it."""
+    """chunk_eval is ported (its cases above), and so is the rest of its
+    family: the detection mAP metric and evaluator equal the JAX
+    package's on the same detections — the metric over per-image rows,
+    the evaluator's batch and accumulated mAP over padded batches (two
+    runs, a reset, one more)."""
     assert CASES["chunk_eval_IOB"]
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        tfluid.evaluator.DetectionMAP(None, None, None)
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        tfluid.metrics.DetectionMAP()
+    rng = np.random.RandomState(12)
+
+    def rows(n, classes=4, with_score=True):
+        lo = rng.rand(n, 2) * 0.6
+        box = np.concatenate([lo, lo + 0.1 + rng.rand(n, 2) * 0.3], -1)
+        lab = rng.randint(0, classes, (n, 1))
+        if with_score:
+            return np.concatenate([lab, rng.rand(n, 1), box], -1)
+        return np.concatenate([lab, box, rng.rand(n, 1) < 0.2], -1)
+
+    for ap in ("integral", "11point"):
+        for difficult in (False, True):
+            maps = {}
+            for pkg, fluid in (("jax", jfluid), ("torch", tfluid)):
+                m = fluid.metrics.DetectionMAP(
+                    overlap_threshold=0.4, evaluate_difficult=difficult,
+                    ap_version=ap)
+                r = np.random.RandomState(4)
+                for _ in range(3):
+                    rng.seed(int(r.randint(1 << 30)))
+                    gts = rows(5, with_score=False).tolist()
+                    dets = rows(8).tolist()
+                    # a detection on top of each of two ground truths
+                    dets += [[g[0], 0.95] + g[1:5] for g in gts[:2]]
+                    m.update(dets, gts)
+                maps[pkg] = m.eval()
+            assert maps["torch"] == maps["jax"], (ap, difficult)
+
+    def declare(fluid):
+        L = fluid.layers
+        det = L.data(name="det", shape=[-1, 6, 6], dtype="float32",
+                     append_batch_size=False)
+        lab = L.data(name="gl", shape=[-1, 4, 1], dtype="int32",
+                     append_batch_size=False)
+        box = L.data(name="gb", shape=[-1, 4, 4], dtype="float32",
+                     append_batch_size=False)
+        diff = L.data(name="gd", shape=[-1, 4, 1], dtype="int32",
+                      append_batch_size=False)
+        return fluid.evaluator.DetectionMAP(
+            det, lab, box, diff, class_num=4, overlap_threshold=0.5,
+            evaluate_difficult=False, ap_version="11point")
+
+    feeds = []
+    for _ in range(3):
+        lo = rng.rand(2, 4, 2) * 0.6
+        gb = np.concatenate([lo, lo + 0.2], -1).astype(np.float32)
+        gl = rng.randint(1, 4, (2, 4, 1)).astype(np.int32)
+        gl[:, 3] = -1                          # a padding row an image
+        det = np.full((2, 6, 6), -1.0, np.float32)
+        det[:, :3, 0] = gl[:, :3, 0]
+        det[:, :3, 1] = rng.rand(2, 3)
+        det[:, :3, 2:] = gb[:, :3] + rng.randn(2, 3, 4) * 0.03
+        det[:, 3, :] = [1, 0.5, 0.1, 0.1, 0.3, 0.3]
+        feeds.append({"det": det, "gl": gl, "gb": gb,
+                      "gd": (rng.rand(2, 4, 1) < 0.3).astype(np.int32)})
+    got = {}
+    for pkg in ("jax", "torch"):
+        fluid, guard = package(pkg)
+        main = fluid.Program()
+        with guard(), fluid.program_guard(main, fluid.Program()):
+            ev = declare(fluid)
+        names = [v.name for v in ev.get_map_var()]
+        exe = fluid.Executor(fluid.CPUPlace())
+        out = []
+        for i, feed in enumerate(feeds):
+            if i == 2:
+                ev.reset(exe)
+            if pkg == "jax":
+                with jfluid.scope_guard(jfluid.Scope()):
+                    out.append([float(np.asarray(v)) for v in exe.run(
+                        main, feed=feed, fetch_list=names)])
+            else:
+                out.append([float(v) for v in exe.run(
+                    main, feed=feed, fetch_list=names)])
+        got[pkg] = out
+    assert got["torch"] == got["jax"]
+    assert got["torch"][1][1] != got["torch"][1][0]   # it accumulated
 
 
 def test_embedding_distributed_is_annotated_and_dense():

@@ -490,15 +490,65 @@ def test_host_metrics_match(name, batches):
 
 
 def test_composite_metric_and_detection_map_refusal():
+    """CompositeMetric, and the detection mAP (once refused, now ported)
+    against the JAX package: the metric over per-image rows (integral and
+    11-point), and the evaluator's batch and accumulated mAP over padded
+    detections."""
     t = tfluid.metrics.CompositeMetric()
     t.add_metric(tfluid.metrics.Precision())
     t.add_metric(tfluid.metrics.Recall())
     t.update(np.array([1, 0, 1]), np.array([1, 1, 0]))
     assert t.eval() == [0.5, 0.5]
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        tfluid.metrics.DetectionMAP()
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        tfluid.evaluator.DetectionMAP(None, None, None)
+    images = [([[1, 0.9, 0.1, 0.1, 0.5, 0.5], [1, 0.4, 0.6, 0.6, 0.9, 0.9],
+                [2, 0.8, 0.2, 0.2, 0.6, 0.7]],
+               [[1, 0.1, 0.12, 0.5, 0.48], [2, 0.25, 0.2, 0.6, 0.7, 1]]),
+              ([[2, 0.7, 0.0, 0.0, 0.3, 0.3], [1, 0.6, 0.5, 0.5, 0.8, 0.8]],
+               [[1, 0.5, 0.52, 0.8, 0.8], [2, 0.6, 0.6, 0.9, 0.9]])]
+    for ap in ("integral", "11point"):
+        tm, jm = _metric_pair("DetectionMAP", overlap_threshold=0.5,
+                              ap_version=ap)
+        for dets, gts in images:
+            tm.update(dets, gts)
+            jm.update(dets, gts)
+        assert tm.eval() == jm.eval() and 0.0 < tm.eval() < 1.0
+    det = np.full((2, 3, 6), -1.0, np.float32)
+    lab = np.full((2, 2, 6), -1.0, np.float32)
+    for b, (dets, gts) in enumerate(images):
+        det[b, :len(dets)] = dets
+        for i, g in enumerate(gts):
+            lab[b, i] = [g[0], g[5] if len(g) > 5 else 0, *g[1:5]]
+    got = {}
+    for pkg in ("jax", "torch"):
+        fluid, guard = package(pkg)
+        main = fluid.Program()
+        with guard(), fluid.program_guard(main, fluid.Program()):
+            L = fluid.layers
+            ev = fluid.evaluator.DetectionMAP(
+                L.data(name="det", shape=[-1, 3, 6], dtype="float32",
+                       append_batch_size=False),
+                L.data(name="gl", shape=[-1, 2, 1], dtype="float32",
+                       append_batch_size=False),
+                L.data(name="gb", shape=[-1, 2, 4], dtype="float32",
+                       append_batch_size=False),
+                L.data(name="gd", shape=[-1, 2, 1], dtype="float32",
+                       append_batch_size=False),
+                class_num=3, evaluate_difficult=False)
+        exe = fluid.Executor(fluid.CPUPlace())
+        scope = fluid.Scope()
+        out = []
+        for b in (0, 1):
+            feed = {"det": det[b:b + 1], "gl": lab[b:b + 1, :, :1],
+                    "gd": lab[b:b + 1, :, 1:2], "gb": lab[b:b + 1, :, 2:]}
+            names = [v.name for v in ev.get_map_var()]
+            if pkg == "jax":
+                with fluid.scope_guard(scope):
+                    res = exe.run(main, feed=feed, fetch_list=names)
+            else:
+                res = exe.run(main, feed=feed, fetch_list=names,
+                              scope=scope)
+            out.append([float(np.asarray(v)) for v in res])
+        got[pkg] = out
+    assert got["torch"] == got["jax"]
 
 
 def _evaluate(pkg, declare, batches):
