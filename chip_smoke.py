@@ -530,6 +530,27 @@ Phases, one JSON line each (or one per shape):
              ``switch_moe`` at google/switch-base-8's widths over 64 x
              128 tokens (parity at 4 x 128); forward and forward+backward
              ms on the card.
+29. tuning — (run after phase 12's ``amp_serving``) kernel autotuning
+             in a temporary tuning store: the serving burst with default
+             launch configs, then with ``DecodingConfig(autotune=True)``
+             (its warm-up sweeps the paged kernel's ``split_waves`` at
+             every ``decode_tuning_problems()`` point; tokens identical
+             to the default burst's); sweeps of the paged kernel on bf16
+             pools at those points and on int8 pools at B=16, of the
+             fused update's grid cap at the recipe's Adam group and of
+             ``fused_ce``'s chunk cap at the recipe's head. Every
+             launched paged candidate against
+             ``plain_split_window_attention`` at its planned splits,
+             every grid cap bit-equal to the plain update, every chunk
+             cap's loss within 1e-3 of the default's; no candidate
+             error. A second process on the store (zero sweeps, store
+             hits, the same configs) and a fresh one seeding the
+             ``save_decode_model`` manifest's ``tuned_configs``. Each
+             candidate's device ms, the winner against the default and
+             its bound, rows 4, 5a and 5b at the default and the tuned
+             config (a tuned 5a or 5b more than 5 % slower than the
+             default fails), decode-step ms, the warm-up with the sweeps
+             it ran, and the host µs of a memo-hit lookup.
 
 Then the card's name and power limit, the kernels JSON line (wall and
 device ms of each kernel and its library call; ``amp_launches``,
@@ -3442,6 +3463,419 @@ def phase_amp_serving(card, model, greedy):
     emit({"phase": "amp_serving", "card": card, **row})
     del run
     return row
+
+
+# ---------------------------------------------------------------- phase 29
+
+TUNING_ITERS, TUNING_SAMPLES = 16, 3
+# rows 5a/5b: the tuned config may be at most this much slower than the
+# default before the phase fails (the spread of two turns of one config)
+TUNED_NOISE = 0.05
+LOOKUP_CALLS = 20000
+# the fused-CE sweep: the recipe's head (fused_ce=True), whose input is
+# on the bf16 stream under the recipe's flags
+FUSED_CE_PROBLEM = {"n_tokens": TRAIN_B * TRAIN_T, "d_model": 512,
+                    "vocab": 32000}
+FUSED_CE_DTYPE = ("bfloat16" if RECIPE_FLAGS["use_bfloat16"]
+                  and RECIPE_FLAGS["bf16_activations"] else "float32")
+
+_TUNING_WORKER = r"""
+import json, sys
+import torch
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch import tuning
+store, mode, spec = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+dev = torch.device("cuda", 0)
+if mode == "store":
+    # a second process on the same store: every sweep must be reused
+    fluid.set_flags({"tuning_cache_dir": store})
+    configs = []
+    for kernel, problem, dtype in spec:
+        cfg = tuning.lookup(kernel, problem, dtype=dtype, device=dev)
+        rec = tuning.sweep(kernel, problem, dtype=dtype, device=dev)
+        configs.append([cfg, rec.config])
+else:
+    # a fresh process with no store: the decode artifact seeds the memo
+    from paddle_tpu_torch.models.causal_lm import causal_lm
+    import chip_smoke
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        causal_lm(**chip_smoke.MODEL)
+    fluid.io.load_decode_model(store, fluid.Executor(fluid.CPUPlace()),
+                               scope=fluid.Scope(), program=main)
+    configs = [tuning.lookup(kernel, problem, dtype=dtype, device=dev)
+               for kernel, problem, dtype in spec]
+print(json.dumps({"metrics": tuning.tuning_metrics(), "configs": configs}))
+"""
+
+
+def tuning_worker(store, mode, spec):
+    """Run ``_TUNING_WORKER`` in a fresh process on the card, from this
+    script's directory; returns its JSON line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", _TUNING_WORKER, store,
+                           mode, json.dumps(spec)], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail("tuning: the %s worker failed (rc %d): %s"
+             % (mode, proc.returncode, proc.stderr[-3000:]))
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def paged_tuning_bound(problem, dtype):
+    """(bound ms, bound_by) of the sweep harness's paged call: sequence
+    b's cached length from ``tuning.kernels.decode_lengths``, each of its
+    cached + T keys' K/V rows read once (int8: one byte an element and 8
+    bytes of scales a row), q and out once, the tables and lengths once;
+    4 flops a query a key a head dim."""
+    from paddle_tpu_torch.tuning.kernels import decode_lengths
+
+    B, T, S = problem["batch"], problem["q_tokens"], problem["window"]
+    keys = sum(n + T for n in decode_lengths(B, T, S))
+    item = torch.finfo(dtype).bits // 8
+    row = H * 2 * D + 8 if problem["kv_dtype"] == "int8" \
+        else H * 2 * D * item
+    nbytes = keys * row + 2 * B * T * H * D * item + B * (S // BS + 1) * 4
+    ops = T * keys * H * 4 * D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def candidate_rows(rec):
+    """(each candidate's device ms, the winner's, the default's) of one
+    sweep record; fails on a candidate that recorded an error."""
+    from paddle_tpu_torch import tuning
+
+    k = tuning.get_tunable(rec.kernel)
+    errors = [m for m in rec.measurements if "error" in m]
+    if errors:
+        fail("tuning: %s %s: candidates failed: %s"
+             % (rec.kernel, rec.bucket, errors))
+    cands = [{"config": m["config"], "ms": m["ms"],
+              "pruned": bool(m.get("pruned")), "timing": m.get("timing")}
+             for m in rec.measurements]
+    default = next((m["ms"] for m in rec.measurements
+                    if m["config"] == k.defaults), None)
+    return cands, rec.best_ms, default
+
+
+def paged_candidates_match(problem, dtype):
+    """Every candidate config of ``problem`` launched on the serving
+    phase's decode inputs (make_problem: random pages, an inactive row)
+    against ``plain_split_window_attention`` at the split count and
+    length the config plans; returns the worst error over valid rows."""
+    from paddle_tpu_torch import tuning
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    B, T = problem["batch"], problem["q_tokens"]
+    kv = "int8" if problem["kv_dtype"] == "int8" else None
+    args, scales = make_problem(B, T, dtype, seed=B * 10 + T,
+                                inactive_row=B > 1, kv=kv)
+    _, valid = window_masks(args[3], args[4], T)
+    worst = 0.0
+    for cfg in tuning.get_tunable("paged_attention").candidates(problem):
+        plan = pa.plan_route(B, T, H, D, D, MB, BS, dtype, kv == "int8",
+                             config=cfg)
+        out = pa.paged_window_attention(*args, **scales, config=cfg)
+        ref = pa.plain_split_window_attention(
+            *args, **scales, n_splits=plan.n_splits,
+            split_len=plan.split_len)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs()[valid].max())
+        if not err <= TOL[dtype] or not bool(torch.isfinite(out).all()):
+            fail("tuning: paged candidate %s (%s, %s) parts from the plain "
+                 "split at %d x %d keys by %g (limit %g)"
+                 % (cfg, problem, dtype, plan.n_splits, plan.split_len, err,
+                    TOL[dtype]))
+        worst = max(worst, err)
+    return worst
+
+
+def paged_config_ms(B, dtype, kv, configs):
+    """Device ms of the kernel at the kernel phase's B x T=1 problem
+    (rotating pool copies past the L2 cache, as ``time_problem``) under
+    each config of ``configs``, in turns (a, b, b, a): the min of each."""
+    from paddle_tpu_torch.ops import paged_window_attention
+
+    args, scales = make_problem(B, 1, dtype, seed=B * 10 + 1,
+                                inactive_row=B > 1, kv=kv)
+    q, kp, vp, tables, cached = args
+    pool_bytes = 2 * kp.numel() * kp.element_size()
+    copies = [(args, scales)] + [
+        ((q, kp.clone(), vp.clone(), tables, cached),
+         {n: t.clone() for n, t in scales.items()})
+        for _ in range(max(1, math.ceil(4 * L2_BYTES / pool_bytes)) - 1)]
+    times = {i: [] for i in range(len(configs))}
+    state = {"i": 0}
+
+    def call(cfg):
+        state["i"] = (state["i"] + 1) % len(copies)
+        a, kw = copies[state["i"]]
+        return paged_window_attention(*a, **kw, config=cfg)
+
+    order = list(range(len(configs)))
+    for i in order + order[::-1]:
+        times[i].append(device_ms(lambda: call(configs[i]), 50))
+    return [min(times[i]) for i in order]
+
+
+def phase_tuning(card, model, n_recipe):
+    """(29) Kernel autotuning on the card, in a temporary tuning store:
+    the serving burst with default configs, then with
+    ``DecodingConfig(autotune=True)`` (its warm-up sweeps the paged
+    kernel at every ``decode_tuning_problems()`` point; tokens must be
+    identical); sweeps of the paged kernel on bf16 pools at the same
+    points (``amp_serving``'s) and on int8 pools at B=16, of the fused
+    update at the recipe's Adam group and of ``fused_ce`` at the
+    recipe's head. Every launched paged candidate is held to
+    ``plain_split_window_attention`` at its planned splits, every grid
+    cap of the fused update to the plain version bit for bit, every
+    chunk cap's loss to the default's; no candidate may record an error.
+    A second process on the same store must sweep nothing, hit the store
+    and resolve the same configs; the served program exported with
+    ``save_decode_model`` must carry ``tuned_configs`` that a fresh
+    process seeds. Prints each candidate's device ms, the winner against
+    the default and the bound, rows 4, 5a and 5b at the tuned and the
+    default config (failing where a tuned 5a or 5b is slower than the
+    default by more than ``TUNED_NOISE``), the decode step and warm-up
+    with each, and the host cost of a memo-hit lookup."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import profiler, tuning
+    from paddle_tpu_torch.decoding import CacheConfig
+    from paddle_tpu_torch.ops import paged_window_attention
+    from paddle_tpu_torch.ops.fused_ce import fused_linear_softmax_ce_fn
+    from paddle_tpu_torch.ops.fused_optimizer import (fused_flat_update,
+                                                      plain_flat_update)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    kind_name = torch.cuda.get_device_name(0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_tuning_")
+    store_dir = os.path.join(root, "store")
+    try:
+        fluid.set_flags({"tuning_cache_dir": ""})
+        tuning.clear_memo()
+        tuning.reset_tuning_metrics()
+        prompts = serving_prompts()
+        cache = CacheConfig(**SERVING_CACHE)
+        default = serve_burst(model, cache, prompts,
+                              counters=(paged_window_attention,))
+        check_graphs(default, "tuning default")
+        fluid.set_flags({"tuning_cache_dir": store_dir})
+        tuning.clear_memo()
+        sweep_s = profiler.event_totals().get("tuning/sweep", 0.0)
+        tuned = serve_burst(model, cache, prompts,
+                            counters=(paged_window_attention,),
+                            autotune=True)
+        sweep_s = profiler.event_totals()["tuning/sweep"] - sweep_s
+        counts = route_counts(paged_window_attention)
+        check_graphs(tuned, "tuning autotuned")
+        if tuned["streams"] != default["streams"]:
+            bad = [i for i, (a, b) in enumerate(zip(tuned["streams"],
+                                                    default["streams"]))
+                   if a != b]
+            fail("tuning: the autotuned burst's tokens differ from the "
+                 "default burst's (requests %s)" % bad)
+        steps = tuned["report"]["decode_step"]["count"]
+        if counts["split_launches"] < MODEL["n_layer"] * steps or \
+                counts["generic_launches"]:
+            fail("tuning: the autotuned burst's paged launches %s over %d "
+                 "decode steps" % (counts, steps))
+        engine = tuned["engines"][0]
+        problems = engine.decode_tuning_problems()
+        after_burst = tuning.tuning_metrics()
+        if after_burst["sweeps"] != len(problems):
+            fail("tuning: the autotuned warm-up swept %d times for %d "
+                 "problems" % (after_burst["sweeps"], len(problems)))
+        # the paged sweeps: f32 pools (the burst's, reused here), bf16
+        # pools at the same points, int8 pools at the decode shape B=16
+        paged = [(p, torch.float32) for p in problems] \
+            + [(p, torch.bfloat16) for p in problems] \
+            + [(dict(problems[-1], kv_dtype="int8"), torch.float32)]
+        kernels = {"paged_attention": []}
+        spec = []
+        for problem, dtype in paged:
+            dt = str(dtype)[6:]
+            rec = tuning.sweep("paged_attention", problem, dtype=dt,
+                               device=dev, iters=TUNING_ITERS,
+                               samples=TUNING_SAMPLES)
+            cands, best, dflt = candidate_rows(rec)
+            bound, bound_by = paged_tuning_bound(problem, dtype)
+            err = paged_candidates_match(problem, dtype)
+            kernels["paged_attention"].append({
+                "problem": problem, "dtype": dt, "candidates": cands,
+                "winner": rec.config, "winner_ms": best,
+                "default_ms": dflt, "bound_ms": bound, "bound_by": bound_by,
+                "winner_over_bound": best / bound,
+                "candidates_max_abs_err": err})
+            spec.append(["paged_attention", problem, dt])
+        # the fused update at the recipe's group (bf16 moments)
+        n = n_recipe
+        opt_problem = {"numel": n, "n_accs": 2, "n_shared": 2,
+                       "moment_dtype": "bfloat16"}
+        rec = tuning.sweep("fused_optimizer_update", opt_problem,
+                           device=dev, iters=10, samples=TUNING_SAMPLES)
+        cands, best, dflt = candidate_rows(rec)
+        kind, consts, _ = FUSED_CONFIGS["adam"]
+        p, g, lr, accs, shared = fused_inputs(kind, True, n, 290)
+        want = plain_flat_update(kind, p, g, lr, accs, shared, True, consts)
+        for cfg in tuning.get_tunable("fused_optimizer_update").candidates(
+                opt_problem):
+            got = fused_flat_update(kind, p.clone(), g, lr,
+                                    [a.clone() for a in accs], shared, True,
+                                    consts, blocks_per_sm=cfg["blocks_per_sm"])
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail("tuning: the fused update at %s is not bit-equal to "
+                     "the plain version" % cfg)
+            del got
+        del want
+        bound, bound_by, _, _ = fused_work("adam", True, False, n)
+        kernels["fused_optimizer_update"] = {
+            "problem": opt_problem, "candidates": cands,
+            "winner": rec.config, "winner_ms": best, "default_ms": dflt,
+            "bound_ms": bound, "bound_by": bound_by,
+            "winner_over_bound": best / bound, "bit_equal": True}
+        spec.append(["fused_optimizer_update", opt_problem, "float32"])
+        # row 4 (the recipe's group, owning the beta powers), 5a and 5b
+        # at the tuned and the default config, in turns
+        opt_default = tuning.get_tunable("fused_optimizer_update").defaults
+        cfgs = [opt_default, rec.config]
+        pk, ak = p.clone(), [a.clone() for a in accs]
+        row4 = {i: [] for i in range(2)}
+        for i in (0, 1, 1, 0):
+            row4[i].append(device_ms(lambda: fused_flat_update(
+                kind, pk, g, lr, ak, shared, True, consts,
+                blocks_per_sm=cfgs[i]["blocks_per_sm"]), 10))
+        del p, g, accs, pk, ak
+        torch.cuda.empty_cache()
+        rows = {"4": {"default": opt_default, "tuned": rec.config,
+                      "default_device_ms": min(row4[0]),
+                      "tuned_device_ms": min(row4[1])}}
+        pa_default = tuning.get_tunable("paged_attention").defaults
+        for label, dtype, kv in (("5a", torch.float32, None),
+                                 ("5b", torch.float32, "int8")):
+            problem = dict(problems[-1], kv_dtype=kv or "f32")
+            cfg = tuning.lookup("paged_attention", problem, dtype="float32",
+                                device=dev)
+            d_ms, t_ms = paged_config_ms(16, dtype, kv, [pa_default, cfg])
+            if t_ms > d_ms * (1 + TUNED_NOISE):
+                fail("tuning: at row %s's problem the tuned config %s takes "
+                     "%.5f ms, the default %s %.5f ms (more than %g slower)"
+                     % (label, cfg, t_ms, pa_default, d_ms, TUNED_NOISE))
+            rows[label] = {"default": pa_default, "tuned": cfg,
+                           "default_device_ms": d_ms, "tuned_device_ms": t_ms}
+        # the host cost of a memo-hit lookup, as each eager paged launch
+        # of the decode path pays it (plan_route's lookup)
+        hit_problem = dict(problems[-1])
+        tuning.lookup("paged_attention", hit_problem, dtype="float32",
+                      device=dev)
+        t0 = time.perf_counter()
+        for _ in range(LOOKUP_CALLS):
+            tuning.lookup("paged_attention", hit_problem, dtype="float32",
+                          device=dev)
+        lookup_hit_us = (time.perf_counter() - t0) / LOOKUP_CALLS * 1e6
+        # fused_ce at the recipe's head: each chunk cap's loss against
+        # the default's on the same inputs
+        # one call a sample: a call launches 200-1,600 kernels (4-32
+        # chunks), the card queues about 1,024 (past that a sample is
+        # host-paced, and flagged so)
+        rec = tuning.sweep("fused_ce", FUSED_CE_PROBLEM,
+                           dtype=FUSED_CE_DTYPE, device=dev, iters=1,
+                           samples=3)
+        cands, best, dflt = candidate_rows(rec)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+        tdt = getattr(torch, FUSED_CE_DTYPE)
+        x = torch.randn(FUSED_CE_PROBLEM["n_tokens"], 512, generator=gen,
+                        device=dev).to(tdt)
+        W = (0.02 * torch.randn(512, 32000, generator=gen,
+                                device=dev)).to(tdt)
+        y = torch.randint(0, 32000, (x.shape[0],), generator=gen, device=dev)
+        bf16 = tdt == torch.bfloat16
+        losses = {c["chunk_cap"]: fused_linear_softmax_ce_fn(
+            x, W, None, y, chunk_cap=c["chunk_cap"], bf16=bf16).sum().item()
+            for c in tuning.get_tunable("fused_ce").candidates()}
+        ref = losses[tuning.get_tunable("fused_ce").defaults["chunk_cap"]]
+        ce_rel = max(abs(v - ref) / abs(ref) for v in losses.values())
+        if not ce_rel <= FUSED_CE_LOSS_TOL:
+            fail("tuning: fused_ce's chunk caps part in the loss by %g of "
+                 "it (limit %g): %s" % (ce_rel, FUSED_CE_LOSS_TOL, losses))
+        ops = 3 * 2 * FUSED_CE_PROBLEM["n_tokens"] * 512 * 32000
+        ce_bound = ops / PEAK_OPS[tdt] * 1e3
+        kernels["fused_ce"] = {
+            "problem": FUSED_CE_PROBLEM, "dtype": FUSED_CE_DTYPE,
+            "candidates": cands, "winner": rec.config, "winner_ms": best,
+            "default_ms": dflt, "bound_ms": ce_bound,
+            "bound_by": "operations (three GEMMs: logits, dW, dx)",
+            "loss_rel_spread": ce_rel}
+        spec.append(["fused_ce", FUSED_CE_PROBLEM, FUSED_CE_DTYPE])
+        del x, W, y
+        torch.cuda.empty_cache()
+        local = [tuning.lookup(kn, pr, dtype=dt, device=dev)
+                 for kn, pr, dt in spec]
+        # a second process on the same store: zero sweeps, store hits
+        second = tuning_worker(store_dir, "store", spec)
+        sm = second["metrics"]
+        if sm["sweeps"] != 0 or sm["candidates_measured"] != 0 or \
+                sm["store_hits"] < len(spec) or \
+                sm["sweep_reused"] != len(spec) or \
+                [c for c, _ in second["configs"]] != local or \
+                [c for _, c in second["configs"]] != local:
+            fail("tuning: the second process on the store: %s (configs %s "
+                 "against %s)" % (sm, second["configs"], local))
+        # the served program exported: the pair's tuned configs travel in
+        # its manifest, and a fresh process with no store seeds them
+        export = os.path.join(root, "decode_model")
+        main, logits, scope = model
+        fluid.io.save_decode_model(export, "tokens", logits,
+                                   fluid.Executor(fluid.CUDAPlace(0)),
+                                   main_program=main, scope=scope,
+                                   cache_config=cache)
+        with open(os.path.join(export, "__model__.json")) as f:
+            shipped = json.load(f).get("tuned_configs", [])
+        n_paged = sum(1 for r in shipped if r["kernel"] == "paged_attention")
+        if n_paged != len(paged) or any(r["device_kind"] != kind_name
+                                        for r in shipped):
+            fail("tuning: the decode artifact ships %d paged configs (%d "
+                 "swept): %s" % (n_paged, len(paged), shipped))
+        paged_spec = [s for s in spec if s[0] == "paged_attention"]
+        fresh = tuning_worker(export, "seed", paged_spec)
+        want_cfg = [c for s, c in zip(spec, local) if s[0] ==
+                    "paged_attention"]
+        if fresh["metrics"]["seeded"] != len(shipped) or \
+                fresh["configs"] != want_cfg or \
+                fresh["metrics"]["store_hits"] != 0:
+            fail("tuning: a fresh process seeded from the manifest: %s, "
+                 "configs %s against %s" % (fresh["metrics"],
+                                             fresh["configs"], want_cfg))
+        d_row, t_row = burst_row(default), burst_row(tuned)
+        emit({"phase": "tuning", "card": card, "device_kind": kind_name,
+              "kernels": kernels, "rows": rows,
+              "decode_step_ms": {"default": d_row["mean_decode_step_ms"],
+                                 "tuned": t_row["mean_decode_step_ms"]},
+              "tokens_per_s": {"default": d_row["tokens_per_s"],
+                               "tuned": t_row["tokens_per_s"]},
+              "warm_up_s": {"default": default["warm_up_s"],
+                            "tuned": tuned["warm_up_s"],
+                            "sweeps_in_tuned": sweep_s},
+              "streams_equal_default": True,
+              "route_launches": counts, "problems": len(problems),
+              "lookup_hit_us": lookup_hit_us,
+              "metrics": tuning.tuning_metrics(),
+              "second_process": sm, "seeded_process": fresh["metrics"],
+              "manifest_tuned_configs": len(shipped),
+              "phase_s": time.perf_counter() - t_phase})
+        del default, tuned
+    finally:
+        fluid.set_flags({"tuning_cache_dir": ""})
+        tuning.clear_memo()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 8
@@ -7092,6 +7526,7 @@ def main():
     serving_counts, model, greedy = phase_serving(card)
     amp_row["serving"] = phase_amp_serving(card, model, greedy)
     torch.cuda.empty_cache()
+    phase_tuning(card, model, n_recipe)
     prefix_counts, prefix_streams = phase_prefix_int8(card, model)
     phase_sampling(card, model, greedy)
     spec_counts = phase_speculative(card, model, greedy)

@@ -87,7 +87,8 @@ This package imports neither jax nor paddle_tpu.
 
 from . import (amp, analysis, average, checkpoint, ckpt, clip, evaluator,
                inference, io, layers, lod_tensor, metrics, nets, obs,
-               optimizer, passes, profiler, reader, regularizer, resilience)
+               optimizer, passes, profiler, reader, regularizer, resilience,
+               tuning)
 from . import initializer_api as initializer  # noqa: F401
 from .backward import append_backward
 from .ckpt import CheckpointConfig

@@ -22,7 +22,7 @@ file path) at the first ``fire`` when no plan was installed and
 
 The executor reads ``donate_state_buffers``, ``scan_unroll``,
 ``check_program`` and ``check_nan_inf`` at each run, ``reader.DataLoader`` reads ``dataloader_buffer_size`` when it is
-made.
+made. ``tuning`` reads ``tuning_cache_dir`` at each store resolution.
 """
 
 from __future__ import annotations
@@ -104,3 +104,13 @@ define_flag("fault_plan", "",
             "a resilience.FaultPlan (inline JSON or a path to a JSON "
             "file) activated at the first fault-point fire when no plan "
             "was installed and PDTPU_FAULT_PLAN is unset")
+define_flag("tuning_cache_dir", "",
+            "root of the persistent kernel-autotuning store "
+            "(paddle_tpu_torch.tuning): measured per-(device, kernel, "
+            "shape-bucket, dtype) launch configs of the Hopper kernels "
+            "persist here and warm a second process with zero re-sweeps. "
+            "Empty (default) = no persistence: lookups serve the "
+            "in-process memo and the kernels' defaults. The JAX package "
+            "falls back to <compile_cache_dir>/tuning; the port has no "
+            "compile_cache_dir flag until its compile-cache slice. "
+            "Maintain with `python -m paddle_tpu_torch.tools.tuning`")

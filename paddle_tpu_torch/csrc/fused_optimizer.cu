@@ -278,13 +278,14 @@ __global__ void fused_update_kernel(Params a) {
 }
 
 template <int KIND, int VARIANT, typename MT>
-cudaError_t launch(const Params& a, cudaStream_t stream) {
+cudaError_t launch(const Params& a, int blocks_per_sm, cudaStream_t stream) {
   constexpr int kThreads = 256;
-  // enough blocks to fill 132 SMs several times over; the grid-stride
-  // loop covers the rest. A group of zero elements still launches one
-  // block, which writes the owner's advanced scalars.
+  // at most blocks_per_sm blocks for each of the 132 SMs (the tunable
+  // grid cap: tuning/kernels.py, fused_optimizer_update; default 16);
+  // the grid-stride loop covers the rest. A group of zero elements still
+  // launches one block, which writes the owner's advanced scalars.
   long long blocks = (a.n + kThreads - 1) / kThreads;
-  if (blocks > 132LL * 16) blocks = 132LL * 16;
+  if (blocks > 132LL * blocks_per_sm) blocks = 132LL * blocks_per_sm;
   if (blocks < 1) blocks = 1;
   if (a.apply != nullptr)
     fused_update_kernel<KIND, VARIANT, MT, true>
@@ -296,16 +297,18 @@ cudaError_t launch(const Params& a, cudaStream_t stream) {
 }
 
 template <int KIND, int VARIANT>
-cudaError_t launch_moments(const Params& a, int bf16, cudaStream_t s) {
-  if (kMoments[KIND] == 0 || !bf16) return launch<KIND, VARIANT, float>(a, s);
-  return launch<KIND, VARIANT, __nv_bfloat16>(a, s);
+cudaError_t launch_moments(const Params& a, int bf16, int bps,
+                           cudaStream_t s) {
+  if (kMoments[KIND] == 0 || !bf16)
+    return launch<KIND, VARIANT, float>(a, bps, s);
+  return launch<KIND, VARIANT, __nv_bfloat16>(a, bps, s);
 }
 
 template <int KIND>
-cudaError_t launch_variant(const Params& a, int variant, int bf16,
+cudaError_t launch_variant(const Params& a, int variant, int bf16, int bps,
                            cudaStream_t s) {
-  return variant ? launch_moments<KIND, 1>(a, bf16, s)
-                 : launch_moments<KIND, 0>(a, bf16, s);
+  return variant ? launch_moments<KIND, 1>(a, bf16, bps, s)
+                 : launch_moments<KIND, 0>(a, bf16, bps, s);
 }
 
 }  // namespace
@@ -318,16 +321,18 @@ extern "C" {
 // moment_bf16; shared_out is all null unless the group owns the
 // shared scalars' advance (n_shared_out = 0). consts come from
 // ops/fused_optimizer.py:kernel_consts. apply is the gate's device flag,
-// null for an ungated launch.
+// null for an ungated launch. blocks_per_sm (>= 1) caps the grid at that
+// many blocks for each of the 132 SMs.
 int fused_flat_update(int kind, int variant, int moment_bf16, float* p,
                       const float* g, const float* lr,
                       void* const* moments, int n_moments,
                       const float* const* shared, float* const* shared_out,
                       int n_shared_out, long long n, const float* consts,
-                      int n_consts, const bool* apply, void* stream) {
+                      int n_consts, const bool* apply, int blocks_per_sm,
+                      void* stream) {
   if (kind < 0 || kind >= kNumKinds || n_moments != kMoments[kind] ||
       (n_shared_out != 0 && n_shared_out != kShared[kind]) ||
-      n_consts < 1 || n_consts > kMaxConsts)
+      n_consts < 1 || n_consts > kMaxConsts || blocks_per_sm < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params a{};
   a.p = p;
@@ -343,27 +348,29 @@ int fused_flat_update(int kind, int variant, int moment_bf16, float* p,
   a.apply = apply;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  const int bps = blocks_per_sm;
+  const int mb = moment_bf16;
   switch (kind) {
-    case kSgd: err = launch_variant<kSgd>(a, 0, 0, s); break;
-    case kAdagrad: err = launch_variant<kAdagrad>(a, 0, moment_bf16, s); break;
-    case kAdam: err = launch_variant<kAdam>(a, 0, moment_bf16, s); break;
+    case kSgd: err = launch_variant<kSgd>(a, 0, 0, bps, s); break;
+    case kAdagrad: err = launch_variant<kAdagrad>(a, 0, mb, bps, s); break;
+    case kAdam: err = launch_variant<kAdam>(a, 0, mb, bps, s); break;
     case kMomentum:
-      err = launch_variant<kMomentum>(a, variant, moment_bf16, s);
+      err = launch_variant<kMomentum>(a, variant, mb, bps, s);
       break;
-    case kAdamax: err = launch_variant<kAdamax>(a, 0, moment_bf16, s); break;
+    case kAdamax: err = launch_variant<kAdamax>(a, 0, mb, bps, s); break;
     case kDecayedAdagrad:
-      err = launch_variant<kDecayedAdagrad>(a, 0, moment_bf16, s);
+      err = launch_variant<kDecayedAdagrad>(a, 0, mb, bps, s);
       break;
     case kAdadelta:
-      err = launch_variant<kAdadelta>(a, 0, moment_bf16, s);
+      err = launch_variant<kAdadelta>(a, 0, mb, bps, s);
       break;
     case kRmsprop:
-      err = launch_variant<kRmsprop>(a, variant, moment_bf16, s);
+      err = launch_variant<kRmsprop>(a, variant, mb, bps, s);
       break;
-    case kFtrl: err = launch_variant<kFtrl>(a, variant, moment_bf16, s); break;
-    case kProximalGd: err = launch_variant<kProximalGd>(a, 0, 0, s); break;
+    case kFtrl: err = launch_variant<kFtrl>(a, variant, mb, bps, s); break;
+    case kProximalGd: err = launch_variant<kProximalGd>(a, 0, 0, bps, s); break;
     default:
-      err = launch_variant<kProximalAdagrad>(a, 0, moment_bf16, s);
+      err = launch_variant<kProximalAdagrad>(a, 0, mb, bps, s);
       break;
   }
   return static_cast<int>(err);

@@ -32,8 +32,12 @@ The ``decoding.prefill``, ``decoding.step`` and ``decoding.verify_step``
 fault points fire on the host before the launch or replay, where the
 JAX package fires them — never inside a captured region.
 
-Not ported: decode-shape autotune (``DecodingConfig(autotune=True)``
-raises; it waits for ``tuning/``, ROADMAP Queue A 8).
+Decode-shape autotune (``DecodingConfig(autotune=True)``): ``warm_up``
+first sweeps the paged kernel's launch knobs at exactly the shapes the
+bucket config serves (:meth:`DecodeEngine.decode_tuning_problems`), on
+the engine's device, publishing the winners to the tuning store; then it
+prefetches the store's records, so every capture below resolves its
+configs from memory.
 
 Threading contract: single-threaded execution — the DecodeSession's
 worker is the only caller after ``warm_up``.
@@ -47,9 +51,9 @@ import numpy as np
 
 import torch
 
+from ..core import dtype_utils
 from ..core.enforce import enforce
 from ..core.scope import global_scope
-from ..core.enforce import not_ported
 from ..executor import Executor
 from ..resilience import faults
 from ..serving.metrics import DecodeMetrics
@@ -108,8 +112,13 @@ class DecodingConfig:
         preemption, speculation shedding, stage-4 load shedding. None
         (default) = disabled, byte-identical admission; the ladder is a
         runtime plane and never changes programs.
-    autotune: not ported (raises: it waits for ``tuning/``, ROADMAP
-        Queue A 8).
+    autotune: sweep the ``paged_attention`` kernel's launch knobs at
+        exactly the (batch-bucket, q_tokens, window, block_size, heads,
+        head_dim, kv_dtype) points this bucket config serves, as the
+        first step of ``warm_up`` — winners persist in the tuning store
+        (the ``tuning_cache_dir`` flag), so a second process warms with
+        zero re-sweeps. Default False = no sweeps; the kernel runs its
+        tuned or default configs.
     """
 
     def __init__(self, cache: Optional[CacheConfig] = None,
@@ -126,9 +135,6 @@ class DecodingConfig:
                  breaker=None,
                  degrade=None,
                  autotune: bool = False):
-        if autotune:
-            raise not_ported("DecodingConfig(autotune=True) (decode-shape "
-                             "autotune)", "Queue A 8 (`tuning/`)")
         self.cache = cache or CacheConfig()
         mc = self.cache.max_context
         if prompt_buckets:
@@ -168,6 +174,7 @@ class DecodingConfig:
         self.warm_up = bool(warm_up)
         self.breaker = breaker
         self.degrade = degrade
+        self.autotune = bool(autotune)
 
     @property
     def max_active(self) -> int:
@@ -255,6 +262,81 @@ class DecodeEngine:
                 shapes.add((db, cfg.speculate_k + 1, STEP_TOKENS))
         return sorted(shapes)
 
+    def decode_tuning_problems(self) -> List[dict]:
+        """The exact ``paged_attention`` tuning points this engine's
+        bucket config serves: one per (batch bucket, q_tokens) pair the
+        decode/verify/suffix legs run at, crossed with each distinct
+        (heads, head_dim) pool geometry — deduplicated by the kernel's
+        shape bucket, so the sweep list is the minimal cover of what
+        ``warm_up`` captures. The JAX engine's list for the same
+        config."""
+        from ..tuning import get_tunable
+
+        cfg = self.config
+        cc = cfg.cache
+        kv = "int8" if cc.kv_dtype == "int8" else "f32"
+        window = cc.max_blocks_per_seq * cc.block_size
+        geoms = sorted({(s[1][2], s[1][3])
+                        for s in self.pair.pool_specs
+                        if s[0].endswith(".k")})
+        points = {(db, 1) for db in cfg.decode_buckets}
+        if cfg.speculate_k > 0:
+            points |= {(db, cfg.speculate_k + 1)
+                       for db in cfg.decode_buckets}
+        if cc.prefix_cache:
+            points |= {(pb, wb) for pb in cfg.prefill_batch_buckets
+                       for wb in cfg.suffix_buckets}
+        k = get_tunable("paged_attention")
+        out, seen = [], set()
+        for b, t in sorted(points):
+            for heads, head_dim in geoms:
+                p = {"batch": b, "q_tokens": t, "window": window,
+                     "block_size": cc.block_size, "heads": heads,
+                     "head_dim": head_dim, "kv_dtype": kv}
+                key = tuple(sorted(k.bucket_key(p).items()))
+                if key not in seen:
+                    seen.add(key)
+                    out.append(p)
+        return out
+
+    def decode_tuning_dtype(self) -> str:
+        """The dtype the paged launches look their configs up by: the
+        queries', which the pools share unless they are int8 (then the
+        attention's own dtype, read from the decode program)."""
+        gb = self.pair.decode.global_block()
+        op = next(op for op in gb.ops
+                  if op.type == "paged_attention_decode")
+        return dtype_utils.name(gb.var(op.input("Q")[0]).dtype)
+
+    def autotune_decode_shapes(self, iters: int = 16,
+                               samples: int = 3) -> int:
+        """Sweep ``paged_attention`` at every decode_tuning_problems()
+        point on the engine's device; winners publish to the active
+        TuningStore, so a second process resolves them with zero
+        re-sweeps, and a point that already has a store record is
+        returned without measuring. A geometry no candidate is valid
+        for (the generic route's, which reads no knob) is skipped with
+        a warning. Returns the number of points swept or reused."""
+        import warnings
+
+        from .. import tuning as _tuning
+
+        k = _tuning.get_tunable("paged_attention")
+        dtype = self.decode_tuning_dtype()
+        n = 0
+        for problem in self.decode_tuning_problems():
+            if not k.candidates(problem):
+                warnings.warn(
+                    "decode autotune: no eligible paged_attention "
+                    "config for %r (machine-checked constraints) — the "
+                    "kernel runs its generic route" % (problem,))
+                continue
+            _tuning.sweep("paged_attention", problem, dtype=dtype,
+                          device=self.device, iters=iters,
+                          samples=samples)
+            n += 1
+        return n
+
     def warm_bucket_count(self) -> int:
         return (len(self.config.prefill_batch_buckets)
                 * len(self.config.prompt_buckets)
@@ -272,7 +354,21 @@ class DecodeEngine:
         bucket once with inert feeds (block tables all -1, so every
         cache write drops and warm-up cannot disturb live pools; extend
         rows carry ``cached`` 0 and length 0): on a card each run
-        captures its bucket's graph. Returns ``num_compiled``."""
+        captures its bucket's graph. Returns ``num_compiled``.
+
+        Tuned kernel configs prefetch from the tuning store first, so
+        every capture below resolves its launch configs from memory —
+        the contract of ``serving.BucketedEngine.warm_up``. With
+        ``config.autotune`` the decode-shape sweep runs before that, so
+        the captures use the configs it just elected."""
+        from .. import tuning as _tuning
+
+        if self.config.autotune:
+            self.autotune_decode_shapes()
+        progs = [self.pair.prefill, self.pair.decode]
+        if self.pair.extend is not None:
+            progs.append(self.pair.extend)
+        _tuning.prefetch(*progs)
         cfg = self.config
         for pb in cfg.prefill_batch_buckets:
             for tb in cfg.prompt_buckets:

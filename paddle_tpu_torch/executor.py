@@ -678,6 +678,19 @@ def classify_scan_feeds(gb, feed, feed_list, steps):
     return feed, steps, tuple(sorted(stacked))
 
 
+def _tuning_key(program: Program) -> tuple:
+    """The part of a captured graph's key that tuned kernel configs
+    make (the JAX package's compile-cache ``tuning`` stamp): a graph
+    bakes the launch configs it was captured with, so a sweep or a seed
+    later in the process must miss the graphs captured before it.
+    Empty when nothing tuned can reach the program's kernels, so the
+    keys are what they were without tuning."""
+    from .tuning import program_stamp
+
+    stamp = program_stamp(program)
+    return (("tuning", stamp),) if stamp else ()
+
+
 def _resolve_donation(program: Program) -> bool:
     """In-place state updates: on unless the program or the
     ``donate_state_buffers`` flag turns them off; ``memory_optimize``
@@ -1358,7 +1371,7 @@ class Executor:
                tuple(feed_vals), fetch_names, state_names,
                tuple((n, tuple(v.shape), str(v.dtype))
                      for n, v in feed_vals.items()),
-               steps, stacked_names, bool(unroll))
+               steps, stacked_names, bool(unroll)) + _tuning_key(program)
         captured = self._cache.get(key)
         if captured is None:
             check_capturable(program)
@@ -1425,7 +1438,8 @@ class Executor:
         donate = _resolve_donation(program)
         key = (id(program), program._version, id(scope), donate, "graph",
                tuple((n, tuple(np.shape(v)))
-                     for n, v in sorted(feed.items())), fetch_names)
+                     for n, v in sorted(feed.items())),
+               fetch_names) + _tuning_key(program)
         captured = self._cache.get(key)
         if captured is not None:
             return key, captured

@@ -135,13 +135,15 @@ class NativePredictor:
     the parameters on the device once, ``run()`` on feed arrays."""
 
     def __init__(self, config: NativeConfig):
-        from .io import _npz_tensors
+        from .io import _npz_tensors, _seed_tuned_configs
 
         self.config = config
         d = config.model_dir
         with open(os.path.join(
                 d, config.model_filename or "__model__.json")) as f:
             self.manifest = json.load(f)
+        # the exporter's tuned kernel configs, before any launch
+        _seed_tuned_configs(self.manifest)
         enforce("torch_export" in self.manifest,
                 "model dir %s has no 'torch_export' artifact%s — re-export "
                 "with paddle_tpu_torch's save_inference_model("

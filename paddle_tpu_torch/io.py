@@ -362,6 +362,16 @@ def save_inference_model(dirname: str,
     if cast:
         manifest["param_dtypes"] = cast
 
+    # tuned kernel configs ship WITH the artifact: the deployment host
+    # seeds its tuning store from the manifest, so its kernels launch
+    # with the exporter's measured configs without sweeping. Key ABSENT
+    # when nothing is tuned — untuned manifests stay as they were.
+    from . import tuning as _tuning
+
+    tuned = _tuning.export_configs(pruned)
+    if tuned:
+        manifest["tuned_configs"] = tuned
+
     if export_stablehlo:
         _export_inference(dirname, pruned, feeds, fetch_names, param_names,
                           scope, manifest, export_batch_sizes)
@@ -399,6 +409,18 @@ def _load_params_file(path: str, scope: Scope, manifest: dict,
     apply_state(scope, state, program, place=place)
 
 
+def _seed_tuned_configs(manifest: dict) -> int:
+    """Seed this process's tuning memo (and store, when one is active)
+    from an artifact manifest's ``tuned_configs`` — records for another
+    device kind or kernel version are skipped, a local sweep's entry is
+    never overwritten. Returns the number seeded."""
+    if not manifest.get("tuned_configs"):
+        return 0
+    from . import tuning as _tuning
+
+    return _tuning.seed_configs(manifest["tuned_configs"])
+
+
 def load_inference_model(dirname: str,
                          executor=None,
                          model_filename: Optional[str] = None,
@@ -417,6 +439,7 @@ def load_inference_model(dirname: str,
     with open(path) as f:
         manifest = json.load(f)
     feeds, fetches = manifest["feed_names"], manifest["fetch_names"]
+    _seed_tuned_configs(manifest)
     params_path = os.path.join(dirname, params_filename or "__params__")
     if not params_path.endswith(".npz"):
         params_path += ".npz"
@@ -495,6 +518,13 @@ def save_decode_model(dirname: str, token_name: str, logits_var,
         "n_layers": int(pair.n_layers),
     }
     manifest["decode_pair"] = section
+    # tuned configs for the DERIVED pair too (its op set differs from
+    # the base forward's): same manifest key, loaders seed from it
+    from . import tuning as _tuning
+
+    tuned = _tuning.export_configs(program, pair.prefill, pair.decode)
+    if tuned:
+        manifest["tuned_configs"] = tuned
     with open(path, "w") as f:
         json.dump(manifest, f, indent=1)
     return section

@@ -212,6 +212,7 @@ class Registry:
     def __init__(self):
         self._families: Dict[str, Family] = {}
         self._lock = threading.RLock()
+        self._collectors: List[Callable[[], None]] = []
 
     def _get_or_create(self, name, kind, help_str, labels, **kw):
         with self._lock:
@@ -238,7 +239,25 @@ class Registry:
         return self._get_or_create(name, "histogram", help_str, labels,
                                    bounds_ms=bounds_ms, unit=unit)
 
+    def family(self, name: str) -> Optional[Family]:
+        """The family registered under ``name``, or None (one dict read:
+        a hot path that caches a family's children checks with it that
+        the family was not unregistered since)."""
+        return self._families.get(name)
+
+    def add_collector(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` before every read of the families (a snapshot, the
+        exposition): a hot path that counts into a plain int adds its
+        count to its family there."""
+        with self._lock:
+            self._collectors.append(fn)
+
     def families(self) -> List[Family]:
+        for fn in list(self._collectors):
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 - a collector never breaks a read
+                pass
         with self._lock:
             return list(self._families.values())
 

@@ -69,6 +69,10 @@ __all__ = ["BF16_MODEL_FLOOR", "bf16_ulps", "flash_attention",
            "plain_flash_forward", "plain_flash_forward_bf16"]
 
 HEAD_DIMS = (64, 128)  # head dims the kernels are instantiated for
+# the tile the library is built with (csrc/flash_attention.cu kTile: 64
+# query rows a block): the one point of the ``flash_attention`` tunable,
+# which no launch looks up while there is nothing else to choose
+BUILT_TILE = 64
 
 
 # ---------------------------------------------------------------- plain

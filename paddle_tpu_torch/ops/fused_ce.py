@@ -21,8 +21,10 @@ Python loops, the chunk products on cuBLAS (``torch.mm``, and
 Chunking (:func:`_chunking`) is the JAX package's: an exact divisor of
 V near the cap when there is one (V = 32000: 8 chunks of 4000), else a
 fixed chunk count with 128-aligned chunks and a zero-padded tail whose
-columns are ``-inf`` in every reduction. ``chunk_cap`` defaults to
-``DEFAULT_CHUNK_CAP``: the port has no tuning tables yet.
+columns are ``-inf`` in every reduction. ``chunk_cap`` left None
+resolves at each call through ``paddle_tpu_torch.tuning.lookup`` (the
+``fused_ce`` tunable): a measured selection for this (device, shape
+bucket, dtype) when one is stored, ``DEFAULT_CHUNK_CAP`` otherwise.
 
 Precision follows the JAX package's rule, read when the layer is built:
 under ``use_bfloat16`` the chunk logits are products of bf16 operands
@@ -39,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import dtype_utils
 from ..layers.nn import _mm_f32
 
 __all__ = ["DEFAULT_CHUNK_CAP", "fused_linear_softmax_ce_fn"]
@@ -205,15 +208,24 @@ def fused_linear_softmax_ce_fn(x, W, b, labels, smooth_eps: float = 0.0,
     """x ``[..., d]``, W ``[d, V]``, b ``[V]`` or None, labels ``[...]``
     or ``[..., 1]`` integer -> loss ``[..., 1]`` f32. ``bf16`` is the
     ``use_bfloat16`` rule (the caller reads the flag when it builds);
-    ``chunk_cap`` bounds the chunk width (default
-    ``DEFAULT_CHUNK_CAP``)."""
+    ``chunk_cap`` bounds the chunk width (None: the tuned cap for this
+    shape, ``DEFAULT_CHUNK_CAP`` when nothing is tuned)."""
     eps = float(smooth_eps or 0.0)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     idx = labels.to(torch.int64)
     if idx.dim() and idx.shape[-1] == 1 and idx.dim() == x.dim():
         idx = idx.squeeze(-1)
-    cap = int(chunk_cap if chunk_cap is not None else DEFAULT_CHUNK_CAP)
+    if chunk_cap is None:
+        from .. import tuning
+
+        chunk_cap = tuning.lookup(
+            "fused_ce", {"n_tokens": int(x2.shape[0]),
+                         "d_model": int(x2.shape[1]),
+                         "vocab": int(W.shape[1])},
+            dtype=dtype_utils.name(x.dtype), device=x.device).get(
+                "chunk_cap", DEFAULT_CHUNK_CAP)
+    cap = int(chunk_cap)
     loss = _FusedLinearCE.apply(x2, W, b, idx.reshape(-1), eps, bool(bf16),
                                 cap)
     return loss.reshape(*lead, 1)

@@ -26,6 +26,13 @@ Functions:
   the kernel or raises. It counts its launches in ``.launches``, and
   those gated on a flag in ``.gated_launches``.
 
+The kernel's one launch knob is its grid cap: at most ``blocks_per_sm``
+x 132 blocks of 256 threads, the grid-stride loop covering the rest
+(the JAX kernel's knob was its ``[block_rows, 128]`` tile height). It
+changes no arithmetic. ``fused_flat_update(blocks_per_sm=None)`` reads
+it from ``paddle_tpu_torch.tuning.lookup`` (the
+``fused_optimizer_update`` tunable; default 16) at each launch.
+
 Both take an optional ``apply`` flag, a 0-d bool tensor on the
 parameters' device (the JAX package's ``mask_update_op``: the overflow
 skip of ``amp.decorate``, the k-th micro-step of
@@ -94,6 +101,8 @@ _KIND_ID = {k: i for i, k in enumerate(KINDS)}
 _MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 # the C interface's fixed array lengths
 _MAX_MOMENTS, _MAX_SHARED, _MAX_CONSTS = 4, 2, 8
+# the grid cap's default, blocks an SM (tuning/kernels.py's default)
+DEFAULT_BLOCKS_PER_SM = 16
 
 
 def _f32(a, ref):
@@ -283,11 +292,11 @@ _SHARED = ctypes.c_void_p * _MAX_SHARED
 _CONSTS = ctypes.c_float * _MAX_CONSTS
 # kind, variant, bf16 moments; p, g, lr; moments[4], n moments;
 # shared[2], shared_out[2], n shared; n; consts[8], n consts; the apply
-# flag (null: ungated); stream
+# flag (null: ungated); blocks an SM (the grid cap); stream
 _ARGS = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
          + [_PTRS, ctypes.c_int, _SHARED, _SHARED, ctypes.c_int,
             ctypes.c_longlong, _CONSTS, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p])
+            ctypes.c_int, ctypes.c_void_p])
 
 
 def _library():
@@ -357,7 +366,8 @@ def _fused_flat_update_op(kind: str, p: torch.Tensor, g: torch.Tensor,
                           shared: List[torch.Tensor],
                           shared_out: List[torch.Tensor],
                           consts: List[float],
-                          apply: Optional[torch.Tensor] = None) -> None:
+                          apply: Optional[torch.Tensor] = None,
+                          blocks_per_sm: Optional[int] = None) -> None:
     out = plain_flat_update(kind, p, g, lr, accs, shared, bool(shared_out),
                             consts, apply)
     for dst, src in zip([p] + list(accs) + list(shared_out), out):
@@ -365,13 +375,33 @@ def _fused_flat_update_op(kind: str, p: torch.Tensor, g: torch.Tensor,
 
 
 @_fused_flat_update_op.register_fake
-def _(kind, p, g, lr, accs, shared, shared_out, consts, apply=None):
+def _(kind, p, g, lr, accs, shared, shared_out, consts, apply=None,
+      blocks_per_sm=None):
     return None
 
 
+def tuning_problem(p, accs, shared) -> dict:
+    """The ``fused_optimizer_update`` tuning problem of a launch (the
+    JAX package's: the group's size and its moment and shared-scalar
+    counts)."""
+    return {"numel": int(p.numel()), "n_accs": len(accs),
+            "n_shared": len(shared)}
+
+
 @_fused_flat_update_op.register_kernel("cuda")
-def _(kind, p, g, lr, accs, shared, shared_out, consts, apply=None):
+def _(kind, p, g, lr, accs, shared, shared_out, consts, apply=None,
+      blocks_per_sm=None):
     _check_cuda(kind, p, g, lr, accs, shared, consts, apply)
+    if blocks_per_sm is None:
+        from .. import tuning
+
+        blocks_per_sm = tuning.lookup(
+            "fused_optimizer_update", tuning_problem(p, accs, shared),
+            dtype="float32", device=p.device).get("blocks_per_sm",
+                                                  DEFAULT_BLOCKS_PER_SM)
+    enforce(int(blocks_per_sm) >= 1,
+            "fused_flat_update: blocks_per_sm must be >= 1, got %r"
+            % (blocks_per_sm,))
     lib = _library()
     variant, floats = kernel_consts(kind, consts)
     # null pointers for the slots this kind does not read or write
@@ -386,7 +416,7 @@ def _(kind, p, g, lr, accs, shared, shared_out, consts, apply=None):
             p.data_ptr(), g.data_ptr(), lr.data_ptr(), moments, len(accs),
             sh, sh_out, len(shared_out), p.numel(), _CONSTS(*floats),
             len(floats), None if apply is None else apply.data_ptr(),
-            stream)
+            int(blocks_per_sm), stream)
     if err != 0:
         raise RuntimeError("fused_flat_update: kernel launch failed: CUDA "
                            "error %d (%s)"
@@ -399,19 +429,23 @@ def _(kind, p, g, lr, accs, shared, shared_out, consts, apply=None):
 
 def fused_flat_update(kind: str, p, g, lr, accs: Sequence = (),
                       shared: Sequence = (), owns: bool = False,
-                      consts: Sequence = (), apply=None):
+                      consts: Sequence = (), apply=None,
+                      blocks_per_sm: Optional[int] = None):
     """The group update, the ``fused_flat_update`` op: one kernel launch
     on a CUDA tensor, :func:`plain_flat_update` on a CPU one; either
     updates ``p`` and ``accs`` in place. Returns ``(p, *accs)`` and, if
     ``owns``, the advanced shared scalars as new tensors. ``apply`` (a
     0-d bool tensor, or None) gates the update: where it is false
-    nothing changes and the advanced scalars are the step-start ones."""
+    nothing changes and the advanced scalars are the step-start ones.
+    ``blocks_per_sm`` caps the kernel's grid at that many blocks an SM
+    (None: the tuned cap, by default 16)."""
     enforce(kind in KINDS, "fused update: unknown kind %r (one of %s)"
             % (kind, sorted(KINDS)))
     accs, shared = tuple(accs), tuple(shared)
     adv = tuple(torch.empty_like(s) for s in shared) if owns else ()
     _fused_flat_update_op(kind, p, g, lr, list(accs), list(shared),
-                          list(adv), [float(c) for c in consts], apply)
+                          list(adv), [float(c) for c in consts], apply,
+                          blocks_per_sm)
     return (p,) + accs + adv
 
 

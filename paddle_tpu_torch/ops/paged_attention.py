@@ -22,7 +22,11 @@ block walks the block table itself. Three routes, chosen by
   loads), for head dims the other two do not take.
 
 The TPU schedule knobs (``schedule``, ``heads_per_tile``) and its VMEM
-budget have no counterpart here.
+budget have no counterpart here. The Hopper knobs are the key-split
+targets of the two fast routes, in waves of the H100's 132 SMs
+(``split_waves``, ``tile_waves``): ``plan_route`` reads them from
+``paddle_tpu_torch.tuning.lookup`` (the ``paged_attention`` tunable),
+which returns the defaults below when nothing is tuned.
 
 Functions:
 
@@ -31,7 +35,8 @@ Functions:
   the CPU runs and what the kernel is held to on the card.
 * :func:`plain_split_window_attention` — the split route's algorithm,
   partials and merge, in torch.
-* :func:`plan_route` — the route planner the wrapper calls.
+* :func:`plan_route` — the route planner the wrapper calls, and
+  :func:`tuning_problem`, the shape it looks its knobs up by.
 * :func:`paged_window_attention` — the
   ``paddle_tpu_torch::paged_window_attention`` custom op: the plain
   version for tensors on the CPU, a kernel for tensors on a CUDA device
@@ -47,12 +52,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..core import dtype_utils
 from ..core.dtype_utils import rounded_sqrt
 from ..core.enforce import enforce
 from . import _cuda
 
 __all__ = ["paged_window_attention", "plain_window_attention",
-           "plain_split_window_attention", "plan_route"]
+           "plain_split_window_attention", "plan_route", "tuning_problem"]
 
 
 def _take_fill(src, idx):
@@ -120,15 +126,21 @@ MMA_WIDE_T = 64        # tensor-core blocks take 128 query rows past it
 KEY_TILE = 64          # keys per pipelined tile of the query-tile route
 MAX_HEAD_DIM = 128
 MAX_TABLE = 2048       # block-table entries a fast-route block stages
-# Blocks a grid should reach, in waves of the H100's 132 SMs. A split
-# block is short and bound by the latency of its few tiles, so the split
-# route goes for 8 waves. A query-tile block carries a 64- or 128-row
+# Blocks a grid should reach, in waves of the H100's SMS streaming
+# multiprocessors: the tunable knobs (tuning/kernels.py,
+# ``paged_attention``), here their defaults. A split block is short and
+# bound by the latency of its few tiles, so the split route goes for
+# DEFAULT_SPLIT_WAVES waves. A query-tile block carries a 64- or 128-row
 # accumulator whose partial costs scratch bytes, so that route splits
 # keys only when its grid is under TILE_SPLIT_BELOW blocks (2 waves),
-# and then goes for 4 waves.
-TARGET_BLOCKS = 8 * 132
-TILE_SPLIT_BELOW = 2 * 132
-TILE_TARGET_BLOCKS = 4 * 132
+# and then goes for DEFAULT_TILE_WAVES waves (0: no split).
+SMS = 132
+DEFAULT_SPLIT_WAVES = 8
+DEFAULT_TILE_WAVES = 4
+TARGET_BLOCKS = DEFAULT_SPLIT_WAVES * SMS
+TILE_SPLIT_BELOW = 2 * SMS
+TILE_TARGET_BLOCKS = DEFAULT_TILE_WAVES * SMS
+SCRATCH_LIMIT = 1 << 30  # bytes of f32 partials a launch may allocate
 ROUTE_CODES = {"generic": 0, "split": 1, "tile": 2, "tile_mma": 3}
 
 
@@ -144,8 +156,23 @@ class RoutePlan(NamedTuple):
     split_len: int
     scratch: tuple
 
+    @property
+    def scratch_bytes(self) -> int:
+        return sum(4 * math.prod(shape) for shape in self.scratch
+                   if shape)
 
-def plan_route(B, T, H, Dk, Dv, mb, bs, q_dtype, quant) -> RoutePlan:
+
+def tuning_problem(B, T, H, Dk, mb, bs, quant) -> dict:
+    """The ``paged_attention`` tuning problem of a launch (the JAX
+    package's problem dict: pools are "f32" unless int8; bf16 pools
+    differ from f32 ones by the lookup's dtype, q's)."""
+    return {"batch": B, "q_tokens": T, "window": mb * bs,
+            "block_size": bs, "heads": H, "head_dim": Dk,
+            "kv_dtype": "int8" if quant else "f32"}
+
+
+def plan_route(B, T, H, Dk, Dv, mb, bs, q_dtype, quant, config=None,
+               device=None) -> RoutePlan:
     """Choose the kernel's route from the shapes alone (never from the
     data: the host does not read ``cached_lens``). Both fast routes load
     pool rows as 16-byte vectors, so each head dim must be a multiple of
@@ -159,7 +186,13 @@ def plan_route(B, T, H, Dk, Dv, mb, bs, q_dtype, quant) -> RoutePlan:
     it would have fewer than ``TILE_SPLIT_BELOW`` blocks unsplit,
     where the window has enough key tiles for it. A query-tile grid
     that needs one split writes ``out`` itself (no scratch, no merge);
-    the split route always merges its partials."""
+    the split route always merges its partials.
+
+    The two targets are ``config``'s ``split_waves`` and ``tile_waves``
+    times ``SMS`` (their defaults give the constants above); with no
+    ``config`` they come from ``tuning.lookup`` for this launch's
+    :func:`tuning_problem` on ``device`` (default: the current card, or
+    the host)."""
     item = 1 if quant else torch.empty((), dtype=q_dtype).element_size()
     aligned = mb <= MAX_TABLE and all(
         d % 8 == 0 and d <= MAX_HEAD_DIM and (d * item) % 16 == 0
@@ -167,17 +200,25 @@ def plan_route(B, T, H, Dk, Dv, mb, bs, q_dtype, quant) -> RoutePlan:
     S = mb * bs
     if not aligned:
         return RoutePlan("generic", 1, S, ((), ()))
+    if config is None:
+        from .. import tuning
+
+        config = tuning.lookup(
+            "paged_attention", tuning_problem(B, T, H, Dk, mb, bs, quant),
+            dtype=dtype_utils.name(q_dtype), device=device)
     if T > SPLIT_MAX_T:
         mma = (q_dtype == torch.bfloat16 and Dk % 16 == 0
                and Dv % 16 == 0)
         route = "tile_mma" if mma else "tile"
         rows = 2 * QUERY_TILE if mma and T > MMA_WIDE_T else QUERY_TILE
         blocks, tile = B * H * -(-T // rows), KEY_TILE
-        target = TILE_TARGET_BLOCKS if blocks < TILE_SPLIT_BELOW else 1
+        waves = config.get("tile_waves", DEFAULT_TILE_WAVES)
+        target = waves * SMS if blocks < TILE_SPLIT_BELOW else 1
     else:
         route = "split"
-        blocks, target, tile = B * H, TARGET_BLOCKS, SPLIT_TILE
-    want = -(-target // blocks)              # key splits for the target
+        waves = config.get("split_waves", DEFAULT_SPLIT_WAVES)
+        blocks, target, tile = B * H, waves * SMS, SPLIT_TILE
+    want = max(1, -(-target // blocks))      # key splits for the target
     tiles = -(-S // tile)
     split_len = max(1, tiles // want) * tile
     n_splits = -(-S // split_len)
@@ -309,19 +350,22 @@ def _paged_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
               tables: torch.Tensor, cached_lens: torch.Tensor,
               k_scale: Optional[torch.Tensor],
               v_scale: Optional[torch.Tensor],
-              route: Optional[str]) -> torch.Tensor:
+              route: Optional[str], split_waves: Optional[int] = None,
+              tile_waves: Optional[int] = None) -> torch.Tensor:
     return plain_window_attention(q, k_pool, v_pool, tables, cached_lens,
                                   k_scale=k_scale,
                                   v_scale=v_scale).contiguous()
 
 
 @_paged_op.register_fake
-def _(q, k_pool, v_pool, tables, cached_lens, k_scale, v_scale, route):
+def _(q, k_pool, v_pool, tables, cached_lens, k_scale, v_scale, route,
+      split_waves=None, tile_waves=None):
     return q.new_empty(tuple(q.shape[:3]) + (v_pool.shape[-1],))
 
 
 @_paged_op.register_kernel("cuda")
-def _(q, k_pool, v_pool, tables, cached_lens, k_scale, v_scale, route):
+def _(q, k_pool, v_pool, tables, cached_lens, k_scale, v_scale, route,
+      split_waves=None, tile_waves=None):
     quant = k_scale is not None
     B, T, H, Dk = q.shape
     enforce(k_pool.dim() == 4 and v_pool.dim() == 4,
@@ -362,8 +406,15 @@ def _(q, k_pool, v_pool, tables, cached_lens, k_scale, v_scale, route):
     enforce(nb * bs * H * max(Dk, Dv) < 2 ** 31 and B <= 65535,
             "paged_window_attention: pool or batch too large for the "
             "kernel's 32-bit slot indexing")
+    config = None
+    if split_waves is not None or tile_waves is not None:
+        config = {"split_waves": (DEFAULT_SPLIT_WAVES if split_waves is None
+                                  else split_waves),
+                  "tile_waves": (DEFAULT_TILE_WAVES if tile_waves is None
+                                 else tile_waves)}
     plan = (RoutePlan("generic", 1, mb * bs, ((), ())) if route
-            else plan_route(B, T, H, Dk, Dv, mb, bs, q.dtype, quant))
+            else plan_route(B, T, H, Dk, Dv, mb, bs, q.dtype, quant,
+                            config=config, device=q.device))
     lib = _library()
     if plan.route == "generic":
         smem = lib.paged_window_attention_smem_bytes(T, Dk, Dv)
@@ -414,7 +465,8 @@ def _(q, k_pool, v_pool, tables, cached_lens, k_scale, v_scale, route):
 
 
 def paged_window_attention(q, k_pool, v_pool, tables, cached_lens, *,
-                           k_scale=None, v_scale=None, route=None):
+                           k_scale=None, v_scale=None, route=None,
+                           config=None):
     """Window attention over the paged KV pool (the contract of
     :func:`plain_window_attention`).
 
@@ -424,7 +476,9 @@ def paged_window_attention(q, k_pool, v_pool, tables, cached_lens, *,
     ``k_scale``/``v_scale`` (given together) float32 ``[nb, bs]`` scale
     pools; tables and cached_lens int32; all contiguous on one device;
     anything else raises. Any window length T launches. The route comes
-    from :func:`plan_route` (the shapes alone); ``route="generic"``
+    from :func:`plan_route` (the shapes alone, and the tuned knobs:
+    ``config``, a ``paged_attention`` config, fixes them for this call,
+    as a sweep's candidate does; None looks them up); ``route="generic"``
     launches the generic route's kernel instead, on any shape (the yardstick
     ``chip_smoke.py`` times beside the planned route). For rows with at
     least one valid key the kernel
@@ -443,8 +497,10 @@ def paged_window_attention(q, k_pool, v_pool, tables, cached_lens, *,
         enforce(t.device == q.device,
                 "paged_window_attention: q is on %s but an input is on %s"
                 % (q.device, t.device))
+    config = config or {}
     return _paged_op(q, k_pool, v_pool, tables, cached_lens, k_scale,
-                     v_scale, route)
+                     v_scale, route, config.get("split_waves"),
+                     config.get("tile_waves"))
 
 
 # .launches counts every kernel launch; .int8_launches those on int8

@@ -231,7 +231,17 @@ class BucketedEngine:
     def warm_up(self) -> int:
         """Run every bucket once with zero feeds (on a card: capture its
         graph), so startup — not the first user — pays. Returns
-        ``compile_count``."""
+        ``compile_count``.
+
+        Consults the persistent tuning store FIRST: tuned kernel configs
+        prefetch into the in-process memo, so the bucket runs about to
+        capture resolve their launch configs from memory and the first
+        capture already uses them. (An artifact backend's predictor
+        seeded them from its manifest when it loaded.)"""
+        if self._program is not None:
+            from .. import tuning as _tuning
+
+            _tuning.prefetch(self._program)
         with self.metrics.span(COMPILE_SPAN):
             for b in self.buckets:
                 self.run(self._dummy_feed(b), _warm=True)

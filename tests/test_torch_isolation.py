@@ -88,3 +88,21 @@ def test_the_training_slice_modules_are_in_the_scan():
             "paddle_tpu_torch.ops.fused_optimizer"} <= names
     for source in ("flash_attention.cu", "fused_optimizer.cu"):
         assert (PACKAGE / "csrc" / source).exists()
+
+
+def test_the_tuning_slice_modules_are_in_the_scan():
+    """The tuning slice's modules (the tuning package, the compile-cache
+    store it builds on, the tuning CLI) are among those the two checks
+    above import and scan: none imports jax or paddle_tpu, not even the
+    jax-free modules whose copies they are."""
+    names = {"paddle_tpu_torch." + ".".join(
+        p.relative_to(PACKAGE).with_suffix("").parts)
+        for p in PACKAGE.rglob("*.py")}
+    assert {"paddle_tpu_torch.tuning.api", "paddle_tpu_torch.tuning.kernels",
+            "paddle_tpu_torch.tuning.registry",
+            "paddle_tpu_torch.tuning.store", "paddle_tpu_torch.tuning.sweep",
+            "paddle_tpu_torch.compile_cache.store",
+            "paddle_tpu_torch.tools.tuning"} <= names
+    for module in ("tuning/store.py", "compile_cache/store.py",
+                   "tools/tuning.py"):
+        assert not _IMPORT.search((PACKAGE / module).read_text()), module
