@@ -552,12 +552,45 @@ Phases, one JSON line each (or one per shape):
              default fails), decode-step ms, the warm-up with the sweeps
              it ran, and the host µs of a memo-hit lookup.
 
-Then the card's name and power limit, the kernels JSON line (wall and
+30. obs    — (run after phase 24) the observability tooling: (a) the
+             recipe (phase 15's program) through ``Trainer(steplog=)``,
+             12 steps as three ``run_steps`` chunks of 4: one StepStats
+             line a step with the JAX package's keys (epoch, step, dt_s,
+             loss, fresh_compiles, t), one fresh capture, exact flash
+             and fused-update launches, ``tools.top --once`` reading the
+             file; (b) the flight recorder on phase 24's BERT engine,
+             whose 7 bucket captures ran with ``compile_cache_dir`` set
+             (fingerprinted, nothing persisted): a server whose worker
+             loop dies writes an ``-exception`` bundle that
+             ``tools.postmortem validate`` accepts, its env pins torch,
+             CUDA and the card, its program stamps the 7 capture
+             fingerprints; (c) a decode burst (4 prompts, 8 tokens,
+             captured buckets) with ``obs.trace`` and
+             ``start_profiler(trace_dir=)``: the host timeline
+             (``timeline.export_chrome_trace``, a trace per request) and
+             the torch.profiler device trace (the paged kernel's rows)
+             pass ``tools.trace validate``.
+31. compile_cache — (run after phase 25, whose BERT-base export goes
+             through a fresh ``compile_cache_dir``: 7 misses, 7
+             publishes) a second process builds the same program and
+             exports it through the same store: 7 hits, 0 misses, every
+             ``.pt2`` sha256-equal to the cold export's, the smallest and
+             largest buckets of both directories bit-equal through
+             ``NativePredictor`` on the same rows; meanwhile, in a copy
+             of the store with one byte of the batch-1 payload flipped,
+             the batch-1 program exported again: 1 bad entry, 1 miss, 1
+             publish, the file the republished payload (a warm export
+             writes it again), its output the cold one's. Cold and warm
+             export seconds.
+
+Then the whole call's seconds (``call_s``), the card's name and power
+limit, the kernels JSON line (wall and
 device ms of each kernel and its library call; ``amp_launches``,
 ``persist_launches``,
 ``bert_launches``, ``deepfm_launches``, ``remat_launches``,
 ``resilience_launches``, ``server_launches``, ``artifact_launches``,
-``seq2seq_launches``, ``sentiment_launches`` and ``srl_launches``:
+``seq2seq_launches``, ``sentiment_launches``, ``srl_launches`` and
+``obs_launches``:
 those phases' launches
 of the kernels their paths run; ``fused_flat_update_amp``, the gated
 Adam of the AMP path with its gated and skipped launches; the rows at
@@ -570,6 +603,7 @@ non-zero. Without a visible CUDA device — or outside a checkout that
 holds ``paddle_tpu_torch`` — it exits non-zero and prints no result.
 """
 
+import gc
 import json
 import math
 import os
@@ -580,6 +614,8 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+T_START = time.perf_counter()  # the call's seconds count from here
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12,  # f32 outside the tensor cores
@@ -1940,13 +1976,16 @@ def server_requests(seed=SEED + 14):
     return out
 
 
-def phase_server(card):
+def phase_server(card, held):
     """The bucketed request server over an inference program: BERT-base
     sentence-pair classification saved with ``save_inference_model``,
     loaded with ``load_inference_model`` and served with
     ``serve_program`` (buckets 1-64, every bucket a captured graph) to
-    8 client threads; then a poison request. Returns the flash forward's
-    launches and the batches executed."""
+    8 client threads; then a poison request. The warm-up runs with the
+    ``compile_cache_dir`` flag set, so each capture is fingerprinted
+    into ``compile_cache.recent_fingerprints()``. Returns the flash
+    forward's launches and the batches executed; ``held`` receives the
+    engine and the 7 capture fingerprints (the obs phase's)."""
     import shutil
     import threading
 
@@ -1980,14 +2019,27 @@ def phase_server(card):
     server = serve_program(program, feeds, fetches, scope=served_scope,
                            config=config, place=fluid.CUDAPlace(0),
                            auto_start=False)
-    t0 = time.perf_counter()
-    server.start()  # warm_up: one capture per bucket
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    from paddle_tpu_torch.compile_cache import recent_fingerprints
+
+    # the flag on for the captures alone: they are fingerprinted (and
+    # persist nothing)
+    fluid.set_flags({"compile_cache_dir": root + "_cache"})
+    try:
+        t0 = time.perf_counter()
+        server.start()  # warm_up: one capture per bucket
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        fluid.set_flags({"compile_cache_dir": ""})
     engine = server.engine
     if engine.compile_count != len(SERVER_BUCKETS):
         fail("server: %d graphs after warm-up, expected one per bucket (%d)"
              % (engine.compile_count, len(SERVER_BUCKETS)))
+    fps = [r["fingerprint"] for r in recent_fingerprints()
+           if r["kind"] == "graph"][-len(SERVER_BUCKETS):]
+    if len(set(fps)) != len(SERVER_BUCKETS):
+        fail("server: the warm-up fingerprinted %d distinct captures, "
+             "expected %d" % (len(set(fps)), len(SERVER_BUCKETS)))
     reqs = server_requests()
     replies = [None] * len(reqs)
     latency = obs_metrics.Histogram()
@@ -2082,8 +2134,8 @@ def phase_server(card):
           "prometheus_lines": len(
               obs_metrics.render_prometheus().splitlines()),
           "phase_s": time.perf_counter() - t_phase})
+    held.update(engine=engine, fingerprints=fps)
     del server, poison, engine, served_scope
-    torch.cuda.empty_cache()
     return {"flash_fwd": launches, "batches": executed, "save_s": save_s,
             "load_s": load_s, "warm_up_s": warm_s,
             "rows_per_s": (rows - SERVER_OVERSIZE) / wall_s,
@@ -6500,6 +6552,10 @@ def phase_ssd(card):
         if not (np.isfinite(graph).all() and last < first):
             fail("ssd: the losses are not finite and falling over the "
                  "pool: %s" % graph.tolist())
+        # a capture cannot release the allocator's cached blocks to make
+        # a new segment, and the detection graphs below need ~0.8 GB
+        # ones: release them first (the training graphs stay)
+        torch.cuda.empty_cache()
         detection = ssd_detection(exe, scope, test_prog, eval_prog, nmsed,
                                   maps)
         exe.close()
@@ -7106,16 +7162,21 @@ def _bucket_feed(reqs, rows):
     return out
 
 
-def artifact_serving(card, root, server_figures):
-    """(a) BERT-base classification exported from a CPU scope and served
-    from its directory alone: 7 captured graphs, each bucket bit-equal
-    to ``Executor.run`` of the same optimized program on the card,
-    traffic within TOL[bf16] of eager runs of its own rows, the flash
-    forward launched 12 times an executed batch. Returns its figures."""
+def artifact_serving(card, root, server_figures, cache_dir):
+    """(a) BERT-base classification exported from a CPU scope through a
+    fresh compile cache at ``cache_dir`` (the cold export: 7 misses, 7
+    publishes) and served from its directory alone: 7 captured graphs,
+    each bucket bit-equal to ``Executor.run`` of the same optimized
+    program on the card, traffic within TOL[bf16] of eager runs of its
+    own rows, the flash forward launched 12 times an executed batch.
+    Returns its figures and (program, feed names, probabilities, the
+    CPU scope) for the compile_cache phase."""
     import json as _json
     import threading
 
     import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.compile_cache import (cache_metrics,
+                                                reset_cache_metrics)
     from paddle_tpu_torch.obs import metrics as obs_metrics
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.passes.manager import inference_pass_pipeline
@@ -7123,13 +7184,23 @@ def artifact_serving(card, root, server_figures):
 
     main, feed_names, prob, scope = build_server_model()
     cpu_scope = _cpu_scope(scope)
-    t0 = time.perf_counter()
-    fluid.io.save_inference_model(
-        root, feed_names, [prob], fluid.Executor(fluid.CPUPlace()),
-        main_program=main, scope=cpu_scope,
-        export_batch_sizes=SERVER_BUCKETS)
-    export_s = time.perf_counter() - t0
-    del cpu_scope
+    reset_cache_metrics()
+    fluid.set_flags({"compile_cache_dir": cache_dir})
+    try:
+        t0 = time.perf_counter()
+        fluid.io.save_inference_model(
+            root, feed_names, [prob], fluid.Executor(fluid.CPUPlace()),
+            main_program=main, scope=cpu_scope,
+            export_batch_sizes=SERVER_BUCKETS)
+        export_s = time.perf_counter() - t0
+    finally:
+        fluid.set_flags({"compile_cache_dir": ""})
+    cold = cache_metrics()
+    n = len(SERVER_BUCKETS)
+    if (cold["miss"], cold["publish"], cold["hit"], cold["bad_entry"]) != \
+            (n, n, 0, 0):
+        fail("artifact: the cold export counted %s, expected %d misses "
+             "and %d publishes" % (cold, n, n))
     with open(os.path.join(root, "__model__.json")) as f:
         manifest = _json.load(f)
     buckets = sorted(int(b) for b in manifest.get("torch_export_buckets",
@@ -7207,7 +7278,8 @@ def artifact_serving(card, root, server_figures):
     if worst > TOL[torch.bfloat16]:
         fail("artifact: a reply differs from its eager run by %g" % worst)
     rows = sum(len(r["src_ids"]) for r in reqs)
-    out = {"export_s": export_s, "load_s": load_s, "warm_up_s": warm_s,
+    out = {"export_s": export_s, "cold_cache": cold,
+           "load_s": load_s, "warm_up_s": warm_s,
            "graphs": engine.compile_count,
            "rows_per_s": (rows - SERVER_OVERSIZE) / wall_s,
            "padded_row_share": rep["padding_overhead"],
@@ -7220,7 +7292,7 @@ def artifact_serving(card, root, server_figures):
                obs_metrics.render_prometheus().splitlines())}
     del server, engine, scope, exe
     torch.cuda.empty_cache()
-    return out
+    return out, (main, feed_names, prob, cpu_scope)
 
 
 def _state_diff(got, want):
@@ -7452,20 +7524,24 @@ def binding_host_us(calls=500):
     return out
 
 
-def phase_artifact(card, server_figures, dropout_step_ms):
+def phase_artifact(card, server_figures, dropout_step_ms, cache_root):
     """Exported artifacts on the card: (a) serving BERT-base from its
-    artifact alone, (b) training the dropout recipe from its trainable
-    artifact, (c) the folded bf16 ResNet-50 from its artifact. Returns
-    the launches of (a)'s flash forward and of (b)'s kernels."""
+    artifact alone, exported through a fresh compile cache into
+    ``cache_root`` (which the compile_cache phase reuses), (b) training
+    the dropout recipe from its trainable artifact, (c) the folded bf16
+    ResNet-50 from its artifact. Returns the launches of (a)'s flash
+    forward and of (b)'s kernels, and what (a) built."""
     import shutil
 
     t_phase = time.perf_counter()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         ARTIFACT_ROOT)
     shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(cache_root, ignore_errors=True)
     try:
-        serving = artifact_serving(card, os.path.join(root, "serving"),
-                                   server_figures)
+        serving, built = artifact_serving(
+            card, os.path.join(cache_root, "cold"), server_figures,
+            os.path.join(cache_root, "store"))
         training, train_launches = artifact_training(
             card, os.path.join(root, "training"), dropout_step_ms)
         resnet = artifact_resnet(card, os.path.join(root, "resnet"))
@@ -7476,7 +7552,418 @@ def phase_artifact(card, server_figures, dropout_step_ms):
           "binding_host_us": binding_host_us(),
           "phase_s": time.perf_counter() - t_phase})
     return {"serving_flash_fwd": serving["flash_fwd_launches"],
-            "training": train_launches}
+            "training": train_launches,
+            "export_s": serving["export_s"]}, built
+
+
+COMPILE_CACHE_ROOT = "build/chip_smoke_compile_cache"  # ignored
+# the second process of the compile_cache phase: the server model built
+# again, its scope copied to the CPU, exported through the same cache
+_WARM_EXPORT = r"""
+import json, sys, time
+import chip_smoke as cs
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch.compile_cache import cache_metrics
+main, feeds, prob, scope = cs.build_server_model()
+cpu = cs._cpu_scope(scope)
+del scope
+fluid.set_flags({"compile_cache_dir": sys.argv[1]})
+t0 = time.perf_counter()
+fluid.io.save_inference_model(
+    sys.argv[2], feeds, [prob], fluid.Executor(fluid.CPUPlace()),
+    main_program=main, scope=cpu, export_batch_sizes=cs.SERVER_BUCKETS)
+print(json.dumps({"export_s": time.perf_counter() - t0,
+                  "metrics": cache_metrics()}))
+"""
+
+
+def _pt2_shas(d):
+    import hashlib
+
+    return {f: hashlib.sha256(open(os.path.join(d, f), "rb").read())
+            .hexdigest() for f in sorted(os.listdir(d))
+            if f.endswith(".pt2")}
+
+
+def _predictor_outputs(d, feeds):
+    """``NativePredictor`` over the artifact ``d`` on the card: its
+    outputs for each feed of ``feeds`` (one per bucket run)."""
+    from paddle_tpu_torch.inference import (NativeConfig,
+                                            create_paddle_predictor)
+
+    pred = create_paddle_predictor(NativeConfig(model_dir=d, use_gpu=True))
+    return [pred.run_batch(f)[0] for f in feeds]
+
+
+def phase_compile_cache(card, cache_root, built, cold_export_s):
+    """The persistent compile cache over the artifact phase's BERT-base
+    export (its cold export: 7 misses, 7 publishes into
+    ``<cache_root>/store``). A second process builds the same program
+    and exports it through the same store into a second directory: 7
+    hits, 0 misses, every ``.pt2`` sha256-equal to the cold one; the
+    smallest and largest buckets of the two directories through
+    ``NativePredictor`` bit-equal on the same rows. Meanwhile, in a copy
+    of the store with one byte of the batch-1 entry's payload flipped,
+    this process exports the batch-1 program again: 1 bad entry, 1
+    miss, 1 publish, the file the republished entry's payload, a warm
+    export of it the same file, and its output the cold one's."""
+    import shutil
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.compile_cache import (CacheStore, cache_metrics,
+                                                reset_cache_metrics)
+    from paddle_tpu_torch.compile_cache.store import EXECUTABLE_FILE
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    store, cold = (os.path.join(cache_root, n) for n in ("store", "cold"))
+    warm, again = (os.path.join(cache_root, n) for n in ("warm", "again"))
+    try:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-c", _WARM_EXPORT, store,
+                                  warm], cwd=here, env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        try:
+            main, feed_names, prob, cpu_scope = built
+            reqs = server_requests()
+            rows = {b: _bucket_feed(reqs, b)
+                    for b in (SERVER_BUCKETS[0], SERVER_BUCKETS[-1])}
+            cold_out = _predictor_outputs(cold, list(rows.values()))
+            # the corrupted entry, in a copy of the store (the second
+            # process reads the original)
+            bad_store = os.path.join(cache_root, "store_bad")
+            shutil.copytree(store, bad_store)
+            want = open(os.path.join(cold, "__model__.pt2"), "rb").read()
+            bad = CacheStore(bad_store)
+            entry = next(bad.entry_dir(e["fingerprint"])
+                         for e in bad.entries()
+                         if open(os.path.join(bad.entry_dir(
+                             e["fingerprint"]), EXECUTABLE_FILE),
+                             "rb").read() == want)
+            payload = bytearray(want)
+            payload[len(payload) // 2] ^= 0xFF
+            open(os.path.join(entry, EXECUTABLE_FILE), "wb").write(
+                bytes(payload))
+            exe = fluid.Executor(fluid.CPUPlace())
+            fluid.set_flags({"compile_cache_dir": bad_store})
+            try:
+                reset_cache_metrics()
+                t1 = time.perf_counter()
+                fluid.io.save_inference_model(
+                    again, feed_names, [prob], exe, main_program=main,
+                    scope=cpu_scope)
+                reexport_s = time.perf_counter() - t1
+                repaired = cache_metrics()
+                republished = open(os.path.join(
+                    entry, EXECUTABLE_FILE), "rb").read()
+                reset_cache_metrics()
+                fluid.io.save_inference_model(
+                    again + "_warm", feed_names, [prob], exe,
+                    main_program=main, scope=cpu_scope)
+                rewarm = cache_metrics()
+            finally:
+                fluid.set_flags({"compile_cache_dir": ""})
+            if (repaired["bad_entry"], repaired["miss"],
+                    repaired["publish"], repaired["hit"]) != (1, 1, 1, 0):
+                fail("compile_cache: the corrupted entry counted %s, "
+                     "expected 1 bad entry, 1 miss, 1 publish" % repaired)
+            again_file = open(os.path.join(again, "__model__.pt2"),
+                              "rb").read()
+            if again_file != republished or _pt2_shas(again) != \
+                    _pt2_shas(again + "_warm") or rewarm["hit"] != 1:
+                fail("compile_cache: the re-export's file is not the "
+                     "republished entry (or a warm export of it differs)")
+            again_out = _predictor_outputs(again, [rows[1]])
+            if not np.array_equal(again_out[0], cold_out[0]):
+                fail("compile_cache: the re-exported batch-1 program's "
+                     "output differs from the cold one's")
+            out, err = child.communicate(timeout=900)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            fail("compile_cache: the second process failed (rc %s): %s"
+                 % (child.returncode, err[-3000:]))
+        warm_run = json.loads(out.strip().splitlines()[-1])
+        m = warm_run["metrics"]
+        n = len(SERVER_BUCKETS)
+        if (m["hit"], m["miss"], m["publish"], m["bad_entry"]) != \
+                (n, 0, 0, 0):
+            fail("compile_cache: the second process counted %s, expected "
+                 "%d hits and no miss" % (m, n))
+        cold_shas, warm_shas = _pt2_shas(cold), _pt2_shas(warm)
+        if len(cold_shas) != n or warm_shas != cold_shas:
+            fail("compile_cache: the warm directory's .pt2 files are not "
+                 "sha256-equal to the cold ones")
+        warm_out = _predictor_outputs(warm, list(rows.values()))
+        for b, c, w in zip(rows, cold_out, warm_out):
+            if not np.array_equal(c, w):
+                fail("compile_cache: bucket %d's outputs differ between "
+                     "the warm and the cold directory" % b)
+        stats = CacheStore(store).stats()
+    finally:
+        shutil.rmtree(cache_root, ignore_errors=True)
+    gc.collect()  # the predictors' captured graphs (see phase_obs)
+    torch.cuda.empty_cache()
+    emit({"phase": "compile_cache", "card": card, "buckets": SERVER_BUCKETS,
+          "cold_export_s": cold_export_s,
+          "warm_export_s": warm_run["export_s"],
+          "warm_process_s": child_s, "warm_metrics": m,
+          "store": stats, "pt2_sha256_equal": True,
+          "predictor_bit_equal_buckets": list(rows),
+          "corrupted_entry": {"metrics": repaired, "reexport_s": reexport_s,
+                              "warm_metrics": rewarm},
+          "memory_allocated_after": torch.cuda.memory_allocated(),
+          "phase_s": time.perf_counter() - t_phase})
+
+
+OBS_ROOT = "build/chip_smoke_obs"  # under the checkout, ignored
+OBS_STEPS, OBS_CHUNK = 12, 4       # 3 run_steps chunks of the recipe
+OBS_REQUESTS, OBS_NEW = 4, 8       # the profiled decode burst
+STEPLOG_KEYS = {"epoch", "step", "dt_s", "loss", "fresh_compiles", "t"}
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (return, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue()
+
+
+def obs_steplog(root):
+    """The recipe (flagship widths, RECIPE_FLAGS, one flat Adam group)
+    through ``Trainer(steplog=)`` on the card, OBS_STEPS steps as
+    ``run_steps`` chunks of OBS_CHUNK: one StepStats line a step with
+    the JAX package's keys, ``tools.top --once`` reading them. Returns
+    its figures and the kernels' launches."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import transformer_base
+    from paddle_tpu_torch.obs.steplog import read_steplog
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+    from paddle_tpu_torch.tools import top
+
+    path = os.path.join(root, "run.jsonl")
+
+    def train_func():
+        _, avg_cost, _ = transformer_base(**TRAIN_MODEL,
+                                          sparse_embedding=True,
+                                          attn_impl="pallas")
+        return avg_cost
+
+    saved = {n: fluid.get_flag(n) for n in RECIPE_FLAGS}
+    fluid.set_flags(RECIPE_FLAGS)
+    try:
+        trainer = fluid.Trainer(
+            train_func, lambda: fluid.optimizer.Adam(learning_rate=TRAIN_LR),
+            place=fluid.CUDAPlace(0), steplog=path)
+    finally:
+        fluid.set_flags(saved)
+    groups = sum(op.type.endswith("_fused")
+                 for op in trainer.train_program.global_block().ops)
+    launchers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                 fused_flat_update)
+    for fn in launchers:
+        reset_counts(fn)
+    t0 = time.perf_counter()
+    trainer.train(1, reader=persist_reader(OBS_STEPS),
+                  feed_order=PERSIST_FEEDS, steps_per_loop=OBS_CHUNK)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trainer.stop()
+    launches = {fn.__name__: fn.launches for fn in launchers}
+    want = {fn.__name__: ATTN_PER_STEP * OBS_STEPS for fn in launchers[:3]}
+    want["fused_flat_update"] = groups * OBS_STEPS
+    if launches != want:
+        fail("obs: the steplog Trainer launched %s, expected %s"
+             % (launches, want))
+    recs = list(read_steplog(path))
+    if [r.get("step") for r in recs] != list(range(OBS_STEPS)):
+        fail("obs: the steplog holds steps %s, expected 0..%d"
+             % ([r.get("step") for r in recs], OBS_STEPS - 1))
+    if any(set(r) != STEPLOG_KEYS for r in recs):
+        fail("obs: steplog keys %s, expected the JAX package's %s"
+             % (sorted({k for r in recs for k in r}), sorted(STEPLOG_KEYS)))
+    losses = [r["loss"] for r in recs]
+    if not all(isinstance(v, float) and math.isfinite(v) for v in losses):
+        fail("obs: steplog losses %s" % losses)
+    if sum(r["fresh_compiles"] for r in recs) != 1:
+        fail("obs: the steplog counts %d fresh captures, expected 1 (one "
+             "graph for the chunks)" % sum(r["fresh_compiles"]
+                                           for r in recs))
+    rc, text = _quiet(top.main, [path, "--once", "--tail", str(OBS_STEPS)])
+    snap = json.loads(text.strip()) if rc == 0 else None
+    if snap is None or [r["step"] for r in snap["records"]] != \
+            list(range(OBS_STEPS)):
+        fail("obs: tools.top --once exited %s on the steplog" % rc)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"steps": OBS_STEPS, "chunk": OBS_CHUNK, "train_s": train_s,
+            "losses": losses, "keys": sorted(STEPLOG_KEYS),
+            "top_steps_per_sec": snap.get("steps_per_sec"),
+            "top_mean_ms_per_step": snap.get("mean_ms_per_step"),
+            "launches": launches}
+
+
+def obs_bundle(root, held):
+    """The flight recorder on the server phase's BERT engine: a server
+    whose worker loop dies (its batcher broken, so the exception escapes
+    the loop) writes an ``-exception`` bundle that ``tools.postmortem
+    validate`` accepts, with env pins naming torch, CUDA and the card
+    and the 7 bucket captures' fingerprints among its program
+    stamps."""
+    import threading
+
+    from paddle_tpu_torch.obs import record
+    from paddle_tpu_torch.serving import InferenceServer, ServingConfig
+    from paddle_tpu_torch.tools import postmortem
+
+    rec_dir = os.path.join(root, "rec")
+    record.enable(dir=rec_dir, interval_s=60.0, rolling=False,
+                  install_handlers=False)
+    hook = threading.excepthook
+    died = []
+    threading.excepthook = lambda a: died.append(a.exc_type.__name__)
+    try:
+        server = InferenceServer(held["engine"], config=ServingConfig(
+            buckets=SERVER_BUCKETS, batch_timeout_ms=2.0, warm_up=False),
+            auto_start=False)
+        server.start()
+        server.batcher.next_batch = None  # TypeError at the next poll
+        server.submit(server_requests()[0])
+        server._worker.join(timeout=60)
+        if server._worker.is_alive():
+            fail("obs: the broken worker did not die")
+        server.shutdown(drain=False, timeout=10)
+    finally:
+        threading.excepthook = hook
+        record.disable()
+    bundle = record.latest_bundle(rec_dir)
+    if bundle is None or not bundle.endswith("-exception"):
+        fail("obs: no exception bundle after the worker died (%s)" % bundle)
+    rc, text = _quiet(postmortem.main, ["validate", rec_dir])
+    if rc != 0:
+        fail("obs: tools.postmortem validate exited %s: %s" % (rc, text))
+    b = record.read_bundle(bundle)
+    env = b["manifest"]["env"]
+    want_env = {"torch": torch.__version__, "cuda": torch.version.cuda,
+                "device_kind": torch.cuda.get_device_name(0),
+                "platform": "cuda"}
+    if {k: env.get(k) for k in want_env} != want_env:
+        fail("obs: the bundle's env pins %s, expected %s" % (env, want_env))
+    stamped = {r["fingerprint"]
+               for r in b["manifest"]["stamps"]["fingerprints"]}
+    if not set(held["fingerprints"]) <= stamped:
+        fail("obs: the bundle's program stamps lack the captured buckets' "
+             "fingerprints")
+    if "InferenceServer.worker" not in b["errors"][-1]["context"]:
+        fail("obs: the bundle's last error is %s" % b["errors"][-1])
+    return {"bundle": os.path.basename(bundle), "env": env,
+            "stamps": len(stamped), "worker_exception": died,
+            "error": b["errors"][-1]["type"],
+            "files": len(b["manifest"]["files"])}
+
+
+def obs_traces(root, model):
+    """A decode burst (OBS_REQUESTS prompts, OBS_NEW tokens, captured
+    buckets) with structured tracing on and the profiler's device trace:
+    the host timeline (``timeline.export_chrome_trace``) and
+    ``start_profiler(trace_dir=)``'s chrome trace both pass ``tools.trace
+    validate``, the host one holds a trace per request, the device one
+    the paged kernel's rows."""
+    from paddle_tpu_torch import profiler, timeline
+    from paddle_tpu_torch.decoding import CacheConfig
+    from paddle_tpu_torch.obs import trace
+    from paddle_tpu_torch.ops import paged_window_attention
+    from paddle_tpu_torch.tools import trace as trace_cli
+
+    session, _ = open_session(model, CacheConfig(**SERVING_CACHE))
+    prompts = serving_prompts()[:OBS_REQUESTS]
+    reset_counts(paged_window_attention)
+    profiler.reset_profiler()
+    trace.enable()
+    profiler.start_profiler("All", trace_dir=os.path.join(root, "device"))
+    try:
+        futs = [session.submit(p, max_new_tokens=OBS_NEW) for p in prompts]
+        session.start()
+        streams = [f.result(timeout=600) for f in futs]
+    finally:
+        session.shutdown(drain=True, timeout=120)
+        profiler.stop_profiler(print_report=False)
+        trace.disable()
+    launches = paged_window_attention.launches
+    if any(len(st) != OBS_NEW for st in streams) or launches == 0:
+        fail("obs: the traced burst gave %s tokens, %d paged launches"
+             % ([len(st) for st in streams], launches))
+    host = timeline.export_chrome_trace(os.path.join(root, "host.json"))
+    device = profiler.device_trace_path()
+    rcs = {}
+    for name, path in (("host", host), ("device", device)):
+        rcs[name], text = _quiet(trace_cli.main, ["validate", path])
+        if rcs[name] != 0:
+            fail("obs: tools.trace validate exited %s on the %s trace: %s"
+                 % (rcs[name], name, text[-2000:]))
+    events = json.load(open(host))["traceEvents"]
+    traces = {e["args"]["trace_id"] for e in events
+              if e.get("ph") == "X" and (e.get("args") or {}).get(
+                  "trace_id")}
+    if len(traces) < len(prompts):
+        fail("obs: the host trace holds %d structured traces for %d "
+             "requests" % (len(traces), len(prompts)))
+    dev = [e for e in json.load(open(device))["traceEvents"]
+           if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    paged = [e for e in dev if "paged_window_attention" in e["name"]]
+    if not paged:
+        fail("obs: the device trace shows no paged kernel row (%d kernel "
+             "events)" % len(dev))
+    torch.cuda.empty_cache()
+    return {"requests": len(prompts), "new_tokens": OBS_NEW,
+            "paged_launches": launches, "host_spans": sum(
+                e.get("ph") == "X" for e in events),
+            "host_traces": len(traces), "device_kernel_events": len(dev),
+            "device_paged_events": len(paged),
+            "device_paged_ms": sum(e.get("dur", 0.0) for e in paged) / 1e3,
+            "validate_rcs": rcs}
+
+
+def phase_obs(card, model, held):
+    """The observability tooling on the card: the recipe through
+    ``Trainer(steplog=)``, the flight recorder on the server phase's BERT
+    engine, a profiled decode burst's host and device traces. Returns
+    the launches of the steplog run and of the traced burst."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        OBS_ROOT)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        steplog = obs_steplog(root)
+        bundle = obs_bundle(root, held)
+        held.clear()  # the server engine goes
+        traces = obs_traces(root, model)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the Trainer, the sessions and the engines hold CUDA graphs' pools;
+    # some sit in reference cycles, which only the collector frees
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "obs", "card": card, "steplog": steplog,
+          "bundle": bundle, "traces": traces,
+          "memory_allocated_after": torch.cuda.memory_allocated(),
+          "phase_s": time.perf_counter() - t_phase})
+    return dict(steplog["launches"],
+                paged_window_attention=traces["paged_launches"])
 
 
 def main():
@@ -7534,10 +8021,19 @@ def main():
     resilience_counts = phase_resilience(card, model, greedy,
                                          serving_counts, prefix_streams)
     torch.cuda.empty_cache()
-    server_launches = phase_server(card)
+    held = {}
+    server_launches = phase_server(card, held)
     torch.cuda.empty_cache()
-    artifact_launches = phase_artifact(card, server_launches,
-                                       dropout_step_ms)
+    obs_launches = phase_obs(card, model, held)
+    torch.cuda.empty_cache()
+    cache_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              COMPILE_CACHE_ROOT)
+    artifact_launches, built = phase_artifact(card, server_launches,
+                                              dropout_step_ms, cache_root)
+    torch.cuda.empty_cache()
+    phase_compile_cache(card, cache_root, built,
+                        artifact_launches["export_s"])
+    del built
     torch.cuda.empty_cache()
     persist_launches, persist_counts = phase_persist(
         card, model, greedy, base, dropout_step_ms)
@@ -7597,6 +8093,8 @@ def main():
     res_f32 = [c for leg, c in resilience_counts.items() if leg != "faults"]
     kernels[0]["resilience_launches"] = sum(c["split_launches"]
                                             for c in res_f32)
+    # the obs phase's traced decode burst
+    kernels[0]["obs_launches"] = obs_launches["paged_window_attention"]
     # the k=8 verify window (T=9): the query-tile route on f32 pools
     kernels.append(paged_entry("paged_window_attention_verify", 200,
                                spec_counts["k8"]["tile_launches"],
@@ -7658,6 +8156,8 @@ def main():
                 # the dropout recipe's trainable artifact, 10 run steps
                 kernels[-1]["artifact_launches"] = artifact_launches[
                     "training"][name]
+                # the obs phase's Trainer(steplog=): 12 replayed steps
+                kernels[-1]["obs_launches"] = obs_launches[name]
             if suffix == "_bert_bf16":
                 # the remat phase's level-1 run (20 steps at the phase-2
                 # shape): the recompute relaunches the forward
@@ -7688,6 +8188,7 @@ def main():
         "deepfm_launches": deepfm_launches,
         "artifact_launches": artifact_launches["training"][
             "fused_flat_update"],
+        "obs_launches": obs_launches["fused_flat_update"],
         "seq2seq_launches": seq["seq2seq"][0],
         "sentiment_launches": seq["sentiment"][0],
         "srl_launches": seq["srl"][0]})
@@ -7799,6 +8300,8 @@ def main():
         "bound_by": db["bound_by"], "library_ms": None,
         "device_ms": db["device_ms"], "f_dropout_ms": db["f_dropout_ms"],
         "remat_launches": remat_launches["dropout_apply"]})
+    emit({"phase": "call", "card": card,
+          "call_s": time.perf_counter() - T_START})
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

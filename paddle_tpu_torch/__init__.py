@@ -85,10 +85,10 @@ LSTM or the SRL db-lstm replays as a captured CUDA graph::
 This package imports neither jax nor paddle_tpu.
 """
 
-from . import (amp, analysis, average, checkpoint, ckpt, clip, evaluator,
-               inference, io, layers, lod_tensor, metrics, nets, obs,
-               optimizer, passes, profiler, reader, regularizer, resilience,
-               tuning)
+from . import (amp, analysis, average, checkpoint, ckpt, clip,
+               compile_cache, evaluator, inference, io, layers, lod_tensor,
+               metrics, nets, obs, optimizer, passes, profiler, reader,
+               regularizer, resilience, timeline, tuning)
 from . import initializer_api as initializer  # noqa: F401
 from .backward import append_backward
 from .ckpt import CheckpointConfig
@@ -120,3 +120,18 @@ from .param_attr import ParamAttr
 from .reader.prefetch import batch
 from .trainer import (BeginEpochEvent, BeginStepEvent, EndEpochEvent,
                       EndStepEvent, Trainer)
+
+# flight-recorder auto-enable (obs.record): the obs_record flag
+# (PDTPU_OBS_RECORD) names a bundle dir, and an inherited
+# PDTPU_RECORD_DIR means a supervising parent wants this worker's black
+# box collected there. PDTPU_RECORD_DIR wins: it is the parent's
+# explicit per-worker dir, while the flag may be ambient env inherited
+# from that same parent. Absent both (the default), nothing runs.
+import os as _os
+
+_record_dir = (_os.environ.get(obs.record.ENV_VAR)
+               or get_flag("obs_record"))
+if _record_dir:
+    obs.record.enable(dir=_record_dir,
+                      interval_s=float(get_flag("obs_record_interval_s")
+                                       or 1.0))

@@ -31,10 +31,10 @@ readers because every reader verifies checksums and treats a vanishing
 entry as a miss.
 
 The tuning store (``tuning/store.py``) reuses the meta-read policy, its
-two exceptions and the fault and retry sites. What the port compiles
-into this store (the executor's steps, serving buckets, the decode
-pair) comes with ROADMAP Queue A step (f2), with
-``compile_cache/{fingerprint,runtime}.py``.
+two exceptions and the fault and retry sites. What the port stores here
+is the ``torch.export`` of each exported bucket and trainable step
+(``runtime.cached_export``): the graph's code as the module text, the
+``.pt2`` bytes as the executable payload.
 """
 
 from __future__ import annotations

@@ -22,11 +22,17 @@ file path) at the first ``fire`` when no plan was installed and
 
 The executor reads ``donate_state_buffers``, ``scan_unroll``,
 ``check_program`` and ``check_nan_inf`` at each run, ``reader.DataLoader`` reads ``dataloader_buffer_size`` when it is
-made. ``tuning`` reads ``tuning_cache_dir`` at each store resolution.
+made. ``tuning`` reads ``tuning_cache_dir`` (falling back to
+``<compile_cache_dir>/tuning``) at each store resolution; ``io`` and the
+executor read ``compile_cache_dir`` at each export and capture. The
+caches' roots, ``profiler_max_spans`` and the flight recorder's
+``obs_record``/``obs_record_interval_s`` are also read from
+``PDTPU_<NAME>`` at import (:func:`try_from_env`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 _REGISTRY: Dict[str, Any] = {}
@@ -104,13 +110,78 @@ define_flag("fault_plan", "",
             "a resilience.FaultPlan (inline JSON or a path to a JSON "
             "file) activated at the first fault-point fire when no plan "
             "was installed and PDTPU_FAULT_PLAN is unset")
+define_flag("compile_cache_dir", "",
+            "root of the persistent compile cache "
+            "(paddle_tpu_torch.compile_cache): each torch.export of "
+            "save_inference_model's buckets and of "
+            "save_trainable_program is fingerprinted and its .pt2 stored "
+            "under this directory, so a second export of the same "
+            "program (a re-export after retraining, another process) "
+            "writes the stored file instead of tracing again; the "
+            "executor's captured CUDA graphs are fingerprinted into "
+            "recent_fingerprints() and persist nothing. Empty (default) "
+            "= off, zero behavior change. Maintain with "
+            "`python -m paddle_tpu_torch.tools.cache`")
 define_flag("tuning_cache_dir", "",
             "root of the persistent kernel-autotuning store "
             "(paddle_tpu_torch.tuning): measured per-(device, kernel, "
             "shape-bucket, dtype) launch configs of the Hopper kernels "
             "persist here and warm a second process with zero re-sweeps. "
-            "Empty (default) = no persistence: lookups serve the "
-            "in-process memo and the kernels' defaults. The JAX package "
-            "falls back to <compile_cache_dir>/tuning; the port has no "
-            "compile_cache_dir flag until its compile-cache slice. "
-            "Maintain with `python -m paddle_tpu_torch.tools.tuning`")
+            "Empty (default) = live beside the compile cache at "
+            "<compile_cache_dir>/tuning when that flag is set, else no "
+            "persistence: lookups serve the in-process memo and the "
+            "kernels' defaults. Maintain with "
+            "`python -m paddle_tpu_torch.tools.tuning`")
+define_flag("profiler_max_spans", 1_000_000,
+            "capacity of the profiler's span ring "
+            "(paddle_tpu_torch.profiler): a long-enabled profiler keeps "
+            "the newest this-many spans and reports evictions through "
+            "spans_dropped() instead of growing without bound. The "
+            "aggregated event counts and totals never drop. Applied at "
+            "the next reset_profiler()")
+define_flag("obs_record", "",
+            "enable the flight recorder (paddle_tpu_torch.obs.record) at "
+            "import with this bundle directory: bounded in-memory rings "
+            "(span, steplog, error and alert tails, metric snapshots) "
+            "flushed as atomic post-mortem bundles on unhandled "
+            "exceptions, SIGTERM/SIGQUIT, watchdog alerts, degradation "
+            "escalation and a rolling cadence that survives SIGKILL. "
+            "Subprocess workers inherit it through the PDTPU_RECORD_DIR "
+            "env var. Empty (default) = off. Inspect bundles with "
+            "`python -m paddle_tpu_torch.tools.postmortem`")
+define_flag("obs_record_interval_s", 1.0,
+            "flight-recorder snapshot cadence in seconds: metric-registry "
+            "snapshots, tick-rule watchdog evaluation and the rolling "
+            "flush all run on this period")
+
+
+def try_from_env(names) -> None:
+    """Read ``PDTPU_<NAME>`` for each flag of ``names`` where it is set
+    (the JAX package's ``--tryfromenv``), parsed as the default's type.
+    A value that does not parse warns and is ignored."""
+    for name in names:
+        env = os.environ.get("PDTPU_" + name.upper())
+        if env is None:
+            continue
+        cur = _REGISTRY.get(name)
+        try:
+            if isinstance(cur, bool):
+                val = env.lower() in ("1", "true", "yes")
+            elif isinstance(cur, int):
+                val = int(env)
+            elif isinstance(cur, float):
+                val = float(env)
+            else:
+                val = env
+        except ValueError:
+            import warnings
+
+            warnings.warn(f"ignoring invalid PDTPU_{name.upper()}={env!r}")
+            continue
+        set_flags({name: val})
+
+
+# the flags a deployment sets from its environment: the caches' roots,
+# the recorder's, and the span ring's size
+try_from_env(["compile_cache_dir", "tuning_cache_dir",
+              "profiler_max_spans", "obs_record", "obs_record_interval_s"])

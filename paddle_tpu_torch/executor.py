@@ -86,8 +86,18 @@ read-only reduction on the device and one bool read
 (``amp.device_all_finite``); only when it fails does a per-tensor pass
 run, to name the variable.
 
-Not ported yet: the compile cache, sharding, program readers and host
-offload.
+Compile cache (the ``compile_cache_dir`` flag): the JAX package
+persists its compiled steps and scans. Here nothing the executor makes
+outlives the process: ``run`` interprets the ops, and a captured CUDA
+graph holds this process's device addresses, so it cannot be
+serialized. With the flag set each new capture of ``run_graph`` and
+``run_steps`` is fingerprinted (kinds ``"graph"`` and ``"steps"``) into
+``compile_cache.recent_fingerprints()``, the program stamps a
+flight-recorder bundle carries; :attr:`Executor.num_compiled` counts
+captured graphs either way. What persists is ``torch.export`` of
+exported programs (``io.py`` through ``compile_cache.runtime``).
+
+Not ported yet: sharding, program readers and host offload.
 """
 
 from __future__ import annotations
@@ -689,6 +699,27 @@ def _tuning_key(program: Program) -> tuple:
 
     stamp = program_stamp(program)
     return (("tuning", stamp),) if stamp else ()
+
+
+def _note_capture(program: Program, kind: str, feed_avals: Dict,
+                  state_names, scope: Scope, fetch_names, device,
+                  config: dict) -> None:
+    """With the ``compile_cache_dir`` flag set, fingerprint a new
+    capture into ``compile_cache.recent_fingerprints()`` (the program
+    stamps of flight-recorder bundles). A CUDA graph holds this
+    process's device addresses, so nothing is persisted; with the flag
+    unset this is one flag read."""
+    if not flags.get_flag("compile_cache_dir"):
+        return
+    from .compile_cache import runtime as cc_runtime
+
+    state_avals = {}
+    for n in state_names:
+        v = scope.find_var(n)
+        if isinstance(v, torch.Tensor):
+            state_avals[n] = (tuple(v.shape), v.dtype)
+    cc_runtime.note_capture(program, feed_avals, state_avals, fetch_names,
+                            kind, device, config)
 
 
 def _resolve_donation(program: Program) -> bool:
@@ -1386,6 +1417,11 @@ class Executor:
                                       steps, bool(unroll), donate,
                                       self.device, remat=remat)
             captured.stream = self._stream()
+            _note_capture(program, "steps", {
+                n: (tuple(v.shape), v.dtype) for n, v in feed_vals.items()},
+                state_names, scope, fetch_names, self.device,
+                {"donate": donate, "remat": bool(remat), "steps": steps,
+                 "stacked": list(stacked_names), "unroll": bool(unroll)})
         with RecordEvent("dispatch"):
             fetches = captured(feed_vals)
         self._cache[key] = captured
@@ -1464,6 +1500,8 @@ class Executor:
         captured = _CapturedRun(program, scope, fetch_names, state_names,
                                 specs, donate, self.device, pool=pool)
         captured.stream = self._stream()
+        _note_capture(program, "graph", specs, state_names, scope,
+                      fetch_names, self.device, {"donate": donate})
         return key, captured
 
     def _stream(self) -> torch.cuda.Stream:

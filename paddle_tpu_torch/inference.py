@@ -20,7 +20,8 @@ and one device buffer (one non-blocking copy in), the fetches into one
 device buffer and one pinned host buffer (one copy out), the parameters
 where they lie — and every later run replays it: ``compile_count``
 counts those captures, as the program backend's does. ``cache_hits``
-stays 0: the persistent compile cache is not ported (ROADMAP Queue A).
+stays 0: the predictor compiles nothing the compile cache could serve
+(the cache keys the exports that write these files).
 On the CPU (``use_gpu=False``) the program runs eagerly and nothing is
 captured.
 """
@@ -195,7 +196,9 @@ class NativePredictor:
 
     @property
     def cache_hits(self) -> int:
-        """Always 0: the persistent compile cache is not ported."""
+        """Always 0: the predictor loads programs that are already
+        exported and compiles nothing, so the compile cache has nothing
+        to serve it (the JAX package counts its PJRT compiles' hits)."""
         return 0
 
     def available_batch_sizes(self) -> List[int]:

@@ -223,6 +223,11 @@ def _batch_feeds(gb, feeds: Sequence[str], batch: int):
     return out
 
 
+def _shapes(tensors) -> List[tuple]:
+    """(shape, dtype) of each tensor: the avals of a compile-cache key."""
+    return [(tuple(t.shape), t.dtype) for t in tensors]
+
+
 def _export_inference(dirname: str, program: Program, feeds: List[str],
                       fetch_names: List[str], param_names: List[str],
                       scope: Scope, manifest: dict,
@@ -236,12 +241,16 @@ def _export_inference(dirname: str, program: Program, feeds: List[str],
     ``torch_export_batch_size`` and ``torch_export_buckets``
     (``torch_export_feeds``: the feeds the graph takes, those an op
     reads). The trace runs on the device the scope's parameters lie on;
-    the loader moves the graph to its own. An explicit bucket request is validated first
+    the loader moves the graph to its own. With the ``compile_cache_dir``
+    flag set each bucket goes through ``compile_cache.runtime.
+    cached_export``: a stored export of the same program at the same
+    shapes is written verbatim instead of traced. An explicit bucket request is validated first
     and raises where it cannot be met; the batch-1 export is best-effort
     (a failure is recorded in ``torch_export_error`` with a warning, the
     JSON program staying canonical)."""
     import torch
 
+    from .compile_cache import runtime as cc_runtime
     from .executor import export_program_ops, live_ops
 
     gb = program.global_block()
@@ -267,9 +276,19 @@ def _export_inference(dirname: str, program: Program, feeds: List[str],
     def export(batch, fname):
         example = [f.to(device) for f in _batch_feeds(gb, graph_feeds,
                                                       batch)]
-        exported, _ = export_program_ops(ops, graph_feeds, param_names,
-                                         example + params, fetch_names)
-        torch.export.save(exported, os.path.join(dirname, fname))
+        # through the compile cache (with its flag set, a stored export
+        # of this program at these shapes is written verbatim: the
+        # parameters are graph inputs, so no weight is in it)
+        data, _ = cc_runtime.cached_export(
+            program, graph_feeds, fetch_names,
+            dict(zip(graph_feeds, _shapes(example))),
+            dict(zip(param_names, _shapes(params))),
+            {"kind": "export", "device": cc_runtime._device_tag(device)},
+            lambda: (export_program_ops(ops, graph_feeds, param_names,
+                                        example + params,
+                                        fetch_names)[0], {}))
+        with open(os.path.join(dirname, fname), "wb") as f:
+            f.write(data)
 
     if _batch_feeds(gb, graph_feeds, 1) is not None:
         try:
@@ -604,9 +623,12 @@ def save_trainable_program(dirname: str, feed_shapes: dict,
     ``train_written_outputs``). The step is traced on the device the
     scope's state lies on. A program whose backward recomputes its
     forward (``memory_optimize(level>=1)``, the ``remat_policy`` pass)
-    is refused: its checkpointed regions are not exported."""
+    is refused: its checkpointed regions are not exported. With the
+    ``compile_cache_dir`` flag set the step goes through the compile
+    cache as ``save_inference_model``'s buckets do."""
     import torch
 
+    from .compile_cache import runtime as cc_runtime
     from .executor import (_analyze_program_io, _reject_view_feeds,
                            _resolve_remat, _written_persistables,
                            export_program_ops, live_ops)
@@ -645,12 +667,23 @@ def save_trainable_program(dirname: str, feed_shapes: dict,
         example.append(torch.zeros(
             tuple(int(s) for s in feed_shapes[n]),
             dtype=dtype_utils.to_torch(v.dtype or "float32"), device=device))
-    exported, written_out = export_program_ops(
-        live_ops(program, fetch_names), feeds, state_names,
-        example + state, fetch_names, written_state)
+    def produce():
+        exported, written_out = export_program_ops(
+            live_ops(program, fetch_names), feeds, state_names,
+            example + state, fetch_names, written_state)
+        return exported, {"written_out": written_out}
 
+    # through the compile cache, as _export_inference's buckets; the
+    # names of the state the graph returns come back with the entry
+    data, extra = cc_runtime.cached_export(
+        program, feeds, fetch_names, dict(zip(feeds, _shapes(example))),
+        dict(zip(state_names, _shapes(state))),
+        {"kind": "export", "device": cc_runtime._device_tag(device),
+         "written": list(written_state)}, produce)
+    written_out = list(extra["written_out"])
     os.makedirs(dirname, exist_ok=True)
-    torch.export.save(exported, os.path.join(dirname, "__train_step__.pt2"))
+    with open(os.path.join(dirname, "__train_step__.pt2"), "wb") as f:
+        f.write(data)
     npz.savez(os.path.join(dirname, "__train_state__"),
               {n: npz.host_array(t) for n, t in zip(state_names, state)})
     manifest = _program_manifest(program, feeds, fetch_names)

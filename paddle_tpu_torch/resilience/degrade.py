@@ -294,6 +294,16 @@ class DegradationManager:
                 hook(frm, to, reason)
             except Exception:
                 pass  # a telemetry hook must never break admission
+        # flight-recorder hook (obs.record): transitions land in the
+        # recorder's degrade ring, and reaching the configured stage
+        # dumps a bundle. One None check while the recorder is off;
+        # guarded because telemetry must never break admission.
+        try:
+            from ..obs import record as obs_record
+
+            obs_record.note_degradation(frm, to, reason)
+        except Exception:
+            pass
         # zero-length marker span, the breaker-transition idiom:
         # degradations show up in the same profiler table as
         # fault/breaker events

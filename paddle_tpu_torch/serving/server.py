@@ -166,16 +166,23 @@ class InferenceServer:
         return self
 
     def _worker_main(self) -> None:
-        """Worker-thread entry: pin the thread to the engine's card (its
-        default stream), then loop. Anything escaping the loop is the
-        catastrophic case every later request hangs on: it re-raises so
-        the death stays loud (the JAX package also dumps a flight-
-        recorder bundle here; ``obs.record`` waits for ROADMAP Queue A
-        8)."""
-        device = self.engine.device
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
-        self._worker_loop()
+        """Worker-thread entry (the decode session's continuous loop
+        too): pin the thread to the engine's card (its default stream),
+        then loop. Anything escaping the loop is the catastrophic case
+        every later request hangs on: dump a post-mortem bundle on the
+        way down (no-op when the recorder is off), then re-raise so the
+        death stays loud."""
+        try:
+            device = self.engine.device
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+            self._worker_loop()
+        except BaseException as e:
+            from ..obs import record as obs_record
+
+            obs_record.record_exception(
+                e, context="%s.worker" % type(self).__name__)
+            raise
 
     # ------------------------------------------------------------------
     def submit(self, feed: Dict[str, np.ndarray],

@@ -9,7 +9,8 @@ of paddle_tpu/tools/tuning.py).
     python -m paddle_tpu_torch.tools.tuning gc --max-bytes N [--dir DIR]
     python -m paddle_tpu_torch.tools.tuning clear  [--dir DIR]
 
-``--dir`` defaults to the active store: the ``tuning_cache_dir`` flag.
+``--dir`` defaults to the active store: the ``tuning_cache_dir`` flag
+(``PDTPU_TUNING_CACHE_DIR``), else ``<compile_cache_dir>/tuning``.
 ``sweep`` measures on the card (``--device cuda``, the default: device
 time from CUDA events) or, asked for, times the plain versions on the
 host (``--device cpu``: their host time, keyed to device kind ``cpu``).
@@ -34,7 +35,7 @@ def _store(args):
     store = active_store()
     if store is None:
         print("no tuning store: pass --dir or set the tuning_cache_dir "
-              "flag", file=sys.stderr)
+              "or compile_cache_dir flag", file=sys.stderr)
         raise SystemExit(2)
     return store
 

@@ -18,9 +18,12 @@ graph is already captured is honoured by the next replay: the executor
 copies a scope tensor that was replaced into the graph's buffer first.
 
 Each step fires the ``trainer.step`` fault point (``resilience``).
+``steplog=`` (a path or an ``obs.StepLogger``) appends one StepStats
+JSON line per step, on the eager, ``steps_per_loop`` and DataLoader
+paths alike; a train loop dying on an unhandled exception hands it to
+the flight recorder (``obs.record``) before it propagates.
 
-Not ported: ``parallel=True`` (ROADMAP Queue A 9, multi-GPU), the
-per-step telemetry of ``steplog=`` (Queue A 8, ``obs/``), and the
+Not ported: ``parallel=True`` (ROADMAP Queue A 9, multi-GPU) and the
 supervisor heartbeat of each step (Queue A 10).
 """
 
@@ -84,7 +87,10 @@ class Trainer:
         place: device place (default: ``CUDAPlace(0)``).
         parallel: not ported (raises).
         checkpoint_config: enables periodic checkpoints + auto-resume.
-        steplog: not ported (raises).
+        steplog: per-step run telemetry (``obs.steplog``): a path or a
+            ``StepLogger``; every step appends one StepStats JSON line
+            (live-tail with ``python -m paddle_tpu_torch.tools.top``).
+            None (default) = off.
     """
 
     def __init__(self,
@@ -98,9 +104,11 @@ class Trainer:
         if parallel:
             raise not_ported("Trainer(parallel=True) (the SPMD "
                              "ParallelExecutor)", "Queue A 9, multi-GPU")
-        if steplog is not None:
-            raise not_ported("Trainer(steplog=...) (obs.steplog's per-step "
-                             "telemetry)", "Queue A 8")
+        if isinstance(steplog, str):
+            from .obs.steplog import StepLogger
+
+            steplog = StepLogger(steplog)
+        self._steplog = steplog
         self.place = place if place is not None else default_place()
         self.parallel = False
         self.checkpoint_cfg = checkpoint_config
@@ -203,6 +211,9 @@ class Trainer:
         ``step_interval``. Partial groups (an epoch's ragged tail, a
         shape boundary) run per step."""
         event_handler = event_handler or (lambda e: None)
+        if self._steplog is not None:
+            event_handler = self._steplog.wrap_events(
+                event_handler, executor=self.exe, scope=self.scope)
         if reader is None:
             raise EnforceError("train() needs a reader")
         if getattr(reader, "_pdtpu_dataloader", False):
@@ -306,9 +317,15 @@ class Trainer:
                             (epoch_id + 1) %
                             self.checkpoint_cfg.epoch_interval == 0):
                         self._save_checkpoint(epoch_id + 1, 0)
+        except Exception as e:
+            # flight-recorder hook: a train loop dying on an unhandled
+            # exception dumps a post-mortem bundle before the error
+            # propagates (one None check while the recorder is off)
+            from .obs import record as obs_record
+
+            obs_record.record_exception(e, context="trainer.train")
+            raise
         finally:
-            # the JAX package also hands an exception to its flight
-            # recorder here (ROADMAP Queue A 8, obs/)
             self._drain_saves()
 
     def _train_pipeline(self, num_epochs: int, event_handler: Callable,
@@ -397,6 +414,12 @@ class Trainer:
                     event_handler(EndEpochEvent(epoch_id))
                     if cfg and (epoch_id + 1) % cfg.epoch_interval == 0:
                         self._save_checkpoint(epoch_id + 1, 0)
+        except Exception as e:
+            # the classic loop's flight-recorder hook
+            from .obs import record as obs_record
+
+            obs_record.record_exception(e, context="trainer.train")
+            raise
         finally:
             loader.close()
             self._drain_saves()
@@ -440,6 +463,8 @@ class Trainer:
         if hasattr(self, "_async_saver"):
             self._async_saver.close()
             del self._async_saver
+        if self._steplog is not None:
+            self._steplog.close()
 
     # ------------------------------------------------------------------
     def _make_feeder(self, feed_order) -> DataFeeder:

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import hashlib
 import itertools
+import os
 import threading
 import warnings
 import weakref
@@ -182,11 +183,16 @@ def current_device_kind(device=None) -> str:
 
 
 def active_store() -> Optional[TuningStore]:
-    """The store named by the ``tuning_cache_dir`` flag; None = no
-    persistence (lookups serve memo/defaults only)."""
+    """The store named by the ``tuning_cache_dir`` flag; when that is
+    unset, tuned configs live beside the compile cache at
+    ``<compile_cache_dir>/tuning``. None = no persistence (lookups
+    serve memo/defaults only)."""
     d = flags.get_flag("tuning_cache_dir")
     if not d:
-        return None
+        cc = flags.get_flag("compile_cache_dir")
+        if not cc:
+            return None
+        d = os.path.join(str(cc), "tuning")
     return TuningStore(str(d))
 
 

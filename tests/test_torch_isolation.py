@@ -106,3 +106,22 @@ def test_the_tuning_slice_modules_are_in_the_scan():
     for module in ("tuning/store.py", "compile_cache/store.py",
                    "tools/tuning.py"):
         assert not _IMPORT.search((PACKAGE / module).read_text()), module
+
+
+def test_the_compile_cache_and_observability_modules_are_in_the_scan():
+    """The compile-cache and observability slice's modules (the
+    fingerprint and runtime, the flight recorder, watchdogs and steplog,
+    the timeline and the four CLIs) are among those the two checks above
+    import and scan; none imports jax or paddle_tpu, though each is a
+    counterpart of a jax-free module of the JAX package."""
+    modules = ("compile_cache/fingerprint.py", "compile_cache/runtime.py",
+               "obs/record.py", "obs/steplog.py", "obs/watch.py",
+               "timeline.py", "profiler.py", "tools/cache.py",
+               "tools/trace.py", "tools/postmortem.py", "tools/top.py")
+    names = {"paddle_tpu_torch." + ".".join(
+        p.relative_to(PACKAGE).with_suffix("").parts)
+        for p in PACKAGE.rglob("*.py")}
+    assert {"paddle_tpu_torch." + m[:-3].replace("/", ".")
+            for m in modules} <= names
+    for module in modules:
+        assert not _IMPORT.search((PACKAGE / module).read_text()), module

@@ -427,9 +427,7 @@ def test_save_params_and_param_path(tmp_path):
                            t.scope.find_var(p.name)), p.name
 
 
-@pytest.mark.parametrize("kw,item", [({"parallel": True}, "Queue A 9"),
-                                     ({"steplog": "run.jsonl"},
-                                      "Queue A 8")])
+@pytest.mark.parametrize("kw,item", [({"parallel": True}, "Queue A 9")])
 def test_refused_options_name_their_queue_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         fluid.Trainer(_fit_func(fluid),
@@ -438,6 +436,30 @@ def test_refused_options_name_their_queue_item(kw, item):
     with pytest.raises(NotImplementedError, match="Queue A 9"):
         fluid.Inferencer(lambda: None, "unused", place=fluid.CPUPlace(),
                          parallel=True)
+
+
+def test_steplog_writes_one_record_per_step(tmp_path):
+    """``steplog=`` (once refused) appends one StepStats line a step,
+    with the loss the step fetched."""
+    from paddle_tpu_torch.obs.steplog import read_steplog
+
+    path = str(tmp_path / "run.jsonl")
+    t = fluid.Trainer(_fit_func(fluid),
+                      lambda: fluid.optimizer.SGD(learning_rate=0.05),
+                      place=fluid.CPUPlace(), steplog=path)
+    losses = []
+
+    def handler(e):
+        if isinstance(e, fluid.EndStepEvent):
+            losses.append(float(np.asarray(e.metrics[0]).reshape(-1)[0]))
+
+    t.train(num_epochs=1, event_handler=handler, reader=_fit_reader(4),
+            feed_order=["x", "y"])
+    t.stop()
+    recs = list(read_steplog(path))
+    assert [r["step"] for r in recs] == [0, 1, 2, 3]
+    assert [r["loss"] for r in recs] == [round(v, 6) for v in losses]
+    assert all(r["fresh_compiles"] == 0 for r in recs)
 
 
 # ---------------------------------------------------------------- card
