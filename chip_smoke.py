@@ -1915,10 +1915,11 @@ SERVER_ROOT = "build/chip_smoke_server"  # under the checkout, ignored
 SERVER_FLAGS = {"use_bfloat16": True, "bf16_activations": True}
 
 
-def build_server_model():
+def build_server_model(flags=SERVER_FLAGS):
     """A BERT-base sentence-pair classifier for inference: the encoder
     of ``bert_encoder`` at BERT_MODEL's widths (``is_test``,
-    ``attn_impl="pallas"``, built under the bert phase's bf16 flags),
+    ``attn_impl="pallas"``, built under ``flags``: by default the bert
+    phase's bf16 flags; the ptq phase's f32 program turns them off),
     feeds ``[-1, SERVER_T]``, then ``bert_pretrain``'s next-sentence
     head over [CLS] — ``fc(tanh)``, ``fc(2)`` — and a softmax. Returns
     (main, feed names, probabilities var, scope) with numpy-seeded
@@ -1926,8 +1927,8 @@ def build_server_model():
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models.bert import bert_encoder
 
-    saved = {n: fluid.get_flag(n) for n in SERVER_FLAGS}
-    fluid.set_flags(SERVER_FLAGS)
+    saved = {n: fluid.get_flag(n) for n in flags}
+    fluid.set_flags(flags)
     try:
         main, startup = fluid.Program(), fluid.Program()
         with fluid.unique_name.guard(), fluid.program_guard(main, startup):
@@ -2140,6 +2141,259 @@ def phase_server(card, held):
             "load_s": load_s, "warm_up_s": warm_s,
             "rows_per_s": (rows - SERVER_OVERSIZE) / wall_s,
             "padded_row_share": rep["padding_overhead"]}
+
+
+# the ptq phase: BERT-base served in int8 (f32 program, PTQ through
+# quantize_for_serving), and one ResNet-50 batch through ptq_int8
+PTQ_FLAGS = {"use_bfloat16": False, "bf16_activations": False}
+PTQ_DRIFT = 0.05      # prob-space bound of tests/test_quantize_ptq.py:145
+PTQ_REQUESTS = 128    # served requests of 1-8 rows
+PTQ_CALIB = (8, 2)    # two calibration batches of 8 requests each
+PTQ_RESNET_B = 8
+
+
+def _stack(reqs):
+    """One feed of the rows of ``reqs``."""
+    return {n: np.concatenate([r[n] for r in reqs]) for n in reqs[0]}
+
+
+def _graph_device_ms(place, program, feed, fetch, scope):
+    """(device ms of one replay, fetches) of ``program`` captured at
+    ``feed``'s shapes (``Executor.run_graph``)."""
+    import paddle_tpu_torch as fluid
+
+    exe = fluid.Executor(place)
+    out = exe.run_graph(program, feed=feed, fetch_list=fetch, scope=scope)
+    cap = next(c for c in exe._cache.values() if c.graph is not None)
+
+    def replay():
+        cap.idx.zero_()  # the graph's row counter, as launch() resets it
+        cap.graph.replay()
+
+    ms = device_ms(replay, 20)
+    exe.close()
+    return ms, out
+
+
+def ptq_resnet(place):
+    """ResNet-50 (``is_test``, 224x224, f32, seeded weights) through
+    ``ptq_int8`` on one batch of PTQ_RESNET_B images: every conv becomes
+    an ``int8_conv_dequant``; the stem's (K = 147) and a 3x3 conv over
+    512 channels run on CPU tensors and on the card from the same
+    codes, bit for bit."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import passes
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+
+    saved = {n: fluid.get_flag(n) for n in PTQ_FLAGS}
+    fluid.set_flags(PTQ_FLAGS)
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            img = fluid.layers.data(
+                name="img", shape=[-1, 3, RESNET_HW, RESNET_HW],
+                dtype="float32", append_batch_size=False)
+            predict = resnet_imagenet(img, class_dim=RESNET_CLASSES,
+                                      is_test=True)
+    finally:
+        fluid.set_flags(saved)
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    fluid.params_from_numpy(resnet_weights(main), scope, place,
+                            program=main)
+    rng = np.random.RandomState(SEED + 41)
+    batch = {"img": rng.rand(PTQ_RESNET_B, 3, RESNET_HW,
+                             RESNET_HW).astype(np.float32)}
+    t0 = time.perf_counter()
+    q = passes.quantize_for_serving(main, scope, [batch], place=place)
+    quant_s = time.perf_counter() - t0
+    convs = [op for op in q.global_block().ops
+             if op.type == "int8_conv_dequant"]
+    n_conv = sum(op.type == "conv2d" for op in main.global_block().ops)
+    if len(convs) != n_conv or any(op.type == "conv2d"
+                                   for op in q.global_block().ops):
+        fail("ptq: %d of ResNet-50's %d convs became int8_conv_dequant"
+             % (len(convs), n_conv))
+
+    def filt(op):
+        return tuple(scope.find_var(op.input("Y")[0]).shape)
+
+    picks = [convs[0], next(op for op in convs
+                            if filt(op)[1:] == (512, 3, 3))]
+    ref, = exe.run(main, feed=batch, fetch_list=[predict.name], scope=scope)
+    vals = exe.run(q, feed=batch, fetch_list=[predict.name] + [
+        op.input("X")[0] for op in picks], scope=scope)
+    got = vals[0]
+    checked = []
+    for op, codes in zip(picks, vals[1:]):
+        w8 = scope.find_var(op.input("Y")[0])
+        x = torch.from_numpy(codes)
+        on_cpu = op.fn(x, w8.cpu())
+        on_card = op.fn(x.to(place.torch_device()), w8).cpu()
+        if not torch.equal(on_cpu, on_card):
+            fail("ptq: the int8 conv %s (filter %s) parts from its CPU run "
+                 "by %g" % (op.output("Out")[0], filt(op),
+                            float((on_cpu - on_card).abs().max())))
+        checked.append({"out": op.output("Out")[0], "filter": filt(op),
+                        "input": list(codes.shape), "bit_equal": True})
+    if not np.isfinite(got).all():
+        fail("ptq: the int8 ResNet-50's logits are not finite")
+    return {"convs": len(convs), "quantize_s": quant_s,
+            "checked_convs": checked,
+            "top1_agreement": float((got.argmax(1)
+                                     == ref.argmax(1)).mean()),
+            "max_abs_logit_drift": float(np.abs(got - ref).max()),
+            "max_abs_logit": float(np.abs(ref).max())}
+
+
+def phase_ptq(card):
+    """BERT-base served in int8: ``build_server_model``'s classifier in
+    f32 (without the server's bf16 flags), the same seeded weights,
+    calibrated on two batches of requests and quantized with
+    ``quantize_for_serving`` (every weight-carrying ``mul`` an
+    ``int8_mul_dequant`` against an int8 weight on the card, the stamp
+    set, zero diagnostics); served through ``serve_program`` over
+    SERVER_BUCKETS (a captured graph per bucket) to client threads.
+    Every reply equals the int8 program's ``Executor.run`` of its rows,
+    bit for bit, and stays within PTQ_DRIFT of the f32 program's; the
+    attention stays f32, so the f32 flash forward launches 12 times an
+    executed batch. Then ResNet-50's int8 convs (:func:`ptq_resnet`).
+    Returns the flash forward's launches."""
+    import threading
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import analysis, passes
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.serving import ServingConfig, serve_program
+
+    t_phase = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    main, feed_names, prob, scope = build_server_model(PTQ_FLAGS)
+    fetch = [prob.name]
+    reqs = server_requests(SEED + 40)[:PTQ_REQUESTS]
+    per, n_batches = PTQ_CALIB
+    calib = [_stack(reqs[i * per:(i + 1) * per]) for i in range(n_batches)]
+    t0 = time.perf_counter()
+    q = passes.quantize_for_serving(main, scope, calib, place=place)
+    quant_s = time.perf_counter() - t0
+    gb, qb = main.global_block(), q.global_block()
+
+    def weighted_muls(block):
+        return [op for op in block.ops if op.type == "mul"
+                and block._find_var_recursive(op.input("Y")[0]).persistable]
+
+    n_mul = len(weighted_muls(gb))
+    n_int8 = sum(op.type == "int8_mul_dequant" for op in qb.ops)
+    if n_int8 != n_mul or weighted_muls(qb):
+        fail("ptq: %d of BERT-base's %d weight-carrying muls became "
+             "int8_mul_dequant" % (n_int8, n_mul))
+    w8 = [n for n in scope.local_var_names() if n.endswith("@INT8")]
+    bad = [n for n in w8 if scope.find_var(n).dtype != torch.int8
+           or scope.find_var(n).device != place.torch_device()]
+    if len(w8) != n_mul or bad:
+        fail("ptq: %d int8 weights for %d muls; not int8 on the card: %s"
+             % (len(w8), n_mul, bad[:5]))
+    stamp = getattr(q, "_passes_stamp", None) or ""
+    if not stamp.startswith("ptq_int8=int8/b8/per_channel"):
+        fail("ptq: the int8 program carries no ptq_int8 stamp (%r)" % stamp)
+    report = analysis.check_program(q, feed=feed_names, fetch_list=fetch)
+    if report.diagnostics:
+        fail("ptq: check_program reports on the int8 program:\n%s"
+             % report)
+
+    config = ServingConfig(buckets=SERVER_BUCKETS, batch_timeout_ms=2.0,
+                           queue_capacity=4 * PTQ_REQUESTS)
+    server = serve_program(q, feed_names, fetch, scope=scope, config=config,
+                           place=place, auto_start=False)
+    t0 = time.perf_counter()
+    server.start()  # warm_up: one capture per bucket
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    engine = server.engine
+    if engine.compile_count != len(SERVER_BUCKETS):
+        fail("ptq: %d graphs after warm-up, expected one per bucket (%d)"
+             % (engine.compile_count, len(SERVER_BUCKETS)))
+    replies = [None] * len(reqs)
+
+    def client(c):
+        for i in range(c, len(reqs), SERVER_CLIENTS):
+            replies[i], = server.infer(reqs[i], timeout=600)
+
+    reset_counts(fa.flash_fwd)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall_s = time.perf_counter() - t0
+    server.shutdown(drain=True, timeout=120)
+    if any(r is None for r in replies):
+        fail("ptq: not every request was answered")
+    executed = server.metrics.report()["batch_execute"]["count"]
+    launches = fa.flash_fwd.launches
+    if launches != BERT_MODEL["n_layer"] * executed:
+        fail("ptq: the f32 flash forward launched %d times over %d executed "
+             "batches of %d layers" % (launches, executed,
+                                       BERT_MODEL["n_layer"]))
+    if engine.compile_count != len(SERVER_BUCKETS):
+        fail("ptq: %d graphs after the traffic, expected %d"
+             % (engine.compile_count, len(SERVER_BUCKETS)))
+    del server, engine
+
+    # every reply against the int8 program's own eager run of its rows
+    # (bit for bit) and the f32 program's (within PTQ_DRIFT)
+    exe = fluid.Executor(place)
+    unequal, worst, drift, agree, rows = 0, 0.0, 0.0, 0, 0
+    for feed, got in zip(reqs, replies):
+        want, = exe.run(q, feed=feed, fetch_list=fetch, scope=scope)
+        ref, = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail("ptq: a reply of shape %s, eager %s" % (got.shape,
+                                                        want.shape))
+        if not np.array_equal(got, want):
+            unequal += 1
+            worst = max(worst, float(np.abs(got - want).max()))
+        drift = max(drift, float(np.abs(got - ref).max()))
+        agree += int((got.argmax(1) == ref.argmax(1)).sum())
+        rows += len(got)
+    if unequal:
+        fail("ptq: %d of %d replies differ from the int8 program's "
+             "Executor.run of their rows (max %g)" % (unequal, len(reqs),
+                                                      worst))
+    if not drift < PTQ_DRIFT:
+        fail("ptq: the int8 replies drift %g from the f32 program's "
+             "probabilities (bound %g)" % (drift, PTQ_DRIFT))
+    rows_all = _stack(reqs)
+    feed64 = {n: v[:SERVER_BUCKETS[-1]] for n, v in rows_all.items()}
+    int8_ms, out8 = _graph_device_ms(place, q, feed64, fetch, scope)
+    f32_ms, out32 = _graph_device_ms(place, main, feed64, fetch, scope)
+    want64, = exe.run(q, feed=feed64, fetch_list=fetch, scope=scope)
+    if not np.array_equal(out8[0], want64):
+        fail("ptq: bucket 64's captured int8 run parts from its eager run "
+             "by %g" % float(np.abs(out8[0] - want64).max()))
+    resnet = ptq_resnet(place)
+    emit({"phase": "ptq", "card": card, "model": BERT_MODEL,
+          "flags": PTQ_FLAGS, "seq_len": SERVER_T,
+          "buckets": SERVER_BUCKETS, "requests": len(reqs),
+          "clients": SERVER_CLIENTS, "rows": rows,
+          "calibration_rows": [len(c["src_ids"]) for c in calib],
+          "stamp": stamp, "int8_muls": n_int8, "int8_weights": len(w8),
+          "quantize_s": quant_s, "warm_up_s": warm_s,
+          "graphs": len(SERVER_BUCKETS), "rows_per_s": rows / wall_s,
+          "traffic_wall_s": wall_s, "executed_batches": executed,
+          "flash_fwd_f32_launches": launches,
+          "replies_bit_equal_to_eager": len(reqs),
+          "max_prob_drift_vs_f32": drift, "drift_bound": PTQ_DRIFT,
+          "top1_agreement": agree / rows,
+          "bucket64_device_ms": {"int8": int8_ms, "f32": f32_ms},
+          "bucket64_top1_agreement": float((out8[0].argmax(1)
+                                            == out32[0].argmax(1)).mean()),
+          "resnet50": resnet,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"flash_fwd": launches}
 
 
 def check_oracle(main, logits, scope, prompts, streams):
@@ -4034,6 +4288,174 @@ def phase_recipe(card):
                                              key=lambda kv: -kv[1])),
           "top_kernels": top})
     return launches, losses, final
+
+
+# the offload phase: the recipe's eager steps with and without the
+# host_offload pass, from one state
+OFFLOAD_STEPS = 6
+# the caching allocator hands out whole blocks: a tensor of n bytes
+# holds n rounded up to 512, and a large block is not split when less
+# than 1 MiB would remain, so each offloaded tensor may free up to this
+# much more than its bytes
+OFFLOAD_BLOCK_SLACK = (1 << 20) + 512
+_FRACTION_CHILD = r"""
+import torch
+from paddle_tpu_torch.core import memory
+total = torch.cuda.get_device_properties(0).total_memory
+memory.set_memory_fraction(0.1)
+assert memory.memory_usage().bytes_limit == int(total * 0.1)
+ok = torch.empty(int(total * 0.05), dtype=torch.uint8, device="cuda")
+try:
+    torch.empty(int(total * 0.2), dtype=torch.uint8, device="cuda")
+    raise SystemExit("an allocation past the fraction went through")
+except torch.OutOfMemoryError:
+    pass
+print("capped", memory.memory_usage().bytes_in_use)
+"""
+
+
+def _offload_run(place, offload, feed):
+    """OFFLOAD_STEPS eager steps of the recipe from its seeded state,
+    with the host_offload pass applied when ``offload``: (losses, step
+    seconds, the card's allocated bytes after each step, the final
+    state on the host, the program, the fused update's launches, the
+    host-resident bytes, host ms a steady step by span)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import passes, profiler
+    from paddle_tpu_torch.core import memory
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+
+    main, startup, cost = build_recipe(True)
+    if offload:
+        passes.apply_passes([passes.HostOffloadPass()], main)
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    fluid.params_from_numpy(seeded_weights(main), scope, place,
+                            program=main)
+    torch.cuda.synchronize()
+    reset_counts(fused_flat_update)
+    losses, step_s, between = [], [], []
+    for step in range(OFFLOAD_STEPS):
+        if step == 2:  # host spans of the steady steps
+            profiler.reset_profiler()
+            profiler.start_profiler("CPU")
+        t0 = time.perf_counter()
+        out, = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(out.tolist())
+        torch.cuda.synchronize()
+        between.append(memory.memory_usage().bytes_in_use)
+    spans = {n: t * 1e3 / (OFFLOAD_STEPS - 2)
+             for n, t in profiler.event_totals().items()
+             if n in ("dispatch", "fetch_sync", "offload_d2h",
+                      "offload_h2d")}
+    profiler.stop_profiler()
+    launches = fused_flat_update.launches
+    names = tuple(getattr(main, "_host_offload_state", ()) or ())
+    host = {n: scope.find_var(n) for n in names}
+    not_host = [n for n, t in host.items()
+                if t.device.type != "cpu" or not t.is_pinned()]
+    if not_host:
+        fail("offload: between steps %s are not in pinned host memory"
+             % not_host[:5])
+    host_bytes = sum(t.numel() * t.element_size() for t in host.values())
+    state = {v.name: fluid.fetch_var(v.name, scope)
+             for v in main.list_vars() if v.persistable
+             and v.name not in getattr(main, "_flat_state_views", {})}
+    exe.close()
+    del exe, scope
+    return (losses, step_s, between, state, main, launches, host_bytes,
+            spans)
+
+
+def phase_offload(card):
+    """The recipe (RECIPE_FLAGS, one flat Adam group) for OFFLOAD_STEPS
+    eager steps without ``host_offload``, then with it, from the same
+    seeded state: losses and the whole state bit-equal; between steps
+    the offloaded moments live in pinned host memory, so the card's
+    allocated bytes drop by their size, which ``analyze_liveness``
+    predicts from the two programs. Then ``set_memory_fraction`` caps a
+    child process. Returns the fused update's launches with offload."""
+    import gc
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import analysis
+
+    t_phase = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    feed = train_batch()
+    runs = {}
+    for offload in (False, True):
+        runs[offload] = _offload_run(place, offload, feed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    (b_loss, b_s, b_mem, b_state, b_main, _, _, b_spans) = runs[False]
+    (o_loss, o_s, o_mem, o_state, o_main, launches, host_bytes,
+     o_spans) = runs[True]
+    if o_loss != b_loss:
+        fail("offload: losses %s with host_offload, %s without"
+             % (o_loss, b_loss))
+    differ = [n for n in b_state if not np.array_equal(o_state[n],
+                                                       b_state[n])]
+    if differ or set(o_state) != set(b_state):
+        fail("offload: state parts with host_offload: %s" % differ[:5])
+    if launches != OFFLOAD_STEPS:
+        fail("offload: the fused update launched %d times over %d steps"
+             % (launches, OFFLOAD_STEPS))
+    predicted = (analysis.analyze_liveness(b_main, assume_batch=TRAIN_B)
+                 .persistable_device_bytes
+                 - analysis.analyze_liveness(o_main, assume_batch=TRAIN_B)
+                 .persistable_device_bytes)
+    drops = [b - o for b, o in zip(b_mem, o_mem)]
+    if predicted != host_bytes:
+        fail("offload: liveness predicts %d bytes off the card, the scope "
+             "holds %d on the host" % (predicted, host_bytes))
+    slack = OFFLOAD_BLOCK_SLACK * len(o_main._host_offload_state)
+    if any(not 0 <= d - predicted <= slack for d in drops):
+        fail("offload: the card's bytes between steps dropped by %s, "
+             "liveness predicts %d (allocator blocks: up to %d more)"
+             % (drops, predicted, slack))
+    proc = subprocess.run(
+        [sys.executable, "-c", _FRACTION_CHILD],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0 or "capped" not in proc.stdout:
+        fail("offload: set_memory_fraction did not cap a child process: %s"
+             % proc.stderr[-2000:])
+    # steady steps: from the third on (step 1 is the first to take a
+    # staged copy, and its copy stream's pool allocates then)
+    b_ms = float(np.median(b_s[2:])) * 1e3
+    o_ms = float(np.median(o_s[2:])) * 1e3
+    # the card's copy rates for the offloaded bytes, each way, from and
+    # to pinned host memory (CUDA events around the copy)
+    dev = torch.empty(predicted, dtype=torch.uint8, device="cuda")
+    host = torch.empty(predicted, dtype=torch.uint8, pin_memory=True)
+    d2h_ms = cuda_ms(lambda: host.copy_(dev, non_blocking=True), 5, 1)
+    h2d_ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), 5, 1)
+    del dev, host
+    emit({"phase": "offload", "card": card, "batch": TRAIN_B,
+          "seq": TRAIN_T, "steps": OFFLOAD_STEPS, "flags": RECIPE_FLAGS,
+          "offloaded": list(o_main._host_offload_state),
+          "schedule_stamp": o_main._schedule_stamp,
+          "losses": o_loss, "losses_bit_equal": True,
+          "state_bit_equal": len(b_state),
+          "step_ms": {"base": b_ms, "offload": o_ms},
+          "step_ms_each": {"base": [t * 1e3 for t in b_s],
+                           "offload": [t * 1e3 for t in o_s]},
+          "first_step_ms": {"base": b_s[0] * 1e3, "offload": o_s[0] * 1e3},
+          "offload_cost_ms": o_ms - b_ms,
+          "host_ms_by_span": {"base": b_spans, "offload": o_spans},
+          "copy_ms": {"d2h": d2h_ms, "h2d": h2d_ms},
+          "copy_gb_per_s": {"d2h": predicted / d2h_ms / 1e6,
+                            "h2d": predicted / h2d_ms / 1e6},
+          "allocated_between_steps": {"base": b_mem, "offload": o_mem},
+          "drop_bytes": drops, "liveness_predicted_bytes": predicted,
+          "block_slack_bytes": slack,
+          "fused_flat_update_launches": launches,
+          "fraction_child": proc.stdout.strip().splitlines()[-1],
+          "phase_s": time.perf_counter() - t_phase})
+    return {"fused_flat_update": launches}
 
 
 # bench.py's loop: chunks of 10 steps a run_steps call on the card
@@ -8003,6 +8425,8 @@ def main():
     base = phase_run_steps(card, recipe_losses, recipe_params)
     del recipe_params
     torch.cuda.empty_cache()
+    offload_launches = phase_offload(card)
+    torch.cuda.empty_cache()
     dropout_launches, dropout_step_ms = phase_dropout_recipe(card, base)
     torch.cuda.empty_cache()
     phase_fused_ce(card)
@@ -8023,6 +8447,8 @@ def main():
     torch.cuda.empty_cache()
     held = {}
     server_launches = phase_server(card, held)
+    torch.cuda.empty_cache()
+    ptq_launches = phase_ptq(card)
     torch.cuda.empty_cache()
     obs_launches = phase_obs(card, model, held)
     torch.cuda.empty_cache()
@@ -8169,6 +8595,23 @@ def main():
                         "flash_fwd"]
                     kernels[-1]["artifact_launches"] = artifact_launches[
                         "serving_flash_fwd"]
+    # the f32 forward at BERT-base's shape (row 1d): the ptq phase's int8
+    # BERT-base keeps its attention in f32, 12 launches an executed batch
+    fr = next(r for r in flash_rows if r["case"] == "bert"
+              and r["dtype"] == "float32")
+    kernels.append({
+        "name": "flash_fwd_bert_f32", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "paddle_tpu/ops/flash_attention.py:184",
+        "launches": ptq_launches["flash_fwd"],
+        "max_abs_err": fr["errors"]["o"], "ms": fr["ms"]["flash_fwd"],
+        "plain_ms": fr["plain_fwd_ms"],
+        "bound_ms": fr["bound_ms"]["flash_fwd"],
+        "bound_by": fr["bound_by"]["flash_fwd"],
+        "library_ms": fr["sdpa_fwd_ms"],
+        "device_ms": fr["device_ms"]["flash_fwd"],
+        "plain_device_ms": fr["plain_device_ms"]["fwd"],
+        "library_device_ms": fr["sdpa_device_ms"]["fwd"]})
     # the recipe's own group: Adam, bf16 moments, owning the beta powers
     fu = next(r for r in fused_rows if r["n"] == n_recipe
               and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",
@@ -8189,6 +8632,9 @@ def main():
         "artifact_launches": artifact_launches["training"][
             "fused_flat_update"],
         "obs_launches": obs_launches["fused_flat_update"],
+        # the offload phase's steps with host_offload: the moments come
+        # back from pinned host memory before each launch
+        "offload_launches": offload_launches["fused_flat_update"],
         "seq2seq_launches": seq["seq2seq"][0],
         "sentiment_launches": seq["sentiment"][0],
         "srl_launches": seq["srl"][0]})

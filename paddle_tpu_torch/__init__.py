@@ -86,9 +86,9 @@ This package imports neither jax nor paddle_tpu.
 """
 
 from . import (amp, analysis, average, checkpoint, ckpt, clip,
-               compile_cache, evaluator, inference, io, layers, lod_tensor,
-               metrics, nets, obs, optimizer, passes, profiler, reader,
-               regularizer, resilience, timeline, tuning)
+               compile_cache, debugger, evaluator, inference, io, layers,
+               lod_tensor, metrics, nets, obs, optimizer, passes, profiler,
+               reader, regularizer, resilience, timeline, tuning)
 from . import initializer_api as initializer  # noqa: F401
 from .backward import append_backward
 from .ckpt import CheckpointConfig
@@ -100,6 +100,10 @@ from .core import (CPUPlace, CUDAPlace, EnforceError, EOFException,
                    scope_guard, switch_main_program, switch_startup_program)
 from .core import unique_name
 from .core.flags import get_flag, set_flags
+# legacy top-level pass API (core.passes shim semantics: unchecked,
+# unstamped); the checked manager is paddle_tpu_torch.passes
+from .core.passes import (PassManager, ProgramPass, apply_passes, get_pass,
+                          list_passes, register_pass)
 from .data_feeder import DataFeeder
 from .executor import Executor, FetchHandle, fetch_var
 from .inference_transpiler import InferenceTranspiler, transpile_to_bfloat16
@@ -117,6 +121,7 @@ from .optimizer import (SGD, Adadelta, AdadeltaOptimizer, Adagrad,
                         ProximalGDOptimizer, RMSProp, RMSPropOptimizer,
                         SGDOptimizer)
 from .param_attr import ParamAttr
+from .quantize_transpiler import QuantizeTranspiler
 from .reader.prefetch import batch
 from .trainer import (BeginEpochEvent, BeginStepEvent, EndEpochEvent,
                       EndStepEvent, Trainer)

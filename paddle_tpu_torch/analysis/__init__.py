@@ -28,8 +28,8 @@ Pillars (one module each):
 Entry points: :func:`check_program` (everything at once),
 ``Program.validate()``, and the ``check_program`` flag read by the
 Executor. The SPMD communication analysis (``with_comm``,
-``analyze_comm``) is not ported (ROADMAP Queue A 9); nor is the CLI
-``tools/check_program`` (Queue A 8).
+``analyze_comm``) is not ported (ROADMAP Queue A 9). The CLI is
+``python -m paddle_tpu_torch.tools.check_program``.
 """
 
 from __future__ import annotations

@@ -266,8 +266,9 @@ def analyze_liveness(program: Optional[Program] = None,
     write to the end of the step; modeled as extra resident bytes,
     resolved through the executor's rule (``_resolve_donation``).
 
-    ``host_offload`` — names parked in host memory (the JAX package's
-    ``host_offload`` pass, not ported: ROADMAP Queue A 8): excluded
+    ``host_offload`` — names parked in host memory between steps (the
+    ``host_offload`` pass, default ``program._host_offload_state``;
+    ``Executor._stage_offload`` keeps them so on a card): excluded
     from entry/exit residency and the persistable totals, charged on
     device only over their in-step staging span (the op that reads and
     rewrites them).

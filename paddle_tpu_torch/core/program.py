@@ -306,6 +306,10 @@ class Program:
             # an AMP-rewritten program's clones keep the rewritten ops,
             # and with them the stamp (amp/rewrite.py)
             p._amp_stamp = self._amp_stamp
+        if hasattr(self, "_passes_stamp"):
+            # so do a pass pipeline's (passes/manager.py): a pruned
+            # export of an int8 program keys the compile cache by it
+            p._passes_stamp = self._passes_stamp
         return p
 
     def prune(self, targets: Sequence[str]) -> "Program":

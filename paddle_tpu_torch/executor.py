@@ -97,7 +97,24 @@ flight-recorder bundle carries; :attr:`Executor.num_compiled` counts
 captured graphs either way. What persists is ``torch.export`` of
 exported programs (``io.py`` through ``compile_cache.runtime``).
 
-Not ported yet: sharding, program readers and host offload.
+Host offload (the ``host_offload`` pass, ``program._host_offload_state``,
+counterpart of the JAX package's ``_stage_offload``/``_take_staged``):
+after each ``run`` the offloaded state (optimizer moments; under AMP the
+f32 masters) is copied to pinned host memory and the scope holds those
+host tensors, so between steps the card holds none of it. The next
+``run`` of the program starts the copy back on a copy stream through
+``reader.prefetch.overlap_iter`` and binds each tensor as a
+:class:`~paddle_tpu_torch.core.program.Deferred`: the first op that
+reads it (the update, after the forward and backward ops) makes the
+compute stream wait for the copy there, so the copy runs behind the
+step's first ops. A write to the scope between steps (a checkpoint
+restore, ``set_var``) makes the staged copy stale: the step then copies
+the scope's value itself. Values round-trip with no cast, so losses are
+bit-identical. ``run_steps`` on a card keeps the state on the card (its
+captured graph reads and writes fixed addresses); on the CPU each of
+its steps is a ``run``.
+
+Not ported yet: sharding and program readers.
 """
 
 from __future__ import annotations
@@ -377,7 +394,7 @@ def run_training_ops(ops, env: Dict[str, torch.Tensor], device=None,
     probes: Dict[str, Optional[torch.Tensor]] = {s[2]: None for s in sites}
     for n in dense:
         if n in env:
-            env[n] = leaves[n] = _leaf(env[n])
+            env[n] = leaves[n] = _leaf(_value(env, n))
     want = set(dense)
     clips = _error_clip_post_op(bw.attrs.get("_error_clips", {}))
 
@@ -1147,6 +1164,123 @@ class Executor:
         self._capture_stream: Optional[torch.cuda.Stream] = None
         # program -> the version check_program last passed
         self._verified = weakref.WeakKeyDictionary()
+        # host_offload staging: one pending copy back per (program,
+        # offloaded-name group), and the copier whose stream carries it
+        self._offload_stage: Dict[tuple, dict] = {}
+        self._offload_copier = None
+
+    # -- host_offload staging (passes/schedule.py) ---------------------
+    @staticmethod
+    def _offload_names(program: Program,
+                       state_names) -> Tuple[str, ...]:
+        off = getattr(program, "_host_offload_state", None)
+        if not off:
+            return ()
+        wanted = set(state_names)
+        return tuple(n for n in off if n in wanted)
+
+    def _take_staged(self, tok: int, names: Tuple[str, ...],
+                     scope: Scope) -> Dict[str, Deferred]:
+        """Start the copy back of this program's offloaded state and
+        return each tensor as a Deferred that makes the reading stream
+        wait for its copy, IF the host tensors the copy reads are still
+        the scope's entries — any external write (checkpoint restore,
+        manual set_var) between steps makes it stale, and the step then
+        copies the scope's own values (an empty dict)."""
+        entry = self._offload_stage.pop((tok, names), None)
+        if entry is None:
+            return {}
+        if any(scope.find_var(n) is not entry["src"][n] for n in names):
+            entry["cancel"].set()
+            return {}
+        entry["go"].set()
+        try:
+            with RecordEvent("offload_h2d"):
+                staged, event = next(entry["gen"])
+        finally:
+            entry["cancel"].set()
+        copier = self._offload_copier
+
+        def bind(t):
+            def ready():
+                copier.ready([t], event)
+                return t
+            return Deferred(ready)
+
+        return {n: bind(staged[n]) for n in names}
+
+    def _stage_offload(self, tok: int, scope: Scope,
+                       names: Tuple[str, ...]) -> None:
+        """Epilogue for offloaded state: copy it to pinned host memory
+        and keep only the host tensors in the scope between steps (the
+        device tensors go back to the allocator: the liveness report's
+        persistable-device-bytes drop is this), then start an
+        ``overlap_iter`` worker that queues the copy back on the
+        copier's stream once the next step of this program begins."""
+        from .reader.prefetch import DeviceCopier, overlap_iter
+
+        prev = self._offload_stage.pop((tok, names), None)
+        if prev is not None:
+            prev["cancel"].set()
+        vals = {n: scope.find_var(n) for n in names}
+        if any(not isinstance(v, torch.Tensor) for v in vals.values()):
+            return
+        src = {}
+        with torch.no_grad(), RecordEvent("offload_d2h"):
+            for n, v in vals.items():
+                if v.device.type == "cuda":
+                    host = torch.empty(v.shape, dtype=v.dtype,
+                                       pin_memory=True)
+                    host.copy_(v, non_blocking=True)
+                else:
+                    host = v.detach().clone()
+                src[n] = host
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        for n, host in src.items():
+            scope.set_var(n, host)
+        if self._offload_copier is None:
+            self._offload_copier = DeviceCopier(self.place)
+        copier = self._offload_copier
+        go, cancel = threading.Event(), threading.Event()
+
+        def source():
+            # the copy back waits for the next step: until then the card
+            # holds none of the offloaded state. One item in a buffer of
+            # one: the worker never waits for a slot, so ``cancel`` alone
+            # ends it
+            while not go.wait(0.25):
+                if cancel.is_set():
+                    return
+            if not cancel.is_set():
+                yield src
+
+        def convert(host):
+            if self.device.type != "cuda":
+                return {n: t.clone() for n, t in host.items()}, None
+            return {n: copier.put(t) for n, t in host.items()}, \
+                copier.seal()
+
+        gen, _stop = overlap_iter(source, convert, 1, "host-offload-h2d")
+        self._offload_stage[(tok, names)] = {
+            "gen": gen, "go": go, "cancel": cancel, "src": src}
+
+    def _adopt_offloaded(self, program: Program, scope: Scope,
+                         state_names) -> None:
+        """``run_steps`` on a card: bring offloaded state an earlier
+        ``run`` left on the host back into the scope on the card, where
+        the captured graph reads and writes it."""
+        names = self._offload_names(program, state_names)
+        if not names:
+            return
+        staged = self._take_staged(id(program), names, scope)
+        for n in names:
+            if n in staged:
+                scope.set_var(n, staged[n].resolve())
+            else:
+                v = scope.find_var(n)
+                if isinstance(v, torch.Tensor) and v.device != self.device:
+                    scope.set_var(n, v.to(self.device))
 
     def _maybe_check_program(self, program: Program, feed,
                              fetch_names: Tuple[str, ...]) -> None:
@@ -1251,9 +1385,19 @@ class Executor:
                                                 scope)
         written = _written_persistables(program)
         copy = not _resolve_donation(program)
+        offload = self._offload_names(program, state_names)
+        staged = (self._take_staged(id(program), offload, scope)
+                  if offload else {})
         env = {}
         for n in state_names:
+            if n in staged:
+                env[n] = staged[n]  # a private copy on its way back
+                continue
             v = scope.get(n)
+            if n in offload and isinstance(v, torch.Tensor) \
+                    and v.device != self.device:
+                env[n] = v.to(self.device)  # a stale stage: copy it here
+                continue
             # without donation the run works on copies of what it writes
             env[n] = v.clone() if copy and n in written \
                 and isinstance(v, torch.Tensor) else v
@@ -1295,6 +1439,8 @@ class Executor:
                     _assert_all_finite(
                         list(zip(fetch_names, fetches))
                         + [(n, scope.find_var(n)) for n in sorted(written)])
+        if offload:
+            self._stage_offload(id(program), scope, offload)
         return self._fetch_result(fetch_names, fetches, return_numpy)
 
     def _run_from_loader(self, program, loader, fetch_list, scope,
@@ -1392,6 +1538,7 @@ class Executor:
 
         state_names = self._resolve_state_names(program, feed, fetch_names,
                                                 scope)
+        self._adopt_offloaded(program, scope, state_names)
         feed_vals = {n: self._feed_tensor(gb._find_var_recursive(n), v)
                      for n, v in sorted(feed.items())}
         donate = _resolve_donation(program)
@@ -1529,5 +1676,9 @@ class Executor:
                 if c.capture_s is not None]
 
     def close(self) -> None:
-        """Drop the captured graphs and their memory."""
+        """Drop the captured graphs and their memory, and stop the
+        pending copies of offloaded state."""
         self._cache.clear()
+        for entry in self._offload_stage.values():
+            entry["cancel"].set()
+        self._offload_stage.clear()

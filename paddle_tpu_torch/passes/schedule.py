@@ -14,9 +14,20 @@ segment under ``torch.utils.checkpoint`` (executor.py,
 ``_run_forward_remat``). Provable win: ``MemoryReport.peak_device_bytes``
 at 2x batch <= the 1x budget, no run of the larger batch required.
 
-The other two passes of the family are registered and raise when
-constructed: ``comm_overlap`` needs the SPMD analysis (ROADMAP Queue
-A 9), ``host_offload`` the executor's host-resident state (Queue A 8).
+Ported too: :class:`HostOffloadPass` (``host_offload``), which moves
+optimizer moments (and, under AMP, the f32 masters) out of device
+memory between steps: the executor copies them to pinned host memory
+after each step and back to the card on a copy stream while the next
+step's forward and backward ops run (``Executor._stage_offload``), so
+the update op, the first reader, waits only for what is left of the
+copy. Provable win: persistable device bytes drop in liveness and
+between steps on the card; losses stay BIT-identical (values
+round-trip device->host->device with no cast). Under a captured
+``run_steps`` graph on a card the state stays on the card (the graph
+reads and writes fixed addresses).
+
+``comm_overlap`` is registered and raises when constructed: it needs
+the SPMD analysis (ROADMAP Queue A 9).
 
 A pass here stamps the shared ordered ``program._schedule_stamp``.
 """
@@ -26,7 +37,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..core.enforce import not_ported
-from ..core.program import Program
+from ..core.program import Parameter, Program
 from .base import Pass, register_pass
 
 #: forward op types that start a new remat segment: the compute the
@@ -53,6 +64,8 @@ class CommOverlapPass(Pass):
     ported (ROADMAP Queue A 9)."""
 
     stamp_attr = "_schedule_stamp"
+    reads = frozenset({"sharding_constraint", "*"})
+    writes = frozenset({"sharding_constraint"})
 
     def __init__(self, *args, **kwargs):
         raise not_ported("the comm_overlap pass", "Queue A 9")
@@ -213,12 +226,76 @@ class RematPolicyPass(Pass):
         return program
 
 
+# ---------------------------------------------------------------------------
+# host_offload
+# ---------------------------------------------------------------------------
+
+
+def _offload_candidates(program: Program, include_masters: bool,
+                        include_moments: bool):
+    """Persistable state eligible for host residency between steps:
+    optimizer accumulators (per-param moments AND the fused
+    ``fused_<key>_storage`` flat groups — both carry
+    ``is_accumulator``), plus — under AMP, where the in-graph compute
+    copies are bf16 casts — the f32 masters (trainable f32 Parameters,
+    or the fused ``fused_param_storage`` group). Per-name views sliced
+    from fused storage are never offloaded: the flat buffer is the
+    state, the views alias it."""
+    import numpy as np
+
+    gb = program.global_block()
+    views = set(getattr(program, "_flat_state_views", None) or {})
+    amp = bool(getattr(program, "_amp_stamp", None))
+    names = []
+    for n, v in gb.vars.items():
+        if not getattr(v, "persistable", False) or n in views:
+            continue
+        if include_moments and getattr(v, "is_accumulator", False):
+            names.append(n)
+        elif include_masters and amp:
+            if isinstance(v, Parameter) and getattr(v, "trainable", True) \
+                    and isinstance(v.dtype, np.dtype) \
+                    and v.dtype == np.float32:
+                names.append(n)
+            elif n.startswith("fused_param_storage"):
+                names.append(n)
+    return sorted(names)
+
+
 @register_pass("host_offload")
 class HostOffloadPass(Pass):
-    """Optimizer-state host offload: not ported (ROADMAP Queue A 8)."""
+    """Optimizer-state host offload (module docstring): marks the
+    selected persistables in ``program._host_offload_state``; the
+    executor keeps them in pinned host memory between steps and copies
+    them back to the card on a copy stream behind the next step's
+    forward and backward ops (``reader.prefetch.overlap_iter``). No-op
+    when the program carries no optimizer accumulators (nothing to
+    offload)."""
 
     stamp_attr = "_schedule_stamp"
     requires_backward = True
+    reads = frozenset({"*"})
+    writes = frozenset()
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("the host_offload pass", "Queue A 8")
+    def __init__(self, include_masters: bool = True,
+                 include_moments: bool = True):
+        self.include_masters = bool(include_masters)
+        self.include_moments = bool(include_moments)
+
+    def fingerprint(self) -> str:
+        return (f"{self.name}/masters:{int(self.include_masters)}"
+                f"/moments:{int(self.include_moments)}")
+
+    def apply(self, program: Program, scope=None) -> Program:
+        names = _offload_candidates(program, self.include_masters,
+                                    self.include_moments)
+        if not names:
+            return program
+        prev = tuple(getattr(program, "_host_offload_state", ()) or ())
+        merged = tuple(sorted(set(prev) | set(names)))
+        if merged == prev:
+            return program
+        program._host_offload_state = merged
+        program._bump()
+        _stamp_schedule(program, f"{self.name}={self.fingerprint()}")
+        return program

@@ -4,7 +4,8 @@ fold (``InferenceTranspiler``, the registered ``conv_bn_fold`` pass;
 reference: transpiler/inference_transpiler.py:22) and the bf16 parameter
 cast (``transpile_to_bfloat16``, the ``cast_params_bf16`` pass;
 reference: contrib/float16/float16_transpiler.py) — and memory
-optimization (``memory_optimize`` and ``release_memory``; reference:
+optimization (``memory_optimize`` and ``release_memory``, and the
+registered ``memory_optimize`` pass; reference:
 transpiler/memory_optimization_transpiler.py:366,385) — and the
 graph-level bf16 autocast as the registered ``amp_bf16`` pass (wraps
 ``amp.rewrite_program``).
@@ -256,6 +257,25 @@ def release_memory(input_program: Optional[Program] = None,
     package."""
     del input_program, skip_opt_set
     return None
+
+
+@register_pass("memory_optimize")
+class MemoryOptimizePass(Pass):
+    """Buffer donation + optional remat flags (reference:
+    transpiler/memory_optimization_transpiler.py:366)."""
+
+    reads = frozenset()
+    writes = frozenset()
+
+    def __init__(self, level: int = 0):
+        self.level = level
+
+    def fingerprint(self) -> str:
+        return f"{self.name}/level:{int(self.level)}"
+
+    def apply(self, program: Program, scope=None) -> Program:
+        memory_optimize(program, level=self.level)
+        return program
 
 
 # ---------------------------------------------------------------------------

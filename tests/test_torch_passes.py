@@ -261,7 +261,9 @@ def test_registry_and_fingerprints_match_the_jax_package():
     assert list_passes() == ["amp_bf16", "attention_fuse",
                              "cast_params_bf16",
                              "comm_overlap", "conv_bn_fold", "dce",
-                             "fc_act_fuse", "host_offload", "remat_policy",
+                             "fc_act_fuse", "host_offload",
+                             "memory_optimize", "ptq_int8",
+                             "quantize_inference", "remat_policy",
                              "transpose_eliminate"]
     for name in ("ConvBNFoldPass", "CastParamsBF16Pass", "AmpRewritePass"):
         tcls, jcls = getattr(t_transforms, name), getattr(j_transforms, name)
