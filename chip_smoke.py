@@ -671,11 +671,16 @@ FLASH_CASES = [
     ("d128", 4, 512, 512, 4, 128, True, True, BOTH),
     # BERT-base's phase-1 shape: 12 heads, ragged key mask
     ("bert", 64, 128, 128, 12, 64, False, True, BOTH),
+    # the training path at one rank's heads under tensor parallelism
+    # (tp=2: 4 of the 8 heads; the parallel phase)
+    ("path_masked_tp", 32, 256, 256, 4, 64, False, True, (torch.bfloat16,)),
 ]
 GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}  # of max |grad|
 # flash cases whose rows also carry device times (device_ms): the
-# training shape with its key mask, the long-context shapes, and D=128
-DEVICE_CASES = ("path_masked", "long", "long_causal", "d128", "bert")
+# training shape with its key mask, the long-context shapes, D=128,
+# BERT-base's, and the training shape at a rank's heads under tp=2
+DEVICE_CASES = ("path_masked", "long", "long_causal", "d128", "bert",
+                "path_masked_tp")
 
 
 # the card's name and power limit (nvidia-smi), printed beside every
@@ -2914,11 +2919,12 @@ FUSED_CASES = (
 RAGGED_N = 128 * 4099 + 37
 
 
-def build_recipe(fuse, **model):
+def build_recipe(fuse, shard=None, **model):
     """(main, startup, avg_cost) of the recipe, with
     ``fuse_optimizer_state`` as ``fuse`` and ``model`` overriding
-    ``transformer_base``'s arguments (``dropout_rate``, ``fused_ce``);
-    the flags are read while the program is built."""
+    ``transformer_base``'s arguments (``dropout_rate``, ``fused_ce``,
+    ``tp``); the flags are read while the program is built. ``shard``
+    (a callable taking the program) runs before ``minimize``."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models.transformer import transformer_base
 
@@ -2931,6 +2937,8 @@ def build_recipe(fuse, **model):
             _, avg_cost, _ = transformer_base(
                 **dict(TRAIN_MODEL, **model), sparse_embedding=True,
                 attn_impl="pallas")
+            if shard is not None:
+                shard(main)
             fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(avg_cost)
     finally:
         fluid.set_flags(saved)
@@ -2995,8 +3003,11 @@ def phase_fused_update(card, n_recipe, n_resnet, n_bert, n_deepfm,
                                                       plain_flat_update)
 
     rows = []
+    # the recipe's group at one rank's ZeRO slice (the parallel
+    # phase's Reduce strategy over two ranks)
     cases = ([(c, None) for c in FUSED_CASES]
-             + [(("adam", True, True), n_bert),
+             + [(("adam", True, True), n_recipe // 2),
+                (("adam", True, True), n_bert),
                 (("adam", False, True), n_deepfm),
                 (("adam", False, True), n_seq2seq),
                 (("rmsprop_ssd", False, False), n_ssd)])
@@ -4230,6 +4241,11 @@ def phase_recipe(card):
         out = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
         step_s.append(time.perf_counter() - t0)
         losses.append(float(out[0]))
+        if step == PARALLEL_STEPS - 1:
+            # every parameter and its first moment after the parallel
+            # phase's steps (its reference)
+            at_parallel = {n: fluid.fetch_var(n, scope)
+                           for n in parallel_state_names(main)}
         if step == 1:
             param_rel, n_equal = {}, 0
             for n in dense:
@@ -4287,7 +4303,7 @@ def phase_recipe(card):
           "device_ms_by_family": dict(sorted(by_family.items(),
                                              key=lambda kv: -kv[1])),
           "top_kernels": top})
-    return launches, losses, final
+    return launches, losses, final, at_parallel
 
 
 # the offload phase: the recipe's eager steps with and without the
@@ -4681,6 +4697,429 @@ RESNET_FLAGS = {"use_bfloat16": True, "bf16_activations": True,
                 "bf16_moments": True}
 RESNET_POOL, RESNET_CHUNK, RESNET_STEPS = 4, 4, 16
 RESNET_PARAMS, RESNET_N = 161, 25557032
+
+
+# the parallel phase: the recipe on two ranks sharing card 0 over gloo
+# (NCCL refuses two ranks on one card), PARALLEL_STEPS steps a mode.
+# Tolerances against the one-card recipe (relative, every step): the
+# batch reductions are summed over the ranks, so the loss is the whole
+# batch's and only the products differ — bf16 roundings of GEMMs tiled
+# for a rank's 4096 rows instead of 8192 (dp), and two bf16 partial
+# products summed by the row-parallel fcs (tp). Reduce against
+# AllReduce: the same sums and the same elementwise Adam on each half.
+# The loss limits sit ~15x above the readings of the first card runs
+# (6.0e-6 dp, 1.3e-5 tp, NVIDIA H100 80GB HBM3 at 700 W), below what a
+# step missing its gradient reduction moves. Losses near log V hide a
+# wrong update over 5 steps, so the state after them is held too,
+# against the one-card run's (PARALLEL_STATE_TOL): ``moment``, the gap
+# of all the first moments together over their norm (linear in the
+# gradients: a half-batch, an unreduced or a scaled gradient moves it
+# by its own size), and ``params``, the gap of all the parameters
+# together over the one-card run's own 5-step update. Both are taken
+# over the whole state: the gradient of an attention's query and key
+# weights at a random start is a near-cancelling sum, rounding alone
+# moves those leaves by their own size (a first card run: 1.3 of the
+# norm of the last decoder layer's key moment), and Adam's update
+# follows the gradient's sign. A one-card run on rank 0's half of the
+# batch, what a rank with no gradient reduction does, must break both
+# limits (the control). Readings of the card runs that set them (H100,
+# 700 W): moment 0.034 dp, 0.063 tp, 0.98 the control (a gradient
+# scaled by 2 gives 1.0); params 0.054 dp, 0.13 tp, 0.81 the control.
+PARALLEL_STEPS = 5
+PARALLEL_TOL = {"allreduce": 1e-4, "reduce": 1e-6, "tp": 2e-4}
+PARALLEL_STATE_TOL = {"moment": 0.2, "params": 0.3}
+PARALLEL_MODES = ("allreduce", "reduce", "tp")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_state_names(program):
+    """Every parameter of the recipe and its Adam first moment."""
+    names = [p.name for p in program.all_parameters()]
+    return names + [n + "_moment1_0" for n in names]
+
+
+def state_gaps(got, want, start):
+    """``got`` against ``want`` (the one-card run's state after the
+    parallel phase's steps; ``start`` the seeded parameters): the
+    moment gap and the parameter gap of PARALLEL_STATE_TOL, and, to
+    read beside them, the leaf of the largest moment gap with that gap,
+    and the largest parameter gap over the largest |parameter| of any
+    leaf."""
+    worst, worst_gap, rel = None, 0.0, 0.0
+    gap2 = step2 = mgap2 = mnorm2 = 0.0
+    for n, w in want.items():
+        w = w.astype(np.float64)
+        d = got[n].astype(np.float64) - w
+        if n in start:
+            gap2 += float(np.square(d).sum())
+            step2 += float(np.square(w - start[n]).sum())
+            rel = max(rel, float(np.abs(d).max()
+                                 / max(np.abs(w).max(), 1e-30)))
+            continue
+        g2, n2 = float(np.square(d).sum()), float(np.square(w).sum())
+        mgap2 += g2
+        mnorm2 += n2
+        g = math.sqrt(g2 / n2) if n2 > 0 else (0.0 if g2 == 0
+                                                else math.inf)
+        if worst is None or g > worst_gap:
+            worst, worst_gap = n, g
+    return {"moment": math.sqrt(mgap2 / mnorm2),
+            "params": math.sqrt(gap2 / step2), "moment_worst": worst,
+            "moment_worst_gap": worst_gap, "param_max_rel_err": rel}
+
+
+def whole_state_numpy(program, scope, names, spec_of, mesh):
+    """Each of ``names`` whole, on the host in float32: a view of a flat
+    group read from its storage, a block gathered over ``mesh``
+    (``spec_of(name)`` its layout; collective: every rank calls it
+    with the same names)."""
+    from paddle_tpu_torch.sharding import comm
+
+    gb = program.global_block()
+    views = getattr(program, "_flat_state_views", None) or {}
+    held = {}
+
+    def whole(n):
+        if n not in held:
+            v = scope.find_var(n)
+            if tuple(v.shape) != tuple(int(x) for x in gb.var(n).shape):
+                v = comm.gather_full(v, spec_of(n), mesh)
+            held[n] = v
+        return held[n]
+
+    out = {}
+    for n in names:
+        if n in views:
+            store, off, numel, shape = views[n][:4]
+            t = whole(store)[off:off + numel].reshape(shape)
+        else:
+            t = whole(n)
+        out[n] = t.float().cpu().numpy()
+    return out
+
+
+def half_batch_state(place):
+    """The control: the recipe on one card for PARALLEL_STEPS steps on
+    the first half of the batch (rank 0's block), its state."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, cost = build_recipe(True)
+    scope, exe = fluid.Scope(), fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    fluid.params_from_numpy(seeded_weights(main), scope, place,
+                            program=main)
+    feed = {n: v[:TRAIN_B // 2] for n, v in train_batch().items()}
+    for _ in range(PARALLEL_STEPS):
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    return {n: fluid.fetch_var(n, scope)
+            for n in parallel_state_names(main)}
+
+
+def _parallel_rank(rank, world, port, backend, out_dir, modes, ref_path):
+    """One rank of the parallel phase (a spawned process): each mode's
+    losses, step times, launches, collective bytes and held state, into
+    ``out_dir/rank<r>.json``; rank 0 also holds every parameter after
+    the steps against the one-card run's (``ref_path``, an .npz)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import parallel, sharding
+    from paddle_tpu_torch.core.enforce import GraphCaptureError
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+    from paddle_tpu_torch.sharding import comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = 0 if backend == "gloo" else rank
+    torch.cuda.set_device(dev)
+    parallel.init_distributed("localhost:%d" % port, world, rank,
+                              backend=backend)
+    place = fluid.CUDAPlace(dev)
+    feed = train_batch()
+    launchers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                 fused_flat_update)
+    res = {"rank": rank, "backend": backend}
+    ref = None
+    if rank == 0:
+        with np.load(ref_path) as z:
+            ref = {n: z[n] for n in z.files}
+    weights = None  # every mode's program names its parameters alike
+    for mode in modes:
+        scope, exe = fluid.Scope(), fluid.Executor(place)
+        if mode == "tp":
+            mesh = sharding.training_mesh(data=1, fsdp=1, tp=world)
+            main, startup, cost = build_recipe(
+                True, tp=True,
+                shard=lambda m: sharding.shard_program(m, mesh))
+        else:
+            main, startup, cost = build_recipe(True)
+        exe.run(startup, scope=scope)
+        if weights is None:
+            weights = seeded_weights(main)
+        fluid.params_from_numpy(weights, scope, place, program=main)
+        if mode == "tp":
+            def run():
+                return exe.run(main, feed=feed, fetch_list=[cost],
+                               scope=scope)
+
+            def steps():
+                return exe.run_steps(main, feed_list=[feed] * 2,
+                                     fetch_list=[cost], scope=scope)
+        else:
+            bs = fluid.BuildStrategy()
+            bs.reduce_strategy = (fluid.parallel.ReduceStrategy.Reduce
+                                  if mode == "reduce" else
+                                  fluid.parallel.ReduceStrategy.AllReduce)
+            pe = fluid.ParallelExecutor(
+                main_program=main, loss_name=cost.name, build_strategy=bs,
+                scope=scope, place=place)
+
+            def run():
+                return pe.run(feed=feed, fetch_list=[cost.name])
+
+            def steps():
+                return pe.run_steps(feed_list=[feed] * 2,
+                                    fetch_list=[cost.name])
+        heads, orig = set(), fa.flash_attention
+
+        def spy(q, *a, **k):
+            heads.add(int(q.shape[2]))
+            return orig(q, *a, **k)
+
+        fa.flash_attention = spy
+        for fn in launchers:
+            fn.launches = 0
+        comm.reset_stats()
+        losses, step_s = [], []
+        try:
+            for _ in range(PARALLEL_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(run()[0]))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+        finally:
+            fa.flash_attention = orig
+        row = {"losses": losses,
+               "step_ms": [t * 1e3 for t in step_s],
+               "median_step_ms": float(np.median(step_s[1:])) * 1e3,
+               "launches": {fn.__name__: fn.launches for fn in launchers},
+               "collective_bytes_per_step":
+                   comm.stats_bytes() / PARALLEL_STEPS,
+               "collectives": {k: list(v) for k, v in comm.STATS.items()},
+               "heads": sorted(heads)}
+        gb = main.global_block()
+        row["flat_moments"] = {
+            n: {"whole_bytes": int(np.prod(gb.var(n).shape))
+                * scope.find_var(n).element_size(),
+                "held_bytes": scope.find_var(n).numel()
+                * scope.find_var(n).element_size(),
+                "aligned": scope.find_var(n).data_ptr() % 16 == 0}
+            for n in scope.local_var_names()
+            if n.startswith("fused_moment")}
+        row["groups"] = {n: int(gb.var(n).shape[0])
+                         for n in gb.vars
+                         if n.startswith("fused_param_storage")}
+        # every parameter and first moment whole (every rank gathers)
+        if mode == "tp":
+            plan = main._sharding_plan
+            got = whole_state_numpy(
+                main, scope, parallel_state_names(main),
+                lambda n: plan.spec_for(gb._find_var_recursive(n), n),
+                plan.mesh)
+        else:
+            got = whole_state_numpy(
+                main, scope, parallel_state_names(main),
+                lambda n: pe.state_shardings([n])[n].spec, pe.mesh)
+        if ref is not None:
+            row["state"] = state_gaps(got, ref, weights)
+        del got
+        try:
+            steps()
+            row["capture"] = None
+        except GraphCaptureError as e:
+            row["capture"] = str(e)
+        res[mode] = row
+        del run, steps, scope, exe, main, startup, cost
+        if mode != "tp":
+            del pe
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    parallel.env.shutdown()
+
+
+def _run_ranks(world, backend, modes, timeout_s, ref_path):
+    """Spawn ``world`` ranks of :func:`_parallel_rank`; their results.
+    A rank that fails, or a call past ``timeout_s``, ends them all."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_parallel_rank,
+                         args=(r, world, port, backend, out, modes,
+                               ref_path))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) \
+                    or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        fail("parallel %s ranks exited %s" % (backend, codes))
+    out_rows = []
+    for r in range(world):
+        with open(os.path.join(out, "rank%d.json" % r)) as f:
+            out_rows.append(json.load(f))
+    return out_rows
+
+
+def phase_parallel(card, ref_losses, ref_params, n_recipe):
+    """The recipe on two ranks sharing card 0 over gloo: (a) the
+    ParallelExecutor at dp=2 (AllReduce), (b) the same with
+    ReduceStrategy.Reduce (ZeRO: the fused update on each rank's half of
+    the flat group), (c) ``shard_program`` at data=1 x fsdp=1 x tp=2 on
+    the ``tp=True`` recipe (flash at 4 of the 8 heads). Losses held to
+    the one-card recipe (``ref_losses``, the recipe phase's) at
+    PARALLEL_TOL, the state after the steps to that run's
+    (``ref_params``) at PARALLEL_STATE_TOL, which a one-card run on half
+    the batch must break; every rank fetches the same
+    losses; capture refused over gloo. Where the host has two cards,
+    (a) over NCCL too."""
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import dropout, flash_attention, \
+        fused_optimizer
+
+    t0 = time.perf_counter()
+    # built once here, so two ranks never build into build/ at once
+    for mod in (flash_attention, fused_optimizer, dropout):
+        mod.build()
+    ref_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ref_"),
+                            "params.npz")
+    np.savez(ref_path, **ref_params)
+    ranks = _run_ranks(2, "gloo", PARALLEL_MODES, 600, ref_path)
+    ref = ref_losses[:PARALLEL_STEPS]
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    for mode in PARALLEL_MODES:
+        if ranks[0][mode]["losses"] != ranks[1][mode]["losses"]:
+            fail("parallel %s: the ranks fetched different losses %s, %s"
+                 % (mode, ranks[0][mode]["losses"],
+                    ranks[1][mode]["losses"]))
+    errs = {"allreduce": rel(ranks[0]["allreduce"]["losses"], ref),
+            "reduce": rel(ranks[0]["reduce"]["losses"],
+                          ranks[0]["allreduce"]["losses"]),
+            "tp": rel(ranks[0]["tp"]["losses"], ref)}
+    for mode, err in errs.items():
+        if not err <= PARALLEL_TOL[mode]:
+            fail("parallel %s: losses %s part from %s by %g (> %g)"
+                 % (mode, ranks[0][mode]["losses"],
+                    ref if mode != "reduce" else "allreduce's", err,
+                    PARALLEL_TOL[mode]))
+    control = state_gaps(half_batch_state(fluid.CUDAPlace(0)), ref_params,
+                         seeded_weights(build_recipe(True)[0]))
+    per_mode = {}
+    for mode in PARALLEL_MODES:
+        want = {n: ATTN_PER_STEP * PARALLEL_STEPS
+                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        want["fused_flat_update"] = PARALLEL_STEPS * len(
+            ranks[0][mode]["groups"])
+        for r in ranks:
+            if r[mode]["launches"] != want:
+                fail("parallel %s rank %d launched %s, expected %s"
+                     % (mode, r["rank"], r[mode]["launches"], want))
+            if not r[mode]["capture"] or "gloo" not in r[mode]["capture"]:
+                fail("parallel %s: run_steps over gloo was not refused "
+                     "naming the backend: %r" % (mode, r[mode]["capture"]))
+        per_mode[mode] = {n: sum(r[mode]["launches"][n] for r in ranks)
+                          for n in want}
+    want_heads = {"allreduce": [8], "reduce": [8], "tp": [4]}
+    for mode, heads in want_heads.items():
+        if any(r[mode]["heads"] != heads for r in ranks):
+            fail("parallel %s: flash ran at heads %s, expected %s"
+                 % (mode, [r[mode]["heads"] for r in ranks], heads))
+    for r in ranks:
+        groups = r["reduce"]["groups"]
+        if list(groups.values()) != [n_recipe]:
+            fail("parallel reduce: flat groups %s, expected one of %d"
+                 % (groups, n_recipe))
+        for n, m in r["reduce"]["flat_moments"].items():
+            if m["held_bytes"] * 2 != m["whole_bytes"] or not m["aligned"]:
+                fail("parallel reduce rank %d: moment %s holds %s"
+                     % (r["rank"], n, m))
+    nccl = "not run: %d card" % torch.cuda.device_count()
+    if torch.cuda.device_count() >= 2:
+        rows = _run_ranks(2, "nccl", ("allreduce",), 300, ref_path)
+        err = rel(rows[0]["allreduce"]["losses"], ref)
+        if not err <= PARALLEL_TOL["allreduce"]:
+            fail("parallel nccl: losses part from the one-card run by %g"
+                 % err)
+        nccl = {"losses": rows[0]["allreduce"]["losses"], "rel_err": err,
+                "median_step_ms": [r["allreduce"]["median_step_ms"]
+                                   for r in rows],
+                "capture": rows[0]["allreduce"]["capture"]}
+    emit({"phase": "parallel", "card": card, "backend": "gloo",
+          "ranks": 2, "batch": TRAIN_B, "seq": TRAIN_T,
+          "steps": PARALLEL_STEPS, "one_card_losses": ref,
+          "losses": {m: ranks[0][m]["losses"] for m in PARALLEL_MODES},
+          "rel_err": errs, "tolerance": PARALLEL_TOL,
+          "state": {m: ranks[0][m]["state"] for m in PARALLEL_MODES},
+          "state_control_half_batch": control,
+          "state_tolerance": PARALLEL_STATE_TOL,
+          "median_step_ms": {m: [r[m]["median_step_ms"] for r in ranks]
+                             for m in PARALLEL_MODES},
+          "collective_bytes_per_step": {
+              m: [r[m]["collective_bytes_per_step"] for r in ranks]
+              for m in PARALLEL_MODES},
+          "collectives": {m: ranks[0][m]["collectives"]
+                          for m in PARALLEL_MODES},
+          "launches": per_mode,
+          "zero_moments": ranks[0]["reduce"]["flat_moments"],
+          "tp_groups": ranks[0]["tp"]["groups"],
+          "capture": ranks[0]["tp"]["capture"], "nccl": nccl,
+          "parallel_s": time.perf_counter() - t0})
+    # the state after the steps (checked once the readings are out)
+    for mode in PARALLEL_MODES:
+        got = ranks[0][mode]["state"]
+        for key, tol in PARALLEL_STATE_TOL.items():
+            if not got[key] <= tol:
+                fail("parallel %s: after %d steps the %s gap to the "
+                     "one-card run is %g (> %g; %s)"
+                     % (mode, PARALLEL_STEPS, key, got[key], tol, got))
+    for key, tol in PARALLEL_STATE_TOL.items():
+        if not control[key] > tol:
+            fail("parallel: a one-card run on half the batch keeps the %s "
+                 "gap at %g (<= %g): the state check cannot tell a rank "
+                 "that never reduced its gradient" % (key, control[key],
+                                                       tol))
+    return per_mode
 
 
 def build_resnet(fuse):
@@ -8420,11 +8859,15 @@ def main():
     amp_row, amp_timed = phase_amp(card, RESNET_N, f32_step_ms)
     torch.cuda.empty_cache()
     dropout_rows = phase_dropout(card)
-    recipe_launches, recipe_losses, recipe_params = phase_recipe(card)
+    recipe_launches, recipe_losses, recipe_params, parallel_ref = \
+        phase_recipe(card)
     torch.cuda.empty_cache()
     base = phase_run_steps(card, recipe_losses, recipe_params)
     del recipe_params
     torch.cuda.empty_cache()
+    parallel_launches = phase_parallel(card, recipe_losses, parallel_ref,
+                                       n_recipe)
+    del parallel_ref
     offload_launches = phase_offload(card)
     torch.cuda.empty_cache()
     dropout_launches, dropout_step_ms = phase_dropout_recipe(card, base)
@@ -8577,6 +9020,11 @@ def main():
                 # the AMP recipe (the amp phase: 10 eager steps and one
                 # run_steps call of 10) runs this shape in bf16 too
                 kernels[-1]["amp_launches"] = amp_row["launches"][name]
+                # the parallel phase's dp=2 ranks (AllReduce and Reduce,
+                # 5 steps each, both ranks) at B=16 a rank
+                kernels[-1]["parallel_launches"] = (
+                    parallel_launches["allreduce"][name]
+                    + parallel_launches["reduce"][name])
                 kernels[-1]["persist_launches"] = persist_launches[name]
                 kernels[-1]["bert_launches"] = bert_launches[name]
                 # the dropout recipe's trainable artifact, 10 run steps
@@ -8595,6 +9043,29 @@ def main():
                         "flash_fwd"]
                     kernels[-1]["artifact_launches"] = artifact_launches[
                         "serving_flash_fwd"]
+    # the training path at a rank's 4 heads under tp=2, with the parallel
+    # phase's tensor-parallel launches (both ranks, 5 steps)
+    fr = next(r for r in flash_rows if r["case"] == "path_masked_tp")
+    for name, line, err, plain, lib, way in (
+            ("flash_fwd", 184, fr["errors"]["o"], fr["plain_fwd_ms"],
+             fr["sdpa_fwd_ms"], "fwd"),
+            ("flash_bwd_dq", 250, fr["errors"]["dq"], fr["plain_bwd_ms"],
+             fr["sdpa_bwd_ms"], "bwd"),
+            ("flash_bwd_dkv", 298, max(fr["errors"]["dk"],
+                                       fr["errors"]["dv"]),
+             fr["plain_bwd_ms"], fr["sdpa_bwd_ms"], "bwd")):
+        kernels.append({
+            "name": name + "_tp_bf16", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/flash_attention.py:%d" % line,
+            "launches": parallel_launches["tp"][name],
+            "parallel_launches": parallel_launches["tp"][name],
+            "max_abs_err": err, "ms": fr["ms"][name], "plain_ms": plain,
+            "bound_ms": fr["bound_ms"][name],
+            "bound_by": fr["bound_by"][name], "library_ms": lib,
+            "device_ms": fr["device_ms"][name],
+            "plain_device_ms": fr["plain_device_ms"][way],
+            "library_device_ms": fr["sdpa_device_ms"][way]})
     # the f32 forward at BERT-base's shape (row 1d): the ptq phase's int8
     # BERT-base keeps its attention in f32, 12 launches an executed batch
     fr = next(r for r in flash_rows if r["case"] == "bert"
@@ -8637,7 +9108,28 @@ def main():
         "offload_launches": offload_launches["fused_flat_update"],
         "seq2seq_launches": seq["seq2seq"][0],
         "sentiment_launches": seq["sentiment"][0],
-        "srl_launches": seq["srl"][0]})
+        "srl_launches": seq["srl"][0],
+        # the parallel phase's AllReduce ranks and its tp ranks' smaller
+        # group (the tp-split weights stay out of it)
+        "parallel_launches": parallel_launches["allreduce"][
+            "fused_flat_update"] + parallel_launches["tp"][
+            "fused_flat_update"]})
+    # the recipe's group at one rank's ZeRO half (Reduce over two ranks)
+    fz = next(r for r in fused_rows if r["n"] == n_recipe // 2
+              and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",
+                                                           True))
+    kernels.append({
+        "name": "fused_flat_update_zero", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
+        "replaces": "paddle_tpu/ops/fused_optimizer.py:71",
+        "launches": parallel_launches["reduce"]["fused_flat_update"],
+        "parallel_launches": parallel_launches["reduce"][
+            "fused_flat_update"],
+        "max_abs_err": fz["max_abs_err"], "ms": fz["ms"],
+        "plain_ms": fz["plain_ms"], "bound_ms": fz["bound_ms"],
+        "bound_by": fz["bound_by"], "library_ms": fz["library_ms"],
+        "device_ms": fz["device_ms"],
+        "library_device_ms": fz["library_device_ms"], "n": fz["n"]})
     # the gated Adam of the AMP path, timed at the AMP recipe's group
     # shape (its N, f32 moments, owning the beta powers): its launches on
     # the AMP recipe, the skipped ones of the overflow replay

@@ -82,13 +82,26 @@ LSTM or the SRL db-lstm replays as a captured CUDA graph::
                               append_batch_size=False)
     feed = fluid.DataFeeder([words, label]).feed(rows)  # + "words@LEN"
 
+Several cards (or CPU processes): ``tools.launch`` starts N ranks,
+each calls ``parallel.init_distributed()``; then either
+``ParallelExecutor`` (AllReduce, or the ZeRO Reduce strategy) or
+``sharding.shard_program(main, sharding.training_mesh(data=, fsdp=,
+tp=))`` before ``minimize`` and the ordinary ``Executor``: each rank
+runs its block of the batch and of the sharded state::
+
+    python -m paddle_tpu_torch.tools.launch --nproc 4 train.py
+
 This package imports neither jax nor paddle_tpu.
 """
 
 from . import (amp, analysis, average, checkpoint, ckpt, clip,
                compile_cache, debugger, evaluator, inference, io, layers,
-               lod_tensor, metrics, nets, obs, optimizer, passes, profiler,
-               reader, regularizer, resilience, timeline, tuning)
+               lod_tensor, metrics, nets, obs, optimizer, parallel, passes,
+               profiler, reader, regularizer, resilience, sharding,
+               timeline, tuning)
+from .parallel import (BuildStrategy, DistributeTranspiler,
+                       DistributeTranspilerConfig, ExecutionStrategy,
+                       ParallelExecutor, make_mesh)
 from . import initializer_api as initializer  # noqa: F401
 from .backward import append_backward
 from .ckpt import CheckpointConfig

@@ -26,9 +26,10 @@ Residency model (the hand-checkable contract tests pin down):
     with no declared shape contribute 0 bytes and are counted in
     ``unsized_vars``.
 
-A sharding is taken as a ``{name: shard_count}`` dict, which is all
-arithmetic; a ``ShardingPlan`` object raises (the port has no sharding
-yet, ROADMAP Queue A 9).
+A sharding is a ``{name: shard_count}`` dict or a ``ShardingPlan``
+(its ``shard_counts``; by default the plan ``shard_program`` attached):
+each rank of a sharded run holds its block of every tensor the plan
+shards, so the per-device view divides by the same counts.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 
 from ..core import dtype_utils
-from ..core.enforce import not_ported
 from ..core.program import LOD_TENSOR, Program
 from .dataflow import compute_def_use, live_intervals
 
@@ -239,8 +239,10 @@ def analyze_liveness(program: Optional[Program] = None,
     """Compute per-op live sets and the peak-HBM report for the global
     block of ``program`` (default: the default main program).
 
-    ``sharding`` — a ``{name: shard_count}`` mapping, or None (a
-    ``ShardingPlan`` raises: ROADMAP Queue A 9). When present, every
+    ``sharding`` — a ``{name: shard_count}`` mapping, a
+    :class:`paddle_tpu_torch.sharding.ShardingPlan`, or None to use the
+    plan ``sharding.shard_program`` attached to the program. When
+    present, every
     tensor's footprint is divided by its shard count and the report
     carries a per-device view (``peak_device_bytes``,
     ``persistable_device_bytes``): ZeRO-sharded optimizer state shows
@@ -279,13 +281,16 @@ def analyze_liveness(program: Optional[Program] = None,
     from ..executor import _resolve_donation, _resolve_remat
 
     program = program or default_main_program()
+    if sharding is None:
+        sharding = getattr(program, "_sharding_plan", None)
     n_shards = 1
     if sharding is not None and hasattr(sharding, "shard_counts"):
-        raise not_ported("analyze_liveness over a ShardingPlan (pass a "
-                         "{name: shard_count} dict)", "Queue A 9")
+        n_shards = sharding.mesh.size() if hasattr(sharding, "mesh") else 1
+        sharding = sharding.shard_counts(program)
     elif sharding is not None and not hasattr(sharding, "values"):
         raise TypeError(
-            "sharding must be a {name: shard_count} dict; got "
+            "sharding must be a {name: shard_count} dict or a "
+            "paddle_tpu_torch.sharding.ShardingPlan (shard_counts()); got "
             f"{type(sharding).__name__}")
     elif sharding:
         n_shards = max(sharding.values())

@@ -136,10 +136,34 @@ def load_checkpoint_sharded(root: str, serial: Optional[int] = None,
                      "onto a device mesh)", "Queue A 9, multi-GPU")
 
 
-def program_state_shardings(program, shapes: Dict[str, tuple]):
-    """A program's sharding plan's layouts: not ported."""
-    raise not_ported("ckpt.program_state_shardings (a program's sharding "
-                     "plan)", "Queue A 9, multi-GPU")
+def program_state_shardings(program, shapes: Dict[str, tuple]
+                            ) -> Optional[Dict[str, Any]]:
+    """Target layouts (``sharding.mesh.Layout``) for checkpointed names,
+    resolved through the program's attached ShardingPlan
+    (``plan.state_sharding``, the resolution the sharded run holds state
+    in). None when the program is unsharded."""
+    plan = getattr(program, "_sharding_plan", None)
+    if plan is None:
+        return None
+    gb = program.global_block()
+    return {n: plan.state_sharding(gb, n, shape)
+            for n, shape in shapes.items()}
+
+
+def _place_on_mesh(program, scope, state) -> None:
+    """After a restore into a sharded program's scope on a live mesh:
+    each restored whole tensor replaced by this rank's block of it (the
+    JAX package puts it onto its mesh sharding). Flat-view names are
+    left to their buffers."""
+    plan = getattr(program, "_sharding_plan", None)
+    if plan is None or not plan.mesh.live:
+        return
+    layouts = program_state_shardings(program, {
+        n: tuple(np.shape(v)) for n, v in state.items()})
+    for n, layout in layouts.items():
+        cur = scope.find_var(n)
+        if any(layout.spec) and cur is not None and n in scope._vars:
+            scope.set_var(n, plan.place(cur, layout))
 
 
 def check_restore(root: str, program, serial: Optional[int] = None
@@ -270,4 +294,6 @@ def restore(root: str, program=None, scope=None,
             state = {n: v for n, v in state.items() if n not in drop}
         if scope is not None:
             apply_state(scope, state, program, place=place)
+            if program is not None:
+                _place_on_mesh(program, scope, state)
         return state, targs

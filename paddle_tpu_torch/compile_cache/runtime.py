@@ -135,13 +135,15 @@ def _device_tag(device) -> str:
 def _program_stamps(program) -> dict:
     """The stamps that change what a program runs without changing its
     desc's ops: the AMP policy (``amp/rewrite.py``), the pass pipeline
-    (``passes/manager.py``), the schedule passes (``passes/schedule.py``)
-    and the tuned configs its kernels would read (``tuning``). A key is
+    (``passes/manager.py``), the schedule passes (``passes/schedule.py``),
+    the sharding plan (``sharding/plan.py``: mesh shape + rule digest,
+    the JAX package's ``sharding`` key) and the tuned configs its kernels would read (``tuning``). A key is
     left out when its stamp is unset, so untouched programs keep their
     fingerprints."""
     out = {}
     for key, attr in (("amp", "_amp_stamp"), ("passes", "_passes_stamp"),
-                      ("schedule", "_schedule_stamp")):
+                      ("schedule", "_schedule_stamp"),
+                      ("sharding", "_sharding_stamp")):
         stamp = getattr(program, attr, None)
         if stamp:
             out[key] = stamp

@@ -92,21 +92,25 @@ def fold_in(key, data: torch.Tensor):
     return threefry2x32(k1, k2, torch.zeros_like(data), data)
 
 
-def random_bits(key, n: int) -> torch.Tensor:
+def random_bits(key, n: int, offset: int = 0) -> torch.Tensor:
     """32-bit ``jax.random.bits(key, (n,))`` on the partitionable path,
-    for a batch of keys: ``[*key_shape, n]`` uint32 values in int64."""
+    for a batch of keys: ``[*key_shape, n]`` uint32 values in int64.
+    ``offset``: elements ``offset .. offset + n - 1`` of a longer draw
+    (a rank's block of a sharded tensor's bits)."""
     k1, k2 = key
-    iota = torch.arange(n, dtype=torch.int64, device=k1.device)
+    iota = torch.arange(offset, offset + n, dtype=torch.int64,
+                        device=k1.device)
     b1, b2 = threefry2x32(k1[..., None], k2[..., None], iota >> 32,
                           iota & _MASK)
     return b1 ^ b2
 
 
 def uniform(key, n: int, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, offset: int = 0) -> torch.Tensor:
     """f32 ``jax.random.uniform(key, (n,), minval=, maxval=)`` for a
-    batch of keys: ``[*key_shape, n]``."""
-    bits = random_bits(key, n)
+    batch of keys: ``[*key_shape, n]`` (elements ``offset`` on of a
+    longer draw)."""
+    bits = random_bits(key, n, offset)
     fbits = (bits >> 9) | _F32_ONE_BITS
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     # the bounds and their difference rounded to f32, as jax converts
@@ -119,11 +123,12 @@ def uniform(key, n: int, minval: float = 0.0,
     return torch.clamp(scaled, min=float(lo))
 
 
-def bernoulli(key, p: float, shape) -> torch.Tensor:
+def bernoulli(key, p: float, shape, offset: int = 0) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``,
-    for a batch of keys: a bool tensor ``[*key_shape, *shape]``."""
+    for a batch of keys: a bool tensor ``[*key_shape, *shape]``; with
+    ``offset``, the elements from that flat index on of a larger draw."""
     shape = tuple(int(s) for s in shape)
-    u = uniform(key, int(np.prod(shape, dtype=np.int64)))
+    u = uniform(key, int(np.prod(shape, dtype=np.int64)), offset=offset)
     keep = u < float(np.float32(p))
     return keep.reshape(tuple(key[0].shape) + shape)
 

@@ -306,6 +306,12 @@ class Program:
             # an AMP-rewritten program's clones keep the rewritten ops,
             # and with them the stamp (amp/rewrite.py)
             p._amp_stamp = self._amp_stamp
+        if hasattr(self, "_sharding_plan"):
+            # a sharded program's clones keep the injected constraint
+            # ops and param annotations, so they keep the plan (the
+            # executor's sharded dispatch) and its compile-cache stamp
+            p._sharding_plan = self._sharding_plan
+            p._sharding_stamp = self._sharding_stamp
         if hasattr(self, "_passes_stamp"):
             # so do a pass pipeline's (passes/manager.py): a pruned
             # export of an int8 program keys the compile cache by it

@@ -126,7 +126,8 @@ __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const typename E::Raw* __restrict__ x,
                    typename E::Raw* __restrict__ out, long long n,
                    uint32_t seed, const int* __restrict__ counter,
-                   int* counter_out, float keep_prob, int vec) {
+                   int* counter_out, float keep_prob, long long offset,
+                   int vec) {
   using Raw = typename E::Raw;
   constexpr int VEC = 16 / sizeof(Raw);
   __shared__ Key key;
@@ -157,17 +158,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < VEC; ++j)
       res.e[j] = E::narrow(__fmul_rn(E::widen(in.e[j]),
-                                     keep_factor(k, base + j, keep_prob)));
+                                     keep_factor(k, offset + base + j,
+                                                 keep_prob)));
     reinterpret_cast<uint4*>(out)[v] = res.u;
   }
   for (long long i = n_vec * VEC + tid; i < n; i += stride)
-    out[i] = E::narrow(__fmul_rn(E::widen(x[i]), keep_factor(k, i, keep_prob)));
+    out[i] = E::narrow(
+        __fmul_rn(E::widen(x[i]), keep_factor(k, offset + i, keep_prob)));
 }
 
 template <typename E>
 cudaError_t launch(const void* x, void* out, long long n, uint32_t seed,
                    const int* counter, int* counter_out, float keep_prob,
-                   int vec, int sms, cudaStream_t stream) {
+                   long long offset, int vec, int sms, cudaStream_t stream) {
   using Raw = typename E::Raw;
   constexpr int VEC = 16 / sizeof(Raw);
   const long long items = vec ? (n + VEC - 1) / VEC : n;
@@ -179,7 +182,7 @@ cudaError_t launch(const void* x, void* out, long long n, uint32_t seed,
   if (blocks < 1) blocks = 1;
   dropout_kernel<E><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const Raw*>(x), static_cast<Raw*>(out), n, seed, counter,
-      counter_out, keep_prob, vec);
+      counter_out, keep_prob, offset, vec);
   return cudaGetLastError();
 }
 
@@ -189,12 +192,15 @@ extern "C" {
 
 // out = x * mask for n elements of float (bf16 = 0) or bfloat16
 // (bf16 = 1); counter is one int32 on the card, counter_out one int32
-// that receives counter + 1, or null. Returns the launch's CUDA error
+// that receives counter + 1, or null. Element i draws the mask's
+// element offset + i: a rank holding a block of a tensor draws its
+// block of the whole tensor's mask. Returns the launch's CUDA error
 // code (0 on success).
 int dropout_apply(int bf16, const void* x, void* out, long long n,
                   unsigned int seed, const int* counter, int* counter_out,
-                  float keep_prob, int vec, void* stream) {
-  if (n < 0 || counter == nullptr)
+                  float keep_prob, long long offset, int vec,
+                  void* stream) {
+  if (n < 0 || offset < 0 || counter == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -203,9 +209,9 @@ int dropout_apply(int bf16, const void* x, void* out, long long n,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = bf16 ? launch<BF16>(x, out, n, seed, counter, counter_out,
-                            keep_prob, vec, sms, s)
+                            keep_prob, offset, vec, sms, s)
              : launch<F32>(x, out, n, seed, counter, counter_out, keep_prob,
-                           vec, sms, s);
+                           offset, vec, sms, s);
   return static_cast<int>(err);
 }
 

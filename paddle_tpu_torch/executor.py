@@ -114,7 +114,18 @@ bit-identical. ``run_steps`` on a card keeps the state on the card (its
 captured graph reads and writes fixed addresses); on the CPU each of
 its steps is a ``run``.
 
-Not ported yet: sharding and program readers.
+Sharding (``sharding.shard_program``, counterpart of the JAX
+package's mesh-aware dispatch): a program carrying a plan whose mesh
+is live (this process one rank of a ``torch.distributed`` world of the
+mesh's size) runs through ``sharding/spmd.py`` — its rank's block of
+the batch and of the sharded state, explicit collectives; fetches are
+whole on every rank. A mesh of several ranks outside such a world
+raises, nothing runs single-device in its place. ``run_steps`` on the
+CPU is a loop of ``run``; on a card a sharded step is not captured
+(over gloo a CUDA graph cannot hold the collectives: it raises
+:class:`GraphCaptureError` before any capture).
+
+Not ported yet: program readers.
 """
 
 from __future__ import annotations
@@ -168,6 +179,17 @@ def check_capturable(program: Program) -> None:
                     "a captured CUDA graph; run the program step by step "
                     "with Executor.run"
                     % (op.type, i, block.idx, op.output_arg_names))
+
+
+def _check_shard_capturable(program: Program) -> None:
+    """Raise :class:`GraphCaptureError` before any capture when
+    ``program`` runs sharded on this rank (``sharding/spmd.py``): over
+    gloo a CUDA graph cannot capture the step's collectives."""
+    plan = _live_plan(program)
+    if plan is not None:
+        from .sharding import spmd
+
+        spmd.check_capturable(plan.mesh, "Executor.run")
 
 
 def _as_names(fetch_list) -> List[str]:
@@ -257,11 +279,56 @@ def _lookup_rows(ids: torch.Tensor) -> torch.Tensor:
 def _resolve_remat(program: Program):
     """The remat policy of a training run: a frozenset of segment ids
     when the ``remat_policy`` pass solved one, else the all-or-nothing
-    ``memory_optimize(level>=1)`` bool. The one home of the rule."""
+    ``memory_optimize(level>=1)`` bool, or the policy a caller published
+    (``core.trace_ctx.remat_scope``: ``BuildStrategy.use_remat``). The
+    one home of the rule."""
+    from .core.trace_ctx import remat_enabled
+
     policy = getattr(program, "_remat_policy", None)
     if policy:
         return frozenset(policy)
-    return bool(getattr(program, "_memory_optimize_remat", False))
+    return bool(getattr(program, "_memory_optimize_remat", False)) \
+        or remat_enabled()
+
+
+def _sharding_config(program: Program) -> Dict[str, str]:
+    """Compile-cache config fragment for a sharded program
+    (``sharding/plan.py`` sets the stamp: mesh shape + rule digest), as
+    the JAX package's: key ABSENT for unsharded programs, so their
+    fingerprints are untouched and a changed mesh or rule set never
+    resolves a stale entry."""
+    stamp = getattr(program, "_sharding_stamp", None)
+    return {"sharding": stamp} if stamp else {}
+
+
+def _live_plan(program: Program):
+    """The ShardingPlan of ``program`` when this process runs as one
+    rank of its mesh; None for an unsharded program. A plan over several
+    ranks outside such a world raises."""
+    plan = getattr(program, "_sharding_plan", None)
+    if plan is None:
+        return None
+    from .sharding import spmd
+
+    spmd.check_not_live(plan.mesh)
+    return plan if plan.mesh.live else None
+
+
+def _plan_resolver(program: Program, plan):
+    """The spmd Resolver of a plan: its mesh's data-like axes and
+    ``plan.spec_for`` over the program's declared shapes."""
+    from .sharding import spmd
+
+    gb = program.global_block()
+    cache = program.__dict__.setdefault("_spmd_resolver", {})
+    key = (id(plan), program._version)
+    hit = cache.get(key)
+    if hit is None:
+        cache.clear()
+        hit = cache[key] = spmd.Resolver(
+            plan.mesh, plan.mesh.data_axes(),
+            lambda n: plan.spec_for(gb._find_var_recursive(n), n))
+    return hit
 
 
 def _run_forward_remat(fwd, env, post, device, policy, loss_name,
@@ -372,8 +439,8 @@ def _run_forward_remat(fwd, env, post, device, policy, loss_name,
 
 
 def run_training_ops(ops, env: Dict[str, torch.Tensor], device=None,
-                     remat=False, keep: Sequence[str] = ()
-                     ) -> Dict[str, torch.Tensor]:
+                     remat=False, keep: Sequence[str] = (), update=None,
+                     forward_post=None) -> Dict[str, torch.Tensor]:
     """Run a block holding a ``backward`` op with one forward pass: the
     ops before it under autograd over leaf aliases of its dense
     ``Params`` and of its sparse tables' lookup outputs, the op itself
@@ -381,7 +448,11 @@ def run_training_ops(ops, env: Dict[str, torch.Tensor], device=None,
     ``remat`` (:func:`_resolve_remat`) recomputes the loss's forward
     slice, or the chosen segments of it, in the backward pass
     (:func:`_run_forward_remat`); ``keep`` names the values the caller
-    reads afterwards besides the scope's (its fetches)."""
+    reads afterwards besides the scope's (its fetches). ``update(bw,
+    ops_after, env)``, when given, runs the ops after the backward op
+    in its place (a sharded run reduces the gradients first);
+    ``forward_post(op, out) -> out`` rewrites each forward op's result
+    (a sharded run sums a reduction over the ranks' batch blocks)."""
     at = [i for i, op in enumerate(ops) if op.type == "backward"]
     enforce(len(at) == 1, "a program runs at most one backward op, found %d"
             % len(at))
@@ -411,6 +482,8 @@ def run_training_ops(ops, env: Dict[str, torch.Tensor], device=None,
                 elif n in probes:
                     vals[k] = probes[n] = _leaf(vals[k])
             out = vals[0] if one else tuple(vals)
+        if forward_post is not None:
+            out = forward_post(op, out)
         return clips(op, out) if clips is not None else out
 
     with torch.enable_grad():
@@ -466,7 +539,10 @@ def run_training_ops(ops, env: Dict[str, torch.Tensor], device=None,
         env[out_names[k + 1]] = torch.cat(vals)
         k += 2
     with torch.no_grad():
-        run_program_ops(ops[i + 1:], env, device=device)
+        if update is not None:
+            update(bw, ops[i + 1:], env)
+        else:
+            run_program_ops(ops[i + 1:], env, device=device)
     return env
 
 
@@ -1381,6 +1457,16 @@ class Executor:
         gb = program.global_block()
 
         self._maybe_check_program(program, feed, fetch_names)
+        plan = _live_plan(program)
+        if plan is not None:
+            from .sharding import spmd
+
+            with RecordEvent("dispatch"):
+                fetches = spmd.run(self, program, scope, feed, fetch_names,
+                                   _plan_resolver(program, plan))
+            if flags.get_flag("check_nan_inf"):
+                _assert_all_finite(list(zip(fetch_names, fetches)))
+            return self._fetch_result(fetch_names, fetches, return_numpy)
         state_names = self._resolve_state_names(program, feed, fetch_names,
                                                 scope)
         written = _written_persistables(program)
@@ -1553,6 +1639,7 @@ class Executor:
         captured = self._cache.get(key)
         if captured is None:
             check_capturable(program)
+            _check_shard_capturable(program)
             # a long-lived executor over a mutating program keeps only
             # the current version's graphs (the entry holds the program
             # and the scope, so their ids are not reused while it lives)
@@ -1631,6 +1718,7 @@ class Executor:
                 "run_graph runs inference programs; train through run or "
                 "run_steps")
         check_capturable(program)
+        _check_shard_capturable(program)
         for k in [k for k in self._cache if k[0] == id(program)
                   and k[1] != program._version]:
             del self._cache[k]

@@ -348,6 +348,14 @@ def save_inference_model(dirname: str,
                    for v in target_vars]
     feeds = list(feeded_var_names)
     pruned = program.prune(fetch_names)
+    plan = getattr(pruned, "_sharding_plan", None)
+    if plan is not None:
+        # the training mesh stays out of the artifact (the JAX
+        # package's strip): a single-device predictor, or another
+        # topology, loads it
+        from .sharding.plan import strip_sharding
+
+        strip_sharding(pruned)
     if optimize:
         from .passes.manager import inference_pass_pipeline
 
@@ -367,6 +375,15 @@ def save_inference_model(dirname: str,
     enforce(not missing,
             "save_inference_model: params %s are not in the scope — run the "
             "startup program (and training) before exporting" % missing)
+    if plan is not None and plan.mesh.live:
+        # this rank holds blocks of the sharded parameters: export them
+        # whole (a collective: every rank of the mesh saves)
+        from .sharding.spmd import whole_state
+
+        whole = Scope()
+        for n, v in whole_state(program, scope, param_names).items():
+            whole.set_var(n, v)
+        scope = whole
     npz.savez(os.path.join(dirname, params_filename or "__params__"),
               {n: _scope_value(scope, n) for n in param_names})
 
@@ -635,6 +652,21 @@ def save_trainable_program(dirname: str, feed_shapes: dict,
 
     program = main_program or default_main_program()
     scope = scope or global_scope()
+    if getattr(program, "_sharding_plan", None) is not None:
+        # export a mesh-free clone: the importing process need not have
+        # the training mesh (it re-runs sharding.shard_program for its
+        # own topology)
+        from .sharding.plan import strip_sharding
+        from .sharding.spmd import whole_state
+
+        live = program._sharding_plan.mesh.live
+        if live:
+            whole = Scope()
+            for n, v in whole_state(program, scope).items():
+                whole.set_var(n, v)
+        program = strip_sharding(program.clone())
+        if live:
+            scope = whole
     if _resolve_remat(program):
         raise not_ported("save_trainable_program of a program that "
                          "recomputes its forward (memory_optimize level "

@@ -52,11 +52,14 @@ class LayerHelper:
         gb = self.main_program.global_block()
         if attr.name in gb.vars and isinstance(gb.vars[attr.name], Parameter):
             return gb.vars[attr.name]  # shared parameter by name
-        return gb.create_parameter(
+        p = gb.create_parameter(
             shape=shape, dtype=dtype, name=attr.name,
             initializer=initializer, trainable=attr.trainable,
             regularizer=attr.regularizer, gradient_clip=attr.gradient_clip,
             optimize_attr={"learning_rate": attr.learning_rate})
+        if attr.sharding is not None:
+            p.sharding_spec = tuple(attr.sharding)
+        return p
 
     def create_variable_for_type_inference(self, dtype,
                                            shape=None) -> Variable:

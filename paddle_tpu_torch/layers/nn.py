@@ -101,15 +101,60 @@ def _mm(a, b, rule):
     return torch.matmul(a.to(torch.float32), b.to(torch.float32))
 
 
+def _tp_kind(param_attr) -> Optional[str]:
+    """``"column"`` / ``"row"`` for an fc weight whose ParamAttr shards
+    its out / in features over a tensor-parallel axis (``mp``, as
+    ``models.transformer(tp=True)`` writes it, or ``tp``), else None."""
+    from ..param_attr import ParamAttr
+
+    if param_attr is None or isinstance(param_attr, (list, tuple)):
+        return None
+    spec = ParamAttr._to_attr(param_attr).sharding
+    if not spec or len(spec) != 2:
+        return None
+    if spec[1] in ("mp", "tp"):
+        return "column"
+    if spec[0] in ("mp", "tp"):
+        return "row"
+    return None
+
+
+def _tp_block():
+    """(axis, index, count, group) of the live tensor-parallel axis of
+    the active sharded run, or None (then a tensor-parallel fc computes
+    on whole tensors)."""
+    from ..core.trace_ctx import current_mesh
+    from ..sharding.comm import tensor_axis
+
+    mesh = current_mesh()
+    tp = tensor_axis(mesh)
+    if tp is None:
+        return None
+    axis, i, n = tp
+    return axis, i, n, mesh.group(axis)
+
+
 def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
        bias_attr=None, act: Optional[str] = None, is_test: bool = False,
        name=None):
     """Fully-connected layer: flatten to 2-D at ``num_flatten_dims``,
     project, add bias, activate. Multiple inputs are summed after
-    projection."""
+    projection.
+
+    A weight whose ``ParamAttr(sharding=...)`` names a tensor-parallel
+    axis (``(None, "mp")``: column-parallel, ``("mp", None)``:
+    row-parallel — ``models.transformer(tp=True)``) computes, in a
+    sharded run over a mesh with a tensor-parallel axis, the Megatron
+    way: a column-parallel fc its rank's block of output columns (bias
+    block included), a row-parallel one its rank's block of input rows
+    summed over the axis. The sharded run hands it the rank's block of
+    the weight; a whole tensor it cuts itself (a replicated activation,
+    or a weight some other op also reads), and the gradient of what it
+    cut is summed over the axis. Elsewhere it is an ordinary fc."""
     inputs = input if isinstance(input, (list, tuple)) else [input]
     helper = LayerHelper("fc")
     dtype = inputs[0].dtype
+    kind = _tp_kind(param_attr) if len(inputs) == 1 else None
 
     proj_names = []
     rule = _mm_rule()
@@ -118,15 +163,47 @@ def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
         w = helper.create_parameter(param_attr, [in_features, size], dtype)
         out = helper.create_tmp_variable(dtype)
 
-        def mul_fn(xv, wv, _nfd=num_flatten_dims):
+        def mul_fn(xv, wv, _nfd=num_flatten_dims, tp_gather=False,
+                   _in=in_features):
+            tp = _tp_block() if kind is not None else None
+            if tp is not None:
+                from ..sharding.comm import CopyToGroup
+
+                _axis, i, n, group = tp
+                if kind == "column":
+                    xv = CopyToGroup.apply(xv, group)
+                    if wv.shape[1] == size:
+                        per = size // n
+                        wv = CopyToGroup.apply(wv, group)[
+                            :, i * per:(i + 1) * per]
+                else:
+                    if wv.shape[0] == _in:
+                        per = _in // n
+                        wv = CopyToGroup.apply(wv, group)[
+                            i * per:(i + 1) * per]
+                    per = wv.shape[0]
+                    if xv.shape[-1] == per * n:
+                        xv = CopyToGroup.apply(xv, group)[
+                            ..., i * per:(i + 1) * per]
             lead = xv.shape[:_nfd]
             xv2 = torch.reshape(xv, (int(np.prod(lead)) if lead else 1, -1))
-            y = _mm(xv2, wv, rule)
-            return torch.reshape(y, (*lead, y.shape[-1]))
+            y = torch.reshape(_mm(xv2, wv, rule), (*lead, wv.shape[-1]))
+            if tp is not None and kind == "row":
+                from ..sharding.comm import ReduceFromGroup
 
+                y = ReduceFromGroup.apply(y, tp[3])
+            elif tp is not None and tp_gather:
+                from ..sharding.comm import GatherFromGroup
+
+                y = GatherFromGroup.apply(y, tp[3], -1)
+            return y
+
+        # the sharded run hands a tensor-parallel fc its block of ``w``
+        attrs = {"_tp": kind} if kind is not None else {}
         helper.append_op(type="mul",
                          inputs={"X": [x.name], "Y": [w.name]},
-                         outputs={"Out": [out.name]}, fn=mul_fn)
+                         outputs={"Out": [out.name]}, attrs=attrs,
+                         fn=mul_fn)
         proj_names.append(out)
 
     if len(proj_names) == 1:
@@ -141,10 +218,19 @@ def fc(input, size: int, num_flatten_dims: int = 1, param_attr=None,
     if bias_attr is not False:
         b = helper.create_parameter(bias_attr, [size], dtype, is_bias=True)
         pre_act = helper.create_tmp_variable(dtype)
+
+        def add_fn(xv, bv):
+            if kind == "column" and xv.shape[-1] != bv.shape[-1]:
+                from ..sharding.comm import CopyToGroup
+
+                _axis, i, _n, group = _tp_block()
+                w = xv.shape[-1]
+                bv = CopyToGroup.apply(bv, group)[i * w:(i + 1) * w]
+            return xv + bv.to(xv.dtype)
+
         helper.append_op(type="elementwise_add",
                          inputs={"X": [pre_bias.name], "Y": [b.name]},
-                         outputs={"Out": [pre_act.name]},
-                         fn=lambda xv, bv: xv + bv.to(xv.dtype))
+                         outputs={"Out": [pre_act.name]}, fn=add_fn)
     else:
         pre_act = pre_bias
     return helper.append_activation(pre_act, act)
@@ -290,12 +376,26 @@ def dropout(x, dropout_prob: float, is_test: bool = False, seed=None,
     base_seed = seed if seed is not None else \
         helper.main_program.next_param_seed()
 
-    def fn(v, c, is_test=False):
+    def fn(v, c, is_test=False, tp_width=None):
         if is_test:
             return v * (1.0 - dropout_prob), c
         from ..ops.dropout import dropout as dropout_op
+        from ..sharding.spmd import batch_block
 
-        return dropout_op(v, base_seed, c, dropout_prob)
+        # in a sharded run ``v`` is this rank's block of the batch (and,
+        # after a column-parallel fc, of the ``tp_width`` columns): it
+        # takes that block of the whole tensor's mask
+        idx, _ = batch_block()
+        if tp_width and v.dim() and v.shape[-1] != tp_width:
+            from ..core.trace_ctx import current_mesh
+            from ..sharding.comm import tensor_axis
+
+            _axis, i, _n = tensor_axis(current_mesh())
+            rows = v.numel() // v.shape[-1]
+            return dropout_op(v, base_seed, c, dropout_prob,
+                              idx * rows * tp_width,
+                              (i * v.shape[-1], tp_width))
+        return dropout_op(v, base_seed, c, dropout_prob, idx * v.numel())
 
     helper.append_op(type="dropout",
                      inputs={"X": [x.name], "Seed": [counter.name]},

@@ -10,10 +10,17 @@ resolves to ``"fused"``: the JAX package's crossover to its kernel at
 2048 keys was measured on a TPU, and the card's own rule waits for its
 measurements (PERF.md). Training dropout draws its masks with the
 dropout kernel (``ops/dropout.py``); ``transformer_base(fused_ce=True)``
-ends in the chunked projection + CE op (``ops/fused_ce.py``). The
-sequence-parallel ``"ring"`` path, tensor parallelism, the pipelined
-encoder and distributed embeddings belong to the multi-GPU tier and
-are not ported yet.
+ends in the chunked projection + CE op (``ops/fused_ce.py``).
+
+``tp=True`` annotates the weights as the JAX package does (``_tp``):
+QKV and FFN-in column-parallel, the attention output and FFN-out
+row-parallel over the ``mp`` axis. In a sharded run over a mesh with a
+tensor-parallel axis (``mp``, else ``tp``) each rank computes its block
+of the heads and of the FFN's hidden columns (``layers.fc``'s
+tensor-parallel path); the attention op takes its heads from its
+inputs' width, so the flash kernels run at the local heads. The
+sequence-parallel ``"ring"`` path, the pipelined encoder and
+distributed embeddings are not ported yet (ROADMAP Queue A 9).
 """
 
 from __future__ import annotations
@@ -30,6 +37,11 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
 _MULTI_GPU = "Queue A 9, multi-GPU"
+
+
+def _tp(axes, enable):
+    """ParamAttr with a tensor-parallel sharding spec when enabled."""
+    return ParamAttr(sharding=axes) if enable else None
 
 
 def sinusoid_table(positions, d_model: int):
@@ -87,23 +99,23 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
     """Multi-head attention as one op. ``kv_mask`` is a ``[B, T_k]`` 0/1
     float var masking padded keys; ``causal`` adds the autoregressive
     mask. ``attn_impl``: ``"fused"`` (plain torch ops), ``"pallas"``
-    (the flash-attention kernels) or ``None`` (``"fused"``)."""
+    (the flash-attention kernels) or ``None`` (``"fused"``). ``tp``:
+    column-parallel QKV, row-parallel output projection (the op then
+    runs on this rank's heads)."""
     if attn_impl == "ring":
         raise not_ported("multi_head_attention(attn_impl='ring')",
                          _MULTI_GPU)
     if attn_impl not in (None, "fused", "pallas"):
         raise ValueError("multi_head_attention: unknown attn_impl %r"
                          % (attn_impl,))
-    if tp:
-        raise not_ported("multi_head_attention(tp=True)", _MULTI_GPU)
     helper = LayerHelper("multi_head_attention")
 
     q = layers.fc(input=queries, size=d_key * n_head, num_flatten_dims=2,
-                  bias_attr=False)
+                  bias_attr=False, param_attr=_tp((None, "mp"), tp))
     k = layers.fc(input=keys, size=d_key * n_head, num_flatten_dims=2,
-                  bias_attr=False)
+                  bias_attr=False, param_attr=_tp((None, "mp"), tp))
     v = layers.fc(input=values, size=d_value * n_head, num_flatten_dims=2,
-                  bias_attr=False)
+                  bias_attr=False, param_attr=_tp((None, "mp"), tp))
 
     out = helper.create_tmp_variable(queries.dtype)
     in_names = {"Q": [q.name], "K": [k.name], "V": [v.name]}
@@ -113,22 +125,25 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
     def fn(qv, kv, vv, mask=None):
         B, Tq, _ = qv.shape
         Tk = kv.shape[1]
-        qh = torch.reshape(qv, (B, Tq, n_head, d_key))
-        kh = torch.reshape(kv, (B, Tk, n_head, d_key))
-        vh = torch.reshape(vv, (B, Tk, n_head, d_value))
+        # n_head, or this rank's block of the heads under tensor
+        # parallelism
+        heads = qv.shape[-1] // d_key
+        qh = torch.reshape(qv, (B, Tq, heads, d_key))
+        kh = torch.reshape(kv, (B, Tk, heads, d_key))
+        vh = torch.reshape(vv, (B, Tk, heads, d_value))
         if attn_impl == "pallas":
             from ..ops.flash_attention import flash_attention
 
             ctx = flash_attention(qh, kh, vh, causal=causal, kv_mask=mask)
         else:
             ctx = attention(qh, kh, vh, mask=mask, causal=causal)
-        return torch.reshape(ctx, (B, Tq, n_head * d_value))
+        return torch.reshape(ctx, (B, Tq, heads * d_value))
 
     helper.append_op(type="fused_attention", inputs=in_names,
                      outputs={"Out": [out.name]},
                      attrs={"n_head": n_head, "causal": causal}, fn=fn)
     proj = layers.fc(input=out, size=d_model, num_flatten_dims=2,
-                     bias_attr=False)
+                     bias_attr=False, param_attr=_tp(("mp", None), tp))
     if dropout_rate and not is_test:
         proj = layers.dropout(proj, dropout_prob=dropout_rate,
                               is_test=is_test)
@@ -138,11 +153,19 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
 def positionwise_feed_forward(x, d_inner_hid, d_hid, dropout_rate=0.0,
                               is_test=False, tp=False):
     hidden = layers.fc(input=x, size=d_inner_hid, num_flatten_dims=2,
-                       act="relu")
+                       act="relu", param_attr=_tp((None, "mp"), tp))
     if dropout_rate and not is_test:
         hidden = layers.dropout(hidden, dropout_prob=dropout_rate,
                                 is_test=is_test)
-    return layers.fc(input=hidden, size=d_hid, num_flatten_dims=2)
+        if tp:
+            # a rank holds a block of the hidden columns: it draws that
+            # block of the whole width's mask
+            op = hidden.block.ops[-1]
+            op.attrs["tp_width"] = d_inner_hid
+            op.attrs["_fn_attrs"] = list(op.attrs["_fn_attrs"]) + \
+                ["tp_width"]
+    return layers.fc(input=hidden, size=d_hid, num_flatten_dims=2,
+                     param_attr=_tp(("mp", None), tp))
 
 
 def pre_post_process_layer(prev_out, out, process_cmd, dropout_rate=0.0,
@@ -221,11 +244,10 @@ def transformer_model(src_word, trg_word, src_mask, src_vocab_size,
     the decoder's last hidden states with ``return_hidden`` (for a head
     of the caller's, such as the fused projection + CE op).
     ``sparse_embedding`` gives both word tables row-sparse gradients;
-    ``dropout_rate`` drops at the JAX package's sites in training. Tensor
-    parallelism, the pipelined encoder and distributed embeddings are not
-    ported yet and raise."""
-    if tp:
-        raise not_ported("transformer_model(tp=True)", _MULTI_GPU)
+    ``dropout_rate`` drops at the JAX package's sites in training;
+    ``tp`` makes the attention and FFN blocks tensor-parallel. The
+    pipelined encoder and distributed embeddings are not ported yet and
+    raise."""
     if pp_encoder:
         raise not_ported("transformer_model(pp_encoder=True)", _MULTI_GPU)
     if distributed_embedding:
@@ -257,8 +279,22 @@ def transformer_model(src_word, trg_word, src_mask, src_vocab_size,
                                   attn_impl=attn_impl)
     if return_hidden:
         return dec_input
-    return layers.fc(input=dec_input, size=trg_vocab_size,
-                     num_flatten_dims=2, act=None)
+    predict = layers.fc(input=dec_input, size=trg_vocab_size,
+                        num_flatten_dims=2, act=None,
+                        param_attr=_tp((None, "mp"), tp))
+    if tp:
+        _gather_tp_output(predict)
+    return predict
+
+
+def _gather_tp_output(out):
+    """Make the column-parallel fc producing ``out`` gather its columns
+    (the loss reads whole logits): its product all-gathers over the
+    tensor axis, and its bias is added to the whole output."""
+    mul = next(op for op in reversed(out.block.ops) if op.attrs.get("_tp"))
+    mul.attrs["tp_gather"] = True
+    mul.attrs["_fn_attrs"] = list(mul.attrs.get("_fn_attrs", ())) + \
+        ["tp_gather"]
 
 
 def transformer_base(src_vocab_size=10000, trg_vocab_size=10000,

@@ -68,13 +68,15 @@ def keep_threshold(p: float) -> float:
 
 
 def plain_dropout(x: torch.Tensor, seed: int, counter: torch.Tensor,
-                  p: float) -> torch.Tensor:
+                  p: float, offset: int = 0) -> torch.Tensor:
     """``x * bernoulli(fold_in(PRNGKey(seed), counter), 1 - p)`` with
-    plain torch ops; ``counter`` is a one-element integer tensor."""
+    plain torch ops; ``counter`` is a one-element integer tensor.
+    ``offset``: ``x`` is the elements from that flat index on of a
+    larger tensor, and takes its block of that tensor's mask."""
     key = prng.fold_in(prng.prng_key(torch.tensor(int(seed),
                                                   device=counter.device)),
                        counter.reshape(()))
-    mask = prng.bernoulli(key, keep_threshold(p), x.shape)
+    mask = prng.bernoulli(key, keep_threshold(p), x.shape, offset=offset)
     return x * mask.to(x.dtype)
 
 
@@ -87,7 +89,8 @@ def _library():
         lib.dropout_apply.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p]
         lib.dropout_apply.restype = ctypes.c_int
         lib.dropout_device_rates.argtypes = [
             ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -141,19 +144,19 @@ def _check_cuda(x, counter, counter_out):
                          mutates_args=("counter_out",), device_types="cpu")
 def _dropout_apply_op(x: torch.Tensor, seed: int, counter: torch.Tensor,
                       p: float, counter_out: Optional[torch.Tensor],
-                      backward: bool) -> torch.Tensor:
+                      backward: bool, offset: int = 0) -> torch.Tensor:
     if counter_out is not None:
         counter_out.copy_(counter.reshape(counter_out.shape) + 1)
-    return plain_dropout(x, seed, counter, p)
+    return plain_dropout(x, seed, counter, p, offset)
 
 
 @_dropout_apply_op.register_fake
-def _(x, seed, counter, p, counter_out, backward):
+def _(x, seed, counter, p, counter_out, backward, offset=0):
     return torch.empty_like(x)
 
 
 @_dropout_apply_op.register_kernel("cuda")
-def _(x, seed, counter, p, counter_out, backward):
+def _(x, seed, counter, p, counter_out, backward, offset=0):
     _check_cuda(x, counter, counter_out)
     lib = _library()
     out = torch.empty_like(x)
@@ -164,7 +167,7 @@ def _(x, seed, counter, p, counter_out, backward):
             int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
             x.numel(), int(seed) & 0xFFFFFFFF, counter.data_ptr(),
             counter_out.data_ptr() if counter_out is not None else None,
-            keep_threshold(p), vec, stream)
+            keep_threshold(p), int(offset), vec, stream)
     if err != 0:
         raise RuntimeError("dropout: kernel launch failed: CUDA error %d "
                            "(%s)" % (err, lib.dropout_error_string(err)
@@ -176,15 +179,17 @@ def _(x, seed, counter, p, counter_out, backward):
 
 
 def dropout_apply(x: torch.Tensor, seed: int, counter: torch.Tensor,
-                  p: float, counter_out=None,
-                  backward: bool = False) -> torch.Tensor:
+                  p: float, counter_out=None, backward: bool = False,
+                  offset: int = 0) -> torch.Tensor:
     """``x * mask`` (a new tensor): the ``dropout_apply`` op — on a CUDA
     tensor one kernel launch, which also writes ``counter + 1`` into
     ``counter_out`` when given; on a CPU tensor :func:`plain_dropout`
     (and ``counter_out`` filled the same way). ``backward`` marks a
-    launch for the gradient."""
+    launch for the gradient; ``offset`` (>= 0) draws the mask's
+    elements from that flat index on (a rank's block of a sharded
+    tensor)."""
     return _dropout_apply_op(x, int(seed), counter, float(p), counter_out,
-                             bool(backward))
+                             bool(backward), int(offset))
 
 
 _cuda.register_launcher(dropout_apply,
@@ -203,27 +208,46 @@ class _Dropout(torch.autograd.Function):
     A trace (``make_fx``) records the op in both passes all the same."""
 
     @staticmethod
-    def forward(ctx, x, counter, seed, p):
+    def forward(ctx, x, counter, seed, p, offset, cols):
         counter_out = torch.empty((), dtype=torch.int32,
                                   device=counter.device)
-        out = dropout_apply(x.contiguous(), seed, counter, p,
-                            counter_out=counter_out)
-        ctx.save_for_backward(counter)
-        ctx.seed, ctx.p = seed, p
+        ctx.seed, ctx.p, ctx.offset = seed, p, offset
         ctx.mark_non_differentiable(counter_out)
+        if cols is not None:
+            # a block of columns: the mask of the whole rows, cut
+            col0, width = cols
+            ones = torch.ones(tuple(x.shape[:-1]) + (width,),
+                              dtype=x.dtype, device=x.device)
+            mask = dropout_apply(ones, seed, counter, p,
+                                 counter_out=counter_out, offset=offset)
+            mask = mask[..., col0:col0 + x.shape[-1]]
+            ctx.save_for_backward(mask)
+            ctx.cols = True
+            return x * mask, counter_out
+        out = dropout_apply(x.contiguous(), seed, counter, p,
+                            counter_out=counter_out, offset=offset)
+        ctx.save_for_backward(counter)
+        ctx.cols = False
         return out, counter_out
 
     @staticmethod
     def backward(ctx, g, _):
-        counter, = ctx.saved_tensors
-        gx = dropout_apply(g.contiguous(), ctx.seed, counter, ctx.p,
-                           backward=True)
-        return gx, None, None, None
+        saved, = ctx.saved_tensors
+        if ctx.cols:
+            return g * saved, None, None, None, None, None
+        gx = dropout_apply(g.contiguous(), ctx.seed, saved, ctx.p,
+                           backward=True, offset=ctx.offset)
+        return gx, None, None, None, None, None
 
 
 def dropout(x: torch.Tensor, seed: int, counter: torch.Tensor,
-            p: float):
+            p: float, offset: int = 0, cols=None):
     """The dropout op's training branch: ``(x * mask, counter + 1)``,
-    the mask keyed on ``fold_in(PRNGKey(seed), counter)``."""
+    the mask keyed on ``fold_in(PRNGKey(seed), counter)``. A rank's
+    block of a sharded tensor takes its block of the whole tensor's
+    mask: ``offset`` is the flat index of its first element; ``cols`` =
+    ``(first column, whole width)`` when ``x`` holds a block of the last
+    dimension's columns (``offset`` then counts whole rows)."""
     counter = counter.to(torch.int32)
-    return _Dropout.apply(x, counter, int(seed), float(p))
+    return _Dropout.apply(x, counter, int(seed), float(p), int(offset),
+                          cols)

@@ -290,6 +290,10 @@ class Optimizer:
     def _fusable(self, p, g) -> bool:
         return (g is not None
                 and not getattr(g, "is_sparse_rows", False)
+                # a sharded param (shard_program's rules, a tp ParamAttr)
+                # keeps its own layout: the JAX package keeps it out of
+                # the replicated flat storage
+                and getattr(p, "sharding_spec", None) is None
                 and p.shape is not None
                 and all(int(s) >= 0 for s in p.shape)
                 and (g.shape is None
@@ -367,6 +371,14 @@ class Optimizer:
                                      owns, consts, apply)
 
         group_fn.takes_apply = True
+
+        def on_flat(p_flat, g_flat, lr, accs, sh, apply=None):
+            return fused_flat_update(kind, p_flat, g_flat, lr, accs, sh,
+                                     owns, consts, apply)
+
+        # the update on a flat gradient: a ZeRO run (sharding/spmd.py)
+        # calls it on its rank's slice of the group
+        group_fn.on_flat = on_flat
 
         inputs = {"FlatParam": [gname], "Grad": [g.name for g in grads],
                   "LearningRate": [self._learning_rate_var.name]}
@@ -566,11 +578,17 @@ def _set_rows(table, rows, vals, vocab):
     the JAX package's ``.at[rows].set(vals, mode="drop")``: a fill row
     writes row ``rows[0]``'s new value to row ``rows[0]`` again (the
     fill rows sort last, so ``rows[0]`` is a real row whenever there is
-    one), which changes nothing and needs no host sync."""
+    one), which changes nothing and needs no host sync. With no real row
+    at all (a rank's block of a row-sharded table that none of the
+    batch's ids fall in) every write puts the last row's own value
+    back."""
     real = rows < vocab
-    idx = torch.where(real, rows, rows[:1])
-    vals = torch.where(real.view((-1,) + (1,) * (vals.dim() - 1)), vals,
-                       vals[:1])
+    first = rows[:1].clamp(max=vocab - 1)
+    idx = torch.where(real, rows, first)
+    shape = (-1,) + (1,) * (vals.dim() - 1)
+    fill = torch.where(real[:1].view(shape), vals[:1],
+                       table.index_select(0, first).to(vals.dtype))
+    vals = torch.where(real.view(shape), vals, fill)
     return table.index_copy_(0, idx, vals)
 
 

@@ -1,7 +1,8 @@
 """ParamAttr (counterpart of paddle_tpu/param_attr.py).
 
-The sharding spec and ``WeightNormParamAttr`` of the JAX package are not
-ported yet: this slice serves on one card.
+``sharding`` is a parameter's mesh spec (``Parameter.sharding_spec``,
+read by ``sharding.shard_program``'s plan). ``WeightNormParamAttr`` of
+the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -9,8 +10,10 @@ from __future__ import annotations
 
 class ParamAttr:
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
-                 regularizer=None, trainable=True, gradient_clip=None):
+                 regularizer=None, trainable=True, gradient_clip=None,
+                 sharding=None):
         self.name = name
+        self.sharding = sharding
         self.initializer = initializer
         self.learning_rate = learning_rate
         self.regularizer = regularizer
@@ -24,7 +27,7 @@ class ParamAttr:
         if isinstance(arg, ParamAttr):
             return ParamAttr(arg.name, arg.initializer, arg.learning_rate,
                              arg.regularizer, arg.trainable,
-                             arg.gradient_clip)
+                             arg.gradient_clip, arg.sharding)
         if isinstance(arg, str):
             return ParamAttr(name=arg)
         if isinstance(arg, (list, tuple)):

@@ -6,16 +6,16 @@ inference fusion family (``fc_act_fuse``, ``attention_fuse``,
 pass manager with the inference pipeline ``io.save_inference_model``
 runs (``manager``), the conv+BN fold and bf16 cast transforms
 (``conv_bn_fold``, ``cast_params_bf16``), the bf16 autocast rewrite
-(``amp_bf16``) and ``memory_optimize``/``release_memory`` at every
+(``amp_bf16``), the SPMD ``sharding`` pass
+(``sharding.shard_program``) and ``memory_optimize``/``release_memory`` at every
 level, also as the registered ``memory_optimize`` pass
 (``transforms``), int8 quantization — post-training for serving
 (``ptq_int8``: :func:`calibrate_program` + :class:`QuantizePass`,
 composed by :func:`quantize_for_serving`) and the QAT freeze
 (``quantize_inference``, :class:`QuantizeTranspiler`; ``quantize``) —
 and the ``remat_policy`` and ``host_offload`` scheduling passes
-(``schedule``). ``sharding`` and ``comm_overlap`` wait for the SPMD
-tier (ROADMAP Queue A 9): ``sharding`` is not registered, and
-``comm_overlap`` raises when constructed. ``python -m
+(``schedule``). ``comm_overlap`` waits for the communication analysis
+(ROADMAP Queue A 9) and raises when constructed. ``python -m
 paddle_tpu_torch.tools.passes`` is the CLI.
 """
 
@@ -33,7 +33,7 @@ from .schedule import (CommOverlapPass, HostOffloadPass, RematPolicyPass,
                        apply_remat_policy)
 from .transforms import (AmpRewritePass, CastParamsBF16Pass, ConvBNFoldPass,
                          InferenceTranspiler, MemoryOptimizePass,
-                         memory_optimize, release_memory,
+                         ShardingPass, memory_optimize, release_memory,
                          transpile_to_bfloat16)
 
 #: legacy alias (core/passes.py ProgramPass) — same class
@@ -65,7 +65,7 @@ __all__ = [
     "TransposeEliminatePass", "fuse_op_chain",
     # transforms
     "AmpRewritePass", "CastParamsBF16Pass", "ConvBNFoldPass",
-    "InferenceTranspiler", "MemoryOptimizePass",
+    "InferenceTranspiler", "MemoryOptimizePass", "ShardingPass",
     "memory_optimize", "release_memory", "transpile_to_bfloat16",
     # quantization
     "DEFAULT_INT8_OP_TYPES", "CalibrationResult",

@@ -28,7 +28,7 @@ report of ``analysis.analyze_liveness``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -307,3 +307,42 @@ class AmpRewritePass(Pass):
         from ..amp import rewrite_program
 
         return rewrite_program(program, policy=self.policy)
+
+
+@register_pass("sharding")
+class ShardingPass(Pass):
+    """Named-mesh SPMD sharding (wraps
+    :func:`paddle_tpu_torch.sharding.shard_program`; docs/SHARDING.md).
+    Self-stamping via ``_sharding_stamp``; a 1-device mesh (or
+    ``mesh=None``) leaves the program untouched — the manager sees no
+    change and composes nothing, keeping single-device fingerprints
+    byte-identical. The communication analysis of a stamped program
+    (``--comm``) is not ported yet (ROADMAP Queue A 9)."""
+
+    stamp_attr = "_sharding_stamp"
+    reads = frozenset({"*"})  # partition rules match any producer
+    writes = frozenset({"sharding_constraint"})
+
+    def __init__(self, mesh=None, rules: Optional[Sequence] = None,
+                 zero_shard_moments: bool = True):
+        self.mesh = mesh
+        self.rules = rules
+        self.zero_shard_moments = zero_shard_moments
+
+    def fingerprint(self) -> str:
+        from ..sharding.rules import default_rules, rules_digest
+
+        if self.mesh is None:
+            return "sharding/none"
+        rules = (list(self.rules) if self.rules is not None
+                 else default_rules())
+        return "mesh:%s/rules:%s" % (
+            ",".join(f"{a}={s}"
+                     for a, s in sorted(self.mesh.shape.items())),
+            rules_digest(rules))
+
+    def apply(self, program: Program, scope=None) -> Program:
+        from ..sharding import shard_program
+
+        return shard_program(program, self.mesh, rules=self.rules,
+                             zero_shard_moments=self.zero_shard_moments)

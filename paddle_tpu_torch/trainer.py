@@ -23,8 +23,11 @@ JSON line per step, on the eager, ``steps_per_loop`` and DataLoader
 paths alike; a train loop dying on an unhandled exception hands it to
 the flight recorder (``obs.record``) before it propagates.
 
-Not ported: ``parallel=True`` (ROADMAP Queue A 9, multi-GPU) and the
-supervisor heartbeat of each step (Queue A 10).
+``parallel=True`` runs the steps through the ParallelExecutor over the
+ranks of the ``torch.distributed`` world (``parallel.init_distributed``
+first in each rank): each rank trains on its slice of every batch.
+
+Not ported: the supervisor heartbeat of each step (Queue A 10).
 """
 
 from __future__ import annotations
@@ -101,16 +104,13 @@ class Trainer:
                  parallel: bool = False,
                  checkpoint_config: Optional[CheckpointConfig] = None,
                  steplog=None):
-        if parallel:
-            raise not_ported("Trainer(parallel=True) (the SPMD "
-                             "ParallelExecutor)", "Queue A 9, multi-GPU")
         if isinstance(steplog, str):
             from .obs.steplog import StepLogger
 
             steplog = StepLogger(steplog)
         self._steplog = steplog
         self.place = place if place is not None else default_place()
-        self.parallel = False
+        self.parallel = parallel
         self.checkpoint_cfg = checkpoint_config
         self.scope = Scope()
         self.startup_program = Program()
@@ -141,6 +141,20 @@ class Trainer:
                                   main_program=self.train_program,
                                   scope=self.scope)
 
+        self._pe = None
+        if self.parallel:
+            from .parallel import ParallelExecutor, num_trainers
+
+            if checkpoint_config and num_trainers() > 1:
+                raise not_ported(
+                    "Trainer(parallel=True) checkpoints across ranks "
+                    "(multi-process elastic saves)",
+                    "Queue A 9, multi-GPU (g2)")
+
+            self._pe = ParallelExecutor(loss_name=loss.name,
+                                        main_program=self.train_program,
+                                        scope=self.scope, place=self.place)
+
         if self.checkpoint_cfg:
             # lint the checkpoint against the train program's symbol
             # table, then write it into the scope (one write per flat
@@ -167,6 +181,8 @@ class Trainer:
 
     def _run_step(self, feed: Dict[str, np.ndarray], fetch_names):
         self._tick()
+        if self._pe is not None:
+            return self._pe.run(feed=feed, fetch_list=fetch_names)
         return self.exe.run(self.train_program, feed=feed,
                             fetch_list=fetch_names, scope=self.scope)
 
@@ -272,10 +288,15 @@ class Trainer:
                                     epoch_id, sid, metrics))
                         else:
                             self._tick()  # one call per group
-                            stacked = self.exe.run_steps(
-                                self.train_program,
-                                feed_list=[f for _, f in pending],
-                                fetch_list=want, scope=self.scope)
+                            if self._pe is not None:
+                                stacked = self._pe.run_steps(
+                                    feed_list=[f for _, f in pending],
+                                    fetch_list=want)
+                            else:
+                                stacked = self.exe.run_steps(
+                                    self.train_program,
+                                    feed_list=[f for _, f in pending],
+                                    fetch_list=want, scope=self.scope)
                             for i, (sid, _) in enumerate(pending):
                                 if i:  # first BeginStep already fired
                                     event_handler(
@@ -338,6 +359,10 @@ class Trainer:
         chunk's stacked metrics. Checkpoints follow the classic contract:
         step_interval crossings save mid-epoch and a resumed Trainer skips
         the first epoch's trained batches."""
+        enforce(self._pe is None,
+                "the DataLoader pipeline drives the single-program "
+                "Executor; with parallel=True feed batches through "
+                "ParallelExecutor.run instead")
         fetch_names = [v.name for v in self.train_func_outputs]
         log_every = max(1, int(log_every))
         chunk = max(1, int(getattr(loader, "chunk", 1)))

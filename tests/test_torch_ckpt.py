@@ -272,8 +272,11 @@ def test_shim_and_refusals(tmp_path, monkeypatch):
     (sharded / "meta.json").write_text(json.dumps(
         {"format": "sharded", "serial": 0, "process_count": 1}))
     monkeypatch.setattr(saver, "_process_count", lambda: 2)
+    # a program's sharding-plan layouts, once refused here, are ported:
+    # an unsharded program has none (tests/test_torch_sharding.py has a
+    # sharded program's checkpoint round trip)
+    assert ckpt.program_state_shardings(None, {}) is None
     for call in (lambda: ckpt.load_checkpoint_sharded(str(tmp_path)),
-                 lambda: ckpt.program_state_shardings(None, {}),
                  lambda: ckpt.save_checkpoint_sharded(str(tmp_path), {}),
                  lambda: ckpt.save_checkpoint_elastic(str(tmp_path), {}),
                  lambda: ckpt.AsyncCheckpointSaver(str(tmp_path)).save({}),

@@ -125,3 +125,47 @@ def test_the_compile_cache_and_observability_modules_are_in_the_scan():
             for m in modules} <= names
     for module in modules:
         assert not _IMPORT.search((PACKAGE / module).read_text()), module
+
+
+def test_the_multi_gpu_slice_modules_are_in_the_scan():
+    """The multi-GPU slice's modules (the sharding and parallel packages,
+    the trace context, the launcher, the rank worker of the tests) are
+    among those the checks above import and scan; their public names
+    are the JAX package's (``__all__`` equal)."""
+    modules = ("core/trace_ctx.py", "sharding/__init__.py",
+               "sharding/mesh.py", "sharding/rules.py", "sharding/plan.py",
+               "sharding/embedding.py", "sharding/comm.py",
+               "sharding/spmd.py", "parallel/__init__.py",
+               "parallel/env.py", "parallel/mesh.py",
+               "parallel/sharded_embedding.py", "parallel/strategy.py",
+               "parallel/parallel_executor.py", "parallel/transpiler.py",
+               "tools/launch.py")
+    for module in modules:
+        assert (PACKAGE / module).exists(), module
+        assert not _IMPORT.search((PACKAGE / module).read_text()), module
+    assert not _IMPORT.search(
+        (REPO / "tests" / "_torch_ranks.py").read_text())
+    child = (
+        "import json, paddle_tpu_torch.sharding as s, "
+        "paddle_tpu_torch.parallel as p, paddle_tpu_torch.core.trace_ctx "
+        "as t, paddle_tpu_torch.tools.launch as l, sys\n"
+        "print(json.dumps({'sharding': s.__all__, 'parallel': p.__all__, "
+        "'trace_ctx': sorted(n for n in dir(t) if not n.startswith('_')), "
+        "'launch': hasattr(l, 'main'), 'jax': [m for m in sys.modules "
+        "if m == 'jax' or m.startswith('paddle_tpu.')]}))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", child], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    import paddle_tpu.core.trace_ctx as jt
+    import paddle_tpu.parallel as jp
+    import paddle_tpu.sharding as js
+
+    assert got["sharding"] == js.__all__
+    assert got["parallel"] == jp.__all__
+    want = {"current_mesh", "mesh_scope", "remat_enabled", "remat_scope"}
+    assert want <= set(got["trace_ctx"]) and \
+        want <= {n for n in dir(jt) if not n.startswith("_")}
+    assert got["launch"] and got["jax"] == []

@@ -264,8 +264,9 @@ def test_registry_and_fingerprints_match_the_jax_package():
                              "fc_act_fuse", "host_offload",
                              "memory_optimize", "ptq_int8",
                              "quantize_inference", "remat_policy",
-                             "transpose_eliminate"]
-    for name in ("ConvBNFoldPass", "CastParamsBF16Pass", "AmpRewritePass"):
+                             "sharding", "transpose_eliminate"]
+    for name in ("ConvBNFoldPass", "CastParamsBF16Pass", "AmpRewritePass",
+                 "ShardingPass"):
         tcls, jcls = getattr(t_transforms, name), getattr(j_transforms, name)
         assert (tcls.name, tcls.reads, tcls.writes, tcls.mutates_scope,
                 tcls.stamp_attr) == (jcls.name, jcls.reads, jcls.writes,

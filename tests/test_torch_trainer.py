@@ -428,14 +428,35 @@ def test_save_params_and_param_path(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [({"parallel": True}, "Queue A 9")])
-def test_refused_options_name_their_queue_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        fluid.Trainer(_fit_func(fluid),
-                      lambda: fluid.optimizer.SGD(learning_rate=0.05),
-                      place=fluid.CPUPlace(), **kw)
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        fluid.Inferencer(lambda: None, "unused", place=fluid.CPUPlace(),
-                         parallel=True)
+def test_refused_options_name_their_queue_item(kw, item, tmp_path):
+    """``parallel=True``, once refused naming ``item``, is ported: in a
+    world of one process the Trainer steps through the
+    ParallelExecutor to the plain Trainer's parameters, and the
+    Inferencer serves through it. (Ranks: tests/test_torch_parallel.py.)"""
+    del item
+    trained = []
+    for extra in ({}, kw):
+        t = fluid.Trainer(_fit_func(fluid),
+                          lambda: fluid.optimizer.SGD(learning_rate=0.05),
+                          place=fluid.CPUPlace(), **extra)
+        assert (t._pe is not None) == bool(extra)
+        t.train(num_epochs=1, reader=_fit_reader(3), feed_order=["x", "y"],
+                event_handler=lambda e: None)
+        trained.append({p.name: fluid.fetch_var(p.name, t.scope)
+                        for p in t.train_program.all_parameters()})
+    for n in trained[0]:
+        np.testing.assert_array_equal(trained[0][n], trained[1][n])
+    t.save_params(str(tmp_path))
+
+    def infer_func():
+        x = fluid.layers.data(name="x", shape=[13], dtype="float32")
+        return fluid.layers.fc(input=x, size=1, act=None)
+
+    xs = np.random.RandomState(2).randn(4, 13).astype(np.float32)
+    got = [fluid.Inferencer(infer_func, str(tmp_path),
+                            place=fluid.CPUPlace(), parallel=par)
+           .infer({"x": xs})[0] for par in (False, True)]
+    np.testing.assert_array_equal(got[0], got[1])
 
 
 def test_steplog_writes_one_record_per_step(tmp_path):

@@ -401,9 +401,11 @@ def test_the_backward_op_refuses_to_run_outside_the_executor():
     "training_dropout", "fused_ce", "ring", "tp", "pp_encoder"])
 def test_options_not_ported_yet_raise(option):
     """Each option not ported yet raises, naming the ROADMAP item that
-    ports it. Training dropout and ``fused_ce``, once on this list, are
-    ported: those two now build, with their dropout sites and the fused
-    head."""
+    ports it. Training dropout, ``fused_ce`` and ``tp``, once on this
+    list, are ported: those now build, with their dropout sites, the
+    fused head, and the JAX package's tensor-parallel annotations
+    (column-parallel QKV and FFN-in, row-parallel output projections
+    over ``mp``)."""
     kw = {"training_dropout": {"dropout_rate": 0.1},
           "fused_ce": {"fused_ce": True}, "ring": {},
           "tp": {"tp": True}, "pp_encoder": {"pp_encoder": True}}[option]
@@ -412,6 +414,16 @@ def test_options_not_ported_yet_raise(option):
         types = [op.type for op in main.global_block().ops]
         assert ("dropout" in types) == (option == "training_dropout")
         assert ("fused_linear_softmax_ce" in types) == (option == "fused_ce")
+        return
+    if option == "tp":
+        t_main = _build("torch", "fused", **kw)[0]
+        j_main = _build("jax", "fused", **kw)[0]
+        specs = {pkg: {p.name: getattr(p, "sharding_spec", None)
+                       for p in m.all_parameters()}
+                 for pkg, m in (("torch", t_main), ("jax", j_main))}
+        assert specs["torch"] == specs["jax"]
+        assert sorted(set(map(str, specs["torch"].values()))) == \
+            ["('mp', None)", "(None, 'mp')", "None"]
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _build("torch", "ring" if option == "ring" else "fused", **kw)
