@@ -125,7 +125,7 @@ def check_program(program: Optional[Program] = None,
 
     if with_comm:
         raise not_ported("check_program(with_comm=True): the SPMD "
-                         "communication analysis", "Queue A 9")
+                         "communication analysis", "Queue A 9, (g3)")
     program = program or default_main_program()
     diags: List[Diagnostic] = []
     diags.extend(validate_graph(program, feed=feed,

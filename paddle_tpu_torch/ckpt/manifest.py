@@ -12,16 +12,24 @@ The on-disk record of one checkpoint serial::
 Each ``manifest_<pid>.json`` records, for every tensor: the GLOBAL shape
 and dtype name (``"bfloat16"`` for a bfloat16 tensor, whose npz member
 holds raw two-byte bits, ``'<V2'``, as the JAX package writes it), the
-``PartitionSpec`` and mesh axes it was saved under (null here: the port
-saves from one process and one device), and one record per shard (the
-npz member key, the payload file, the global index it covers); plus
-sha256 + byte size of every payload file. A serial is valid only when
-every manifest parses and every payload matches its sha256 and size.
+``PartitionSpec`` and mesh axes it was saved under (null for a whole
+value), and one record per shard (the npz member key, the payload file,
+the global index it covers); plus sha256 + byte size of every payload
+file. A serial is valid only when every manifest parses and every
+payload matches its sha256 and size — every process of the save having
+written its part.
 
-The port writes and reads the single-process format: the whole serial
-is built in a hidden temp dir and published with ONE ``os.rename``
-(first-publisher-wins). Multi-process saves and the legacy sharded
-format wait for multi-GPU support (ROADMAP Queue A 9). The writers fire
+A rank of a sharded run holds blocks of some tensors: it hands a writer
+each block as a :class:`Shard` (the block, the whole tensor's shape, its
+spec and its mesh; ``spmd.held_state`` builds them), and writes only the
+blocks it owns — replica 0 of each, the rank at index 0 of every mesh
+axis the spec does not split — while whole values are process 0's, as
+the JAX package's replica-0 shards and host values. A single-process
+save builds the whole serial in a hidden temp dir and publishes it with
+ONE ``os.rename`` (first-publisher-wins); a multi-process save writes
+per-process files with atomic replaces into a shared serial dir and
+process 0 lands ``meta.json`` last. The legacy sharded format (md5
+manifests) reads through :func:`legacy_sharded_index`. The writers fire
 the ``ckpt.publish`` and ``ckpt.payload`` fault points.
 """
 
@@ -35,7 +43,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 
 from ..core import npz
-from ..core.enforce import not_ported
 from .base import (_META_FILE, _TRAINER_PREFIX, _digest_cached,
                    _serial_dir, _sha256)
 
@@ -50,17 +57,88 @@ def _index_to_json(index, shape) -> List[List[int]]:
     return out
 
 
-def snapshot_state(state: Dict[str, Any]) -> Dict[str, Any]:
-    """Device→host snapshot of ``state`` (name -> torch tensor or host
-    value): one host copy per value, made on the caller's thread before
-    this returns, so no later step — which updates the scope's tensors
-    in place under ``memory_optimize`` and ``run_steps``' graphs — can
-    reach the bytes a writer serializes. The copy of a card tensor is
-    queued on the current stream, behind the steps that wrote it.
-    ``None`` values (names a scope only reserved) are skipped."""
+class Shard:
+    """This rank's block of a tensor held sharded over a mesh: ``data``
+    the block, ``shape`` the whole tensor's, ``spec`` the cleaned spec
+    the block was cut under, ``mesh`` the live mesh."""
+
+    __slots__ = ("data", "shape", "spec", "mesh")
+
+    def __init__(self, data, shape, spec, mesh):
+        self.data = data
+        self.shape = tuple(int(s) for s in shape)
+        self.spec = tuple(spec)
+        self.mesh = mesh
+
+    def index(self):
+        """The block's global index, one slice per dimension."""
+        from ..sharding.comm import local_slices
+
+        return local_slices(self.shape, self.spec, self.mesh)
+
+    def owned(self) -> bool:
+        """Replica 0 of the block: this rank sits at index 0 of every
+        mesh axis the spec does not split."""
+        from ..sharding.comm import _axes
+
+        used = {a for e in self.spec for a in _axes(e)}
+        coord = self.mesh.coordinate()
+        return all(i == 0 for a, i in coord.items() if a not in used)
+
+
+def _spec_to_json(spec) -> list:
+    out = []
+    for e in spec:
+        if e is None:
+            out.append(None)
+        elif isinstance(e, (tuple, list)):
+            out.append([str(a) for a in e])
+        else:
+            out.append(str(e))
+    return out
+
+
+def _process_index() -> int:
+    """This process's rank in the ``torch.distributed`` world, else 0."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def snapshot_state(state: Dict[str, Any],
+                   process_index: Optional[int] = None) -> Dict[str, Any]:
+    """Device→host snapshot of what THIS process owns of ``state`` (name
+    -> torch tensor, host value or :class:`Shard`): one host copy per
+    value, made on the caller's thread before this returns, so no later
+    step — which updates the scope's tensors in place under
+    ``memory_optimize`` and ``run_steps``' graphs — can reach the bytes a
+    writer serializes. The copy of a card tensor is queued on the
+    current stream, behind the steps that wrote it. A :class:`Shard`
+    contributes its block when this rank owns it, with its global
+    index, spec and mesh axes; whole values are process 0's. ``None``
+    values (names a scope only reserved) are skipped."""
+    pid = _process_index() if process_index is None else process_index
     entries: Dict[str, Any] = {}
     for name, val in state.items():
         if val is None:
+            continue
+        if isinstance(val, Shard):
+            if not val.owned():
+                continue
+            arr = npz.host_array(val.data)
+            entries[name] = {
+                "shape": list(val.shape),
+                "dtype": npz.dtype_name(val.data),
+                "spec": _spec_to_json(val.spec),
+                "mesh": {str(a): int(n)
+                         for a, n in val.mesh.shape.items()},
+                "shards": [{"index": _index_to_json(val.index(),
+                                                    val.shape),
+                            "data": arr}]}
+            continue
+        if pid != 0:
             continue
         arr = npz.host_array(val)
         entries[name] = {
@@ -246,6 +324,28 @@ def _npz_headers(path: str, dtypes: Optional[Dict[str, str]] = None
     return out
 
 
+def legacy_sharded_index(d: str, meta: dict) -> Tuple[Dict[str, list],
+                                                      Dict[str, tuple],
+                                                      Dict[str, str]]:
+    """Restore index of a legacy md5 sharded serial, in the same
+    ``(index, shapes, dtypes)`` shape as :func:`read_index` — the ONE
+    walk of the per-process manifests (restore and the lint both derive
+    from it)."""
+    index: Dict[str, list] = {}
+    shapes: Dict[str, tuple] = {}
+    dtypes: Dict[str, str] = {}
+    for p in range(int(meta.get("process_count", 1))):
+        with open(os.path.join(d, f"manifest_{p}.json")) as f:
+            man = json.load(f)
+        npz_path = os.path.join(d, f"shards_{p}.npz")
+        for name, rec in man["vars"].items():
+            shapes[name] = tuple(rec["shape"])
+            dtypes[name] = str(rec["dtype"])
+            index.setdefault(name, []).extend(
+                (s["key"], s["index"], npz_path) for s in rec["shards"])
+    return index, shapes, dtypes
+
+
 def manifest_entries(root: str, serial: int) -> Dict[str, tuple]:
     """{name: (global shape tuple, dtype name)} of one serial, for the
     restore-lint (analysis.check_restore_state) — every format (dense
@@ -260,11 +360,6 @@ def manifest_entries(root: str, serial: int) -> Dict[str, tuple]:
         _, shapes, dtypes, _ = read_index(d, meta)
         return {n: (shapes[n], dtypes[n]) for n in shapes}
     if meta.get("format") == "sharded":
-        raise _sharded_not_ported()
+        _, shapes, dtypes = legacy_sharded_index(d, meta)
+        return {n: (shapes[n], dtypes[n]) for n in shapes}
     return _npz_headers(os.path.join(d, "state.npz"))
-
-
-def _sharded_not_ported() -> NotImplementedError:
-    return not_ported("reading the legacy sharded checkpoint format "
-                      "(per-process shards of a device mesh)",
-                      "Queue A 9, multi-GPU")

@@ -1,9 +1,15 @@
 """Checkpoint readers: format auto-detection, restore, and batched
 application into a Scope (counterpart of paddle_tpu/ckpt/restore.py).
 
-A serial of either single-process format — the dense ``state.npz`` or
-the elastic manifest, written by either package — loads as host values
-assembled from its shard records. ``restore()`` is
+A serial of any format — the dense ``state.npz``, the elastic manifest
+or the legacy sharded files, written by either package from any number
+of processes — loads as host values assembled from its shard records;
+:func:`load_checkpoint_sharded` with target layouts gives a rank of a
+live mesh its block of each instead (an exact index match reads one
+member, anything else — another mesh, another process count — is
+assembled once and cut). Restoring whole values into a sharded run's
+scope is already N→M: the run cuts each to the rank's block on first
+use. ``restore()`` is
 the program-aware one-call entry: it lints the checkpoint against the
 program's symbol table (``analysis.check_restore_state``: mismatches
 surface as structured ``Diagnostic`` records) and applies the result to
@@ -15,10 +21,6 @@ CPU ``torch.bfloat16`` tensor (numpy has no bfloat16); a raw two-byte
 member that nothing names (a dense serial's bfloat16) stays a numpy
 ``'V2'`` array until :func:`apply_state` reads its dtype off the scope's
 tensor or the program's variable (core/npz.py).
-
-Re-slicing a checkpoint onto a sharded layout (``shardings=``,
-``load_checkpoint_sharded``, ``program_state_shardings``) and the legacy
-sharded format wait for multi-GPU support (ROADMAP Queue A 9).
 """
 
 from __future__ import annotations
@@ -31,11 +33,12 @@ import numpy as np
 import torch
 
 from ..core import npz
-from ..core.enforce import EnforceError, enforce, not_ported
+from ..core.enforce import EnforceError, enforce
 from ..profiler import RecordEvent
 from .base import (_TRAINER_PREFIX, _is_valid, _serial_dir,
                    latest_valid_serial, read_meta)
-from .manifest import _sharded_not_ported, manifest_entries, read_index
+from .manifest import (_index_to_json, legacy_sharded_index,
+                       manifest_entries, read_index)
 
 
 def _read_trainer_args(d: str, trainer_id: int) -> Optional[dict]:
@@ -56,9 +59,14 @@ def _host_value(a: np.ndarray, dtype: str):
 
 def _load_indexed(index: Dict[str, list], shapes: Dict[str, tuple],
                   dtypes: Dict[str, str],
-                  names: Optional[List[str]] = None) -> Dict[str, Any]:
-    """Materialize host values from an elastic shard index: each tensor
-    assembled from its shard pieces."""
+                  names: Optional[List[str]] = None,
+                  shardings: Optional[Dict[str, Any]] = None
+                  ) -> Dict[str, Any]:
+    """Materialize host values from a shard index: each tensor assembled
+    from its shard pieces. ``shardings`` ({name: ``sharding.mesh.Layout``})
+    gives this rank of a live mesh its block of each name it lays out:
+    a piece whose index is that block's is read alone, anything else is
+    assembled once and cut."""
     files: Dict[str, Any] = {}
 
     def z(path):
@@ -66,23 +74,40 @@ def _load_indexed(index: Dict[str, list], shapes: Dict[str, tuple],
             files[path] = np.load(path, allow_pickle=False)
         return files[path]
 
+    def assemble(name):
+        pieces = index[name]
+        if len(pieces) == 1 and all(
+                a == 0 and b == s for (a, b), s in
+                zip(pieces[0][1], shapes[name])):
+            return z(pieces[0][2])[pieces[0][0]]  # one whole shard
+        full = None
+        for key, idx, path in pieces:
+            part = z(path)[key]
+            if full is None:
+                full = np.empty(shapes[name], part.dtype)
+            full[tuple(slice(a, b) for a, b in idx)] = part
+        return full
+
+    def block(name, layout):
+        from ..sharding.comm import local_slices
+
+        want = local_slices(shapes[name], layout.spec, layout.mesh)
+        want_json = _index_to_json(want, shapes[name])
+        for key, idx, path in index[name]:
+            if idx == want_json:  # exact match: one member read
+                return z(path)[key]
+        return np.ascontiguousarray(assemble(name)[want])
+
     try:
         state: Dict[str, Any] = {}
         for name in (index if names is None else names):
-            pieces = index[name]
-            if len(pieces) == 1 and all(
-                    a == 0 and b == s for (a, b), s in
-                    zip(pieces[0][1], shapes[name])):
-                full = z(pieces[0][2])[pieces[0][0]]  # one whole shard
+            layout = (shardings or {}).get(name)
+            if layout is not None and any(layout.spec) \
+                    and layout.mesh.live:
+                val = block(name, layout)
             else:
-                full = None
-                for key, idx, path in pieces:
-                    part = z(path)[key]
-                    if full is None:
-                        full = np.empty(shapes[name], part.dtype)
-                    full[tuple(slice(a, b) for a, b in idx)] = part
-            state[name] = _host_value(np.asarray(full).reshape(
-                shapes[name]), dtypes[name])
+                val = np.asarray(assemble(name)).reshape(shapes[name])
+            state[name] = _host_value(val, dtypes[name])
     finally:
         for f in files.values():
             f.close()
@@ -90,8 +115,8 @@ def _load_indexed(index: Dict[str, list], shapes: Dict[str, tuple],
 
 
 def _serial_index(root: str, serial: int):
-    """(index, shapes, dtypes) of an elastic serial, or None for a dense
-    one; the legacy sharded format raises (ROADMAP Queue A 9)."""
+    """(index, shapes, dtypes) of an indexed (elastic or legacy
+    sharded) serial, or None for a dense one."""
     meta = read_meta(root, serial)
     d = _serial_dir(root, serial)
     if meta is None:
@@ -100,7 +125,7 @@ def _serial_index(root: str, serial: int):
         index, shapes, dtypes, _specs = read_index(d, meta)
         return index, shapes, dtypes
     if meta.get("format") == "sharded":
-        raise _sharded_not_ported()
+        return legacy_sharded_index(d, meta)
     return None
 
 
@@ -131,9 +156,36 @@ def load_checkpoint(root: str, serial: Optional[int] = None,
 def load_checkpoint_sharded(root: str, serial: Optional[int] = None,
                             shardings: Optional[Dict[str, Any]] = None,
                             trainer_id: int = 0):
-    """Restore onto sharded layouts: not ported."""
-    raise not_ported("ckpt.load_checkpoint_sharded (restore re-sliced "
-                     "onto a device mesh)", "Queue A 9, multi-GPU")
+    """Load (state, trainer_args) from a checkpoint of any format.
+
+    ``shardings``: optional {name: ``sharding.mesh.Layout``} (say,
+    ``ParallelExecutor.state_shardings()``); on a live mesh each such
+    name comes back as this rank's block of it, re-sliced from whatever
+    shards the checkpoint holds (N→M). Without it, values come back as
+    assembled host values."""
+    if serial is None:
+        serial = latest_valid_serial(root)   # already digest-validated
+        if serial is None:
+            return None, None
+    elif not _is_valid(root, serial):        # explicit serials re-verify
+        raise IOError(f"checkpoint_{serial} in {root} is missing or corrupt")
+    d = _serial_dir(root, serial)
+    indexed = _serial_index(root, serial)
+    if indexed is None:  # dense serial
+        state, targs = load_checkpoint(root, serial, trainer_id)
+        if shardings:
+            from ..sharding.comm import local_slices
+
+            for n, layout in shardings.items():
+                if n in state and any(layout.spec) and layout.mesh.live:
+                    v = state[n]
+                    state[n] = np.ascontiguousarray(np.asarray(v)[
+                        local_slices(np.shape(v), layout.spec,
+                                     layout.mesh)])
+        return state, targs
+    index, shapes, dtypes = indexed
+    state = _load_indexed(index, shapes, dtypes, shardings=shardings)
+    return state, _read_trainer_args(d, trainer_id)
 
 
 def program_state_shardings(program, shapes: Dict[str, tuple]

@@ -1,11 +1,20 @@
-"""Checkpoint writers: atomic dense and elastic saves, and the async
-background saver (counterpart of paddle_tpu/ckpt/saver.py).
+"""Checkpoint writers: atomic dense, sharded and elastic saves, and the
+async background saver (counterpart of paddle_tpu/ckpt/saver.py).
 
-``save_checkpoint`` writes the dense format (``state.npz`` + md5) and
-``save_checkpoint_elastic`` / :class:`AsyncCheckpointSaver` the elastic
-manifest format (manifest.py), byte-compatible with the JAX package's:
-bfloat16 members are raw two-byte bits (``'<V2'``), and the elastic
-manifest records their dtype name.
+``save_checkpoint`` writes the dense format (``state.npz`` + md5),
+``save_checkpoint_sharded`` the legacy per-process format (md5 shard
+files), and ``save_checkpoint_elastic`` / :class:`AsyncCheckpointSaver`
+the elastic manifest format (manifest.py), byte-compatible with the JAX
+package's: bfloat16 members are raw two-byte bits (``'<V2'``), and the
+elastic manifest records their dtype name.
+
+Across the ranks of a ``torch.distributed`` world each process writes
+the blocks it owns (``manifest.Shard``; whole values are process 0's)
+into the same serial, which becomes valid when the last process's files
+land: there is no barrier, and restore takes the newest valid serial. A
+multi-process save needs an explicit serial, or the async saver's,
+whose first serial process 0 derives from the directory and broadcasts
+(:func:`_synchronized_serial_seed`).
 
 The state of a run on the card is updated in place: the fused update,
 ``memory_optimize`` and ``run_steps``' captured graphs write the scope's
@@ -20,9 +29,6 @@ the temp dir exists (an injected crash orphans it for
 ``sweep_orphans``) and ``ckpt.payload`` once the payload's digest is
 recorded (an injected corruption makes that serial invalid, so
 restore's newest-valid fallback skips it).
-
-Not ported: the legacy sharded format and multi-process elastic saves
-(``save_checkpoint_sharded``, ``pcount > 1``; ROADMAP Queue A 9).
 """
 
 from __future__ import annotations
@@ -34,12 +40,12 @@ import tempfile
 from typing import Any, Dict, List, Optional
 
 from ..core import npz
-from ..core.enforce import not_ported
 from ..profiler import RecordEvent
 from ..resilience import faults
 from .base import (_META_FILE, _TRAINER_PREFIX, _md5, _scroll_delete,
                    _serial_dir, list_checkpoints)
-from .manifest import publish_serial, snapshot_state
+from .manifest import (_process_index, publish_serial,
+                       snapshot_state, write_meta, write_process_files)
 
 
 def save_checkpoint(root: str,
@@ -90,29 +96,70 @@ def save_checkpoint(root: str,
     return serial
 
 
-def save_checkpoint_sharded(root: str, state: Dict[str, Any], *args,
-                            **kwargs) -> int:
-    """The legacy per-process sharded format: not ported."""
-    raise not_ported("ckpt.save_checkpoint_sharded (per-process shards "
-                     "of a device mesh)", "Queue A 9, multi-GPU")
+# ---------------------------------------------------------------------------
+# sharded / multi-process checkpoints (legacy md5 format)
+# ---------------------------------------------------------------------------
+# Each process writes exactly the blocks it owns to its own
+# ``shards_<pid>.npz`` plus a ``manifest_<pid>.json`` with the global
+# index of every block (the reference's pserver-side per-shard snapshots,
+# go/pserver/service.go:120-203). There is NO cross-process barrier: a
+# checkpoint becomes valid when the last process's shard file lands, and
+# restore takes the newest VALID serial.
 
 
-def _write_elastic(root: str, serial: int, entries: Dict[str, Any],
+def _snapshot_local_shards(state: Dict[str, Any]) -> Dict[str, Any]:
+    """Device→host snapshot of the blocks THIS process owns (the only
+    wait on the card of a sharded save; on the caller's thread)."""
+    return snapshot_state(state)
+
+
+def _write_sharded(root: str, serial: int, entries: Dict[str, Any],
                    pid: int, pcount: int,
                    trainer_id: Optional[int] = None,
                    trainer_args: Optional[Dict[str, Any]] = None,
                    max_num_checkpoints: int = 3,
                    extra_meta: Optional[Dict[str, Any]] = None) -> int:
-    """IO phase of an elastic save (host copies only; background-safe):
-    one process publishes the whole serial with one rename."""
-    if pcount > 1:
-        raise not_ported("a multi-process elastic save (process_count=%d)"
-                         % pcount, "Queue A 9, multi-GPU")
-    with RecordEvent("ckpt/serialize"):
-        with RecordEvent("ckpt/publish"):
-            publish_serial(root, serial, entries, trainer_id=trainer_id,
-                           trainer_args=trainer_args, extra_meta=extra_meta)
-            _scroll_delete(root, max_num_checkpoints)
+    """IO phase of a legacy sharded save (host copies only;
+    background-safe)."""
+    d = _serial_dir(root, serial)
+    os.makedirs(d, exist_ok=True)
+    # after makedirs: a crash fired here leaves .tmp* files in a live
+    # serial dir — exactly what sweep_orphans exists to reclaim
+    faults.fire("ckpt.publish")
+    payload, man_vars = {}, {}
+    for name, e in entries.items():
+        recs = []
+        for i, srec in enumerate(e["shards"]):
+            key = f"{name}::{i}"
+            payload[key] = srec["data"]
+            recs.append({"key": key, "index": srec["index"]})
+        man_vars[name] = {"shape": e["shape"], "dtype": e["dtype"],
+                          "shards": recs}
+    shard_name = f"shards_{pid}.npz"
+    tmp = npz.savez(os.path.join(d, f".tmp_{shard_name}"), payload)
+    digest = _md5(tmp)
+    faults.fire("ckpt.payload", tmp)
+    os.replace(tmp, os.path.join(d, shard_name))
+    man = {"process_index": pid, "md5": digest, "vars": man_vars}
+    tmp = os.path.join(d, f".tmp_manifest_{pid}.json")
+    with open(tmp, "w") as f:
+        json.dump(man, f)
+    os.replace(tmp, os.path.join(d, f"manifest_{pid}.json"))
+    if trainer_args is not None:
+        tid = pid if trainer_id is None else trainer_id
+        tmp = os.path.join(d, f".tmp{pid}_{_TRAINER_PREFIX}_{tid}.json")
+        with open(tmp, "w") as f:
+            json.dump(trainer_args, f)
+        os.replace(tmp, os.path.join(d, f"{_TRAINER_PREFIX}_{tid}.json"))
+    if pid == 0:
+        meta = {"format": "sharded", "serial": serial,
+                "process_count": pcount, "names": sorted(entries)}
+        meta.update(extra_meta or {})
+        tmp = os.path.join(d, f".tmp_{_META_FILE}")
+        with open(tmp, "w") as f:
+            json.dump(meta, f)
+        os.replace(tmp, os.path.join(d, _META_FILE))
+        _scroll_delete(root, max_num_checkpoints)
     return serial
 
 
@@ -125,6 +172,103 @@ def _process_count() -> int:
     return 1
 
 
+def _synchronized_serial_seed(root: str) -> int:
+    """First serial for a fresh multi-process saver: derived from the
+    directory listing by process 0 ONLY and broadcast to the others
+    (``torch.distributed``), so every process starts the same run of
+    serials. Seeding independently from per-process listings races: a
+    rank could list rank 0's freshly-created checkpoint_<s>/ and seed at
+    s+1, splitting one logical checkpoint across two serials. Seeding
+    past EVERY existing directory, valid or not, stays: a partial serial
+    of a crashed run is never reused (reference contract:
+    go/pserver/service.go:120-203, one snapshot epoch shared by all
+    shard owners)."""
+    seed = 0
+    if _process_index() == 0:
+        serials = list_checkpoints(root)
+        seed = (serials[-1] + 1) if serials else 0
+    if _process_count() > 1:
+        import torch
+        import torch.distributed as dist
+
+        dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        t = torch.tensor([seed], dtype=torch.int64, device=dev)
+        dist.broadcast(t, src=0)
+        seed = int(t.item())
+    return seed
+
+
+def _explicit_serial(root: str, serial: Optional[int], pcount: int,
+                     kind: str) -> int:
+    if serial is not None:
+        return serial
+    if pcount > 1:
+        raise ValueError(
+            "multi-process %s save needs an explicit serial (use the "
+            "global step, or AsyncCheckpointSaver which allocates serials "
+            "deterministically)" % kind)
+    serials = list_checkpoints(root)
+    return (serials[-1] + 1) if serials else 0
+
+
+def save_checkpoint_sharded(root: str, state: Dict[str, Any],
+                            serial: Optional[int] = None,
+                            trainer_id: Optional[int] = None,
+                            trainer_args: Optional[Dict[str, Any]] = None,
+                            max_num_checkpoints: int = 3,
+                            extra_meta: Optional[Dict[str, Any]] = None
+                            ) -> int:
+    """Sharded save (legacy md5 format): every process calls this with
+    the SAME state names (its blocks as ``manifest.Shard``); each writes
+    only the blocks it owns. Multi-process callers must pass an explicit
+    ``serial`` (e.g. the global step)."""
+    pid, pcount = _process_index(), _process_count()
+    serial = _explicit_serial(root, serial, pcount, "sharded")
+    os.makedirs(root, exist_ok=True)
+    entries = _snapshot_local_shards(state)
+    return _write_sharded(root, serial, entries, pid, pcount,
+                          trainer_id=trainer_id, trainer_args=trainer_args,
+                          max_num_checkpoints=max_num_checkpoints,
+                          extra_meta=extra_meta)
+
+
+# ---------------------------------------------------------------------------
+# elastic manifest saves (manifest.py; the AsyncCheckpointSaver format)
+# ---------------------------------------------------------------------------
+
+
+def _write_elastic(root: str, serial: int, entries: Dict[str, Any],
+                   pid: int, pcount: int,
+                   trainer_id: Optional[int] = None,
+                   trainer_args: Optional[Dict[str, Any]] = None,
+                   max_num_checkpoints: int = 3,
+                   extra_meta: Optional[Dict[str, Any]] = None) -> int:
+    """IO phase of an elastic save (host copies only; background-safe):
+    one process publishes the whole serial with one rename; several
+    write their files into a shared serial dir and process 0 lands the
+    meta. The ckpt.publish fault point fires once the temp/serial dir
+    exists."""
+    with RecordEvent("ckpt/serialize"):
+        if pcount <= 1:
+            with RecordEvent("ckpt/publish"):
+                publish_serial(root, serial, entries,
+                               trainer_id=trainer_id,
+                               trainer_args=trainer_args,
+                               extra_meta=extra_meta)
+                _scroll_delete(root, max_num_checkpoints)
+            return serial
+        d = _serial_dir(root, serial)
+        os.makedirs(d, exist_ok=True)
+        faults.fire("ckpt.publish")
+        write_process_files(d, pid, entries, trainer_id=trainer_id,
+                            trainer_args=trainer_args)
+    if pid == 0:
+        with RecordEvent("ckpt/publish"):
+            write_meta(d, serial, pcount, entries, extra_meta)
+            _scroll_delete(root, max_num_checkpoints)
+    return serial
+
+
 def save_checkpoint_elastic(root: str, state: Dict[str, Any],
                             serial: Optional[int] = None,
                             trainer_id: Optional[int] = None,
@@ -133,19 +277,14 @@ def save_checkpoint_elastic(root: str, state: Dict[str, Any],
                             extra_meta: Optional[Dict[str, Any]] = None
                             ) -> int:
     """Blocking elastic save: snapshot + write + publish on the caller's
-    thread. In a ``torch.distributed`` world of more than one process it
-    raises (multi-process saves are not ported)."""
-    pcount = _process_count()
-    if pcount > 1:
-        raise not_ported("a multi-process elastic save (process_count=%d)"
-                         % pcount, "Queue A 9, multi-GPU")
-    if serial is None:
-        serials = list_checkpoints(root)
-        serial = (serials[-1] + 1) if serials else 0
+    thread. Same calling convention as :func:`save_checkpoint_sharded`
+    (explicit ``serial`` required multi-process)."""
+    pid, pcount = _process_index(), _process_count()
+    serial = _explicit_serial(root, serial, pcount, "elastic")
     os.makedirs(root, exist_ok=True)
     with RecordEvent("ckpt/snapshot"):
         entries = snapshot_state(state)
-    return _write_elastic(root, serial, entries, 0, 1,
+    return _write_elastic(root, serial, entries, pid, pcount,
                           trainer_id=trainer_id, trainer_args=trainer_args,
                           max_num_checkpoints=max_num_checkpoints,
                           extra_meta=extra_meta)
@@ -159,8 +298,12 @@ class AsyncCheckpointSaver:
     (span ``ckpt/snapshot``; the only wait on the card) and hands the
     serialize+hash+atomic-publish work to ONE background worker, so the
     train loop never blocks on disk. A single worker keeps writes
-    ordered; serials are allocated by the worker at write time, exactly
-    as the blocking path would. Publishes the ELASTIC manifest format."""
+    ordered; single-process serials are allocated by the worker at write
+    time, exactly as the blocking path would. Across the ranks of a
+    world every process writes its blocks into the same serial: the
+    first is agreed through the process group
+    (:func:`_synchronized_serial_seed`) and then counted locally — the
+    ranks save in lockstep. Publishes the ELASTIC manifest format."""
 
     def __init__(self, root: str, max_num_checkpoints: int = 3,
                  max_pending: int = 2):
@@ -175,6 +318,8 @@ class AsyncCheckpointSaver:
         # serials of writes that PUBLISHED but whose futures were consumed
         # by an error-path drain in save(); wait() still reports them
         self._drained_serials: List[int] = []
+        # the next serial of a multi-process saver (agreed on first use)
+        self._next_serial: Optional[int] = None
 
     def _alloc_and_write(self, entries, trainer_id, trainer_args,
                          extra_meta) -> int:
@@ -217,16 +362,24 @@ class AsyncCheckpointSaver:
                         except Exception:
                             pass
                     raise
-        pcount = _process_count()
-        if pcount > 1:
-            raise not_ported("a multi-process elastic save (process_count="
-                             "%d)" % pcount, "Queue A 9, multi-GPU")
+        pid, pcount = _process_index(), _process_count()
         with RecordEvent("ckpt/snapshot"):
             entries = snapshot_state(state)  # the only wait on the card
-        fut = self._pool.submit(
-            self._alloc_and_write, entries,
-            0 if trainer_id is None else trainer_id, trainer_args,
-            extra_meta)
+        if pcount > 1:
+            if self._next_serial is None:
+                self._next_serial = _synchronized_serial_seed(self.root)
+            serial, self._next_serial = (self._next_serial,
+                                         self._next_serial + 1)
+            fut = self._pool.submit(
+                _write_elastic, self.root, serial, entries, pid, pcount,
+                trainer_id=trainer_id, trainer_args=trainer_args,
+                max_num_checkpoints=self.max_num_checkpoints,
+                extra_meta=extra_meta)
+        else:
+            fut = self._pool.submit(
+                self._alloc_and_write, entries,
+                0 if trainer_id is None else trainer_id, trainer_args,
+                extra_meta)
         self._pending.append(fut)
         return fut
 

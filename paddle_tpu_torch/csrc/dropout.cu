@@ -28,7 +28,11 @@
 // The key is derived on the card: the counter is read from device
 // memory, once per block, by one thread, so a captured CUDA graph's
 // replays draw fresh masks as the counter advances, and no host value
-// is read. Block 0 also writes counter + 1 (the op's SeedOut) when
+// is read. A second entry, dropout_apply_keyed, takes the key's two
+// words themselves from device memory instead (a key some other fold
+// derived on the card: the pipelined encoder's per-layer, per-site
+// keys), and draws the same mask the counter-keyed launch draws under
+// that key. Block 0 also writes counter + 1 (the op's SeedOut) when
 // asked, so the op needs no separate increment kernel. The backward
 // pass is this kernel on the incoming gradient, under the same saved
 // counter: d(x * m)/dx = g * m, the mask drawn again, none stored.
@@ -126,21 +130,28 @@ __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const typename E::Raw* __restrict__ x,
                    typename E::Raw* __restrict__ out, long long n,
                    uint32_t seed, const int* __restrict__ counter,
-                   int* counter_out, float keep_prob, long long offset,
-                   int vec) {
+                   int* counter_out, const uint32_t* __restrict__ key_in,
+                   float keep_prob, long long offset, int vec) {
   using Raw = typename E::Raw;
   constexpr int VEC = 16 / sizeof(Raw);
   __shared__ Key key;
   if (threadIdx.x == 0) {
-    // fold_in(PRNGKey(seed), counter): threefry of (0, counter) under
-    // the key words (0, seed)
-    const int c = *counter;
-    uint32_t a = 0u, b = static_cast<uint32_t>(c);
-    threefry(0u, seed, kParity ^ seed, a, b);
+    uint32_t a, b;
+    if (key_in != nullptr) {
+      a = key_in[0];
+      b = key_in[1];
+    } else {
+      // fold_in(PRNGKey(seed), counter): threefry of (0, counter) under
+      // the key words (0, seed)
+      const int c = *counter;
+      a = 0u;
+      b = static_cast<uint32_t>(c);
+      threefry(0u, seed, kParity ^ seed, a, b);
+      if (blockIdx.x == 0 && counter_out != nullptr) *counter_out = c + 1;
+    }
     key.k0 = a;
     key.k1 = b;
     key.k2 = a ^ b ^ kParity;
-    if (blockIdx.x == 0 && counter_out != nullptr) *counter_out = c + 1;
   }
   __syncthreads();
   const Key k = key;
@@ -169,7 +180,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename E>
 cudaError_t launch(const void* x, void* out, long long n, uint32_t seed,
-                   const int* counter, int* counter_out, float keep_prob,
+                   const int* counter, int* counter_out,
+                   const uint32_t* key_in, float keep_prob,
                    long long offset, int vec, int sms, cudaStream_t stream) {
   using Raw = typename E::Raw;
   constexpr int VEC = 16 / sizeof(Raw);
@@ -182,7 +194,7 @@ cudaError_t launch(const void* x, void* out, long long n, uint32_t seed,
   if (blocks < 1) blocks = 1;
   dropout_kernel<E><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const Raw*>(x), static_cast<Raw*>(out), n, seed, counter,
-      counter_out, keep_prob, offset, vec);
+      counter_out, key_in, keep_prob, offset, vec);
   return cudaGetLastError();
 }
 
@@ -208,9 +220,30 @@ int dropout_apply(int bf16, const void* x, void* out, long long n,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = bf16 ? launch<BF16>(x, out, n, seed, counter, counter_out,
+  err = bf16 ? launch<BF16>(x, out, n, seed, counter, counter_out, nullptr,
                             keep_prob, offset, vec, sms, s)
-             : launch<F32>(x, out, n, seed, counter, counter_out, keep_prob,
+             : launch<F32>(x, out, n, seed, counter, counter_out, nullptr,
+                           keep_prob, offset, vec, sms, s);
+  return static_cast<int>(err);
+}
+
+// The same mask under a key given as its two 32-bit words on the card
+// (key[0], key[1]): the mask of jax.random.bernoulli(key, keep_prob,
+// shape), elements offset .. offset + n - 1.
+int dropout_apply_keyed(int bf16, const void* x, void* out, long long n,
+                        const unsigned int* key, float keep_prob,
+                        long long offset, int vec, void* stream) {
+  if (n < 0 || offset < 0 || key == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = bf16 ? launch<BF16>(x, out, n, 0u, nullptr, nullptr, key, keep_prob,
+                            offset, vec, sms, s)
+             : launch<F32>(x, out, n, 0u, nullptr, nullptr, key, keep_prob,
                            offset, vec, sms, s);
   return static_cast<int>(err);
 }

@@ -15,8 +15,26 @@ Switch-style top-1 routed expert FFN on one device.
 The expert weights ``[E, d, d_inner]`` / ``[E, d_inner, d]`` are
 annotated ``sharding_spec = ("ep", None, None)`` as in the JAX package,
 whose SPMD partitioner turns the einsums into all-to-alls on a mesh
-with an ``ep`` axis. The port runs on one card: a ``mesh`` whose ``ep``
-axis is larger than 1 is refused (ROADMAP Queue A 9).
+with an ``ep`` axis. In the port's sharded run over such a mesh each
+rank holds its block of E/ep experts (weights and biases) and the op
+runs the same math explicitly:
+
+* the routing, the capacity and the aux loss are computed alike on
+  every rank of ``ep`` (its ranks hold the same tokens: ``ep`` is no
+  batch axis), over the whole batch when ``dp`` splits it: each rank's
+  queue positions are offset by the tokens earlier ``dp`` blocks routed
+  to each expert (an all-gather of ``[E]`` counts), the capacity comes
+  from the whole batch's token count, and the aux loss's means are sums
+  over the batch axes — so the drops and the loss are one device's;
+* each rank runs its experts on the tokens that chose them and the
+  ranks' outputs are summed over ``ep`` (the tokens are already on
+  every rank, so no all-to-all is needed); the tokens and the gate
+  enter the expert part through ``comm.CopyToGroup``, whose backward
+  sums their gradients over ``ep``, each rank having its experts'
+  share.
+
+``mesh`` (axis name -> size) is the JAX package's build-time check: a
+mesh the program cannot run on is refused.
 """
 
 from __future__ import annotations
@@ -26,7 +44,7 @@ import math
 import torch
 
 from ..core import initializer as init
-from ..core.enforce import enforce, not_ported
+from ..core.enforce import enforce
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
@@ -35,12 +53,13 @@ def switch_moe(x, num_experts: int, d_inner: int, capacity_factor=1.25,
                param_attr=None, name=None, mesh=None):
     """Top-1 routed expert FFN: ``[B, T, d]`` to (``[B, T, d]``,
     aux_loss). ``param_attr`` governs every weight of the layer (names
-    stay generated per weight). ``mesh`` (axis name -> size) may only
-    have ``ep`` of 1 here."""
-    if mesh is not None and int(dict(mesh).get("ep", 1)) > 1:
-        raise not_ported("switch_moe over a mesh with ep=%d (expert "
-                         "parallelism)" % int(dict(mesh)["ep"]),
-                         "Queue A 9")
+    stay generated per weight). ``mesh`` (axis name -> size): its
+    ``ep`` axis must divide ``num_experts``."""
+    if mesh is not None:
+        ep = int(dict(mesh).get("ep", 1))
+        enforce(ep >= 1 and int(num_experts) % ep == 0,
+                "switch_moe: %d experts do not split over ep=%d"
+                % (int(num_experts), ep))
     helper = LayerHelper("switch_moe")
     d_model = int(x.shape[-1])
     E, F = int(num_experts), int(d_inner)
@@ -70,10 +89,19 @@ def switch_moe(x, num_experts: int, d_inner: int, capacity_factor=1.25,
     cf = float(capacity_factor)
 
     def fn(xv, wrv, w1v, b1v, w2v, b2v):
+        from ..core.trace_ctx import current_mesh
+        from ..sharding import comm
+
         B, T, D = xv.shape
         S = B * T
-        C = max(1, math.ceil(cf * S / E))
         xs = xv.reshape(S, D)
+        lo, hi, group, batch = _expert_part(current_mesh(), w1v.shape[0], E)
+        # the batch axes that split the tokens: counts, capacity and
+        # means are the whole batch's
+        n_b = 1
+        for _a, _g, n in batch:
+            n_b *= n
+        C = max(1, math.ceil(cf * S * n_b / E))
         # route (router math in f32 whatever the stream dtype)
         logits = xs.to(torch.float32) @ wrv.to(torch.float32)
         probs = torch.softmax(logits, -1)                      # [S, E]
@@ -82,21 +110,36 @@ def switch_moe(x, num_experts: int, d_inner: int, capacity_factor=1.25,
         gate = (probs * onehot).sum(-1)                        # [S]
         # each token's place in its expert's queue; past capacity its
         # one-hot row over C is all zeros: the drop
-        pos = ((torch.cumsum(onehot, 0) * onehot).sum(-1) - 1.0).to(
-            torch.int64)
+        pos = torch.cumsum(onehot, 0)
+        if batch:
+            pos = pos + _earlier_counts(onehot, batch)
+        pos = ((pos * onehot).sum(-1) - 1.0).to(torch.int64)
         pos_oh = (pos[:, None] == torch.arange(C, device=xv.device)).to(
             torch.float32)                                     # [S, C]
-        dispatch = onehot[:, :, None] * pos_oh[:, None, :]     # [S, E, C]
+        # this rank's experts on the tokens that chose them; over ep
+        # their gradients are summed and the ranks' outputs too
+        if group is not None:
+            xs = comm.CopyToGroup.apply(xs, group)
+            gate = comm.CopyToGroup.apply(gate, group)
+        dispatch = onehot[:, lo:hi, None] * pos_oh[:, None, :]  # [S, e, C]
         combine = dispatch * gate[:, None, None]
         xin = torch.einsum("sec,sd->ecd", dispatch.to(xv.dtype), xs)
         h = torch.relu(torch.einsum("ecd,edf->ecf", xin, w1v)
                        + b1v[:, None, :])
         xout = torch.einsum("ecf,efd->ecd", h, w2v) + b2v[:, None, :]
         ys = torch.einsum("sec,ecd->sd", combine.to(xv.dtype), xout)
-        # Switch aux loss (load balance)
-        aux_l = E * (onehot.mean(0) * probs.mean(0)).sum()
+        if group is not None:
+            ys = comm.ReduceFromGroup.apply(ys, group)
+        # the Switch aux loss E * sum_e f_e p_e over the whole batch
+        f_sum, p_sum = onehot.sum(0), probs.sum(0)
+        for _a, g, _n in batch:
+            f_sum = comm.SumOverBatch.apply(f_sum, g)
+            p_sum = comm.SumOverBatch.apply(p_sum, g)
+        aux_l = E * ((f_sum / (S * n_b)) * (p_sum / (S * n_b))).sum()
         return ys.reshape(B, T, D), aux_l
 
+    # a sharded run hands the op this rank's block of the experts
+    fn.block_inputs = ("W1", "B1", "W2", "B2")
     helper.append_op(
         type="switch_moe",
         inputs={"X": [x.name], "RouterW": [wr.name],
@@ -106,6 +149,44 @@ def switch_moe(x, num_experts: int, d_inner: int, capacity_factor=1.25,
         attrs={"num_experts": E, "capacity_factor": cf}, fn=fn)
     out.shape = x.shape
     return out, aux
+
+
+def _expert_part(mesh, held: int, E: int):
+    """``(first, end, ep group, batch)`` of the experts this rank runs:
+    its block of them (``held < E``) in a sharded run over ``ep``, else
+    all E with no group. ``batch``: ``((axis, group, size), ...)`` of
+    the axes a sharded run splits the batch over (() outside one)."""
+    if mesh is None or not mesh.live:
+        return 0, E, None, ()
+    from ..sharding.spmd import batch_axes
+
+    batch = tuple((a, mesh.group(a), mesh.size(a)) for a in batch_axes())
+    if held == E:
+        return 0, E, None, batch
+    i, n = mesh.index(("ep",))
+    enforce(held * n == E, "switch_moe: a block of %d of %d experts over "
+            "ep=%d" % (held, E, n))
+    return i * held, (i + 1) * held, mesh.group("ep"), batch
+
+
+def _earlier_counts(onehot, batch):
+    """[E] tokens the batch blocks before this rank's routed to each
+    expert: the whole batch's queue positions of this block's tokens
+    start after them (the JAX package's cumsum over the whole batch).
+    The blocks' counts are gathered innermost axis first, so they come
+    out in the batch's block order (first axis major)."""
+    import torch.distributed as dist
+
+    from ..sharding import comm
+
+    E = onehot.shape[1]
+    t = onehot.sum(0)
+    mine, stride = 0, 1
+    for _a, g, n in reversed(batch):
+        t = comm.all_gather(t[None], g, 0)
+        mine += dist.get_rank(g) * stride
+        stride *= n
+    return t.reshape(-1, E)[:mine].sum(0)
 
 
 __all__ = ["switch_moe"]

@@ -318,9 +318,12 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
 
     ``is_distributed`` annotates the table ``sharding_spec = ("ep",
     None)`` (rows over the embedding-parallel axis) and gives it a dense
-    gradient (``is_sparse`` is ignored); on one card, with no ``ep``
-    axis to shard over, the lookup is the plain one, as the JAX
-    package's on one device."""
+    gradient (``is_sparse`` is ignored). In a sharded run over a mesh
+    with an ``ep`` axis each rank holds its block of the rows and the
+    lookup is ``sharding.sharded_lookup`` (each rank's rows for the ids
+    it holds, summed over ``ep``; the table's gradient is its block's);
+    elsewhere the lookup is the plain one, as the JAX package's on one
+    device."""
     helper = LayerHelper("embedding")
     w = helper.create_parameter(param_attr, list(size), dtype,
                                 default_initializer=init.Uniform(-0.05, 0.05))
@@ -334,7 +337,14 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
         idx = ids.to(torch.int64)
         if idx.dim() and idx.shape[-1] == 1:
             idx = torch.squeeze(idx, -1)
-        emb = lookup(table, idx)
+        if is_distributed and table.shape[0] != int(size[0]):
+            from ..core.trace_ctx import current_mesh
+            from ..sharding.embedding import sharded_lookup
+
+            # this rank's block of the rows (the sharded run's)
+            emb = sharded_lookup(table, idx, current_mesh())
+        else:
+            emb = lookup(table, idx)
         if padding_idx is not None:
             pad = padding_idx if padding_idx >= 0 else table.shape[0] + padding_idx
             emb = torch.where((idx == pad)[..., None],
@@ -342,6 +352,8 @@ def embedding(input, size: Sequence[int], is_sparse: bool = False,
                                           device=emb.device), emb)
         return emb
 
+    if is_distributed:
+        fn.block_inputs = ("W",)
     helper.append_op(type="lookup_table",
                      inputs={"Ids": [input.name], "W": [w.name]},
                      outputs={"Out": [out.name]},

@@ -18,9 +18,15 @@ row-parallel over the ``mp`` axis. In a sharded run over a mesh with a
 tensor-parallel axis (``mp``, else ``tp``) each rank computes its block
 of the heads and of the FFN's hidden columns (``layers.fc``'s
 tensor-parallel path); the attention op takes its heads from its
-inputs' width, so the flash kernels run at the local heads. The
-sequence-parallel ``"ring"`` path, the pipelined encoder and
-distributed embeddings are not ported yet (ROADMAP Queue A 9).
+inputs' width, so the flash kernels run at the local heads.
+
+The other model-parallel axes: ``attn_impl="ring"`` runs attention
+sequence-parallel over the mesh's ``sp`` axis
+(``parallel/ring_attention.py``); ``pp_encoder=True`` builds the encoder
+as one GPipe op over ``pp`` (:func:`pipelined_encoder`,
+``parallel/pipeline.py``); ``distributed_embedding=True`` splits both
+word tables' rows over ``ep`` (``sharding/embedding.py``). Each runs
+the plain math on a mesh without its axis.
 """
 
 from __future__ import annotations
@@ -32,11 +38,9 @@ import torch
 from .. import layers
 from ..core import flags
 from ..core.dtype_utils import rounded_sqrt
-from ..core.enforce import not_ported
+from ..core.enforce import enforce
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
-
-_MULTI_GPU = "Queue A 9, multi-GPU"
 
 
 def _tp(axes, enable):
@@ -99,13 +103,12 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
     """Multi-head attention as one op. ``kv_mask`` is a ``[B, T_k]`` 0/1
     float var masking padded keys; ``causal`` adds the autoregressive
     mask. ``attn_impl``: ``"fused"`` (plain torch ops), ``"pallas"``
-    (the flash-attention kernels) or ``None`` (``"fused"``). ``tp``:
+    (the flash-attention kernels), ``"ring"`` (sequence-parallel over
+    the active mesh's ``sp`` axis, ``parallel/ring_attention.py``; the
+    plain ring math without one) or ``None`` (``"fused"``). ``tp``:
     column-parallel QKV, row-parallel output projection (the op then
     runs on this rank's heads)."""
-    if attn_impl == "ring":
-        raise not_ported("multi_head_attention(attn_impl='ring')",
-                         _MULTI_GPU)
-    if attn_impl not in (None, "fused", "pallas"):
+    if attn_impl not in (None, "fused", "pallas", "ring"):
         raise ValueError("multi_head_attention: unknown attn_impl %r"
                          % (attn_impl,))
     helper = LayerHelper("multi_head_attention")
@@ -135,6 +138,12 @@ def multi_head_attention(queries, keys, values, d_key, d_value, d_model,
             from ..ops.flash_attention import flash_attention
 
             ctx = flash_attention(qh, kh, vh, causal=causal, kv_mask=mask)
+        elif attn_impl == "ring":
+            from ..core.trace_ctx import current_mesh
+            from ..parallel.ring_attention import ring_attention
+
+            ctx = ring_attention(qh, kh, vh, current_mesh(), causal=causal,
+                                 kv_mask=mask)
         else:
             ctx = attention(qh, kh, vh, mask=mask, causal=causal)
         return torch.reshape(ctx, (B, Tq, heads * d_value))
@@ -220,9 +229,243 @@ def decoder_layer(dec_input, enc_output, src_mask, n_head, d_key, d_value,
                                   is_test)
 
 
-def _embed(ids, vocab_size, d_model, name, is_sparse=False):
+def pipelined_encoder(src_emb, src_mask, n_layer, n_head, d_key, d_value,
+                      d_model, d_inner_hid, n_microbatches=2,
+                      is_test=False, tp=False, attn_impl=None,
+                      dropout_rate=0.0):
+    """The encoder stack as one GPipe op over the mesh's ``pp`` axis
+    (``parallel/pipeline.py``), the JAX package's: one STACKED parameter
+    per role with a leading ``[n_layer]`` dim split over ``pp``, the
+    JAX package's names, shapes and ``param_axes``. On a mesh without
+    ``pp`` (or on one device) the same math runs as a sequential fold.
+    Post-LN "dan" layers, encoder_layer's math:
+
+      * ``tp=True``: QKV/FFN-in column-blocked and proj/FFN-out
+        row-blocked over ``mp`` on top of ``pp``; a stage holding its
+        ``mp`` blocks computes its local heads and hidden columns and
+        sums the partial outputs over ``mp`` itself.
+      * ``attn_impl``: ``"fused"`` (plain torch ops) or ``"pallas"`` (the
+        flash kernels on the stage's heads); None is ``"fused"``.
+        ``"ring"`` is refused: it claims the ``sp`` axis, which cannot
+        nest inside the pipeline's schedule.
+      * dropout at encoder_layer's four sites (proj, the first "d", the
+        FFN hidden, the second "d"), each mask keyed
+        ``fold_in(fold_in(fold_in(PRNGKey(base_seed), seed_m), layer),
+        site)`` — the per-microbatch seeds ``counter * M + m`` — then
+        folded with the ``dp`` index when the schedule runs over ``pp``
+        and a ``dp`` axis, and with the ``mp`` index at the FFN hidden
+        site under tensor parallelism, as the JAX package's manual
+        shard_map folds them. The masks are drawn by the dropout
+        kernel's keyed launch on a card (``ops.dropout.dropout_keyed``).
+
+    Under the bf16 flags each product takes ``layers.fc``'s bf16 rule
+    and the layer norms compute in f32 (ROADMAP Queue C 2)."""
+    from ..core import initializer as init
+    from ..core import unique_name
+    from ..layers.nn import _dropout_counter, _mm, _mm_rule
+
+    helper = LayerHelper("pipelined_encoder")
+    L, H, dk, dv = n_layer, n_head, d_key, d_value
+    d, f = d_model, d_inner_hid
+    enforce(attn_impl in (None, "fused", "pallas"),
+            "pipelined_encoder supports attn_impl None/'fused'/'pallas'; "
+            "'ring' claims the sp axis, which cannot nest inside the "
+            "pipeline's schedule")
+
+    def mk(name, shape, spec, is_bias=False, default=None):
+        attr = ParamAttr(name=unique_name.generate(f"pp_enc.{name}"),
+                         sharding=spec)
+        return helper.create_parameter(attr, shape, "float32",
+                                       is_bias=is_bias,
+                                       default_initializer=default)
+
+    mp = "mp" if tp else None
+    col3 = ("pp", None, mp)      # column-parallel: out-features blocked
+    row3 = ("pp", mp, None)      # row-parallel: in-features blocked
+    rep2 = ("pp", None)
+    qw = mk("qw", [L, d, H * dk], col3)
+    kw = mk("kw", [L, d, H * dk], col3)
+    vw = mk("vw", [L, d, H * dv], col3)
+    ow = mk("ow", [L, H * dv, d], row3)
+    ln1g = mk("ln1g", [L, d], rep2, default=init.Constant(1.0))
+    ln1b = mk("ln1b", [L, d], rep2, is_bias=True)
+    f1 = mk("f1", [L, d, f], col3)
+    f1b = mk("f1b", [L, f], ("pp", mp), is_bias=True)
+    f2 = mk("f2", [L, f, d], row3)
+    f2b = mk("f2b", [L, d], rep2, is_bias=True)
+    ln2g = mk("ln2g", [L, d], rep2, default=init.Constant(1.0))
+    ln2b = mk("ln2b", [L, d], rep2, is_bias=True)
+    params = [qw, kw, vw, ow, ln1g, ln1b, f1, f1b, f2, f2b, ln2g, ln2b]
+
+    use_dropout = bool(dropout_rate) and not is_test
+    # downgrade_in_infer: the eval program scales each site by (1 - p)
+    infer_scale = bool(dropout_rate) and is_test
+    out = helper.create_tmp_variable(src_emb.dtype)
+    in_names = {"X": [src_emb.name], "Mask": [src_mask.name],
+                "Params": [p.name for p in params]}
+    outputs = {"Out": [out.name]}
+    base_seed = helper.main_program.next_param_seed()
+    if use_dropout:
+        counter = _dropout_counter(helper)
+        in_names["Seed"] = [counter.name]
+        outputs["SeedOut"] = [counter.name]
+    rule = _mm_rule()
+
+    def _ln(x, g, b, eps=1e-5):
+        cdt = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(cdt)
+        mean = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        return ((xf - mean) * torch.rsqrt(var + eps) * g.to(cdt)
+                + b.to(cdt)).to(x.dtype)
+
+    def _bias(y, c):
+        # the JAX package's promotion; under the bf16 rule fc's cast
+        return y + (c if rule is None else c.to(y.dtype))
+
+    def _res(x, y):
+        return x + (y if rule is None else y.to(x.dtype))
+
+    def make_stage(mesh, pp_manual, impl):
+        from ..core import prng
+        from ..ops.dropout import dropout_keyed
+        from ..sharding import comm
+
+        tp_ax = comm.tensor_axis(mesh) if tp else None
+        mp_group = mesh.group(tp_ax[0]) if tp_ax is not None else None
+        dp_i = dp_n = None
+        if mesh is not None and mesh.live and mesh.size("dp") > 1:
+            dp_i, dp_n = mesh.index(("dp",))
+        dp_fold = pp_manual and dp_n is not None
+
+        def drop(v, key, site, mp_block):
+            if infer_scale:
+                return v * (1.0 - dropout_rate)
+            if not use_dropout:
+                return v
+            k = prng.fold_in(key, torch.tensor(site, device=v.device))
+            offset = 0
+            if dp_fold:
+                k = prng.fold_in(k, torch.tensor(dp_i, device=v.device))
+            elif dp_n is not None:
+                # no pp schedule: the whole batch's mask, this rank's
+                # block of it
+                offset = dp_i * v.numel()
+            if mp_block is not None and site == 2:
+                if pp_manual:
+                    k = prng.fold_in(k, torch.tensor(mp_block[0],
+                                                     device=v.device))
+                else:
+                    # the whole width's mask, this rank's columns
+                    i, n = mp_block
+                    w = v.shape[-1]
+                    ones = torch.ones(tuple(v.shape[:-1]) + (w * n,),
+                                      dtype=v.dtype, device=v.device)
+                    m = dropout_keyed(ones, k, dropout_rate,
+                                      offset * n)[..., i * w:(i + 1) * w]
+                    return v * m
+            return dropout_keyed(v, k, dropout_rate, offset)
+
+        def stage_fn(p, x, mask, seed_m):
+            kloc = p[0].shape[0]
+            lbase = mesh.index(("pp",))[0] * kloc if pp_manual else 0
+            local = p[0].shape[-1] != H * dk  # holds mp blocks
+            mp_block = (tp_ax[1], tp_ax[2]) if local else None
+            key0 = None
+            if use_dropout:
+                key0 = prng.fold_in(prng.prng_key(torch.tensor(
+                    base_seed, device=x.device)), seed_m)
+            xc = x
+            for li in range(kloc):
+                (qw_, kw_, vw_, ow_, g1, b1, w1, c1, w2, c2, g2,
+                 b2) = (t[li] for t in p)
+                B, T, _ = xc.shape
+                key = (prng.fold_in(key0, torch.tensor(
+                    lbase + li, device=x.device)) if use_dropout else None)
+                Hl = qw_.shape[-1] // dk          # mp-local head count
+                xin = comm.CopyToGroup.apply(xc, mp_group) if local else xc
+                q = _mm(xin, qw_, rule)
+                k_ = _mm(xin, kw_, rule)
+                v_ = _mm(xin, vw_, rule)
+                qh = q.reshape(B, T, Hl, dk)
+                kh = k_.reshape(B, T, Hl, dk)
+                vh = v_.reshape(B, T, Hl, dv)
+                if impl == "pallas":
+                    from ..ops.flash_attention import flash_attention
+
+                    ctx = flash_attention(qh, kh, vh, kv_mask=mask)
+                else:
+                    ctx = attention(qh, kh, vh, mask=mask)
+                ctx = ctx.reshape(B, T, Hl * dv)
+                proj = _mm(ctx, ow_, rule)
+                if local:                         # row-parallel partials
+                    proj = comm.ReduceFromGroup.apply(proj, mp_group)
+                proj = drop(proj, key, 0, mp_block)
+                proj = drop(proj, key, 1, mp_block)
+                xc = _ln(_res(xc, proj), g1, b1)
+                xin = comm.CopyToGroup.apply(xc, mp_group) if local else xc
+                h = torch.relu(_bias(_mm(xin, w1, rule), c1))
+                h = drop(h, key, 2, mp_block)
+                ffo = _mm(h, w2, rule)
+                if local:
+                    ffo = comm.ReduceFromGroup.apply(ffo, mp_group)
+                ffo = _bias(ffo, c2)
+                ffo = drop(ffo, key, 3, mp_block)
+                xc = _ln(_res(xc, ffo), g2, b2)
+            return xc
+
+        return stage_fn
+
+    def fn(x, mask, *rest):
+        from ..core.trace_ctx import current_mesh
+        from ..parallel.pipeline import (_sequential, gpipe, microbatch,
+                                         unmicrobatch)
+
+        if use_dropout:
+            pv, cnt = rest[:-1], rest[-1]
+        else:
+            pv, cnt = rest, None
+        mesh = current_mesh()
+        live = mesh is not None and mesh.live
+        S = mesh.size("pp") if live else 1
+        mp_size = mesh.size("mp") if live else 1
+        M = n_microbatches if S > 1 else 1
+        impl = attn_impl or "fused"
+        pp_manual = S > 1
+        if tp and mp_size > 1:
+            enforce(H % mp_size == 0 and f % mp_size == 0,
+                    f"tensor parallelism over mp={mp_size} requires "
+                    f"n_head ({H}) and d_inner_hid ({f}) divisible by it")
+        stage = make_stage(mesh if live else None, pp_manual, impl)
+        xmb = microbatch(x, M)
+        mmb = microbatch(mask.to(x.dtype), M)
+        c0 = cnt.reshape(()).to(torch.int32) if cnt is not None else \
+            torch.zeros((), dtype=torch.int32, device=x.device)
+        seeds = c0 * M + torch.arange(M, dtype=torch.int32,
+                                      device=x.device)
+        if not pp_manual:
+            y = _sequential(stage, tuple(pv), xmb, (mmb, seeds))
+        else:
+            y = gpipe(stage, tuple(pv), xmb, mesh, side_mb=(mmb, seeds),
+                      local=pv[0].shape[0] != L)
+        y = unmicrobatch(y)
+        return (y, (c0 + 1).reshape(cnt.shape)) if cnt is not None else y
+
+    # a sharded run hands the op this rank's blocks of the stacked
+    # weights (its stage's layers, its mp columns or rows)
+    fn.block_inputs = ("Params",)
+    helper.append_op(
+        type="pipelined_encoder", inputs=in_names, outputs=outputs,
+        attrs={"n_layer": L, "n_microbatches": n_microbatches}, fn=fn)
+    out.shape = src_emb.shape
+    return out
+
+
+def _embed(ids, vocab_size, d_model, name, is_sparse=False,
+           is_distributed=False):
     emb = layers.embedding(input=ids, size=[vocab_size, d_model],
                            is_sparse=is_sparse,
+                           is_distributed=is_distributed,
                            param_attr=ParamAttr(name=name))
     emb = layers.scale(x=emb, scale=d_model ** 0.5)
     if flags.bf16_stream():
@@ -245,30 +488,40 @@ def transformer_model(src_word, trg_word, src_mask, src_vocab_size,
     of the caller's, such as the fused projection + CE op).
     ``sparse_embedding`` gives both word tables row-sparse gradients;
     ``dropout_rate`` drops at the JAX package's sites in training;
-    ``tp`` makes the attention and FFN blocks tensor-parallel. The
-    pipelined encoder and distributed embeddings are not ported yet and
-    raise."""
-    if pp_encoder:
-        raise not_ported("transformer_model(pp_encoder=True)", _MULTI_GPU)
-    if distributed_embedding:
-        raise not_ported("transformer_model(distributed_embedding=True)",
-                         _MULTI_GPU)
+    ``tp`` makes the attention and FFN blocks tensor-parallel.
+    ``pp_encoder=True`` builds the encoder as :func:`pipelined_encoder`
+    (under ``attn_impl="ring"`` the ring goes to the decoder and the
+    pipelined encoder takes the dense ``"fused"`` attention);
+    ``distributed_embedding=True`` splits both word tables' rows over
+    the mesh's ``ep`` axis."""
     src_emb = _embed(src_word, src_vocab_size, d_model,
-                     "src_word_emb_table", is_sparse=sparse_embedding)
+                     "src_word_emb_table", is_sparse=sparse_embedding,
+                     is_distributed=distributed_embedding)
     src_emb = positional_encoding(src_emb, max_length)
     enc_input = pre_post_process_layer(None, src_emb, "nd", dropout_rate,
                                        is_test)
-    for _ in range(n_layer):
-        enc_input = encoder_layer(enc_input, src_mask, n_head, d_key,
-                                  d_value, d_model, d_inner_hid,
-                                  dropout_rate, is_test, tp=tp,
-                                  attn_impl=attn_impl)
+    if pp_encoder:
+        # ring attention claims the sp axis and cannot nest inside the
+        # pipeline's schedule: the pipelined encoder takes the dense
+        # attention while the decoder keeps the ring
+        enc_impl = None if attn_impl == "ring" else attn_impl
+        enc_input = pipelined_encoder(
+            enc_input, src_mask, n_layer, n_head, d_key, d_value, d_model,
+            d_inner_hid, n_microbatches=pp_microbatches, is_test=is_test,
+            tp=tp, attn_impl=enc_impl, dropout_rate=dropout_rate)
+    else:
+        for _ in range(n_layer):
+            enc_input = encoder_layer(enc_input, src_mask, n_head, d_key,
+                                      d_value, d_model, d_inner_hid,
+                                      dropout_rate, is_test, tp=tp,
+                                      attn_impl=attn_impl)
     enc_output = enc_input
 
     trg_table = ("src_word_emb_table" if weight_sharing
                  else "trg_word_emb_table")
     trg_emb = _embed(trg_word, trg_vocab_size, d_model, trg_table,
-                     is_sparse=sparse_embedding)
+                     is_sparse=sparse_embedding,
+                     is_distributed=distributed_embedding)
     trg_emb = positional_encoding(trg_emb, max_length)
     dec_input = pre_post_process_layer(None, trg_emb, "nd", dropout_rate,
                                        is_test)

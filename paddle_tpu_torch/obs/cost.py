@@ -397,7 +397,7 @@ def roofline(cost_report: CostReport, span_totals: Dict[str, float],
     the communication analysis is not ported (ROADMAP Queue A 9)."""
     if comm_report is not None:
         raise not_ported("roofline(comm_report=...): the communication "
-                         "analysis", "Queue A 9")
+                         "analysis", "Queue A 9, (g3)")
     seconds = float(span_totals.get(compute_span, 0.0))
     total = cost_report.total_flops * steps
     out: Dict[str, object] = {

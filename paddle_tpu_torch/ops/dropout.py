@@ -32,6 +32,13 @@ Functions:
   ``torch.autograd.Function`` over ``dropout_apply`` whose backward is
   ``dropout_apply`` on the incoming gradient under the counter its
   forward read (the mask drawn again, none stored).
+* :func:`dropout_apply_keyed` / :func:`dropout_keyed` — the same mask
+  under a key the caller derived itself (``core/prng.fold_in`` chains
+  on the card: the pipelined encoder's per-microbatch, per-layer,
+  per-site keys), given as its two words in a device tensor; the
+  launch reads them there. ``dropout_apply.keyed_launches`` counts these
+  launches beside ``.launches``. The plain version is
+  ``x * core.prng.bernoulli(key, 1 - p, x.shape)``.
 """
 
 from __future__ import annotations
@@ -46,7 +53,9 @@ from ..core import prng
 from ..core.enforce import enforce
 from . import _cuda
 
-__all__ = ["dropout", "dropout_apply", "keep_threshold", "plain_dropout"]
+__all__ = ["dropout", "dropout_apply", "dropout_apply_keyed",
+           "dropout_keyed", "keep_threshold", "key_words", "plain_dropout",
+           "plain_dropout_keyed"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # integer operations the kernel spends on one element: the threefry's 20
@@ -80,6 +89,26 @@ def plain_dropout(x: torch.Tensor, seed: int, counter: torch.Tensor,
     return x * mask.to(x.dtype)
 
 
+def key_words(key) -> torch.Tensor:
+    """A ``core.prng`` key (two uint32 words held in int64 tensors) as
+    the kernel takes it: one int32 tensor of the two words' bits."""
+    k1, k2 = key
+    words = torch.stack([k1.reshape(()), k2.reshape(())]) & 0xFFFFFFFF
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def plain_dropout_keyed(x: torch.Tensor, words: torch.Tensor, p: float,
+                        offset: int = 0) -> torch.Tensor:
+    """``x * bernoulli(key, 1 - p, x.shape)`` with plain torch ops,
+    the key given as :func:`key_words`; ``offset`` as
+    :func:`plain_dropout`'s."""
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    mask = prng.bernoulli((w[0], w[1]), keep_threshold(p), x.shape,
+                          offset=offset)
+    return x * mask.to(x.dtype)
+
+
 # ---------------------------------------------------------------- kernel
 
 
@@ -92,6 +121,11 @@ def _library():
             ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_void_p]
         lib.dropout_apply.restype = ctypes.c_int
+        lib.dropout_apply_keyed.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        lib.dropout_apply_keyed.restype = ctypes.c_int
         lib.dropout_device_rates.argtypes = [
             ctypes.c_int, ctypes.POINTER(ctypes.c_int),
             ctypes.POINTER(ctypes.c_int)]
@@ -121,10 +155,14 @@ def int_ops_per_s(device: int = 0) -> float:
     return float(sms.value) * INT_LANES_PER_SM * khz.value * 1e3
 
 
-def _check_cuda(x, counter, counter_out):
+def _check_x(x):
     enforce(x.dtype in _DTYPES and x.is_contiguous(),
             "dropout: the kernel takes a contiguous float32 or bfloat16 "
             "tensor, got %s (contiguous: %s)" % (x.dtype, x.is_contiguous()))
+
+
+def _check_cuda(x, counter, counter_out):
+    _check_x(x)
     for c in (counter,) + ((counter_out,) if counter_out is not None
                            else ()):
         enforce(c.numel() == 1 and c.dtype == torch.int32
@@ -193,7 +231,82 @@ def dropout_apply(x: torch.Tensor, seed: int, counter: torch.Tensor,
 
 
 _cuda.register_launcher(dropout_apply,
-                        counts=("launches", "backward_launches"))
+                        counts=("launches", "backward_launches",
+                                "keyed_launches"))
+
+
+@torch.library.custom_op("paddle_tpu_torch::dropout_apply_keyed",
+                         mutates_args=(), device_types="cpu")
+def _dropout_keyed_op(x: torch.Tensor, words: torch.Tensor, p: float,
+                      backward: bool, offset: int = 0) -> torch.Tensor:
+    return plain_dropout_keyed(x, words, p, offset)
+
+
+@_dropout_keyed_op.register_fake
+def _(x, words, p, backward, offset=0):
+    return torch.empty_like(x)
+
+
+@_dropout_keyed_op.register_kernel("cuda")
+def _(x, words, p, backward, offset=0):
+    _check_x(x)
+    enforce(words.numel() == 2 and words.dtype == torch.int32
+            and words.device == x.device and words.is_contiguous(),
+            "dropout: a key is two int32 words on %s, got %s %s on %s"
+            % (x.device, words.dtype, tuple(words.shape), words.device))
+    lib = _library()
+    out = torch.empty_like(x)
+    vec = int(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dropout_apply_keyed(
+            int(x.dtype == torch.bfloat16), x.data_ptr(), out.data_ptr(),
+            x.numel(), words.data_ptr(), keep_threshold(p), int(offset),
+            vec, stream)
+    if err != 0:
+        raise RuntimeError("dropout: keyed kernel launch failed: CUDA error "
+                           "%d (%s)" % (err, lib.dropout_error_string(err)
+                                        .decode()))
+    dropout_apply.launches += 1
+    dropout_apply.keyed_launches += 1
+    if backward:
+        dropout_apply.backward_launches += 1
+    return out
+
+
+def dropout_apply_keyed(x: torch.Tensor, words: torch.Tensor, p: float,
+                        backward: bool = False,
+                        offset: int = 0) -> torch.Tensor:
+    """``x * mask`` under the key ``words`` (:func:`key_words`, on
+    ``x``'s device): one launch of the kernel on a CUDA tensor (or it
+    raises), :func:`plain_dropout_keyed` on a CPU one."""
+    return _dropout_keyed_op(x.contiguous(), words, float(p), bool(backward),
+                             int(offset))
+
+
+class _KeyedDropout(torch.autograd.Function):
+    """``x * mask`` under a given key; the gradient ``g * mask``, the
+    mask drawn again under the same key."""
+
+    @staticmethod
+    def forward(ctx, x, words, p, offset):
+        ctx.save_for_backward(words)
+        ctx.p, ctx.offset = p, offset
+        return dropout_apply_keyed(x, words, p, offset=offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        words, = ctx.saved_tensors
+        return (dropout_apply_keyed(g, words, ctx.p, backward=True,
+                                    offset=ctx.offset), None, None, None)
+
+
+def dropout_keyed(x: torch.Tensor, key, p: float, offset: int = 0):
+    """``x * bernoulli(key, 1 - p, x.shape)`` for a ``core.prng`` key
+    (its words on ``x``'s device), differentiable; ``offset``: ``x`` is
+    the elements from that flat index on of a larger tensor."""
+    return _KeyedDropout.apply(x, key_words(key).to(x.device), float(p),
+                               int(offset))
 
 
 class _Dropout(torch.autograd.Function):

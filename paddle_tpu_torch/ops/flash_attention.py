@@ -41,7 +41,10 @@ Functions:
   add the bf16 kernels' rounding (the forward's p as two bf16 parts
   before P V, tile by tile; the backward's p and ds to bf16 before the
   second products); the card tests hold those kernels to them element
-  by element (:func:`bf16_ulps` at most 1).
+  by element (:func:`bf16_ulps` at most 1, the backward's with
+  :func:`bf16_flip_bounds`: where an f32 p or ds lies within its f32
+  error of a bf16 rounding boundary, the kernel may round it the other
+  way).
 * :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv` — the
   three ops. The dispatcher picks the kernel by device: a CPU tensor
   takes the plain version, a meta or fake one (build-time shape
@@ -63,7 +66,8 @@ import torch
 from ..core.enforce import enforce
 from . import _cuda
 
-__all__ = ["BF16_MODEL_FLOOR", "bf16_ulps", "flash_attention",
+__all__ = ["BF16_FLIP_REL", "BF16_MODEL_FLOOR", "bf16_flip_bounds",
+           "bf16_ulps", "flash_attention",
            "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
            "plain_flash_backward", "plain_flash_backward_bf16",
            "plain_flash_forward", "plain_flash_forward_bf16"]
@@ -199,22 +203,68 @@ def plain_flash_backward_bf16(q, k, v, o, lse, do, causal=False,
 
 # How far the bf16 backward kernels may sit from
 # plain_flash_backward_bf16, element by element: one bf16 ulp of the
-# element (both round f32 sums taken in another order) plus this share
-# of max |grad| (f32 order and exp2 against exp flip the bf16 rounding of
-# a few p and ds, which can move a near-cancelling element by more than
-# its own ulp).
+# element (both round f32 sums taken in another order), plus this share
+# of max |grad|, plus the element's flip bound (bf16_flip_bounds).
 BF16_MODEL_FLOOR = 1e-3
+# The relative error the flip bounds allow an f32 p or ds of a kernel
+# against the model's, in units of the magnitudes it is computed from:
+# the scores' and dP's sums over the head dimension in another order
+# (tensor-core accumulation), exp2 of an FMA against exp, and delta's
+# own sum (16 f32 ulps).
+BF16_FLIP_REL = 2.0 ** -20
 
 
-def bf16_ulps(got, want) -> float:
+def bf16_flip_bounds(q, k, v, o, lse, do, causal=False, scale=None,
+                     kv_mask=None, rel=BF16_FLIP_REL):
+    """(dq, dk, dv) f32 bounds of how far the bf16 backward kernels may
+    sit from :func:`plain_flash_backward_bf16` because a kernel's f32 p
+    or ds, within its f32 error of the model's, rounds to the other
+    bf16 neighbour. The error allowed: ``rel`` times the magnitudes each
+    is computed from — for p = exp(s - lse), ``|q| . |k| * scale +
+    |lse| + 1`` in its exponent; for ds = p (dp - delta) scale, p's
+    error times ``|dp - delta| * scale`` plus ``rel * p * scale *
+    (|dO| . |v| + |dO| . |o|)`` plus ``rel * |ds|``. Where the f32
+    interval rounds to one bf16 value (nearly every p and ds) the
+    operand is the model's and adds nothing; elsewhere it adds the
+    largest move its rounding can make, times the other operand's
+    magnitude, to each element its product reaches."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    p, ds = _probs(q, k, v, lse, _delta(o, do), do, causal, scale, kv_mask)
+    qa, ka, va = q.float().abs(), k.float().abs(), v.float().abs()
+    da, oa = do.float().abs(), o.float().abs()
+    sabs = torch.einsum("bqhd,bkhd->bhqk", qa, ka) * scale
+    lse_a = torch.where(torch.isfinite(lse), lse.abs(),
+                        torch.zeros_like(lse))[..., None]
+    p_err = p * rel * (sabs + lse_a + 1.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    dpabs = torch.einsum("bqhd,bkhd->bhqk", da, va)
+    dabs = (da * oa).sum(-1).permute(0, 2, 1)[..., None]
+    delta = _delta(o, do)[..., None]
+    ds_err = (p_err * (dp - delta).abs() * scale
+              + p * rel * scale * (dpabs + dabs) + rel * ds.abs())
+
+    def move(x, err):
+        r = x.to(torch.bfloat16).float()
+        lo = (x - err).to(torch.bfloat16).float()
+        hi = (x + err).to(torch.bfloat16).float()
+        return torch.maximum(hi - r, r - lo)
+
+    mp, mds = move(p, p_err), move(ds, ds_err)
+    return (torch.einsum("bhqk,bkhd->bqhd", mds, ka),
+            torch.einsum("bhqk,bqhd->bkhd", mds, qa),
+            torch.einsum("bhqk,bqhd->bkhd", mp, da))
+
+
+def bf16_ulps(got, want, bound=None) -> float:
     """max over elements of |got - want| / (one bf16 ulp of want +
-    BF16_MODEL_FLOOR * max |want|): at most 1 when every element is that
-    close."""
+    BF16_MODEL_FLOOR * max |want| + ``bound``, an f32 tensor of want's
+    shape or None): at most 1 when every element is that close."""
     w = want.float()
     _, e = torch.frexp(w)
     ulp = torch.ldexp(torch.ones_like(w), e - 8)  # 8 significant bits
     slack = BF16_MODEL_FLOOR * float(w.abs().max())
-    return float(((got.float() - w).abs() / (ulp + slack)).max())
+    room = ulp + slack if bound is None else ulp + slack + bound
+    return float(((got.float() - w).abs() / room).max())
 
 
 # ---------------------------------------------------------------- kernels

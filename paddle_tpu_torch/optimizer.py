@@ -203,6 +203,9 @@ class Optimizer:
             unique_name.generate(f"{param.name}_{name}"), shape, dtype,
             float(fill_value))
         var.is_accumulator = True
+        # a sharded run holds it in its parameter's block when that
+        # block is a stage's or an expert rank's (sharding/spmd.py)
+        var.follows = param.name
         accs[param.name] = var
         return var
 
@@ -262,6 +265,10 @@ class Optimizer:
             return plain_flat_update(kind, pv, gv, lr, rest[:n_acc],
                                      rest[n_acc:], owns, consts)
 
+        # a sharded run packs the updates of parameters held as blocks
+        # into one fused launch (sharding/spmd.py)
+        fn.flat = (kind, tuple(consts), owns, n_acc,
+                   len(self._FUSE_SHARED))
         return fn
 
     # optimizers with a row-sparse update (lazy rows) override this;
@@ -568,6 +575,8 @@ class Optimizer:
             return cast[0] if one else cast
 
         pinned.takes_apply = True
+        if getattr(fn, "flat", None) is not None:
+            pinned.flat = fn.flat
         return block.append_op(type=opt_name, inputs=inputs,
                                outputs=outputs, fn=pinned)
 

@@ -13,9 +13,13 @@ Reference components replaced here (see SURVEY.md §2.4):
     producing sharding plans.
   * gen_nccl_id multi-node bootstrap → :func:`init_distributed`.
 
+  * the model-parallel axes: ``pipeline.gpipe`` (the pipeline over
+    ``pp``), :func:`ring_attention` (``ring_attention.py``,
+    sequence parallelism over ``sp``), :func:`sharded_lookup` (the
+    distributed lookup table over ``ep``).
+
 The mesh/sharding layer lives in ``paddle_tpu_torch.sharding``; the
-names re-exported here keep working. Not ported yet (ROADMAP Queue A 9):
-:func:`ring_attention` (sequence parallelism) raises.
+names re-exported here keep working.
 """
 
 from .mesh import (DeviceMesh, make_mesh, data_parallel_mesh, current_mesh,
@@ -28,15 +32,7 @@ from .env import (DistributedInitError, init_distributed,
                   num_trainers, trainer_id)
 from .sharded_embedding import (ShardedEmbedding, sharded_lookup,
                                 shard_table_rows)
-
-
-def ring_attention(*args, **kwargs):
-    """Sequence-parallel ring attention over the ``sp`` axis: not ported
-    yet (ROADMAP Queue A 9, (g2)); raises."""
-    from ..core.enforce import not_ported
-
-    raise not_ported("parallel.ring_attention", "Queue A 9, multi-GPU (g2)")
-
+from .ring_attention import ring_attention
 
 __all__ = [
     "DeviceMesh", "make_mesh", "data_parallel_mesh", "current_mesh",

@@ -50,6 +50,10 @@ def _var_sharding(mesh: DeviceMesh, v: Optional[Variable], name: str,
     or the DistributeTranspiler plan) > data vars sharded on the batch dim >
     ZeRO-sharded optimizer accumulators (Reduce strategy) > replicated."""
     spec = getattr(v, "sharding_spec", None) if v is not None else None
+    if spec is None and v is not None:
+        from ..sharding.spmd import follows
+
+        spec = follows(v, v.block)
     if spec is not None:
         return mesh.sharding(*spec)
     if v is not None and is_feed:
@@ -232,6 +236,16 @@ class ParallelExecutor:
         if names is None:
             names = list(self._scope.local_var_names())
         return {n: self._layout(n) for n in names}
+
+    def sharded_state(self, names: Optional[Sequence[str]] = None) -> Dict:
+        """The persistables as this rank holds them, for a checkpoint
+        writer (``ckpt.save_checkpoint_elastic`` from every rank): each
+        block of sharded state a ``ckpt.manifest.Shard`` under this
+        executor's layouts, every other value as it is."""
+        from ..sharding.spmd import held_state
+
+        return held_state(self._program, self._scope, self.mesh,
+                          lambda n: self._resolver().spec(n), names)
 
     def bcast_params(self):
         """Make every rank's persistables rank 0's (reference:

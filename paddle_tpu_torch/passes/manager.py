@@ -148,7 +148,7 @@ class PassManager:
                  lint_comm: bool = False):
         if lint_comm:
             raise not_ported("PassManager(lint_comm=True): the SPMD "
-                             "communication lints", "Queue A 9")
+                             "communication lints", "Queue A 9, (g3)")
         self.passes: List[Pass] = [
             p if isinstance(p, Pass) else get_pass(p) for p in passes]
         self.check = bool(check)

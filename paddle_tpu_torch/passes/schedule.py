@@ -68,7 +68,7 @@ class CommOverlapPass(Pass):
     writes = frozenset({"sharding_constraint"})
 
     def __init__(self, *args, **kwargs):
-        raise not_ported("the comm_overlap pass", "Queue A 9")
+        raise not_ported("the comm_overlap pass", "Queue A 9, (g3)")
 
 
 # ---------------------------------------------------------------------------

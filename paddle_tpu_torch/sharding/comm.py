@@ -12,6 +12,16 @@ tensors on a card (two ranks sharing one card, where NCCL refuses a
 duplicate GPU) for the three used here. Gloo has no averaging
 reduction, so a mean is always a sum and a division.
 
+A permute (the JAX package's ``lax.ppermute``: the pipeline's
+activations stage to stage, and their gradients back) is one collective every rank of the axis enters
+together (:func:`route`, :func:`permute`), so no order of blocking sends
+and receives can deadlock: over NCCL a batch of point-to-point sends
+and receives, elsewhere an all-gather from which each rank keeps the
+block meant for it (:func:`permute_transport` says which; the
+all-gather moves the group's size times the bytes a point-to-point pair
+would). Gloo's ``send`` of a CUDA tensor is no option: on the card it
+aborted the process.
+
 :data:`STATS` counts the collectives and the bytes each rank hands
 them (its input tensors' bytes), by op, for the per-step traffic the
 chip script prints; :func:`reset_stats` zeroes it.
@@ -45,6 +55,58 @@ def _note(op: str, t: torch.Tensor) -> None:
     entry = STATS.setdefault(op, [0, 0])
     entry[0] += 1
     entry[1] += t.numel() * t.element_size()
+
+
+def permute_transport(group) -> str:
+    """How :func:`permute` moves blocks over ``group``'s backend:
+    ``"p2p"`` (NCCL's batched sends and receives) or ``"all_gather"``
+    (gloo, and any other backend)."""
+    import torch.distributed as dist
+
+    return "p2p" if dist.get_backend(group) == "nccl" else "all_gather"
+
+
+def route(t: torch.Tensor, group, dst: Sequence) -> torch.Tensor:
+    """Every rank ``i`` of ``group`` hands ``t`` to rank ``dst[i]`` (None:
+    to no one); returns the block handed to this rank, zeros when no
+    rank hands it one (a new tensor). ``dst`` is the same on every rank,
+    and every rank of the group must call it."""
+    import torch.distributed as dist
+
+    i = dist.get_rank(group)
+    src = t.detach().contiguous()
+    _note("permute", src)
+    frm = dst.index(i) if i in dst else None
+    if permute_transport(group) == "p2p":
+        out = torch.zeros_like(src)
+        ranks = dist.get_process_group_ranks(group)
+        ops = []
+        if dst[i] is not None:
+            ops.append(dist.P2POp(dist.isend, src, ranks[dst[i]], group))
+        if frm is not None:
+            ops.append(dist.P2POp(dist.irecv, out, ranks[frm], group))
+        for w in (dist.batch_isend_irecv(ops) if ops else ()):
+            w.wait()
+        return out
+    flat = src.reshape(1, -1)
+    everyone = torch.empty((len(dst), flat.shape[1]), dtype=src.dtype,
+                           device=src.device)
+    dist.all_gather_into_tensor(everyone, flat, group=group)
+    if frm is None:
+        return torch.zeros_like(src)
+    return everyone[frm].reshape(src.shape).clone()
+
+
+def permute(t: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """The block of the rank ``shift`` places before this one in
+    ``group``'s order: every rank hands ``t`` to the rank ``shift`` after
+    it (:func:`route`); a rank with no such neighbour receives zeros,
+    and the blocks of the ranks with none after them go nowhere."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    dst = [i + shift if 0 <= i + shift < n else None for i in range(n)]
+    return route(t, group, dst)
 
 
 def all_reduce(t: torch.Tensor, group, mean: bool = False) -> torch.Tensor:

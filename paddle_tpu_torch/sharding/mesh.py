@@ -258,10 +258,15 @@ def local_batch_slice(global_batch: int, mesh: DeviceMesh,
                       process_index: Optional[int] = None) -> slice:
     """Deterministic per-process shard of a global batch (the
     reference's split feeding, parallel_executor.cc:260-277
-    FeedAndSplitTensorIntoLocalScopes)."""
-    del mesh
+    FeedAndSplitTensorIntoLocalScopes). A process is one rank of
+    ``mesh``: the batch is cut over the mesh's data-like axes only, so
+    the ranks of its ``pp``, ``sp``, ``ep`` or tensor axes that share a
+    data index get the same block. Without a mesh (or data axes) it is
+    cut over the world's processes."""
     nproc, rank = _world()
     pid = rank if process_index is None else process_index
+    if mesh is not None and mesh.data_axes():
+        pid, nproc = mesh.index(mesh.data_axes(), pid)
     if global_batch % nproc:
         raise ValueError(f"global batch {global_batch} not divisible by "
                          f"{nproc} processes")

@@ -110,6 +110,10 @@ class ShardingPlan:
             return hit
         explicit = getattr(var, "sharding_spec", None) if var is not None \
             else None
+        if explicit is None and var is not None:
+            from .spmd import follows
+
+            explicit = follows(var, var.block)
         if explicit is not None:
             _warn_spec_drop(name, explicit, shape, self.mesh)
             spec = clean_spec(self.mesh, explicit, shape)

@@ -79,6 +79,35 @@ def batch_block() -> Tuple[int, int]:
     return getattr(_tls, "batch", (0, 1))
 
 
+# the model-parallel axes whose blocks a rank owns outright: a stage's
+# layers (pp), a rank's experts and table rows (ep). Their parameters'
+# accumulators are held in the same blocks, and their per-parameter
+# updates packed into one fused launch.
+BLOCK_AXES = ("pp", "ep")
+
+
+def follows(var, gb) -> Optional[tuple]:
+    """The spec an optimizer accumulator takes from its parameter: the
+    parameter's explicit ``sharding_spec`` when it names a
+    :data:`BLOCK_AXES` axis and the shapes agree, else None."""
+    pname = getattr(var, "follows", None)
+    if pname is None or not getattr(var, "is_accumulator", False):
+        return None
+    p = gb._find_var_recursive(pname)
+    spec = getattr(p, "sharding_spec", None)
+    if spec is None or tuple(p.shape or ()) != tuple(var.shape or ()) \
+            or not any(a in BLOCK_AXES for e in spec
+                       for a in comm._axes(e)):
+        return None
+    return tuple(spec)
+
+
+def batch_axes() -> Tuple[str, ...]:
+    """The mesh axes the active sharded run splits the batch over (()
+    outside one, or when every rank runs the whole batch)."""
+    return getattr(_tls, "batch_axes", ())
+
+
 class Resolver:
     """What a sharded run needs from its caller: the mesh, the data-like
     axes a batch splits over, and ``spec(name)`` — the cleaned spec
@@ -176,27 +205,37 @@ class _Run:
             v = self.env[name] = comm.gather_full(v, spec, self.mesh)
         return v
 
-    def tp_layouts(self, fwd) -> Dict[str, tuple]:
-        """name -> the block a tensor-parallel fc reads its weight in, as
-        a cleaned spec (column-parallel: ``(None, axis)``, row-parallel:
-        ``(axis,)``), for each weight the run holds before the forward
-        and every forward reader of which is such an fc."""
+    def block_layouts(self, fwd) -> Dict[str, tuple]:
+        """name -> the block a forward op reads a tensor in, as a cleaned
+        spec, for each tensor the run holds before the forward and every
+        forward reader of which reads that block: the weight of a
+        tensor-parallel fc (column-parallel: ``(None, axis)``,
+        row-parallel: ``(axis,)``), and each input an op's fn names in
+        ``fn.block_inputs`` (the pipelined encoder's stacked weights, an
+        expert layer's experts, a distributed table's rows), in the spec
+        the run holds it in."""
         tp = comm.tensor_axis(self.mesh)
-        if tp is None:
-            return {}
-        axis = tp[0]
+        axis = tp[0] if tp is not None else None
         want: Dict[str, tuple] = {}
         other = set()
         for op in fwd:
             names = op.input_arg_names
             kind = op.attrs.get("_tp") if op.type == "mul" else None
-            if kind in ("column", "row"):
+            mine = []
+            if axis is not None and kind in ("column", "row"):
                 y = op.input("Y")[0]
-                spec = (None, axis) if kind == "column" else (axis,)
-                if want.setdefault(y, spec) != spec:
-                    other.add(y)
-                names = [n for n in names if n != y]
-            other.update(names)
+                mine.append((y, (None, axis) if kind == "column"
+                             else (axis,)))
+            for slot in getattr(op.fn, "block_inputs", ()):
+                for n in op.inputs.get(slot, ()):
+                    spec = self.res.spec(n)
+                    if any(spec):
+                        mine.append((n, spec))
+            for n, spec in mine:
+                if want.setdefault(n, spec) != spec:
+                    other.add(n)
+            taken = {n for n, _ in mine}
+            other.update(n for n in names if n not in taken)
         return {n: s for n, s in want.items()
                 if n not in other and n in self.env}
 
@@ -300,6 +339,15 @@ class _Run:
             for n in op.output_arg_names:
                 self.local.pop(n, None)
             return
+        tmp, spec, shape, lshape = self._block_env(op, blk)
+        run_program_ops([op], tmp)
+        self._write_block(op, [tmp[n] for n in op.output_arg_names], spec,
+                          shape, lshape)
+
+    def _block_env(self, op, blk):
+        """The values ``op`` runs on when it runs on ``blk``'s block: its
+        inputs held in that block, cut from whole tensors (or re-cut
+        from another layout) where they are not."""
         acc, spec = blk
         shape = self.full_shape(acc)
         lshape = comm.local_shape(shape, spec, self.mesh)
@@ -317,15 +365,18 @@ class _Run:
                         full = comm.gather_full(v, self.local[n],
                                                 self.mesh)
                     tmp[n] = comm.take_local(full, spec, self.mesh)
-            elif tuple(v.shape) == shape:
-                tmp[n] = comm.take_local(v, spec, self.mesh)
             elif n.endswith("@GRAD@ROWS") and spec and spec[0] is not None:
                 values_of_rows[n] = n[:-len("ROWS")] + "VALUES"
+            elif n.endswith("@GRAD@VALUES") and spec and spec[0] is not None:
+                continue  # kept whole and masked with its rows below
+            elif tuple(v.shape) == shape:
+                tmp[n] = comm.take_local(v, spec, self.mesh)
         for rows_name, vals_name in values_of_rows.items():
             self._rebase_rows(op, tmp, rows_name, vals_name, spec, shape)
-        run_program_ops([op], tmp)
-        for n in op.output_arg_names:
-            v = tmp[n]
+        return tmp, spec, shape, lshape
+
+    def _write_block(self, op, outs, spec, shape, lshape) -> None:
+        for n, v in zip(op.output_arg_names, outs):
             self.env[n] = v
             self.full.pop(n, None)
             if not isinstance(v, torch.Tensor) or tuple(v.shape) != lshape \
@@ -337,6 +388,96 @@ class _Run:
             else:
                 self.env[n] = comm.gather_full(v, spec, self.mesh)
                 self.local.pop(n, None)
+
+    # -- packed updates of blocks --------------------------------------------
+    def pack_key(self, op):
+        """The group a per-parameter update joins when it runs on a block
+        and its kind has the fused kernel (``op.fn.flat``); None
+        otherwise. Updates of one group share the kind, the constants,
+        and the dtypes of parameter, gradient and accumulators."""
+        flat = getattr(op.fn, "flat", None)
+        blk = self._update_block(op) if flat is not None else None
+        if blk is None or not any(a in BLOCK_AXES for e in blk[1]
+                                  for a in comm._axes(e)):
+            return None
+        kind, consts, _owns, n_acc, n_sh = flat
+        names = op.input_arg_names
+        if len(names) != 3 + n_acc + n_sh or not all(
+                isinstance(self.env.get(n), torch.Tensor) for n in names):
+            return None
+        dts = tuple(str(self.env[n].dtype) for n in names[:2])
+        dts += tuple(str(self.env[n].dtype) for n in names[3:3 + n_acc])
+        return kind, consts, n_acc, n_sh, dts, names[2]
+
+    def run_packed(self, ops, shared) -> None:
+        """One ``fused_flat_update`` over the blocks of several
+        per-parameter updates (a stage's layers, a rank's experts and
+        table rows), launched once on flat storage the pack keeps: each
+        parameter and accumulator block is left as a view of its slot's
+        flat tensor, so from the second step on the kernel updates that
+        storage in place and only the gradients are concatenated. A
+        block that is no such view (the first step, a value set from
+        outside) makes its slot's storage anew. ``shared``: the shared
+        scalars' values before any update of the step (an update before
+        the owner's reads those)."""
+        from ..ops.fused_optimizer import fused_flat_update
+
+        kind, consts, _o, n_acc, n_sh = ops[0].fn.flat
+        owns = any(op.fn.flat[2] for op in ops)
+        parts = []
+        for op in ops:
+            tmp, spec, shape, lshape = self._block_env(
+                op, self._update_block(op))
+            names = op.input_arg_names
+            parts.append((op, [tmp[n] for n in names[:2]]
+                          + [tmp[n] for n in names[3:3 + n_acc]],
+                          spec, shape, lshape))
+        cat = []
+        for k in range(2 + n_acc):
+            vals = [p[1][k] for p in parts]
+            flat = _flat_of(vals) if k != 1 else None
+            cat.append(flat if flat is not None else
+                       torch.cat([v.reshape(-1) for v in vals]))
+        names = ops[0].input_arg_names
+        lr = self.env[names[2]]
+        sh = [shared.get(n, self.env[n]) for n in names[3 + n_acc:]]
+        res = fused_flat_update(kind, cat[0], cat[1], lr, cat[2:], sh,
+                                owns, consts)
+        flat_p, flat_accs, adv = res[0], res[1:1 + n_acc], res[1 + n_acc:]
+        off = 0
+        for op, vals, spec, shape, lshape in parts:
+            n = vals[0].numel()
+            outs = [flat_p[off:off + n].view(vals[0].shape)]
+            outs += [a[off:off + n].view(vals[0].shape) for a in flat_accs]
+            if op.fn.flat[2]:
+                outs += list(adv)
+            off += n
+            self._write_block(op, outs, spec, shape, lshape)
+
+    def run_updates(self, post) -> None:
+        """The ops after the backward op: each per-parameter update of a
+        block whose kind has the fused kernel joins its pack, which runs
+        where its last update stood; the rest run one by one."""
+        keys = {id(op): self.pack_key(op) for op in post
+                if op.fn is not None}
+        packs: Dict[tuple, list] = {}
+        for op in post:
+            k = keys.get(id(op))
+            if k is not None:
+                packs.setdefault(k, []).append(op)
+        last = {id(ops[-1]): ops for ops in packs.values()}
+        shared = {}
+        for ops in packs.values():
+            n_acc = ops[0].fn.flat[3]
+            for n in ops[0].input_arg_names[3 + n_acc:]:
+                shared[n] = self.env[n]
+        for op in post:
+            if op.fn is None:
+                continue
+            if keys.get(id(op)) is None:
+                self.run_update(op)
+            elif id(op) in last:
+                self.run_packed(last[id(op)], shared)
 
     def _rebase_rows(self, op, tmp, rows_name, vals_name, spec, shape):
         """A row-sparse gradient on this rank's block of a table's rows:
@@ -413,6 +554,24 @@ class _Run:
                 self.local[n] = spec
 
 
+def _flat_of(vals) -> Optional[torch.Tensor]:
+    """A flat tensor over the storage ``vals`` are, in order, contiguous
+    views of and cover whole (a pack's storage from its last step), else
+    None."""
+    st = vals[0].untyped_storage()
+    start = off = vals[0].storage_offset()
+    for v in vals:
+        if v.untyped_storage().data_ptr() != st.data_ptr() \
+                or v.dtype != vals[0].dtype or not v.is_contiguous() \
+                or v.storage_offset() != off:
+            return None
+        off += v.numel()
+    if (off - start) * vals[0].element_size() != st.nbytes():
+        return None
+    return torch.empty(0, dtype=vals[0].dtype, device=vals[0].device) \
+        .set_(st, start, (off - start,))
+
+
 def run(exe, program, scope, feed: Dict, fetch_names: Tuple[str, ...],
         resolver: Resolver, remat=None):
     """One sharded run of ``program`` on this rank (the counterpart of
@@ -469,7 +628,7 @@ def run(exe, program, scope, feed: Dict, fetch_names: Tuple[str, ...],
     ops = live_ops(program, fetch_names)
     at = [i for i, op in enumerate(ops) if op.type == "backward"]
     fwd = ops[:at[0]] if at else ops
-    blocks = r.tp_layouts(fwd)
+    blocks = r.block_layouts(fwd)
     for n in dict.fromkeys(x for op in fwd for x in op.input_arg_names):
         if n in blocks:
             r.place(n, blocks[n])
@@ -477,16 +636,15 @@ def run(exe, program, scope, feed: Dict, fetch_names: Tuple[str, ...],
             r.whole(n)
 
     remat = _resolve_remat(program) if remat is None else remat
-    prev = batch_block()
+    prev = batch_block(), batch_axes()
     _tls.batch = (b_idx, b_n) if split else (0, 1)
+    _tls.batch_axes = tuple(axes) if split else ()
     try:
         with mesh_scope(mesh), remat_scope(remat):
             if at:
                 def update(bw, post, e):
                     r.reduce_grads(bw, post)
-                    for op in post:
-                        if op.fn is not None:
-                            r.run_update(op)
+                    r.run_updates(post)
 
                 run_training_ops(ops, env, device, remat=remat,
                                  keep=fetch_names, update=update,
@@ -496,7 +654,7 @@ def run(exe, program, scope, feed: Dict, fetch_names: Tuple[str, ...],
                     run_program_ops(ops, env, device=device,
                                     post_op=r.forward_post)
     finally:
-        _tls.batch = prev
+        _tls.batch, _tls.batch_axes = prev
 
     with torch.no_grad():
         for n in written:
@@ -543,7 +701,7 @@ def check_capturable(mesh, runner: str) -> None:
     step over the live ``mesh`` on a card (``run_steps``/``run_graph``;
     ``runner`` names what runs it step by step): over gloo a CUDA graph
     cannot capture the collectives, and capture over NCCL is not ported
-    yet (ROADMAP Queue A 9, (g2))."""
+    yet (ROADMAP Queue A 9: it waits for a machine with two cards)."""
     if mesh is None or not mesh.live:
         return
     import torch.distributed as dist
@@ -556,7 +714,7 @@ def check_capturable(mesh, runner: str) -> None:
                "graph cannot capture")
     else:
         why = ("capture over the %s backend is not ported yet (ROADMAP "
-               "Queue A 9, (g2))" % backend)
+               "Queue A 9, NCCL capture)" % backend)
     raise GraphCaptureError("cannot capture the sharded step as a CUDA "
                             "graph: %s; run it step by step with %s"
                             % (why, runner))
@@ -595,5 +753,37 @@ def whole_state(program, scope, names=None) -> Dict[str, torch.Tensor]:
             shape = tuple(int(s) for s in var.shape)
             if any(spec) and tuple(v.shape) != shape:
                 v = comm.gather_full(v, spec, plan.mesh)
+        out[n] = v
+    return out
+
+
+def held_state(program, scope, mesh, spec_of, names=None) -> Dict:
+    """Every persistable of ``program`` the scope holds (or ``names``) as
+    this rank holds it, for a checkpoint writer: a block of sharded state
+    as a ``ckpt.manifest.Shard`` (its whole shape, ``spec_of(name)`` and
+    ``mesh``), anything else as the value itself. Each rank writes the
+    blocks it owns (no collective: unlike :func:`whole_state`, nothing is
+    gathered). A view of a flat buffer held as a block is left out: its
+    buffer carries it."""
+    from ..ckpt.manifest import Shard
+
+    gb = program.global_block()
+    views = getattr(program, "_flat_state_views", None) or {}
+    if names is None:
+        names = sorted(v.name for v in program.list_vars()
+                       if v.persistable and scope.has_var(v.name))
+    out = {}
+    for n in names:
+        if n in views and any(spec_of(views[n][0])):
+            continue
+        v = scope.find_var(n)
+        var = gb._find_var_recursive(n)
+        if mesh.live and isinstance(v, torch.Tensor) and var is not None \
+                and var.shape is not None \
+                and all(int(x) >= 0 for x in var.shape):
+            spec = tuple(spec_of(n))
+            shape = tuple(int(x) for x in var.shape)
+            if any(spec) and tuple(v.shape) != shape:
+                v = Shard(v, shape, spec, mesh)
         out[n] = v
     return out

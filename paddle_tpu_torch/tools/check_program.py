@@ -29,7 +29,7 @@ import os
 import sys
 
 _NOT_PORTED = ("error: %s: the SPMD communication analysis is not "
-               "ported yet (ROADMAP Queue A 9)")
+               "ported yet (ROADMAP Queue A 9, (g3))")
 
 
 def _program_from_manifest(manifest: dict):

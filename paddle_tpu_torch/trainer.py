@@ -26,6 +26,9 @@ the flight recorder (``obs.record``) before it propagates.
 ``parallel=True`` runs the steps through the ParallelExecutor over the
 ranks of the ``torch.distributed`` world (``parallel.init_distributed``
 first in each rank): each rank trains on its slice of every batch.
+With a ``checkpoint_config`` each rank writes the blocks it owns into
+the same elastic serial, and a resume reads it on any number of ranks
+(one process included).
 
 Not ported: the supervisor heartbeat of each step (Queue A 10).
 """
@@ -40,7 +43,7 @@ import numpy as np
 from . import ckpt
 from .ckpt import CheckpointConfig
 from .core import unique_name
-from .core.enforce import EnforceError, EOFException, enforce, not_ported
+from .core.enforce import EnforceError, EOFException, enforce
 from .core.place import default_place
 from .core.program import Program, program_guard
 from .core.scope import Scope, scope_guard
@@ -88,7 +91,8 @@ class Trainer:
         param_path: a ``save_persistables`` directory loaded after the
             startup program.
         place: device place (default: ``CUDAPlace(0)``).
-        parallel: not ported (raises).
+        parallel: run the steps over the ranks of the
+            ``torch.distributed`` world (a ParallelExecutor).
         checkpoint_config: enables periodic checkpoints + auto-resume.
         steplog: per-step run telemetry (``obs.steplog``): a path or a
             ``StepLogger``; every step appends one StepStats JSON line
@@ -144,12 +148,6 @@ class Trainer:
         self._pe = None
         if self.parallel:
             from .parallel import ParallelExecutor, num_trainers
-
-            if checkpoint_config and num_trainers() > 1:
-                raise not_ported(
-                    "Trainer(parallel=True) checkpoints across ranks "
-                    "(multi-process elastic saves)",
-                    "Queue A 9, multi-GPU (g2)")
 
             self._pe = ParallelExecutor(loss_name=loss.name,
                                         main_program=self.train_program,
@@ -505,9 +503,17 @@ class Trainer:
     def _save_checkpoint(self, epoch_id: int, step_id: int) -> None:
         # hand the savers the scope's values: each save copies them to
         # the host before it returns (ckpt.manifest.snapshot_state), so
-        # the next step may update them in place at once
-        state = {n: self.scope.find_var(n)
-                 for n in self.scope.local_var_names()}
+        # the next step may update them in place at once. Across ranks
+        # each rank hands its blocks and writes the ones it owns into
+        # the same serial (an elastic save; the resume reads it on any
+        # number of ranks)
+        ranks = self._pe is not None and self._pe.mesh.size() > 1
+        if ranks:
+            state = self._pe.sharded_state(
+                list(self.scope.local_var_names()))
+        else:
+            state = {n: self.scope.find_var(n)
+                     for n in self.scope.local_var_names()}
         trainer_args = {"epoch_id": epoch_id, "step_id": step_id}
         rd = getattr(self, "_active_reader", None)
         if rd is not None and hasattr(rd, "state_dict"):
@@ -520,6 +526,19 @@ class Trainer:
                     cfg.checkpoint_dir,
                     max_num_checkpoints=cfg.max_num_checkpoints)
             self._async_saver.save(state, trainer_args=trainer_args)
+            return
+        if ranks:
+            from .ckpt.saver import _synchronized_serial_seed
+
+            if getattr(self, "_next_serial", None) is None:
+                self._next_serial = _synchronized_serial_seed(
+                    cfg.checkpoint_dir)
+            serial, self._next_serial = (self._next_serial,
+                                         self._next_serial + 1)
+            ckpt.save_checkpoint_elastic(
+                cfg.checkpoint_dir, state, serial=serial,
+                trainer_args=trainer_args,
+                max_num_checkpoints=cfg.max_num_checkpoints)
             return
         ckpt.save_checkpoint(
             cfg.checkpoint_dir, state,

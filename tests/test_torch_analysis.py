@@ -598,9 +598,9 @@ def test_comm_analysis_and_sharding_plans_raise_naming_queue_a9():
     its shard counts (tests/test_torch_sharding.py holds the per-device
     bytes to the JAX package's)."""
     main = _build("torch", _mlp)[0]
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
+    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
         tfluid.analysis.check_program(main, with_comm=True)
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
+    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
         main.validate(with_comm=True)
 
     class Plan:

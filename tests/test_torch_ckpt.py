@@ -18,8 +18,9 @@
 * ``AsyncCheckpointSaver.save`` snapshots on the caller's thread: a
   tensor updated in place after ``save()`` returns does not reach the
   checkpoint; the saves publish serials in order.
-* The ``checkpoint`` shim re-exports ckpt's objects; sharded layouts and
-  multi-process saves raise NotImplementedError naming ROADMAP Queue A 9.
+* The ``checkpoint`` shim re-exports ckpt's objects; the legacy sharded
+  format round-trips, and a multi-process save asks for an explicit
+  serial (worlds of ranks: tests/test_torch_sharded_checkpoint.py).
 
 The JAX package's elastic reader cannot read a bfloat16 member back (its
 own files' too: ROADMAP Queue C 6), so the port-to-JAX check of the
@@ -261,28 +262,41 @@ def test_async_snapshot_is_taken_before_save_returns(tmp_path):
 
 
 def test_shim_and_refusals(tmp_path, monkeypatch):
+    """The shim re-exports the ckpt package. What was refused here is
+    ported, and each case now checks it works: the legacy sharded format
+    is written and read (a serial of it lints and loads), an empty root
+    restores nothing, a multi-process save without a serial is refused
+    (ValueError, the JAX package's), and the async saver of a world of
+    two writes its part into the agreed serial — invalid until the other
+    process writes its own. Worlds of ranks:
+    tests/test_torch_sharded_checkpoint.py."""
     from paddle_tpu_torch import checkpoint
     from paddle_tpu_torch.ckpt import saver
 
     for name in checkpoint.__all__:
         assert getattr(checkpoint, name) is getattr(ckpt, name), name
-    # a legacy sharded serial (the JAX package's md5 format) is refused
-    sharded = tmp_path / "sharded" / "checkpoint_0"
-    sharded.mkdir(parents=True)
-    (sharded / "meta.json").write_text(json.dumps(
-        {"format": "sharded", "serial": 0, "process_count": 1}))
-    monkeypatch.setattr(saver, "_process_count", lambda: 2)
-    # a program's sharding-plan layouts, once refused here, are ported:
-    # an unsharded program has none (tests/test_torch_sharding.py has a
-    # sharded program's checkpoint round trip)
+    w = np.arange(6, dtype="float32").reshape(2, 3)
+    sharded = str(tmp_path / "sharded")
+    assert ckpt.save_checkpoint_sharded(sharded, {"w": w},
+                                        trainer_args={"step": 1}) == 0
+    assert ckpt.manifest_entries(sharded, 0) == {"w": ((2, 3), "float32")}
+    state, args = ckpt.load_checkpoint_sharded(sharded)
+    assert args == {"step": 1}
+    np.testing.assert_array_equal(state["w"], w)
+    assert ckpt.load_checkpoint_sharded(str(tmp_path / "none")) == (None,
+                                                                    None)
     assert ckpt.program_state_shardings(None, {}) is None
-    for call in (lambda: ckpt.load_checkpoint_sharded(str(tmp_path)),
-                 lambda: ckpt.save_checkpoint_sharded(str(tmp_path), {}),
-                 lambda: ckpt.save_checkpoint_elastic(str(tmp_path), {}),
-                 lambda: ckpt.AsyncCheckpointSaver(str(tmp_path)).save({}),
-                 lambda: ckpt.manifest_entries(str(tmp_path / "sharded"),
-                                               0)):
-        with pytest.raises(NotImplementedError, match="Queue A 9"):
+    monkeypatch.setattr(saver, "_process_count", lambda: 2)
+    for call in (lambda: ckpt.save_checkpoint_sharded(str(tmp_path), {}),
+                 lambda: ckpt.save_checkpoint_elastic(str(tmp_path), {})):
+        with pytest.raises(ValueError, match="explicit serial"):
             call()
+    monkeypatch.setattr(saver, "_synchronized_serial_seed", lambda root: 5)
+    root = str(tmp_path / "two")
+    with ckpt.AsyncCheckpointSaver(root) as s:
+        assert [s.save({"w": w}).result() for _ in range(2)] == [5, 6]
+    with open(os.path.join(ckpt.serial_dir(root, 5), "meta.json")) as f:
+        assert json.load(f)["process_count"] == 2
+    assert ckpt.latest_valid_serial(root) is None
     assert ckpt.CheckpointConfig().checkpoint_dir.endswith(
         "paddle_tpu_checkpoints")

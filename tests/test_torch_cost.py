@@ -173,5 +173,5 @@ def test_formulas_achieved_and_roofline_equal_the_jax_package():
     assert t_cost.roofline(rep["torch"], spans, steps=10,
                            peak_flops=67e12) == \
         j_cost.roofline(rep["jax"], spans, steps=10, peak_flops=67e12)
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
+    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
         t_cost.roofline(rep["torch"], spans, comm_report=object())

@@ -26,7 +26,8 @@ import torch
 
 from paddle_tpu_torch.core.enforce import EnforceError
 from paddle_tpu_torch.ops import _cuda
-from paddle_tpu_torch.ops.flash_attention import (bf16_ulps, flash_attention,
+from paddle_tpu_torch.ops.flash_attention import (bf16_flip_bounds,
+                                                  bf16_ulps, flash_attention,
                                                   flash_bwd_dkv, flash_bwd_dq,
                                                   flash_fwd,
                                                   plain_flash_backward,
@@ -380,9 +381,9 @@ def _bf16_card_case(i, device):
 
 def test_bf16_model_check_rejects_the_unrounded_backward():
     """The element check that holds the bf16 kernels to their rounding
-    model (``bf16_ulps`` at most 1) sees the rounding: on each card
-    case's shape and inputs the unrounded ``plain_flash_backward`` fails
-    it for at least one of dq, dk, dv."""
+    model (``bf16_ulps`` at most 1, with the model's flip bounds) sees
+    the rounding: on each card case's shape and inputs the unrounded
+    ``plain_flash_backward`` fails it for at least one of dq, dk, dv."""
     for i, case in enumerate(CUDA_CASES):
         q, k, v, do, mask = _bf16_card_case(i, "cpu")
         causal = case[5]
@@ -391,17 +392,68 @@ def test_bf16_model_check_rejects_the_unrounded_backward():
                                           mask)
         plain = plain_flash_backward(q, k, v, o, lse, do, causal, None,
                                      mask)
-        assert max(bf16_ulps(p, m) for p, m in zip(plain, model)) > 1.0, \
-            case
+        bounds = bf16_flip_bounds(q, k, v, o, lse, do, causal, None, mask)
+        assert max(bf16_ulps(p, m, b) for p, m, b in
+                   zip(plain, model, bounds)) > 1.0, case
+
+
+def _kernel_order_backward(q, k, v, o, lse, do, causal, mask):
+    """The bf16 backward as a kernel computes it, in another order than
+    the model: scores and dP summed in float64 and rounded to f32,
+    ``p = exp2(s * scale * log2(e) - lse * log2(e))`` with the two
+    factors rounded to f32, delta summed in float64; p and ds rounded to
+    bf16, the second products summed in float64."""
+    D = q.shape[-1]
+    scale, l2e = D ** -0.5, 1.4426950408889634
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()).float()
+    valid = torch.ones_like(s, dtype=torch.bool)
+    if mask is not None:
+        valid = valid & (mask[:, None, None, :] > 0)
+    if causal:
+        valid = valid & torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+    sc2 = torch.tensor(scale * l2e, dtype=torch.float32).double()
+    lse2 = (lse * torch.tensor(l2e, dtype=torch.float32)).double()
+    arg = (s.double() * sc2 - lse2[..., None]).float()
+    p = torch.where(valid, torch.exp2(arg), torch.zeros_like(arg))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), v.double()).float()
+    delta = (do.double() * o.double()).sum(-1).float().permute(0, 2, 1)
+    ds = p * (dp - delta[..., None]) * scale
+    pb, dsb = (x.to(torch.bfloat16).double() for x in (p, ds))
+    return (torch.einsum("bhqk,bkhd->bqhd", dsb, k.double()),
+            torch.einsum("bhqk,bqhd->bkhd", dsb, q.double()),
+            torch.einsum("bhqk,bqhd->bkhd", pb, do.double()))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_bf16_flip_bounds_cover_another_order_of_sums(seed):
+    """A backward that rounds p and ds to bf16 as the kernels do but sums
+    in another order (``_kernel_order_backward``) stays within the check
+    with the model's flip bounds, on the key-masked training shape at
+    4 sentences; the bounds are local (a p or ds near a bf16 rounding
+    boundary moves only the elements its products reach): on average
+    below 1e-4 of max |grad|."""
+    case = (4, 256, 256, 8, 64, False, "ragged")
+    q, k, v, do, mask = (_t(a, "cpu", torch.bfloat16) if a is not None
+                         and a.ndim == 4 else _t(a, "cpu")
+                         for a in _inputs(*case, seed=40 + seed))
+    o, lse = plain_flash_forward(q, k, v, False, None, mask)
+    got = [g.to(torch.bfloat16) for g in
+           _kernel_order_backward(q, k, v, o, lse, do, False, mask)]
+    model = plain_flash_backward_bf16(q, k, v, o, lse, do, False, None, mask)
+    bounds = bf16_flip_bounds(q, k, v, o, lse, do, False, None, mask)
+    for g, m, b in zip(got, model, bounds):
+        assert bf16_ulps(g, m, b) <= 1.0
+        assert b.shape == m.shape and bool((b >= 0).all())
+        assert float(b.mean()) <= 1e-4 * float(m.float().abs().max())
 
 
 @pytest.mark.cuda
 def test_cuda_bf16_kernels_match_their_rounding_model():
     """dq, dk, dv of the bf16 kernels against
     ``plain_flash_backward_bf16``: every element within one bf16 ulp
-    plus ``BF16_MODEL_FLOOR`` of max |grad| (``bf16_ulps`` at most 1),
-    every card case. The unrounded plain version is held at 3e-2 of max
-    |grad|."""
+    plus ``BF16_MODEL_FLOOR`` of max |grad| plus its flip bound
+    (``bf16_ulps`` at most 1), every card case. The unrounded plain
+    version is held at 3e-2 of max |grad|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     for i, case in enumerate(CUDA_CASES):
@@ -412,8 +464,9 @@ def test_cuda_bf16_kernels_match_their_rounding_model():
         dk, dv = flash_bwd_dkv(q, k, v, lse, delta, do, causal, None, mask)
         want = plain_flash_backward_bf16(q, k, v, o, lse, do, causal, None,
                                          mask)
-        for got, w in zip((dq, dk, dv), want):
-            assert bf16_ulps(got, w) <= 1.0, case
+        bounds = bf16_flip_bounds(q, k, v, o, lse, do, causal, None, mask)
+        for got, w, b in zip((dq, dk, dv), want, bounds):
+            assert bf16_ulps(got, w, b) <= 1.0, case
 
 
 @pytest.mark.cuda

@@ -2,9 +2,10 @@
 tests of tests/test_moe.py (the numpy oracle of routing and capacity,
 and the capacity drop) in the port, the layer's output, aux loss and
 every gradient over three Adam steps against the JAX package, the
-expert weights' ``ep`` annotation, and the refusal of a mesh with
-``ep > 1`` (expert parallelism is ROADMAP Queue A 9; tests/test_moe.py's
-third test waits for it).
+expert weights' ``ep`` annotation, and the build-time check of a mesh
+whose ``ep`` axis does not split the experts (tests/test_moe.py's third
+test, expert parallelism over ranks, is
+tests/test_torch_expert_parallel.py's).
 """
 
 import math
@@ -145,8 +146,12 @@ def test_expert_weights_carry_the_ep_annotation_and_a_mesh_is_refused():
         x = tfluid.layers.data(name="x", shape=[-1, -1, 8], dtype="float32",
                                append_batch_size=False)
         tfluid.layers.switch_moe(x, 4, 16, mesh={"ep": 1, "dp": 8})
-        with pytest.raises(NotImplementedError, match="Queue A 9"):
-            tfluid.layers.switch_moe(x, 4, 16, mesh={"ep": 4, "dp": 2})
+        # expert parallelism, once refused here, is ported (ranks:
+        # tests/test_torch_expert_parallel.py); a mesh whose ep axis does
+        # not split the experts is refused while building
+        tfluid.layers.switch_moe(x, 4, 16, mesh={"ep": 4, "dp": 2})
+        with pytest.raises(tfluid.EnforceError, match="ep=8"):
+            tfluid.layers.switch_moe(x, 4, 16, mesh={"ep": 8})
     specs = {tuple(p.shape): getattr(p, "sharding_spec", None)
              for p in main.all_parameters()}
     assert specs == {(8, 4): None, (4, 8, 16): ("ep", None, None),

@@ -354,28 +354,42 @@ def test_launch_two_process_world_and_fail_fast(tmp_path):
 
 def test_remaining_refusals_name_queue_a9():
     """Ring attention, the pipeline, distributed embeddings and N->M
-    resharding stay refused, naming Queue A 9; a mesh of several ranks
-    never runs single-device in one process."""
+    restores, once refused naming Queue A 9, are ported (ranks:
+    tests/test_torch_{pipeline,ring_attention,expert_parallel,
+    sharded_checkpoint}.py): each builds, and off a world of ranks runs
+    its plain math. What stays refused names its queue item: a mesh of
+    several ranks never runs single-device in one process, and the
+    communication analysis waits for (g3)."""
     from paddle_tpu_torch.models.transformer import transformer_base
+    from paddle_tpu_torch.parallel.ring_attention import _plain_attention
 
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        tfluid.parallel.ring_attention(None, None, None, None)
+    q = torch.randn(1, 8, 2, 4)
+    mesh = tfluid.make_mesh({"sp": 4}, devices=range(4))
+    torch.testing.assert_close(
+        tfluid.parallel.ring_attention(q, q, q, mesh, causal=True),
+        _plain_attention(q, q, q, True, None))
     for kw in ({"attn_impl": "ring"}, {"pp_encoder": True},
                {"distributed_embedding": True}):
         main, startup = tfluid.Program(), tfluid.Program()
         with tfluid.unique_name.guard(), \
-                tfluid.program_guard(main, startup), \
-                pytest.raises(NotImplementedError, match="Queue A 9"):
-            transformer_base(**dict(R.TB, **kw))
+                tfluid.program_guard(main, startup):
+            _feeds, loss, _ = transformer_base(**dict(R.TB, **kw))
+        exe, scope = tfluid.Executor(tfluid.CPUPlace()), tfluid.Scope()
+        exe.run(startup, scope=scope)
+        got = exe.run(main, feed=R.tb_feeds(1)[0], fetch_list=[loss],
+                      scope=scope)[0]
+        assert np.isfinite(got).all(), kw
     from paddle_tpu_torch import ckpt
 
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        ckpt.load_checkpoint_sharded("unused")
+    assert ckpt.load_checkpoint_sharded("unused") == (None, None)
     pe = tfluid.ParallelExecutor(
         main_program=R.build_pe_mlp(tfluid)[0], use_cuda=False,
         mesh=tfluid.make_mesh({"dp": 4}, devices=range(4)))
     with pytest.raises(tfluid.EnforceError, match="tools.launch"):
         pe.run(feed=R.pe_data(8), fetch_list=[])
+    main = R.build_pe_mlp(tfluid)[0]
+    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
+        tfluid.analysis.check_program(main, with_comm=True)
 
 
 def test_dropout_mask_block_is_the_whole_masks():

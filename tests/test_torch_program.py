@@ -143,9 +143,13 @@ def test_unported_options_raise():
                                                           tfluid.Program()):
         x = tfluid.layers.data(name="x", shape=[-1, 4, 8], dtype="float32",
                                append_batch_size=False)
-        with pytest.raises(NotImplementedError, match="not ported"):
+        # the ring route, once refused here, is ported: it builds, and an
+        # unknown route is refused
+        assert multi_head_attention(x, x, x, 4, 4, 8, n_head=2,
+                                    attn_impl="ring").shape == (-1, 4, 8)
+        with pytest.raises(ValueError, match="unknown attn_impl"):
             multi_head_attention(x, x, x, 4, 4, 8, n_head=2,
-                                 attn_impl="ring")
+                                 attn_impl="nope")
         # the flash-attention route is ported: it builds
         assert multi_head_attention(x, x, x, 4, 4, 8, n_head=2,
                                     attn_impl="pallas").shape == (-1, 4, 8)

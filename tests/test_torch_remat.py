@@ -168,7 +168,7 @@ def test_remat_policy_pass_and_its_refused_siblings():
         [t_schedule.RematPolicyPass(assume_batch=3, target_batch=6)]
     ).apply(main)
     assert out._remat_policy and "remat_policy=" in out._schedule_stamp
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
+    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
         tfluid.passes.get_pass("comm_overlap")
     # host_offload, once refused naming Queue A 8, is ported
     assert isinstance(tfluid.passes.get_pass("host_offload"),

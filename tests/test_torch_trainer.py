@@ -429,13 +429,17 @@ def test_save_params_and_param_path(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [({"parallel": True}, "Queue A 9")])
 def test_refused_options_name_their_queue_item(kw, item, tmp_path):
-    """``parallel=True``, once refused naming ``item``, is ported: in a
-    world of one process the Trainer steps through the
-    ParallelExecutor to the plain Trainer's parameters, and the
-    Inferencer serves through it. (Ranks: tests/test_torch_parallel.py.)"""
+    """``parallel=True``, once refused naming ``item`` (and, with a
+    ``checkpoint_config``, across ranks), is ported: in a world of one
+    process the Trainer steps through the ParallelExecutor to the plain
+    Trainer's parameters, with and without checkpoints (a resume from
+    its checkpoint ends where the run did), and the Inferencer serves
+    through it. (Ranks: tests/test_torch_parallel.py,
+    tests/test_torch_sharded_checkpoint.py.)"""
     del item
     trained = []
-    for extra in ({}, kw):
+    for extra in ({}, kw, dict(kw, checkpoint_config=fluid.CheckpointConfig(
+            str(tmp_path / "ck"), step_interval=2))):
         t = fluid.Trainer(_fit_func(fluid),
                           lambda: fluid.optimizer.SGD(learning_rate=0.05),
                           place=fluid.CPUPlace(), **extra)
@@ -446,6 +450,14 @@ def test_refused_options_name_their_queue_item(kw, item, tmp_path):
                         for p in t.train_program.all_parameters()})
     for n in trained[0]:
         np.testing.assert_array_equal(trained[0][n], trained[1][n])
+        np.testing.assert_array_equal(trained[0][n], trained[2][n])
+    resumed = fluid.Trainer(
+        _fit_func(fluid), lambda: fluid.optimizer.SGD(learning_rate=0.05),
+        place=fluid.CPUPlace(), parallel=True,
+        checkpoint_config=fluid.CheckpointConfig(str(tmp_path / "ck")))
+    for n in trained[0]:
+        np.testing.assert_array_equal(
+            fluid.fetch_var(n, resumed.scope), trained[0][n])
     t.save_params(str(tmp_path))
 
     def infer_func():

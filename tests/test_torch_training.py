@@ -401,11 +401,14 @@ def test_the_backward_op_refuses_to_run_outside_the_executor():
     "training_dropout", "fused_ce", "ring", "tp", "pp_encoder"])
 def test_options_not_ported_yet_raise(option):
     """Each option not ported yet raises, naming the ROADMAP item that
-    ports it. Training dropout, ``fused_ce`` and ``tp``, once on this
-    list, are ported: those now build, with their dropout sites, the
+    ports it. Every option once on this list is ported: training
+    dropout, ``fused_ce`` and ``tp`` build with their dropout sites, the
     fused head, and the JAX package's tensor-parallel annotations
     (column-parallel QKV and FFN-in, row-parallel output projections
-    over ``mp``)."""
+    over ``mp``); ``"ring"`` and ``pp_encoder`` build the JAX package's
+    program — the same ops, and for the pipelined encoder the same
+    stacked parameters, shapes and ``pp`` specs (their runs over ranks:
+    tests/test_torch_ring_attention.py, tests/test_torch_pipeline.py)."""
     kw = {"training_dropout": {"dropout_rate": 0.1},
           "fused_ce": {"fused_ce": True}, "ring": {},
           "tp": {"tp": True}, "pp_encoder": {"pp_encoder": True}}[option]
@@ -425,5 +428,16 @@ def test_options_not_ported_yet_raise(option):
         assert sorted(set(map(str, specs["torch"].values()))) == \
             ["('mp', None)", "(None, 'mp')", "None"]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _build("torch", "ring" if option == "ring" else "fused", **kw)
+    impl = "ring" if option == "ring" else "fused"
+    mains = {pkg: _build(pkg, impl, **kw)[0] for pkg in ("torch", "jax")}
+    types = {pkg: [op.type for op in m.global_block().ops
+                   if op.type != "backward"]
+             for pkg, m in mains.items()}
+    assert types["torch"] == types["jax"]
+    assert ("pipelined_encoder" in types["torch"]) == (option ==
+                                                      "pp_encoder")
+    params = {pkg: {p.name: (tuple(p.shape),
+                             getattr(p, "sharding_spec", None))
+                    for p in m.all_parameters()}
+              for pkg, m in mains.items()}
+    assert params["torch"] == params["jax"]
