@@ -586,6 +586,22 @@ Phases, one JSON line each (or one per shape):
              publish, the file the republished payload (a warm export
              writes it again), its output the cold one's. Cold and warm
              export seconds.
+32. parallel — (run after phase 9) the recipe on two gloo ranks sharing
+             card 0, legs (a)-(g) (see PARALLEL_STEPS); legs (a)-(c)'s
+             programs carry a sharding plan and print the communication
+             analysis's prediction beside their ``comm.STATS``, leg
+             (a)'s program after ``comm_overlap`` is held bit for bit to
+             leg (a)'s first steps, and a forward at tp=2 holds a
+             row-parallel fc's predicted all-reduce to its run one
+             (LEG_PIN_RULES, COMM_FFN_ROWS).
+33. supervise — (run after phase 32) ``resilience.Supervisor`` over
+             ``tools.launch``: the recipe cut to 2 layers on two gloo
+             ranks under a fault plan (a corrupt serial, a delayed
+             publish, a kill), relaunched on one rank that restores the
+             newest valid serial (2 -> 1); losses against a one-card
+             oracle, the workers' launches, recovery, step, save and
+             restore times, and ``tools.ckpt verify``/``gc`` on the
+             root (SUPERVISE_LAYERS).
 
 Then the whole call's seconds (``call_s``), the card's name and power
 limit, the kernels JSON line (wall and
@@ -593,8 +609,8 @@ device ms of each kernel and its library call; ``amp_launches``,
 ``persist_launches``,
 ``bert_launches``, ``deepfm_launches``, ``remat_launches``,
 ``resilience_launches``, ``server_launches``, ``artifact_launches``,
-``seq2seq_launches``, ``sentiment_launches``, ``srl_launches`` and
-``obs_launches``:
+``seq2seq_launches``, ``sentiment_launches``, ``srl_launches``,
+``obs_launches``, ``parallel_launches`` and ``supervise_launches``:
 those phases' launches
 of the kernels their paths run; ``fused_flat_update_amp``, the gated
 Adam of the AMP path with its gated and skipped launches; the rows at
@@ -2743,27 +2759,47 @@ def _train_family(name: str) -> str:
     return "other"
 
 
+PROFILE_EDGE_CYCLES = 4 * 10 ** 7  # about 20 ms of the card's clock
+
+
 def profile_step(run_step, top=15, family_launches=None,
-                 family=_train_family):
+                 family=_train_family, events=None):
     """One training step under torch.profiler: (host wall ms, device ms
     by kernel family (``family`` of a kernel's name), kernel launches,
     the ``top`` kernels by device ms as [name, ms, launches] rows). A
     dict passed as ``family_launches`` receives the kernels launched by
-    family."""
+    family, a list passed as ``events`` the step's device records as
+    (start µs in the trace, family, name). The profiler drops a device
+    record it places outside its capture window, and late in a long
+    process every profile of a replayed step once lacked one of its 124
+    dropout kernels, as if the card's clock, read on the host's, had
+    moved a record at the step's edge out of the window. So a spin
+    kernel of about 20 ms runs before the step and one after it, each
+    finished on its own side of the step and left out of every
+    figure."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(PROFILE_EDGE_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_step()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        torch.cuda._sleep(PROFILE_EDGE_CYCLES)
+        torch.cuda.synchronize()
     by_family, by_name, launches = {}, {}, 0
     for e in prof.events():
         # a host span (paddle_tpu_torch.profiler's record_function
         # ranges) also shows on the device's timeline: not a kernel
         if e.device_type != torch.autograd.DeviceType.CUDA \
-                or getattr(e, "is_user_annotation", False):
+                or getattr(e, "is_user_annotation", False) \
+                or e.name.startswith("spin_kernel"):
             continue
         fam = family(e.name)
+        if events is not None:
+            events.append((float(e.time_range.start), fam, e.name[:60]))
         ms = float(e.time_range.elapsed_us()) / 1e3
         by_family[fam] = by_family.get(fam, 0.0) + ms
         name = by_name.setdefault(e.name[:90], [0.0, 0])
@@ -2777,6 +2813,40 @@ def profile_step(run_step, top=15, family_launches=None,
     rows = sorted(([n, ms, k] for n, (ms, k) in by_name.items()),
                   key=lambda r: -r[1])[:top]
     return wall_ms, by_family, launches, rows
+
+
+PROFILE_TRIES = 3
+
+
+def profile_replay(run_step, want, before=None):
+    """``profile_step`` of one replayed step whose kernel families must
+    count exactly ``want`` ({family: kernels}). Every replay of one
+    graph runs the same kernels, but torch.profiler drops a device
+    record now and then late in a long process (a full smoke once read
+    123 of a step's 124 dropout kernels), so a reading short of ``want``
+    and above it nowhere is read again, up to PROFILE_TRIES profiles;
+    a reading above ``want`` is returned at once. ``before`` runs ahead
+    of each profile (to reset the wrappers' counts). Returns
+    profile_step's tuple, the last reading's family counts and every
+    reading of ``want``'s families."""
+    readings = []
+    for _ in range(PROFILE_TRIES):
+        if before is not None:
+            before()
+        fam, events = {}, []
+        result = profile_step(run_step, family_launches=fam, events=events)
+        seen = {f: fam.get(f, 0) for f in want}
+        readings.append(seen)
+        if any(seen[f] > want[f] for f in want) or seen == want:
+            break
+        # where the short reading's records lie in the step's trace
+        events.sort()
+        emit({"phase": "profile_short", "want": want, "seen": seen,
+              "device_records": len(events), "first": events[:12],
+              "last": events[-6:],
+              "wanted": {f: [[i, ev[0]] for i, ev in enumerate(events)
+                             if ev[1] == f][:4] for f in want}})
+    return result, fam, readings
 
 
 def grad_noise_floor(feed, fetch, checked, ref):
@@ -2935,13 +3005,14 @@ FUSED_CASES = (
 RAGGED_N = 128 * 4099 + 37
 
 
-def build_recipe(fuse, shard=None, **model):
+def build_recipe(fuse, shard=None, train=True, **model):
     """(main, startup, avg_cost) of the recipe, with
     ``fuse_optimizer_state`` as ``fuse`` and ``model`` overriding
     ``transformer_base``'s arguments (``dropout_rate``, ``fused_ce``,
-    ``tp``, ``attn_impl``, ``pp_encoder``, ``distributed_embedding``);
-    the flags are read while the program is built. ``shard``
-    (a callable taking the program) runs before ``minimize``."""
+    ``tp``, ``attn_impl``, ``pp_encoder``, ``distributed_embedding``,
+    ``n_layer``); the flags are read while the program is built.
+    ``shard`` (a callable taking the program) runs before ``minimize``;
+    ``train=False`` stops there (the forward alone)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models.transformer import transformer_base
 
@@ -2958,7 +3029,9 @@ def build_recipe(fuse, shard=None, **model):
                 attn_impl=impl)
             if shard is not None:
                 shard(main)
-            fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(avg_cost)
+            if train:
+                fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(
+                    avg_cost)
     finally:
         fluid.set_flags(saved)
     return main, startup, avg_cost
@@ -4612,21 +4685,22 @@ def phase_run_steps(card, eager_losses, eager_params):
     # the call before)
     exe.run_steps(main, feed=dev_feed, steps=1, fetch_list=[cost],
                   scope=scope)
-    for fn in launchers:
-        reset_counts(fn)
-    fam_launches = {}
-    wall_ms, by_family, kernels, top = profile_step(
-        lambda: exe.run_steps(main, feed=dev_feed, steps=1,
-                              fetch_list=[cost], scope=scope),
-        family_launches=fam_launches)
+    # the profiler's family of each wrapper
+    fam_of = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+              "flash_bwd_dkv": "flash_bwd_dkv",
+              "fused_flat_update": "fused_update"}
+    (wall_ms, by_family, kernels, top), fam_launches, readings = \
+        profile_replay(
+            lambda: exe.run_steps(main, feed=dev_feed, steps=1,
+                                  fetch_list=[cost], scope=scope),
+            {fam_of[k]: v for k, v in per_step.items()},
+            before=lambda: [reset_counts(fn) for fn in launchers])
     counted = launched()
-    seen = {"flash_fwd": fam_launches.get("flash_fwd", 0),
-            "flash_bwd_dq": fam_launches.get("flash_bwd_dq", 0),
-            "flash_bwd_dkv": fam_launches.get("flash_bwd_dkv", 0),
-            "fused_flat_update": fam_launches.get("fused_update", 0)}
+    seen = {k: fam_launches.get(f, 0) for k, f in fam_of.items()}
     if seen != per_step or counted != per_step:
-        fail("one replayed step: the profiler saw %s, the wrappers counted "
-             "%s, expected %s" % (seen, counted, per_step))
+        fail("one replayed step: the profiler saw %s (readings %s), the "
+             "wrappers counted %s, expected %s"
+             % (seen, readings, counted, per_step))
     busy = sum(by_family.values())
 
     # 4. unroll=True: ten straight-line steps in one graph
@@ -4702,6 +4776,7 @@ def phase_run_steps(card, eager_losses, eager_params):
           "stall_fraction": stall, "loader": loader_report,
           "max_memory_allocated": peak,
           "replayed_step_launches": seen,
+          "profile_readings": readings,
           "profiled_step_wall_ms": wall_ms, "device_busy_ms": busy,
           "device_idle_share": 1.0 - busy / wall_ms,
           # the replayed step's busy time against a step of the timed
@@ -4795,6 +4870,24 @@ LEG_TOL = {"pp": 1e-4, "sp": 2e-4, "ep": 1e-4, "moe": 1e-4}
 # test_a_restored_update_is_the_ranks_update).
 RESTORE_TOL = (1e-5, 1e-6)
 RESTORE_AFTER = 3  # steps before leg (b)'s checkpoint
+# the communication analysis of legs (a)-(c): each leg's program carries
+# a sharding plan before minimize(), the prediction is read before its
+# steps, beside the leg's comm.STATS. (a) data=2, the two word
+# embeddings' outputs pinned to "fsdp" (on this mesh a replication: the
+# analysis predicts a gather at each pin, which comm_overlap widens to
+# the batch's "data" shard); (b) fsdp=2 with every parameter replicated
+# (ReduceStrategy.Reduce's ZeRO plan: the moments on fsdp); (c) its own
+# tp=2 plan. The ParallelExecutor runs legs (a) and (b) as before (its
+# constraint op is the identity). OVERLAP_STEPS: leg (a)'s program
+# after comm_overlap, held bit for bit to leg (a)'s first steps.
+LEG_PIN_RULES = [(r"^embedding\.tmp_\d+$", ("fsdp",)), (r".*", ())]
+OVERLAP_STEPS = 2
+# leg (c)'s forward check: a Megatron FFN pair at the recipe's widths
+# (d_model 512 -> d_inner 2048 -> 512, column- then row-parallel over
+# tp, f32) over B*T rows, where each row-parallel fc is one predicted
+# all-reduce and one ReduceFromGroup all-reduce of the same bytes; and
+# the tp=True recipe's forward, where the two differ (ROADMAP Queue C 2)
+COMM_FFN_ROWS = TRAIN_B * TRAIN_T
 
 
 def saved_blocks(held) -> dict:
@@ -5047,6 +5140,135 @@ def one_card_leg(mode, steps):
     return losses, state, start, dropped
 
 
+def leg_shard(mode, world, overlap=None):
+    """The ``shard`` hook (before ``minimize``) of leg (a)
+    (``"allreduce"``) or (b) (``"reduce"``): the plan of LEG_PIN_RULES's
+    note. With ``overlap`` (a dict) leg (a)'s program also takes
+    ``comm_overlap``; the dict gets the predicted counts before and
+    after the pass, the pins' specs, the stamp and the pass's seconds."""
+    from paddle_tpu_torch import analysis, sharding
+    from paddle_tpu_torch.passes.schedule import CommOverlapPass
+
+    def shard(main):
+        if mode == "allreduce":
+            mesh = sharding.training_mesh(data=world, fsdp=1, tp=1,
+                                          devices=range(world))
+            sharding.shard_program(main, mesh, rules=LEG_PIN_RULES)
+        else:
+            mesh = sharding.training_mesh(data=1, fsdp=world, tp=1,
+                                          devices=range(world))
+            sharding.shard_program(main, mesh, rules=[(r".*", ())])
+        if overlap is None:
+            return
+        overlap["before"] = analysis.analyze_comm(
+            main, batch_size=TRAIN_B).counts()
+        t0 = time.perf_counter()
+        CommOverlapPass(batch_size=TRAIN_B).apply(main)
+        overlap["pass_s"] = time.perf_counter() - t0
+        overlap["after"] = analysis.analyze_comm(
+            main, batch_size=TRAIN_B).counts()
+        overlap["specs"] = [list(op.attrs["spec"])
+                            for op in main.global_block().ops
+                            if op.type == "sharding_constraint"]
+        overlap["stamp"] = getattr(main, "_schedule_stamp", None)
+
+    return shard
+
+
+def comm_prediction(main, fetch, batch=TRAIN_B):
+    """``analyze_comm`` of a plan-stamped program: its counts, bytes,
+    unknown op types, events and the host seconds the analysis took."""
+    from paddle_tpu_torch import analysis
+
+    t0 = time.perf_counter()
+    rep = analysis.analyze_comm(main, batch_size=batch, fetch_list=[fetch])
+    return {"analysis_s": time.perf_counter() - t0, "counts": rep.counts(),
+            "total_bytes": rep.total_bytes, "unknowns": list(rep.unknowns),
+            "events": [[e.kind, e.reason, e.op_type, e.var, list(e.axes),
+                        e.bytes] for e in rep.events]}
+
+
+def overlap_rank(world, place, feed, weights):
+    """Leg (a)'s program after ``comm_overlap`` (before ``minimize``),
+    through the same ParallelExecutor: its first OVERLAP_STEPS losses
+    and what the pass did."""
+    import paddle_tpu_torch as fluid
+
+    counts = {}
+    main, startup, cost = build_recipe(
+        True, shard=leg_shard("allreduce", world, overlap=counts))
+    scope, exe = fluid.Scope(), fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    fluid.params_from_numpy(weights, scope, place, program=main)
+    pe = fluid.ParallelExecutor(main_program=main, loss_name=cost.name,
+                                scope=scope, place=place)
+    counts["losses"] = [float(pe.run(feed=feed, fetch_list=[cost.name])[0])
+                        for _ in range(OVERLAP_STEPS)]
+    return counts
+
+
+def build_ffn_pair(mesh):
+    """(main, startup, loss) of COMM_FFN_ROWS's Megatron FFN pair,
+    forward only, sharded over ``mesh``."""
+    import paddle_tpu_torch as fluid
+
+    d, f = TRAIN_MODEL["d_model"], TRAIN_MODEL["d_inner_hid"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[-1, d], dtype="float32",
+                              append_batch_size=False)
+        h = fluid.layers.fc(x, size=f, act="relu",
+                            param_attr=fluid.ParamAttr(sharding=(None,
+                                                                 "tp")))
+        out = fluid.layers.fc(h, size=d,
+                              param_attr=fluid.ParamAttr(sharding=("tp",
+                                                                   None)))
+        loss = fluid.layers.mean(out)
+        fluid.sharding.shard_program(main, mesh)
+    return main, startup, loss
+
+
+def tp_forward_rank(world, place):
+    """Leg (c)'s forward check on a rank (see COMM_FFN_ROWS): for the FFN
+    pair and the tp=True recipe, one forward's ``comm.STATS`` beside the
+    prediction and the count of row-parallel fcs."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import sharding
+    from paddle_tpu_torch.sharding import comm
+
+    mesh = sharding.training_mesh(data=1, fsdp=1, tp=world,
+                                  devices=range(world))
+    rng = np.random.RandomState(SEED + 61)
+    ffn_feed = {"x": rng.standard_normal(
+        (COMM_FFN_ROWS, TRAIN_MODEL["d_model"])).astype(np.float32)}
+    out = {}
+    for key in ("ffn", "recipe"):
+        if key == "ffn":
+            main, startup, loss = build_ffn_pair(mesh)
+            fd = ffn_feed
+        else:
+            main, startup, loss = build_recipe(
+                True, tp=True, train=False,
+                shard=lambda m: sharding.shard_program(m, mesh))
+            fd = train_batch()
+        scope, exe = fluid.Scope(), fluid.Executor(place)
+        exe.run(startup, scope=scope)
+        fluid.params_from_numpy(seeded_weights(main), scope, place,
+                                program=main)
+        row = comm_prediction(main, loss, batch=COMM_FFN_ROWS
+                              if key == "ffn" else TRAIN_B)
+        comm.reset_stats()
+        row["loss"] = float(exe.run(main, feed=fd, fetch_list=[loss],
+                                    scope=scope)[0])
+        row["stats"] = {k: list(v) for k, v in comm.STATS.items()}
+        row["row_parallel"] = sum(1 for op in main.global_block().ops
+                                  if op.type == "mul"
+                                  and op.attrs.get("_tp") == "row")
+        out[key] = row
+        del scope, exe
+    return out
+
+
 def _parallel_rank(rank, world, port, backend, out_dir, modes, ref_path):
     """One rank of the parallel phase (a spawned process): each mode's
     losses, step times, launches, collective bytes and held state, into
@@ -5076,6 +5298,12 @@ def _parallel_rank(rank, world, port, backend, out_dir, modes, ref_path):
             ref = {n: z[n] for n in z.files}
     weights = None  # every mode's program names its parameters alike
     for mode in modes:
+        if mode == "overlap":
+            res[mode] = overlap_rank(world, place, feed, weights)
+            continue
+        if mode == "tp_forward":
+            res[mode] = tp_forward_rank(world, place)
+            continue
         scope, exe = fluid.Scope(), fluid.Executor(place)
         fetch_out, mode_feed = None, feed
         if mode in PARALLEL_LEGS:
@@ -5087,7 +5315,10 @@ def _parallel_rank(rank, world, port, backend, out_dir, modes, ref_path):
                 True, tp=True,
                 shard=lambda m: sharding.shard_program(m, mesh))
         else:
-            main, startup, cost = build_recipe(True)
+            main, startup, cost = build_recipe(True,
+                                               shard=leg_shard(mode, world))
+        pred = comm_prediction(main, cost) if mode in PARALLEL_MODES \
+            else None
         exe.run(startup, scope=scope)
         if mode not in PARALLEL_LEGS:
             if weights is None:
@@ -5178,7 +5409,8 @@ def _parallel_rank(rank, world, port, backend, out_dir, modes, ref_path):
                "collective_bytes_per_step":
                    comm.stats_bytes() / PARALLEL_STEPS,
                "collectives": {k: list(v) for k, v in comm.STATS.items()},
-               "heads": sorted(heads), "flash_shapes": shapes, **extra}
+               "heads": sorted(heads), "flash_shapes": shapes,
+               "comm_predicted": pred, **extra}
         if mode in PARALLEL_LEGS:
             # how the leg's permutes moved (pp's; the others send none)
             row["transport"] = comm.permute_transport(
@@ -5311,8 +5543,8 @@ def phase_parallel(card, ref_losses, ref_params, n_recipe):
     np.savez(ref_path, **ref_params)
     out = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
     t_ranks = time.perf_counter()
-    ranks = _run_ranks(2, "gloo", PARALLEL_MODES + tuple(PARALLEL_LEGS),
-                       900, ref_path, out)
+    ranks = _run_ranks(2, "gloo", PARALLEL_MODES + ("overlap", "tp_forward")
+                       + tuple(PARALLEL_LEGS), 900, ref_path, out)
     ranks_s = time.perf_counter() - t_ranks
     ref = ref_losses[:PARALLEL_STEPS]
 
@@ -5334,6 +5566,7 @@ def phase_parallel(card, ref_losses, ref_params, n_recipe):
                  % (mode, ranks[0][mode]["losses"],
                     ref if mode != "reduce" else "allreduce's", err,
                     PARALLEL_TOL[mode]))
+    comm_rows = parallel_comm(ranks)
     control = state_gaps(half_batch_state(fluid.CUDAPlace(0)), ref_params,
                          seeded_weights(build_recipe(True)[0]))
     per_mode = {}
@@ -5396,7 +5629,7 @@ def phase_parallel(card, ref_losses, ref_params, n_recipe):
           "zero_moments": ranks[0]["reduce"]["flat_moments"],
           "tp_groups": ranks[0]["tp"]["groups"],
           "capture": ranks[0]["tp"]["capture"], "nccl": nccl,
-          "legs": legs, "ranks_s": ranks_s,
+          "legs": legs, "comm": comm_rows, "ranks_s": ranks_s,
           "parallel_s": time.perf_counter() - t0})
     # the state after the steps (checked once the readings are out)
     for mode in PARALLEL_MODES:
@@ -5426,6 +5659,57 @@ def phase_parallel(card, ref_losses, ref_params, n_recipe):
     per_mode["pp_stage"] = legs["pp"]["stage_flash_launches"]
     per_mode["restore"] = legs["restore"]["launches"]
     return per_mode
+
+
+def parallel_comm(ranks):
+    """Legs (a)-(c)'s predictions beside their ``comm.STATS`` (what the
+    parallel line prints), comm_overlap on leg (a)'s program and leg
+    (c)'s forward check (COMM_FFN_ROWS). Fails where a rank's reading
+    breaks what LEG_PIN_RULES's and COMM_FFN_ROWS's notes state: the
+    rewritten program's losses are leg (a)'s bit for bit, the pass
+    removes the pins' two predicted gathers, the FFN pair's
+    row-parallel fc is one predicted all-reduce and one ReduceFromGroup
+    all-reduce of the same bytes, and the recipe's difference (no
+    predicted all-reduce, one a row-parallel fc at run time) holds."""
+    ffn_bytes = COMM_FFN_ROWS * TRAIN_MODEL["d_model"] * 4
+    for r in ranks:
+        ov = r["overlap"]
+        want = r["allreduce"]["losses"][:OVERLAP_STEPS]
+        if ov["losses"] != want:
+            fail("parallel comm_overlap rank %d: losses %s, leg (a)'s %s "
+                 "(not bit-equal)" % (r["rank"], ov["losses"], want))
+        if ov["before"].get("all-gather") != 2 \
+                or "all-gather" in ov["after"] or not ov["stamp"] \
+                or ov["specs"] != [["data"]] * 2:
+            fail("parallel comm_overlap rank %d: %s" % (r["rank"], ov))
+        ffn, rec = r["tp_forward"]["ffn"], r["tp_forward"]["recipe"]
+        ev = [e for e in ffn["events"] if e[0] == "all-reduce"]
+        if ffn["counts"] != {"all-reduce": 1} or ev[0][5] != ffn_bytes \
+                or ffn["stats"] != {"all_reduce": [1, ffn_bytes]} \
+                or ffn["row_parallel"] != 1:
+            fail("parallel tp forward rank %d: the FFN pair's prediction "
+                 "%s (%s) and collectives %s disagree"
+                 % (r["rank"], ffn["counts"], ffn["events"], ffn["stats"]))
+        if rec["counts"].get("all-reduce", 0) != 0 \
+                or rec["stats"].get("all_reduce", [0])[0] \
+                != rec["row_parallel"]:
+            fail("parallel tp forward rank %d: the recipe's prediction %s "
+                 "against %d row-parallel fcs and collectives %s: the "
+                 "recorded difference changed"
+                 % (r["rank"], rec["counts"], rec["row_parallel"],
+                    rec["stats"]))
+    out = {m: {"predicted": {k: ranks[0][m]["comm_predicted"][k]
+                             for k in ("counts", "total_bytes", "unknowns",
+                                       "analysis_s")},
+               "collectives": ranks[0][m]["collectives"]}
+           for m in PARALLEL_MODES}
+    out["overlap"] = ranks[0]["overlap"]
+    out["tp_forward"] = {
+        k: {f: ranks[0]["tp_forward"][k][f]
+            for f in ("counts", "total_bytes", "stats", "row_parallel",
+                      "analysis_s", "loss")}
+        for k in ("ffn", "recipe")}
+    return out
 
 
 def parallel_legs(ranks, out, ref_losses, ref_params):
@@ -5725,6 +6009,284 @@ def s2d_stem_check(card):
         fail("s2d stem: parts from the plain stem by %g of its max "
              "(> 1e-4)" % rel)
     return {"shape": list(outs["plain"].shape), "max_rel_err": rel}
+
+
+# the supervise phase: a supervised elastic run of the recipe cut to
+# SUPERVISE_LAYERS layers (full widths, bf16 flags, one flat Adam group),
+# SUPERVISE_STEPS steps of its own batches. Attempt 0: two gloo ranks on
+# card 0 (ReduceStrategy.Reduce, dp=2) under the JAX chaos test's fault
+# plan (tests/test_resilience_chaos.py:64-67): each rank counts its own
+# hits and writes one payload a serial, so ``ckpt.payload``'s hit 2
+# corrupts serial 2 on both ranks, ``ckpt.publish``'s hit 1 delays serial
+# 1 and ``trainer.step``'s hit 3 kills both before step 3. Attempt 1: one
+# rank, no plan: it restores serial 1 (the newest valid; 2 -> 1) and
+# runs steps 2-5. Its save of serial 2 finds the directory taken (one
+# process publishes only a new serial), so serial 2 stays corrupt for
+# ``tools.ckpt verify``.
+SUPERVISE_LAYERS = 2
+SUPERVISE_STEPS = 6
+SUPERVISE_WORLDS = (2, 1)
+SUPERVISE_PLAN = (("ckpt.payload", "corrupt", [2], {}),
+                  ("ckpt.publish", "delay", [1], {"delay_ms": 50}),
+                  ("trainer.step", "crash", [3], {}))
+
+
+def supervise_feed(step):
+    """The supervised run's batch of ``step``."""
+    return train_batch(SEED + 70 + step)
+
+
+def build_supervised(train=True):
+    return build_recipe(True, train=train, n_layer=SUPERVISE_LAYERS)
+
+
+def supervised_worker(argv):
+    """One rank of the supervise phase's worker (``chip_smoke.py
+    --supervised-worker ROOT OUT_JSON``, started by ``tools.launch``):
+    the cut recipe through a ParallelExecutor (Reduce) from the seeded
+    weights, restored from the newest valid serial of ROOT, an elastic
+    save from every rank after every step (serial = step), the
+    ``trainer.step`` fault site and a heartbeat (rank 0) a step. Rank 0
+    rewrites OUT_JSON every step: losses by global step, step and save
+    ms, the restore ms, its launch counters, the injection log."""
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import ckpt, parallel
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
+    from paddle_tpu_torch.resilience import (faults, hit_counts,
+                                             injection_log, note_progress)
+
+    root, out_json = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
+    if world > 1:
+        parallel.init_distributed(backend="gloo")
+    rank = torch.distributed.get_rank() if world > 1 else 0
+    torch.cuda.set_device(0)
+    place = fluid.CUDAPlace(0)
+    booted_s = time.perf_counter() - T_START
+    main, startup, cost = build_supervised()
+    scope, exe = fluid.Scope(), fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    bs = fluid.BuildStrategy()
+    bs.reduce_strategy = fluid.parallel.ReduceStrategy.Reduce
+    pe = fluid.ParallelExecutor(main_program=main, loss_name=cost.name,
+                                build_strategy=bs, scope=scope, place=place)
+    t0 = time.perf_counter()
+    state, targs = ckpt.restore(root, program=main, scope=scope,
+                                place=place)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if state is None:  # a fresh run starts from the seeded weights
+        fluid.params_from_numpy(seeded_weights(main), scope, place,
+                                program=main)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - T_START
+    start = int(targs["step"]) if state is not None else 0
+    launchers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                 fused_flat_update)
+    for fn in launchers:
+        fn.launches = 0
+    rec = {"world_size": world, "start_step": start, "losses": {},
+           "step_ms": [], "save_ms": [], "done": False,
+           "restore_ms": restore_ms if state is not None else None,
+           "booted_s": booted_s, "built_s": built_s,
+           "groups": sum(1 for n in main.global_block().vars
+                         if n.startswith("fused_param_storage"))}
+
+    def publish():
+        if rank != 0:
+            return
+        rec["launches"] = {fn.__name__: fn.launches for fn in launchers}
+        rec["injection_log"] = injection_log()
+        rec["hit_counts"] = hit_counts()
+        fd, tmp = tempfile.mkstemp(prefix=".out_",
+                                   dir=os.path.dirname(out_json))
+        with os.fdopen(fd, "w") as f:
+            json.dump(rec, f)
+        os.replace(tmp, out_json)
+
+    rec["first_beat_s"] = time.perf_counter() - T_START
+    note_progress(start, resumed_from=start)
+    for s in range(start, SUPERVISE_STEPS):
+        faults.fire("trainer.step")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec["losses"][str(s)] = float(pe.run(feed=supervise_feed(s),
+                                             fetch_list=[cost.name])[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ckpt.save_checkpoint_elastic(root, pe.sharded_state(), serial=s,
+                                     trainer_args={"step": s + 1},
+                                     max_num_checkpoints=100)
+        rec["step_ms"].append((t1 - t0) * 1e3)
+        rec["save_ms"].append((time.perf_counter() - t1) * 1e3)
+        publish()
+        note_progress(s + 1, resumed_from=start)
+        if world > 1:
+            # no rank reaches the next step's fault site before rank 0
+            # has beaten this step (a kill there then loses no beat)
+            torch.distributed.barrier()
+    rec["done"] = True
+    publish()
+    if world > 1:
+        parallel.env.shutdown()
+
+
+def phase_supervise(card):
+    """The supervised elastic run (see SUPERVISE_LAYERS): an in-process,
+    unfaulted one-card oracle of SUPERVISE_STEPS steps, then
+    ``resilience.Supervisor`` over ``python -m
+    paddle_tpu_torch.tools.launch`` at SUPERVISE_WORLDS. Fails unless the
+    report is ``success`` with one restart, one crash, ``steps_lost ==
+    [1]`` and worlds [2, 1]; every step of both attempts within
+    PARALLEL_TOL["allreduce"] of the oracle; each worker's counters show
+    the three flash kernels and ``fused_flat_update`` at their expected
+    counts; ``tools.ckpt verify`` exits 1 naming serial 2 and ``gc
+    --keep 1`` keeps the newest valid serial."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import ckpt
+    from paddle_tpu_torch.resilience import (FaultPlan, Supervisor,
+                                             SupervisorGaveUp, plan_env)
+    from paddle_tpu_torch.tools.ckpt import main as ckpt_cli
+
+    t_phase = time.perf_counter()
+    place = fluid.CUDAPlace(0)
+    main, startup, cost = build_supervised()
+    scope, exe = fluid.Scope(), fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    fluid.params_from_numpy(seeded_weights(main), scope, place,
+                            program=main)
+    oracle = [float(exe.run(main, feed=supervise_feed(s), fetch_list=[cost],
+                            scope=scope)[0])
+              for s in range(SUPERVISE_STEPS)]
+    del scope, exe
+    torch.cuda.empty_cache()
+
+    plan = FaultPlan(seed=11)
+    for site, kind, hits, kw in SUPERVISE_PLAN:
+        plan.rule(site, kind, hits=hits, **kw)
+    work = tempfile.mkdtemp(prefix="chip_smoke_supervise_")
+    root = os.path.join(work, "ck")
+    here = os.path.dirname(os.path.abspath(__file__))
+    outs = [os.path.join(work, "out_%d.json" % a)
+            for a in range(len(SUPERVISE_WORLDS))]
+
+    def launch(attempt, last):
+        if attempt >= len(SUPERVISE_WORLDS):
+            return None
+        n = SUPERVISE_WORLDS[attempt]
+        env = {"PYTHONPATH": os.pathsep.join(
+            [here] + os.environ.get("PYTHONPATH", "").split(os.pathsep)),
+            "OMP_NUM_THREADS": "1"}
+        if attempt == 0:
+            env.update(plan_env(plan))
+        return {"argv": [sys.executable, "-m",
+                         "paddle_tpu_torch.tools.launch", "--nproc", str(n),
+                         "--backend", "gloo", os.path.join(here,
+                                                           "chip_smoke.py"),
+                         "--supervised-worker", root, outs[attempt]],
+                "env": env, "cwd": here, "world_size": n,
+                "stdout": os.path.join(work, "attempt_%d.log" % attempt)}
+
+    t0 = time.perf_counter()
+    try:
+        report = Supervisor(launch, watchdog_s=90.0, boot_grace_s=150.0,
+                            max_restarts=1,
+                            heartbeat_dir=os.path.join(work, "hb")).run()
+    except SupervisorGaveUp as e:
+        report = e.report
+    supervise_s = time.perf_counter() - t0
+    logs = ""
+    for a in range(len(report["attempts"])):
+        with open(os.path.join(work, "attempt_%d.log" % a)) as f:
+            logs += "attempt %d:\n%s\n" % (a, f.read()[-3000:])
+    recs = []
+    for path in outs:
+        if os.path.exists(path):
+            with open(path) as f:
+                recs.append(json.load(f))
+    if not report["success"] or report["restarts"] != 1 \
+            or report["crashes"] != 1 or report["steps_lost"] != [1] \
+            or [a["world_size"] for a in report["attempts"]] \
+            != list(SUPERVISE_WORLDS):
+        fail("supervise: report %s\nworkers %s\n%s"
+             % (report, [{k: v for k, v in r.items()
+                          if k != "injection_log"} for r in recs], logs))
+    first, second = recs
+    if first["done"] or not second["done"] or first["start_step"] != 0 \
+            or second["start_step"] != 2:
+        fail("supervise: attempts %s" % [{k: r[k] for k in
+                                          ("done", "start_step")}
+                                         for r in recs])
+    kinds = {(x["site"], x["kind"]) for x in first["injection_log"]}
+    if kinds != {(site, kind) for site, kind, _h, _k in SUPERVISE_PLAN
+                 if site != "trainer.step"}:
+        fail("supervise: injections %s" % first["injection_log"])
+    gaps = []
+    for r in recs:
+        for step, loss in r["losses"].items():
+            gaps.append(abs(loss - oracle[int(step)]) / abs(oracle[int(step)]))
+    if not max(gaps) <= PARALLEL_TOL["allreduce"]:
+        fail("supervise: losses %s part from the oracle %s by %g (> %g)"
+             % ([r["losses"] for r in recs], oracle, max(gaps),
+                PARALLEL_TOL["allreduce"]))
+    per_layer = 3 * SUPERVISE_LAYERS
+    for r in recs:
+        steps = len(r["losses"])
+        want = {n: per_layer * steps for n in ("flash_fwd", "flash_bwd_dq",
+                                               "flash_bwd_dkv")}
+        want["fused_flat_update"] = r["groups"] * steps
+        if r["launches"] != want:
+            fail("supervise: a world of %d launched %s, expected %s"
+                 % (r["world_size"], r["launches"], want))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        verify_rc = ckpt_cli(["verify", "--root", root])
+    verify = out.getvalue()
+    if verify_rc != 1 or "BAD checkpoint_2" not in verify:
+        fail("supervise: tools.ckpt verify exited %d:\n%s"
+             % (verify_rc, verify))
+    newest = ckpt.latest_valid_serial(root)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gc_rc = ckpt_cli(["gc", "--root", root, "--keep", "1"])
+    kept = ckpt.list_checkpoints(root)
+    if gc_rc != 0 or kept != [SUPERVISE_STEPS - 1] or newest != kept[0] \
+            or not ckpt.is_valid(root, kept[0]):
+        fail("supervise: gc --keep 1 exited %d and kept %s (newest valid "
+             "%s)" % (gc_rc, kept, newest))
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "supervise", "card": card, "layers": SUPERVISE_LAYERS,
+          "batch": TRAIN_B, "seq": TRAIN_T, "steps": SUPERVISE_STEPS,
+          "worlds": list(SUPERVISE_WORLDS), "oracle_losses": oracle,
+          "losses": [r["losses"] for r in recs], "max_rel_err": max(gaps),
+          "tolerance": PARALLEL_TOL["allreduce"],
+          "restarts": report["restarts"], "crashes": report["crashes"],
+          "steps_lost": report["steps_lost"],
+          "recoveries_s": report["recoveries_s"],
+          "attempt_s": [a["duration_s"] for a in report["attempts"]],
+          "median_step_ms": [float(np.median(r["step_ms"])) for r in recs],
+          "step_ms": [r["step_ms"] for r in recs],
+          "save_ms": [r["save_ms"] for r in recs],
+          "restore_ms": second["restore_ms"],
+          "worker_booted_s": [r["booted_s"] for r in recs],
+          "worker_built_s": [r["built_s"] for r in recs],
+          "worker_first_beat_s": [r["first_beat_s"] for r in recs],
+          "launches": [r["launches"] for r in recs],
+          "injections": first["injection_log"], "verify": verify,
+          "supervise_s": supervise_s,
+          "phase_s": time.perf_counter() - t_phase})
+    return {n: sum(r["launches"][n] for r in recs)
+            for n in recs[0]["launches"]}
 
 
 def phase_resnet(card):
@@ -6162,14 +6724,14 @@ def phase_dropout_recipe(card, base):
     # 3. one replayed step profiled
     exe.run_steps(main, feed=dev_feed, steps=1, fetch_list=[cost],
                   scope=scope)
-    fam = {}
-    wall_ms, by_family, kernels, top = profile_step(
+    (wall_ms, by_family, kernels, top), fam, readings = profile_replay(
         lambda: exe.run_steps(main, feed=dev_feed, steps=1,
                               fetch_list=[cost], scope=scope),
-        family_launches=fam)
+        {"dropout": 2 * sites})
     if fam.get("dropout", 0) != 2 * sites:
-        fail("dropout_recipe: one replayed step ran %d dropout kernels, "
-             "expected %d" % (fam.get("dropout", 0), 2 * sites))
+        fail("dropout_recipe: one replayed step ran %d dropout kernels "
+             "(readings %s), expected %d"
+             % (fam.get("dropout", 0), readings, 2 * sites))
     busy = sum(by_family.values())
     tokens = TRAIN_B * TRAIN_T
     emit({"phase": "dropout_recipe", "card": card,
@@ -6194,6 +6756,7 @@ def phase_dropout_recipe(card, base):
           "device_idle_share": 1.0 - busy / wall_ms,
           "device_idle_share_chunked": 1.0 - busy / step_ms,
           "replayed_step_dropout_kernels": fam.get("dropout", 0),
+          "profile_readings": readings,
           "kernel_launches_per_step": kernels,
           "device_ms_by_family": dict(sorted(by_family.items(),
                                              key=lambda kv: -kv[1])),
@@ -9396,6 +9959,7 @@ def main():
     parallel_launches = phase_parallel(card, recipe_losses, parallel_ref,
                                        n_recipe)
     del parallel_ref
+    supervise_launches = phase_supervise(card)
     offload_launches = phase_offload(card)
     torch.cuda.empty_cache()
     dropout_launches, dropout_step_ms = phase_dropout_recipe(card, base)
@@ -9559,6 +10123,10 @@ def main():
                     "ep"][name]
                 kernels[-1]["restore_launches"] = parallel_launches[
                     "restore"][name]
+                # the supervise phase's workers (2 layers; B=16 a rank on
+                # two ranks, then B=32 on one)
+                kernels[-1]["supervise_launches"] = supervise_launches[
+                    name]
                 kernels[-1]["persist_launches"] = persist_launches[name]
                 kernels[-1]["bert_launches"] = bert_launches[name]
                 # the dropout recipe's trainable artifact, 10 run steps
@@ -9672,7 +10240,10 @@ def main():
             "fused_flat_update"] + parallel_launches["tp"][
             "fused_flat_update"],
         "restore_launches": parallel_launches["restore"][
-            "fused_flat_update"]})
+            "fused_flat_update"],
+        # the supervise phase's workers: the 2-layer recipe's group, a
+        # ZeRO half on each of two ranks, then whole on one
+        "supervise_launches": supervise_launches["fused_flat_update"]})
     # the recipe's group at one rank's ZeRO half (Reduce over two ranks)
     fz = next(r for r in fused_rows if r["n"] == n_recipe // 2
               and (r["kind"], r["moments"], r["owns"]) == ("adam", "bf16",
@@ -9838,4 +10409,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--supervised-worker"]:
+        supervised_worker(sys.argv[2:])
+    else:
+        main()

@@ -23,41 +23,52 @@ Pillars (one module each):
     pass;
   * recompile  — lint for feed shapes that defeat the captured graphs,
     cross-checked against serving bucket configs;
-  * restore_lint — the checkpoint restore-lint ``ckpt.restore`` runs.
+  * restore_lint — the checkpoint restore-lint ``ckpt.restore`` runs;
+  * spmd/comm  — PartitionSpec propagation over plan-stamped programs:
+    predicted collectives (``analyze_comm``), the ``comm-*`` lint
+    family (opt-in via ``with_comm=True``), roofline attribution of
+    collective bytes, and ``suggest_constraints`` placement hints.
 
 Entry points: :func:`check_program` (everything at once),
 ``Program.validate()``, and the ``check_program`` flag read by the
-Executor. The SPMD communication analysis (``with_comm``,
-``analyze_comm``) is not ported (ROADMAP Queue A 9). The CLI is
-``python -m paddle_tpu_torch.tools.check_program``.
+Executor, and the CLI ``python -m paddle_tpu_torch.tools.check_program``.
 """
 
 from __future__ import annotations
 
 from typing import Iterable, List, Optional, Sequence
 
-from ..core.enforce import not_ported
 from ..core.program import Program
 from . import dataflow  # noqa: F401  (shared def-use utilities)
+from .comm import (CommReport, Suggestion, analyze_comm,
+                   apply_suggestions, count_collectives,
+                   suggest_constraints)
 from .diagnostics import ERROR, WARNING, Diagnostic, render
 from .infer import InferResult, infer_program_types
 from .liveness import MemoryReport, TensorLife, analyze_liveness
 from .op_registry import (SignatureError, TensorType, UNKNOWN,
-                          register_signature, registered_ops)
+                          comm_registered_ops, get_comm_signature,
+                          register_comm, register_signature,
+                          registered_ops)
 from .recompile import (check_dataloader_shapes, check_decode_feeds,
                         check_serving_buckets, find_recompile_hazards)
 from .restore_lint import (CKPT_EXTRA_VAR, CKPT_MISSING_VAR,
                            check_restore_state)
+from .spmd import CommEvent, SpmdResult, UNKNOWN_SPEC, propagate_specs
 from .validate import validate_graph
 
 __all__ = [
-    "AnalysisReport", "CKPT_EXTRA_VAR", "CKPT_MISSING_VAR", "Diagnostic",
-    "ERROR", "InferResult", "MemoryReport", "SignatureError", "TensorLife",
-    "TensorType", "UNKNOWN", "WARNING", "analyze_liveness",
-    "check_dataloader_shapes", "check_decode_feeds", "check_program",
-    "check_restore_state", "check_serving_buckets", "dataflow",
-    "find_recompile_hazards", "infer_program_types", "register_signature",
-    "registered_ops", "render", "validate_graph",
+    "AnalysisReport", "CKPT_EXTRA_VAR", "CKPT_MISSING_VAR", "CommEvent",
+    "CommReport", "Diagnostic", "ERROR", "InferResult", "MemoryReport",
+    "SignatureError", "SpmdResult", "Suggestion", "TensorLife",
+    "TensorType", "UNKNOWN", "UNKNOWN_SPEC", "WARNING", "analyze_comm",
+    "analyze_liveness", "apply_suggestions", "check_dataloader_shapes",
+    "check_decode_feeds", "check_program", "check_restore_state",
+    "check_serving_buckets", "comm_registered_ops", "count_collectives",
+    "dataflow", "find_recompile_hazards", "get_comm_signature",
+    "infer_program_types", "propagate_specs", "register_comm",
+    "register_signature", "registered_ops", "render",
+    "suggest_constraints", "validate_graph",
 ]
 
 
@@ -67,10 +78,12 @@ class AnalysisReport:
 
     def __init__(self, diagnostics: List[Diagnostic],
                  inferred: Optional[InferResult] = None,
-                 memory: Optional[MemoryReport] = None):
+                 memory: Optional[MemoryReport] = None,
+                 comm: Optional[CommReport] = None):
         self.diagnostics = list(diagnostics)
         self.inferred = inferred
         self.memory = memory
+        self.comm = comm
 
     @property
     def errors(self) -> List[Diagnostic]:
@@ -91,6 +104,8 @@ class AnalysisReport:
         text = render(self.diagnostics)
         if self.memory is not None:
             text += "\n" + self.memory.render()
+        if self.comm is not None:
+            text += "\n" + self.comm.render()
         return text
 
     def __repr__(self):
@@ -116,16 +131,14 @@ def check_program(program: Optional[Program] = None,
     for danglingness). ``buckets`` is a serving bucket config for the
     recompile cross-check; ``strict_batch=True`` (serving-oriented
     callers) additionally flags a dynamic batch axis those buckets do
-    not cover. ``with_comm=True`` raises NotImplementedError (the SPMD
-    communication analysis, ROADMAP Queue A 9). Otherwise raises
-    nothing: all findings come back as :class:`Diagnostic` records on
-    the report.
+    not cover. ``with_comm=True`` adds the SPMD communication analysis
+    (predicted collectives + the ``comm-*`` lints) for plan-stamped
+    programs — a no-op (planless report, zero diagnostics) otherwise.
+    Raises nothing: all findings come back as :class:`Diagnostic`
+    records on the report.
     """
     from ..core.program import default_main_program
 
-    if with_comm:
-        raise not_ported("check_program(with_comm=True): the SPMD "
-                         "communication analysis", "Queue A 9, (g3)")
     program = program or default_main_program()
     diags: List[Diagnostic] = []
     diags.extend(validate_graph(program, feed=feed,
@@ -139,4 +152,11 @@ def check_program(program: Optional[Program] = None,
     if with_memory:
         memory = analyze_liveness(program, fetch_list=fetch_list,
                                   feed=feed, assume_batch=assume_batch)
-    return AnalysisReport(diags, inferred=inferred, memory=memory)
+    comm = None
+    if with_comm:
+        comm = analyze_comm(
+            program, fetch_list=tuple(fetch_list or ()),
+            batch_size=assume_batch if assume_batch != 1 else None)
+        diags.extend(comm.diagnostics)
+    return AnalysisReport(diags, inferred=inferred, memory=memory,
+                          comm=comm)

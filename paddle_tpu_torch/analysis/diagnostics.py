@@ -5,8 +5,7 @@ Reference: the PADDLE_ENFORCE machinery surfaces op-level context as
 formatted strings at the failure site (platform/enforce.h:241); here the
 analyzer returns *records* so callers (tests, the Executor gate,
 ``Program.validate``) can filter by severity/code and render
-consistently. The communication lints' codes are not ported (ROADMAP
-Queue A 9).
+consistently.
 """
 
 from __future__ import annotations
@@ -27,6 +26,12 @@ SHAPE_MISMATCH = "shape-mismatch"
 DTYPE_MISMATCH = "dtype-mismatch"
 MAYBE_UNINITIALIZED = "maybe-uninitialized"
 RECOMPILE_HAZARD = "recompile-hazard"
+# Communication lints (opt-in via check_program(with_comm=True)); the
+# predicted-collective model behind them lives in analysis/spmd.py.
+COMM_LAYOUT_TRANSITION = "comm-layout-transition"
+COMM_RESHARDING_CHURN = "comm-resharding-churn"
+COMM_INDIVISIBLE_REPLICATION = "comm-indivisible-replication"
+COMM_SHARDED_PERSISTABLE_WRITE = "comm-sharded-persistable-write"
 
 
 class Diagnostic:

@@ -20,8 +20,8 @@ ops/dims degrade to unknown values, never to false positives. Ops with
 no registered signature fall back to abstract evaluation of their torch
 fn on meta tensors in analysis/infer.py.
 
-The communication half of the JAX package's registry (``CommSig``,
-``register_comm``) is not ported (ROADMAP Queue A 9).
+The communication half (``CommSig``, ``register_comm``) declares how
+each op type moves sharded data; ``analysis/spmd.py`` reads it.
 
 Adding a signature:
 
@@ -652,3 +652,181 @@ def _sig_int8_conv_dequant(op, ins):
     h = _dim(x[2], w[2], strides[0], paddings[0], dilations[0])
     ww = _dim(x[3], w[3], strides[1], paddings[1], dilations[1])
     return [TensorType((x[0], w[0], h, ww), np.float32)]
+
+
+# ---------------------------------------------------------------------------
+# Comm-relevant metadata: how each op type moves sharded data. The SPMD
+# spec propagator (analysis/spmd.py) reads these declarations —
+# contraction dims, reduction axes, layout behavior — instead of
+# special-casing op names; op types with no comm signature
+# degrade to unknown-spec, never to a false prediction (the same
+# lattice discipline as the shape signatures above).
+# ---------------------------------------------------------------------------
+
+
+class CommSig:
+    """One op type's communication declaration.
+
+    ``kind`` selects the propagation rule in analysis/spmd.py:
+
+      elementwise     broadcast-merge input layouts (free: local slices)
+      passthrough     every output mirrors input 0's layout
+      mirror          output i mirrors input i (extra outputs scalar)
+      contraction     dot-general: ``contract(op, ins)`` returns the
+                      (lhs_dims, rhs_dims) contracting dims, or None to
+                      degrade (e.g. a transposed operand the attrs
+                      cannot see)
+      reduction       ``reduce_dims(op, ins)`` returns the reduced dims
+                      of input 0 (None degrades); sharded reduced dims
+                      predict one all-reduce
+      rowwise         normalizes over the LAST dim: passthrough iff
+                      that dim is unsharded, else unknown (the sharded
+                      softmax/layer_norm lowering is the partitioner's
+                      business)
+      transpose       permutes the layout by the ``perm`` attr
+      constraint      sharding_constraint: output pinned to the cleaned
+                      attr spec; dropped axes predict an all-gather
+      replicated_out  produces a replicated value (fill_constant)
+      attention       fused SDPA: passthrough iff Q/K/V share a
+                      batch-only layout, else unknown
+      gather_table    embedding gather: ids layout + a replicated
+                      feature dim iff the table is unsharded
+    """
+
+    __slots__ = ("kind", "contract", "reduce_dims")
+
+    def __init__(self, kind: str, contract: Optional[Callable] = None,
+                 reduce_dims: Optional[Callable] = None):
+        self.kind = kind
+        self.contract = contract
+        self.reduce_dims = reduce_dims
+
+    def __repr__(self):
+        return f"CommSig(kind={self.kind!r})"
+
+
+_COMM_SIGNATURES: Dict[str, CommSig] = {}
+
+
+def register_comm(*op_types: str, kind: str,
+                  contract: Optional[Callable] = None,
+                  reduce_dims: Optional[Callable] = None) -> None:
+    """Declare comm-relevant metadata for op type(s) (the comm analog
+    of :func:`register_signature`)."""
+    sig = CommSig(kind, contract=contract, reduce_dims=reduce_dims)
+    for t in op_types:
+        _COMM_SIGNATURES[t] = sig
+
+
+def get_comm_signature(op_type: str) -> Optional[CommSig]:
+    return _COMM_SIGNATURES.get(op_type)
+
+
+def comm_registered_ops() -> List[str]:
+    return sorted(_COMM_SIGNATURES)
+
+
+def _contract_matmul(op, ins):
+    """matmul convention: last dim of X against second-to-last of Y.
+    transpose_x/transpose_y are closed over by the fn (not attrs), so
+    the assumed dims are VERIFIED against the concrete extents — a
+    mismatch (a transposed operand) degrades to None, never to a wrong
+    prediction."""
+    if len(ins) < 2 or ins[0].shape is None or ins[1].shape is None:
+        return None
+    a, b = ins[0].shape, ins[1].shape
+    if len(a) < 2 or len(b) < 2:
+        return None
+    if a[-1] != -1 and b[-2] != -1 and a[-1] != b[-2]:
+        return None  # transposed operand: the declared dims would lie
+    return ((len(a) - 1,), (len(b) - 2,))
+
+
+def _contract_mul(op, ins):
+    """mul/fc flattening contract: X's trailing dims against W[K, N].
+    num_flatten_dims is closed over by the fn, so the split is
+    re-derived from the shapes: the unique suffix of X whose product
+    equals K. Ambiguity (symbolic dims, no exact suffix) returns None."""
+    if len(ins) < 2 or ins[0].shape is None or ins[1].shape is None:
+        return None
+    x, w = ins[0].shape, ins[1].shape
+    if len(w) != 2 or w[0] <= 0 or len(x) < 2:
+        return None
+    prod = 1
+    for ncol in range(len(x) - 1, 0, -1):
+        d = x[ncol]
+        if d < 0:
+            return None
+        prod *= d
+        if prod == w[0]:
+            return (tuple(range(ncol, len(x))), (0,))
+        if prod > w[0]:
+            return None
+    return None
+
+
+def _contract_attention(op, ins):
+    """Declared contraction dims of the fused SDPA (QK^T over the head
+    dim) — metadata for the report; the propagator's ``attention`` rule
+    only passes batch-only layouts through."""
+    if len(ins) < 2 or ins[0].shape is None or ins[1].shape is None:
+        return None
+    return ((len(ins[0].shape) - 1,), (len(ins[1].shape) - 1,))
+
+
+def _reduce_all(op, ins):
+    if not ins or ins[0].shape is None:
+        return None
+    return tuple(range(len(ins[0].shape)))
+
+
+def _reduce_attr(op, ins):
+    """reduce_* family: the ``dim`` attr (None = all dims)."""
+    if not ins or ins[0].shape is None:
+        return None
+    dim = op.attrs.get("dim")
+    if dim is None:
+        return tuple(range(len(ins[0].shape)))
+    dims = (dim,) if isinstance(dim, int) else tuple(dim)
+    r = len(ins[0].shape)
+    return tuple(sorted(int(d) % r for d in dims))
+
+
+def _reduce_last(op, ins):
+    """Per-row losses: reduce over the class (last) dim."""
+    if not ins or ins[0].shape is None or len(ins[0].shape) < 1:
+        return None
+    return (len(ins[0].shape) - 1,)
+
+
+# ops that normalize over the last dim: comm-free only when it is
+# unsharded (a tp-sharded softmax needs partial-max/sum all-reduces
+# whose count is the partitioner's choice — degrade, never guess)
+_COMM_ROWWISE = ("softmax", "log_softmax", "sequence_softmax",
+                 "l2_normalize", "layer_norm")
+
+register_comm(*(t for t in _UNARY_SAME if t not in _COMM_ROWWISE),
+              kind="elementwise")
+register_comm(*_COMM_ROWWISE, kind="rowwise")
+register_comm("elementwise_add", "elementwise_sub", "elementwise_mul",
+              "elementwise_div", "elementwise_max", "elementwise_min",
+              "elementwise_pow", "sum", "square_error_cost",
+              kind="elementwise")
+register_comm("matmul", kind="contraction", contract=_contract_matmul)
+register_comm("mul", "int8_mul_dequant", kind="contraction",
+              contract=_contract_mul)
+register_comm("fused_attention", kind="attention",
+              contract=_contract_attention)
+register_comm("mean", kind="reduction", reduce_dims=_reduce_all)
+register_comm("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+              "reduce_prod", kind="reduction", reduce_dims=_reduce_attr)
+register_comm("cross_entropy", "softmax_with_cross_entropy",
+              kind="reduction", reduce_dims=_reduce_last)
+register_comm("cast", "quantize_act", "amp_scale_loss",
+              kind="passthrough")
+register_comm("amp_cast_params", "amp_check_finite_and_unscale",
+              "amp_update_loss_scaling", kind="mirror")
+register_comm("transpose", kind="transpose")
+register_comm("sharding_constraint", kind="constraint")
+register_comm("fill_constant", kind="replicated_out")
+register_comm("lookup_table", "token_lookup", kind="gather_table")

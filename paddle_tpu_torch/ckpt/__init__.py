@@ -20,10 +20,11 @@ The files are the JAX package's, in both directions:
     ``restore``.
 
 The writers fire the ``ckpt.publish`` and ``ckpt.payload`` fault
-points (``resilience``).
-
-Not ported: sharded layouts and multi-process saves (ROADMAP Queue A
-9), the ``tools.ckpt`` CLI (Queue A 10).
+points (``resilience``). Across ranks each process writes the blocks it
+owns (the legacy sharded and the multi-process elastic formats) and a
+restore reads them on any number of ranks. ``python -m
+paddle_tpu_torch.tools.ckpt {ls,verify,gc,clean} --root DIR`` maintains
+a root of any format.
 """
 
 from __future__ import annotations

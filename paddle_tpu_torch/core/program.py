@@ -345,8 +345,8 @@ class Program:
                  raise_on_error: bool = True, with_comm: bool = False):
         """Run the static program verifier (paddle_tpu_torch.analysis)
         over this program: graph validation, shape/dtype inference,
-        recompile lint (``with_comm=True`` raises: the communication
-        lints are ROADMAP Queue A 9). Returns the AnalysisReport; with
+        recompile lint; ``with_comm=True`` adds the SPMD communication
+        lints for plan-stamped programs. Returns the AnalysisReport; with
         ``raise_on_error`` (the default) error-severity diagnostics
         raise EnforceError first — the build-time equivalent of the
         reference's InferShape/InferVarType enforcement over the

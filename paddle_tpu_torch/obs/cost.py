@@ -35,7 +35,6 @@ import numpy as np
 
 from ..analysis.infer import _infer_op, declared_type
 from ..core import dtype_utils
-from ..core.enforce import not_ported
 from ..analysis.op_registry import (SignatureError, TensorType, UNKNOWN,
                                     shapes_compatible, meet)
 
@@ -393,11 +392,11 @@ def roofline(cost_report: CostReport, span_totals: Dict[str, float],
     (seconds by span name, e.g. the profiler's ``dispatch`` spans).
     Returns per-family shares plus the achieved/MFU block.
 
-    ``comm_report`` (the JAX package's ``analysis.CommReport``) raises:
-    the communication analysis is not ported (ROADMAP Queue A 9)."""
-    if comm_report is not None:
-        raise not_ported("roofline(comm_report=...): the communication "
-                         "analysis", "Queue A 9, (g3)")
+    ``comm_report`` (an ``analysis.CommReport``) adds the predicted
+    static collective volume beside the FLOP and byte columns, under
+    the JAX package's key names (``static_ici_bytes_per_step``,
+    ``comm_events``, ``comm_unknown_op_types``). Keys are ABSENT (not
+    null) when no report is given."""
     seconds = float(span_totals.get(compute_span, 0.0))
     total = cost_report.total_flops * steps
     out: Dict[str, object] = {
@@ -408,6 +407,10 @@ def roofline(cost_report: CostReport, span_totals: Dict[str, float],
         "static_bytes_per_step": cost_report.total_bytes,
         "unknown_op_types": cost_report.unknown_op_types(),
     }
+    if comm_report is not None:
+        out["static_ici_bytes_per_step"] = comm_report.total_bytes
+        out["comm_events"] = comm_report.counts()
+        out["comm_unknown_op_types"] = list(comm_report.unknowns)
     out.update(achieved(total, seconds, peak_flops))
     fams = cost_report.by_family()
     tot = cost_report.total_flops or 1.0

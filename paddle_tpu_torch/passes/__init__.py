@@ -13,9 +13,8 @@ level, also as the registered ``memory_optimize`` pass
 (``ptq_int8``: :func:`calibrate_program` + :class:`QuantizePass`,
 composed by :func:`quantize_for_serving`) and the QAT freeze
 (``quantize_inference``, :class:`QuantizeTranspiler`; ``quantize``) —
-and the ``remat_policy`` and ``host_offload`` scheduling passes
-(``schedule``). ``comm_overlap`` waits for the communication analysis
-(ROADMAP Queue A 9) and raises when constructed. ``python -m
+and the ``comm_overlap``, ``remat_policy`` and ``host_offload``
+scheduling passes (``schedule``). ``python -m
 paddle_tpu_torch.tools.passes`` is the CLI.
 """
 

@@ -35,7 +35,6 @@ import re
 from collections import Counter
 from typing import List, Optional, Sequence, Union
 
-from ..core.enforce import not_ported
 from ..core.program import Program
 from .base import Pass, PassError, get_pass
 from .fusion import (AttentionFusePass, DeadCodeEliminatePass,
@@ -94,13 +93,21 @@ def _error_keys(diagnostics) -> Counter:
     return Counter(_error_key(d) for d in diagnostics if d.is_error)
 
 
-def _collect_diagnostics(program: Program, inferred=None) -> list:
-    from ..analysis import infer_program_types, validate_graph
+def _collect_diagnostics(program: Program, inferred=None,
+                         lint_comm: bool = False) -> list:
+    from ..analysis import analyze_comm, infer_program_types, \
+        validate_graph
 
     diags = list(validate_graph(program))
     if inferred is None:
         inferred = infer_program_types(program)
     diags.extend(inferred.diagnostics)
+    if lint_comm:
+        # opt-in: comm lints join the zero-new-diagnostic invariant, so
+        # a pipeline under lint_comm=True may not INTRODUCE a comm
+        # error (e.g. a pass rewriting constraint specs into forced
+        # gathers); planless programs contribute nothing
+        diags.extend(analyze_comm(program).diagnostics)
     return diags
 
 
@@ -137,28 +144,27 @@ class PassManager:
 
     ``passes`` — registered names and/or :class:`Pass` instances.
     ``check`` — enforce the central invariants (declared writes, zero
-    new diagnostics, stamp discipline). ``stamp`` — compose
-    ``program._passes_stamp`` from the non-self-stamping passes that
-    changed the program. ``lint_comm=True`` raises: the SPMD
-    communication lints are not ported (ROADMAP Queue A 9).
+    new diagnostics, stamp discipline). ``lint_comm`` — fold the SPMD
+    communication lints (analysis.analyze_comm) into the
+    zero-diagnostic invariant: a pass may not introduce a predicted
+    forced all-gather (opt-in; default off so unsharded pipelines pay
+    nothing). ``stamp`` — compose ``program._passes_stamp`` from the
+    non-self-stamping passes that changed the program.
     """
 
     def __init__(self, passes: Sequence[Union[str, Pass]],
                  check: bool = True, stamp: bool = True,
                  lint_comm: bool = False):
-        if lint_comm:
-            raise not_ported("PassManager(lint_comm=True): the SPMD "
-                             "communication lints", "Queue A 9, (g3)")
         self.passes: List[Pass] = [
             p if isinstance(p, Pass) else get_pass(p) for p in passes]
         self.check = bool(check)
         self.stamp = bool(stamp)
-        self.lint_comm = False
+        self.lint_comm = bool(lint_comm)
 
     # ------------------------------------------------------------------
     def apply(self, program: Program, scope=None) -> Program:
-        baseline = (_error_keys(_collect_diagnostics(program))
-                    if self.check else None)
+        baseline = (_error_keys(_collect_diagnostics(
+            program, lint_comm=self.lint_comm)) if self.check else None)
         entries: List[str] = []
         digest: Optional[str] = None  # of `program`, when still valid
         for p in self.passes:
@@ -197,7 +203,8 @@ class PassManager:
                 inferred = infer_program_types(program)
                 if refresh_program_types(program, inferred):
                     digest = None  # the fill changed var declarations
-                diags = _collect_diagnostics(program, inferred)
+                diags = _collect_diagnostics(program, inferred,
+                                             lint_comm=self.lint_comm)
                 introduced = _error_keys(diags) - baseline
                 if introduced:
                     offenders = [d for d in diags if d.is_error and

@@ -26,8 +26,15 @@ round-trip device->host->device with no cast). Under a captured
 ``run_steps`` graph on a card the state stays on the card (the graph
 reads and writes fixed addresses).
 
-``comm_overlap`` is registered and raises when constructed: it needs
-the SPMD analysis (ROADMAP Queue A 9).
+Ported too: :class:`CommOverlapPass` (``comm_overlap``), which pins the
+constraint specs ``analysis.suggest_constraints`` proves from
+propagation (iterated to a fixpoint), then re-slots the
+``sharding_constraint`` ops right after their producers, so the
+collective each one implies is issued as early as dataflow allows.
+Provable win: ``analysis.analyze_comm``'s predicted collective
+count/bytes drop. The port's runtime does not act on constraint specs
+(its constraint op is the identity), so the rewrite changes no value a
+run computes; its program and stamp are the JAX package's.
 
 A pass here stamps the shared ordered ``program._schedule_stamp``.
 """
@@ -36,7 +43,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-from ..core.enforce import not_ported
 from ..core.program import Parameter, Program
 from .base import Pass, register_pass
 
@@ -60,15 +66,88 @@ def _stamp_schedule(program: Program, entry: str) -> None:
 
 @register_pass("comm_overlap")
 class CommOverlapPass(Pass):
-    """Constraint pinning and re-slotting over a sharding plan: not
-    ported (ROADMAP Queue A 9)."""
+    """Pin propagation-proven constraint specs + re-slot constraints
+    early (module docstring). No-op — byte-identical, nothing stamped —
+    when the program carries no sharding plan, no constraint ops, or a
+    ``backward`` op (the spec-widening rewrite is refused after the
+    backward, as ``analysis.apply_suggestions`` refuses it; run this
+    pass between ``sharding`` and ``minimize()``, exactly where
+    ``sharding`` runs).
+    """
 
     stamp_attr = "_schedule_stamp"
     reads = frozenset({"sharding_constraint", "*"})
     writes = frozenset({"sharding_constraint"})
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("the comm_overlap pass", "Queue A 9, (g3)")
+    def __init__(self, batch_size: Optional[int] = None,
+                 max_iter: int = 4, reslot: bool = True):
+        self.batch_size = batch_size
+        self.max_iter = int(max_iter)
+        self.reslot = bool(reslot)
+
+    def fingerprint(self) -> str:
+        return (f"{self.name}/bs:{self.batch_size}"
+                f"/iter:{self.max_iter}/reslot:{int(self.reslot)}")
+
+    # -- dataflow-safe re-slotting -------------------------------------
+    @staticmethod
+    def _hoist_constraints(program: Program) -> int:
+        """Move each ``sharding_constraint`` op to the earliest slot its
+        dataflow allows (right after the last op that defines one of its
+        inputs) so the collective it implies enters the instruction
+        stream as early as possible. Pure reorder: def-use edges are
+        preserved, so the computation is unchanged — only a scheduler's
+        freedom grows. Returns how many ops moved."""
+        gb = program.global_block()
+        moved = 0
+        i = 0
+        while i < len(gb.ops):
+            op = gb.ops[i]
+            if op.type != "sharding_constraint":
+                i += 1
+                continue
+            ins = set(op.input_arg_names)
+            outs = set(op.output_arg_names)
+            target = 0
+            for j in range(i):
+                prev = gb.ops[j]
+                pdefs = set(prev.output_arg_names)
+                # must stay after producers of our inputs, after any
+                # earlier def of our outputs, and after earlier readers
+                # of the names we redefine (anti-dependence)
+                if pdefs & ins or pdefs & outs \
+                        or outs & set(prev.input_arg_names):
+                    target = j + 1
+            if target < i:
+                gb.ops.insert(target, gb.ops.pop(i))
+                moved += 1
+            i += 1
+        return moved
+
+    def apply(self, program: Program, scope=None) -> Program:
+        from ..analysis import apply_suggestions, suggest_constraints
+
+        if getattr(program, "_sharding_plan", None) is None:
+            return program
+        gb = program.global_block()
+        if not any(op.type == "sharding_constraint" for op in gb.ops):
+            return program
+        if any(op.type == "backward" for op in gb.ops):
+            return program
+        changed = 0
+        for _ in range(max(1, self.max_iter)):
+            sugg = suggest_constraints(program,
+                                       batch_size=self.batch_size)
+            if not sugg:
+                break
+            n = apply_suggestions(program, sugg)
+            changed += n
+            if not n:
+                break
+        moved = self._hoist_constraints(program) if self.reslot else 0
+        if changed or moved:
+            _stamp_schedule(program, f"{self.name}={self.fingerprint()}")
+        return program
 
 
 # ---------------------------------------------------------------------------

@@ -316,8 +316,13 @@ class ShardingPass(Pass):
     Self-stamping via ``_sharding_stamp``; a 1-device mesh (or
     ``mesh=None``) leaves the program untouched — the manager sees no
     change and composes nothing, keeping single-device fingerprints
-    byte-identical. The communication analysis of a stamped program
-    (``--comm``) is not ported yet (ROADMAP Queue A 9)."""
+    byte-identical.
+
+    To see the collectives a plan implies before compiling, run the
+    static comm analyzer over the stamped program: ``python -m
+    paddle_tpu_torch.tools.check_program --model mlp --shard data=2,fsdp=2
+    --comm`` (or ``analysis.analyze_comm(program)`` /
+    ``PassManager(..., lint_comm=True)``)."""
 
     stamp_attr = "_sharding_stamp"
     reads = frozenset({"*"})  # partition rules match any producer

@@ -1,24 +1,23 @@
-"""paddle_tpu_torch.resilience — deterministic fault injection and the
-shared retry, circuit-breaker and degradation machinery (counterpart of
-paddle_tpu/resilience):
+"""paddle_tpu_torch.resilience — deterministic fault injection,
+supervised elastic training, and the shared retry, circuit-breaker and
+degradation machinery (counterpart of paddle_tpu/resilience):
 
 * :mod:`faults`  — seeded :class:`FaultPlan` of registered
   :data:`FAULT_POINTS` injecting crashes, delays and payload corruption
   on a reproducible schedule (default off is byte-identical);
 * :mod:`retry`   — the ONE capped-exponential-backoff-with-jitter
-  :class:`RetryPolicy` (decode re-steps, Retry-After hints, client
-  resubmits);
+  :class:`RetryPolicy` (supervisor restarts, decode re-steps,
+  Retry-After hints, client resubmits);
+* :mod:`supervisor` — heartbeat-watched subprocess supervision with
+  crash AND hang detection (a worker of several ranks killed as one
+  process group), composing ``ckpt.restore``'s N→M restores with a
+  relaunch at another world size;
 * :mod:`breaker` — the closed→open→half-open :class:`CircuitBreaker`
   the serving layer sheds load through;
 * :mod:`degrade` — the ordered, reversible degradation ladder of the
   serving and decoding tier.
-
-Not ported: the supervisor (``Supervisor``, ``supervise``,
-``note_progress`` and the rest of its names raise, naming ROADMAP
-Queue A 10; its elastic restart at another world size needs Queue A 9).
 """
 
-from ..core.enforce import not_ported
 from .breaker import CLOSED, HALF_OPEN, OPEN, CircuitBreaker
 from .degrade import (PRIORITY_HIGH, PRIORITY_LOW, PRIORITY_NORMAL,
                       STAGE_ADMISSION, STAGE_FEATURE_SHED,
@@ -31,18 +30,9 @@ from .faults import (FAULT_POINTS, FaultPlan, FaultRule, InjectedFault,
                      plan_env, register_fault_point)
 from .retry import RetryError, RetryPolicy
 from .retry import call as retry_call
-
-_SUPERVISOR_NAMES = ("HEARTBEAT_ENV", "Supervisor", "SupervisorGaveUp",
-                     "WorkerReport", "note_progress", "read_heartbeat",
-                     "supervise", "supervisor", "worker_argv")
-
-
-def __getattr__(name):
-    if name in _SUPERVISOR_NAMES:
-        raise not_ported("resilience.%s (the supervisor)" % name,
-                         "Queue A 10")
-    raise AttributeError("module %r has no attribute %r"
-                         % (__name__, name))
+from .supervisor import (HEARTBEAT_ENV, Supervisor, SupervisorGaveUp,
+                         WorkerReport, note_progress, read_heartbeat,
+                         supervise, worker_argv)
 
 
 __all__ = [
@@ -54,6 +44,7 @@ __all__ = [
     "FaultPlan",
     "FaultRule",
     "HALF_OPEN",
+    "HEARTBEAT_ENV",
     "InjectedFault",
     "OPEN",
     "PRIORITY_HIGH",
@@ -67,6 +58,9 @@ __all__ = [
     "STAGE_NAMES",
     "STAGE_NORMAL",
     "STAGE_PREEMPTION",
+    "Supervisor",
+    "SupervisorGaveUp",
+    "WorkerReport",
     "active_plan",
     "clamp_priority",
     "clear_plan",
@@ -76,7 +70,11 @@ __all__ = [
     "injections",
     "install_plan",
     "load_plan",
+    "note_progress",
     "plan_env",
+    "read_heartbeat",
     "register_fault_point",
     "retry_call",
+    "supervise",
+    "worker_argv",
 ]

@@ -11,14 +11,17 @@ model, and it prints the diagnostic listing and, with ``--hbm``, the
 static peak device-memory report. It analyzes programs only and runs
 nothing, so it needs no card.
 
-Exit status: 0 clean, 1 error-severity diagnostics found, 2 bad usage.
-``--comm`` and ``--shard`` (the SPMD communication analysis) exit 2:
-they are not ported (ROADMAP Queue A 9).
+Exit status: 0 clean, 1 error-severity diagnostics found (with
+``--comm``, comm errors too), 2 bad usage. ``--shard`` reads its mesh
+as a shape (``sharding.training_mesh(devices=range(n))``), so it needs
+no world of ranks.
 
 Examples:
     python -m paddle_tpu_torch.tools.check_program --model mlp --hbm
     python -m paddle_tpu_torch.tools.check_program /path/to/artifact_dir
     python -m paddle_tpu_torch.tools.check_program --model resnet --batch 64
+    python -m paddle_tpu_torch.tools.check_program --model mlp \
+        --shard data=2,fsdp=2,tp=2 --comm
 """
 
 from __future__ import annotations
@@ -27,9 +30,6 @@ import argparse
 import json
 import os
 import sys
-
-_NOT_PORTED = ("error: %s: the SPMD communication analysis is not "
-               "ported yet (ROADMAP Queue A 9, (g3))")
 
 
 def _program_from_manifest(manifest: dict):
@@ -53,11 +53,19 @@ def _program_from_manifest(manifest: dict):
     return program
 
 
-def _build_demo(model: str):
+def _build_demo(model: str, mesh=None):
     """Build (main, startup, feed_names, fetch_names) for a named demo
-    model — the corpus the CLI smoke test drives (the JAX package's)."""
+    model — the corpus the CLI smoke test drives (the JAX package's).
+    With ``mesh`` the forward program is sharded (shard_program) BEFORE
+    minimize — the required ordering."""
     import paddle_tpu_torch as fluid
     from ..core import unique_name
+
+    def _shard(main):
+        if mesh is not None:
+            from .. import sharding
+
+            sharding.shard_program(main, mesh)
 
     main, startup = fluid.Program(), fluid.Program()
     with unique_name.guard(), fluid.program_guard(main, startup):
@@ -68,6 +76,7 @@ def _build_demo(model: str):
             pred = fluid.layers.fc(input=h, size=1)
             loss = fluid.layers.mean(
                 fluid.layers.square_error_cost(pred, y))
+            _shard(main)
             fluid.SGD(learning_rate=0.1).minimize(loss)
             return main, startup, ["x", "y"], [loss.name]
         if model == "mnist":
@@ -78,6 +87,7 @@ def _build_demo(model: str):
             lbl = fluid.layers.data(name="lbl", shape=[1], dtype="int64")
             pred = mnist_cnn(img)
             loss = fluid.layers.mean(fluid.layers.cross_entropy(pred, lbl))
+            _shard(main)
             fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
             return main, startup, ["img", "lbl"], [loss.name]
         if model == "resnet":
@@ -86,10 +96,48 @@ def _build_demo(model: str):
             image, label, avg_cost, predict = resnet.build_train(
                 class_dim=10, depth=20, image_shape=(3, 32, 32),
                 cifar=True)
+            _shard(main)
             fluid.optimizer.Momentum(learning_rate=0.1,
                                      momentum=0.9).minimize(avg_cost)
             return main, startup, [image.name, label.name], [avg_cost.name]
     raise AssertionError(f"unhandled model {model!r}")  # argparse guards
+
+
+def _parse_mesh(arg: str):
+    """``data=2,fsdp=2,tp=2`` -> a training mesh of that shape (the CLI
+    analog of sharding.training_mesh; a mesh is a shape until a sharded
+    run needs its ranks, so no world is needed); errors return None and
+    print to stderr."""
+    from .. import sharding
+
+    axes = {}
+    for part in arg.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            print(f"error: --shard: bad axis spec {part!r} "
+                  "(want axis=N)", file=sys.stderr)
+            return None
+        k, v = part.split("=", 1)
+        try:
+            axes[k.strip()] = int(v)
+        except ValueError:
+            print(f"error: --shard: bad extent in {part!r}",
+                  file=sys.stderr)
+            return None
+    unknown = set(axes) - {"data", "fsdp", "tp"}
+    if unknown:
+        print(f"error: --shard: unknown axis(es) {sorted(unknown)} "
+              "(training_mesh axes: data, fsdp, tp)", file=sys.stderr)
+        return None
+    n = 1
+    for v in axes.values():
+        n *= v
+    if n < 1:
+        print(f"error: --shard: mesh of {n} ranks", file=sys.stderr)
+        return None
+    return sharding.training_mesh(devices=range(n), **axes)
 
 
 def main(argv=None) -> int:
@@ -115,11 +163,16 @@ def main(argv=None) -> int:
                     help="serving-oriented lint: also flag a dynamic "
                          "batch axis not covered by --buckets")
     ap.add_argument("--comm", action="store_true",
-                    help="the SPMD communication analysis (not ported: "
-                         "exits 2, ROADMAP Queue A 9)")
+                    help="also run the SPMD communication analysis: "
+                         "per-op predicted collectives, total static "
+                         "collective bytes, and the comm-* lints (rc 1 on "
+                         "comm errors); needs a plan-stamped program "
+                         "(--shard, or a sharded artifact)")
     ap.add_argument("--shard", type=str, default=None, metavar="AXES",
                     help="shard the demo model over a training mesh "
-                         "(not ported: exits 2, ROADMAP Queue A 9)")
+                         "before analyzing, e.g. data=2,fsdp=2,tp=2 "
+                         "(pair with --comm; see also python -m "
+                         "paddle_tpu_torch.tools.passes explain sharding)")
     ap.add_argument("--after-pass", type=str, default=None,
                     metavar="PIPELINE",
                     help="apply a comma-separated pass pipeline "
@@ -134,18 +187,25 @@ def main(argv=None) -> int:
         print("error: give exactly one of MODEL_DIR or --model",
               file=sys.stderr)
         return 2
-    if args.comm or args.shard:
-        print(_NOT_PORTED % ("--comm" if args.comm else "--shard"),
-              file=sys.stderr)
-        return 2
 
     from .. import analysis
 
     buckets = ([int(b) for b in args.buckets.split(",")]
                if args.buckets else None)
 
+    mesh = None
+    if args.shard:
+        if not args.model:
+            print("error: --shard only applies to --model demo builds",
+                  file=sys.stderr)
+            return 2
+        mesh = _parse_mesh(args.shard)
+        if mesh is None:
+            return 2
+
     if args.model:
-        main_prog, startup, feeds, fetches = _build_demo(args.model)
+        main_prog, startup, feeds, fetches = _build_demo(args.model,
+                                                         mesh=mesh)
         programs = [("startup", startup, [], []),
                     ("main", main_prog, feeds, fetches)]
     else:
@@ -196,6 +256,7 @@ def main(argv=None) -> int:
             prog, feed=feeds, fetch_list=fetches, buckets=buckets,
             strict_batch=args.strict_batch,
             with_memory=args.hbm,
+            with_comm=args.comm and label != "startup",
             assume_batch=args.batch)
         print(f"== {label} program "
               f"({sum(len(b.ops) for b in prog.blocks)} ops, "

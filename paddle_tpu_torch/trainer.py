@@ -17,7 +17,9 @@ the checkpoint interval. A checkpoint restored into a Trainer whose
 graph is already captured is honoured by the next replay: the executor
 copies a scope tensor that was replaced into the graph's buffer first.
 
-Each step fires the ``trainer.step`` fault point (``resilience``).
+Each step fires the ``trainer.step`` fault point (``resilience``), then
+beats the supervisor's heartbeat (``resilience.note_progress``: a no-op
+unless ``PDTPU_HEARTBEAT_FILE`` is set; rank 0 of a world of ranks).
 ``steplog=`` (a path or an ``obs.StepLogger``) appends one StepStats
 JSON line per step, on the eager, ``steps_per_loop`` and DataLoader
 paths alike; a train loop dying on an unhandled exception hands it to
@@ -29,8 +31,6 @@ first in each rank): each rank trains on its slice of every batch.
 With a ``checkpoint_config`` each rank writes the blocks it owns into
 the same elastic serial, and a resume reads it on any number of ranks
 (one process included).
-
-Not ported: the supervisor heartbeat of each step (Queue A 10).
 """
 
 from __future__ import annotations
@@ -169,13 +169,14 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _tick(self):
-        """Per-step hook: the ``trainer.step`` fault point. (The JAX
-        package also beats the supervisor's heartbeat here; the
-        supervisor waits for ROADMAP Queue A 10.)"""
-        from .resilience import faults
+        """Per-step resilience hooks: the registered trainer.step fault
+        point, and a supervisor heartbeat (no-op without
+        PDTPU_HEARTBEAT_FILE — one env lookup per step)."""
+        from .resilience import faults, supervisor
 
         faults.fire("trainer.step")
         self._steps_done = getattr(self, "_steps_done", 0) + 1
+        supervisor.note_progress(self._steps_done)
 
     def _run_step(self, feed: Dict[str, np.ndarray], fetch_names):
         self._tick()

@@ -45,7 +45,9 @@ def build_mlp(fluid, mesh=None, rules=None, use_amp=False, seed=5,
         h = fluid.layers.fc(h, size=32, act="relu")
         pred = fluid.layers.fc(h, size=1)
         loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
-        if mesh is not None:
+        if shard is not None:
+            shard(main)
+        elif mesh is not None:
             fluid.sharding.shard_program(main, mesh, rules=rules)
         opt = fluid.optimizer.Adam(learning_rate=0.01)
         if use_amp:
@@ -685,6 +687,111 @@ def sc_card(out):
         res["plan_capture"] = str(e)
     torch.cuda.synchronize()
     return res
+
+
+# ------------------------------------------------ communication analysis
+
+# an activation rule that pins each fc output to ``fsdp``: on a
+# data=2 x fsdp=1 mesh that drops the batch's ``data`` shard, so the
+# analysis predicts a gather at each constraint and ``comm_overlap``
+# widens the constraints to ``("data",)``
+DP_PIN_RULES = [(r"fc\.tmp_\d+$", ("fsdp",))]
+
+
+def build_megatron_ffn(fluid, mesh, d=16, f=64):
+    """A forward-only Megatron FFN pair (a column-parallel fc, relu, a
+    row-parallel fc, ``ParamAttr(sharding=...)`` over ``tp``) and its
+    mean, sharded over ``mesh``: (main, startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = 5
+    with _guard(fluid), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[-1, d], dtype="float32",
+                              append_batch_size=False)
+        col = fluid.ParamAttr(sharding=(None, "tp"))
+        row = fluid.ParamAttr(sharding=("tp", None))
+        h = fluid.layers.fc(x, size=f, act="relu", param_attr=col)
+        out = fluid.layers.fc(h, size=d, param_attr=row)
+        loss = fluid.layers.mean(out)
+        fluid.sharding.shard_program(main, mesh)
+    return main, startup, loss
+
+
+def _events(rep):
+    return [[e.kind, e.reason, e.op_type, e.var, list(e.axes), e.bytes]
+            for e in rep.events]
+
+
+def sc_comm(out):
+    """The communication analysis on two ranks, against the port's own
+    collectives (``comm.STATS``): one forward of the Megatron FFN pair
+    and of the ``tp=True`` Transformer at data=1 x fsdp=1 x tp=2 (no
+    batch split), each with its prediction; and the MLP at data=2 with
+    ``DP_PIN_RULES``, trained with and without ``comm_overlap`` from the
+    same start (its predicted counts before and after the pass)."""
+    fluid = _port()
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.models.transformer import transformer_base
+    from paddle_tpu_torch.passes.schedule import CommOverlapPass
+    from paddle_tpu_torch.sharding import comm
+
+    res = {}
+    tp_mesh = fluid.sharding.training_mesh(data=1, fsdp=1, tp=2)
+    feed = {"x": np.random.RandomState(4).rand(8, 16).astype("float32")}
+    tb_feed = tb_feeds(1)[0]
+    builds = {
+        "ffn": (lambda: build_megatron_ffn(fluid, tp_mesh), feed, 8),
+        "tb": (lambda: _tb_forward(fluid, transformer_base, tp_mesh),
+               tb_feed, 4)}
+    for key, (build, fd, batch) in builds.items():
+        main, startup, loss = build()
+        exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+        exe.run(startup, scope=scope)
+        rep = analysis.analyze_comm(main, batch_size=batch,
+                                    fetch_list=[loss])
+        comm.reset_stats()
+        res[key + "_loss"] = float(exe.run(main, feed=fd, fetch_list=[loss],
+                                           scope=scope)[0])
+        res[key + "_stats"] = {k: list(v) for k, v in comm.STATS.items()}
+        res[key + "_pred"] = _events(rep)
+        res[key + "_rowparallel"] = sum(
+            1 for op in main.global_block().ops
+            if op.type == "mul" and op.attrs.get("_tp") == "row")
+    dp_mesh = fluid.sharding.training_mesh(data=2, fsdp=1, tp=1)
+    for overlap in (False, True):
+        counts = {}
+
+        def shard(main, overlap=overlap, counts=counts):
+            fluid.sharding.shard_program(
+                main, dp_mesh,
+                rules=DP_PIN_RULES + fluid.sharding.default_rules())
+            counts["before"] = analysis.analyze_comm(
+                main, batch_size=8).counts()
+            if overlap:
+                CommOverlapPass(batch_size=8).apply(main)
+            counts["after"] = analysis.analyze_comm(
+                main, batch_size=8).counts()
+            counts["specs"] = [op.attrs.get("spec")
+                               for op in main.global_block().ops
+                               if op.type == "sharding_constraint"]
+            counts["stamp"] = getattr(main, "_schedule_stamp", None)
+
+        main, startup, loss = build_mlp(fluid, shard=shard)
+        exe, scope = _start(fluid, main, startup,
+                            os.path.join(out, "mlp.npz"))
+        counts["losses"] = _losses(exe, main, loss, mlp_feeds(5), scope)
+        res["overlap_%d" % overlap] = counts
+    return res
+
+
+def _tb_forward(fluid, transformer_base, mesh):
+    """TB (``tp=True``) sharded over ``mesh``, forward only."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = 7
+    with _guard(fluid), fluid.program_guard(main, startup):
+        _, avg_cost, _ = transformer_base(**dict(TB, tp=True,
+                                                 attn_impl="fused"))
+        fluid.sharding.shard_program(main, mesh)
+    return main, startup, avg_cost
 
 
 # ------------------------------------------- pipeline, sequence, experts
@@ -1380,7 +1487,7 @@ def sc_card_legs(out):
 
 
 SCENARIOS = {
-    "card_legs": sc_card_legs,
+    "card_legs": sc_card_legs, "comm": sc_comm,
     "ckpt_save": sc_ckpt_save, "ckpt_restore2": sc_ckpt_restore2,
     "ckpt_kill": sc_ckpt_kill, "ckpt_resume": sc_ckpt_resume,
     "ckpt_update": sc_ckpt_update,

@@ -19,7 +19,7 @@ liveness report — held to paddle_tpu.analysis on the same programs.
 * Shape/dtype inference gives the JAX package's types on a training
   program, op outputs and all.
 * ``Program.validate``, the Executor's ``check_program`` flag (it stops
-  a defective program before any op runs) and the Queue A 9 refusals.
+  a defective program before any op runs) and the planless comm report.
 * ``analyze_liveness`` equals the JAX package's — per-op bytes, peaks,
   lifetimes, render text — on the hand fixtures (the three-op MLP, the
   training fixture under remat False / True / segments x donation on /
@@ -593,15 +593,19 @@ def test_executor_check_program_flag_stops_a_defect_before_any_op():
 
 
 def test_comm_analysis_and_sharding_plans_raise_naming_queue_a9():
-    """The communication analysis still raises, naming Queue A 9. A
-    sharding plan, once refused too, is ported: the report divides by
-    its shard counts (tests/test_torch_sharding.py holds the per-device
-    bytes to the JAX package's)."""
+    """The communication analysis and sharding plans, once refused
+    naming Queue A 9, are ported: on a planless program
+    ``with_comm=True`` adds an empty planless report and no diagnostic
+    (tests/test_torch_comm.py holds sharded programs to the JAX
+    package's), and the liveness report divides by a plan's shard counts
+    (tests/test_torch_sharding.py holds the per-device bytes)."""
     main = _build("torch", _mlp)[0]
-    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
-        tfluid.analysis.check_program(main, with_comm=True)
-    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
-        main.validate(with_comm=True)
+    report = tfluid.analysis.check_program(main, with_comm=True)
+    assert report.comm.planless and report.ok
+    assert "no sharding plan" in str(report)
+    assert [d.code for d in report.diagnostics] == \
+        [d.code for d in tfluid.analysis.check_program(main).diagnostics]
+    assert main.validate(with_comm=True).comm.planless
 
     class Plan:
         def shard_counts(self, program):

@@ -173,5 +173,16 @@ def test_formulas_achieved_and_roofline_equal_the_jax_package():
     assert t_cost.roofline(rep["torch"], spans, steps=10,
                            peak_flops=67e12) == \
         j_cost.roofline(rep["jax"], spans, steps=10, peak_flops=67e12)
-    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
-        t_cost.roofline(rep["torch"], spans, comm_report=object())
+    # the comm join, once refused naming Queue A 9, is ported: a
+    # planless report adds the JAX package's keys and values
+    # (tests/test_torch_comm.py joins a sharded program's)
+    from paddle_tpu import analysis as j_analysis
+    from paddle_tpu import Program as JProgram
+    from paddle_tpu_torch import analysis as t_analysis
+    from paddle_tpu_torch import Program as TProgram
+
+    joined = t_cost.roofline(rep["torch"], spans,
+                             comm_report=t_analysis.analyze_comm(TProgram()))
+    assert joined == j_cost.roofline(
+        rep["jax"], spans, comm_report=j_analysis.analyze_comm(JProgram()))
+    assert joined["static_ici_bytes_per_step"] is None

@@ -10,6 +10,10 @@ moments held as slices); dropout under dp (the ParallelExecutor and a
 ``shard_program`` mesh) equal to the one-device step; and
 ``Trainer(parallel=True)``.
 
+Two ranks: the communication analysis's prediction against the ranks'
+collectives (``comm.STATS``) at data=1 x fsdp=1 x tp=2, and bit-equal
+losses with and without ``comm_overlap`` at data=2.
+
 In one process: the ``DistributeTranspiler`` plan's specs equal the JAX
 package's; ``init_distributed``'s env contract and its bounded,
 typed failure on a dead coordinator; the refusals that remain.
@@ -358,8 +362,11 @@ def test_remaining_refusals_name_queue_a9():
     tests/test_torch_{pipeline,ring_attention,expert_parallel,
     sharded_checkpoint}.py): each builds, and off a world of ranks runs
     its plain math. What stays refused names its queue item: a mesh of
-    several ranks never runs single-device in one process, and the
-    communication analysis waits for (g3)."""
+    several ranks never runs single-device in one process. The
+    communication analysis, once refused naming (g3), is ported: a
+    ParallelExecutor program carries no plan, so its report is planless
+    (the ranks hold a plan's prediction to their collectives:
+    test_prediction_agrees_with_the_ranks_collectives)."""
     from paddle_tpu_torch.models.transformer import transformer_base
     from paddle_tpu_torch.parallel.ring_attention import _plain_attention
 
@@ -388,8 +395,8 @@ def test_remaining_refusals_name_queue_a9():
     with pytest.raises(tfluid.EnforceError, match="tools.launch"):
         pe.run(feed=R.pe_data(8), fetch_list=[])
     main = R.build_pe_mlp(tfluid)[0]
-    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
-        tfluid.analysis.check_program(main, with_comm=True)
+    report = tfluid.analysis.check_program(main, with_comm=True)
+    assert report.ok and report.comm.planless
 
 
 def test_dropout_mask_block_is_the_whole_masks():
@@ -434,3 +441,62 @@ def test_row_sharded_embedding_over_ep(ranks):
         counts = [3 * int((ids == row).sum())
                   for row in range(3 * r, 3 * r + 3)]
         np.testing.assert_array_equal(got["grad"], counts)
+
+
+# ------------------------------------------------- communication analysis
+
+
+@pytest.fixture(scope="module")
+def comm_ranks(tmp_path_factory):
+    out = tmp_path_factory.mktemp("comm_ranks")
+    with j_unique_name.guard():
+        m, s, _ = R.build_mlp(jfluid)
+    _save_state(str(out / "mlp.npz"), m, s)
+    return R.launch(2, ["comm"], str(out), timeout=240)["comm"]
+
+
+def test_prediction_agrees_with_the_ranks_collectives(comm_ranks):
+    """On two ranks at data=1 x fsdp=1 x tp=2 (no batch split): a
+    row-parallel fc is one predicted all-reduce and one
+    ``ReduceFromGroup`` all-reduce of the same bytes (the Megatron FFN
+    pair). The ``tp=True`` Transformer shows the difference ROADMAP
+    Queue C 2 records: its weights' ``mp`` specs are dropped on a
+    training mesh (which names ``tp``) and ``pos_encoding`` has no comm
+    signature, so the JAX package's prediction (and the port's) holds no
+    all-reduce, while the port's runtime sums each of the five
+    row-parallel fcs over ``tp`` and gathers three column-parallel
+    outputs."""
+    for rank in comm_ranks:
+        pred = rank["ffn_pred"]
+        assert len(pred) == 1 and rank["ffn_rowparallel"] == 1
+        kind, reason, op_type, _var, axes, nbytes = pred[0]
+        assert (kind, reason, op_type, axes) == \
+            ("all-reduce", "contraction", "mul", ["tp"])
+        assert rank["ffn_stats"] == {"all_reduce": [1, int(nbytes)]}
+        assert nbytes == 8 * 16 * 4  # the whole [8, 16] f32 output
+        assert rank["tb_pred"] == []
+        assert rank["tb_rowparallel"] == 5
+        assert rank["tb_stats"]["all_reduce"][0] == 5
+        assert rank["tb_stats"]["all_gather"][0] == 3
+    assert comm_ranks[0]["ffn_loss"] == comm_ranks[1]["ffn_loss"]
+    assert comm_ranks[0]["tb_loss"] == comm_ranks[1]["tb_loss"]
+
+
+def test_comm_overlap_losses_bit_equal_on_the_dp_leg(comm_ranks):
+    """The MLP at data=2 with each fc output pinned to ``fsdp``: the
+    analysis predicts a gather where the first pin drops the batch's
+    ``data`` shard, ``comm_overlap`` widens every pin to ``("data",)``
+    (gathers 1 -> 0, stamped), and five steps of the rewritten program
+    give the un-rewritten program's losses bit for bit: the port's
+    constraint op is the identity."""
+    for rank in comm_ranks:
+        plain, over = rank["overlap_0"], rank["overlap_1"]
+        assert plain["before"] == plain["after"] == over["before"] \
+            == {"all-gather": 1, "all-reduce": 1}
+        assert over["after"] == {"all-reduce": 1}
+        assert plain["specs"] == [["fsdp"]] * 4 and plain["stamp"] is None
+        assert over["specs"] == [["data"]] * 4
+        assert over["stamp"] == \
+            "comm_overlap=comm_overlap/bs:8/iter:4/reslot:1"
+        assert over["losses"] == plain["losses"]
+        assert np.isfinite(plain["losses"]).all()

@@ -19,8 +19,8 @@ passes, held to paddle_tpu's.
 * The registry (names, ``get_pass``, ``build_pipeline``, fingerprints
   equal to the JAX package's); the checked and stamped manager (the JAX
   package's op lists and ``_passes_stamp``, a pass introducing an error
-  stopped) and ``Program.validate``; ``lint_comm`` raises naming ROADMAP
-  Queue A 9.
+  stopped) and ``Program.validate``; ``lint_comm`` on a planless
+  program.
 """
 
 import warnings
@@ -294,8 +294,10 @@ def test_legacy_manager_applies_in_order_and_checked_one_is_refused():
     checked and stamped manager and ``Program.validate``, once refused
     (ROADMAP Queue A 8), are ported: the manager re-infers, composes
     ``_passes_stamp`` as the JAX package's does and stops a pass that
-    introduces an error; ``validate`` returns the report. ``lint_comm``
-    raises, naming Queue A 9."""
+    introduces an error; ``validate`` returns the report. ``lint_comm``,
+    once refused naming Queue A 9, is ported: on a planless program it
+    adds no diagnostic (tests/test_torch_comm.py holds a sharded
+    pipeline under it)."""
     from paddle_tpu.passes.fusion import FcActFusePass as JFcActFusePass
     from paddle_tpu.passes.manager import PassManager as JPassManager
 
@@ -323,8 +325,12 @@ def test_legacy_manager_applies_in_order_and_checked_one_is_refused():
             [op.type for op in progs["jax"].global_block().ops]
         assert getattr(progs["torch"], "_passes_stamp", None) == \
             getattr(progs["jax"], "_passes_stamp", None)
-    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
-        PassManager(["dce"], check=False, stamp=False, lint_comm=True)
+    linted = PassManager([FcActFusePass(keep=[predict]), "dce"],
+                         lint_comm=True)
+    assert linted.lint_comm
+    prog = main.clone(for_test=True).prune([predict])
+    assert [op.type for op in linted.apply(prog).global_block().ops] == \
+        [op.type for op in progs["torch"].global_block().ops]
 
     class Breaks(tfluid.passes.Pass):
         name = "breaks"

@@ -168,8 +168,14 @@ def test_remat_policy_pass_and_its_refused_siblings():
         [t_schedule.RematPolicyPass(assume_batch=3, target_batch=6)]
     ).apply(main)
     assert out._remat_policy and "remat_policy=" in out._schedule_stamp
-    with pytest.raises(NotImplementedError, match=r"Queue A 9, \(g3\)"):
-        tfluid.passes.get_pass("comm_overlap")
+    # comm_overlap, once refused naming Queue A 9, is ported: the JAX
+    # package's fingerprint, and a planless program comes back untouched
+    # (tests/test_torch_comm.py runs it on sharded programs)
+    p = tfluid.passes.get_pass("comm_overlap")
+    assert isinstance(p, t_schedule.CommOverlapPass)
+    assert p.fingerprint() == j_schedule.CommOverlapPass().fingerprint()
+    v0 = main._version
+    assert p.apply(main) is main and main._version == v0
     # host_offload, once refused naming Queue A 8, is ported
     assert isinstance(tfluid.passes.get_pass("host_offload"),
                       t_schedule.HostOffloadPass)

@@ -448,10 +448,18 @@ def test_error_taxonomy_and_wire_form_across_packages():
 
 
 def test_unported_names_raise_naming_their_item(tmp_path):
+    # the supervisor's names, once refused naming Queue A 10, are ported
+    # (tests/test_torch_supervisor.py supervises workers): the JAX
+    # package's names and heartbeat variable
+    from paddle_tpu import resilience as jres
+
     for name in ("Supervisor", "supervise", "note_progress",
-                 "SupervisorGaveUp", "read_heartbeat", "HEARTBEAT_ENV"):
-        with pytest.raises(NotImplementedError, match="Queue A 10"):
-            getattr(tres, name)
+                 "SupervisorGaveUp", "read_heartbeat", "HEARTBEAT_ENV",
+                 "WorkerReport", "worker_argv"):
+        assert name in tres.__all__ and hasattr(tres, name), name
+    assert tres.HEARTBEAT_ENV == jres.HEARTBEAT_ENV
+    assert sorted(tres.WorkerReport(0).to_dict()) == \
+        sorted(jres.WorkerReport(0).to_dict())
     # decode-shape autotune, once refused naming Queue A 8, is ported
     # (tests/test_torch_tuning.py serves through it)
     assert tdec.DecodingConfig(autotune=True).autotune is True
