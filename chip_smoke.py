@@ -603,6 +603,29 @@ Phases, one JSON line each (or one per shape):
              restore times, and ``tools.ckpt verify``/``gc`` on the
              root (SUPERVISE_LAYERS).
 
+34. fleet — (run after phase 23) the serving fleet over phase 3's model
+             at its widths, int8 pools with prefix caching: one
+             prefill-role and two decode-role ``fleet.LocalReplica``s on
+             the card over one ``fleet.MigrationStore``, every bucket of
+             every replica captured before a ``fleet.Router`` starts. (a)
+             phase 10's 16 shared prompts through the router from 8
+             client threads: streams equal phase 10's int8 streams (near
+             ties counted), the first prompt's prefill delegated to the
+             prefill replica, its blocks published and restored IN PLACE
+             (every pool keeps its address), no decode replica prefills
+             the system prompt, the paged kernel's split and query-tile
+             launches cover every decode step and extend (none generic),
+             no graph captured during the burst; (b) the burst again
+             with the busy decode replica killed once every stream has
+             streamed FLEET_KILL_AFTER tokens: every stream resumed on
+             the survivor, equal to the oracle; (c) a prefill-role
+             replica in another process (``fleet.serve_replica``) and
+             the survivor, over a fresh store with the survivor's prefix
+             cache dropped: the survivor restores the other process's
+             blocks, streams equal the oracle, then ``tools.fleet
+             drain`` (rc 0); (d) ``tools.generate`` at its defaults on
+             the card.
+
 Then the whole call's seconds (``call_s``), the card's name and power
 limit, the kernels JSON line (wall and
 device ms of each kernel and its library call; ``amp_launches``,
@@ -610,7 +633,8 @@ device ms of each kernel and its library call; ``amp_launches``,
 ``bert_launches``, ``deepfm_launches``, ``remat_launches``,
 ``resilience_launches``, ``server_launches``, ``artifact_launches``,
 ``seq2seq_launches``, ``sentiment_launches``, ``srl_launches``,
-``obs_launches``, ``parallel_launches`` and ``supervise_launches``:
+``obs_launches``, ``parallel_launches``, ``supervise_launches`` and
+``fleet_launches``:
 those phases' launches
 of the kernels their paths run; ``fused_flat_update_amp``, the gated
 Adam of the AMP path with its gated and skipped launches; the rows at
@@ -783,6 +807,15 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
          "%d cycles" % (iters, cycles // 4))
 
 
+def flash_module():
+    """``ops.flash_attention``, the module (its counters, builders and
+    plain versions): the package's ``ops.flash_attention`` is the
+    function."""
+    import importlib
+
+    return importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+
+
 def reset_counts(fn) -> None:
     """Set every launch count a launcher keeps to 0."""
     for name in getattr(fn, "counts", ("launches",)):
@@ -802,8 +835,10 @@ KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_optimizer",
 
 
 def phase_device():
-    from paddle_tpu_torch.ops import (_cuda, dropout, flash_attention,
-                                      fused_optimizer, paged_attention)
+    from paddle_tpu_torch.ops import (_cuda, dropout, fused_optimizer,
+                                      paged_attention)
+
+    flash_attention = flash_module()
 
     global CARD
     card = CARD = card_line()
@@ -1935,6 +1970,343 @@ def phase_resilience(card, model, greedy, serving_counts, prefix_streams):
     return counts
 
 
+FLEET_ROOT = "build/chip_smoke_fleet"  # under the checkout, ignored
+FLEET_CLIENTS = 8
+FLEET_KILL_AFTER = 4  # tokens every stream has before the kill
+FLEET_CACHE = dict(SERVING_CACHE, kv_dtype="int8", prefix_cache=True)
+
+_FLEET_WORKER = r"""
+import json, sys
+import paddle_tpu_torch as fluid
+from paddle_tpu_torch import fleet
+from paddle_tpu_torch.decoding import CacheConfig, DecodeEngine
+import chip_smoke as cs
+fleet_dir, store_root, name = sys.argv[1:4]
+main, logits, scope = cs.build_model()
+engine = DecodeEngine(main, "tokens", logits.name, scope=scope,
+                      config=cs.decoding_config(CacheConfig(**cs.FLEET_CACHE)),
+                      place=fluid.CUDAPlace(0))
+engine.warm_up()
+graphs = engine.num_compiled
+mig = fleet.BlockMigrator(fleet.MigrationStore(store_root), engine,
+                          export=True)
+server = fleet.serve_replica(fleet.PrefillWorker(engine, mig), name,
+                             role="prefill", fleet_dir=fleet_dir)
+server.serve_forever()
+print(json.dumps({"graphs": graphs, "graphs_after": engine.num_compiled,
+                  "migration": mig.stats()}), flush=True)
+"""
+
+
+def fleet_pool_ptrs(engine):
+    return {n: engine.scope.find_var(n).data_ptr()
+            for n, _, _ in engine.pair.pool_specs}
+
+
+def fleet_decode_replica(name, store):
+    """A decode-role replica on the card over a fresh copy of phase 3's
+    model (its own scope and pools), every bucket captured, started."""
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch.decoding import CacheConfig
+
+    session, engines = open_session(build_model(), CacheConfig(
+        **FLEET_CACHE))
+    session.start()
+    return fleet.LocalReplica(name, session, migrator=fleet.BlockMigrator(
+        store, session.engine))
+
+
+def fleet_prefill_replica(name, store):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch.decoding import CacheConfig, DecodeEngine
+
+    main, logits, scope = build_model()
+    engine = DecodeEngine(main, "tokens", logits.name, scope=scope,
+                          config=decoding_config(CacheConfig(**FLEET_CACHE)),
+                          place=fluid.CUDAPlace(0))
+    engine.warm_up()
+    mig = fleet.BlockMigrator(store, engine, export=True)
+    return fleet.LocalReplica(name, fleet.PrefillWorker(engine, mig),
+                              role="prefill", migrator=mig)
+
+
+def fleet_work(replicas):
+    """(decode steps + extends, requests, prefill tokens avoided) of each
+    replica's engine so far, by replica name."""
+    out = {}
+    for r in replicas:
+        rep = r.target.engine.metrics.report()
+        out[r.name] = (rep["decode_step"]["count"] + rep["extend"]["count"],
+                       rep["requests_total"],
+                       rep["prefill_tokens_avoided_total"])
+    return out
+
+
+def fleet_burst(router, prompts, on_token=None, first_alone=True):
+    """Every prompt through ``router`` (MAX_NEW tokens each): the first
+    alone (its prefill is the one the router delegates), the rest from
+    FLEET_CLIENTS client threads. Returns (streams, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        cb = None if on_token is None else on_token(i)
+        return router.generate(prompts[i], max_new_tokens=MAX_NEW,
+                               timeout=600, on_token=cb)
+
+    t0 = time.perf_counter()
+    streams = [None] * len(prompts)
+    rest = range(len(prompts))
+    if first_alone:
+        streams[0] = one(0)
+        rest = range(1, len(prompts))
+    with ThreadPoolExecutor(FLEET_CLIENTS) as pool:
+        for i, s in zip(rest, pool.map(one, rest)):
+            streams[i] = s
+    return streams, time.perf_counter() - t0
+
+
+def phase_fleet(card, model, oracle):
+    """The serving fleet (phase 34 of the docstring) over phase 3's
+    model, held to phase 10's int8 streams (``oracle``). Returns the
+    paged launches by route."""
+    import contextlib
+    import io
+    import shutil
+    import threading
+
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch.decoding import CacheConfig
+    from paddle_tpu_torch.ops import paged_window_attention as pwa
+    from paddle_tpu_torch.tools import fleet as fleet_cli
+    from paddle_tpu_torch.tools import generate
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        FLEET_ROOT)
+    shutil.rmtree(root, ignore_errors=True)
+    prompts = shared_prompts()
+    row = {"phase": "fleet", "card": card, "clients": FLEET_CLIENTS}
+    cfg = fleet.FleetConfig(cache=CacheConfig(**FLEET_CACHE),
+                            health_interval_s=0.1)
+
+    # every replica built and warmed serially, before any router runs
+    store = fleet.MigrationStore(os.path.join(root, "store"))
+    t0 = time.perf_counter()
+    reps = [fleet_decode_replica("decode-%d" % i, store) for i in range(2)]
+    reps.append(fleet_prefill_replica("prefill-0", store))
+    row["build_and_warm_s"] = time.perf_counter() - t0
+    graphs = {r.name: r.target.engine.num_compiled for r in reps}
+    want_graphs = {r.name: (r.target.engine.warm_bucket_count()
+                            if r.target.engine.captured else 0)
+                   for r in reps}
+    if graphs != want_graphs:
+        fail("fleet: graphs after warm-up %s, expected %s"
+             % (graphs, want_graphs))
+    ptrs = {r.name: fleet_pool_ptrs(r.target.engine) for r in reps}
+    decode = [r for r in reps if r.role == "decode"]
+
+    # (a) the shared-prompt burst through the router
+    router = fleet.Router(reps, cfg)
+    work0 = fleet_work(reps)
+    reset_counts(pwa)
+    streams, wall = fleet_burst(router, prompts)
+    counts = route_counts(pwa)
+    work1 = fleet_work(reps)
+    ties = near_ties(model, prompts, streams, oracle, "fleet")
+    fc = router.metrics.report()
+    mig = {r.name: r.migrator.stats() for r in reps}
+    if fc["prefills_delegated"] < 1 or mig["prefill-0"]["published"] < 1 \
+            or sum(mig[r.name]["restored"] for r in decode) < 1:
+        fail("fleet: delegated %d, published %s, restored %s"
+             % (fc["prefills_delegated"], mig["prefill-0"]["published"],
+                [mig[r.name]["restored"] for r in decode]))
+    for r in decode:
+        served = work1[r.name][1] - work0[r.name][1]
+        avoided = work1[r.name][2] - work0[r.name][2]
+        if avoided < SYSTEM_PROMPT * served:
+            fail("fleet: %s served %d requests and avoided %d prefill "
+                 "tokens: it prefilled the system prompt itself"
+                 % (r.name, served, avoided))
+    calls = sum(work1[n][0] - work0[n][0] for n in work1)
+    if counts["generic_launches"] or counts["launches"] != \
+            counts["split_launches"] + counts["tile_launches"] or \
+            counts["int8_launches"] != counts["launches"] or \
+            counts["split_launches"] + counts["tile_launches"] < \
+            MODEL["n_layer"] * calls:
+        fail("fleet: paged launches %s over %d decode steps and extends"
+             % (counts, calls))
+    after = {r.name: r.target.engine.num_compiled for r in reps}
+    if after != graphs:
+        fail("fleet: a replica captured during the burst: %s, warm %s"
+             % (after, graphs))
+    if {r.name: fleet_pool_ptrs(r.target.engine) for r in reps} != ptrs:
+        fail("fleet: a restore moved a pool")
+    n_tokens = sum(len(s) for s in streams)
+    row["burst"] = {"wall_s": wall, "tokens": n_tokens,
+                    "tokens_per_s": n_tokens / wall, "near_ties": ties,
+                    "fleet": fc, "migration": mig,
+                    "store_entries": len(store.keys()),
+                    "store_bytes": store.nbytes(),
+                    "route_launches": counts, "decode_steps_and_extends":
+                    calls}
+
+    # (b) the burst again, the busy decode replica killed mid-stream
+    seen = [0] * len(prompts)
+    armed = threading.Event()
+
+    def on_token(i):
+        def cb(tok):
+            seen[i] += 1
+            if min(seen) >= FLEET_KILL_AFTER:
+                armed.set()
+        return cb
+
+    base = router.metrics.report()
+    result = {}
+
+    def burst():
+        result["streams"], result["wall"] = fleet_burst(
+            router, prompts, on_token, first_alone=False)
+
+    runner = threading.Thread(target=burst)
+    reset_counts(pwa)
+    runner.start()
+    if not armed.wait(timeout=300):
+        fail("fleet: the streams never reached %d tokens each"
+             % FLEET_KILL_AFTER)
+    victim = max(decode, key=lambda r: r.target.metrics.active_sequences)
+    at_kill = list(seen)
+    victim.kill()
+    runner.join(timeout=600)
+    if "streams" not in result:
+        fail("fleet: the burst did not finish after the kill")
+    kill_counts = route_counts(pwa)
+    ties_b = near_ties(model, prompts, result["streams"], oracle,
+                       "fleet kill")
+    fb = {k: v - base.get(k, 0) for k, v in router.metrics.report().items()}
+    survivor, = [r for r in decode if r is not victim]
+    unfinished = sum(1 for n in at_kill if n < MAX_NEW)
+    if fb["replica_deaths"] != 1 or not 1 <= fb["resumes"] <= unfinished \
+            or fb["retries"] < fb["resumes"]:
+        fail("fleet: after the kill %s (%d streams unfinished at the "
+             "kill)" % (fb, unfinished))
+    if any(victim.target.engine.scope.find_var(n) is not None
+           for n, _, _ in victim.target.engine.pair.pool_specs):
+        fail("fleet: the killed replica kept its pools")
+    if kill_counts["generic_launches"]:
+        fail("fleet: generic paged launches after the kill: %s"
+             % kill_counts)
+    if survivor.target.engine.num_compiled != graphs[survivor.name]:
+        fail("fleet: the survivor captured during the resumed burst")
+    row["kill"] = {"victim": victim.name, "tokens_at_kill": at_kill,
+                   "wall_s": result["wall"], "near_ties": ties_b,
+                   "fleet": fb, "route_launches": kill_counts,
+                   "survivor_migration": survivor.migrator.stats()}
+    router.detach()
+
+    # (c) a prefill-role replica in another process and the survivor,
+    # over a fresh store, the survivor's prefix cache dropped
+    fleet_dir = os.path.join(root, "fleet")
+    store2 = fleet.MigrationStore(os.path.join(root, "store2"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _FLEET_WORKER, fleet_dir, store2.root,
+         "remote-prefill"], cwd=here, env=dict(os.environ, PYTHONPATH=here),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 300
+        while not fleet.discover(fleet_dir):
+            if proc.poll() is not None or time.time() > deadline:
+                fail("fleet: the remote prefill replica did not start: %s"
+                     % (proc.stderr.read()[-3000:] if proc.poll()
+                        is not None else "timed out"))
+            time.sleep(0.2)
+        row["remote_start_s"] = time.perf_counter() - t0
+        hs, = fleet.discover(fleet_dir)
+        survivor.target.kv.drop_prefix_cache()
+        survivor.migrator = fleet.BlockMigrator(store2,
+                                                survivor.target.engine)
+        survivor.target.batcher.migrator = survivor.migrator
+        router2 = fleet.Router([fleet.RemoteReplica(hs), survivor], cfg)
+        work0 = fleet_work([survivor])
+        reset_counts(pwa)
+        streams_c, wall_c = fleet_burst(router2, prompts)
+        remote_counts = route_counts(pwa)
+        ties_c = near_ties(model, prompts, streams_c, oracle,
+                           "fleet remote")
+        fr = router2.metrics.report()
+        restored = survivor.migrator.stats()["restored"]
+        if fr["prefills_delegated"] < 1 or restored < 1 or \
+                len(store2.keys()) < 1:
+            fail("fleet: the remote prefill replica's blocks were not "
+                 "restored: %s, restored %d" % (fr, restored))
+        work1 = fleet_work([survivor])
+        served = work1[survivor.name][1] - work0[survivor.name][1]
+        avoided = work1[survivor.name][2] - work0[survivor.name][2]
+        if avoided < SYSTEM_PROMPT * served:
+            fail("fleet: the survivor prefilled the system prompt itself "
+                 "(%d requests, %d tokens avoided)" % (served, avoided))
+        if remote_counts["generic_launches"] or \
+                remote_counts["split_launches"] < MODEL["n_layer"]:
+            fail("fleet: paged launches of the remote burst %s"
+                 % remote_counts)
+        if fleet_pool_ptrs(survivor.target.engine) != ptrs[survivor.name]:
+            fail("fleet: a restore moved one of the survivor's pools")
+        if survivor.target.engine.num_compiled != graphs[survivor.name]:
+            fail("fleet: the survivor captured during the remote burst")
+        router2.detach()
+        drain = io.StringIO()
+        with contextlib.redirect_stdout(drain):
+            rc = fleet_cli.main(["drain", "--fleet-dir", fleet_dir,
+                                 "--timeout", "60"])
+        out, err = proc.communicate(timeout=120)
+        if rc != 0 or proc.returncode != 0:
+            fail("fleet: tools.fleet drain rc %d, the replica's rc %s: %s"
+                 % (rc, proc.returncode, err[-3000:]))
+        remote = json.loads(out.strip().splitlines()[-1])
+        if remote["graphs_after"] != remote["graphs"]:
+            fail("fleet: the remote replica captured after its warm-up: "
+                 "%s" % remote)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    row["remote"] = {"wall_s": wall_c, "near_ties": ties_c, "fleet": fr,
+                     "survivor_restored": restored,
+                     "remote_replica": remote,
+                     "store_entries": len(store2.keys()),
+                     "store_bytes": store2.nbytes(),
+                     "route_launches": remote_counts,
+                     "drain": drain.getvalue().strip()}
+    for r in reps:
+        if not r.dead:
+            r.drain(timeout=120)
+
+    # (d) tools.generate at its defaults on the card
+    reset_counts(pwa)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = generate.main([])
+    gen_counts = route_counts(pwa)
+    if rc != 0 or not gen_counts["launches"] or \
+            gen_counts["generic_launches"]:
+        fail("fleet: tools.generate rc %d, paged launches %s"
+             % (rc, gen_counts))
+    row["generate"] = {"output": text.getvalue().strip().splitlines(),
+                       "route_launches": gen_counts}
+    shutil.rmtree(root, ignore_errors=True)
+    del reps, router, router2, survivor, victim
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    total = {k: counts[k] + kill_counts[k] + remote_counts[k]
+             + gen_counts[k] for k in counts}
+    return total
+
+
 SERVER_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 # the artifact phase's export of the same classifier: three of the
 # server's buckets (the smallest, a middle one, the largest), cut from
@@ -2025,7 +2397,7 @@ def phase_server(card, held):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.obs import metrics as obs_metrics
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.resilience import FaultPlan, InjectedFault, faults
     from paddle_tpu_torch.serving import (InferenceServer, ServingConfig,
                                           serve_program)
@@ -2297,7 +2669,7 @@ def phase_ptq(card):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import analysis, passes
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.serving import ServingConfig, serve_program
 
     t_phase = time.perf_counter()
@@ -2872,8 +3244,7 @@ def grad_noise_floor(feed, fetch, checked, ref):
 
 def phase_training(card):
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    fa = flash_module()
     launchers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     place = fluid.CUDAPlace(0)
     feed = train_batch()
@@ -3415,7 +3786,7 @@ def phase_amp(card, n_resnet, f32_step_ms):
     timed program for the static phase)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.obs import cost as obs_cost
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
 
     t_phase = time.perf_counter()
@@ -4308,7 +4679,7 @@ def phase_tuning(card, model, n_recipe):
 
 def phase_recipe(card):
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
 
     place = fluid.CUDAPlace(0)
@@ -4593,7 +4964,7 @@ def phase_run_steps(card, eager_losses, eager_params):
     ``Executor.run(feed=DataLoader)``, from the recipe phase's start
     state (``eager_losses``, ``eager_params``: its 10 eager steps)."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
 
     place = fluid.CUDAPlace(0)
@@ -5277,7 +5648,7 @@ def _parallel_rank(rank, world, port, backend, out_dir, modes, ref_path):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import parallel, sharding
     from paddle_tpu_torch.core.enforce import GraphCaptureError
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
     from paddle_tpu_torch.sharding import comm
 
@@ -5531,8 +5902,9 @@ def phase_parallel(card, ref_losses, ref_params, n_recipe):
     import tempfile
 
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import dropout, flash_attention, \
-        fused_optimizer
+    from paddle_tpu_torch.ops import dropout, fused_optimizer
+
+    flash_attention = flash_module()
 
     t0 = time.perf_counter()
     # built once here, so two ranks never build into build/ at once
@@ -5723,7 +6095,7 @@ def parallel_legs(ranks, out, ref_losses, ref_params):
     each leg's figures."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import ckpt
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
 
     def rel(a, b):
@@ -6053,7 +6425,7 @@ def supervised_worker(argv):
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import ckpt, parallel
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
     from paddle_tpu_torch.resilience import (faults, hit_counts,
                                              injection_log, note_progress)
@@ -7124,7 +7496,7 @@ def phase_persist(card, model, greedy, base, dropout_step_ms):
     from paddle_tpu_torch import ckpt
     from paddle_tpu_torch.ops import _cuda
     from paddle_tpu_torch.ops import dropout as dr
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops import paged_window_attention
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
 
@@ -7489,7 +7861,7 @@ def phase_bert(card):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops import _cuda
     from paddle_tpu_torch.ops import dropout as dr
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
 
     t_phase = time.perf_counter()
@@ -8989,7 +9361,7 @@ def phase_remat(card):
     Returns the level-1 run's launches."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops import dropout as dr
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
     from paddle_tpu_torch.passes import PassManager, RematPolicyPass
 
@@ -9128,7 +9500,7 @@ def artifact_serving(card, root, server_figures, cache_dir):
     from paddle_tpu_torch.compile_cache import (cache_metrics,
                                                 reset_cache_metrics)
     from paddle_tpu_torch.obs import metrics as obs_metrics
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.passes.manager import inference_pass_pipeline
     from paddle_tpu_torch.serving import ServingConfig, serve_program
 
@@ -9260,7 +9632,7 @@ def artifact_training(card, root, dropout_step_ms):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.ops import _cuda
     from paddle_tpu_torch.ops import dropout as dr
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops import fused_optimizer as fu
 
     place = fluid.CUDAPlace(0)
@@ -9453,8 +9825,7 @@ def binding_host_us(calls=500):
     under autograd (``flash_attention`` on inputs that require grad),
     and as the CUDA kernel function called directly: what the custom-op
     binding costs an eager path per kernel call."""
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    fa = flash_module()
     q = torch.randn(1, 64, 1, 64, device="cuda", dtype=torch.bfloat16)
     qg = q.clone().requires_grad_()
     ways = {"op": lambda: fa.flash_fwd(q, q, q),
@@ -9698,7 +10069,7 @@ def obs_steplog(root):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models.transformer import transformer_base
     from paddle_tpu_torch.obs.steplog import read_steplog
-    from paddle_tpu_torch.ops import flash_attention as fa
+    fa = flash_module()
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
     from paddle_tpu_torch.tools import top
 
@@ -9980,6 +10351,8 @@ def main():
     resilience_counts = phase_resilience(card, model, greedy,
                                          serving_counts, prefix_streams)
     torch.cuda.empty_cache()
+    fleet_counts = phase_fleet(card, model, prefix_streams)
+    torch.cuda.empty_cache()
     held = {}
     server_launches = phase_server(card, held)
     torch.cuda.empty_cache()
@@ -10073,11 +10446,14 @@ def main():
     # the resilience phase's faulted int8 burst, by route
     kernels[-1]["resilience_launches"] = resilience_counts["faults"][
         "int8_launches"]
+    # the fleet phase's int8 bursts (and tools.generate's f32 decode)
+    kernels[-1]["fleet_launches"] = fleet_counts["int8_launches"]
     kernels.append(paged_entry("paged_window_attention_tile", 200,
                                prefix_counts["tile_launches"],
                                kernel_row(64, "float32", "int8")))
     kernels[-1]["resilience_launches"] = resilience_counts["faults"][
         "tile_launches"]
+    kernels[-1]["fleet_launches"] = fleet_counts["tile_launches"]
     # the training path's shape with its key mask (12 of the 18
     # attention calls of a step are key-masked; PERF.md has the rest):
     # f32 with the f32 training phase's launches, bf16 with the recipe's;

@@ -91,6 +91,15 @@ runs its block of the batch and of the sharded state::
 
     python -m paddle_tpu_torch.tools.launch --nproc 4 train.py
 
+Fluid's top-level names are here as in the JAX package: the ``io``
+save/load functions, the gradient clips, ``get_var``, ``calc_gradient``,
+``WeightNormParamAttr``, the places (``TPUPlace`` is ``CUDAPlace``;
+``CUDAPinnedPlace`` is pinned host memory), ``default_place`` and
+``force_cpu`` (the CPU as the process's default place). ``fleet`` serves
+a causal LM from several replicas behind a prefix-affinity router::
+
+    from paddle_tpu_torch import fleet
+
 This package imports neither jax nor paddle_tpu.
 """
 
@@ -103,16 +112,22 @@ from .parallel import (BuildStrategy, DistributeTranspiler,
                        DistributeTranspilerConfig, ExecutionStrategy,
                        ParallelExecutor, make_mesh)
 from . import initializer_api as initializer  # noqa: F401
-from .backward import append_backward
+from .backward import append_backward, calc_gradient
 from .ckpt import CheckpointConfig
+from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,
+                   GradientClipByNorm, GradientClipByValue,
+                   set_gradient_clip)
 from .convert import params_from_numpy, state_from_numpy
-from .core import (CPUPlace, CUDAPlace, EnforceError, EOFException,
-                   GraphCaptureError, Operator, Parameter,
-                   Program, Scope, Variable, default_main_program,
-                   default_startup_program, global_scope, program_guard,
-                   scope_guard, switch_main_program, switch_startup_program)
+from .core import (CPUPlace, CUDAPinnedPlace, CUDAPlace, EnforceError,
+                   EOFException, GraphCaptureError, Operator, Parameter,
+                   Program, Scope, TPUPlace, Variable, default_main_program,
+                   default_startup_program, get_var, global_scope,
+                   program_guard, scope_guard, switch_main_program,
+                   switch_startup_program)
+from .core import flags as _flags
 from .core import unique_name
-from .core.flags import get_flag, set_flags
+from .core.flags import get_flag
+from .core.place import default_place, force_cpu, is_compiled_with_tpu
 # legacy top-level pass API (core.passes shim semantics: unchecked,
 # unstamped); the checked manager is paddle_tpu_torch.passes
 from .core.passes import (PassManager, ProgramPass, apply_passes, get_pass,
@@ -121,6 +136,9 @@ from .data_feeder import DataFeeder
 from .executor import Executor, FetchHandle, fetch_var
 from .inference_transpiler import InferenceTranspiler, transpile_to_bfloat16
 from .inferencer import Inferencer
+from .io import (load_inference_model, load_params, load_persistables,
+                 load_vars, save_inference_model, save_params,
+                 save_persistables, save_vars)
 from .lod_tensor import (LoDTensor, LoDTensorArray, create_lod_tensor,
                          create_random_int_lodtensor)
 from .memory_optimization_transpiler import memory_optimize, release_memory
@@ -133,11 +151,22 @@ from .optimizer import (SGD, Adadelta, AdadeltaOptimizer, Adagrad,
                         ProximalAdagradOptimizer, ProximalGD,
                         ProximalGDOptimizer, RMSProp, RMSPropOptimizer,
                         SGDOptimizer)
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from .quantize_transpiler import QuantizeTranspiler
 from .reader.prefetch import batch
 from .trainer import (BeginEpochEvent, BeginStepEvent, EndEpochEvent,
                       EndStepEvent, Trainer)
+
+import numpy as _np
+
+# Fluid's ``fluid.Tensor`` (the pybind LoDTensor base), as the JAX
+# package has it: host arrays are numpy
+Tensor = _np.ndarray
+
+
+def set_flags(d):
+    """Set global flags from a dict (``core.flags.set_flags``)."""
+    _flags.set_flags(d)
 
 # flight-recorder auto-enable (obs.record): the obs_record flag
 # (PDTPU_OBS_RECORD) names a bundle dir, and an inherited

@@ -29,7 +29,14 @@ derivative, and the table itself is never differentiated.
 Rematerialization (``memory_optimize(level>=1)``, the ``remat_policy``
 pass) is the executor's too: it runs the forward slice, or each chosen
 segment of :func:`remat_segment_plan`, under ``torch.utils.checkpoint``
-so the backward pass recomputes it. ``calc_gradient`` is not ported.
+so the backward pass recomputes it.
+
+``calc_gradient`` takes gradients of targets with respect to arbitrary
+program variables (intermediates too) as ONE ``calc_gradient`` op whose
+fn re-runs the targets' forward slice under autograd with the inputs
+pinned as leaves: the JAX package's contract, without the executor's
+one-pass ``backward`` machinery (the slice runs twice in a step that
+also fetches the targets).
 """
 
 from __future__ import annotations
@@ -283,3 +290,105 @@ def append_backward(loss: Variable,
                         sites),
     )
     return [(gb.var(pn), grad_vars[pn]) for pn in param_names]
+
+
+class _Pinned(dict):
+    """An op environment whose pinned names are never overwritten (an
+    op upstream of a ``calc_gradient`` input recomputes it, but the
+    derivative is taken at the pinned value) and whose ``stop`` names
+    are stored detached (``no_grad_set``)."""
+
+    def __init__(self, pinned, stop):
+        super().__init__()
+        self.pinned, self.stop = pinned, stop
+
+    def __setitem__(self, name, value):
+        if name in self.pinned and name in self:
+            return
+        if name in self.stop and isinstance(value, torch.Tensor):
+            value = value.detach()
+        super().__setitem__(name, value)
+
+
+def calc_gradient(targets, inputs, target_gradients=None,
+                  no_grad_set=None) -> List[Variable]:
+    """Gradients of ``targets`` with respect to ``inputs`` (Variables or
+    names; intermediates too), as Variables named ``<input>@GRAD``.
+
+    The sum of every element of every target is differentiated; where
+    ``target_gradients`` gives a Variable for a target, that target is
+    weighted by it element by element (the cotangent). Variables named
+    in ``no_grad_set`` are held constant; an input in it gets a zero
+    gradient."""
+    targets = list(targets) if isinstance(targets, (list, tuple)) \
+        else [targets]
+    inputs = list(inputs) if isinstance(inputs, (list, tuple)) \
+        else [inputs]
+    program = targets[0].block.program
+    gb = program.global_block()
+    target_names = [t.name for t in targets]
+    wrt = [i.name if isinstance(i, Variable) else str(i) for i in inputs]
+    if target_gradients is None:
+        target_gradients = [None] * len(targets)
+    elif not isinstance(target_gradients, (list, tuple)):
+        target_gradients = [target_gradients]
+    enforce(len(target_gradients) == len(targets),
+            "calc_gradient: %d target_gradients for %d targets"
+            % (len(target_gradients), len(targets)))
+    cot_names = [None if g is None else
+                 (g.name if isinstance(g, Variable) else str(g))
+                 for g in target_gradients]
+    stop = {n.name if isinstance(n, Variable) else str(n)
+            for n in (no_grad_set or ())}
+
+    all_ops, all_ext = [], []
+    for tn in target_names:
+        ops, ext = _forward_slice(program, tn)
+        all_ops += [op for op in ops if op not in all_ops]
+        all_ext += [n for n in ext if n not in all_ext]
+    others = [n for n in all_ext if n not in wrt]
+    cots = [n for n in cot_names if n is not None]
+    n_w, n_o = len(wrt), len(others)
+    wrt_set = set(wrt)
+
+    def grad_fn(*vals):
+        from .executor import _value, run_program_ops
+
+        leaves = [v.detach().requires_grad_(
+            v.is_floating_point() and n not in stop)
+            for n, v in zip(wrt, vals[:n_w])]
+        cot_vals = dict(zip(cots, vals[n_w + n_o:]))
+        with torch.enable_grad():
+            env = _Pinned(wrt_set, stop)
+            env.update(zip(others, vals[n_w:n_w + n_o]))
+            for n, v in zip(wrt, leaves):
+                env[n] = v
+            run_program_ops(all_ops, env)
+            total = 0
+            for tn, cn in zip(target_names, cot_names):
+                t = _value(env, tn)
+                total = total + (t * cot_vals[cn] if cn is not None
+                                 else t).sum()
+            live = [v for v in leaves if v.requires_grad]
+            grads = iter(torch.autograd.grad(total, live, allow_unused=True)
+                         if live and total.requires_grad
+                         else [None] * len(live))
+        out = []
+        for v in leaves:
+            g = next(grads) if v.requires_grad else None
+            out.append(torch.zeros_like(v) if g is None else g.detach())
+        return tuple(out)
+
+    grad_vars = []
+    for n in wrt:
+        v = gb.var(n)
+        grad_vars.append(gb.create_var(name=_grad_name(n), shape=v.shape,
+                                       dtype=v.dtype))
+    gb.append_op(
+        type="calc_gradient",
+        inputs={"Params": list(wrt), "Inputs": list(others),
+                "TargetGradients": cots},
+        outputs={"Grads": [g.name for g in grad_vars]},
+        attrs={"targets": target_names},
+        fn=grad_fn)
+    return grad_vars

@@ -10,7 +10,8 @@ parameters, optimizer accumulators (moments, velocities, ``inf_norm``,
 Ftrl's ``squared``/``linear``, ...) in their storage dtype, beta powers,
 batch norm's running statistics, the learning rate and a schedule's
 ``@LR_DECAY_COUNTER@`` — so a state taken from the JAX package in the
-middle of training resumes in the port.
+middle of training resumes in the port. ``seeded_state`` redraws a
+scope's float variables from a numpy seed, as the JAX package's CLIs do.
 
 A program built with ``fuse_optimizer_state`` keeps its parameters and
 moments in flat buffers. Their per-name values write through the
@@ -29,6 +30,7 @@ import torch
 from .core import dtype_utils
 from .core.enforce import EnforceError
 from .core.place import Place
+from .core.place import put as _place_put
 from .core.program import Program, Variable, default_main_program
 from .core.scope import Scope
 
@@ -73,11 +75,9 @@ def _load(arrays: Dict[str, np.ndarray], scope: Scope, place: Place,
                         "first)" % no_flat)
     if problems:
         raise EnforceError(caller + ": " + "; ".join(problems))
-    device = place.torch_device()
-
     def put(name):
-        scope.set_var(name, _tensor(np.asarray(arrays[name])).to(
-            device=device, dtype=dtype_utils.to_torch(declared[name].dtype)))
+        scope.set_var(name, _place_put(_tensor(np.asarray(arrays[name])).to(
+            dtype=dtype_utils.to_torch(declared[name].dtype)), place))
 
     names = sorted(declared)
     for name in names:
@@ -117,3 +117,21 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], scope: Scope,
     _load(arrays, scope, place, program,
           {v.name: v for v in program.list_vars() if v.persistable},
           "persistables", "state_from_numpy")
+
+
+def seeded_state(program: Program, scope: Scope, place: Place, seed: int,
+                 std: float) -> None:
+    """Redraw every float variable of ``scope`` from N(0, std^2) with
+    ``np.random.RandomState(seed)`` in sorted name order, and load the
+    draws as ``program``'s persistables: the JAX package's CLIs and
+    fleet workers draw their seeded weights so, so one seed gives one
+    model in either package."""
+    from .executor import fetch_var
+
+    rng = np.random.RandomState(seed)
+    arrays = {}
+    for name in sorted(scope.local_var_names()):
+        v = fetch_var(name, scope)
+        if v.dtype.kind == "f":
+            arrays[name] = rng.normal(0.0, std, v.shape).astype(v.dtype)
+    state_from_numpy(arrays, scope, place, program=program)

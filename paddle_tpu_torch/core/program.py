@@ -460,6 +460,16 @@ def default_startup_program() -> Program:
     return _startup_program
 
 
+def get_var(name: str, program: Program = None) -> Variable:
+    """A variable of a program's global block by name (default: the
+    default main program)."""
+    if program is None:
+        program = default_main_program()
+    enforce(isinstance(name, str), "name must be str")
+    enforce(isinstance(program, Program), "program must be a Program")
+    return program.global_block().var(name)
+
+
 def switch_main_program(p: Program) -> Program:
     global _main_program
     old, _main_program = _main_program, p

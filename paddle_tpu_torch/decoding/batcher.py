@@ -40,10 +40,15 @@ Under the degradation ladder admission turns priority-aware and
 budgeted (stage 1), lower classes are preempted back to the queue with
 their streams preloaded (stage 2), and speculation is shed (stage 3).
 
+**Fleet KV-block migration**: with ``migrator`` set (a
+``fleet.BlockMigrator``; None by default, and then nothing below runs)
+the batcher restores migrated prefix blocks before an admission, and
+exports a prefix after a preemption publish (so a peer replica can
+resume the stream) and, on a prefill-role replica, after every commit.
+A migration failure costs only a local re-prefill.
+
 Single consumer: exactly one worker thread (the DecodeSession's) calls
 ``admit_from`` and ``step``.
-
-Not ported: KV-block migration between replicas (ROADMAP Queue A 10).
 """
 
 from __future__ import annotations
@@ -169,6 +174,9 @@ class ContinuousBatcher:
         self._spec_shed = False  # ladder currently shedding speculation
         self.draft_error = None  # typed DraftEngineError after fallback
         self.restep_policy = RetryPolicy(**_RESTEP_POLICY_ARGS)
+        # fleet KV-block migration (fleet.migrate): None keeps every
+        # stream, stamp and fingerprint as without a fleet
+        self.migrator = None
         self.draft = draft
         self.spec_k = engine.config.speculate_k if draft is not None \
             else 0
@@ -241,6 +249,16 @@ class ContinuousBatcher:
                     - self.kv.reclaimable_blocks,
                     self.kv.config.num_blocks):
                 return None
+        if self.migrator is not None \
+                and self.engine.cache_config.prefix_cache:
+            # opportunistic restore of migrated prefix blocks BEFORE the
+            # admission match — a fetch/verify failure degrades to the
+            # local re-prefill path, never to a failed admission
+            try:
+                self.migrator.preload(self.kv, eff,
+                                      self._request_keys(req))
+            except Exception:
+                pass
         admission = self.kv.admit_tokens(eff, remaining,
                                          keys=self._request_keys(req))
         if admission is None:
@@ -305,6 +323,14 @@ class ContinuousBatcher:
             self.kv.publish_prefix(victim.sid, eff)
             if self.draft_kv is not None and victim.draft_sid is not None:
                 self.draft_kv.publish_prefix(victim.draft_sid, eff)
+            if self.migrator is not None:
+                # ship the just-published prefix so a PEER replica can
+                # resume this stream from the migrated blocks; a failure
+                # only costs the peer a re-prefill
+                try:
+                    self.migrator.export_prefix(self.kv, eff)
+                except Exception:
+                    pass
             self._release(victim)
             req.resume_tokens = list(victim.generated)
             req.prefix_keys = None  # the effective prompt grew
@@ -483,8 +509,16 @@ class ContinuousBatcher:
                 self._disable_draft(e, pending=seqs)
         if self.breaker is not None:
             self.breaker.record_success()
-        for s in seqs:
+        for s, eff in zip(seqs, effs):
             self.kv.commit_prefix(s.sid)  # prefix blocks now shareable
+            if self.migrator is not None \
+                    and getattr(self.migrator, "export_on_commit", False):
+                # prefill-role replicas ship every committed prefix to
+                # the content-addressed store (fleet disaggregation)
+                try:
+                    self.migrator.export_prefix(self.kv, eff)
+                except Exception:
+                    pass
         now = time.monotonic()
         for s, tok in zip(seqs, firsts):
             if not s.generated:

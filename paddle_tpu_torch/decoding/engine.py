@@ -386,6 +386,15 @@ class DecodeEngine:
                              span=EXTEND_SPAN, hist=None)
         return self.num_compiled
 
+    def release(self) -> None:
+        """Free the device memory this engine holds: its captured graphs
+        and its KV pools (None in the scope from here on). For a
+        replica being killed, once no call of the engine is running;
+        the engine serves nothing after it."""
+        self._exe._cache.clear()
+        for name, _, _ in self.pair.pool_specs:
+            self.scope.set_var(name, None)
+
     def _empty_row(self) -> np.ndarray:
         return self.cache_config.empty_table_row()
 

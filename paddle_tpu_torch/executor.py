@@ -130,6 +130,7 @@ Not ported yet: program readers.
 
 from __future__ import annotations
 
+import itertools
 import threading
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -140,7 +141,8 @@ import torch
 from .core import dtype_utils, flags
 from .core.enforce import (EnforceError, EOFException, GraphCaptureError,
                            enforce)
-from .core.place import Place, default_place
+from .core.place import Place, default_place, place_to_device
+from .core.place import put as _place_put
 from .core.program import Deferred, Program, Variable, default_main_program
 from .core.scope import Scope, global_scope
 from .ops import _cuda
@@ -203,6 +205,21 @@ def _value(env, name):
     if isinstance(v, Deferred):
         v = env[name] = v.resolve()
     return v
+
+
+_PROGRAM_TOKENS = itertools.count(1)
+
+
+def program_token(program: Program) -> int:
+    """A unique key for a Program over the process lifetime: assigned
+    once per object and never reused (``id(program)`` can be handed to
+    a new program after the old one is collected), so a cache keyed on
+    it does not pin the program alive."""
+    tok = getattr(program, "_pdtpu_exec_token", None)
+    if tok is None:
+        tok = next(_PROGRAM_TOKENS)
+        program._pdtpu_exec_token = tok
+    return tok
 
 
 def run_program_ops(ops, env: Dict[str, torch.Tensor],
@@ -1411,7 +1428,7 @@ class Executor:
             else torch.as_tensor(np.asarray(val))
         dtype = (dtype_utils.to_torch(var.dtype)
                  if var is not None and var.dtype is not None else t.dtype)
-        return t.to(device=self.device, dtype=dtype)
+        return _place_put(t.to(dtype=dtype), self.place)
 
     def _fetch_result(self, fetch_names, fetches, return_numpy):
         """Fetches as the caller asked: host arrays after the card

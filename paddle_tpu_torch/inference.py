@@ -36,10 +36,10 @@ import numpy as np
 import torch
 
 from .core import dtype_utils
-from .core.enforce import enforce
+from .core.enforce import EnforceError, enforce
 
-__all__ = ["NativeConfig", "NativePredictor", "PaddleTensor",
-           "create_paddle_predictor"]
+__all__ = ["EnforceError", "NativeConfig", "NativePredictor",
+           "PaddleTensor", "create_paddle_predictor"]
 
 
 class PaddleTensor:

@@ -6,8 +6,12 @@ sequence inputs), the learning-rate schedules, the sequence tier
 rest of the op tier: ``layers/{image,detection,sampled,quantize,moe}.py``.
 The program readers of the JAX package's ``layers/io.py`` are not
 ported (ROADMAP Queue A 6). ``layer_helper.append_activation`` finds an
-``act=`` by its name here."""
+``act=`` by its name here. ``LayerHelper``, ``Variable`` and
+``enforce`` are re-exported, as the JAX package's ``layers`` has them."""
 
+from ..core.enforce import enforce  # noqa: F401
+from ..core.program import Variable  # noqa: F401
+from ..layer_helper import LayerHelper  # noqa: F401
 from . import detection, learning_rate_scheduler
 from .beam_search import __all__ as _beam_all
 from .control_flow import __all__ as _control_flow_all
@@ -120,4 +124,5 @@ __all__ = ['abs', 'accuracy', 'append_LARS', 'argmax', 'argmin', 'argsort',
         'resize_bilinear', 'roi_pool', 'detection', 'switch_moe']
     + [n for n in _detection_all
        if n not in ('nms_jax', 'update_map_from_padded')]
-    + _quantize_all + _sampled_all)
+    + _quantize_all + _sampled_all
+    + ['LayerHelper', 'Variable', 'enforce'])

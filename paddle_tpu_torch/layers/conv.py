@@ -26,6 +26,7 @@ stream, and batch norm's running statistics are f32 state.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -104,7 +105,7 @@ def _conv(kind, nd, input, num_filters, filter_size, stride, padding,
 
 def conv2d(input, num_filters: int, filter_size, stride=1, padding=0,
            dilation=1, groups: int = 1, param_attr=None, bias_attr=None,
-           use_cudnn: bool = True, act=None, name=None):
+           use_cudnn: bool = True, act: Optional[str] = None, name=None):
     """2-D convolution, NCHW, filters ``[num_filters, C / groups, kh,
     kw]`` initialized N(0, 2 / fan_in); bias and activation after."""
     return _conv("conv2d", 2, input, num_filters, filter_size, stride,

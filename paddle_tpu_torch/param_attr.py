@@ -1,8 +1,9 @@
 """ParamAttr (counterpart of paddle_tpu/param_attr.py).
 
 ``sharding`` is a parameter's mesh spec (``Parameter.sharding_spec``,
-read by ``sharding.shard_program``'s plan). ``WeightNormParamAttr`` of
-the JAX package is not ported yet.
+read by ``sharding.shard_program``'s plan). ``WeightNormParamAttr``
+asks the consuming layer for a weight-normalized parameter
+(``LayerHelper._create_weight_normed``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ class ParamAttr:
     def _to_attr(arg) -> "ParamAttr":
         if arg is None:
             return ParamAttr()
+        if isinstance(arg, WeightNormParamAttr):
+            return arg  # keep the subclass (it carries ``dim``)
         if isinstance(arg, ParamAttr):
             return ParamAttr(arg.name, arg.initializer, arg.learning_rate,
                              arg.regularizer, arg.trainable,
@@ -36,3 +39,14 @@ class ParamAttr:
             return ParamAttr(trainable=False)
         # an Initializer instance
         return ParamAttr(initializer=arg)
+
+
+class WeightNormParamAttr(ParamAttr):
+    """Weight-normalized parameter: the consuming layer's weight is the
+    derived w = g * v/||v|| with trainable direction ``v`` and scale
+    ``g``. ``dim`` is the axis whose slices get independent scales
+    (negative counts from the end); None means one global scalar."""
+
+    def __init__(self, dim=None, **kw):
+        super().__init__(**kw)
+        self.dim = dim

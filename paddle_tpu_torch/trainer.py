@@ -35,6 +35,7 @@ the same elastic serial, and a resume reads it on any number of ranks
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -171,12 +172,26 @@ class Trainer:
     def _tick(self):
         """Per-step resilience hooks: the registered trainer.step fault
         point, and a supervisor heartbeat (no-op without
-        PDTPU_HEARTBEAT_FILE — one env lookup per step)."""
+        PDTPU_HEARTBEAT_FILE — one env lookup per step).
+
+        Only rank 0 of a ``torch.distributed`` world beats, so in a
+        world of several ranks every rank waits in a barrier after the
+        beat: no rank reaches the next step's fault site (where a kill
+        takes the whole world down) before rank 0 has published this
+        step."""
         from .resilience import faults, supervisor
 
         faults.fire("trainer.step")
         self._steps_done = getattr(self, "_steps_done", 0) + 1
-        supervisor.note_progress(self._steps_done)
+        path = os.environ.get(supervisor.HEARTBEAT_ENV)
+        if not path:
+            return
+        supervisor.note_progress(self._steps_done, path=path)
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            dist.barrier()
 
     def _run_step(self, feed: Dict[str, np.ndarray], fetch_names):
         self._tick()

@@ -30,8 +30,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def worst(got, want, plain, bound):
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     w, g, p = want.float(), got.float(), plain.float()
     _, e = torch.frexp(w)
     ulp = torch.ldexp(torch.ones_like(w), e - 8)
@@ -56,8 +56,8 @@ def main():
         sys.exit("probe_flash_model: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke as cs
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     fa.build()
     # None: the floor alone (no flip bound)
     rels = [None] + [2.0 ** -int(n) for n in args.rels.split(",")]

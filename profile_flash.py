@@ -63,8 +63,8 @@ def probe_library():
     """The kernel library built with -DFLASH_PROBE, bound as the
     default one is."""
     from paddle_tpu_torch.ops import _cuda
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     src = _cuda.CSRC / "flash_attention.cu"
     key = hashlib.sha256(_cuda.library_path("flash_attention").name.encode())
     out = _cuda.BUILD_DIR / ("flash_attention-probe-%s.so"
@@ -85,8 +85,8 @@ def other_library(src):
     """``src`` built as a kernel library beside this tree's, bound as
     this tree's is (its C entry points must match)."""
     from paddle_tpu_torch.ops import _cuda
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     with open(src, "rb") as f:
         key = hashlib.sha256(f.read() + " ".join(_cuda.NVCC_FLAGS).encode())
     key = key.hexdigest()[:16]
@@ -103,8 +103,8 @@ def other_library(src):
 
 def compare(src, labels):
     import torch.nn.functional as F
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     libs = {"this": fa._library(), "other": other_library(src)}
     print(cs.card_line(), flush=True)
     for label in labels:
@@ -171,8 +171,8 @@ def main():
         cs.fail("no CUDA device is visible")
     if args.compare_src:
         return compare(args.compare_src, args.cases.split(","))
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     lib = probe_library()
     sums = (ctypes.c_ulonglong * N_SLOTS)()
     print(cs.card_line(), flush=True)

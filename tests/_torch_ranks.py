@@ -340,8 +340,8 @@ def sc_ckpt(out):
 def sc_tb_tp(out):
     fluid = _port()
     from paddle_tpu_torch.models.transformer import transformer_base
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     mesh = fluid.sharding.training_mesh(data=2, fsdp=1, tp=2)
     main, startup, cost = build_tb(
         fluid, transformer_base, tp=True, attn_impl="pallas",
@@ -1448,7 +1448,8 @@ def sc_card_legs(out):
     fluid = _port()
     from paddle_tpu_torch import ckpt
     from paddle_tpu_torch.models.transformer import transformer_base
-    from paddle_tpu_torch.ops import flash_attention as fa
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
 
     place = fluid.CUDAPlace(0)

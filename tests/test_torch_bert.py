@@ -192,8 +192,8 @@ def test_cuda_bert_steps_launch_the_kernels():
         pytest.skip("needs a CUDA card")
     from paddle_tpu_torch.ops import _cuda
     from paddle_tpu_torch.ops import dropout as dr
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
         loss = _model("torch", tfluid, 0.1, "pallas", CUDA_CFG)

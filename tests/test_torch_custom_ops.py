@@ -24,7 +24,8 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from paddle_tpu_torch.layers import nn as tnn
 from paddle_tpu_torch.ops import _cuda
 from paddle_tpu_torch.ops import dropout as dr
-from paddle_tpu_torch.ops import flash_attention as fa
+import importlib
+fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
 from paddle_tpu_torch.ops import fused_optimizer as fu
 from paddle_tpu_torch.ops import paged_attention as pa
 

@@ -404,7 +404,8 @@ def test_cuda_remat_run_steps_bit_equal_and_relaunched():
     from paddle_tpu_torch.models.bert import bert_pretrain
     from paddle_tpu_torch.ops import _cuda
     from paddle_tpu_torch.ops import dropout as dr
-    from paddle_tpu_torch.ops import flash_attention as fa
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     from paddle_tpu_torch.ops import fused_optimizer as fo
 
     B, T, P, steps = 8, 64, BERT["max_predictions"], 4

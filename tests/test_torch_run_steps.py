@@ -437,7 +437,8 @@ def test_cuda_recipe_takes_exactly_n_steps_and_counts_replays(unroll):
     agree with eager steps within rel 1e-4 (the tables' duplicate rows
     add with atomics), one capture, and the launch counts rise by what
     the replayed steps launched."""
-    from paddle_tpu_torch.ops import flash_attention as fa
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     from paddle_tpu_torch.ops.fused_optimizer import fused_flat_update
 
     place = _card()

@@ -422,3 +422,57 @@ def test_ckpt_cli_module_entry(tmp_path):
         timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.startswith("OK") and "checkpoint_0" in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# a supervised Trainer(parallel=True) world
+# ---------------------------------------------------------------------------
+
+TRAINER_WORKER = os.path.join(HERE, "_torch_trainer_worker.py")
+
+
+def test_supervised_trainer_world_loses_one_step(tmp_path):
+    """A world of two gloo ranks training through ``Trainer(parallel=True)``
+    under the JAX chaos test's plan (tests/test_resilience_chaos.py:64-67):
+    serial 2 corrupted, serial 1's publish delayed, every rank killed at
+    step 3's fault site. The Trainer's heartbeat (rank 0's beat, then a
+    barrier of both ranks) has published step 3 before any rank reaches
+    that site, and the restart at one rank resumes from serial 1 (step
+    2): one step lost."""
+    root = str(tmp_path / "ck")
+    out = {a: str(tmp_path / f"out_{a}.json") for a in range(3)}
+    plan = (FaultPlan(seed=11)
+            .rule("ckpt.payload", "corrupt", hits=[2])
+            .rule("ckpt.publish", "delay", hits=[1], delay_ms=50)
+            .rule("trainer.step", "crash", hits=[3]))
+
+    def launch(attempt, last):
+        if attempt >= 3:
+            return None
+        n = 2 if attempt == 0 else 1
+        env = _env(plan_env(plan) if attempt == 0 else None)
+        return {"argv": [sys.executable, "-m",
+                         "paddle_tpu_torch.tools.launch", "--nproc",
+                         str(n), "--backend", "gloo", TRAINER_WORKER, root,
+                         str(TOTAL_STEPS), out[attempt]],
+                "env": env, "world_size": n,
+                "stdout": str(tmp_path / f"attempt_{attempt}.log")}
+
+    sup = Supervisor(launch, watchdog_s=120.0, boot_grace_s=300.0,
+                     max_restarts=2)
+    report = sup.run()
+    logs = "".join((tmp_path / f"attempt_{a}.log").read_text()[-2000:]
+                   for a in range(len(report["attempts"])))
+    assert report["success"], (report, logs)
+    assert report["restarts"] == 1 and report["crashes"] == 1, report
+    assert report["steps_lost"] == [1], (report, logs)
+    assert [a["world_size"] for a in report["attempts"]] == [2, 1]
+    with open(out[0]) as f:
+        first = json.load(f)
+    with open(out[1]) as f:
+        second = json.load(f)
+    assert not first["done"] and second["done"]
+    assert first["start_step"] == 0 and second["start_step"] == 2
+    assert sorted(first["losses"], key=int) == ["0", "1", "2"]
+    assert sorted(second["losses"], key=int) == [
+        str(s) for s in range(2, TOTAL_STEPS)]

@@ -141,8 +141,8 @@ def test_registry_declares_hopper_spaces_with_todays_defaults():
                                       "fused_optimizer_update",
                                       "paged_attention"]
     from paddle_tpu_torch.ops import fused_ce, fused_optimizer
-    from paddle_tpu_torch.ops import flash_attention as fa
-
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     want = {"paged_attention": {"split_waves": pa.DEFAULT_SPLIT_WAVES,
                                 "tile_waves": pa.DEFAULT_TILE_WAVES},
             "fused_optimizer_update": {
@@ -632,7 +632,8 @@ def test_plan_route_reads_the_tuned_knobs(store_dir):
 
 
 def test_fused_update_knob_and_flash_built_tile(store_dir):
-    from paddle_tpu_torch.ops import flash_attention as fa
+    import importlib
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     from paddle_tpu_torch.ops.fused_optimizer import (fused_flat_update,
                                                       tuning_problem)
 
